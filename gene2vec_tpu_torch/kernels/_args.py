@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -40,6 +41,17 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(t: torch.Tensor) -> int:
+    """Multiprocessors of the card ``t`` lies on."""
+    return _sm_count(t.device.index if t.device.index is not None
+                     else torch.cuda.current_device())
 
 
 def split_k(tiles: int, groups: int, k_len: int, device: torch.device) -> int:

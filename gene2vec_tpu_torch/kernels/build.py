@@ -1,4 +1,5 @@
-"""Build and load the step's CUDA kernels.
+"""Build and load the port's CUDA kernels (the SGNS step's K1-K4 and
+the serving kernels K7-K9r).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -30,6 +31,10 @@ SOURCES = {
     "k2_noise_head": "k2_noise_head.cu",
     "k3_noise_tail": "k3_noise_tail.cu",
     "k4_row_update": "k4_row_update.cu",
+    "k7_topk_exact": "k7_topk_exact.cu",
+    "k8_quant_scan": "k8_quant_scan.cu",
+    "k9_ivf_scan": "k9_ivf_scan.cu",
+    "k9r_rescore": "k9r_rescore.cu",
 }
 
 NVCC_FLAGS = [

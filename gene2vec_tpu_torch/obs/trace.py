@@ -1,0 +1,148 @@
+"""Structured span tracer: append-only JSON-lines events — the part of
+``gene2vec_tpu/obs/trace.py`` that :func:`ambient_span` needs, copied.
+
+Every record is one JSON object on one line of ``events.jsonl``
+(``type``, ``name``, ``wall``, ``mono``, ``pid``, ``tid``, ``span``,
+``parent``, ``dur`` on ``span_end``, free-form ``attrs``), written with
+one ``os.write`` on an ``O_APPEND`` fd.  :func:`ambient_span` writes to
+the installed tracer and otherwise buffers a bounded number of records
+in memory, which the next installed tracer flushes.  Trace-context
+stamping (the reference's cross-process request traces) waits for the
+port of the observability plane.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+from typing import Dict, Iterator, List, Optional
+
+_PENDING_MAX = 256
+
+
+class Tracer:
+    """JSON-lines span/event writer bound to one ``events.jsonl`` path."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self._fd: Optional[int] = None
+        self._fd_pid: Optional[int] = None
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+
+    def _ensure_fd(self) -> int:
+        pid = os.getpid()
+        if self._fd is None or self._fd_pid != pid:
+            self._fd = os.open(self.path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+            self._fd_pid = pid
+        return self._fd
+
+    def _stack(self) -> List[str]:
+        if not hasattr(self._local, "stack"):
+            self._local.stack = []
+        return self._local.stack
+
+    def write(self, record: Dict) -> None:
+        """Append one raw record (timestamps/pid/tid added if absent)."""
+        record.setdefault("wall", time.time())
+        record.setdefault("mono", time.monotonic())
+        record.setdefault("pid", os.getpid())
+        record.setdefault("tid", threading.get_ident())
+        line = json.dumps(record, separators=(",", ":"), default=str) + "\n"
+        with self._lock:
+            os.write(self._ensure_fd(), line.encode("utf-8"))
+
+    @contextlib.contextmanager
+    def span(self, name: str, **attrs) -> Iterator[Dict]:
+        """Nested timed span.  Keys set on the yielded dict during the
+        body are recorded as ``span_end`` attrs."""
+        stack = self._stack()
+        span_id = f"{os.getpid()}-{next(self._ids)}"
+        parent = stack[-1] if stack else None
+        t0 = time.monotonic()
+        self.write({
+            "type": "span_start", "name": name, "span": span_id,
+            "parent": parent, "mono": t0, **({"attrs": attrs} if attrs else {}),
+        })
+        stack.append(span_id)
+        out_attrs: Dict = {}
+        try:
+            yield out_attrs
+        finally:
+            stack.pop()
+            t1 = time.monotonic()
+            merged = {**attrs, **out_attrs}
+            self.write({
+                "type": "span_end", "name": name, "span": span_id,
+                "parent": parent, "mono": t1, "dur": t1 - t0,
+                **({"attrs": merged} if merged else {}),
+            })
+
+    def event(self, name: str, type: str = "event", **attrs) -> None:
+        stack = self._stack()
+        self.write({
+            "type": type, "name": name, "span": stack[-1] if stack else None,
+            **({"attrs": attrs} if attrs else {}),
+        })
+
+    def close(self) -> None:
+        with self._lock:
+            if self._fd is not None and self._fd_pid == os.getpid():
+                os.close(self._fd)
+            self._fd = None
+            self._fd_pid = None
+
+
+_current: Optional[Tracer] = None
+_pending: List[Dict] = []
+_pending_lock = threading.Lock()
+
+
+def get_tracer() -> Optional[Tracer]:
+    """The installed tracer, or None."""
+    return _current
+
+
+def set_tracer(tracer: Optional[Tracer]) -> None:
+    """Install (or clear) the ambient tracer; buffered records are
+    flushed to a newly installed one."""
+    global _current
+    _current = tracer
+    if tracer is not None:
+        with _pending_lock:
+            buffered, _pending[:] = _pending[:], []
+        for rec in buffered:
+            tracer.write(rec)
+
+
+@contextlib.contextmanager
+def ambient_span(name: str, **attrs) -> Iterator[Dict]:
+    """A span on the ambient tracer; with no tracer installed the record
+    is buffered (bounded) and flushed into the next tracer's file."""
+    tracer = _current
+    if tracer is not None:
+        with tracer.span(name, **attrs) as out:
+            yield out
+        return
+    t0m, t0w = time.monotonic(), time.time()
+    out: Dict = {}
+    try:
+        yield out
+    finally:
+        t1 = time.monotonic()
+        merged = {**attrs, **out}
+        rec = {
+            "type": "span_end", "name": name, "span": None, "parent": None,
+            "wall": t0w, "mono": t1, "dur": t1 - t0m, "pid": os.getpid(),
+            "tid": threading.get_ident(), "buffered": True,
+            **({"attrs": merged} if merged else {}),
+        }
+        with _pending_lock:
+            if len(_pending) < _PENDING_MAX:
+                _pending.append(rec)

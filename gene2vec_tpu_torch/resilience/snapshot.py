@@ -1,5 +1,6 @@
 """Atomic snapshot writes + CRC-stamped manifests — the part of
-``gene2vec_tpu/resilience/snapshot.py`` the per-iteration export needs.
+``gene2vec_tpu/resilience/snapshot.py`` the per-iteration export and the
+serving registry need.
 
 Every file is written to a temp name in the same directory, fsync'd and
 renamed into place, so a reader sees the old file or the new one.  After
@@ -122,6 +123,16 @@ def write_manifest(
 def _write_bytes(path: str, data: bytes) -> None:
     with open(path, "wb") as f:
         f.write(data)
+
+
+def stat_sig(path: str):
+    """(mtime_ns, size) change signature, or None for a missing path —
+    the registry's "did these bytes change?" key for its quarantine."""
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return (st.st_mtime_ns, st.st_size)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,13 +31,32 @@ def _port_sources():
     return sorted(out)
 
 
+#: the serving slice's modules, which the scans below must reach
+SERVING_MODULES = {
+    "gene2vec_tpu_torch.cli.serve", "gene2vec_tpu_torch.obs.registry",
+    "gene2vec_tpu_torch.obs.trace", "gene2vec_tpu_torch.serve.ann",
+    "gene2vec_tpu_torch.serve.batcher", "gene2vec_tpu_torch.serve.engine",
+    "gene2vec_tpu_torch.serve.eventloop", "gene2vec_tpu_torch.serve.registry",
+    "gene2vec_tpu_torch.serve.routes", "gene2vec_tpu_torch.serve.server",
+    "gene2vec_tpu_torch.serve.tenancy", "gene2vec_tpu_torch.kernels.topk_exact",
+    "gene2vec_tpu_torch.kernels.quant_scan", "gene2vec_tpu_torch.kernels.ivf_scan",
+    "gene2vec_tpu_torch.kernels.rescore", "gene2vec_tpu_torch.kernels._topk",
+}
+
+
 def test_importing_every_module_loads_no_jax():
+    """Every module imports with a CPU-only torch and pulls in no JAX;
+    no kernel library is built or loaded at import (they build at first
+    use on the card)."""
     mods = _port_modules()
-    assert "gene2vec_tpu_torch.sgns.step" in mods and len(mods) > 15
+    assert "gene2vec_tpu_torch.sgns.step" in mods and len(mods) > 30
+    assert SERVING_MODULES <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "from gene2vec_tpu_torch.kernels import build\n"
+        "assert not build._libs, sorted(build._libs)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'gene2vec_tpu' or k.startswith('gene2vec_tpu.'))\n"
         "print(json.dumps(bad))\n"
@@ -50,6 +69,12 @@ def test_importing_every_module_loads_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_sources_scan_covers_the_serving_slice():
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in SERVING_MODULES:
+        assert mod.replace(".", "/") + ".py" in scanned
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -124,6 +149,58 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
     assert calls == ["k1_pos_logit"]
 
 
+def test_serve_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from gene2vec_tpu_torch.cli import serve
+    from gene2vec_tpu_torch.serve.registry import ModelRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--export-dir", str(tmp_path), "--port", "0"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry(str(tmp_path))
+    # on the CPU when asked: an empty export dir is the next failure
+    assert serve.main(["--export-dir", str(tmp_path), "--port", "0", "--device", "cpu"]) == 2
+
+
+def _serving_calls():
+    from gene2vec_tpu_torch.kernels import ivf_scan, quant_scan, rescore, topk_exact
+
+    f = torch.zeros(4, 3)
+    i8 = torch.zeros(4, 3, dtype=torch.int8)
+    ids = torch.zeros(2, 2, dtype=torch.int32)
+    return [
+        (topk_exact, "topk_exact", "k7_topk_exact", lambda: topk_exact.topk_exact(f, f, 2)),
+        (quant_scan, "quant_scan", "k8_quant_scan",
+         lambda: quant_scan.quant_scan(f, i8, torch.ones(4), 2)),
+        (ivf_scan, "ivf_scan", "k9_ivf_scan",
+         lambda: ivf_scan.ivf_scan(f, f, torch.zeros(4, 2, dtype=torch.int32), i8,
+                                   torch.ones(4), 1, 2)),
+        (rescore, "rescore", "k9r_rescore",
+         lambda: rescore.rescore(f[:2], f, ids, torch.zeros(2, 2), 1)),
+        (rescore, "row_gather", "k9r_rescore",
+         lambda: rescore.row_gather(f, torch.zeros(2, dtype=torch.int32))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_serving_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
+    from gene2vec_tpu_torch.kernels import _args, build
+
+    mod, name, lib, call = _serving_calls()[case]
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mod, f"{name}_plain", lambda *a: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        call()
+    assert loaded == [lib]
+
+
 def test_package_turns_tf32_off():
     assert gene2vec_tpu_torch.__name__ == "gene2vec_tpu_torch"
     assert torch.backends.cuda.matmul.allow_tf32 is False
@@ -143,3 +220,18 @@ def test_config_rejects_unported_options(field, value):
 
     with pytest.raises(NotImplementedError, match=field):
         SGNSConfig(**{field: value})
+
+
+def test_bf16_index_raises_on_the_card(monkeypatch):
+    """K8/K9 scan int8 tables; a bf16 index has only the plain scan, so on
+    a CUDA tensor the call raises instead of falling back."""
+    from gene2vec_tpu_torch.kernels import _args, ivf_scan, quant_scan
+
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    qn = torch.zeros(2, 4)
+    table = torch.zeros(8, 4, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="int8"):
+        quant_scan.quant_scan(qn, table, torch.ones(8), 4)
+    with pytest.raises(NotImplementedError, match="int8"):
+        ivf_scan.ivf_scan(qn, torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int32),
+                          table, torch.ones(8), 1, 4)
