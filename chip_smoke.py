@@ -6,9 +6,9 @@
 Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. device and build — prints the card's name and power limit, builds the
-   step kernels (K1-K4) and the serving kernels (K7, K8, K9, K9r) from
-   ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one compiler
-   per source, all at once;
+   training kernels (K1-K6) and the serving kernels (K7, K8, K9, K9r)
+   from ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one
+   compiler per source, all at once;
 2. kernel check — each kernel at the default configuration's shapes
    (E = 8192 examples, D = 200, V = 24,447, H = 256, S = 512, 32 groups)
    against its plain PyTorch version on the same card and inputs, within
@@ -16,21 +16,33 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    one PyTorch call computes the same function, that call (CUDA events,
    median of repeats, L2 flushed before each); one whole step on the
    card against the plain step on the CPU, at a small ragged shape and
-   at full width; and a profiled window of
-   full-width steps (device busy time by kernel, idle share; Chrome trace
-   to ``chip_smoke_profile/``); the serving kernels at serving width
-   (V = 24,447, D = 200, B in {1, 64}, kb in {16, 512}, rb = 4 kb, the
-   default IVF geometry) against their plain versions — K7/K9r ids exact
-   except stated near-ties and scores within 1e-6, K8/K9 approximate
-   scores bitwise — and K9r's row gather at the Pallas gather probes'
-   shapes against ``table[idx]``;
+   at full width; then the other objectives' kernels at the same width —
+   K5a (per-example draws), K5b (the auto-sized shared pool, G = 256,
+   P/G = 128), K6 (hierarchical softmax at hs_dense_depth 10, both
+   phases) and K4's generic scatter and finalize — and one whole step of
+   each of per_example, shared, sg_hs and cbow_hs card vs CPU at both
+   shapes; profiled windows of full-width steps of the default
+   configuration and of those four (device busy time by kernel, idle
+   share; Chrome traces to ``chip_smoke_profile/``); the serving kernels
+   at serving width (V = 24,447, D = 200, B in {1, 64}, kb in {16, 512},
+   rb = 4 kb, the default IVF geometry) against their plain versions —
+   K7/K9r ids exact except stated near-ties and scores within 1e-6,
+   K8/K9 approximate scores bitwise — K8 and K9 on a bf16 index (B in
+   {1, 64}, kb = 16; scores within 1e-6, near-ties counted), K8 at
+   B = 64, rb = 16,384 (bitwise), and K9r's row gather at the Pallas
+   gather probes' shapes against ``table[idx]``;
 3. training at full width — a Zipf pair corpus (V = 24,447, 4,000,000
    pairs) written as pair files and trained through the CLI with the
    default configuration for 3 iterations: the loss must be finite and
    falling, every export must verify, and every kernel must have launched
-   once per step of the run;
+   once per step of the run; then (3b) a 1,000,000-pair corpus trained
+   for 2 iterations through the CLI once per ``--negative-mode
+   per_example``, ``--negative-mode shared``, ``--objective sg_hs``,
+   ``--objective cbow_hs`` and ``--objective cbow``, with the same checks
+   and each run's kernels launched once per step (no other kernel);
 4. quality — the planted-cluster corpus (10 cliques of 20 genes) must
-   separate (intra-cluster cosine > 0.95, inter-cluster < 0.6);
+   separate (intra-cluster cosine > 0.95, inter-cluster < 0.6) under the
+   default configuration and each of those five;
 5. serving at full width — phase 3's export, then a clustered export of
    the same width (V = 24,447, D = 200, 1,000 groups of ~24 genes),
    each served through ``cli/serve.py`` in a subprocess on the card once
@@ -47,8 +59,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    mode go to ``{"serving": ...}`` lines.  It runs right after phase 3.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
-JSON object ``{"kernels": [...]}`` (launches: the training run's for
-K1-K4, the three servers' for K7-K9r) and the result line
+JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
+for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
+points ``row_scatter`` / ``row_finalize``, the servers' for K7-K9r) and
+the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 with code 2 and prints no result.
 """
@@ -70,6 +84,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
+BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 
 V, D, B, K = 24447, 200, 4096, 5
 E = 2 * B
@@ -127,11 +142,12 @@ def zipf_ids(rng, n, v):
     return rng.choice(v, size=n, p=p).astype(np.int32)
 
 
-def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0):
+def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: float = 0.0):
     """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
     rate and the operations over the peak rate for their type."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
+    t_ops = (flops / F32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
+             + bf16_ops / BF16_FLOP_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -335,11 +351,16 @@ SERVE_KBS = (16, 512)        # k-buckets of k = 10 and k = 256 (+1: the self-hit
 RESCORE_MULT = 4             # the server's default rb = 4 kb
 SERVE_TOL = 1e-6             # K7/K9r scores against their plain versions
 MAIN_SHAPE = (64, 16)        # (B, kb) whose times the kernels line carries
-#: (rows, D, E, dtype) of the Pallas row-gather probes
-#: (experiments/test_pallas_gather.py, experiments/test_dma2.py)
+#: (probe, rows, D, E, dtype) of the Pallas row-gather probes; callg
+#: gathers one dynamic row broadcast to (8, D): E = 8 copies of one id
 GATHER_PROBES = (
-    (32768, 256, 32768, "float32"), (32768, 256, 32768, "bfloat16"),
-    (24576, 256, 8192, "float32"), (24576, 256, 32768, "float32"),
+    ("experiments/test_pallas_gather.py:31 pallas_gather", 32768, 256, 32768, "float32"),
+    ("experiments/test_pallas_gather.py:31 pallas_gather", 32768, 256, 32768, "bfloat16"),
+    ("experiments/test_dma2.py:95 make_gather", 24576, 256, 8192, "float32"),
+    ("experiments/test_dma2.py:95 make_gather", 24576, 256, 32768, "float32"),
+    ("experiments/test_dma_min.py:55,85,119,173 call1-call4", 24576, 256, 4096, "float32"),
+    ("experiments/test_vmem_dma.py:49 dma_gather", 24576, 256, 32768, "float32"),
+    ("experiments/test_dma2.py:56 callg", 24576, 256, 8, "float32"),
 )
 
 
@@ -352,6 +373,13 @@ def probe_near_ties(torch, qn, centroids, nprobe):
     if nprobe >= cs.shape[1]:
         return torch.zeros(qn.shape[0], dtype=torch.bool, device=qn.device)
     return (cs[:, nprobe - 1] - cs[:, nprobe]) <= SERVE_TOL
+
+
+def serving_table(rng):
+    """The serving checks' full-width table: 600 clusters, V x D unit rows."""
+    cent = rng.randn(600, D).astype(np.float32)
+    x = cent[rng.randint(0, 600, V)] + 0.5 * rng.randn(V, D).astype(np.float32)
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
 def serving_kernel_check(torch, reps):
@@ -367,9 +395,7 @@ def serving_kernel_check(torch, reps):
 
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(5)
-    cent = rng.randn(600, D).astype(np.float32)
-    x = cent[rng.randint(0, 600, V)] + 0.5 * rng.randn(V, D).astype(np.float32)
-    unit_np = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    unit_np = serving_table(rng)
     t0 = time.perf_counter()
     index = ann.build_index(unit_np, "ivf", device=dev)
     log(f"IVF index at V {V}: {index.n_clusters} lists of {index.list_len} slots, "
@@ -497,9 +523,11 @@ def gather_probes(torch, reps):
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(torch, reps)
     out = []
-    for rows, d, e, dtype in GATHER_PROBES:
+    for probe, rows, d, e, dtype in GATHER_PROBES:
         table = torch.randn((rows, d), device=dev, generator=gen).to(getattr(torch, dtype))
         idx = torch.randint(0, rows, (e,), device=dev, generator=gen, dtype=torch.int32)
+        if probe.endswith("callg"):
+            idx = idx[:1].expand(e).contiguous()  # one row, broadcast to (8, D)
         idx_l = idx.long()
         got = rescore.row_gather(table, idx)
         torch.cuda.synchronize()
@@ -508,13 +536,13 @@ def gather_probes(torch, reps):
         row_bytes = d * table.element_size()
         distinct = int(torch.unique(idx).numel())
         b_ms, b_by = bound(4 * e + (distinct + e) * row_bytes, 0.0)
-        rec = {"name": "row_gather", "table": [rows, d], "dtype": dtype, "E": e,
+        rec = {"name": "row_gather", "probe": probe, "table": [rows, d], "dtype": dtype, "E": e,
                "max_abs_err": 0.0, "ms": timer(lambda: rescore.row_gather(table, idx)),
                "plain_ms": timer(lambda: rescore.row_gather_plain(table, idx)),
                "library_ms": timer(lambda: torch.index_select(table, 0, idx_l)),
                "bound_ms": b_ms, "bound_by": b_by}
         out.append(rec)
-        log(f"row_gather ({rows}, {d}) {dtype} E {e}: kernel {rec['ms']:.4f} ms, plain "
+        log(f"row_gather [{probe}] ({rows}, {d}) {dtype} E {e}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
     return out
@@ -556,6 +584,325 @@ def step_parity(torch, v, d, b, head, block, group, full_tables):
         f"{errs[0]:.2e}, emb {errs[1]:.2e}, ctx {errs[2]:.2e}")
     if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
         raise SystemExit(f"whole-step parity failed at V {v}, D {d}: {errs}")
+
+
+# -- phase 2c: the other objectives' kernels (K4 generic, K5a, K5b, K6) -------
+
+HS_DEPTH = 10               # the default hs_dense_depth
+OBJECTIVE_KERNELS = ("per_example", "shared_pool", "hs", "row_scatter", "row_finalize")
+
+
+def full_width_inputs(torch, dev):
+    """The default configuration's step inputs, as ``kernel_check`` makes
+    them: bench-recipe Zipf counts (sorted), random tables, Zipf ids."""
+    rng = np.random.RandomState(0)
+    counts = np.bincount(zipf_ids(rng, 8_000_000, V), minlength=V) + 1
+    counts = np.sort(counts)[::-1].copy()
+    gen = torch.Generator().manual_seed(0)
+    emb = (torch.randn((V, D), generator=gen) * 0.1).to(dev)
+    ctx = (torch.randn((V, D), generator=gen) * 0.1).to(dev)
+    c_ids, x_ids = zipf_ids(rng, E, V), zipf_ids(rng, E, V)
+    return counts, emb, ctx, c_ids, x_ids
+
+
+def hs_work(split, c_ids, x_ids, d: int) -> dict:
+    """What K6's function needs for inputs ``c_ids`` and targets ``x_ids``
+    under ``split`` (a ``ShallowSplit``): bytes (distinct input rows and
+    touched node rows read once, the accumulator's touched rows read and
+    written once, the sign rows of the distinct targets) and float32
+    operations.  Only on-path entries count: a zero sign multiplies the
+    loss, g_s and the weight column, so the dense shallow products off
+    the path feed nothing."""
+    e = len(x_ids)
+    targets = np.unique(x_ids)
+    deep_entries = int(split.lengths_deep[x_ids].sum())
+    shallow_entries = int(np.abs(split.sign[x_ids].astype(np.int64)).sum())
+    deep_nodes = np.unique(np.concatenate(
+        [split.points_deep[t, :split.lengths_deep[t]] for t in targets]))
+    shallow_nodes = np.unique(np.nonzero(split.sign[targets])[1])
+    n_in, n_tg = len(np.unique(c_ids)), len(targets)
+    n_nodes = len(shallow_nodes) + len(deep_nodes)
+    l_deep = split.points_deep.shape[1]
+    return {
+        "bytes": 4 * (2 * e + n_in * d + n_tg * (l_deep * 2 + 1) + n_nodes * d
+                      + e * d + 2 * e + 2 * n_nodes * (d + 1)) + n_tg * split.n_shallow,
+        "flops": 3 * 2 * shallow_entries * d + 5 * deep_entries * d,
+        "deep_entries": deep_entries, "shallow_entries": shallow_entries,
+        "deep_nodes": len(deep_nodes), "shallow_nodes": len(shallow_nodes),
+    }
+
+
+def objective_kernel_check(torch, reps: int):
+    """K5a (per-example draws), K5b (the shared pool), K6 (hierarchical
+    softmax, both phases, hs_dense_depth 10) and K4's generic scatter and
+    finalize at the default configuration's full width, each against its
+    plain version on the same card and inputs, timed as ``kernel_check``
+    times.  Bounds count what these inputs need: distinct rows read once,
+    touched accumulator rows read and written once."""
+    from gene2vec_tpu_torch.data.negative_sampling import (
+        build_alias_table, noise_distribution, sample_negatives)
+    from gene2vec_tpu_torch.kernels import hs, per_example, pos_logit, row_update, shared_pool
+    from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
+    from gene2vec_tpu_torch.sgns.step import shared_pool_layout
+
+    dev = torch.device(DEVICE)
+    counts, emb, ctx, c_ids, x_ids = full_width_inputs(torch, dev)
+    centers, contexts = torch.from_numpy(c_ids).to(dev), torch.from_numpy(x_ids).to(dev)
+    v, u, g_pos, _ = pos_logit.pos_logit_plain(emb, ctx, centers, contexts)
+    noise = build_alias_table(noise_distribution(counts), device=dev)
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    timer = Timer(torch, reps)
+    rows = []
+
+    def distinct(t):
+        return int(torch.unique(t).numel())
+
+    def row(name, src, replaces, err, fn_k, fn_p, fn_lib, bytes_moved, flops):
+        b_ms, b_by = bound(bytes_moved, flops)
+        t_k, t_p = timer(fn_k), timer(fn_p)
+        t_lib = timer(fn_lib) if fn_lib is not None else None
+        rows.append({
+            "name": name, "route": "cuda", "source": f"gene2vec_tpu_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": t_lib,
+            "tolerance": f"{REL_TOL:g} x per-row / per-element |plain|; tables {TABLE_ATOL:g}",
+        })
+        log(f"{name}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    acc0 = torch.zeros((V, D + 1), device=dev)
+    # K5a: K alias draws per example
+    negs = sample_negatives(noise, dgen, (E, K))
+    a_k, a_p = acc0.clone(), acc0.clone()
+    dk, lk = per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_k)
+    dp, lp = per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_p)
+    torch.cuda.synchronize()
+    err = compare("K5a", [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
+                  + acc_outputs("acc_ctx", a_k, a_p, D))
+    n_neg = distinct(negs)
+    a_t = acc0.clone()
+    row("per_example", "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
+        lambda: per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_t),
+        lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t), None,
+        4 * (2 * E * D + 2 * E + E * K + n_neg * D + 2 * n_neg * (D + 1) + E * D + E),
+        5 * E * K * D)
+    log(f"per_example: {n_neg} distinct noise rows of {E * K} draws")
+    acc_pe, d_center = a_p, dp
+
+    # K5b: the auto-sized grouped pool
+    g, per_group = shared_pool_layout(E, K)
+    pool = sample_negatives(noise, dgen, (g * per_group,))
+    a_k, a_p = acc0.clone(), acc0.clone()
+    dk, lk = shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_k)
+    dp, lp = shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_p)
+    torch.cuda.synchronize()
+    err = compare("K5b", [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
+                  + acc_outputs("acc_ctx", a_k, a_p, D))
+    n_pool = distinct(pool)
+    a_t = acc0.clone()
+    row("shared_pool", "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
+        lambda: shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
+        lambda: shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
+        None,
+        4 * (2 * E * D + 2 * E + g * per_group + n_pool * D + 2 * n_pool * (D + 1)
+             + E * D + E),
+        3 * 2 * E * per_group * D)
+    log(f"shared_pool: G {g}, P/G {per_group}, {n_pool} distinct pool rows")
+
+    # K6: sg_hs at hs_dense_depth 10 (input = center, path of the context)
+    tree = build_huffman_tree(counts)
+    split = split_shallow(tree, HS_DEPTH)
+    ns, l_deep = split.n_shallow, split.points_deep.shape[1]
+    pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
+        split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
+    node = (torch.randn((tree.num_nodes, D), generator=torch.Generator().manual_seed(2))
+            * 0.1).to(dev)
+    a0 = torch.zeros((tree.num_nodes, D + 1), device=dev)
+    a_k, a_p = a0.clone(), a0.clone()
+    args6 = (emb, node, centers, contexts, pts, cds, lens, sign)
+    dk, ldk, lsk = hs.hs(*args6, a_k)
+    dp, ldp, lsp = hs.hs_plain(*args6, a_p)
+    torch.cuda.synchronize()
+    err = compare("K6", [("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
+                         ("loss_shallow", lsk, lsp, "elems")]
+                  + acc_outputs("acc_node", a_k, a_p, D))
+    work = hs_work(split, c_ids, x_ids, D)
+    a_t = a0.clone()
+    row("hs", "k6_hs.cu", "gene2vec_tpu/sgns/cbow_hs.py:65", err,
+        lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t), None,
+        work["bytes"], work["flops"])
+    lengths = tree.lengths.astype(np.float64)
+    w = counts / counts.sum()
+    log(f"hs (depth {HS_DEPTH}): L {tree.points.shape[1]}, Ns {ns}, L_deep {l_deep}; "
+        f"frequency-weighted mean path {float(w @ lengths):.2f}, deep "
+        f"{float(w @ split.lengths_deep):.2f}; {work['deep_entries']} deep and "
+        f"{work['shallow_entries']} shallow path entries in this batch, "
+        f"{work['deep_nodes']} distinct deep and {work['shallow_nodes']} distinct "
+        "shallow nodes")
+
+    # K4's generic entry points, at the per-example step's shapes: the
+    # center rows' scatter (library: one index_add_ of the same payload)
+    # and ctx's finalize against K5a's accumulator
+    ones = torch.ones((E,), device=dev)
+    a_k, a_p = acc0.clone(), acc0.clone()
+    row_update.scatter_rows(a_k, centers, d_center, ones)
+    row_update.scatter_rows_plain(a_p, centers, d_center, ones)
+    t_k, t_p = ctx.clone(), ctx.clone()
+    row_update.finalize_rows(t_k, acc_pe, 0.0125, "capped")
+    row_update.finalize_rows_plain(t_p, acc_pe, 0.0125, "capped")
+    torch.cuda.synchronize()
+    err_s = compare("K4 scatter_rows", acc_outputs("acc_emb", a_k, a_p, D))
+    err_f = compare("K4 finalize_rows", [("ctx", t_k, t_p, "abs")])
+    n_c = len(np.unique(c_ids))
+    payload = torch.cat([d_center, ones[:, None]], 1)
+    idx_l = centers.long()
+    a_t = acc0.clone()
+    row("row_scatter", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err_s,
+        lambda: row_update.scatter_rows(a_t, centers, d_center, ones),
+        lambda: row_update.scatter_rows_plain(a_t, centers, d_center, ones),
+        lambda: a_t.index_add_(0, idx_l, payload),
+        4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1))
+    touched = int((acc_pe[:, D] != 0).sum())
+    t_t = ctx.clone()
+    row("row_finalize", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
+        lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped"),
+        lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped"), None,
+        4 * touched * (D + 1 + 2 * D), 3 * D * touched)
+    log(f"row_finalize: {touched} touched rows of {V}")
+    return rows
+
+
+def objective_step_parity(torch, v, d, b, kind, full_tables):
+    """One whole step of ``kind`` (per_example, shared, sg_hs, cbow_hs at
+    depth 10) on the card against the plain step on the CPU, same inputs
+    and draws: loss within rtol 1e-5, tables within TABLE_ATOL."""
+    from gene2vec_tpu_torch.sgns.cbow_hs import hs_step
+    from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
+    from gene2vec_tpu_torch.sgns.model import SGNSParams
+    from gene2vec_tpu_torch.sgns.step import sgns_step, shared_pool_layout
+
+    rng = np.random.RandomState(3)
+    pairs = np.stack([zipf_ids(rng, b, v), zipf_ids(rng, b, v)], 1)
+    counts = np.sort(np.bincount(pairs.reshape(-1), minlength=v) + 1)[::-1].copy()
+    hs_kind = kind.endswith("_hs")
+    if hs_kind:
+        tree = build_huffman_tree(counts)
+        split = split_shallow(tree, HS_DEPTH)
+        out_rows = tree.num_nodes
+    else:
+        out_rows = v
+        shape = ((np.prod(shared_pool_layout(2 * b, K)),) if kind == "shared"
+                 else (2 * b, K))
+        negs = zipf_ids(rng, int(np.prod(shape)), v).reshape(shape)
+    gen = torch.Generator().manual_seed(3)
+    scale = 0.1 if full_tables else 0.5 / d
+    tables = (torch.randn((v, d), generator=gen) * scale,
+              torch.randn((out_rows, d), generator=gen) * scale)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = SGNSParams(tables[0].to(dev, copy=True), tables[1].to(dev, copy=True))
+        batch = torch.from_numpy(pairs).to(dev)
+        if hs_kind:
+            pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
+                split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
+            p, loss = hs_step(p, batch, pts, cds, lens, 0.025, cbow=kind == "cbow_hs",
+                              shallow_sign=sign, n_shallow=split.n_shallow)
+        else:
+            p, loss = sgns_step(p, batch, 0.025, negative_mode=kind,
+                                negs=torch.from_numpy(negs).to(dev))
+        out[dev] = (float(loss), p.emb.cpu(), p.ctx.cpu())
+    (lc, ec, cc), (lg, eg, cg) = out["cpu"], out["cuda"]
+    errs = (abs(lc - lg) / abs(lc), float((ec - eg).abs().max()), float((cc - cg).abs().max()))
+    log(f"whole-step parity {kind} card vs CPU (V {v}, D {d}, E {2 * b}): loss rel "
+        f"{errs[0]:.2e}, emb {errs[1]:.2e}, out table {errs[2]:.2e}")
+    if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
+        raise SystemExit(f"whole-step parity {kind} failed at V {v}, D {d}: {errs}")
+
+
+# -- phase 2d: the serving repairs (bf16 tables; lists past 8,192) -------------
+
+LONG_RB = 16384             # R2: k = 256 (kb 512) at --rescore-mult 32
+
+
+def serving_repairs_check(torch, reps):
+    """R1: K8 and K9 on a bf16 index (B in SERVE_BATCHES, kb = 16) against
+    their plain versions — scores within SERVE_TOL, ids equal except
+    counted near-ties.  R2: K8 at B = 64, kb = 512, rb = LONG_RB against
+    its plain version, scores and ids bitwise.  Returns one record per
+    (kernel, shape) for the ``serving_kernel_shapes`` line."""
+    from gene2vec_tpu_torch.kernels import _topk, ivf_scan, quant_scan
+    from gene2vec_tpu_torch.serve import ann
+
+    dev = torch.device(DEVICE)
+    unit_np = serving_table(np.random.RandomState(5))
+    rng = np.random.RandomState(6)
+    t0 = time.perf_counter()
+    index = ann.build_index(unit_np, "ivf", quant_dtype="bf16", device=dev)
+    log(f"bf16 IVF index built in {time.perf_counter() - t0:.1f}s")
+    c, lst = index.n_clusters, index.list_len
+    timer = Timer(torch, reps)
+    records = []
+
+    def record(name, b, kb, rb, err, ties, fn_k, fn_p, bytes_moved, flops, int8_ops=0.0,
+               bf16_ops=0.0):
+        b_ms, b_by = bound(bytes_moved, flops, int8_ops, bf16_ops)
+        rec = {"name": name, "batch": b, "kb": kb, "rb": rb, "max_abs_err": err,
+               "near_ties": ties, "ms": timer(fn_k), "plain_ms": timer(fn_p),
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        records.append(rec)
+        log(f"{name} B {b} kb {kb} rb {rb}: max_abs_err {err:.3e}, near-ties {ties}, kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    for b in SERVE_BATCHES:
+        q = torch.from_numpy(unit_np[rng.choice(V, b, replace=False)] * 3.0).to(dev)
+        qn = _topk.normalize_plain(q)
+        q16 = qn.to(torch.bfloat16).float()
+
+        def bf16_of(ids):
+            return (q16[:, None, :] * index.table_q[ids].float()).sum(-1)
+
+        kb, rb = 16, 16 * RESCORE_MULT
+        nprobe = min(max(8, -(-kb // lst)), c)
+        a8 = (qn, index.table_q, index.scale, rb)
+        got, want = quant_scan.quant_scan(*a8), quant_scan.quant_scan_plain(*a8)
+        torch.cuda.synchronize()
+        err, ties = check_topk("K8 bf16", got, want, bf16_of, SERVE_TOL)
+        record("quant_scan_bf16", b, kb, rb, err, ties, lambda: quant_scan.quant_scan(*a8),
+               lambda: quant_scan.quant_scan_plain(*a8),
+               2 * V * D + 4 * b * D + 8 * b * rb, 0.0, bf16_ops=2.0 * b * V * D)
+        a9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
+        got, want = ivf_scan.ivf_scan(*a9), ivf_scan.ivf_scan_plain(*a9)
+        torch.cuda.synchronize()
+        tied = probe_near_ties(torch, qn, index.centroids, nprobe)
+        keep = ~tied
+        err, ties = check_topk(
+            "K9 bf16", (got[0][keep], got[1][keep]), (want[0][keep], want[1][keep]),
+            lambda ids: (q16[keep][:, None, :] * index.table_q[ids].float()).sum(-1),
+            SERVE_TOL)
+        _, ci = _topk.topk_plain(qn @ index.centroids.T, nprobe)
+        cand = index.lists[ci.long()].reshape(b, -1)
+        cand = cand[cand >= 0]
+        n_rows = int(torch.unique(cand).numel())
+        record("ivf_scan_bf16", b, kb, rb, err, ties + int(tied.sum()),
+               lambda: ivf_scan.ivf_scan(*a9), lambda: ivf_scan.ivf_scan_plain(*a9),
+               4 * c * D + 4 * b * D + 4 * b * nprobe * lst + 2 * n_rows * D
+               + 8 * b * got[0].shape[1], 2.0 * b * c * D, bf16_ops=2.0 * int(cand.numel()) * D)
+    # R2 on the int8 index of the same table
+    iq = ann.build_index(unit_np, "quant", device=dev)
+    b = 64
+    q = torch.from_numpy(unit_np[rng.choice(V, b, replace=False)] * 3.0).to(dev)
+    qn = _topk.normalize_plain(q)
+    a8 = (qn, iq.table_q, iq.scale, LONG_RB)
+    got, want = quant_scan.quant_scan(*a8), quant_scan.quant_scan_plain(*a8)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        raise SystemExit(f"K8 at rb {LONG_RB}: not bitwise the plain version's")
+    record("quant_scan", b, 512, LONG_RB, 0.0, 0, lambda: quant_scan.quant_scan(*a8),
+           lambda: quant_scan.quant_scan_plain(*a8),
+           V * D + 4 * V + 4 * b * D + 8 * b * LONG_RB, 0.0, int8_ops=2.0 * b * V * D)
+    return records
 
 
 # -- phase 3: training through the CLI -----------------------------------------
@@ -613,17 +960,89 @@ def train_full_width(torch, work: str, smi: str):
     return counts
 
 
+# -- phase 3b: every other objective and noise mode through the CLI ------------
+
+OBJECTIVE_PAIRS, OBJECTIVE_ITERS = 1_000_000, 2
+#: (label, CLI flags, {kernel: launches per step}) — every other kernel
+#: must not launch in that run
+OBJECTIVE_RUNS = (
+    ("per_example", ["--negative-mode", "per_example"],
+     {"pos_logit": 1, "per_example": 1, "row_scatter": 2, "row_finalize": 2}),
+    ("shared", ["--negative-mode", "shared"],
+     {"pos_logit": 1, "shared_pool": 1, "row_scatter": 2, "row_finalize": 2}),
+    ("sg_hs", ["--objective", "sg_hs"], {"hs": 1, "row_scatter": 1, "row_finalize": 2}),
+    ("cbow_hs", ["--objective", "cbow_hs"], {"hs": 1, "row_scatter": 1, "row_finalize": 2}),
+    ("cbow", ["--objective", "cbow"],
+     {"pos_logit": 1, "noise_head": 1, "noise_tail": 1, "row_update": 1}),
+)
+
+
+def train_objectives(torch, work: str, smi: str):
+    """Each entry of OBJECTIVE_RUNS trained through the CLI at full width
+    (V = 24,447, D = 200, B = 4,096; OBJECTIVE_PAIRS pairs, OBJECTIVE_ITERS
+    iterations): the loss finite and falling, every export verifying, the
+    launch counts — zeroed just before the run and read just after —
+    those of the run's kernels once per step, and no other kernel's.
+    Returns {label: launch counts}."""
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.cli import gene2vec
+    from gene2vec_tpu_torch.resilience.snapshot import verify_manifest
+
+    data = os.path.join(work, "corpus_objectives")
+    write_zipf_corpus(data, V, OBJECTIVE_PAIRS, seed=1)
+    steps = (OBJECTIVE_PAIRS // B) * OBJECTIVE_ITERS
+    out_counts = {}
+    for label, flags, per_step in OBJECTIVE_RUNS:
+        out = os.path.join(work, f"export_{label}")
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        rc = gene2vec.main([data, out, "txt", "--iters", str(OBJECTIVE_ITERS), "--device",
+                            DEVICE, "--no-txt-output", *flags])
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise SystemExit(f"{label}: CLI exited {rc}")
+        with open(os.path.join(out, "training_log.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [float(r["loss"]) for r in rows]
+        rates = [float(r["pairs_per_sec"]) for r in rows]
+        if len(losses) != OBJECTIVE_ITERS or not all(np.isfinite(losses)):
+            raise SystemExit(f"{label}: bad losses {losses}")
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            raise SystemExit(f"{label}: loss not decreasing: {losses}")
+        for it in range(1, OBJECTIVE_ITERS + 1):
+            res = verify_manifest(os.path.join(out, f"gene2vec_dim_{D}_iter_{it}"))
+            if not res:
+                raise SystemExit(f"{label}: iteration {it} export does not verify: {res.reason}")
+        want = {k: per_step.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise SystemExit(f"{label}: launch counts {counts}, expected {want}")
+        out_counts[label] = counts
+        log(f"training {label} ({smi}): losses {losses}, pairs/s per iteration {rates}, "
+            f"{wall:.1f}s, launches { {k: n for k, n in counts.items() if n} }")
+    return out_counts
+
+
 # -- phase 4: planted clusters -------------------------------------------------
 
 
-def planted_quality(torch):
+#: the objectives and noise modes phase 4 trains, as SGNSConfig fields
+PLANTED_CONFIGS = (
+    {}, {"negative_mode": "per_example"}, {"negative_mode": "shared"},
+    {"objective": "sg_hs"}, {"objective": "cbow_hs"}, {"objective": "cbow"},
+)
+
+
+def planted_quality(torch, **config_kw):
     """eval/planted.py's recipe and metric (10 cliques x 20 genes, 2000
     pairs each) with the reference bench's settings (dim 64, batch 1024,
-    15 epochs)."""
+    15 epochs), for the configuration ``config_kw`` selects."""
     from gene2vec_tpu_torch.config import SGNSConfig
     from gene2vec_tpu_torch.data.pipeline import PairCorpus
     from gene2vec_tpu_torch.io.vocab import Vocab
-    from gene2vec_tpu_torch.sgns.train import SGNSTrainer, epoch_generator
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
 
     rng = np.random.RandomState(0)
     lines = []
@@ -633,8 +1052,8 @@ def planted_quality(torch):
             a, b = rng.choice(20, 2, replace=False)
             lines.append((genes[a], genes[b]))
     vocab = Vocab.from_pairs(lines)
-    cfg = SGNSConfig(dim=64, batch_pairs=1024, num_iters=15)
-    tr = SGNSTrainer(PairCorpus(vocab, vocab.encode_pairs(lines)), cfg, device=DEVICE)
+    cfg = SGNSConfig(dim=64, batch_pairs=1024, num_iters=15, **config_kw)
+    tr = make_trainer(PairCorpus(vocab, vocab.encode_pairs(lines)), cfg, device=DEVICE)
     params = tr.init()
     for it in range(1, 16):
         params, loss = tr.train_epoch(params, generator=epoch_generator(cfg.seed, it))
@@ -650,10 +1069,10 @@ def planted_quality(torch):
         c1, c2 = crng.choice(10, 2, replace=False)
         inter.append(m[idx[f"C{c1}G{crng.randint(20)}"]] @ m[idx[f"C{c2}G{crng.randint(20)}"]])
     intra, inter = float(np.mean(intra)), float(np.mean(inter))
-    log(f"planted clusters: intra {intra:.4f} (> 0.95), inter {inter:.4f} (< 0.6), "
-        f"last loss {float(loss):.4f}")
+    log(f"planted clusters {config_kw or 'default'}: intra {intra:.4f} (> 0.95), inter "
+        f"{inter:.4f} (< 0.6), last loss {float(loss):.4f}")
     if not (intra > 0.95 and inter < 0.6):
-        raise SystemExit(f"planted clusters did not separate: {intra}, {inter}")
+        raise SystemExit(f"planted clusters did not separate ({config_kw}): {intra}, {inter}")
 
 
 # -- phase 5: serving through the CLI ------------------------------------------
@@ -919,23 +1338,24 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
     return launches
 
 
-def profile_steps(torch, steps: int, out_dir: str, smi: str):
-    """Epochs of ``steps`` full-width training steps: one unprofiled, one
-    under torch.profiler — device busy time by kernel, host wall per step
-    and the device idle share (1 - busy/wall).  The Chrome trace lands in
-    ``out_dir``."""
+def profile_steps(torch, steps: int, out_dir: str, smi: str, **config_kw):
+    """Epochs of ``steps`` full-width training steps of the configuration
+    ``config_kw`` selects: one unprofiled, one under torch.profiler —
+    device busy time by kernel, host wall per step and the device idle
+    share (1 - busy/wall).  The Chrome trace lands in ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     from gene2vec_tpu_torch.config import SGNSConfig
     from gene2vec_tpu_torch.data.pipeline import PairCorpus
     from gene2vec_tpu_torch.io.vocab import Vocab
-    from gene2vec_tpu_torch.sgns.train import SGNSTrainer, epoch_generator
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
 
     rng = np.random.RandomState(0)
     pairs = np.stack([zipf_ids(rng, steps * B, V), zipf_ids(rng, steps * B, V)], 1)
     counts = np.bincount(pairs.reshape(-1), minlength=V) + 1
     vocab = Vocab([f"G{i}" for i in range(V)], counts)
-    tr = SGNSTrainer(PairCorpus(vocab, pairs), SGNSConfig(), device=DEVICE)
+    tr = make_trainer(PairCorpus(vocab, pairs), SGNSConfig(**config_kw), device=DEVICE)
     params = tr.init()
     params, loss = tr.train_epoch(params, generator=epoch_generator(1, 0))
     float(loss)  # warm-up epoch
@@ -949,7 +1369,8 @@ def profile_steps(torch, steps: int, out_dir: str, smi: str):
         float(loss)
         wall_prof = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_steps_trace.json"))
+    label = "_".join(str(v) for v in config_kw.values()) or "default"
+    prof.export_chrome_trace(os.path.join(out_dir, f"train_steps_trace_{label}.json"))
     # device-side kernel records only (an aten op's own row repeats the
     # device time of the kernels it launched)
     by_name = {
@@ -960,7 +1381,7 @@ def profile_steps(torch, steps: int, out_dir: str, smi: str):
     }
     n = tr.num_batches
     busy = sum(by_name.values())
-    log(f"profile ({smi}): {n} steps; unprofiled epoch "
+    log(f"profile {label} ({smi}): {n} steps; unprofiled epoch "
         f"{wall_plain * 1e3 / n:.4f} ms/step ({n * B / wall_plain:.0f} pairs/s); "
         f"profiled epoch {wall_prof * 1e3 / n:.4f} ms/step; device busy "
         f"{busy / n:.4f} ms/step; idle share {1 - busy / (wall_plain * 1e3):.4f} "
@@ -991,13 +1412,20 @@ def main() -> int:
     rows = kernel_check(torch, TIMED_REPS)
     step_parity(torch, 613, 40, 512, 48, 80, 64, full_tables=False)  # ragged edges
     step_parity(torch, V, D, B, HEAD, BLOCK, GROUP, full_tables=True)
+    rows += objective_kernel_check(torch, TIMED_REPS)
+    for kind in ("per_example", "shared", "sg_hs", "cbow_hs"):
+        objective_step_parity(torch, 613, 40, 512, kind, full_tables=False)
+        objective_step_parity(torch, V, D, B, kind, full_tables=True)
     log(f"kernel check done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     serve_rows, serve_shapes = serving_kernel_check(torch, TIMED_REPS)
+    serve_shapes += serving_repairs_check(torch, TIMED_REPS)
     probes = gather_probes(torch, TIMED_REPS)
     log(f"serving kernel check done in {time.perf_counter() - t0:.1f}s")
-    profile_steps(torch, PROFILED_STEPS, os.path.join(os.getcwd(), "chip_smoke_profile"),
-                  smi)
+    prof_dir = os.path.join(os.getcwd(), "chip_smoke_profile")
+    profile_steps(torch, PROFILED_STEPS, prof_dir, smi)
+    for kw in PLANTED_CONFIGS[1:5]:
+        profile_steps(torch, PROFILED_STEPS // 2, prof_dir, smi, **kw)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
         t0 = time.perf_counter()
@@ -1014,12 +1442,20 @@ def main() -> int:
             served[name] = served.get(name, 0) + n
         counts.update(served)
         log(f"serving phase done in {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        # each new kernel's launches: the runs of phase 3b that drive it
+        for label, run in train_objectives(torch, work, smi).items():
+            if label != "cbow":  # K1-K4's main path is phase 3
+                for name in OBJECTIVE_KERNELS:
+                    counts[name] = counts.get(name, 0) + run[name]
+        log(f"objectives training phase done in {time.perf_counter() - t0:.1f}s")
     rows += serve_rows
     for r in rows:
         r["launches"] = counts[r["name"]]
 
     t0 = time.perf_counter()
-    planted_quality(torch)
+    for kw in PLANTED_CONFIGS:
+        planted_quality(torch, **kw)
     log(f"quality phase done in {time.perf_counter() - t0:.1f}s")
 
     print(json.dumps({"serving_kernel_shapes": serve_shapes}))

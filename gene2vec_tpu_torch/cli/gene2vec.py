@@ -4,8 +4,9 @@
     python -m gene2vec_tpu_torch.cli.gene2vec <data_dir> <export_dir> [pattern]
         [--device {cuda,cpu}] [--dim 200] [--iters 10] ...
 
-Same positionals and the same flags for what this port supports; the
-default configuration is the reference's.  ``--device`` defaults to
+Same positionals and the same flags for what this port supports
+(``--objective``, ``--negative-mode`` and ``--hs-dense-depth`` included);
+the default configuration is the reference's.  ``--device`` defaults to
 ``cuda`` and the CLI fails without a GPU unless ``--device cpu`` is given.
 """
 
@@ -15,7 +16,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from gene2vec_tpu_torch.config import SGNSConfig
+from gene2vec_tpu_torch.config import NEGATIVE_MODES, OBJECTIVES, SGNSConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,6 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
     d = SGNSConfig()
     p.add_argument("--dim", type=int, default=d.dim)
     p.add_argument("--iters", type=int, default=d.num_iters)
+    p.add_argument("--objective", choices=OBJECTIVES,
+                   default=d.objective)
     p.add_argument("--min-count", type=int, default=d.min_count)
     p.add_argument("--negatives", type=int, default=d.negatives)
     p.add_argument("--lr", type=float, default=d.lr)
@@ -40,6 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-pairs", type=int, default=d.batch_pairs)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--combiner", choices=("capped", "mean", "sum"), default=d.combiner)
+    p.add_argument("--negative-mode", choices=NEGATIVE_MODES,
+                   default=d.negative_mode)
     p.add_argument("--strat-head", type=int, default=d.strat_head,
                    help="stratified: exact-expectation noise head rows")
     p.add_argument("--strat-group", type=int, default=d.strat_group,
@@ -50,6 +55,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="class-segmented batch layout: head band rows (0 disables)")
     p.add_argument("--positive-mid", type=int, default=d.positive_mid,
                    help="class-segmented batch layout: mid band rows (0 disables)")
+    p.add_argument("--hs-dense-depth", type=int, default=d.hs_dense_depth,
+                   help="cbow_hs/sg_hs: Huffman-tree levels scored densely against "
+                        "the contiguous shallow-node prefix (0 = classic)")
     p.add_argument("--no-txt-output", action="store_true",
                    help="skip matrix-txt / word2vec-format exports per iteration")
     return p
@@ -60,6 +68,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     config = SGNSConfig(
         dim=args.dim,
         num_iters=args.iters,
+        objective=args.objective,
         min_count=args.min_count,
         negatives=args.negatives,
         lr=args.lr,
@@ -67,6 +76,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         batch_pairs=args.batch_pairs,
         seed=args.seed,
         combiner=args.combiner,
+        negative_mode=args.negative_mode,
+        hs_dense_depth=args.hs_dense_depth,
         strat_head=args.strat_head,
         strat_group=args.strat_group,
         strat_block=args.strat_block,
@@ -77,7 +88,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from gene2vec_tpu_torch.data.pipeline import PairCorpus
     from gene2vec_tpu_torch.device import resolve_device
     from gene2vec_tpu_torch.io.pair_reader import load_corpus
-    from gene2vec_tpu_torch.sgns.train import SGNSTrainer
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
 
     device = resolve_device(args.device)  # fail before reading the corpus
     print(f"loading corpus from {args.data_dir} (*.{args.ending_pattern})")
@@ -85,7 +96,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                min_count=config.min_count)
     corpus = PairCorpus(vocab, pairs)
     print(f"{corpus.num_pairs:,} pairs, vocab {corpus.vocab_size:,}, device {device}")
-    SGNSTrainer(corpus, config, device=device).run(args.export_dir)
+    make_trainer(corpus, config, device=device).run(args.export_dir)
     return 0
 
 

@@ -6,9 +6,10 @@ window=1, min_count=1, 10 iterations) and gensim's SGNS defaults (5
 negatives, alpha 0.025 → 1e-4, unigram^0.75 noise).  The per-field
 rationale lives in the reference config's comments.
 
-This port implements the default training path only.  Fields whose
-non-default values select code this port does not have are rejected at
-construction with a clear error (see ``_UNSUPPORTED``).
+This port trains every objective (sgns, cbow, sg_hs, cbow_hs) and every
+noise estimator (stratified, shared, per_example) with float32 tables.
+Fields whose non-default values select code this port does not have are
+rejected at construction with a clear error (see ``_UNSUPPORTED``).
 """
 
 from __future__ import annotations
@@ -66,16 +67,18 @@ class SGNSConfig:
                 )
         if self.combiner not in ("capped", "mean", "sum"):
             raise ValueError(f"unknown combiner {self.combiner!r}")
+        if self.objective not in OBJECTIVES:
+            raise ValueError(f"unknown objective {self.objective!r}")
+        if self.negative_mode not in NEGATIVE_MODES:
+            raise ValueError(f"unknown negative_mode {self.negative_mode!r}")
+
+
+OBJECTIVES = ("sgns", "cbow", "sg_hs", "cbow_hs")
+NEGATIVE_MODES = ("stratified", "shared", "per_example")
 
 
 # (field, accepted-value predicate, reason) — each names what the port lacks
 _UNSUPPORTED = (
-    ("objective", lambda v: v == "sgns",
-     "only skip-gram negative sampling is ported (CBOW and hierarchical "
-     "softmax are not)"),
-    ("negative_mode", lambda v: v == "stratified",
-     "only the stratified noise estimator is ported (shared and "
-     "per_example are not)"),
     ("table_dtype", lambda v: v == "float32",
      "tables are float32; bfloat16 tables with stochastic rounding are "
      "not ported"),
@@ -93,12 +96,6 @@ _UNSUPPORTED = (
     ("bf16_stochastic_round", lambda v: v,
      "it only selects the rounding of bfloat16 tables, which are not "
      "ported"),
-    ("hs_dense_depth", lambda v: v == 10,
-     "hierarchical softmax is not ported"),
-    ("shared_pool", lambda v: v == 1024,
-     "the shared noise mode is not ported"),
-    ("shared_pool_auto", lambda v: v,
-     "the shared noise mode is not ported"),
     ("pos_layout_shards", lambda v: v == 0,
      "a per-device batch layout needs the multi-GPU path, which is not "
      "ported"),

@@ -8,6 +8,9 @@ K1    ``pos_logit``    ``csrc/k1_pos_logit.cu``       sgns/step.py:705-734
 K2    ``noise_head``   ``csrc/k2_noise_head.cu``      sgns/step.py:736-746, 782-786
 K3    ``noise_tail``   ``csrc/k3_noise_tail.cu``      sgns/step.py:748-777, 833-847
 K4    ``row_update``   ``csrc/k4_row_update.cu``      sgns/step.py:143-172, 229-263
+K5a   ``per_example``  ``csrc/k5_per_example.cu``     sgns/step.py:97-130, 289-334
+K5b   ``shared_pool``  ``csrc/k5_shared.cu``          sgns/step.py:337-442
+K6    ``hs``           ``csrc/k6_hs.cu``              sgns/cbow_hs.py:65-101, 149-209
 K7    ``topk_exact``   ``csrc/k7_topk_exact.cu``      serve/engine.py:43-59
 K8    ``quant_scan``   ``csrc/k8_quant_scan.cu``      serve/ann.py:397-426, 476-497
 K9    ``ivf_scan``     ``csrc/k9_ivf_scan.cu``        serve/ann.py:429-449, 550-571
@@ -16,6 +19,9 @@ K9r   ``rescore``      ``csrc/k9r_rescore.cu``        serve/ann.py:452-467
 
 ``rescore.row_gather`` is K9r's gather loop on its own, the counterpart
 of the Pallas row-gather probes in ``experiments/``.
+``row_update.scatter_rows`` and ``row_update.finalize_rows`` are K4's
+generic entry points (one accumulator scatter; one table's finalize),
+which the per-example, shared and hierarchical-softmax steps use.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building the libraries at first use, see
@@ -26,13 +32,16 @@ wrapper counts its kernel launches in its module's ``launches``.
 from __future__ import annotations
 
 from gene2vec_tpu_torch.kernels import (
+    hs,
     ivf_scan,
     noise_head,
     noise_tail,
+    per_example,
     pos_logit,
     quant_scan,
     rescore,
     row_update,
+    shared_pool,
     topk_exact,
 )
 
@@ -42,6 +51,9 @@ MODULES = {
     "noise_head": noise_head,
     "noise_tail": noise_tail,
     "row_update": row_update,
+    "per_example": per_example,
+    "shared_pool": shared_pool,
+    "hs": hs,
     "topk_exact": topk_exact,
     "quant_scan": quant_scan,
     "ivf_scan": ivf_scan,
@@ -50,8 +62,11 @@ MODULES = {
 
 
 def launch_counts() -> dict:
-    """Launches per kernel, and ``row_gather``'s (K9r's gather alone)."""
+    """Launches per kernel, K4's generic entry points' (``row_scatter``,
+    ``row_finalize``) and ``row_gather``'s (K9r's gather alone)."""
     out = {name: mod.launches for name, mod in MODULES.items()}
+    out["row_scatter"] = row_update.scatter_launches
+    out["row_finalize"] = row_update.finalize_launches
     out["row_gather"] = rescore.gather_launches
     return out
 
@@ -59,4 +74,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in MODULES.values():
         mod.launches = 0
+    row_update.scatter_launches = 0
+    row_update.finalize_launches = 0
     rescore.gather_launches = 0

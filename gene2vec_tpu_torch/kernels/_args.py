@@ -35,6 +35,13 @@ def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def table_kind(t: torch.Tensor, name: str) -> bool:
+    """True for a bfloat16 scan table, False for int8; raises otherwise."""
+    if t.dtype not in (torch.int8, torch.bfloat16):
+        raise TypeError(f"{name}: expected int8 or bfloat16, got {t.dtype}")
+    return t.dtype == torch.bfloat16
+
+
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

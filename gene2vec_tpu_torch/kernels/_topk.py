@@ -12,7 +12,9 @@ rows (a power of two), keeps each tile's top-``keep`` in shared memory
 and merges the tiles' lists; ``QB`` queries share a tile so each row is
 read once per ``QB`` queries.  :func:`plan` fixes ``T`` and ``QB`` and
 the scratch the merge needs; the CUDA side derives the same tile count
-from ``T``.
+from ``T``.  Lists longer than ``MERGE_MAX / 2`` (any ``keep`` up to the
+row count works, as in the reference) keep 8,192-row tiles, pad each
+tile's list to ``keep`` and merge pairs of lists in device memory.
 """
 
 from __future__ import annotations
@@ -26,8 +28,11 @@ _EPS = 1e-12
 #: shared memory a tile block may use for its scores, sort buffer and
 #: queries (the card allows 227 KB a block)
 SMEM_BUDGET = 160 * 1024
-#: most pairs one merge block sorts (128 KB of keys and ids)
+#: most pairs one merge block sorts in shared memory (128 KB of keys and
+#: ids); longer lists merge in device memory
 MERGE_MAX = 16384
+#: largest tile (rows a tile block scores and sorts)
+TILE_MAX = 8192
 #: most queries one tile block scores (registers: one sum per query)
 QB_MAX = 8
 
@@ -72,14 +77,13 @@ def plan(n: int, keep: int, batch: int, query_bytes: int, per_query: bool,
     candidate list), so blocks hold one query each.  Tiles start at
     max(1024, 4·keep) rows (at most 8192) and halve, down to max(256,
     4·keep), while the grid would cover the ``sms`` multiprocessors less
-    than twice; keeping T >= 4·keep bounds what the merge sorts."""
+    than twice; keeping T >= 4·keep bounds what the merge sorts.  Above
+    ``TILE_MAX`` / 2 the tile stays at ``TILE_MAX`` rows, below keep."""
     if not 1 <= keep <= n:
         raise ValueError(f"need 1 <= keep <= rows, got keep={keep}, rows={n}")
-    if keep > MERGE_MAX // 2:
-        raise ValueError(f"keep={keep} exceeds {MERGE_MAX // 2}")
 
     def clamp(t):
-        return max(min(t, 8192, next_pow2(n)), next_pow2(keep), 32)
+        return max(min(t, TILE_MAX, next_pow2(n)), min(next_pow2(keep), TILE_MAX), 32)
 
     def queries_per_block(t):
         if per_query:

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (the SGNS step's K1-K4 and
+"""Build and load the port's CUDA kernels (the training steps' K1-K6 and
 the serving kernels K7-K9r).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
@@ -31,6 +31,9 @@ SOURCES = {
     "k2_noise_head": "k2_noise_head.cu",
     "k3_noise_tail": "k3_noise_tail.cu",
     "k4_row_update": "k4_row_update.cu",
+    "k5_per_example": "k5_per_example.cu",
+    "k5_shared": "k5_shared.cu",
+    "k6_hs": "k6_hs.cu",
     "k7_topk_exact": "k7_topk_exact.cu",
     "k8_quant_scan": "k8_quant_scan.cu",
     "k9_ivf_scan": "k9_ivf_scan.cu",

@@ -43,5 +43,6 @@ G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
   p.vn = H;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::launch_noise(p, 1, static_cast<cudaStream_t>(stream));
+  return g2v::launch_noise<g2v::Slab::kContiguous>(
+      p, 1, static_cast<cudaStream_t>(stream));
 }

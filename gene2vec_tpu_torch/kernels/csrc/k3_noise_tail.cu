@@ -46,5 +46,6 @@ G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
   p.vn = vn;
   p.splits = splits;
   p.init_center = 0;
-  return g2v::launch_noise(p, G, static_cast<cudaStream_t>(stream));
+  return g2v::launch_noise<g2v::Slab::kContiguous>(
+      p, G, static_cast<cudaStream_t>(stream));
 }

@@ -21,6 +21,13 @@
 // The finalize runs one thread per table element, grid y choosing the
 // table, with correctly rounded division and multiply so the update is
 // t - lr*(a/div) as the reference writes it (no FMA contraction).
+//
+// Generic entry points (the other noise modes and hierarchical softmax):
+// k4_scatter_rows adds [grads[r] | weights[r]] into acc[idx[r]] for R
+// rows (_scatter_accumulator, step.py:229-245) and k4_finalize_rows
+// finalizes one (rows, D) table against its accumulator
+// (_finalize_row_updates, step.py:248-263, float32).  Same warp-per-row
+// scatter and thread-per-element finalize as above.
 #include <algorithm>
 
 #include "common.cuh"
@@ -78,7 +85,59 @@ __global__ void finalize_kernel(float* __restrict__ emb, float* __restrict__ ctx
   }
 }
 
+__global__ void scatter_rows_kernel(float* __restrict__ acc,
+                                    const int* __restrict__ idx,
+                                    const float* __restrict__ grads,
+                                    const float* __restrict__ weights, int R,
+                                    int D) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (r >= R) return;  // warp-uniform
+  float* ar = acc + static_cast<size_t>(idx[r]) * (D + 1);
+  const float* gr = grads + static_cast<size_t>(r) * D;
+  for (int d = lane; d < D; d += 32) atomicAdd(&ar[d], gr[d]);
+  if (lane == 0) atomicAdd(&ar[D], weights[r]);
+}
+
+__global__ void finalize_rows_kernel(float* __restrict__ table,
+                                     const float* __restrict__ acc, float lr,
+                                     int combiner, int V, int D) {
+  const size_t n = static_cast<size_t>(V) * D;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t r = i / D;
+    const size_t d = i - r * D;
+    const float* arow = acc + r * (D + 1);
+    const float upd = __fdiv_rn(arow[d], row_divisor(arow[D], combiner));
+    table[i] = __fsub_rn(table[i], __fmul_rn(lr, upd));
+  }
+}
+
 }  // namespace
+
+G2V_EXPORT int k4_scatter_rows(float* acc, const int* idx, const float* grads,
+                               const float* weights, int R, int D,
+                               void* stream) {
+  if (R == 0) return 0;
+  const int threads = 256;
+  const long long blocks = (static_cast<long long>(R) * 32 + threads - 1) / threads;
+  scatter_rows_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(acc, idx, grads,
+                                                             weights, R, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+G2V_EXPORT int k4_finalize_rows(float* table, const float* acc, float lr,
+                                int combiner, int V, int D, void* stream) {
+  const int threads = 256;
+  const size_t n = static_cast<size_t>(V) * D;
+  if (n == 0) return 0;
+  const int grid = static_cast<int>(
+      std::min<size_t>((n + threads - 1) / threads, 132 * 16));
+  finalize_rows_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, acc, lr, combiner, V, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 G2V_EXPORT int k4_row_update(float* emb, float* ctx, float* acc_emb,
                              float* acc_ctx, const int* centers,

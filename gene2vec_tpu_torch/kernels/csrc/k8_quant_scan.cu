@@ -17,6 +17,12 @@
 // int32 (dp4a over 4-byte words), and the rescale runs in the reference's
 // order without contraction — so the approximate scores are bitwise the
 // reference's.  IMMA tensor-core tiles come later.
+//
+// A bf16 table (build_index(quant_dtype="bf16")) takes the same tile
+// structure with a bf16 scorer: the query is rounded to bf16, each
+// bf16 x bf16 product is exact in float32 and the sum accumulates in
+// float32, as the reference's preferred_element_type=f32 dot — equal to
+// the plain version up to the order of the float32 sum.
 #include "topk_common.cuh"
 
 namespace {
@@ -55,13 +61,44 @@ struct QuantScorer {
   }
 };
 
+struct Bf16Scorer {
+  const float* qn;
+  const __nv_bfloat16* table;
+  int D;
+  int valid;
+
+  size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
+
+  __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
+    g2v_stage_queries_bf16(qn, q0, nq, D, reinterpret_cast<float*>(qmem));
+  }
+
+  __device__ void score_row(const unsigned char* qmem, int, int nq, int r, int* keys,
+                            int stride) const {
+    float acc[G2V_QB_MAX];
+    g2v_thread_dots_bf16(table + static_cast<size_t>(r) * D,
+                         reinterpret_cast<const float*>(qmem), nq, D, acc);
+#pragma unroll
+    for (int j = 0; j < G2V_QB_MAX; ++j) {
+      if (j < nq) keys[j * stride] = g2v_key(r >= valid ? -INFINITY : acc[j]);
+    }
+  }
+};
+
 }  // namespace
 
-G2V_EXPORT int k8_quant_scan(const float* qn, const signed char* table, const float* scale,
-                             int V, int D, int B, int valid, int rb, int T, int QB,
-                             int* ka, int* ia, int* kb, int* ib, float* out_scores,
-                             int* out_rows, void* stream) {
-  QuantScorer sc{qn, table, scale, D, valid};
+// table_bf16 = 0: `table` is int8 with per-row `scale`; 1: bfloat16.
+G2V_EXPORT int k8_quant_scan(const float* qn, const void* table, const float* scale,
+                             int table_bf16, int V, int D, int B, int valid, int rb,
+                             int T, int QB, int* ka, int* ia, int* kb, int* ib,
+                             float* out_scores, int* out_rows, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (table_bf16) {
+    Bf16Scorer sc{qn, static_cast<const __nv_bfloat16*>(table), D, valid};
+    return g2v_run_topk(sc, G2vIdentity{}, V, B, QB, T, rb, ka, ia, kb, ib, out_scores,
+                        out_rows, st);
+  }
+  QuantScorer sc{qn, static_cast<const signed char*>(table), scale, D, valid};
   return g2v_run_topk(sc, G2vIdentity{}, V, B, QB, T, rb, ka, ia, kb, ib, out_scores,
-                      out_rows, static_cast<cudaStream_t>(stream));
+                      out_rows, st);
 }

@@ -21,6 +21,9 @@
 // sums exactly in int32 (dp4a), with the K8 rescale — so the approximate
 // scores are bitwise the reference's.  Ties order by candidate position,
 // as lax.top_k orders the reference's (B, N) candidate matrix.
+//
+// A bf16 table takes the same scan with a bf16 candidate scorer (query
+// rounded to bf16, exact bf16 products, float32 sums), as K8's.
 #include "topk_common.cuh"
 
 namespace {
@@ -101,10 +104,39 @@ struct CandidateScorer {
   }
 };
 
+struct Bf16CandidateScorer {
+  Candidates cand;
+  const float* qn;
+  const __nv_bfloat16* table;
+  int D;
+
+  size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
+
+  __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
+    g2v_stage_queries_bf16(qn, q0, nq, D, reinterpret_cast<float*>(qmem));
+  }
+
+  // one query a block (QB = 1), as CandidateScorer
+  __device__ void score_row(const unsigned char* qmem, int q0, int, int p, int* keys,
+                            int) const {
+    const int id = cand.row(q0, p);
+    if (id < 0) {
+      keys[0] = g2v_key(-INFINITY);
+      return;
+    }
+    float acc[G2V_QB_MAX];
+    g2v_thread_dots_bf16(table + static_cast<size_t>(id) * D,
+                         reinterpret_cast<const float*>(qmem), 1, D, acc);
+    keys[0] = g2v_key(acc[0]);
+  }
+};
+
 }  // namespace
 
+// table_bf16 = 0: `table` is int8 with per-row `scale`; 1: bfloat16.
 G2V_EXPORT int k9_ivf_scan(const float* qn, const float* centroids, const int* lists,
-                           const signed char* table, const float* scale, int C, int L,
+                           const void* table, const float* scale, int table_bf16,
+                           int C, int L,
                            int V, int D, int B, int nprobe, int valid, int r, int Tc,
                            int QBc, int Tn, int* cka, int* cia, int* ckb, int* cib,
                            int* nka, int* nia, int* nkb, int* nib, float* probe_scores,
@@ -116,7 +148,12 @@ G2V_EXPORT int k9_ivf_scan(const float* qn, const float* centroids, const int* l
                          probe_scores, probe, st);
   if (err) return err;
   Candidates cand{lists, probe, nprobe, L, valid};
-  CandidateScorer sc{cand, qn, table, scale, D};
+  if (table_bf16) {
+    Bf16CandidateScorer sc{cand, qn, static_cast<const __nv_bfloat16*>(table), D};
+    return g2v_run_topk(sc, cand, nprobe * L, B, 1, Tn, r, nka, nia, nkb, nib,
+                        out_scores, out_rows, st);
+  }
+  CandidateScorer sc{cand, qn, static_cast<const signed char*>(table), scale, D};
   return g2v_run_topk(sc, cand, nprobe * L, B, 1, Tn, r, nka, nia, nkb, nib, out_scores,
                       out_rows, st);
 }

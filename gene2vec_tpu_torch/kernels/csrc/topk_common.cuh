@@ -20,7 +20,17 @@
 // The sort is a bitonic network over the tile in shared memory, 256
 // threads a block.  Simple and exact; a later version can select with a
 // radix pass instead of sorting whole tiles.
+//
+// Long lists (keep > G2V_MERGE_MAX / 2, e.g. the rescore tail of a large
+// --rescore-mult): tiles stay at most 8,192 rows, so a tile may hold
+// fewer rows than keep; its list is its sorted tile padded with the
+// sentinel to keep entries.  Two such lists no longer fit one block's
+// shared memory, so they are merged pairwise in device memory: each
+// thread finds its output position's split between the two sorted runs
+// by a binary search along the merge path and writes one pair.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <climits>
 #include <cmath>
@@ -109,8 +119,8 @@ g2v_tile_topk(S sc, int n, int B, int QB, int T, int keep, int ntiles,
     g2v_bitonic(sk, si, T);
     const size_t base = (static_cast<size_t>(q0 + j) * ntiles + tile) * keep;
     for (int i = threadIdx.x; i < keep; i += blockDim.x) {
-      okey[base + i] = sk[i];
-      oidx[base + i] = si[i];
+      okey[base + i] = i < T ? sk[i] : INT_MIN;  // T < keep: sentinel padding
+      oidx[base + i] = i < T ? si[i] : INT_MAX;
     }
   }
 }
@@ -137,6 +147,45 @@ g2v_merge(const int* __restrict__ ikey, const int* __restrict__ iidx, int nin,
     okey[out_base + i] = sk[i];
     oidx[out_base + i] = si[i];
   }
+}
+
+// Pairwise merge in device memory (grid: ceil(keep / 256) x lists out x
+// B): output list o of query b is the first `keep` pairs of the merge of
+// input lists 2o and 2o + 1 (a copy of list 2o when it has no partner).
+// Output position i takes from run A iff A's next pair goes first; the
+// number of A's pairs among positions [0, i) is found by a binary search
+// on the merge path, A winning ties (equal pairs are only sentinels).
+__global__ void g2v_merge_path(const int* __restrict__ ikey, const int* __restrict__ iidx,
+                               int nin, int keep, int nout, int* __restrict__ okey,
+                               int* __restrict__ oidx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int o = blockIdx.y, b = blockIdx.z;
+  if (i >= keep) return;
+  const size_t a_base = (static_cast<size_t>(b) * nin + 2 * o) * keep;
+  const size_t out = (static_cast<size_t>(b) * nout + o) * keep + i;
+  const int* ak = ikey + a_base;
+  const int* ai = iidx + a_base;
+  if (2 * o + 1 >= nin) {
+    okey[out] = ak[i];
+    oidx[out] = ai[i];
+    return;
+  }
+  const int* bk = ak + keep;
+  const int* bi = ai + keep;
+  int lo = 0, hi = i;  // both runs hold keep >= i pairs
+  while (lo < hi) {
+    const int a = (lo + hi) >> 1;  // a pairs from A, i - a from B
+    const int bj = i - a - 1;      // B's last pair taken
+    if (!g2v_before(bk[bj], bi[bj], ak[a], ai[a])) {
+      lo = a + 1;  // A[a] goes no later than B[bj]: take more of A
+    } else {
+      hi = a;
+    }
+  }
+  const int a = lo, bj = i - lo;
+  const bool take_a = !g2v_before(bk[bj], bi[bj], ak[a], ai[a]);
+  okey[out] = take_a ? ak[a] : bk[bj];
+  oidx[out] = take_a ? ai[a] : bi[bj];
 }
 
 // IdMap interface: __device__ int operator()(int b, int row) const.
@@ -184,6 +233,16 @@ static int g2v_run_topk(const S& sc, const Map& map, int n, int B, int QB, int T
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   int nl = ntiles;
+  while (nl > 1 && 2 * keep > G2V_MERGE_MAX) {  // long lists: merge in memory
+    const int nout = (nl + 1) / 2;
+    g2v_merge_path<<<dim3((keep + 255) / 256, nout, B), 256, 0, stream>>>(
+        ka, ia, nl, keep, nout, kb, ib);
+    err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    int* t = ka; ka = kb; kb = t;
+    t = ia; ia = ib; ib = t;
+    nl = nout;
+  }
   const int G = G2V_MERGE_MAX / keep > 2 ? G2V_MERGE_MAX / keep : 2;
   while (nl > 1) {
     const int g = nl < G ? nl : G;
@@ -326,6 +385,58 @@ __device__ __forceinline__ void g2v_thread_dots_int8(const signed char* __restri
 // (no contraction) — the reference's rescale.
 __device__ __forceinline__ float g2v_rescale(int acc, float qs, float scale) {
   return __fmul_rn(__fmul_rn(__int2float_rn(acc), qs), scale);
+}
+
+// Staging of bf16-table queries: each normalized f32 query rounded to
+// bfloat16 (round to nearest even, as the reference's astype) and held as
+// float, D floats a query.
+__device__ void g2v_stage_queries_bf16(const float* __restrict__ qn, int q0, int nq,
+                                       int D, float* qs_out) {
+  for (int i = threadIdx.x; i < nq * D; i += blockDim.x) {
+    qs_out[i] = __bfloat162float(__float2bfloat16_rn(qn[static_cast<size_t>(q0) * D + i]));
+  }
+}
+
+// One thread's dots of bf16 row `x` (D values) with nq staged bf16-rounded
+// queries (qs, D floats each).  Each bf16 x bf16 product is exact in
+// float32 and the sum accumulates in float32 — the reference's
+// dot_general(..., preferred_element_type=f32).  16-byte loads of 8
+// values when the width and address allow, else one value at a time.
+__device__ __forceinline__ void g2v_thread_dots_bf16(const __nv_bfloat16* __restrict__ x,
+                                                     const float* qs, int nq, int D,
+                                                     float* acc) {
+#pragma unroll
+  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = 0.0f;
+  if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
+    const uint4* x8 = reinterpret_cast<const uint4*>(x);
+    for (int c = 0; c < (D >> 3); ++c) {
+      const uint4 raw = __ldg(x8 + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+#pragma unroll
+      for (int j = 0; j < G2V_QB_MAX; ++j) {
+        if (j < nq) {
+          const float* q = qs + j * D + 8 * c;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) acc[j] = fmaf(q[i], v[i], acc[j]);
+        }
+      }
+    }
+  } else {
+    for (int d = 0; d < D; ++d) {
+      const float v = __bfloat162float(x[d]);
+#pragma unroll
+      for (int j = 0; j < G2V_QB_MAX; ++j) {
+        if (j < nq) acc[j] = fmaf(qs[j * D + d], v, acc[j]);
+      }
+    }
+  }
 }
 
 static inline size_t g2v_int8_query_bytes(int D) {

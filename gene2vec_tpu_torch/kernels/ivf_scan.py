@@ -8,7 +8,8 @@ ids (``-1``-padded; ids ≥ ``valid`` masked); gather those candidates'
 int8 rows and scales, take the int8 dot and rescale as K8 does; return
 the top-``r`` (r = min(rb, nprobe·L)) among each query's candidates as
 (approximate scores, int32 rows), masked candidates at −inf with row 0,
-ties broken by candidate position.
+ties broken by candidate position.  A bf16 table takes K8's bf16
+scorer (the query rounded to bf16, float32 sums).
 """
 
 from __future__ import annotations
@@ -58,18 +59,14 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
     """(approximate scores (B, r) float32, rows (B, r) int32)."""
     if _args.on_cpu(qn, centroids, lists, table_q, scale):
         return ivf_scan_plain(qn, centroids, lists, table_q, scale, nprobe, rb, valid)
-    if table_q.dtype != torch.int8:
-        raise NotImplementedError(
-            f"K9 scans int8 tables on the card; a {table_q.dtype} table has "
-            "only the plain version"
-        )
+    bf16 = _args.table_kind(table_q, "table_q")
     v_rows, d = table_q.shape
     c, lst = lists.shape
     b = qn.shape[0]
     _args.expect(qn, "qn", torch.float32, (b, d))
     _args.expect(centroids, "centroids", torch.float32, (c, d))
     _args.expect(lists, "lists", torch.int32, (c, lst))
-    _args.expect(table_q, "table_q", torch.int8, (v_rows, d))
+    _args.expect(table_q, "table_q", table_q.dtype, (v_rows, d))
     _args.expect(scale, "scale", torch.float32, (v_rows,))
     if not 1 <= nprobe <= c:
         raise ValueError(f"nprobe must be in [1, {c}], got {nprobe}")
@@ -79,7 +76,7 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
     lib = _lib()
     sms = _args.sm_count(qn)
     pc = _topk.plan(c, nprobe, b, 4 * d, per_query=False, sms=sms)
-    pn = _topk.plan(n, r, b, d + 8, per_query=True, sms=sms)
+    pn = _topk.plan(n, r, b, 4 * d if bf16 else d + 8, per_query=True, sms=sms)
     scr_c, scr_n = _topk.scratch(pc, qn.device), _topk.scratch(pn, qn.device)
     probe = torch.empty((b, nprobe), dtype=torch.int32, device=qn.device)
     probe_scores = torch.empty((b, nprobe), dtype=torch.float32, device=qn.device)
@@ -87,7 +84,7 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
     rows = torch.empty((b, r), dtype=torch.int32, device=qn.device)
     status = lib.k9_ivf_scan(
         _args.ptr(qn), _args.ptr(centroids), _args.ptr(lists), _args.ptr(table_q),
-        _args.ptr(scale), c, lst, v_rows, d, b, nprobe, valid, r,
+        _args.ptr(scale), int(bf16), c, lst, v_rows, d, b, nprobe, valid, r,
         pc.tile, pc.qb, pn.tile,
         _args.ptr(scr_c[0]), _args.ptr(scr_c[1]), _args.ptr(scr_c[2]), _args.ptr(scr_c[3]),
         _args.ptr(scr_n[0]), _args.ptr(scr_n[1]), _args.ptr(scr_n[2]), _args.ptr(scr_n[3]),
@@ -105,6 +102,6 @@ def _lib():
     fn = lib.k9_ivf_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P] + [I] * 11 + [P] * 12 + [P]
+        fn.argtypes = [P, P, P, P, P] + [I] * 12 + [P] * 12 + [P]
         fn.restype = I
     return lib

@@ -10,8 +10,11 @@ return the top-``rb`` (approximate scores, int32 rows).
 
 The int32 sum is exact and the rescale runs in the reference's order,
 so the approximate scores are bitwise the reference's, on the CPU and
-on the card alike.  A bf16 table has only the plain scan here; the
-kernel takes int8 tables and raises for any other.
+on the card alike.  A bf16 table (``build_index(quant_dtype="bf16")``)
+is scanned by the same kernel with a bf16 scorer: the query rounded to
+bf16, exact bf16 products summed in float32 (the reference's
+``preferred_element_type=f32`` dot), equal to the plain version up to
+the order of the float32 sum.
 """
 
 from __future__ import annotations
@@ -69,25 +72,22 @@ def quant_scan(qn, table_q, scale, rb: int, valid: Optional[int] = None):
     """(approximate scores (B, rb) float32, rows (B, rb) int32)."""
     if _args.on_cpu(qn, table_q, scale):
         return quant_scan_plain(qn, table_q, scale, rb, valid)
-    if table_q.dtype != torch.int8:
-        raise NotImplementedError(
-            f"K8 scans int8 tables on the card; a {table_q.dtype} table has "
-            "only the plain version"
-        )
+    bf16 = _args.table_kind(table_q, "table_q")
     v_rows, d = table_q.shape
     b = qn.shape[0]
     _args.expect(qn, "qn", torch.float32, (b, d))
-    _args.expect(table_q, "table_q", torch.int8, (v_rows, d))
+    _args.expect(table_q, "table_q", table_q.dtype, (v_rows, d))
     _args.expect(scale, "scale", torch.float32, (v_rows,))
     valid = v_rows if valid is None else min(int(valid), v_rows)
     rb = min(rb, v_rows)
     lib = _lib()
-    p = _topk.plan(v_rows, rb, b, d + 8, per_query=False, sms=_args.sm_count(qn))
+    qbytes = 4 * d if bf16 else d + 8
+    p = _topk.plan(v_rows, rb, b, qbytes, per_query=False, sms=_args.sm_count(qn))
     scr = _topk.scratch(p, qn.device)
     scores = torch.empty((b, rb), dtype=torch.float32, device=qn.device)
     rows = torch.empty((b, rb), dtype=torch.int32, device=qn.device)
     status = lib.k8_quant_scan(
-        _args.ptr(qn), _args.ptr(table_q), _args.ptr(scale), v_rows, d, b, valid,
+        _args.ptr(qn), _args.ptr(table_q), _args.ptr(scale), int(bf16), v_rows, d, b, valid,
         rb, p.tile, p.qb, _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
@@ -102,6 +102,6 @@ def _lib():
     fn = lib.k8_quant_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P]
         fn.restype = I
     return lib

@@ -11,6 +11,12 @@ and K3's noise rows), then finalizes both tables in place::
 with divisor 1 (``sum``), max(w, 1) (``mean``) or max(max(w, 1)/32, 1)
 (``capped``).  The finalize visits every row: untouched rows have
 acc = 0 and keep their values exactly.
+
+The generic entry points serve the other noise modes and hierarchical
+softmax: :func:`scatter_rows` adds [grads | weights] rows into an
+accumulator (``_scatter_accumulator``, step.py:229-245) and
+:func:`finalize_rows` finalizes one table, of any row count, against
+its accumulator (``_finalize_row_updates``, step.py:248-263, float32).
 """
 
 from __future__ import annotations
@@ -21,6 +27,10 @@ from gene2vec_tpu_torch.kernels import _args, build
 
 #: kernel launches made through :func:`row_update`
 launches = 0
+#: kernel launches made through :func:`scatter_rows`
+scatter_launches = 0
+#: kernel launches made through :func:`finalize_rows`
+finalize_launches = 0
 
 _LIB = "k4_row_update"
 _CAP = 32.0
@@ -81,6 +91,50 @@ def row_update(emb, ctx, acc_emb, acc_ctx, centers, contexts, d_center, v, g_pos
     launches += 1
 
 
+def scatter_rows_plain(acc, idx, grads, weights):
+    acc.index_add_(0, idx, torch.cat([grads, weights[:, None]], dim=1))
+
+
+def scatter_rows(acc, idx, grads, weights) -> None:
+    """acc[idx[r]] += [grads[r] | weights[r]], in place."""
+    if _args.on_cpu(acc, idx, grads, weights):
+        return scatter_rows_plain(acc, idx, grads, weights)
+    v_rows, d1 = acc.shape
+    r = idx.shape[0]
+    _args.expect(acc, "acc", torch.float32, (v_rows, d1))
+    _args.expect(idx, "idx", torch.int32, (r,))
+    _args.expect(grads, "grads", torch.float32, (r, d1 - 1))
+    _args.expect(weights, "weights", torch.float32, (r,))
+    lib = _lib()
+    status = lib.k4_scatter_rows(_args.ptr(acc), _args.ptr(idx), _args.ptr(grads),
+                                 _args.ptr(weights), r, d1 - 1, _args.stream(acc))
+    build.check(lib, status, "K4 scatter_rows launch")
+    global scatter_launches
+    scatter_launches += 1
+
+
+def finalize_rows_plain(table, acc, lr, combiner):
+    d = table.shape[1]
+    table -= lr * (acc[:, :d] / row_divisor(acc[:, d], combiner)[:, None])
+
+
+def finalize_rows(table, acc, lr: float, combiner: str) -> None:
+    """table −= lr · acc[:, :D] / divisor(acc[:, D]), in place."""
+    if combiner not in COMBINERS:
+        raise ValueError(f"unknown combiner {combiner!r}")
+    if _args.on_cpu(table, acc):
+        return finalize_rows_plain(table, acc, lr, combiner)
+    v_rows, d = table.shape
+    _args.expect(table, "table", torch.float32, (v_rows, d))
+    _args.expect(acc, "acc", torch.float32, (v_rows, d + 1))
+    lib = _lib()
+    status = lib.k4_finalize_rows(_args.ptr(table), _args.ptr(acc), float(lr),
+                                  COMBINERS[combiner], v_rows, d, _args.stream(table))
+    build.check(lib, status, "K4 finalize_rows launch")
+    global finalize_launches
+    finalize_launches += 1
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k4_row_update
@@ -88,4 +142,8 @@ def _lib():
         P, I, F = _args.P, _args.I, _args.F
         fn.argtypes = [P, P, P, P, P, P, P, P, P, F, I, I, I, I, P]
         fn.restype = I
+        lib.k4_scatter_rows.argtypes = [P, P, P, P, I, I, P]
+        lib.k4_scatter_rows.restype = I
+        lib.k4_finalize_rows.argtypes = [P, P, F, I, I, I, P]
+        lib.k4_finalize_rows.restype = I
     return lib

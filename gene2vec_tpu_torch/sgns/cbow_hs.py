@@ -1,0 +1,297 @@
+"""CBOW and hierarchical-softmax objectives (``gene2vec_tpu/sgns/cbow_hs.py``).
+
+With the reference's corpus shape (2-token "sentences", window 1) CBOW
+degenerates to single-context prediction, so the objectives differ only
+in which token is the input and which is the target:
+
+* ``cbow``     — input = the context token's emb row, negative sampling
+  against the center: the SGNS step on the swapped pair (any noise mode);
+* ``sg_hs``    — input = the center's emb row, a sigmoid per Huffman-path
+  node of the context token;
+* ``cbow_hs``  — input = the context row, the path of the center.
+
+Hierarchical softmax runs through K6 (``kernels/hs.py``): with
+``hs_dense_depth > 0`` the first tree levels are scored densely against
+the contiguous node-table prefix (``huffman.split_shallow``) and only the
+deep remainders of rare tokens' paths are gathered.  The node table has
+V − 1 rows; its accumulator and the input table's finalize through K4's
+generic entry points with the SGNS step's combiner.
+
+:class:`CBOWHSTrainer` mirrors the port's ``SGNSTrainer`` (init /
+draw_epoch / train_epoch / run, explicit draws, CUDA unless
+``device="cpu"``).  Left out as in ``SGNSTrainer``: the reference run's
+observability hooks, preemption handling and the multi-device paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from gene2vec_tpu_torch.config import OBJECTIVES as _ALL_OBJECTIVES
+from gene2vec_tpu_torch.config import SGNSConfig
+from gene2vec_tpu_torch.data.pipeline import (
+    PairCorpus,
+    draw_shuffle,
+    epoch_shuffle,
+    host_preshuffle,
+)
+from gene2vec_tpu_torch.device import resolve_device
+from gene2vec_tpu_torch.io import checkpoint as ckpt
+from gene2vec_tpu_torch.kernels.hs import hs
+from gene2vec_tpu_torch.kernels.row_update import finalize_rows, scatter_rows
+from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
+from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
+from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step
+from gene2vec_tpu_torch.sgns.train import (
+    EpochDraws,
+    SGNSTrainer,
+    _append_csv,
+    draw_noise,
+    epoch_generator,
+    epoch_noise,
+    learning_rate,
+    noise_setup,
+)
+from gene2vec_tpu_torch.utils.profiling import StepTimer
+
+OBJECTIVES = tuple(o for o in _ALL_OBJECTIVES if o != "sgns")
+
+
+def hs_step(
+    params: SGNSParams,   # emb = input table, ctx = (V-1, D) node table
+    pairs: torch.Tensor,
+    tree_points: torch.Tensor,
+    tree_codes: torch.Tensor,
+    tree_lengths: torch.Tensor,
+    lr: float,
+    *,
+    cbow: bool,
+    both_directions: bool = True,
+    combiner: str = "capped",
+    shallow_sign: Optional[torch.Tensor] = None,  # (V, Ns) int8, split layout
+    n_shallow: int = 0,
+) -> Tuple[SGNSParams, torch.Tensor]:
+    """One hierarchical-softmax SGD step over a batch of corpus pairs;
+    updates ``params`` in place and returns (params, loss).  With
+    ``shallow_sign``/``n_shallow`` (the :func:`split_shallow` layout;
+    ``tree_*`` are then the deep remainders) the first levels are scored
+    densely against ``node[:n_shallow]``."""
+    if shallow_sign is not None and shallow_sign.shape[1] != n_shallow:
+        raise ValueError(
+            f"shallow_sign has {shallow_sign.shape[1]} columns, n_shallow={n_shallow}"
+        )
+    centers, contexts = _examples_from_pairs(pairs, both_directions)
+    inputs, targets = (contexts, centers) if cbow else (centers, contexts)
+    emb, node = params
+    d = emb.shape[1]
+    acc_emb = torch.zeros((emb.shape[0], d + 1), dtype=torch.float32, device=emb.device)
+    acc_node = torch.zeros((node.shape[0], d + 1), dtype=torch.float32, device=emb.device)
+    # K6: the deep path rows gathered, the shallow prefix dense
+    d_input, loss_deep, loss_shallow = hs(emb, node, inputs, targets, tree_points,
+                                          tree_codes, tree_lengths, shallow_sign,
+                                          acc_node)
+    loss = torch.mean(loss_deep)
+    if loss_shallow is not None:
+        loss = loss + torch.mean(loss_shallow)
+    # K4: input rows, then both finalizes (one divisor per node over its
+    # shallow and deep load together)
+    scatter_rows(acc_emb, inputs, d_input, torch.ones_like(loss_deep))
+    finalize_rows(emb, acc_emb, lr, combiner)
+    finalize_rows(node, acc_node, lr, combiner)
+    return params, loss
+
+
+class CBOWHSTrainer:
+    """Trainer for the cbow / sg_hs / cbow_hs objectives over an encoded
+    :class:`PairCorpus`, on ``device`` (CUDA unless ``device="cpu"``)."""
+
+    def __init__(self, corpus: PairCorpus, config: SGNSConfig, device=None):
+        self.device = resolve_device(device)
+        if config.objective not in OBJECTIVES:
+            raise ValueError(
+                f"objective={config.objective!r} not in {OBJECTIVES}; plain "
+                "'sgns' uses SGNSTrainer"
+            )
+        if corpus.num_pairs == 0 or corpus.vocab_size == 0:
+            raise ValueError("corpus is empty")
+        if corpus.pairs.min() < 0 or corpus.pairs.max() >= corpus.vocab_size:
+            raise ValueError("pair ids outside [0, vocab_size)")
+        if corpus.num_pairs < config.batch_pairs:
+            config = dataclasses.replace(config, batch_pairs=max(1, corpus.num_pairs))
+        if config.shuffle_mode not in ("offset", "full"):
+            raise ValueError(f"unknown shuffle_mode {config.shuffle_mode!r}")
+        if config.shuffle_mode == "offset":
+            corpus = host_preshuffle(corpus, config.seed)
+        self.config = config
+        self.corpus = corpus
+        self.num_batches = corpus.num_batches(config.batch_pairs)
+        self.timer = StepTimer()
+        self.hs = config.objective.endswith("_hs")
+        self.split = None
+        self.tree = None
+        self.noise = None
+        if self.hs:
+            self.tree = build_huffman_tree(corpus.vocab.counts)
+            if config.hs_dense_depth > 0 and self.tree.num_nodes > 1:
+                self.split = split_shallow(self.tree, config.hs_dense_depth)
+                arrays = (self.split.points_deep, self.split.codes_deep,
+                          self.split.lengths_deep, self.split.sign)
+            else:
+                arrays = (self.tree.points, self.tree.codes, self.tree.lengths, None)
+            self._points, self._codes, self._lengths, self._sign = (
+                None if a is None else torch.from_numpy(a).to(self.device) for a in arrays
+            )
+        else:
+            e = config.batch_pairs * (2 if config.both_directions else 1)
+            self.noise = noise_setup(config, corpus.vocab.counts, e, self.device)
+        self.pairs = corpus.device_pairs(self.device)
+        # draws for train_epoch calls that pass neither draws nor a generator
+        self.generator = torch.Generator().manual_seed(config.seed)
+
+    # -- params ------------------------------------------------------------
+
+    def init(self, seed: Optional[int] = None) -> SGNSParams:
+        """U(−0.5/D, 0.5/D) emb; a zero output table of V − 1 node rows
+        (hierarchical softmax) or V rows (cbow)."""
+        cfg = self.config
+        gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
+        v = self.corpus.vocab_size
+        out_rows = max(self.tree.num_nodes, 1) if self.hs else v
+        return init_params(gen, v, cfg.dim, self.device, out_rows=out_rows)
+
+    # -- training ----------------------------------------------------------
+
+    def draw_epoch(self, generator: torch.Generator) -> EpochDraws:
+        cfg = self.config
+        shuffles = ((
+            draw_shuffle(self.corpus.num_pairs, self.num_batches, cfg.batch_pairs,
+                         cfg.shuffle_mode, generator)
+            if cfg.shuffle_each_iter else None
+        ),)
+        if self.hs:
+            return EpochDraws(shuffles)
+        return EpochDraws(shuffles, **draw_noise(self.noise, self.num_batches, generator))
+
+    def learning_rate(self, step: int) -> float:
+        return learning_rate(self.config, step, self.num_batches)
+
+    def train_epoch(
+        self, params: SGNSParams, draws: Optional[EpochDraws] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[SGNSParams, torch.Tensor]:
+        """One epoch; updates ``params`` in place.  Returns (params, the
+        mean step loss as a 0-d tensor on the device)."""
+        cfg = self.config
+        if draws is None:
+            draws = self.draw_epoch(generator if generator is not None
+                                    else self.generator)
+        nb, bp = self.num_batches, cfg.batch_pairs
+        shuffled = epoch_shuffle(
+            self.pairs, self.corpus.num_pairs, nb, bp, cfg.shuffle_mode,
+            draw=draws.shuffles[0], enabled=cfg.shuffle_each_iter,
+        )
+        step_noise = None
+        if not self.hs:
+            step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
+                                     self.device)
+        cbow = cfg.objective.startswith("cbow")
+        losses = torch.empty((nb,), dtype=torch.float32, device=self.device)
+        for step in range(nb):
+            batch = shuffled[step * bp : (step + 1) * bp]
+            lr = self.learning_rate(step)
+            if self.hs:
+                params, loss = hs_step(
+                    params, batch, self._points, self._codes, self._lengths, lr,
+                    cbow=cbow, both_directions=cfg.both_directions,
+                    combiner=cfg.combiner, shallow_sign=self._sign,
+                    n_shallow=self.split.n_shallow if self.split else 0,
+                )
+            else:
+                # cbow + negative sampling: the swapped pair, so the input
+                # table hosts the context vector (gensim's cbow layout)
+                params, loss = sgns_step(
+                    params, batch.flip(1), lr, **step_noise(step),
+                    negatives=cfg.negatives, both_directions=cfg.both_directions,
+                    combiner=cfg.combiner, strat_group=cfg.strat_group,
+                    shared_groups=cfg.shared_groups,
+                )
+            losses[step] = loss
+        return params, torch.mean(losses)
+
+    def run(
+        self,
+        export_dir: str,
+        start_iter: Optional[int] = None,
+        log: Callable[[str], None] = print,
+    ) -> SGNSParams:
+        """The reference iteration loop: resume from the newest verified
+        iteration (refusing a checkpoint of another ``hs_dense_depth``:
+        node-table row ids depend on the split), else init fresh; each
+        iteration trains one epoch, appends to ``training_log.csv`` and
+        exports with the ``objective`` and ``hs_dense_depth`` meta."""
+        cfg = self.config
+        os.makedirs(export_dir, exist_ok=True)
+        if start_iter is None:
+            start_iter = ckpt.latest_iteration(export_dir, cfg.dim) + 1
+        if start_iter > 1:
+            params, _, meta = ckpt.load_iteration(
+                export_dir, cfg.dim, start_iter - 1, device=self.device
+            )
+            if self.hs:
+                saved_depth = int(meta.get("hs_dense_depth", 0))
+                if saved_depth != cfg.hs_dense_depth:
+                    raise ValueError(
+                        f"checkpoint in {export_dir} was saved with "
+                        f"hs_dense_depth={saved_depth}, config has "
+                        f"{cfg.hs_dense_depth}: node-table layouts differ "
+                        "— resume with the saved depth or start a fresh "
+                        "export dir"
+                    )
+            log(f"resuming from iteration {start_iter - 1}")
+        else:
+            params = self.init()
+            start_iter = 1
+        pairs_per_epoch = self.num_batches * cfg.batch_pairs
+        csv_path = os.path.join(export_dir, "training_log.csv")
+        for it in range(start_iter, cfg.num_iters + 1):
+            t0 = time.perf_counter()
+            params, loss = self.train_epoch(
+                params, generator=epoch_generator(cfg.seed, it)
+            )
+            loss = float(loss)  # waits for the epoch to finish
+            dt = time.perf_counter() - t0
+            rate = pairs_per_epoch / dt if dt > 0 else float("inf")
+            self.timer.record(pairs_per_epoch, dt)
+            log(
+                f"gene2vec [{cfg.objective}] dimension {cfg.dim} iteration "
+                f"{it} done: loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
+            )
+            _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
+                                   "pairs_per_sec": rate, "seconds": dt})
+            ckpt.save_iteration(
+                export_dir, cfg.dim, it, params, self.corpus.vocab,
+                txt_output=cfg.txt_output,
+                meta={
+                    "loss": loss,
+                    "pairs_per_sec": rate,
+                    "objective": cfg.objective,
+                    # node-table layout tag: resume refuses a mismatch
+                    "hs_dense_depth": cfg.hs_dense_depth if self.hs else 0,
+                    "device": str(self.device),
+                    "rng": {"seed": cfg.seed,
+                            "epoch_generator": f"SeedSequence([{cfg.seed}, iteration])"},
+                },
+            )
+        return params
+
+
+def make_trainer(corpus: PairCorpus, config: SGNSConfig, device=None):
+    """Objective-dispatching factory: 'sgns' → SGNSTrainer, else CBOWHSTrainer."""
+    if config.objective == "sgns":
+        return SGNSTrainer(corpus, config, device=device)
+    return CBOWHSTrainer(corpus, config, device=device)

@@ -1,6 +1,8 @@
-"""The SGNS training step — stratified negatives, the default path of
-``gene2vec_tpu/sgns/step.py`` (``_step_stratified`` 630-852 and
-``sgns_step``'s stratified branch 855-947).
+"""The SGNS training step (``gene2vec_tpu/sgns/step.py``): stratified
+negatives, the default path (``_step_stratified`` 630-852 and
+``sgns_step``'s stratified branch 855-947), and the shared-pool and
+per-example noise modes (``_step_shared`` 337-442, ``_step_per_example``
+289-334, ``sgns_step`` 948-1039).
 
 A batch of B corpus pairs becomes 2B examples (both directions of each
 pair).  Gradients are closed form.  The noise term is the stratified
@@ -10,10 +12,17 @@ through one (V, D+1) [gradient | example-unit weight] accumulator per
 table and the ``combiner`` divisor, so a row's positive and negative
 updates shrink together.
 
-The four hot paths are the kernels of ``gene2vec_tpu_torch/kernels``:
-K1 positive gather and logit, K2 exact noise head, K3 tail blocks, K4
-accumulator scatter and finalize.  Given CPU tensors each runs its plain
+The hot paths are the kernels of ``gene2vec_tpu_torch/kernels``: K1
+positive gather and logit, K2 exact noise head, K3 tail blocks, K4
+accumulator scatter and finalize; in the other modes K5a (per-example
+draws) or K5b (the shared grouped pool) in place of K2/K3, with K4's
+generic scatter and finalize.  Given CPU tensors each runs its plain
 PyTorch version; given CUDA tensors, its CUDA kernel.
+
+Noise draws: the shared and per-example modes take their alias draws as
+``negs=`` ((P,) or (E, K) int32, the reference's ``sample_negatives``
+shapes), or draw them from ``generator`` (on the tables' device) with
+the ``noise`` table.
 
 Two departures from the reference, both value-preserving:
 
@@ -28,19 +37,31 @@ Two departures from the reference, both value-preserving:
 
 from __future__ import annotations
 
+import math
 import warnings
 from typing import Optional, Tuple
 
 import torch
 
-from gene2vec_tpu_torch.data.negative_sampling import StratifiedSpec
+from gene2vec_tpu_torch.config import NEGATIVE_MODES
+from gene2vec_tpu_torch.data.negative_sampling import (
+    NoiseTable,
+    StratifiedSpec,
+    sample_negatives,
+)
 from gene2vec_tpu_torch.data.pipeline import pool_class_pairs
 from gene2vec_tpu_torch.kernels.noise_head import noise_head
 from gene2vec_tpu_torch.kernels.noise_tail import noise_tail
+from gene2vec_tpu_torch.kernels.per_example import per_example
 from gene2vec_tpu_torch.kernels.pos_logit import pos_logit
+from gene2vec_tpu_torch.kernels.row_update import finalize_rows, row_update, scatter_rows
 from gene2vec_tpu_torch.kernels.row_update import row_divisor as _row_divisor  # noqa: F401
-from gene2vec_tpu_torch.kernels.row_update import row_update
+from gene2vec_tpu_torch.kernels.shared_pool import shared_pool as shared_pool_kernel
 from gene2vec_tpu_torch.sgns.model import SGNSParams
+
+#: shared mode draws this fraction of per-example mode's E·K noise draws
+#: per step (P = fraction·E·K; the reference's measured parity point)
+_SHARED_DRAW_FRACTION = 0.8
 
 
 def _examples_from_pairs(
@@ -106,18 +127,113 @@ def _step_stratified(
     return params, loss
 
 
+def _step_sampled(params, centers, contexts, lr, combiner, noise_rows):
+    """The shared and per-example steps: K1 for v, u and the positive
+    logit; ``noise_rows(v, u, g_pos, acc_ctx)`` (K5a or K5b) for the noise
+    term, its rows scattered into ``acc_ctx``; then K4's generic path:
+    [d_center | 1] by center, [g_pos·v | 1] by context, both finalizes."""
+    emb, ctx = params
+    v, u, g_pos, loss_pos = pos_logit(emb, ctx, centers, contexts)
+    acc_emb = torch.zeros((emb.shape[0], emb.shape[1] + 1), dtype=torch.float32,
+                          device=emb.device)
+    acc_ctx = torch.zeros_like(acc_emb)
+    d_center, loss_neg = noise_rows(v, u, g_pos, acc_ctx)
+    loss = torch.mean(loss_pos + loss_neg)
+    ones = torch.ones_like(g_pos)
+    scatter_rows(acc_emb, centers, d_center, ones)
+    scatter_rows(acc_ctx, contexts, g_pos[:, None] * v, ones)
+    finalize_rows(emb, acc_emb, lr, combiner)
+    finalize_rows(ctx, acc_ctx, lr, combiner)
+    return params, loss
+
+
+def shared_pool_layout(e: int, negatives: int, shared_pool: int = 1024,
+                       shared_pool_auto: bool = True, shared_groups: int = 0,
+                       both_directions: bool = True) -> Tuple[int, int]:
+    """(groups G, draws per group P/G) of the shared pool for ``e``
+    examples — the reference's sizing (step.py:948-1026): groups of ~32
+    examples (or ``shared_groups``); with ``shared_pool_auto`` each slice
+    holds ceil(0.8·(E/G)·K) draws rounded up to 8 (``shared_pool`` is a
+    floor); an explicit pool is honoured from above, rounded down to 8,
+    with a warning when it had to move, and refused below G·K."""
+    if shared_groups > 0:
+        g = shared_groups
+        if e % g:
+            raise ValueError(
+                f"shared_groups={g} does not divide the example count "
+                f"{e} (= {'2x' if both_directions else ''}batch_pairs)"
+            )
+        if not shared_pool_auto and shared_pool < g * negatives:
+            raise ValueError(
+                f"shared_pool={shared_pool} cannot be split across "
+                f"shared_groups={g} groups of at least {negatives} "
+                "draws each; lower shared_groups or raise shared_pool"
+            )
+    else:
+        g = max(1, e // 32)
+        if not shared_pool_auto:
+            slice_min = 8 * -(-negatives // 8)
+            g = max(1, min(g, shared_pool // slice_min))
+        while e % g:
+            g -= 1
+        if shared_pool_auto and e // g > 256 and e > 256:
+            warnings.warn(
+                f"batch example count {e} has no divisor near e/32; "
+                f"falling back to {g} pool group(s) of {e // g} "
+                "examples, which degrades embedding quality (see "
+                "sgns/step.py invariant 3).  Use a batch_pairs "
+                "divisible by 32.",
+                stacklevel=3,
+            )
+    per_group = max(negatives, -(-max(shared_pool, 1) // g))
+    if shared_pool_auto:
+        per_group = max(
+            per_group, math.ceil(_SHARED_DRAW_FRACTION * (e // g) * negatives)
+        )
+        per_group = 8 * -(-per_group // 8)
+    else:
+        per_group = max(8 * -(-negatives // 8), 8 * (per_group // 8))
+        if g * per_group != shared_pool:
+            warnings.warn(
+                f"explicit shared_pool={shared_pool} adjusted to "
+                f"{g * per_group} ({g} groups x {per_group}-draw "
+                "slices; slices are sublane-rounded and at least "
+                "`negatives` wide) — record the adjusted size when "
+                "labeling experiments",
+                stacklevel=3,
+            )
+    return g, per_group
+
+
+def _draws(negs, noise, generator, shape, device):
+    """The step's alias draws: ``negs`` checked against ``shape``, or drawn
+    from ``noise`` with ``generator``."""
+    if negs is None:
+        if noise is None:
+            raise ValueError("this noise mode needs negs= or a noise table")
+        return sample_negatives(noise, generator, shape)
+    if tuple(negs.shape) != tuple(shape):
+        raise ValueError(f"negs must have shape {tuple(shape)}, got {tuple(negs.shape)}")
+    return negs.to(device=device, dtype=torch.int32)
+
+
 def sgns_step(
     params: SGNSParams,
     pairs: torch.Tensor,  # (B, 2) int32
     lr: float,
     *,
-    stratified: StratifiedSpec,
+    negative_mode: str = "stratified",
+    stratified: Optional[StratifiedSpec] = None,
+    noise: Optional[NoiseTable] = None,
     blocks: Optional[torch.Tensor] = None,
+    negs: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     negatives: int = 5,
     both_directions: bool = True,
     combiner: str = "capped",
     strat_group: int = 32,
+    shared_pool: int = 1024,
+    shared_pool_auto: bool = True,
     shared_groups: int = 0,
     positive_head: int = 0,
     positive_mid: int = 0,
@@ -126,15 +242,25 @@ def sgns_step(
     """One fused SGD step over a batch of corpus pairs; updates ``params``
     in place and returns (params, mean loss as a 0-d tensor).
 
-    ``blocks`` (G,) int32 are the groups' tail-block draws in [0, nb) (the
-    reference's ``randint(key, (G,), 0, nb)``, step.py:753; the caller
-    keeps them in range — the trainer checks its draws on the host);
-    without them they are drawn from ``generator``.  ``positive_head``/``positive_mid``
-    with ``pos_quotas`` declare a class-segmented batch, validated as the
-    reference does; the rows are gathered either way, so it does not
-    change the arithmetic."""
+    ``stratified``: ``blocks`` (G,) int32 are the groups' tail-block draws
+    in [0, nb) (the reference's ``randint(key, (G,), 0, nb)``,
+    step.py:753; the caller keeps them in range — the trainer checks its
+    draws on the host); without them they are drawn from ``generator``
+    (a CPU generator).  ``shared`` / ``per_example``: ``negs`` are the
+    alias draws, (G·P/G,) or (E, K); without them they are drawn from
+    ``noise`` with ``generator`` (on the tables' device).
+    ``positive_head``/``positive_mid`` with ``pos_quotas`` declare a
+    class-segmented batch, validated as the reference does; the rows are
+    gathered either way, so it does not change the arithmetic."""
+    if negative_mode not in NEGATIVE_MODES:
+        raise ValueError(f"unknown negative_mode {negative_mode!r}")
     dense_pos = positive_head > 0 and pos_quotas is not None
     if dense_pos:
+        if negative_mode != "stratified":
+            raise ValueError(
+                "positive_head (dense-head positives) is implemented for "
+                "negative_mode='stratified' only"
+            )
         if not both_directions:
             raise ValueError(
                 "positive_head requires both_directions=True (the class-"
@@ -155,6 +281,23 @@ def sgns_step(
             )
     centers, contexts = _examples_from_pairs(pairs, both_directions)
     e = int(centers.shape[0])
+    if negative_mode == "shared":
+        g, per_group = shared_pool_layout(e, negatives, shared_pool, shared_pool_auto,
+                                          shared_groups, both_directions)
+        negs = _draws(negs, noise, generator, (g * per_group,), pairs.device)
+        # K5b: each group of E/G examples against its own P/G pool slice; a
+        # slot's weight is scale·Σ mask, in example units (step.py:398-441)
+        return _step_sampled(params, centers, contexts, lr, combiner,
+                             lambda v, u, g_pos, acc: shared_pool_kernel(
+                                 v, u, g_pos, contexts, negs, params.ctx, negatives, g, acc))
+    if negative_mode == "per_example":
+        negs = _draws(negs, noise, generator, (e, negatives), pairs.device)
+        # K5a: K draws per example, their rows scattered with weight = mask
+        return _step_sampled(params, centers, contexts, lr, combiner,
+                             lambda v, u, g_pos, acc: per_example(
+                                 v, u, g_pos, contexts, negs, params.ctx, acc))
+    if stratified is None:
+        raise ValueError("negative_mode='stratified' needs a StratifiedSpec")
     if shared_groups > 0 and (shared_groups > e or e % shared_groups):
         raise ValueError(
             f"shared_groups={shared_groups} does not divide the example "

@@ -9,11 +9,13 @@ step kernels.  The learning rate decays linearly from ``lr`` to
 ``min_lr`` across each epoch, in float32 as the reference computes it.
 
 Randomness: an epoch's draws — the per-pool shuffles and every step's
-tail-block ids — are one :class:`EpochDraws`.  ``train_epoch`` takes them
+tail-block ids, or (shared and per-example noise) every step's alias
+draws — are one :class:`EpochDraws`.  ``train_epoch`` takes them
 explicitly (the parity tests hand in the reference's draws) or makes them
-from a CPU ``torch.Generator``; ``run`` seeds one per iteration from
-(seed, iteration), so a resumed run replays the stream an uninterrupted
-one would.
+from a CPU ``torch.Generator``; the alias draws then come per step from
+a generator on the device, seeded from that CPU generator.  ``run``
+seeds one per iteration from (seed, iteration), so a resumed run replays
+the stream an uninterrupted one would.
 
 Left out of this slice (see ROADMAP.md): the observability hooks of the
 reference ``run`` (run manifest and events, phase timeline, goodput,
@@ -34,7 +36,11 @@ import numpy as np
 import torch
 
 from gene2vec_tpu_torch.config import SGNSConfig
-from gene2vec_tpu_torch.data.negative_sampling import build_stratified_spec
+from gene2vec_tpu_torch.data.negative_sampling import (
+    build_alias_table,
+    build_stratified_spec,
+    noise_distribution,
+)
 from gene2vec_tpu_torch.data.pipeline import (
     PairCorpus,
     ShuffleDraw,
@@ -48,7 +54,7 @@ from gene2vec_tpu_torch.data.pipeline import (
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
-from gene2vec_tpu_torch.sgns.step import num_tail_groups, sgns_step
+from gene2vec_tpu_torch.sgns.step import num_tail_groups, sgns_step, shared_pool_layout
 from gene2vec_tpu_torch.utils.profiling import StepTimer
 
 
@@ -57,11 +63,92 @@ class EpochDraws(NamedTuple):
 
     ``shuffles``: one :class:`ShuffleDraw` per class pool (``None`` for a
     zero-quota pool), or a 1-tuple for an unsegmented corpus; ``None``
-    entries throughout when ``shuffle_each_iter`` is off.  ``blocks``:
-    (num_batches, G) tail-block ids in [0, nb)."""
+    entries throughout when ``shuffle_each_iter`` is off.  ``blocks``
+    (stratified noise): (num_batches, G) tail-block ids in [0, nb).
+    ``negs`` (shared / per-example noise): (num_batches, P) or
+    (num_batches, E, K) alias draws; without them, each step draws its
+    own on the device from a generator seeded with ``neg_seed``."""
 
     shuffles: Tuple[Optional[ShuffleDraw], ...]
-    blocks: np.ndarray
+    blocks: Optional[np.ndarray] = None
+    negs: Optional[np.ndarray] = None
+    neg_seed: Optional[int] = None
+
+
+class NoiseSetup(NamedTuple):
+    """A trainer's noise for its ``negative_mode``: the stratified spec and
+    its group count, or the alias table and one step's draw shape."""
+
+    stratified: object
+    num_groups: int
+    table: object
+    draw_shape: Optional[Tuple[int, ...]]
+
+
+def noise_setup(config: SGNSConfig, counts, examples: int, device) -> NoiseSetup:
+    if config.negative_mode == "stratified":
+        spec = build_stratified_spec(counts, config.strat_head, config.strat_block,
+                                     config.ns_exponent, device=device)
+        group_size = (examples // config.shared_groups if config.shared_groups > 0
+                      else config.strat_group)
+        return NoiseSetup(spec, num_tail_groups(examples, group_size), None, None)
+    table = build_alias_table(noise_distribution(counts, config.ns_exponent), device=device)
+    if config.negative_mode == "shared":
+        g, per_group = shared_pool_layout(
+            examples, config.negatives, config.shared_pool, config.shared_pool_auto,
+            config.shared_groups, config.both_directions,
+        )
+        return NoiseSetup(None, 0, table, (g * per_group,))
+    return NoiseSetup(None, 0, table, (examples, config.negatives))
+
+
+def draw_noise(noise: NoiseSetup, num_batches: int, generator: torch.Generator) -> dict:
+    """An epoch's noise draws from the CPU ``generator``: the tail blocks,
+    or the seed of the device generator that draws each step's negatives."""
+    if noise.stratified is not None:
+        blocks = torch.randint(0, noise.stratified.nb, (num_batches, noise.num_groups),
+                               generator=generator, dtype=torch.int32)
+        return {"blocks": blocks.numpy()}
+    return {"neg_seed": int(torch.randint(0, 1 << 62, (1,), generator=generator))}
+
+
+def epoch_noise(noise: NoiseSetup, config: SGNSConfig, draws: EpochDraws,
+                num_batches: int, vocab_size: int, device) -> Callable[[int], dict]:
+    """Checks an epoch's noise draws; returns step → the noise keywords of
+    that step's ``sgns_step``."""
+    if noise.stratified is not None:
+        blocks = np.asarray(draws.blocks, dtype=np.int32)
+        if blocks.shape != (num_batches, noise.num_groups):
+            raise ValueError(
+                f"draws.blocks must be ({num_batches}, {noise.num_groups}), got {blocks.shape}"
+            )
+        if blocks.min() < 0 or blocks.max() >= noise.stratified.nb:
+            raise ValueError(f"draws.blocks outside [0, {noise.stratified.nb})")
+        blocks = torch.from_numpy(blocks).to(device)
+        return lambda step: {"negative_mode": "stratified",
+                             "stratified": noise.stratified, "blocks": blocks[step]}
+    pool = {"negative_mode": config.negative_mode, "shared_pool": config.shared_pool,
+            "shared_pool_auto": config.shared_pool_auto}
+    if draws.negs is not None:
+        negs = np.asarray(draws.negs, dtype=np.int32)
+        if negs.shape != (num_batches, *noise.draw_shape):
+            raise ValueError(f"draws.negs must be ({num_batches}, "
+                             f"{', '.join(map(str, noise.draw_shape))}), got {negs.shape}")
+        if negs.size and (negs.min() < 0 or negs.max() >= vocab_size):
+            raise ValueError(f"draws.negs outside [0, {vocab_size})")
+        negs = torch.from_numpy(negs).to(device)
+        return lambda step: dict(pool, negs=negs[step])
+    if draws.neg_seed is None:
+        raise ValueError("draws carry neither negs nor neg_seed")
+    gen = torch.Generator(device=device).manual_seed(draws.neg_seed)
+    return lambda step: dict(pool, noise=noise.table, generator=gen)
+
+
+def learning_rate(config: SGNSConfig, step: int, num_batches: int) -> float:
+    """lr0·(1 − step/nb) + min_lr·step/nb, in float32."""
+    f32 = np.float32
+    frac = f32(step) / f32(max(num_batches, 1))
+    return float(f32(config.lr) * (f32(1.0) - frac) + f32(config.min_lr) * frac)
 
 
 def _positive_boundaries(config: SGNSConfig):
@@ -83,6 +170,12 @@ class SGNSTrainer:
     def __init__(self, corpus: PairCorpus, config: SGNSConfig = SGNSConfig(),
                  device=None):
         self.device = resolve_device(device)
+        if config.objective != "sgns":
+            raise NotImplementedError(
+                f"objective={config.objective!r}: use CBOWHSTrainer from "
+                "gene2vec_tpu_torch.sgns.cbow_hs for the cbow/hierarchical-softmax "
+                "variants"
+            )
         if corpus.num_pairs == 0 or corpus.vocab_size == 0:
             raise ValueError(
                 "corpus is empty — no pair lines matched the source "
@@ -111,16 +204,9 @@ class SGNSTrainer:
             self.pairs = tuple(torch.from_numpy(p).to(self.device) for p in pools)
         else:
             self.pairs = corpus.device_pairs(self.device)
-        self.stratified = build_stratified_spec(
-            corpus.vocab.counts, config.strat_head, config.strat_block,
-            config.ns_exponent, device=self.device,
-        )
         e = config.batch_pairs * (2 if config.both_directions else 1)
-        group_size = (
-            e // config.shared_groups if config.shared_groups > 0
-            else config.strat_group
-        )
-        self.num_groups = num_tail_groups(e, group_size)
+        self.noise = noise_setup(config, corpus.vocab.counts, e, self.device)
+        self.stratified, self.num_groups = self.noise.stratified, self.noise.num_groups
         # draws for train_epoch calls that pass neither draws nor a generator
         self.generator = torch.Generator().manual_seed(config.seed)
         self.timer = StepTimer()
@@ -147,7 +233,8 @@ class SGNSTrainer:
                     stacklevel=3,
                 )
             return dataclasses.replace(config, positive_mid=0)
-        if not config.both_directions:
+        if config.negative_mode != "stratified" or not config.both_directions:
+            # silent: these configs never supported the dense path
             return dataclasses.replace(config, positive_head=0, positive_mid=0)
         head = min(config.positive_head, corpus.vocab_size)
         mid = min(max(config.positive_mid, 0), corpus.vocab_size - head)
@@ -211,18 +298,10 @@ class SGNSTrainer:
                              cfg.batch_pairs, cfg.shuffle_mode, generator)
                 if cfg.shuffle_each_iter else None
             ),)
-        blocks = torch.randint(
-            0, self.stratified.nb, (self.num_batches, self.num_groups),
-            generator=generator, dtype=torch.int32,
-        )
-        return EpochDraws(shuffles, blocks.numpy())
+        return EpochDraws(shuffles, **draw_noise(self.noise, self.num_batches, generator))
 
     def learning_rate(self, step: int) -> float:
-        """lr0·(1 − step/nb) + min_lr·step/nb, in float32."""
-        f32 = np.float32
-        frac = f32(step) / f32(max(self.num_batches, 1))
-        return float(f32(self.config.lr) * (f32(1.0) - frac)
-                     + f32(self.config.min_lr) * frac)
+        return learning_rate(self.config, step, self.num_batches)
 
     def train_epoch(
         self, params: SGNSParams, draws: Optional[EpochDraws] = None,
@@ -237,14 +316,8 @@ class SGNSTrainer:
             draws = self.draw_epoch(generator if generator is not None
                                     else self.generator)
         nb, bp = self.num_batches, cfg.batch_pairs
-        blocks = np.asarray(draws.blocks, dtype=np.int32)
-        if blocks.shape != (nb, self.num_groups):
-            raise ValueError(
-                f"draws.blocks must be ({nb}, {self.num_groups}), got {blocks.shape}"
-            )
-        if blocks.min() < 0 or blocks.max() >= self.stratified.nb:
-            raise ValueError(f"draws.blocks outside [0, {self.stratified.nb})")
-        blocks = torch.from_numpy(blocks).to(self.device)
+        step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
+                                 self.device)
         if self.pos_quotas is not None:
             pools = segmented_epoch_shuffle(
                 self.pairs, self.pos_quotas, nb, cfg.shuffle_mode,
@@ -263,8 +336,7 @@ class SGNSTrainer:
                 batch = shuffled[step * bp : (step + 1) * bp]
             params, loss = sgns_step(
                 params, batch, self.learning_rate(step),
-                stratified=self.stratified,
-                blocks=blocks[step],
+                **step_noise(step),
                 negatives=cfg.negatives,
                 both_directions=cfg.both_directions,
                 combiner=cfg.combiner,

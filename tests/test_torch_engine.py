@@ -204,3 +204,30 @@ def test_similar_batch_and_topk_rows_match_reference(mode):
     ws, wr = je.topk_rows(jm, q, 7)
     assert gr.dtype == np.int64 and np.array_equal(gr, wr)
     assert te.similar_batch(tm, [], 5) == []
+
+
+def test_long_rescore_tail_matches_reference():
+    """rescore_mult = 32 at k = 257 (k-bucket 512): a rescore tail of
+    rb = 16,384 rows, past the 8,192 one merge block sorts — the card's
+    kernels merge such lists in device memory; the engine answers as the
+    reference's, whose tail has no upper bound (engine.py:203-207)."""
+    x = clustered_table(20000, 16, clusters=200, seed=3)
+    q = queries(x, 4, seed=5)
+    j_idx, t_idx = both_indexes(x, "quant")
+    je = JaxEngine(max_batch=64, index="quant", rescore_mult=32)
+    te = BucketedTopKEngine(max_batch=64, index="quant", rescore_mult=32)
+    assert te.r_bucket(te.k_bucket(257, 20000), 20000) == 16384
+    want = je.top_k_ann(j_idx, jnp.asarray(x), q, 257)
+    got = te.top_k_ann(t_idx, torch.from_numpy(x), q, 257)
+    assert check_same(got, want, x, q) <= 2
+
+
+@pytest.mark.parametrize("keep,rows", [(16384, 24447), (8193, 9000), (24447, 24447)])
+def test_plan_accepts_lists_longer_than_a_merge_block(keep, rows):
+    from gene2vec_tpu_torch.kernels import _topk
+
+    p = _topk.plan(rows, keep, 64, 208, per_query=False, sms=132)
+    assert p.tile == _topk.TILE_MAX and p.ntiles == -(-rows // p.tile)
+    assert p.scratch == 64 * p.ntiles * keep
+    with pytest.raises(ValueError, match="keep"):
+        _topk.plan(rows, rows + 1, 1, 208, per_query=False)

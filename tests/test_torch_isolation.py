@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor anything of
-``gene2vec_tpu`` (nor does ``chip_smoke.py``), and its entry points refuse
-to run on the CPU unless the CPU is asked for."""
+``gene2vec_tpu`` (nor does ``chip_smoke.py``), and its
+entry points refuse to run on the CPU unless the CPU is asked for."""
 
 import ast
 import os
@@ -71,9 +71,19 @@ def test_importing_every_module_loads_no_jax():
     assert res.stdout.strip().splitlines()[-1] == "[]"
 
 
+#: the third slice's modules (every objective and noise mode)
+OBJECTIVE_MODULES = {
+    "gene2vec_tpu_torch.kernels.per_example", "gene2vec_tpu_torch.kernels.shared_pool",
+    "gene2vec_tpu_torch.kernels.hs", "gene2vec_tpu_torch.sgns.cbow_hs",
+    "gene2vec_tpu_torch.sgns.huffman", "gene2vec_tpu_torch.data.negative_sampling",
+}
+
+
 def test_sources_scan_covers_the_serving_slice():
+    """The scans reach the serving slice's modules and the third slice's."""
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
-    for mod in SERVING_MODULES:
+    assert OBJECTIVE_MODULES <= set(_port_modules())
+    for mod in SERVING_MODULES | OBJECTIVE_MODULES:
         assert mod.replace(".", "/") + ".py" in scanned
 
 
@@ -207,6 +217,11 @@ def test_package_turns_tf32_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+#: options the port now trains (objectives, noise modes and their knobs)
+PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
+                  "shared_pool_auto"}
+
+
 @pytest.mark.parametrize("field,value", [
     ("objective", "cbow"), ("negative_mode", "shared"),
     ("table_dtype", "bfloat16"), ("vocab_sharded", True),
@@ -216,22 +231,105 @@ def test_package_turns_tf32_off():
     ("donate", False),
 ])
 def test_config_rejects_unported_options(field, value):
+    """Options selecting code the port lacks raise; the objectives and
+    noise modes (and their knobs), ported since, are accepted as given."""
     from gene2vec_tpu_torch.config import SGNSConfig
 
+    if field in PORTED_OPTIONS:
+        assert getattr(SGNSConfig(**{field: value}), field) == value
+        return
     with pytest.raises(NotImplementedError, match=field):
         SGNSConfig(**{field: value})
 
 
-def test_bf16_index_raises_on_the_card(monkeypatch):
-    """K8/K9 scan int8 tables; a bf16 index has only the plain scan, so on
-    a CUDA tensor the call raises instead of falling back."""
-    from gene2vec_tpu_torch.kernels import _args, ivf_scan, quant_scan
+def test_config_rejects_unknown_objectives_and_modes():
+    from gene2vec_tpu_torch.config import SGNSConfig
 
+    with pytest.raises(ValueError, match="objective"):
+        SGNSConfig(objective="glove")
+    with pytest.raises(ValueError, match="negative_mode"):
+        SGNSConfig(negative_mode="uniform")
+
+
+def test_bf16_index_raises_on_the_card(monkeypatch):
+    """K8/K9 scan bf16 tables too: on a CUDA tensor a bf16 index goes to
+    the kernel (here: the loader, stubbed to raise) and never to the
+    plain scan; a table of another type raises before any launch."""
+    from gene2vec_tpu_torch.kernels import _args, build, ivf_scan, quant_scan
+
+    loaded = []
+
+    def fake_load(name):
+        loaded.append(name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
     monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(quant_scan, "quant_scan_plain", lambda *a: pytest.fail("plain"))
+    monkeypatch.setattr(ivf_scan, "ivf_scan_plain", lambda *a: pytest.fail("plain"))
     qn = torch.zeros(2, 4)
     table = torch.zeros(8, 4, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(RuntimeError, match="unavailable"):
         quant_scan.quant_scan(qn, table, torch.ones(8), 4)
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(RuntimeError, match="unavailable"):
         ivf_scan.ivf_scan(qn, torch.zeros(2, 4), torch.zeros(2, 4, dtype=torch.int32),
                           table, torch.ones(8), 1, 4)
+    assert loaded == ["k8_quant_scan", "k9_ivf_scan"]
+    with pytest.raises(TypeError, match="int8 or bfloat16"):
+        quant_scan.quant_scan(qn, table.float(), torch.ones(8), 4)
+
+
+def _training_calls():
+    from gene2vec_tpu_torch.kernels import hs, per_example, row_update, shared_pool
+
+    f = torch.zeros(4, 3)
+    g = torch.zeros(4)
+    acc = torch.zeros(4, 4)
+    ids = torch.zeros(4, dtype=torch.int32)
+    return [
+        (per_example, "per_example", "k5_per_example",
+         lambda: per_example.per_example(f, f, g, ids, ids[:, None], f, acc)),
+        (shared_pool, "shared_pool", "k5_shared",
+         lambda: shared_pool.shared_pool(f, f, g, ids, ids, f, 5, 2, acc)),
+        (hs, "hs", "k6_hs",
+         lambda: hs.hs(f, f[:3], ids, ids, ids[:, None], torch.zeros(4, 1), ids,
+                       torch.zeros(4, 2, dtype=torch.int8), acc[:3])),
+        (row_update, "scatter_rows", "k4_row_update",
+         lambda: row_update.scatter_rows(acc, ids, f, g)),
+        (row_update, "finalize_rows", "k4_row_update",
+         lambda: row_update.finalize_rows(f, acc, 0.1, "capped")),
+    ]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_training_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
+    """K5a, K5b, K6 and K4's generic entry points: a CUDA tensor reaches
+    the kernel (the loader, stubbed to raise), never the plain version."""
+    from gene2vec_tpu_torch.kernels import _args, build
+
+    mod, name, lib, call = _training_calls()[case]
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mod, f"{name}_plain", lambda *a: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        call()
+    assert loaded == [lib]
+
+
+def test_cbow_hs_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.sgns.cbow_hs import CBOWHSTrainer, make_trainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for objective in ("cbow", "sg_hs", "cbow_hs"):
+        cfg = SGNSConfig(objective=objective, dim=8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_trainer(_tiny_corpus(), cfg)
+        tr = CBOWHSTrainer(_tiny_corpus(), cfg, device="cpu")
+        assert tr.init().emb.device.type == "cpu"
