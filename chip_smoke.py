@@ -6,9 +6,9 @@
 Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. device and build — prints the card's name and power limit, builds the
-   training kernels (K1-K6) and the serving kernels (K7, K8, K9, K9r)
-   from ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one
-   compiler per source, all at once;
+   training kernels (K1-K6), the serving kernels (K7, K8, K9, K9r) and
+   the streaming probe K12 from ``gene2vec_tpu_torch/kernels/csrc`` with
+   nvcc for sm_90a, one compiler per source, all at once;
 2. kernel check — each kernel at the default configuration's shapes
    (E = 8192 examples, D = 200, V = 24,447, H = 256, S = 512, 32 groups)
    against its plain PyTorch version on the same card and inputs, within
@@ -21,9 +21,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    P/G = 128), K6 (hierarchical softmax at hs_dense_depth 10, both
    phases) and K4's generic scatter and finalize — and one whole step of
    each of per_example, shared, sg_hs and cbow_hs card vs CPU at both
-   shapes; profiled windows of full-width steps of the default
-   configuration and of those four (device busy time by kernel, idle
-   share; Chrome traces to ``chip_smoke_profile/``); the serving kernels
+   shapes; (2e) every training kernel again on bfloat16 tables — K4 once
+   per write-back, stochastic rounding and nearest-even, bitwise on
+   identical accumulators — and the same whole steps with bf16 tables and
+   SR, card vs CPU (each element within one bf16 ulp or the float32
+   error of its new value, at most ULP_SHARE of touched elements
+   differing, loss within 1e-6);
+   profiled windows of full-width steps of the default configuration at
+   float32 and bfloat16 in turns (f32, bf16, bf16, f32) and of those four
+   (pairs/s over each window's wall, device busy time by kernel, idle
+   share; Chrome traces to ``chip_smoke_profile/``; the widths' medians
+   on a ``{"table_widths": ...}`` line); K12 ``stream_scale`` at the streaming
+   probe's 25, 100 and 400 MB (bitwise; GB/s beside ``torch.mul``); the serving kernels
    at serving width (V = 24,447, D = 200, B in {1, 64}, kb in {16, 512},
    rb = 4 kb, the default IVF geometry) against their plain versions —
    K7/K9r ids exact except stated near-ties and scores within 1e-6,
@@ -39,10 +48,15 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    for 2 iterations through the CLI once per ``--negative-mode
    per_example``, ``--negative-mode shared``, ``--objective sg_hs``,
    ``--objective cbow_hs`` and ``--objective cbow``, with the same checks
-   and each run's kernels launched once per step (no other kernel);
+   and each run's kernels launched once per step (no other kernel); then
+   (3c) ``--table-dtype bfloat16`` for the default configuration, sg_hs,
+   per_example and shared, each export stamped ``bfloat16`` and each
+   kernel's bf16 instantiation launched once per step;
 4. quality — the planted-cluster corpus (10 cliques of 20 genes) must
    separate (intra-cluster cosine > 0.95, inter-cluster < 0.6) under the
-   default configuration and each of those five;
+   default configuration, each of those five and bf16 tables with SR;
+   bf16 with nearest-even write-back (default and per_example) is
+   reported, not gated, and is the main path of K4's nearest-even rows;
 5. serving at full width — phase 3's export, then a clustered export of
    the same width (V = 24,447, D = 200, 1,000 groups of ~24 genes),
    each served through ``cli/serve.py`` in a subprocess on the card once
@@ -61,8 +75,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
 for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
-points ``row_scatter`` / ``row_finalize``, the servers' for K7-K9r) and
-the result line
+points ``row_scatter`` / ``row_finalize``, phase 3c's for the ``_bf16``
+rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
+K7-K9r; ``stream_scale`` phase 3's, 0: it is on no path; the script
+fails if any other kernel launched no time on its path) and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 with code 2 and prints no result.
 """
@@ -153,6 +169,8 @@ def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: flo
 
 REL_TOL = 2e-5     # kernel vs plain: float32 sums in another order, atomics
 TABLE_ATOL = 2e-6  # updated tables, the one-step bar of the parity tests
+ULP_SHARE = 1e-3   # bf16 tables: touched elements one ulp from the plain version
+F32_ULPS = 4       # bf16 tables: float32 ulps of new = t − lr·update apart, at most
 
 
 def compare(name, outputs):
@@ -219,18 +237,96 @@ def acc_outputs(prefix, got, want, d):
             (f"{prefix}[:, D]", got[:, d], want[:, d], "elems")]
 
 
-def kernel_check(torch, reps: int):
+SALTS = [[0x243F6A88, 0x85A308D3], [0x13198A2E, 0x03707344]]  # fixed SR salt words
+SR_HASH_OPS = 8    # integer operations of the SR hash and carry, per element
+
+
+def table_ulps(torch, a, b):
+    """|a − b| in bf16 ulps, elementwise, across zero (bf16 tensors)."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        mag = bits & 0x7FFF
+        return torch.where(bits < 0, -mag, mag)
+    return (ordered(a) - ordered(b)).abs()
+
+
+def compare_bf16_tables(torch, name, pairs, start):
+    """bf16 tables written back from float32 sums taken in another order
+    (atomics), each from its table ``start``: each element equal to the
+    plain version's, one bf16 ulp from it, or within F32_ULPS float32 ulps
+    of |t| + |t − new| (the float32 error of new = t − lr·update, with t
+    the start and new the plain result; near zero, where the two cancel,
+    that error spans several of the result's small bf16 ulps) — and at most
+    ULP_SHARE of the touched elements (those of rows either side changed
+    from ``start``) differing at all.  Returns (max abs error, the share
+    that differs)."""
+    worst, share = 0.0, 0.0
+    for i, (label, g, w) in enumerate(pairs):
+        ulps = table_ulps(torch, g, w)
+        diff = (g.float() - w.float()).abs()
+        t = start[i].float()
+        f32_err = F32_ULPS * 2.0 ** -23 * (t.abs() + (t - w.float()).abs())
+        far = (ulps > 1) & (diff > f32_err)
+        if bool(far.any()):
+            j = int(far.reshape(-1).nonzero()[0])
+            raise SystemExit(f"{name}: {label} {int(ulps.reshape(-1)[j])} bf16 ulps "
+                             f"({float(diff.reshape(-1)[j]):.3e}, float32 bar "
+                             f"{float(f32_err.reshape(-1)[j]):.3e}) from the plain version "
+                             f"at {j}")
+        if int(ulps.max()) > 1:
+            log(f"{name}: {label} {int((ulps > 1).sum())} elements more than one ulp "
+                f"apart, each within {F32_ULPS} float32 ulps of |t| + |t - new| (at most "
+                f"{float(diff[ulps > 1].max()):.2e} against "
+                f"{float(f32_err[ulps > 1].min()):.2e})")
+        touched = ((g != start[i]) | (w != start[i])).any(1)
+        n = int(touched.sum()) * g.shape[1]
+        off = int((ulps[touched] > 0).sum())
+        if n and off > ULP_SHARE * n:
+            raise SystemExit(f"{name}: {label} {off} of {n} touched elements one ulp apart "
+                             f"(> {ULP_SHARE:g})")
+        share = max(share, off / n if n else 0.0)
+        worst = max(worst, float(diff.max()))
+    return worst, share
+
+
+def bitwise_tables(torch, name, pairs):
+    for label, g, w in pairs:
+        if not torch.equal(g.view(torch.int16), w.view(torch.int16)):
+            n = int((g.view(torch.int16) != w.view(torch.int16)).sum())
+            raise SystemExit(f"{name}: {label} not bitwise the plain version's ({n} elements)")
+
+
+def k1_bytes(c_ids, x_ids, d: int, table_bytes: int) -> int:
+    """What K1's function must move for ids ``c_ids`` / ``x_ids``: the ids,
+    each distinct emb and ctx row read once (``table_bytes`` a column),
+    and v, u, g_pos and the loss written as float32."""
+    e = len(c_ids)
+    rows = len(np.unique(c_ids)) + len(np.unique(x_ids))
+    return 4 * (2 * e + 2 * e * d + 2 * e) + table_bytes * rows * d
+
+
+def kernel_check(torch, reps: int, dtype=None):
+    """K1-K4 at full width against their plain versions, on float32 tables
+    or (``dtype`` bfloat16, phase 2e) bfloat16 ones: then K4 is timed and
+    checked once per write-back, stochastic rounding (with SALTS) and
+    nearest-even — its tables within one ulp of the plain version's (the
+    scatter's atomics reorder the float32 sums), and bitwise when the
+    finalize runs alone on identical accumulators."""
     from gene2vec_tpu_torch.data.negative_sampling import build_stratified_spec
     from gene2vec_tpu_torch.kernels import noise_head, noise_tail, pos_logit, row_update
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    tb = 2 if bf16 else 4  # bytes per table element
     dev = torch.device(DEVICE)
     rng = np.random.RandomState(0)
     counts = np.bincount(zipf_ids(rng, 8_000_000, V), minlength=V) + 1
     counts = np.sort(counts)[::-1].copy()
     spec = build_stratified_spec(counts, HEAD, BLOCK, 0.75, device=dev)
     gen = torch.Generator().manual_seed(0)
-    emb = (torch.randn((V, D), generator=gen) * 0.1).to(dev)
-    ctx = (torch.randn((V, D), generator=gen) * 0.1).to(dev)
+    emb = (torch.randn((V, D), generator=gen) * 0.1).to(dev, dtype)
+    ctx = (torch.randn((V, D), generator=gen) * 0.1).to(dev, dtype)
     c_ids, x_ids = zipf_ids(rng, E, V), zipf_ids(rng, E, V)
     centers, contexts = torch.from_numpy(c_ids).to(dev), torch.from_numpy(x_ids).to(dev)
     g = E // GROUP
@@ -241,7 +337,8 @@ def kernel_check(torch, reps: int):
     timer = Timer(torch, reps)
     rows = []
 
-    def row(name, fn_src, replaces, err, t_k, t_p, t_lib, bytes_moved, flops):
+    def row(name, fn_src, replaces, err, t_k, t_p, t_lib, bytes_moved, flops,
+            tolerance=None):
         b_ms, b_by = bound(bytes_moved, flops)
         rows.append({
             "name": name, "route": "cuda",
@@ -249,7 +346,8 @@ def kernel_check(torch, reps: int):
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t_lib,
-            "tolerance": f"{REL_TOL:g} x per-row / per-element |plain|; tables {TABLE_ATOL:g}",
+            "tolerance": tolerance or (f"{REL_TOL:g} x per-row / per-element |plain|; "
+                                       f"tables {TABLE_ATOL:g}"),
         })
         log(f"{name}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain "
             f"{t_p:.4f} ms, library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -258,12 +356,12 @@ def kernel_check(torch, reps: int):
     got = pos_logit.pos_logit(emb, ctx, centers, contexts)
     want = pos_logit.pos_logit_plain(emb, ctx, centers, contexts)
     torch.cuda.synchronize()
-    err = compare("K1", [(lbl, g, w, "max") for lbl, g, w in
-                         zip(("v", "u", "g_pos", "loss_pos"), got, want)])
-    row("pos_logit", "k1_pos_logit.cu", "gene2vec_tpu/sgns/step.py:705",
+    err = compare("K1" + sfx, [(lbl, g, w, "max") for lbl, g, w in
+                               zip(("v", "u", "g_pos", "loss_pos"), got, want)])
+    row("pos_logit" + sfx, "k1_pos_logit.cu", "gene2vec_tpu/sgns/step.py:705",
         err, timer(lambda: pos_logit.pos_logit(emb, ctx, centers, contexts)),
         timer(lambda: pos_logit.pos_logit_plain(emb, ctx, centers, contexts)),
-        None, 4 * (2 * E + 2 * E * D + 2 * E * D + 2 * E), 2 * E * D)
+        None, k1_bytes(c_ids, x_ids, D, tb), 2 * E * D)
     v, u, g_pos, _ = want
 
     # K2 (into a zeroed accumulator, as in the step)
@@ -272,15 +370,15 @@ def kernel_check(torch, reps: int):
     dk, lk = noise_head.noise_head(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_k)
     dp, lp = noise_head.noise_head_plain(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_p)
     torch.cuda.synchronize()
-    err = compare("K2", [("d_center", dk, dp, "rows"), ("loss_head", lk, lp, "elems")]
+    err = compare("K2" + sfx, [("d_center", dk, dp, "rows"), ("loss_head", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     a_t = acc0.clone()
-    row("noise_head", "k2_noise_head.cu", "gene2vec_tpu/sgns/step.py:736",
+    row("noise_head" + sfx, "k2_noise_head.cu", "gene2vec_tpu/sgns/step.py:736",
         err,
         timer(lambda: noise_head.noise_head(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: noise_head.noise_head_plain(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         None,
-        4 * (2 * E * D + 3 * E + HEAD * D + HEAD + 2 * HEAD * (D + 1) + E * D),
+        4 * (2 * E * D + 3 * E + HEAD + 2 * HEAD * (D + 1) + E * D) + tb * HEAD * D,
         3 * 2 * E * HEAD * D)
 
     # K3
@@ -291,21 +389,21 @@ def kernel_check(torch, reps: int):
     lp = noise_tail.noise_tail_plain(v, contexts, ctx, spec.tail_w, blocks, spec.head,
                                      spec.block, GROUP, K, d_p, a_p)
     torch.cuda.synchronize()
-    err = compare("K3", [("loss_tail", lk, lp, "elems"), ("d_center", d_k, d_p, "rows")]
+    err = compare("K3" + sfx, [("loss_tail", lk, lp, "elems"), ("d_center", d_k, d_p, "rows")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     starts = np.minimum(spec.head + blk.astype(np.int64) * spec.block, V - spec.block)
     block_rows = set(itertools.chain.from_iterable(range(s, s + spec.block) for s in starts))
     distinct = len(block_rows)
     d_t, a_t = dp.clone(), a_p.clone()
-    row("noise_tail", "k3_noise_tail.cu", "gene2vec_tpu/sgns/step.py:748",
+    row("noise_tail" + sfx, "k3_noise_tail.cu", "gene2vec_tpu/sgns/step.py:748",
         err,
         timer(lambda: noise_tail.noise_tail(v, contexts, ctx, spec.tail_w, blocks, spec.head,
                                             spec.block, GROUP, K, d_t, a_t)),
         timer(lambda: noise_tail.noise_tail_plain(v, contexts, ctx, spec.tail_w, blocks,
                                                   spec.head, spec.block, GROUP, K, d_t, a_t)),
         None,
-        4 * (E * D + E + g + distinct * D + distinct + 2 * E * D
-             + 2 * distinct * (D + 1) + E),
+        4 * (E * D + E + g + distinct + 2 * E * D + 2 * distinct * (D + 1) + E)
+        + tb * distinct * D,
         3 * 2 * E * spec.block * D)
 
     # K4 (library: one index_add_ of both tables' [grad | 1] rows — the
@@ -317,30 +415,60 @@ def kernel_check(torch, reps: int):
     ctx_rows = len(block_rows.union(range(HEAD), x_ids.tolist()))
     d_center, acc_ctx = d_p, a_p
     acc_emb = torch.zeros((V, D + 1), device=dev)
-    ins = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
-    ref = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
-    row_update.row_update(*ins, centers, contexts, d_center, v, g_pos, lr, "capped")
-    row_update.row_update_plain(*ref, centers, contexts, d_center, v, g_pos, lr, "capped")
-    torch.cuda.synchronize()
-    err = compare("K4", [("emb", ins[0], ref[0], "abs"), ("ctx", ins[1], ref[1], "abs")]
-                  + acc_outputs("acc_emb", ins[2], ref[2], D)
-                  + acc_outputs("acc_ctx", ins[3], ref[3], D))
-    t_in = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
     both = torch.zeros((2 * V, D + 1), device=dev)
     idx = torch.cat([centers, contexts + V]).long()
     ones = torch.ones((E, 1), device=dev)
     payload = torch.cat([torch.cat([d_center, ones], 1),
                          torch.cat([g_pos[:, None] * v, ones], 1)])
-    row("row_update", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229",
-        err,
-        timer(lambda: row_update.row_update(*t_in, centers, contexts, d_center, v, g_pos,
-                                            lr, "capped")),
-        timer(lambda: row_update.row_update_plain(*t_in, centers, contexts, d_center, v,
-                                                  g_pos, lr, "capped")),
-        timer(lambda: both.index_add_(0, idx, payload)),
-        4 * (2 * E + 2 * E * D + E + (emb_rows + ctx_rows) * (D + 1 + 2 * D)),
-        2 * E * (D + 1) + 3 * D * (emb_rows + ctx_rows))
-    log(f"row_update touches {emb_rows} emb rows and {ctx_rows} ctx rows of {V}")
+    none = centers[:0]
+    touched = emb_rows + ctx_rows
+    k4_bytes = 4 * (2 * E + 2 * E * D + E + touched * (D + 1)) + 2 * tb * touched * D
+    for mode, salts in ((("sr", SALTS), ("rn", None)) if bf16 else (("", None),)):
+        name = f"row_update{sfx}" + (f"_{mode}" if mode else "")
+        ins = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
+        ref = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
+        row_update.row_update(*ins, centers, contexts, d_center, v, g_pos, lr, "capped",
+                              salts)
+        row_update.row_update_plain(*ref, centers, contexts, d_center, v, g_pos, lr,
+                                    "capped", salts)
+        torch.cuda.synchronize()
+        err = compare(name, acc_outputs("acc_emb", ins[2], ref[2], D)
+                      + acc_outputs("acc_ctx", ins[3], ref[3], D))
+        tol = None
+        if bf16:
+            e_t, share = compare_bf16_tables(
+                torch, name, [("emb", ins[0], ref[0]), ("ctx", ins[1], ref[1])],
+                start=(emb, ctx))
+            err = max(err, e_t)
+            # the finalize alone on identical accumulators: bitwise
+            fin = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
+            fin_p = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
+            row_update.row_update(*fin, none, none, d_center[:0], v[:0], g_pos[:0], lr,
+                                  "capped", salts)
+            row_update.row_update_plain(*fin_p, none, none, d_center[:0], v[:0], g_pos[:0],
+                                        lr, "capped", salts)
+            torch.cuda.synchronize()
+            bitwise_tables(torch, name + " finalize", [("emb", fin[0], fin_p[0]),
+                                                       ("ctx", fin[1], fin_p[1])])
+            tol = (f"accumulators {REL_TOL:g} x per-row / per-element |plain|; tables "
+                   f"within one bf16 ulp or {F32_ULPS} float32 ulps of |t| + |t - new|, "
+                   f"differing on <= {ULP_SHARE:g} "
+                   f"of touched elements (here {share:.2e}); finalize on identical "
+                   "accumulators bitwise")
+        else:
+            err = max(err, compare(name, [("emb", ins[0], ref[0], "abs"),
+                                          ("ctx", ins[1], ref[1], "abs")]))
+        t_in = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
+        row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err,
+            timer(lambda: row_update.row_update(*t_in, centers, contexts, d_center, v,
+                                                g_pos, lr, "capped", salts)),
+            timer(lambda: row_update.row_update_plain(*t_in, centers, contexts, d_center, v,
+                                                      g_pos, lr, "capped", salts)),
+            timer(lambda: both.index_add_(0, idx, payload)),
+            k4_bytes,
+            2 * E * (D + 1) + 3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
+            tol)
+    log(f"row_update{sfx} touches {emb_rows} emb rows and {ctx_rows} ctx rows of {V}")
     return rows
 
 
@@ -548,11 +676,84 @@ def gather_probes(torch, reps):
     return out
 
 
-def step_parity(torch, v, d, b, head, block, group, full_tables):
+#: the streaming probe's sizes (experiments/test_bw.py:63-73): MiB of input
+STREAM_MB = (25, 100, 400)
+STREAM_MAIN_MB = 100       # the size whose times the kernels line carries
+
+
+def stream_probes(torch, reps):
+    """K12 (``stream_scale``) at the Pallas streaming probe's sizes — (n, 256)
+    float32, n = MB·2²⁰/4/256 — bitwise against its plain version
+    ``x * 1.0000001``, which is also the library call (``torch.mul``).
+    Returns (the kernels-line row at STREAM_MAIN_MB, one record per size
+    with achieved GB/s: bytes read and written over the kernel's time)."""
+    from gene2vec_tpu_torch.kernels import stream_scale
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = Timer(torch, reps)
+    records, main_row = [], None
+    for mb in STREAM_MB:
+        n = mb * 1024 * 1024 // 4 // 256
+        x = torch.randn((n, 256), device=dev, generator=gen)
+        got, want = stream_scale.stream_scale(x), stream_scale.stream_scale_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise SystemExit(f"stream_scale {mb} MB: not bitwise x * {stream_scale.SCALE}")
+        nbytes = 2 * 4 * n * 256
+        b_ms, b_by = bound(nbytes, float(n * 256))
+        rec = {"name": "stream_scale", "probe": "experiments/test_bw.py:39 pallas_copy_loop",
+               "mb": mb, "shape": [n, 256], "max_abs_err": 0.0,
+               "ms": timer(lambda: stream_scale.stream_scale(x)),
+               "plain_ms": timer(lambda: stream_scale.stream_scale_plain(x)),
+               "library_ms": timer(lambda: torch.mul(x, stream_scale.SCALE)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rec["gb_per_s"] = nbytes / rec["ms"] / 1e6
+        rec["library_gb_per_s"] = nbytes / rec["library_ms"] / 1e6
+        records.append(rec)
+        log(f"stream_scale {mb} MB: kernel {rec['ms']:.4f} ms ({rec['gb_per_s']:.1f} GB/s), "
+            f"plain {rec['plain_ms']:.4f} ms, torch.mul {rec['library_ms']:.4f} ms "
+            f"({rec['library_gb_per_s']:.1f} GB/s), bound {b_ms:.4f} ms ({b_by})")
+        if mb == STREAM_MAIN_MB:
+            main_row = {
+                "name": "stream_scale", "route": "cuda",
+                "source": "gene2vec_tpu_torch/kernels/csrc/k12_stream_scale.cu",
+                "replaces": "experiments/test_bw.py:39", "launches": None,
+                "max_abs_err": 0.0, "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": rec["library_ms"],
+                "shape": {"rows": n, "cols": 256, "mb": mb}, "tolerance": "bitwise",
+            }
+        del x, got, want
+    return main_row, records
+
+
+def step_verdict(torch, label, out, start, bf16):
+    """A whole step's card result against the CPU's: float32 tables within
+    TABLE_ATOL and the loss within rtol 1e-5; bfloat16 tables as
+    compare_bf16_tables holds them and the loss within rtol 1e-6."""
+    (lc, ec, cc), (lg, eg, cg) = out["cpu"], out["cuda"]
+    rel = abs(lc - lg) / abs(lc)
+    if bf16:
+        err, share = compare_bf16_tables(torch, label, [("emb", eg, ec), ("out table", cg, cc)],
+                                         start=start)
+        log(f"{label}: loss rel {rel:.2e}, tables max abs {err:.2e}, differing on "
+            f"{share:.2e} of touched elements")
+        if rel > 1e-6:
+            raise SystemExit(f"{label}: loss rel {rel:.2e} > 1e-6")
+        return
+    errs = (rel, float((ec - eg).abs().max()), float((cc - cg).abs().max()))
+    log(f"{label}: loss rel {errs[0]:.2e}, emb {errs[1]:.2e}, out table {errs[2]:.2e}")
+    if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
+        raise SystemExit(f"{label} failed: {errs}")
+
+
+def step_parity(torch, v, d, b, head, block, group, full_tables, dtype=None):
     """One whole step on the card (kernels) against the plain step on the
     CPU, same inputs: loss within rtol 1e-5, tables within TABLE_ATOL.
     ``full_tables`` starts from random (V, D) tables, as mid-training;
-    otherwise from the initial emb with ctx = 3 emb."""
+    otherwise from the initial emb with ctx = 3 emb.  ``dtype`` bfloat16:
+    bfloat16 tables written back by stochastic rounding with SALTS, held
+    as ``step_verdict`` says."""
     from gene2vec_tpu_torch.data.negative_sampling import build_stratified_spec
     from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params_numpy
     from gene2vec_tpu_torch.sgns.step import sgns_step
@@ -560,30 +761,29 @@ def step_parity(torch, v, d, b, head, block, group, full_tables):
     rng = np.random.RandomState(3)
     pairs = np.stack([zipf_ids(rng, b, v), zipf_ids(rng, b, v)], 1)
     counts = np.sort(np.bincount(pairs.reshape(-1), minlength=v) + 1)[::-1].copy()
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator().manual_seed(3)
-    tables = (torch.randn((v, d), generator=gen) * 0.1,
-              torch.randn((v, d), generator=gen) * 0.1)
+    if full_tables:
+        tables = ((torch.randn((v, d), generator=gen) * 0.1).to(dtype),
+                  (torch.randn((v, d), generator=gen) * 0.1).to(dtype))
+    else:
+        p = init_params_numpy(0, v, d, dtype=dtype)
+        tables = (p.emb, (p.emb.float() * 3.0).to(dtype))
     out = {}
     for dev in ("cpu", "cuda"):
         spec = build_stratified_spec(counts, head, block, 0.75, device=dev)
-        if full_tables:
-            # a copy on each device: the step updates its tables in place
-            p = SGNSParams(tables[0].to(dev, copy=True), tables[1].to(dev, copy=True))
-        else:
-            p = init_params_numpy(0, v, d, device=dev)
-            p.ctx.copy_(p.emb * 3.0)
+        # a copy on each device: the step updates its tables in place
+        p = SGNSParams(tables[0].to(dev, copy=True), tables[1].to(dev, copy=True))
         blk = np.random.RandomState(4).randint(0, spec.nb, 2 * b // group)
         blk[0], blk[2] = spec.nb - 1, blk[1]  # the clamped last block; a repeat
         blocks = torch.from_numpy(blk.astype(np.int32)).to(dev)
         p, loss = sgns_step(p, torch.from_numpy(pairs).to(dev), 0.025, stratified=spec,
-                            blocks=blocks, strat_group=group)
+                            blocks=blocks, strat_group=group,
+                            sr_salts=SALTS if bf16 else None)
         out[dev] = (float(loss), p.emb.cpu(), p.ctx.cpu())
-    (lc, ec, cc), (lg, eg, cg) = out["cpu"], out["cuda"]
-    errs = (abs(lc - lg) / abs(lc), float((ec - eg).abs().max()), float((cc - cg).abs().max()))
-    log(f"whole-step parity card vs CPU (V {v}, D {d}, E {2 * b}): loss rel "
-        f"{errs[0]:.2e}, emb {errs[1]:.2e}, ctx {errs[2]:.2e}")
-    if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
-        raise SystemExit(f"whole-step parity failed at V {v}, D {d}: {errs}")
+    step_verdict(torch, f"whole-step parity card vs CPU{' bf16' if bf16 else ''} (V {v}, "
+                 f"D {d}, E {2 * b})", out, tables, bf16)
 
 
 # -- phase 2c: the other objectives' kernels (K4 generic, K5a, K5b, K6) -------
@@ -605,14 +805,14 @@ def full_width_inputs(torch, dev):
     return counts, emb, ctx, c_ids, x_ids
 
 
-def hs_work(split, c_ids, x_ids, d: int) -> dict:
+def hs_work(split, c_ids, x_ids, d: int, table_bytes: int = 4) -> dict:
     """What K6's function needs for inputs ``c_ids`` and targets ``x_ids``
     under ``split`` (a ``ShallowSplit``): bytes (distinct input rows and
     touched node rows read once, the accumulator's touched rows read and
     written once, the sign rows of the distinct targets) and float32
     operations.  Only on-path entries count: a zero sign multiplies the
     loss, g_s and the weight column, so the dense shallow products off
-    the path feed nothing."""
+    the path feed nothing.  ``table_bytes``: bytes per table element."""
     e = len(x_ids)
     targets = np.unique(x_ids)
     deep_entries = int(split.lengths_deep[x_ids].sum())
@@ -624,29 +824,39 @@ def hs_work(split, c_ids, x_ids, d: int) -> dict:
     n_nodes = len(shallow_nodes) + len(deep_nodes)
     l_deep = split.points_deep.shape[1]
     return {
-        "bytes": 4 * (2 * e + n_in * d + n_tg * (l_deep * 2 + 1) + n_nodes * d
-                      + e * d + 2 * e + 2 * n_nodes * (d + 1)) + n_tg * split.n_shallow,
+        "bytes": 4 * (2 * e + n_tg * (l_deep * 2 + 1) + e * d + 2 * e
+                      + 2 * n_nodes * (d + 1)) + n_tg * split.n_shallow
+                 + table_bytes * (n_in + n_nodes) * d,
         "flops": 3 * 2 * shallow_entries * d + 5 * deep_entries * d,
         "deep_entries": deep_entries, "shallow_entries": shallow_entries,
         "deep_nodes": len(deep_nodes), "shallow_nodes": len(shallow_nodes),
     }
 
 
-def objective_kernel_check(torch, reps: int):
+def objective_kernel_check(torch, reps: int, dtype=None):
     """K5a (per-example draws), K5b (the shared pool), K6 (hierarchical
     softmax, both phases, hs_dense_depth 10) and K4's generic scatter and
     finalize at the default configuration's full width, each against its
     plain version on the same card and inputs, timed as ``kernel_check``
     times.  Bounds count what these inputs need: distinct rows read once,
-    touched accumulator rows read and written once."""
+    touched accumulator rows read and written once.  With ``dtype``
+    bfloat16 (phase 2e) the tables are bfloat16 and K4's finalize runs
+    once per write-back (SALTS stochastic rounding, nearest-even), bitwise
+    against its plain version; the scatter takes no table and is not
+    repeated."""
     from gene2vec_tpu_torch.data.negative_sampling import (
         build_alias_table, noise_distribution, sample_negatives)
     from gene2vec_tpu_torch.kernels import hs, per_example, pos_logit, row_update, shared_pool
     from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
     from gene2vec_tpu_torch.sgns.step import shared_pool_layout
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    tb = 2 if bf16 else 4  # bytes per table element
     dev = torch.device(DEVICE)
     counts, emb, ctx, c_ids, x_ids = full_width_inputs(torch, dev)
+    emb, ctx = emb.to(dtype), ctx.to(dtype)
     centers, contexts = torch.from_numpy(c_ids).to(dev), torch.from_numpy(x_ids).to(dev)
     v, u, g_pos, _ = pos_logit.pos_logit_plain(emb, ctx, centers, contexts)
     noise = build_alias_table(noise_distribution(counts), device=dev)
@@ -657,7 +867,8 @@ def objective_kernel_check(torch, reps: int):
     def distinct(t):
         return int(torch.unique(t).numel())
 
-    def row(name, src, replaces, err, fn_k, fn_p, fn_lib, bytes_moved, flops):
+    def row(name, src, replaces, err, fn_k, fn_p, fn_lib, bytes_moved, flops,
+            tolerance=None):
         b_ms, b_by = bound(bytes_moved, flops)
         t_k, t_p = timer(fn_k), timer(fn_p)
         t_lib = timer(fn_lib) if fn_lib is not None else None
@@ -666,7 +877,8 @@ def objective_kernel_check(torch, reps: int):
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": t_lib,
-            "tolerance": f"{REL_TOL:g} x per-row / per-element |plain|; tables {TABLE_ATOL:g}",
+            "tolerance": tolerance or (f"{REL_TOL:g} x per-row / per-element |plain|; "
+                                       f"tables {TABLE_ATOL:g}"),
         })
         log(f"{name}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
             f"library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
@@ -678,16 +890,16 @@ def objective_kernel_check(torch, reps: int):
     dk, lk = per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_k)
     dp, lp = per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_p)
     torch.cuda.synchronize()
-    err = compare("K5a", [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
+    err = compare("K5a" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     n_neg = distinct(negs)
     a_t = acc0.clone()
-    row("per_example", "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
+    row("per_example" + sfx, "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
         lambda: per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_t),
         lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t), None,
-        4 * (2 * E * D + 2 * E + E * K + n_neg * D + 2 * n_neg * (D + 1) + E * D + E),
+        4 * (2 * E * D + 2 * E + E * K + 2 * n_neg * (D + 1) + E * D + E) + tb * n_neg * D,
         5 * E * K * D)
-    log(f"per_example: {n_neg} distinct noise rows of {E * K} draws")
+    log(f"per_example{sfx}: {n_neg} distinct noise rows of {E * K} draws")
     acc_pe, d_center = a_p, dp
 
     # K5b: the auto-sized grouped pool
@@ -697,18 +909,18 @@ def objective_kernel_check(torch, reps: int):
     dk, lk = shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_k)
     dp, lp = shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_p)
     torch.cuda.synchronize()
-    err = compare("K5b", [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
+    err = compare("K5b" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     n_pool = distinct(pool)
     a_t = acc0.clone()
-    row("shared_pool", "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
+    row("shared_pool" + sfx, "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
         lambda: shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         lambda: shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         None,
-        4 * (2 * E * D + 2 * E + g * per_group + n_pool * D + 2 * n_pool * (D + 1)
-             + E * D + E),
+        4 * (2 * E * D + 2 * E + g * per_group + 2 * n_pool * (D + 1) + E * D + E)
+        + tb * n_pool * D,
         3 * 2 * E * per_group * D)
-    log(f"shared_pool: G {g}, P/G {per_group}, {n_pool} distinct pool rows")
+    log(f"shared_pool{sfx}: G {g}, P/G {per_group}, {n_pool} distinct pool rows")
 
     # K6: sg_hs at hs_dense_depth 10 (input = center, path of the context)
     tree = build_huffman_tree(counts)
@@ -717,24 +929,24 @@ def objective_kernel_check(torch, reps: int):
     pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
         split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
     node = (torch.randn((tree.num_nodes, D), generator=torch.Generator().manual_seed(2))
-            * 0.1).to(dev)
+            * 0.1).to(dev, dtype)
     a0 = torch.zeros((tree.num_nodes, D + 1), device=dev)
     a_k, a_p = a0.clone(), a0.clone()
     args6 = (emb, node, centers, contexts, pts, cds, lens, sign)
     dk, ldk, lsk = hs.hs(*args6, a_k)
     dp, ldp, lsp = hs.hs_plain(*args6, a_p)
     torch.cuda.synchronize()
-    err = compare("K6", [("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
-                         ("loss_shallow", lsk, lsp, "elems")]
+    err = compare("K6" + sfx, [("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
+                               ("loss_shallow", lsk, lsp, "elems")]
                   + acc_outputs("acc_node", a_k, a_p, D))
-    work = hs_work(split, c_ids, x_ids, D)
+    work = hs_work(split, c_ids, x_ids, D, tb)
     a_t = a0.clone()
-    row("hs", "k6_hs.cu", "gene2vec_tpu/sgns/cbow_hs.py:65", err,
+    row("hs" + sfx, "k6_hs.cu", "gene2vec_tpu/sgns/cbow_hs.py:65", err,
         lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t), None,
         work["bytes"], work["flops"])
     lengths = tree.lengths.astype(np.float64)
     w = counts / counts.sum()
-    log(f"hs (depth {HS_DEPTH}): L {tree.points.shape[1]}, Ns {ns}, L_deep {l_deep}; "
+    log(f"hs{sfx} (depth {HS_DEPTH}): L {tree.points.shape[1]}, Ns {ns}, L_deep {l_deep}; "
         f"frequency-weighted mean path {float(w @ lengths):.2f}, deep "
         f"{float(w @ split.lengths_deep):.2f}; {work['deep_entries']} deep and "
         f"{work['shallow_entries']} shallow path entries in this batch, "
@@ -744,39 +956,49 @@ def objective_kernel_check(torch, reps: int):
     # K4's generic entry points, at the per-example step's shapes: the
     # center rows' scatter (library: one index_add_ of the same payload)
     # and ctx's finalize against K5a's accumulator
-    ones = torch.ones((E,), device=dev)
-    a_k, a_p = acc0.clone(), acc0.clone()
-    row_update.scatter_rows(a_k, centers, d_center, ones)
-    row_update.scatter_rows_plain(a_p, centers, d_center, ones)
-    t_k, t_p = ctx.clone(), ctx.clone()
-    row_update.finalize_rows(t_k, acc_pe, 0.0125, "capped")
-    row_update.finalize_rows_plain(t_p, acc_pe, 0.0125, "capped")
-    torch.cuda.synchronize()
-    err_s = compare("K4 scatter_rows", acc_outputs("acc_emb", a_k, a_p, D))
-    err_f = compare("K4 finalize_rows", [("ctx", t_k, t_p, "abs")])
-    n_c = len(np.unique(c_ids))
-    payload = torch.cat([d_center, ones[:, None]], 1)
-    idx_l = centers.long()
-    a_t = acc0.clone()
-    row("row_scatter", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err_s,
-        lambda: row_update.scatter_rows(a_t, centers, d_center, ones),
-        lambda: row_update.scatter_rows_plain(a_t, centers, d_center, ones),
-        lambda: a_t.index_add_(0, idx_l, payload),
-        4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1))
     touched = int((acc_pe[:, D] != 0).sum())
-    t_t = ctx.clone()
-    row("row_finalize", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
-        lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped"),
-        lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped"), None,
-        4 * touched * (D + 1 + 2 * D), 3 * D * touched)
-    log(f"row_finalize: {touched} touched rows of {V}")
+    if not bf16:
+        ones = torch.ones((E,), device=dev)
+        a_k, a_p = acc0.clone(), acc0.clone()
+        row_update.scatter_rows(a_k, centers, d_center, ones)
+        row_update.scatter_rows_plain(a_p, centers, d_center, ones)
+        torch.cuda.synchronize()
+        err_s = compare("K4 scatter_rows", acc_outputs("acc_emb", a_k, a_p, D))
+        n_c = len(np.unique(c_ids))
+        payload = torch.cat([d_center, ones[:, None]], 1)
+        idx_l = centers.long()
+        a_t = acc0.clone()
+        row("row_scatter", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err_s,
+            lambda: row_update.scatter_rows(a_t, centers, d_center, ones),
+            lambda: row_update.scatter_rows_plain(a_t, centers, d_center, ones),
+            lambda: a_t.index_add_(0, idx_l, payload),
+            4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1))
+    for mode, salts in ((("sr", SALTS[1]), ("rn", None)) if bf16 else (("", None),)):
+        name = f"row_finalize{sfx}" + (f"_{mode}" if mode else "")
+        t_k, t_p = ctx.clone(), ctx.clone()
+        row_update.finalize_rows(t_k, acc_pe, 0.0125, "capped", salts)
+        row_update.finalize_rows_plain(t_p, acc_pe, 0.0125, "capped", salts)
+        torch.cuda.synchronize()
+        if bf16:
+            bitwise_tables(torch, name, [("ctx", t_k, t_p)])
+            err_f, tol = float((t_k.float() - t_p.float()).abs().max()), "bitwise"
+        else:
+            err_f, tol = compare("K4 finalize_rows", [("ctx", t_k, t_p, "abs")]), None
+        t_t = ctx.clone()
+        row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
+            lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts),
+            lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts),
+            None, touched * (4 * (D + 1) + 2 * tb * D),
+            3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0), tol)
+    log(f"row_finalize{sfx}: {touched} touched rows of {V}")
     return rows
 
 
-def objective_step_parity(torch, v, d, b, kind, full_tables):
+def objective_step_parity(torch, v, d, b, kind, full_tables, dtype=None):
     """One whole step of ``kind`` (per_example, shared, sg_hs, cbow_hs at
     depth 10) on the card against the plain step on the CPU, same inputs
-    and draws: loss within rtol 1e-5, tables within TABLE_ATOL."""
+    and draws: loss within rtol 1e-5, tables within TABLE_ATOL; at
+    ``dtype`` bfloat16 with SALTS, as ``step_verdict`` says."""
     from gene2vec_tpu_torch.sgns.cbow_hs import hs_step
     from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
     from gene2vec_tpu_torch.sgns.model import SGNSParams
@@ -795,10 +1017,13 @@ def objective_step_parity(torch, v, d, b, kind, full_tables):
         shape = ((np.prod(shared_pool_layout(2 * b, K)),) if kind == "shared"
                  else (2 * b, K))
         negs = zipf_ids(rng, int(np.prod(shape)), v).reshape(shape)
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator().manual_seed(3)
     scale = 0.1 if full_tables else 0.5 / d
-    tables = (torch.randn((v, d), generator=gen) * scale,
-              torch.randn((out_rows, d), generator=gen) * scale)
+    tables = ((torch.randn((v, d), generator=gen) * scale).to(dtype),
+              (torch.randn((out_rows, d), generator=gen) * scale).to(dtype))
+    salts = SALTS if bf16 else None
     out = {}
     for dev in ("cpu", "cuda"):
         p = SGNSParams(tables[0].to(dev, copy=True), tables[1].to(dev, copy=True))
@@ -807,17 +1032,13 @@ def objective_step_parity(torch, v, d, b, kind, full_tables):
             pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
                 split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
             p, loss = hs_step(p, batch, pts, cds, lens, 0.025, cbow=kind == "cbow_hs",
-                              shallow_sign=sign, n_shallow=split.n_shallow)
+                              shallow_sign=sign, n_shallow=split.n_shallow, sr_salts=salts)
         else:
             p, loss = sgns_step(p, batch, 0.025, negative_mode=kind,
-                                negs=torch.from_numpy(negs).to(dev))
+                                negs=torch.from_numpy(negs).to(dev), sr_salts=salts)
         out[dev] = (float(loss), p.emb.cpu(), p.ctx.cpu())
-    (lc, ec, cc), (lg, eg, cg) = out["cpu"], out["cuda"]
-    errs = (abs(lc - lg) / abs(lc), float((ec - eg).abs().max()), float((cc - cg).abs().max()))
-    log(f"whole-step parity {kind} card vs CPU (V {v}, D {d}, E {2 * b}): loss rel "
-        f"{errs[0]:.2e}, emb {errs[1]:.2e}, out table {errs[2]:.2e}")
-    if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
-        raise SystemExit(f"whole-step parity {kind} failed at V {v}, D {d}: {errs}")
+    step_verdict(torch, f"whole-step parity {kind} card vs CPU{' bf16' if bf16 else ''} "
+                 f"(V {v}, D {d}, E {2 * b})", out, tables, bf16)
 
 
 # -- phase 2d: the serving repairs (bf16 tables; lists past 8,192) -------------
@@ -951,12 +1172,11 @@ def train_full_width(torch, work: str, smi: str):
         res = verify_manifest(os.path.join(out, f"gene2vec_dim_{D}_iter_{it}"))
         if not res:
             raise SystemExit(f"iteration {it} export does not verify: {res.reason}")
-    expected = (NUM_PAIRS // B) * ITERS
-    counts = {n: counts[n] for n in STEP_KERNELS}
-    if any(n != expected for n in counts.values()):
-        raise SystemExit(f"launch counts {counts} != num_batches x iterations = {expected}")
+    want = expected_launches(dict.fromkeys(STEP_KERNELS, 1), (NUM_PAIRS // B) * ITERS, counts)
+    if counts != want:
+        raise SystemExit(f"launch counts {counts}, expected {want}")
     log(f"training ({smi}): losses {losses}, pairs/s per iteration "
-        f"{rates}, launches {counts}")
+        f"{rates}, launches { {k: n for k, n in counts.items() if n} }")
     return counts
 
 
@@ -975,24 +1195,55 @@ OBJECTIVE_RUNS = (
     ("cbow", ["--objective", "cbow"],
      {"pos_logit": 1, "noise_head": 1, "noise_tail": 1, "row_update": 1}),
 )
+#: phase 3c: bfloat16 tables (stochastic rounding, the default) through the
+#: CLI — the default configuration, sg_hs and the two sampled noise modes.
+#: A variant's launches (``<name>_bf16...``) count in its total as well
+_BF16 = ["--table-dtype", "bfloat16"]
+BF16_RUNS = (
+    ("bf16_stratified", _BF16,
+     {"pos_logit_bf16": 1, "noise_head_bf16": 1, "noise_tail_bf16": 1,
+      "row_update_bf16_sr": 1}),
+    ("bf16_sg_hs", _BF16 + ["--objective", "sg_hs"],
+     {"hs_bf16": 1, "row_scatter": 1, "row_finalize_bf16_sr": 2}),
+    ("bf16_per_example", _BF16 + ["--negative-mode", "per_example"],
+     {"pos_logit_bf16": 1, "per_example_bf16": 1, "row_scatter": 2,
+      "row_finalize_bf16_sr": 2}),
+    ("bf16_shared", _BF16 + ["--negative-mode", "shared"],
+     {"pos_logit_bf16": 1, "shared_pool_bf16": 1, "row_scatter": 2,
+      "row_finalize_bf16_sr": 2}),
+)
 
 
-def train_objectives(torch, work: str, smi: str):
-    """Each entry of OBJECTIVE_RUNS trained through the CLI at full width
+def expected_launches(per_step: dict, steps: int, names) -> dict:
+    """{name: launches} over ``names`` for a run of ``steps`` steps that
+    launches ``per_step`` a step: each variant's launches also count in its
+    total (``noise_head_bf16`` in ``noise_head``); every other name 0."""
+    want = dict.fromkeys(names, 0)
+    for name, n in per_step.items():
+        want[name] += n * steps
+        if "_bf16" in name:
+            want[name.split("_bf16")[0]] += n * steps
+    return want
+
+
+def train_objectives(torch, work: str, smi: str, runs=OBJECTIVE_RUNS,
+                     table_dtype: str = "float32"):
+    """Each entry of ``runs`` trained through the CLI at full width
     (V = 24,447, D = 200, B = 4,096; OBJECTIVE_PAIRS pairs, OBJECTIVE_ITERS
-    iterations): the loss finite and falling, every export verifying, the
-    launch counts — zeroed just before the run and read just after —
-    those of the run's kernels once per step, and no other kernel's.
-    Returns {label: launch counts}."""
+    iterations): the loss finite and falling, every export verifying and
+    stamped ``table_dtype``, the launch counts — zeroed just before the
+    run and read just after — those of the run's kernels once per step,
+    and no other kernel's.  Returns {label: launch counts}."""
     from gene2vec_tpu_torch import kernels
     from gene2vec_tpu_torch.cli import gene2vec
     from gene2vec_tpu_torch.resilience.snapshot import verify_manifest
 
     data = os.path.join(work, "corpus_objectives")
-    write_zipf_corpus(data, V, OBJECTIVE_PAIRS, seed=1)
+    if not os.path.isdir(data):
+        write_zipf_corpus(data, V, OBJECTIVE_PAIRS, seed=1)
     steps = (OBJECTIVE_PAIRS // B) * OBJECTIVE_ITERS
     out_counts = {}
-    for label, flags, per_step in OBJECTIVE_RUNS:
+    for label, flags, per_step in runs:
         out = os.path.join(work, f"export_{label}")
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
@@ -1012,10 +1263,16 @@ def train_objectives(torch, work: str, smi: str):
         if not all(b < a for a, b in zip(losses, losses[1:])):
             raise SystemExit(f"{label}: loss not decreasing: {losses}")
         for it in range(1, OBJECTIVE_ITERS + 1):
-            res = verify_manifest(os.path.join(out, f"gene2vec_dim_{D}_iter_{it}"))
+            prefix = os.path.join(out, f"gene2vec_dim_{D}_iter_{it}")
+            res = verify_manifest(prefix)
             if not res:
                 raise SystemExit(f"{label}: iteration {it} export does not verify: {res.reason}")
-        want = {k: per_step.get(k, 0) * steps for k in counts}
+            with np.load(prefix + ".npz") as z:
+                stamp = json.loads(str(z["meta"]))["table_dtype"]
+            if stamp != table_dtype:
+                raise SystemExit(f"{label}: iteration {it} stamped {stamp!r}, "
+                                 f"not {table_dtype!r}")
+        want = expected_launches(per_step, steps, counts)
         if counts != want:
             raise SystemExit(f"{label}: launch counts {counts}, expected {want}")
         out_counts[label] = counts
@@ -1031,13 +1288,23 @@ def train_objectives(torch, work: str, smi: str):
 PLANTED_CONFIGS = (
     {}, {"negative_mode": "per_example"}, {"negative_mode": "shared"},
     {"objective": "sg_hs"}, {"objective": "cbow_hs"}, {"objective": "cbow"},
+    {"table_dtype": "bfloat16"},
+)
+#: bfloat16 tables with nearest-even write-back, reported and not gated:
+#: small-scale runs absorb sub-ulp updates (tests/test_stochastic_round.py);
+#: these runs are the main path of K4's nearest-even write-backs
+PLANTED_NEAREST = (
+    {"table_dtype": "bfloat16", "bf16_stochastic_round": False},
+    {"table_dtype": "bfloat16", "bf16_stochastic_round": False,
+     "negative_mode": "per_example"},
 )
 
 
-def planted_quality(torch, **config_kw):
+def planted_quality(torch, gate: bool = True, **config_kw):
     """eval/planted.py's recipe and metric (10 cliques x 20 genes, 2000
     pairs each) with the reference bench's settings (dim 64, batch 1024,
-    15 epochs), for the configuration ``config_kw`` selects."""
+    15 epochs), for the configuration ``config_kw`` selects; without
+    ``gate`` the separation is reported only."""
     from gene2vec_tpu_torch.config import SGNSConfig
     from gene2vec_tpu_torch.data.pipeline import PairCorpus
     from gene2vec_tpu_torch.io.vocab import Vocab
@@ -1057,7 +1324,7 @@ def planted_quality(torch, **config_kw):
     params = tr.init()
     for it in range(1, 16):
         params, loss = tr.train_epoch(params, generator=epoch_generator(cfg.seed, it))
-    emb = params.emb.cpu().numpy()
+    emb = params.emb.float().cpu().numpy()
     m = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
     idx = vocab.token_to_id
     crng = np.random.RandomState(1)
@@ -1070,8 +1337,10 @@ def planted_quality(torch, **config_kw):
         inter.append(m[idx[f"C{c1}G{crng.randint(20)}"]] @ m[idx[f"C{c2}G{crng.randint(20)}"]])
     intra, inter = float(np.mean(intra)), float(np.mean(inter))
     log(f"planted clusters {config_kw or 'default'}: intra {intra:.4f} (> 0.95), inter "
-        f"{inter:.4f} (< 0.6), last loss {float(loss):.4f}")
-    if not (intra > 0.95 and inter < 0.6):
+        f"{inter:.4f} (< 0.6), last loss {float(loss):.4f}{'' if gate else ' (reported)'}")
+    if not np.isfinite(float(loss)):
+        raise SystemExit(f"planted clusters ({config_kw}): loss {float(loss)}")
+    if gate and not (intra > 0.95 and inter < 0.6):
         raise SystemExit(f"planted clusters did not separate ({config_kw}): {intra}, {inter}")
 
 
@@ -1338,11 +1607,16 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
     return launches
 
 
+UNPROFILED_EPOCHS = 3  # epochs per profile window timed on the host clock
+
+
 def profile_steps(torch, steps: int, out_dir: str, smi: str, **config_kw):
-    """Epochs of ``steps`` full-width training steps of the configuration
-    ``config_kw`` selects: one unprofiled, one under torch.profiler —
-    device busy time by kernel, host wall per step and the device idle
-    share (1 - busy/wall).  The Chrome trace lands in ``out_dir``."""
+    """A window of epochs of ``steps`` full-width training steps of the
+    configuration ``config_kw`` selects: a warm-up, UNPROFILED_EPOCHS
+    timed on the host clock, one under torch.profiler — device busy time
+    by kernel.  Returns the window's pairs/s (all its timed steps' pairs
+    over their whole wall), device busy ms/step and idle share (1 - busy
+    / wall per step).  The Chrome trace lands in ``out_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     from gene2vec_tpu_torch.config import SGNSConfig
@@ -1359,13 +1633,16 @@ def profile_steps(torch, steps: int, out_dir: str, smi: str, **config_kw):
     params = tr.init()
     params, loss = tr.train_epoch(params, generator=epoch_generator(1, 0))
     float(loss)  # warm-up epoch
-    t0 = time.perf_counter()
-    params, loss = tr.train_epoch(params, generator=epoch_generator(1, 1))
-    float(loss)
-    wall_plain = time.perf_counter() - t0
+    walls = []
+    for it in range(1, UNPROFILED_EPOCHS + 1):
+        t0 = time.perf_counter()
+        params, loss = tr.train_epoch(params, generator=epoch_generator(1, it))
+        float(loss)
+        walls.append(time.perf_counter() - t0)
+    wall_plain = sum(walls) / len(walls)  # per epoch, over the whole window
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, loss = tr.train_epoch(params, generator=epoch_generator(1, 2))
+        params, loss = tr.train_epoch(params, generator=epoch_generator(1, 9))
         float(loss)
         wall_prof = time.perf_counter() - t0
     os.makedirs(out_dir, exist_ok=True)
@@ -1381,13 +1658,31 @@ def profile_steps(torch, steps: int, out_dir: str, smi: str, **config_kw):
     }
     n = tr.num_batches
     busy = sum(by_name.values())
-    log(f"profile {label} ({smi}): {n} steps; unprofiled epoch "
-        f"{wall_plain * 1e3 / n:.4f} ms/step ({n * B / wall_plain:.0f} pairs/s); "
+    window = {"config": label, "steps": n * len(walls),
+              "pairs_per_s": n * B / wall_plain, "wall_ms_per_step": wall_plain * 1e3 / n,
+              "busy_ms_per_step": busy / n, "idle_share": 1 - busy / (wall_plain * 1e3)}
+    log(f"profile {label} ({smi}): {n} steps; epochs "
+        f"{[round(w * 1e3 / n, 4) for w in walls]} ms/step, window "
+        f"{window['wall_ms_per_step']:.4f} ms/step ({window['pairs_per_s']:.0f} pairs/s); "
         f"profiled epoch {wall_prof * 1e3 / n:.4f} ms/step; device busy "
-        f"{busy / n:.4f} ms/step; idle share {1 - busy / (wall_plain * 1e3):.4f} "
-        f"of the unprofiled epoch, {1 - busy / (wall_prof * 1e3):.4f} of the profiled")
+        f"{busy / n:.4f} ms/step; idle share {window['idle_share']:.4f} of the window, "
+        f"{1 - busy / (wall_prof * 1e3):.4f} of the profiled epoch")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  {ms / n:9.4f} ms/step  {name[:90]}")
+    return window
+
+
+def compare_widths(windows, smi: str) -> dict:
+    """The default step at bfloat16 against float32 over the profile
+    windows: the median over each width's windows of pairs/s and of device
+    busy ms/step, and their ratios; every window is listed."""
+    med = {w: {k: statistics.median(x[k] for x in windows if x["config"] == w)
+               for k in ("pairs_per_s", "busy_ms_per_step")}
+           for w in ("default", "bfloat16")}
+    return {"windows": windows, "median": med,
+            "bf16_over_f32": {k: med["bfloat16"][k] / med["default"][k]
+                              for k in ("pairs_per_s", "busy_ms_per_step")},
+            "card": smi}
 
 
 def main() -> int:
@@ -1417,13 +1712,30 @@ def main() -> int:
         objective_step_parity(torch, 613, 40, 512, kind, full_tables=False)
         objective_step_parity(torch, V, D, B, kind, full_tables=True)
     log(f"kernel check done in {time.perf_counter() - t0:.1f}s")
+    # phase 2e: every training kernel on bfloat16 tables, then whole steps
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    rows += kernel_check(torch, TIMED_REPS, bf16)
+    rows += objective_kernel_check(torch, TIMED_REPS, bf16)
+    step_parity(torch, 613, 40, 512, 48, 80, 64, full_tables=False, dtype=bf16)
+    step_parity(torch, V, D, B, HEAD, BLOCK, GROUP, full_tables=True, dtype=bf16)
+    for kind in ("per_example", "shared", "sg_hs", "cbow_hs"):
+        objective_step_parity(torch, 613, 40, 512, kind, full_tables=False, dtype=bf16)
+        objective_step_parity(torch, V, D, B, kind, full_tables=True, dtype=bf16)
+    log(f"bf16 kernel check done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     serve_rows, serve_shapes = serving_kernel_check(torch, TIMED_REPS)
     serve_shapes += serving_repairs_check(torch, TIMED_REPS)
     probes = gather_probes(torch, TIMED_REPS)
-    log(f"serving kernel check done in {time.perf_counter() - t0:.1f}s")
+    stream_row, stream_recs = stream_probes(torch, TIMED_REPS)
+    probes += stream_recs
+    log(f"serving kernel check and probes done in {time.perf_counter() - t0:.1f}s")
     prof_dir = os.path.join(os.getcwd(), "chip_smoke_profile")
-    profile_steps(torch, PROFILED_STEPS, prof_dir, smi)
+    # the default step at float32 and bfloat16, in turns (f32, bf16, bf16, f32)
+    widths = compare_widths(
+        [profile_steps(torch, PROFILED_STEPS, prof_dir, smi, **kw)
+         for kw in ({}, {"table_dtype": "bfloat16"}, {"table_dtype": "bfloat16"}, {})], smi)
+    log(f"default step, bf16 against f32: {widths['bf16_over_f32']}")
     for kw in PLANTED_CONFIGS[1:5]:
         profile_steps(torch, PROFILED_STEPS // 2, prof_dir, smi, **kw)
 
@@ -1449,17 +1761,42 @@ def main() -> int:
                 for name in OBJECTIVE_KERNELS:
                     counts[name] = counts.get(name, 0) + run[name]
         log(f"objectives training phase done in {time.perf_counter() - t0:.1f}s")
-    rows += serve_rows
-    for r in rows:
-        r["launches"] = counts[r["name"]]
+        # phase 3c: each bf16 instantiation's launches are those of the
+        # bfloat16 runs (stochastic rounding: the CLI's default)
+        t0 = time.perf_counter()
+        for run in train_objectives(torch, work, smi, BF16_RUNS, "bfloat16").values():
+            for name, n in run.items():
+                if "_bf16" in name:
+                    counts[name] = counts.get(name, 0) + n
+        log(f"bf16 training phase done in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
     for kw in PLANTED_CONFIGS:
         planted_quality(torch, **kw)
+    # the nearest-even write-backs' main path: bf16 runs with SR off
+    from gene2vec_tpu_torch import kernels
+
+    kernels.reset_launch_counts()
+    for kw in PLANTED_NEAREST:
+        planted_quality(torch, gate=False, **kw)
+    torch.cuda.synchronize()
+    nearest = kernels.launch_counts()
+    for name in ("row_update_bf16_rn", "row_finalize_bf16_rn"):
+        counts[name] = nearest[name]
     log(f"quality phase done in {time.perf_counter() - t0:.1f}s")
 
+    rows += serve_rows
+    rows.append(stream_row)
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    # stream_scale is a probe on no path the package runs: phase 3 reads 0
+    missing = [r["name"] for r in rows if r["name"] != "stream_scale" and not r["launches"]]
+    if missing:
+        raise SystemExit(f"kernels not launched on their main path: {missing}")
+
     print(json.dumps({"serving_kernel_shapes": serve_shapes}))
-    print(json.dumps({"row_gather_probes": probes}))
+    print(json.dumps({"probes": probes}))
+    print(json.dumps({"table_widths": widths}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

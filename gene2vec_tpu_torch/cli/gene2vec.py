@@ -5,7 +5,8 @@
         [--device {cuda,cpu}] [--dim 200] [--iters 10] ...
 
 Same positionals and the same flags for what this port supports
-(``--objective``, ``--negative-mode`` and ``--hs-dense-depth`` included);
+(``--objective``, ``--negative-mode``, ``--hs-dense-depth`` and
+``--table-dtype`` included);
 the default configuration is the reference's.  ``--device`` defaults to
 ``cuda`` and the CLI fails without a GPU unless ``--device cpu`` is given.
 """
@@ -16,7 +17,7 @@ import argparse
 import sys
 from typing import List, Optional
 
-from gene2vec_tpu_torch.config import NEGATIVE_MODES, OBJECTIVES, SGNSConfig
+from gene2vec_tpu_torch.config import NEGATIVE_MODES, OBJECTIVES, TABLE_DTYPES, SGNSConfig
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,6 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="class-segmented batch layout: head band rows (0 disables)")
     p.add_argument("--positive-mid", type=int, default=d.positive_mid,
                    help="class-segmented batch layout: mid band rows (0 disables)")
+    p.add_argument("--table-dtype", choices=TABLE_DTYPES, default=d.table_dtype,
+                   help="emb/ctx storage width; bfloat16 writes back by stochastic "
+                        "rounding")
     p.add_argument("--hs-dense-depth", type=int, default=d.hs_dense_depth,
                    help="cbow_hs/sg_hs: Huffman-tree levels scored densely against "
                         "the contiguous shallow-node prefix (0 = classic)")
@@ -78,6 +82,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         combiner=args.combiner,
         negative_mode=args.negative_mode,
         hs_dense_depth=args.hs_dense_depth,
+        table_dtype=args.table_dtype,
         strat_head=args.strat_head,
         strat_group=args.strat_group,
         strat_block=args.strat_block,

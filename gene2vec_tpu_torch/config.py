@@ -7,9 +7,12 @@ negatives, alpha 0.025 → 1e-4, unigram^0.75 noise).  The per-field
 rationale lives in the reference config's comments.
 
 This port trains every objective (sgns, cbow, sg_hs, cbow_hs) and every
-noise estimator (stratified, shared, per_example) with float32 tables.
-Fields whose non-default values select code this port does not have are
-rejected at construction with a clear error (see ``_UNSUPPORTED``).
+noise estimator (stratified, shared, per_example) with float32 or
+bfloat16 tables (``table_dtype``; bfloat16 write-backs round
+stochastically unless ``bf16_stochastic_round`` is off).  The step always
+computes in float32.  Fields whose non-default values select code this
+port does not have are rejected at construction with a clear error (see
+``_UNSUPPORTED``).
 """
 
 from __future__ import annotations
@@ -71,19 +74,19 @@ class SGNSConfig:
             raise ValueError(f"unknown objective {self.objective!r}")
         if self.negative_mode not in NEGATIVE_MODES:
             raise ValueError(f"unknown negative_mode {self.negative_mode!r}")
+        if self.table_dtype not in TABLE_DTYPES:
+            raise ValueError(f"unknown table_dtype {self.table_dtype!r}")
 
 
 OBJECTIVES = ("sgns", "cbow", "sg_hs", "cbow_hs")
 NEGATIVE_MODES = ("stratified", "shared", "per_example")
+TABLE_DTYPES = ("float32", "bfloat16")
 
 
 # (field, accepted-value predicate, reason) — each names what the port lacks
 _UNSUPPORTED = (
-    ("table_dtype", lambda v: v == "float32",
-     "tables are float32; bfloat16 tables with stochastic rounding are "
-     "not ported"),
     ("compute_dtype", lambda v: v == "float32",
-     "the step computes in float32 only"),
+     "bf16 arithmetic inside the step is not ported"),
     ("vocab_sharded", lambda v: not v,
      "sharded tables need the multi-GPU path, which is not ported"),
     ("async_checkpoint", lambda v: not v,
@@ -93,9 +96,6 @@ _UNSUPPORTED = (
      "kernel cost attribution is not ported"),
     ("timeline", lambda v: v,
      "the phase timeline is not ported (the default writes none)"),
-    ("bf16_stochastic_round", lambda v: v,
-     "it only selects the rounding of bfloat16 tables, which are not "
-     "ported"),
     ("pos_layout_shards", lambda v: v == 0,
      "a per-device batch layout needs the multi-GPU path, which is not "
      "ported"),

@@ -10,12 +10,13 @@ Layout in <export_dir>:
                                             (only for a tail-extended vocab)
     gene2vec_dim_<D>_iter_<N>.MANIFEST.json crc/size stamp (commit record)
 
-The npz stores float32 tables and stamps ``table_dtype`` as a numpy dtype
-name ("float32"), which the reference's loader parses; a torch dtype name
-("torch.float32") would not.  Every file lands atomically and the
-manifest, written last, commits the iteration; discovery with
-``verified_only`` skips iterations whose manifest is missing or disagrees
-with the bytes on disk.
+The npz stores float32 tables (a lossless upcast of bfloat16 ones) and
+stamps the tables' own width as ``table_dtype``, by its numpy name
+("float32" or "bfloat16"), which the reference's loader parses with
+``jnp.dtype``; a torch dtype name ("torch.bfloat16") would not.  Every
+file lands atomically and the manifest, written last, commits the
+iteration; discovery with ``verified_only`` skips iterations whose
+manifest is missing or disagrees with the bytes on disk.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -31,7 +33,7 @@ import torch
 from gene2vec_tpu_torch.io.emb_io import write_matrix_txt, write_word2vec_format
 from gene2vec_tpu_torch.io.vocab import Vocab
 from gene2vec_tpu_torch.resilience import snapshot as snap
-from gene2vec_tpu_torch.sgns.model import SGNSParams
+from gene2vec_tpu_torch.sgns.model import SGNSParams, table_dtype as _torch_dtype
 
 _CKPT_RE = re.compile(r"^gene2vec_dim_(\d+)_iter_(\d+)\.npz$")
 _W2V_RE = re.compile(r"^gene2vec_dim_(\d+)_iter_(\d+)_w2v\.txt$")
@@ -142,6 +144,11 @@ def _is_tail_extension(old_tokens, new_tokens) -> bool:
     )
 
 
+def _dtype_name(t) -> str:
+    """A table's width as the reference stamps it: "float32" or "bfloat16"."""
+    return "bfloat16" if str(t.dtype) in ("torch.bfloat16", "bfloat16") else "float32"
+
+
 def _host_f32(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().to("cpu", torch.float32).numpy()
@@ -182,7 +189,7 @@ def save_iteration(
         dim=dim,
         iteration=iteration,
         vocab_size=len(vocab),
-        table_dtype=str(emb.dtype),  # numpy name: "float32"
+        table_dtype=_dtype_name(params.emb),
     )
     snap.atomic_savez(prefix + ".npz", emb=emb, ctx=ctx, meta=json.dumps(meta))
     files = [prefix + ".npz", vocab_path]
@@ -202,20 +209,29 @@ def save_iteration(
 
 
 def load_iteration(
-    export_dir: str, dim: int, iteration: int, device="cpu"
+    export_dir: str, dim: int, iteration: int, device="cpu",
+    table_dtype: Optional[str] = None,
 ) -> Tuple[SGNSParams, Vocab, dict]:
-    """Load one iteration's float32 tables onto ``device`` (+vocab, meta)."""
+    """Load one iteration's tables onto ``device`` (+vocab, meta).
+
+    ``table_dtype`` is the caller's configured width: on a mismatch with
+    the recorded width the tables are cast to it, with the reference's
+    warning; ``None`` restores the recorded width.  The file holds float32
+    either way (a lossless upcast of bfloat16)."""
     prefix = ckpt_prefix(export_dir, dim, iteration)
     with np.load(prefix + ".npz") as z:
         meta = json.loads(str(z["meta"]))
         saved = meta.get("table_dtype", "float32")
-        if saved != "float32":
-            raise NotImplementedError(
-                f"checkpoint iteration {iteration} holds {saved} tables; "
-                "this port trains float32 tables only"
+        if table_dtype is not None and table_dtype != saved:
+            warnings.warn(
+                f"checkpoint iteration {iteration} was saved with "
+                f"table_dtype={saved}; resuming at the configured "
+                f"{table_dtype}",
+                stacklevel=2,
             )
-        emb = torch.from_numpy(np.array(z["emb"], dtype=np.float32)).to(device)
-        ctx = torch.from_numpy(np.array(z["ctx"], dtype=np.float32)).to(device)
+        dtype = _torch_dtype(table_dtype if table_dtype is not None else saved)
+        emb = torch.from_numpy(np.array(z["emb"], dtype=np.float32)).to(device, dtype)
+        ctx = torch.from_numpy(np.array(z["ctx"], dtype=np.float32)).to(device, dtype)
     vocab = Vocab.load(vocab_path_for(prefix + ".npz"))
     return SGNSParams(emb=emb, ctx=ctx), vocab, meta
 

@@ -7,7 +7,7 @@ K     wrapper          source                         replaces
 K1    ``pos_logit``    ``csrc/k1_pos_logit.cu``       sgns/step.py:705-734
 K2    ``noise_head``   ``csrc/k2_noise_head.cu``      sgns/step.py:736-746, 782-786
 K3    ``noise_tail``   ``csrc/k3_noise_tail.cu``      sgns/step.py:748-777, 833-847
-K4    ``row_update``   ``csrc/k4_row_update.cu``      sgns/step.py:143-172, 229-263
+K4    ``row_update``   ``csrc/k4_row_update.cu``      sgns/step.py:143-172, 179-263
 K5a   ``per_example``  ``csrc/k5_per_example.cu``     sgns/step.py:97-130, 289-334
 K5b   ``shared_pool``  ``csrc/k5_shared.cu``          sgns/step.py:337-442
 K6    ``hs``           ``csrc/k6_hs.cu``              sgns/cbow_hs.py:65-101, 149-209
@@ -15,7 +15,13 @@ K7    ``topk_exact``   ``csrc/k7_topk_exact.cu``      serve/engine.py:43-59
 K8    ``quant_scan``   ``csrc/k8_quant_scan.cu``      serve/ann.py:397-426, 476-497
 K9    ``ivf_scan``     ``csrc/k9_ivf_scan.cu``        serve/ann.py:429-449, 550-571
 K9r   ``rescore``      ``csrc/k9r_rescore.cu``        serve/ann.py:452-467
+K12   ``stream_scale`` ``csrc/k12_stream_scale.cu``   experiments/test_bw.py:39
 ====  ===============  =============================  ==============================
+
+K1-K6 take float32 or bfloat16 tables (``SGNSConfig.table_dtype``); K4
+writes a bfloat16 table back by stochastic rounding (with the step's salt
+words) or round-to-nearest-even.  K12 is a probe on no path the package
+runs.
 
 ``rescore.row_gather`` is K9r's gather loop on its own, the counterpart
 of the Pallas row-gather probes in ``experiments/``.
@@ -26,7 +32,8 @@ which the per-example, shared and hierarchical-softmax steps use.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (building the libraries at first use, see
 ``build.py``) or raises.  There is no switch between the two.  Each
-wrapper counts its kernel launches in its module's ``launches``.
+wrapper counts its kernel launches in its module's ``launches``, keyed
+by (entry point, variant); the variant "" is a float32 table or none.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from gene2vec_tpu_torch.kernels import (
     rescore,
     row_update,
     shared_pool,
+    stream_scale,
     topk_exact,
 )
 
@@ -58,22 +66,25 @@ MODULES = {
     "quant_scan": quant_scan,
     "ivf_scan": ivf_scan,
     "rescore": rescore,
+    "stream_scale": stream_scale,
 }
 
 
 def launch_counts() -> dict:
-    """Launches per kernel, K4's generic entry points' (``row_scatter``,
-    ``row_finalize``) and ``row_gather``'s (K9r's gather alone)."""
-    out = {name: mod.launches for name, mod in MODULES.items()}
-    out["row_scatter"] = row_update.scatter_launches
-    out["row_finalize"] = row_update.finalize_launches
-    out["row_gather"] = rescore.gather_launches
+    """Launches per entry point — each wrapper, K4's generic
+    ``row_scatter`` / ``row_finalize`` and ``row_gather`` (K9r's gather
+    alone) — and beside each total its launches per variant: ``<name>_bf16``
+    on bfloat16 tables, K4's ``_bf16_sr`` (stochastic rounding) and
+    ``_bf16_rn`` (nearest-even) write-backs."""
+    out = {}
+    for mod in MODULES.values():
+        for (entry, variant), n in mod.launches.items():
+            out[entry] = out.get(entry, 0) + n
+            if variant:
+                out[f"{entry}_{variant}"] = n
     return out
 
 
 def reset_launch_counts() -> None:
     for mod in MODULES.values():
-        mod.launches = 0
-    row_update.scatter_launches = 0
-    row_update.finalize_launches = 0
-    rescore.gather_launches = 0
+        mod.launches.update(dict.fromkeys(mod.launches, 0))

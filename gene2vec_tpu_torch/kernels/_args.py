@@ -22,17 +22,37 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
-    """Raise unless ``t`` has ``dtype``, ``shape`` (None = any extent) and
-    is contiguous."""
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+#: the element types a training table may have (``SGNSConfig.table_dtype``)
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def expect(t: torch.Tensor, name: str, dtype, shape) -> None:
+    """Raise unless ``t`` has ``dtype`` (or one of a tuple of dtypes),
+    ``shape`` (None = any extent) and is contiguous."""
+    ok = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in ok:
+        raise TypeError(f"{name}: expected {' or '.join(map(str, ok))}, got {t.dtype}")
     if t.dim() != len(shape) or any(
         s is not None and s != n for s, n in zip(shape, t.shape)
     ):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def table_bf16(tables, names, shapes) -> int:
+    """Check training tables (float32 or bfloat16, all of one type, each of
+    its shape, contiguous); returns the kernels' ``bf16`` flag (1 for
+    bfloat16)."""
+    for t, name, shape in zip(tables, names, shapes):
+        expect(t, name, TABLE_DTYPES, shape)
+    if len({t.dtype for t in tables}) != 1:
+        raise TypeError(f"{', '.join(names)}: tables of several dtypes "
+                        f"{sorted(str(t.dtype) for t in tables)}")
+    for t, name in zip(tables, names):
+        if t.data_ptr() % 16:  # the kernels' 16-byte row loads
+            raise ValueError(f"{name}: must start on a 16-byte boundary")
+    return int(tables[0].dtype == torch.bfloat16)
 
 
 def table_kind(t: torch.Tensor, name: str) -> bool:
@@ -72,3 +92,5 @@ def split_k(tiles: int, groups: int, k_len: int, device: torch.device) -> int:
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+U32 = ctypes.c_uint32
+L = ctypes.c_longlong

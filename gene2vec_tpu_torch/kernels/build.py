@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels (the training steps' K1-K6 and
-the serving kernels K7-K9r).
+"""Build and load the port's CUDA kernels (the training steps' K1-K6, the
+serving kernels K7-K9r and the streaming probe K12).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -38,6 +38,7 @@ SOURCES = {
     "k8_quant_scan": "k8_quant_scan.cu",
     "k9_ivf_scan": "k9_ivf_scan.cu",
     "k9r_rescore": "k9r_rescore.cu",
+    "k12_stream_scale": "k12_stream_scale.cu",
 }
 
 NVCC_FLAGS = [

@@ -6,7 +6,8 @@
 //
 // Bound on the H100: operations.  Three E x H x D products, 3 * 2*E*H*D =
 // 2.5 GFLOP at E = 8192, H = 256, D = 200 — ~38 us at the 67 TFLOP/s
-// float32 (non-tensor-core) peak — against ~20 MB of traffic (~6 us).
+// float32 (non-tensor-core) peak — against ~20 MB of traffic (~6 us).  A
+// bfloat16 ctx halves the head slab's ~0.2 MB; the bound stays operations.
 //
 // Design: the three phases of noise_gemm.cuh with one group (start 0,
 // S = H, w = q).  A simple SIMT tiled GEMM per phase, full float32 FMA (no
@@ -17,11 +18,11 @@
 #include "noise_gemm.cuh"
 
 G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
-                             const int* contexts, const float* ctx,
+                             const int* contexts, const void* ctx,
                              const float* q, float kneg, float* g_scratch,
                              int* hits, float* loss_head, float* d_center,
                              float* acc_ctx, int E, int D, int H, int splits,
-                             void* stream) {
+                             int bf16, void* stream) {
   g2v::NoiseParams p;
   p.v = v;
   p.u = u;
@@ -43,6 +44,6 @@ G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
   p.vn = H;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::launch_noise<g2v::Slab::kContiguous>(
-      p, 1, static_cast<cudaStream_t>(stream));
+  return g2v::launch_noise_as<g2v::Slab::kContiguous>(
+      p, 1, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,8 @@
 //
 // Bound on the H100: operations.  Three G x (E/G) x S x D products,
 // 3 * 2*E*S*D = 5.0 GFLOP at E = 8192, S = 512, D = 200 — ~75 us at the
-// 67 TFLOP/s float32 peak — against ~50 MB of traffic (~15 us).
+// 67 TFLOP/s float32 peak — against ~50 MB of traffic (~15 us).  A
+// bfloat16 ctx halves the drawn blocks' bytes; the bound stays operations.
 //
 // Design: the three phases of noise_gemm.cuh with one group per grid z
 // slice; each block reads its group's drawn block id and clamps the start
@@ -20,11 +21,11 @@
 #include "noise_gemm.cuh"
 
 G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
-                             const float* ctx, const float* tail_w,
+                             const void* ctx, const float* tail_w,
                              const int* blocks, float kneg, float* g_scratch,
                              int* hits, float* loss_tail, float* d_center,
                              float* acc_ctx, int E, int D, int G, int S,
-                             int head, int vn, int splits, void* stream) {
+                             int head, int vn, int splits, int bf16, void* stream) {
   g2v::NoiseParams p;
   p.v = v;
   p.u = nullptr;
@@ -46,6 +47,6 @@ G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
   p.vn = vn;
   p.splits = splits;
   p.init_center = 0;
-  return g2v::launch_noise<g2v::Slab::kContiguous>(
-      p, G, static_cast<cudaStream_t>(stream));
+  return g2v::launch_noise_as<g2v::Slab::kContiguous>(
+      p, G, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -18,21 +18,66 @@
 //
 // Design: two launches.  The scatter runs one warp per example, lanes
 // striding over D with float atomics (duplicate ids sum in any order).
-// The finalize runs one thread per table element, grid y choosing the
-// table, with correctly rounded division and multiply so the update is
-// t - lr*(a/div) as the reference writes it (no FMA contraction).
+// The finalize runs one warp per table row, grid y choosing the table: the
+// row's divisor once, lanes over its columns, so no element pays an index
+// division (one thread per element with a 64-bit division each measured
+// the bfloat16 finalize 21-25% over the float32 one), with correctly
+// rounded division and multiply so the update is t - lr*(a/div) as the
+// reference writes it (no FMA contraction).
 //
 // Generic entry points (the other noise modes and hierarchical softmax):
 // k4_scatter_rows adds [grads[r] | weights[r]] into acc[idx[r]] for R
 // rows (_scatter_accumulator, step.py:229-245) and k4_finalize_rows
 // finalizes one (rows, D) table against its accumulator
-// (_finalize_row_updates, step.py:248-263, float32).  Same warp-per-row
-// scatter and thread-per-element finalize as above.
+// (_finalize_row_updates, step.py:248-263).  Same warp-per-row scatter and
+// finalize as above.
+//
+// bfloat16 tables (step.py:179-226, 248-263): the finalize reads the table
+// element as float32, computes new = t - lr*(a/div) in float32 in the
+// reference's order, and writes it back either by stochastic rounding
+// (the reference's salted murmur-finalizer hash of the element's flat
+// index r*D + c, bit for bit in wrapping uint32 arithmetic: add the low
+// 16 hash bits below the bf16 mantissa, truncate) or by round-to-nearest-
+// even (__float2bfloat16_rn, XLA's astype).  Each table's two salt words
+// come from the caller.  An untouched row (acc = 0) has zero low bits and
+// passes through either way.  The bound falls with the table width: 2+2
+// bytes of table per element instead of 4+4, plus the float32 accumulator;
+// the hash adds ~6 integer operations per element, under that bound.
 #include <algorithm>
 
 #include "common.cuh"
 
 namespace {
+
+// How a finalized float32 value goes back into a bfloat16 table: sr = 1
+// stochastic rounding with salts (s0, s1), sr = 0 nearest-even.  Ignored
+// for a float32 table.
+struct WriteBack {
+  int sr;
+  uint32_t s0, s1;
+};
+
+// step.py:206-209, wrapping uint32 arithmetic
+__device__ __forceinline__ uint32_t sr_hash(uint32_t flat, uint32_t s0, uint32_t s1) {
+  uint32_t h = (flat ^ s0) * 0x9E3779B1u;
+  h = (h ^ (h >> 15)) * 0x85EBCA6Bu;
+  return (h ^ (h >> 13)) + s1;
+}
+
+__device__ __forceinline__ void store(float* t, size_t i, float x, const WriteBack&) {
+  t[i] = x;
+}
+
+__device__ __forceinline__ void store(__nv_bfloat16* t, size_t i, float x,
+                                      const WriteBack& w) {
+  if (w.sr) {
+    const uint32_t h = sr_hash(static_cast<uint32_t>(i), w.s0, w.s1);
+    const uint32_t bits = (__float_as_uint(x) + (h & 0xFFFFu)) & 0xFFFF0000u;
+    t[i] = __ushort_as_bfloat16(static_cast<unsigned short>(bits >> 16));
+  } else {
+    t[i] = __float2bfloat16_rn(x);
+  }
+}
 
 __global__ void scatter_kernel(float* __restrict__ acc_emb,
                                float* __restrict__ acc_ctx,
@@ -68,20 +113,36 @@ __device__ __forceinline__ float row_divisor(float w, int combiner) {
   return fmaxf(w / 32.0f, 1.0f);
 }
 
-__global__ void finalize_kernel(float* __restrict__ emb, float* __restrict__ ctx,
+// The finalize of one table: one warp per row (grid-stride over rows),
+// the row's divisor read once, lanes striding over its D columns.
+template <typename T>
+__device__ __forceinline__ void finalize_table(T* __restrict__ table,
+                                               const float* __restrict__ acc, float lr,
+                                               int combiner, int V, int D,
+                                               const WriteBack& wb) {
+  const int lane = threadIdx.x & 31;
+  const int warps = (gridDim.x * blockDim.x) >> 5;
+  for (int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5; r < V; r += warps) {
+    const float* arow = acc + static_cast<size_t>(r) * (D + 1);
+    const float div = row_divisor(arow[D], combiner);
+    const size_t base = static_cast<size_t>(r) * D;
+    for (int d = lane; d < D; d += 32) {
+      const float upd = __fdiv_rn(arow[d], div);
+      store(table, base + d, __fsub_rn(g2v_ld(table + base + d), __fmul_rn(lr, upd)), wb);
+    }
+  }
+}
+
+template <typename T>
+__global__ void finalize_kernel(T* __restrict__ emb, T* __restrict__ ctx,
                                 const float* __restrict__ acc_emb,
                                 const float* __restrict__ acc_ctx, float lr,
-                                int combiner, int V, int D) {
-  float* table = blockIdx.y == 0 ? emb : ctx;
-  const float* acc = blockIdx.y == 0 ? acc_emb : acc_ctx;
-  const size_t n = static_cast<size_t>(V) * D;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t r = i / D;
-    const size_t d = i - r * D;
-    const float* arow = acc + r * (D + 1);
-    const float upd = __fdiv_rn(arow[d], row_divisor(arow[D], combiner));
-    table[i] = __fsub_rn(table[i], __fmul_rn(lr, upd));
+                                int combiner, int V, int D, WriteBack wb_emb,
+                                WriteBack wb_ctx) {
+  if (blockIdx.y == 0) {
+    finalize_table(emb, acc_emb, lr, combiner, V, D, wb_emb);
+  } else {
+    finalize_table(ctx, acc_ctx, lr, combiner, V, D, wb_ctx);
   }
 }
 
@@ -99,18 +160,17 @@ __global__ void scatter_rows_kernel(float* __restrict__ acc,
   if (lane == 0) atomicAdd(&ar[D], weights[r]);
 }
 
-__global__ void finalize_rows_kernel(float* __restrict__ table,
+template <typename T>
+__global__ void finalize_rows_kernel(T* __restrict__ table,
                                      const float* __restrict__ acc, float lr,
-                                     int combiner, int V, int D) {
-  const size_t n = static_cast<size_t>(V) * D;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t r = i / D;
-    const size_t d = i - r * D;
-    const float* arow = acc + r * (D + 1);
-    const float upd = __fdiv_rn(arow[d], row_divisor(arow[D], combiner));
-    table[i] = __fsub_rn(table[i], __fmul_rn(lr, upd));
-  }
+                                     int combiner, int V, int D, WriteBack wb) {
+  finalize_table(table, acc, lr, combiner, V, D, wb);
+}
+
+// Blocks of `threads` for one warp per row, at most 16 per multiprocessor.
+inline int finalize_grid(int V, int threads) {
+  const int rows_per_block = threads / 32;
+  return std::min((V + rows_per_block - 1) / rows_per_block, 132 * 16);
 }
 
 }  // namespace
@@ -127,33 +187,54 @@ G2V_EXPORT int k4_scatter_rows(float* acc, const int* idx, const float* grads,
   return static_cast<int>(cudaGetLastError());
 }
 
-G2V_EXPORT int k4_finalize_rows(float* table, const float* acc, float lr,
-                                int combiner, int V, int D, void* stream) {
+G2V_EXPORT int k4_finalize_rows(void* table, const float* acc, float lr,
+                                int combiner, int V, int D, int bf16, int sr,
+                                uint32_t s0, uint32_t s1, void* stream) {
   const int threads = 256;
   const size_t n = static_cast<size_t>(V) * D;
   if (n == 0) return 0;
-  const int grid = static_cast<int>(
-      std::min<size_t>((n + threads - 1) / threads, 132 * 16));
-  finalize_rows_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, acc, lr, combiner, V, D);
+  const int grid = finalize_grid(V, threads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WriteBack wb{sr, s0, s1};
+  if (bf16) {
+    finalize_rows_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        static_cast<__nv_bfloat16*>(table), acc, lr, combiner, V, D, wb);
+  } else {
+    finalize_rows_kernel<float><<<grid, threads, 0, s>>>(static_cast<float*>(table), acc,
+                                                        lr, combiner, V, D, wb);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-G2V_EXPORT int k4_row_update(float* emb, float* ctx, float* acc_emb,
+// bf16 / sr as k4_finalize_rows; (s0e, s1e) salt emb's write-back,
+// (s0c, s1c) ctx's.
+G2V_EXPORT int k4_row_update(void* emb, void* ctx, float* acc_emb,
                              float* acc_ctx, const int* centers,
                              const int* contexts, const float* d_center,
                              const float* v, const float* g_pos, float lr,
-                             int combiner, int E, int V, int D, void* stream) {
+                             int combiner, int E, int V, int D, int bf16, int sr,
+                             uint32_t s0e, uint32_t s1e, uint32_t s0c, uint32_t s1c,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
-  scatter_kernel<<<(E * 32 + threads - 1) / threads, threads, 0, s>>>(
-      acc_emb, acc_ctx, centers, contexts, d_center, v, g_pos, E, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (E > 0) {
+    scatter_kernel<<<(E * 32 + threads - 1) / threads, threads, 0, s>>>(
+        acc_emb, acc_ctx, centers, contexts, d_center, v, g_pos, E, D);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const size_t n = static_cast<size_t>(V) * D;
-  const int grid = static_cast<int>(
-      std::min<size_t>((n + threads - 1) / threads, 132 * 16));
-  finalize_kernel<<<dim3(grid, 2), threads, 0, s>>>(emb, ctx, acc_emb, acc_ctx,
-                                                     lr, combiner, V, D);
+  if (n == 0) return 0;
+  const int grid = finalize_grid(V, threads);
+  const WriteBack we{sr, s0e, s1e}, wc{sr, s0c, s1c};
+  if (bf16) {
+    finalize_kernel<__nv_bfloat16><<<dim3(grid, 2), threads, 0, s>>>(
+        static_cast<__nv_bfloat16*>(emb), static_cast<__nv_bfloat16*>(ctx), acc_emb,
+        acc_ctx, lr, combiner, V, D, we, wc);
+  } else {
+    finalize_kernel<float><<<dim3(grid, 2), threads, 0, s>>>(
+        static_cast<float*>(emb), static_cast<float*>(ctx), acc_emb, acc_ctx, lr,
+        combiner, V, D, we, wc);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,17 +19,20 @@
 // then read again (from L1/L2) for d_center while the scatter adds
 // g_neg*v into its accumulator row with float atomics.  The K draws'
 // g_neg and ids sit in shared memory, K per warp.  A masked draw (the
-// draw hit the positive) contributes zeros and is skipped.
+// draw hit the positive) contributes zeros and is skipped.  The noise rows
+// are the only table reads: a bfloat16 ctx (T) loads element-wise and
+// upcasts to float32, halving the gather's bytes.
 #include "common.cuh"
 
 namespace {
 
+template <typename T>
 __global__ void per_example_kernel(const float* __restrict__ v,
                                    const float* __restrict__ u,
                                    const float* __restrict__ g_pos,
                                    const int* __restrict__ contexts,
                                    const int* __restrict__ negs,
-                                   const float* __restrict__ ctx,
+                                   const T* __restrict__ ctx,
                                    float* __restrict__ loss_neg,
                                    float* __restrict__ d_center,
                                    float* __restrict__ acc, int E, int K, int D) {
@@ -45,9 +48,9 @@ __global__ void per_example_kernel(const float* __restrict__ v,
   float loss = 0.0f;
   for (int k = 0; k < K; ++k) {
     const int n = negs[static_cast<size_t>(e) * K + k];
-    const float* cr = ctx + static_cast<size_t>(n) * D;
+    const T* cr = ctx + static_cast<size_t>(n) * D;
     float s = 0.0f;
-    for (int d = lane; d < D; d += 32) s = fmaf(vr[d], cr[d], s);
+    for (int d = lane; d < D; d += 32) s = fmaf(vr[d], g2v_ld(cr + d), s);
     s = g2v_warp_sum(s);  // every lane holds the sum
     const float mask = (n != c) ? 1.0f : 0.0f;
     loss += mask * g2v_softplus(s);
@@ -63,7 +66,7 @@ __global__ void per_example_kernel(const float* __restrict__ v,
   for (int d = lane; d < D; d += 32) {
     float sum = 0.0f;
     for (int k = 0; k < K; ++k) {
-      sum = fmaf(gk[k], ctx[static_cast<size_t>(nk[k]) * D + d], sum);
+      sum = fmaf(gk[k], g2v_ld(ctx + static_cast<size_t>(nk[k]) * D + d), sum);
     }
     const size_t o = static_cast<size_t>(e) * D + d;
     d_center[o] = __fadd_rn(__fmul_rn(gp, u[o]), sum);
@@ -83,21 +86,35 @@ __global__ void per_example_kernel(const float* __restrict__ v,
 
 }  // namespace
 
-G2V_EXPORT int k5_per_example(const float* v, const float* u, const float* g_pos,
-                              const int* contexts, const int* negs,
-                              const float* ctx, float* loss_neg, float* d_center,
-                              float* acc_ctx, int E, int K, int D, void* stream) {
-  if (E == 0) return 0;
+template <typename T>
+int launch_per_example(const float* v, const float* u, const float* g_pos,
+                       const int* contexts, const int* negs, const T* ctx,
+                       float* loss_neg, float* d_center, float* acc_ctx, int E,
+                       int K, int D, cudaStream_t stream) {
   const int threads = 256, warps = threads / 32;
   const size_t smem = static_cast<size_t>(warps) * K * (sizeof(float) + sizeof(int));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        per_example_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        per_example_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  per_example_kernel<<<(E + warps - 1) / warps, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  per_example_kernel<T><<<(E + warps - 1) / warps, threads, smem, stream>>>(
       v, u, g_pos, contexts, negs, ctx, loss_neg, d_center, acc_ctx, E, K, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+G2V_EXPORT int k5_per_example(const float* v, const float* u, const float* g_pos,
+                              const int* contexts, const int* negs,
+                              const void* ctx, float* loss_neg, float* d_center,
+                              float* acc_ctx, int E, int K, int D, int bf16,
+                              void* stream) {
+  if (E == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch_per_example(v, u, g_pos, contexts, negs,
+                              static_cast<const __nv_bfloat16*>(ctx), loss_neg,
+                              d_center, acc_ctx, E, K, D, s);
+  return launch_per_example(v, u, g_pos, contexts, negs, static_cast<const float*>(ctx),
+                            loss_neg, d_center, acc_ctx, E, K, D, s);
 }

@@ -13,7 +13,8 @@
 // with auto sizing (G = E/32, P/G = 128) 3 * 2 * E * 128 * D = 1.26 GFLOP
 // at E = 8192, D = 200 — ~19 us at the 67 TFLOP/s float32 peak — against
 // ~40 MB of traffic (the pool rows read twice, v and u, the pool rows'
-// accumulator rows, ~12 us).
+// accumulator rows, ~12 us).  A bfloat16 ctx halves the pool rows' reads;
+// the bound stays operations.
 //
 // Design: K3's structure (noise_gemm.cuh) with each group's contiguous
 // block replaced by its P/G gathered pool rows: the GEMM tiles read ctx
@@ -22,10 +23,10 @@
 #include "noise_gemm.cuh"
 
 G2V_EXPORT int k5_shared(const float* v, const float* u, const float* g_pos,
-                         const int* contexts, const float* ctx, const int* pool,
+                         const int* contexts, const void* ctx, const int* pool,
                          float scale, float* g_scratch, int* hits,
                          float* loss_neg, float* d_center, float* acc_ctx, int E,
-                         int D, int G, int S, int splits, void* stream) {
+                         int D, int G, int S, int splits, int bf16, void* stream) {
   g2v::NoiseParams p{};
   p.v = v;
   p.u = u;
@@ -44,6 +45,6 @@ G2V_EXPORT int k5_shared(const float* v, const float* u, const float* g_pos,
   p.Eg = E / G;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::launch_noise<g2v::Slab::kPool>(
-      p, G, static_cast<cudaStream_t>(stream));
+  return g2v::launch_noise_as<g2v::Slab::kPool>(
+      p, G, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -33,12 +33,16 @@
 // shallow phase is noise_gemm.cuh's three GEMMs with the sign epilogue:
 // phase 1 writes g_s and counts on-path examples per node, phase 2 adds
 // g_s @ W_s into d_input, phase 3 adds the node rows and their weights.
+// Both phases take the tables' element type T (emb and node alike): the
+// deep phase loads input and node rows element-wise as float32, the
+// shallow GEMMs stage the node prefix through noise_gemm.cuh's T.
 #include "noise_gemm.cuh"
 
 namespace {
 
-__global__ void hs_deep_kernel(const float* __restrict__ emb,
-                               const float* __restrict__ node,
+template <typename T>
+__global__ void hs_deep_kernel(const T* __restrict__ emb,
+                               const T* __restrict__ node,
                                const int* __restrict__ inputs,
                                const int* __restrict__ targets,
                                const int* __restrict__ points,
@@ -51,11 +55,11 @@ __global__ void hs_deep_kernel(const float* __restrict__ emb,
   const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (e >= E) return;  // warp-uniform
-  const float* er = emb + static_cast<size_t>(inputs[e]) * D;
+  const T* er = emb + static_cast<size_t>(inputs[e]) * D;
   float* vr = v_out + static_cast<size_t>(e) * D;
   float* di = d_input + static_cast<size_t>(e) * D;
   for (int d = lane; d < D; d += 32) {
-    vr[d] = er[d];
+    vr[d] = g2v_ld(er + d);
     di[d] = 0.0f;
   }
   const int t = targets[e];
@@ -65,17 +69,17 @@ __global__ void hs_deep_kernel(const float* __restrict__ emb,
   for (int l = 0; l < len; ++l) {
     const int n = points[static_cast<size_t>(t) * L + l];
     const float code = codes[static_cast<size_t>(t) * L + l];
-    const float* wr = node + static_cast<size_t>(n) * D;
+    const T* wr = node + static_cast<size_t>(n) * D;
     float s = 0.0f;
-    for (int d = lane; d < D; d += 32) s = fmaf(er[d], wr[d], s);
+    for (int d = lane; d < D; d += 32) s = fmaf(g2v_ld(er + d), g2v_ld(wr + d), s);
     s = g2v_warp_sum(s);
     const float sign = 1.0f - 2.0f * code;
     loss += g2v_softplus(-sign * s);
     const float g = g2v_sigmoid(s) - (1.0f - code);
     float* ar = acc + static_cast<size_t>(n) * D1;
     for (int d = lane; d < D; d += 32) {
-      di[d] = fmaf(g, wr[d], di[d]);
-      atomicAdd(&ar[d], __fmul_rn(g, er[d]));
+      di[d] = fmaf(g, g2v_ld(wr + d), di[d]);
+      atomicAdd(&ar[d], __fmul_rn(g, g2v_ld(er + d)));
     }
     if (lane == 0) atomicAdd(&ar[D], 1.0f);
   }
@@ -84,18 +88,28 @@ __global__ void hs_deep_kernel(const float* __restrict__ emb,
 
 }  // namespace
 
-G2V_EXPORT int k6_hs(const float* emb, const float* node, const int* inputs,
+// bf16: 0 for float32 tables, 1 for bfloat16 tables (emb and node alike).
+G2V_EXPORT int k6_hs(const void* emb, const void* node, const int* inputs,
                      const int* targets, const int* points, const float* codes,
                      const int* lengths, int L, const signed char* sign, int Ns,
                      float* v_out, float* d_input, float* loss_deep,
                      float* loss_shallow, float* g_scratch, int* hits,
-                     float* acc_node, int E, int D, int splits, void* stream) {
+                     float* acc_node, int E, int D, int splits, int bf16,
+                     void* stream) {
   if (E == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int threads = 256;
-  hs_deep_kernel<<<(E * 32 + threads - 1) / threads, threads, 0, s>>>(
-      emb, node, inputs, targets, points, codes, lengths, L, E, D, v_out,
-      d_input, loss_deep, acc_node);
+  const int blocks = (E * 32 + threads - 1) / threads;
+  if (bf16) {
+    hs_deep_kernel<__nv_bfloat16><<<blocks, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(emb), static_cast<const __nv_bfloat16*>(node),
+        inputs, targets, points, codes, lengths, L, E, D, v_out, d_input, loss_deep,
+        acc_node);
+  } else {
+    hs_deep_kernel<float><<<blocks, threads, 0, s>>>(
+        static_cast<const float*>(emb), static_cast<const float*>(node), inputs,
+        targets, points, codes, lengths, L, E, D, v_out, d_input, loss_deep, acc_node);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || Ns == 0) return static_cast<int>(err);
   g2v::NoiseParams p{};
@@ -113,5 +127,5 @@ G2V_EXPORT int k6_hs(const float* emb, const float* node, const int* inputs,
   p.Eg = E;
   p.splits = splits;
   p.init_center = 0;     // d_input = deep + g_s @ W_s
-  return g2v::launch_noise<g2v::Slab::kSign>(p, 1, s);
+  return g2v::launch_noise_as<g2v::Slab::kSign>(p, 1, bf16, s);
 }

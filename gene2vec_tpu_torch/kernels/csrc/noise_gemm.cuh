@@ -34,6 +34,10 @@
 // The slab kind (contiguous rows, pool ids, HS sign rows) is a template
 // parameter of the kernels, fixed by each entry point, so K2 and K3 run
 // the contiguous-slab code with no per-element branch on the other kinds.
+// So is the table's element type T (float or __nv_bfloat16): the slab
+// rows, the GEMMs' B operand in phases 1 and 2, are upcast to float32 as
+// they are staged, and the shared-memory tiles, g and every sum stay
+// float32.  Phase 3's B operand is v, float32 whatever the table.
 #pragma once
 
 #include "common.cuh"
@@ -54,7 +58,7 @@ struct NoiseParams {
   const float* u;         // (E, D) positive context rows (K1 output)
   const float* g_pos;     // (E,)
   const int* contexts;    // (E,)
-  const float* ctx;       // (V, D) context table
+  const void* ctx;        // (V, D) context table, float or bfloat16 (T)
   const float* w;         // (V,) per-row noise weight: q (head) or tail_w
   const int* blocks;      // (G,) drawn block ids; null for the head
   const int* ids;         // (G*S,) pool row ids (K5b); null: contiguous slabs
@@ -88,10 +92,11 @@ __device__ __forceinline__ int slab_row(const NoiseParams& p, int start, int s) 
 
 // The slab as a GEMM operand: (base, row map) — contiguous rows from
 // ctx + start*D, or the pool's rows of ctx.
-template <Slab kSlab>
-__device__ __forceinline__ const float* slab_base(const NoiseParams& p, int start) {
-  if constexpr (kSlab == Slab::kPool) return p.ctx;
-  return p.ctx + static_cast<size_t>(start) * p.D;
+template <Slab kSlab, typename T>
+__device__ __forceinline__ const T* slab_base(const NoiseParams& p, int start) {
+  const T* ctx = static_cast<const T*>(p.ctx);
+  if constexpr (kSlab == Slab::kPool) return ctx;
+  return ctx + static_cast<size_t>(start) * p.D;
 }
 
 // The pool ids of the group's slab (kPool), else null.
@@ -105,10 +110,10 @@ __device__ __forceinline__ const int* pool_map(const NoiseParams& p, int start) 
 // A(m, k) = A_T ? A[k*lda + m] : A[m*lda + k]
 // B(k, n) = B_T ? B[map(n)*ldb + k] : B[map(k)*ldb + n]
 // with map the row map `bmap` when kMapped (B's rows are gathered table
-// rows), else the identity.
-template <bool A_T, bool B_T, bool kMapped>
+// rows), else the identity.  B's elements (type TB) load as float32.
+template <bool A_T, bool B_T, bool kMapped, typename TB>
 __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, int lda,
-                                          const float* __restrict__ B, int ldb,
+                                          const TB* __restrict__ B, int ldb,
                                           const int* __restrict__ bmap,
                                           int M, int N, int m0, int n0,
                                           int k_begin, int k_end,
@@ -138,10 +143,10 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, int lda,
         if (gn < N && gk < k_end) {
           if (B_T) {
             const int row = kMapped ? bmap[gn] : gn;
-            x = B[static_cast<size_t>(row) * ldb + gk];
+            x = g2v_ld(B + static_cast<size_t>(row) * ldb + gk);
           } else {
             const int row = kMapped ? bmap[gk] : gk;
-            x = B[static_cast<size_t>(row) * ldb + gn];
+            x = g2v_ld(B + static_cast<size_t>(row) * ldb + gn);
           }
         }
         Bs[k][n] = x;
@@ -165,7 +170,7 @@ __device__ __forceinline__ void gemm_tile(const float* __restrict__ A, int lda,
 }
 
 // Phase 1: grid (ceil(S/64), ceil(Eg/64), G).  M = Eg, N = S, K = D.
-template <Slab kSlab>
+template <Slab kSlab, typename T>
 __global__ void __launch_bounds__(TPB) noise_logits_kernel(NoiseParams p) {
   constexpr bool kSign = kSlab == Slab::kSign;
   const int grp = blockIdx.z;
@@ -174,7 +179,7 @@ __global__ void __launch_bounds__(TPB) noise_logits_kernel(NoiseParams p) {
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[4][4] = {};
   gemm_tile<false, true, kSlab == Slab::kPool>(
-      p.v + static_cast<size_t>(e0) * p.D, p.D, slab_base<kSlab>(p, start), p.D,
+      p.v + static_cast<size_t>(e0) * p.D, p.D, slab_base<kSlab, T>(p, start), p.D,
       pool_map<kSlab>(p, start), p.Eg, p.S, m0, n0, 0, p.D, acc);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(TPB) noise_logits_kernel(NoiseParams p) {
 }
 
 // Phase 2: grid (ceil(D/64), ceil(Eg/64), G).  M = Eg, N = D, K = S.
-template <Slab kSlab>
+template <Slab kSlab, typename T>
 __global__ void __launch_bounds__(TPB) noise_center_kernel(NoiseParams p) {
   const int grp = blockIdx.z;
   const int start = group_start<kSlab>(p, grp);
@@ -224,7 +229,7 @@ __global__ void __launch_bounds__(TPB) noise_center_kernel(NoiseParams p) {
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   float acc[4][4] = {};
   gemm_tile<false, false, kSlab == Slab::kPool>(
-      p.g + static_cast<size_t>(e0) * p.S, p.S, slab_base<kSlab>(p, start), p.D,
+      p.g + static_cast<size_t>(e0) * p.S, p.S, slab_base<kSlab, T>(p, start), p.D,
       pool_map<kSlab>(p, start), p.Eg, p.D, m0, n0, 0, p.S, acc);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
@@ -291,21 +296,28 @@ __global__ void __launch_bounds__(TPB) noise_rows_kernel(NoiseParams p) {
   }
 }
 
-template <Slab kSlab>
+template <Slab kSlab, typename T>
 inline int launch_noise(const NoiseParams& p, int G, cudaStream_t stream) {
   const dim3 block(TPB);
   const int mt = (p.Eg + BM - 1) / BM;
   const int st = (p.S + BN - 1) / BN;
   const int dt = (p.D + BN - 1) / BN;
-  noise_logits_kernel<kSlab><<<dim3(st, mt, G), block, 0, stream>>>(p);
+  noise_logits_kernel<kSlab, T><<<dim3(st, mt, G), block, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  noise_center_kernel<kSlab><<<dim3(dt, mt, G), block, 0, stream>>>(p);
+  noise_center_kernel<kSlab, T><<<dim3(dt, mt, G), block, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   noise_rows_kernel<kSlab><<<dim3(dt, (p.S + BM - 1) / BM, G * p.splits), block, 0,
                              stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_noise at the table's element type: bf16 = 0 (float) or 1.
+template <Slab kSlab>
+inline int launch_noise_as(const NoiseParams& p, int G, int bf16, cudaStream_t stream) {
+  return bf16 ? launch_noise<kSlab, __nv_bfloat16>(p, G, stream)
+              : launch_noise<kSlab, float>(p, G, stream);
 }
 
 }  // namespace g2v

@@ -21,7 +21,8 @@ prefix ``node[:Ns]``::
     acc_node[:Ns] += [g_sᵀ @ v | Σ_e |s|]
 
 Returns (d_input, loss_deep, loss_shallow or None); ``acc_node`` is
-updated in place.  The step's loss is mean(loss_deep) +
+updated in place.  ``emb`` and ``node`` are float32 or bfloat16 (both of
+one type); their rows are upcast to float32.  The step's loss is mean(loss_deep) +
 mean(loss_shallow), as the reference's (cbow_hs.py:159).
 """
 
@@ -32,21 +33,22 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
-#: kernel launches made through :func:`hs`
-launches = 0
+#: kernel launches made through :func:`hs`, by table width
+#: ("" float32, "bf16")
+launches = {("hs", ""): 0, ("hs", "bf16"): 0}
 
 _LIB = "k6_hs"
 
 
 def hs_plain(emb, node, inputs, targets, points, codes, lengths, sign, acc_node):
     d = emb.shape[1]
-    v = emb[inputs.long()]
+    v = emb[inputs.long()].float()
     t = targets.long()
     pts = points[t].long()                                      # (E, L)
     cds = codes[t]
     mask = (torch.arange(points.shape[1], device=emb.device)[None, :]
-            < lengths[t][:, None]).to(emb.dtype)
-    w = node[pts]                                               # (E, L, D)
+            < lengths[t][:, None]).float()
+    w = node[pts].float()                                       # (E, L, D)
     logit = torch.einsum("ed,eld->el", v, w)
     loss_deep = torch.sum(mask * softplus(-(1.0 - 2.0 * cds) * logit), dim=-1)
     g = (torch.sigmoid(logit) - (1.0 - cds)) * mask
@@ -57,8 +59,8 @@ def hs_plain(emb, node, inputs, targets, points, codes, lengths, sign, acc_node)
     if sign is None:
         return d_input, loss_deep, None
     ns = sign.shape[1]
-    w_s = node[:ns]
-    s = sign[t].to(emb.dtype)
+    w_s = node[:ns].float()
+    s = sign[t].float()
     a = s.abs()
     logit_s = v @ w_s.T
     loss_shallow = torch.sum(a * softplus(-s * logit_s), dim=-1)
@@ -78,8 +80,7 @@ def hs(emb, node, inputs, targets, points, codes, lengths, sign, acc_node):
     n_nodes = node.shape[0]
     e = inputs.shape[0]
     l_max = points.shape[1]
-    _args.expect(emb, "emb", torch.float32, (v_size, d))
-    _args.expect(node, "node", torch.float32, (n_nodes, d))
+    bf16 = _args.table_bf16((emb, node), ("emb", "node"), ((v_size, d), (n_nodes, d)))
     _args.expect(inputs, "inputs", torch.int32, (e,))
     _args.expect(targets, "targets", torch.int32, (e,))
     _args.expect(points, "points", torch.int32, (v_size, l_max))
@@ -107,11 +108,10 @@ def hs(emb, node, inputs, targets, points, codes, lengths, sign, acc_node):
         _args.ptr(sign) if sign is not None else None, ns, _args.ptr(v),
         _args.ptr(d_input), _args.ptr(loss_deep), _args.ptr(loss_shallow),
         _args.ptr(g_scratch), _args.ptr(hits), _args.ptr(acc_node), e, d, splits,
-        _args.stream(emb),
+        bf16, _args.stream(emb),
     )
     build.check(lib, status, "K6 hs launch")
-    global launches
-    launches += 1
+    launches["hs", "bf16" if bf16 else ""] += 1
     return d_input, loss_deep, (loss_shallow if sign is not None else None)
 
 
@@ -120,6 +120,6 @@ def _lib():
     fn = lib.k6_hs
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P, P, P, I, P, I, P, P, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, I, P, I, P, P, P, P, P, P, P, I, I, I, I, P]
         fn.restype = I
     return lib

@@ -22,7 +22,7 @@ from gene2vec_tpu_torch.kernels import _args, _topk, build
 from gene2vec_tpu_torch.kernels.quant_scan import int_dot, quantize_queries_plain
 
 #: kernel launches made through :func:`ivf_scan`
-launches = 0
+launches = {("ivf_scan", ""): 0}
 
 _LIB = "k9_ivf_scan"
 
@@ -92,8 +92,7 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
         _args.stream(qn),
     )
     build.check(lib, status, "K9 ivf_scan launch")
-    global launches
-    launches += 1
+    launches["ivf_scan", ""] += 1
     return scores, rows
 
 

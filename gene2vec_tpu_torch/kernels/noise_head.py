@@ -12,7 +12,8 @@ exactly against ``ctx[:H]``::
     acc_ctx[:H, :D] += g_headᵀ @ v
     acc_ctx[:H,  D] += K·q_j·Σ_e mask                (σ-free row load)
 
-Returns (d_center, loss_head); ``acc_ctx`` is updated in place.
+Returns (d_center, loss_head); ``acc_ctx`` is updated in place.  ``ctx``
+is float32 or bfloat16; its head rows are upcast to float32.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
-#: kernel launches made through :func:`noise_head`
-launches = 0
+#: kernel launches made through :func:`noise_head`, by table width
+#: ("" float32, "bf16")
+launches = {("noise_head", ""): 0, ("noise_head", "bf16"): 0}
 
 _LIB = "k2_noise_head"
 
@@ -31,7 +33,7 @@ _LIB = "k2_noise_head"
 def noise_head_plain(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
     d = v.shape[1]
     k = float(k_neg)
-    ctx_head = ctx[:head]
+    ctx_head = ctx[:head].float()
     q_head = q[:head]
     logit = v @ ctx_head.T
     mask = (
@@ -57,7 +59,7 @@ def noise_head(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
     _args.expect(u, "u", torch.float32, (e, d))
     _args.expect(g_pos, "g_pos", torch.float32, (e,))
     _args.expect(contexts, "contexts", torch.int32, (e,))
-    _args.expect(ctx, "ctx", torch.float32, (v_size, d))
+    bf16 = _args.table_bf16((ctx,), ("ctx",), ((v_size, d),))
     _args.expect(q, "q", torch.float32, (None,))
     _args.expect(acc_ctx, "acc_ctx", torch.float32, (v_size, d + 1))
     if q.shape[0] < head:
@@ -74,11 +76,10 @@ def noise_head(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(contexts),
         _args.ptr(ctx), _args.ptr(q), float(k_neg), _args.ptr(g_scratch),
         _args.ptr(hits), _args.ptr(loss_head), _args.ptr(d_center),
-        _args.ptr(acc_ctx), e, d, head, splits, _args.stream(v),
+        _args.ptr(acc_ctx), e, d, head, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K2 noise_head launch")
-    global launches
-    launches += 1
+    launches["noise_head", "bf16" if bf16 else ""] += 1
     return d_center, loss_head
 
 
@@ -87,6 +88,6 @@ def _lib():
     fn = lib.k2_noise_head
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, P]
         fn.restype = I
     return lib

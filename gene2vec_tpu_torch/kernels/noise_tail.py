@@ -15,7 +15,8 @@ overlaps its neighbour)::
 
 Each group's (S, D+1) payload goes straight into ``acc_ctx`` (no (nb, G)
 one-hot).  Returns loss_tail; ``d_center`` and ``acc_ctx`` are updated in
-place.
+place.  ``ctx`` is float32 or bfloat16; the block rows are upcast to
+float32.
 """
 
 from __future__ import annotations
@@ -25,8 +26,9 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
-#: kernel launches made through :func:`noise_tail`
-launches = 0
+#: kernel launches made through :func:`noise_tail`, by table width
+#: ("" float32, "bf16")
+launches = {("noise_tail", ""): 0, ("noise_tail", "bf16"): 0}
 
 _LIB = "k3_noise_tail"
 
@@ -42,7 +44,7 @@ def noise_tail_plain(v, contexts, ctx, tail_w, blocks, head, block, group_size,
     k = float(k_neg)
     starts = block_starts(blocks, head, block, tail_w.shape[0])
     rows = starts[:, None] + torch.arange(block, device=v.device)[None, :]  # (G, S)
-    ctx_blk = ctx[rows]                                                     # (G, S, D)
+    ctx_blk = ctx[rows].float()                                             # (G, S, D)
     w_blk = tail_w[rows]                                                    # (G, S)
     vg = v.reshape(g, group_size, d)
     cg = contexts.reshape(g, group_size)
@@ -75,7 +77,7 @@ def noise_tail(v, contexts, ctx, tail_w, blocks, head, block, group_size, k_neg,
     g = e // group_size
     _args.expect(v, "v", torch.float32, (e, d))
     _args.expect(contexts, "contexts", torch.int32, (e,))
-    _args.expect(ctx, "ctx", torch.float32, (v_size, d))
+    bf16 = _args.table_bf16((ctx,), ("ctx",), ((v_size, d),))
     _args.expect(tail_w, "tail_w", torch.float32, (v_noise,))
     _args.expect(blocks, "blocks", torch.int32, (g,))
     _args.expect(d_center, "d_center", torch.float32, (e, d))
@@ -91,11 +93,10 @@ def noise_tail(v, contexts, ctx, tail_w, blocks, head, block, group_size, k_neg,
         _args.ptr(v), _args.ptr(contexts), _args.ptr(ctx), _args.ptr(tail_w),
         _args.ptr(blocks), float(k_neg), _args.ptr(g_scratch), _args.ptr(hits),
         _args.ptr(loss_tail), _args.ptr(d_center), _args.ptr(acc_ctx),
-        e, d, g, block, head, v_noise, splits, _args.stream(v),
+        e, d, g, block, head, v_noise, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K3 noise_tail launch")
-    global launches
-    launches += 1
+    launches["noise_tail", "bf16" if bf16 else ""] += 1
     return loss_tail
 
 
@@ -104,6 +105,6 @@ def _lib():
     fn = lib.k3_noise_tail
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         fn.restype = I
     return lib

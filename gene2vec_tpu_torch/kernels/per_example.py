@@ -13,6 +13,7 @@ its noise half) and the noise rows of ``_step_per_example``
 
 Returns (d_center, loss_neg); ``acc_ctx`` is updated in place.  The
 positive rows and the finalize go through K4's generic entry points.
+``ctx`` is float32 or bfloat16; the drawn rows are upcast to float32.
 """
 
 from __future__ import annotations
@@ -22,15 +23,16 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
-#: kernel launches made through :func:`per_example`
-launches = 0
+#: kernel launches made through :func:`per_example`, by table width
+#: ("" float32, "bf16")
+launches = {("per_example", ""): 0, ("per_example", "bf16"): 0}
 
 _LIB = "k5_per_example"
 
 
 def per_example_plain(v, u, g_pos, contexts, negs, ctx, acc_ctx):
     d = v.shape[1]
-    u_neg = ctx[negs.long()]                                   # (E, K, D)
+    u_neg = ctx[negs.long()].float()                           # (E, K, D)
     neg_logit = torch.einsum("ed,ekd->ek", v, u_neg)
     mask = (negs != contexts[:, None]).to(v.dtype)
     loss_neg = torch.sum(mask * softplus(neg_logit), dim=-1)
@@ -53,7 +55,7 @@ def per_example(v, u, g_pos, contexts, negs, ctx, acc_ctx):
     _args.expect(g_pos, "g_pos", torch.float32, (e,))
     _args.expect(contexts, "contexts", torch.int32, (e,))
     _args.expect(negs, "negs", torch.int32, (e, k))
-    _args.expect(ctx, "ctx", torch.float32, (v_size, d))
+    bf16 = _args.table_bf16((ctx,), ("ctx",), ((v_size, d),))
     _args.expect(acc_ctx, "acc_ctx", torch.float32, (v_size, d + 1))
     loss_neg = torch.empty((e,), dtype=torch.float32, device=v.device)
     d_center = torch.empty((e, d), dtype=torch.float32, device=v.device)
@@ -61,11 +63,10 @@ def per_example(v, u, g_pos, contexts, negs, ctx, acc_ctx):
     status = lib.k5_per_example(
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(contexts),
         _args.ptr(negs), _args.ptr(ctx), _args.ptr(loss_neg), _args.ptr(d_center),
-        _args.ptr(acc_ctx), e, k, d, _args.stream(v),
+        _args.ptr(acc_ctx), e, k, d, bf16, _args.stream(v),
     )
     build.check(lib, status, "K5a per_example launch")
-    global launches
-    launches += 1
+    launches["per_example", "bf16" if bf16 else ""] += 1
     return d_center, loss_neg
 
 
@@ -74,6 +75,6 @@ def _lib():
     fn = lib.k5_per_example
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, P]
         fn.restype = I
     return lib

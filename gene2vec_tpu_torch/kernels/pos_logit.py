@@ -3,7 +3,9 @@
 Replaces ``gene2vec_tpu/sgns/step.py:705-734``: v = emb[centers],
 u = ctx[contexts], pos_logit = Σ v·u, g_pos = σ(pos_logit) − 1 and the
 loss term softplus(−pos_logit).  v and u are returned because K2-K4
-reuse them.
+reuse them.  The tables are float32 or bfloat16 (both of one type); the
+gathered rows are upcast to float32 (the reference's
+``.astype(compute_dtype)``), so v, u, g_pos and the loss are float32.
 """
 
 from __future__ import annotations
@@ -12,8 +14,9 @@ import torch
 
 from gene2vec_tpu_torch.kernels import _args, build
 
-#: kernel launches made through :func:`pos_logit`
-launches = 0
+#: kernel launches made through :func:`pos_logit`, by table width
+#: ("" float32, "bf16")
+launches = {("pos_logit", ""): 0, ("pos_logit", "bf16"): 0}
 
 _LIB = "k1_pos_logit"
 
@@ -24,8 +27,8 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def pos_logit_plain(emb, ctx, centers, contexts):
-    v = emb.index_select(0, centers)
-    u = ctx.index_select(0, contexts)
+    v = emb.index_select(0, centers).float()
+    u = ctx.index_select(0, contexts).float()
     logit = torch.sum(v * u, dim=-1)
     return v, u, torch.sigmoid(logit) - 1.0, softplus(-logit)
 
@@ -36,8 +39,7 @@ def pos_logit(emb, ctx, centers, contexts):
         return pos_logit_plain(emb, ctx, centers, contexts)
     v_size, d = emb.shape
     e = centers.shape[0]
-    _args.expect(emb, "emb", torch.float32, (v_size, d))
-    _args.expect(ctx, "ctx", torch.float32, (v_size, d))
+    bf16 = _args.table_bf16((emb, ctx), ("emb", "ctx"), ((v_size, d), (v_size, d)))
     _args.expect(centers, "centers", torch.int32, (e,))
     _args.expect(contexts, "contexts", torch.int32, (e,))
     v = torch.empty((e, d), dtype=torch.float32, device=emb.device)
@@ -48,11 +50,10 @@ def pos_logit(emb, ctx, centers, contexts):
     status = lib.k1_pos_logit(
         _args.ptr(emb), _args.ptr(ctx), _args.ptr(centers), _args.ptr(contexts),
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(loss_pos),
-        e, d, _args.stream(emb),
+        e, d, bf16, _args.stream(emb),
     )
     build.check(lib, status, "K1 pos_logit launch")
-    global launches
-    launches += 1
+    launches["pos_logit", "bf16" if bf16 else ""] += 1
     return v, u, g_pos, loss_pos
 
 
@@ -61,6 +62,6 @@ def _lib():
     fn = lib.k1_pos_logit
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, I, I, P]
         fn.restype = I
     return lib

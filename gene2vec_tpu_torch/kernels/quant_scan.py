@@ -27,7 +27,7 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, _topk, build
 
 #: kernel launches made through :func:`quant_scan`
-launches = 0
+launches = {("quant_scan", ""): 0}
 
 _LIB = "k8_quant_scan"
 
@@ -92,8 +92,7 @@ def quant_scan(qn, table_q, scale, rb: int, valid: Optional[int] = None):
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
     build.check(lib, status, "K8 quant_scan launch")
-    global launches
-    launches += 1
+    launches["quant_scan", ""] += 1
     return scores, rows
 
 

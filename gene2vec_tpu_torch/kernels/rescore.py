@@ -22,10 +22,8 @@ import torch
 
 from gene2vec_tpu_torch.kernels import _args, _topk, build
 
-#: kernel launches made through :func:`rescore`
-launches = 0
-#: kernel launches made through :func:`row_gather`
-gather_launches = 0
+#: kernel launches made through :func:`rescore` and :func:`row_gather`
+launches = {("rescore", ""): 0, ("row_gather", ""): 0}
 
 _LIB = "k9r_rescore"
 
@@ -63,8 +61,7 @@ def rescore(qn, unit, ri, approx, k: int):
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
     build.check(lib, status, "K9r rescore launch")
-    global launches
-    launches += 1
+    launches["rescore", ""] += 1
     return scores, rows
 
 
@@ -89,8 +86,7 @@ def row_gather(table, idx):
         _args.stream(table),
     )
     build.check(lib, status, "K9r row_gather launch")
-    global gather_launches
-    gather_launches += 1
+    launches["row_gather", ""] += 1
     return out
 
 

@@ -12,7 +12,8 @@ P/G slice of the pool of P alias draws::
     d_center  = g_pos·u + g_neg @ u_pool
     acc_ctx[pool] += [g_negᵀ @ v_g | scale·Σ_e mask]   (float32 count)
 
-Returns (d_center, loss_neg); ``acc_ctx`` is updated in place.
+Returns (d_center, loss_neg); ``acc_ctx`` is updated in place.  ``ctx``
+is float32 or bfloat16; the pool rows are upcast to float32.
 """
 
 from __future__ import annotations
@@ -23,8 +24,9 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
-#: kernel launches made through :func:`shared_pool`
-launches = 0
+#: kernel launches made through :func:`shared_pool`, by table width
+#: ("" float32, "bf16")
+launches = {("shared_pool", ""): 0, ("shared_pool", "bf16"): 0}
 
 _LIB = "k5_shared"
 
@@ -37,7 +39,7 @@ def pool_scale(k_neg: int, groups: int, pool_size: int) -> float:
 def shared_pool_plain(v, u, g_pos, contexts, pool, ctx, k_neg, groups, acc_ctx):
     e, d = v.shape
     p, g = pool.shape[0], groups
-    u_negg = ctx[pool.long()].reshape(g, p // g, d)
+    u_negg = ctx[pool.long()].float().reshape(g, p // g, d)
     vg = v.reshape(g, e // g, d)
     neg_logit = torch.bmm(vg, u_negg.transpose(1, 2))          # (G, E/G, P/G)
     mask = (pool.reshape(g, 1, p // g) != contexts.reshape(g, e // g, 1)).to(v.dtype)
@@ -65,7 +67,7 @@ def shared_pool(v, u, g_pos, contexts, pool, ctx, k_neg: int, groups: int, acc_c
     _args.expect(g_pos, "g_pos", torch.float32, (e,))
     _args.expect(contexts, "contexts", torch.int32, (e,))
     _args.expect(pool, "pool", torch.int32, (p,))
-    _args.expect(ctx, "ctx", torch.float32, (v_size, d))
+    bf16 = _args.table_bf16((ctx,), ("ctx",), ((v_size, d),))
     _args.expect(acc_ctx, "acc_ctx", torch.float32, (v_size, d + 1))
     lib = _lib()
     dev = v.device
@@ -80,11 +82,10 @@ def shared_pool(v, u, g_pos, contexts, pool, ctx, k_neg: int, groups: int, acc_c
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(contexts),
         _args.ptr(ctx), _args.ptr(pool), pool_scale(k_neg, g, p), _args.ptr(g_scratch),
         _args.ptr(hits), _args.ptr(loss_neg), _args.ptr(d_center), _args.ptr(acc_ctx),
-        e, d, g, s, splits, _args.stream(v),
+        e, d, g, s, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K5b shared_pool launch")
-    global launches
-    launches += 1
+    launches["shared_pool", "bf16" if bf16 else ""] += 1
     return d_center, loss_neg
 
 
@@ -93,6 +94,6 @@ def _lib():
     fn = lib.k5_shared
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
     return lib

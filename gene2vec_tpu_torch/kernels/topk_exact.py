@@ -17,7 +17,7 @@ import torch
 from gene2vec_tpu_torch.kernels import _args, _topk, build
 
 #: kernel launches made through :func:`topk_exact`
-launches = 0
+launches = {("topk_exact", ""): 0}
 
 _LIB = "k7_topk_exact"
 
@@ -50,8 +50,7 @@ def topk_exact(unit, queries, kb: int, valid: Optional[int] = None):
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(unit),
     )
     build.check(lib, status, "K7 topk_exact launch")
-    global launches
-    launches += 1
+    launches["topk_exact", ""] += 1
     return scores, rows
 
 

@@ -15,7 +15,9 @@ Hierarchical softmax runs through K6 (``kernels/hs.py``): with
 the contiguous node-table prefix (``huffman.split_shallow``) and only the
 deep remainders of rare tokens' paths are gathered.  The node table has
 V − 1 rows; its accumulator and the input table's finalize through K4's
-generic entry points with the SGNS step's combiner.
+generic entry points with the SGNS step's combiner.  bfloat16 tables write
+back as in the SGNS step, with the salts of the input table and of the
+node table (the reference's ``split(sr_key)``, cbow_hs.py:339-343).
 
 :class:`CBOWHSTrainer` mirrors the port's ``SGNSTrainer`` (init /
 draw_epoch / train_epoch / run, explicit draws, CUDA unless
@@ -46,14 +48,16 @@ from gene2vec_tpu_torch.kernels.hs import hs
 from gene2vec_tpu_torch.kernels.row_update import finalize_rows, scatter_rows
 from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
-from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step
+from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step, sr_salts_for
 from gene2vec_tpu_torch.sgns.train import (
     EpochDraws,
     SGNSTrainer,
     _append_csv,
     draw_noise,
+    draw_salts,
     epoch_generator,
     epoch_noise,
+    epoch_salts,
     learning_rate,
     noise_setup,
 )
@@ -75,16 +79,23 @@ def hs_step(
     combiner: str = "capped",
     shallow_sign: Optional[torch.Tensor] = None,  # (V, Ns) int8, split layout
     n_shallow: int = 0,
+    sr_salts=None,
+    stochastic_round: bool = True,
 ) -> Tuple[SGNSParams, torch.Tensor]:
     """One hierarchical-softmax SGD step over a batch of corpus pairs;
     updates ``params`` in place and returns (params, loss).  With
     ``shallow_sign``/``n_shallow`` (the :func:`split_shallow` layout;
     ``tree_*`` are then the deep remainders) the first levels are scored
-    densely against ``node[:n_shallow]``."""
+    densely against ``node[:n_shallow]``.  bfloat16 tables: ``sr_salts``
+    is (2, 2) uint32 words, the input table's row then the node table's
+    (``bits(split(sr_key))``, cbow_hs.py:339-343), or drawn from the
+    default generator; ``stochastic_round`` off rounds to nearest-even."""
     if shallow_sign is not None and shallow_sign.shape[1] != n_shallow:
         raise ValueError(
             f"shallow_sign has {shallow_sign.shape[1]} columns, n_shallow={n_shallow}"
         )
+    salts = sr_salts_for(params, sr_salts, stochastic_round, None)
+    salt_e, salt_n = (None, None) if salts is None else salts
     centers, contexts = _examples_from_pairs(pairs, both_directions)
     inputs, targets = (contexts, centers) if cbow else (centers, contexts)
     emb, node = params
@@ -101,8 +112,8 @@ def hs_step(
     # K4: input rows, then both finalizes (one divisor per node over its
     # shallow and deep load together)
     scatter_rows(acc_emb, inputs, d_input, torch.ones_like(loss_deep))
-    finalize_rows(emb, acc_emb, lr, combiner)
-    finalize_rows(node, acc_node, lr, combiner)
+    finalize_rows(emb, acc_emb, lr, combiner, salt_e)
+    finalize_rows(node, acc_node, lr, combiner, salt_n)
     return params, loss
 
 
@@ -157,12 +168,13 @@ class CBOWHSTrainer:
 
     def init(self, seed: Optional[int] = None) -> SGNSParams:
         """U(−0.5/D, 0.5/D) emb; a zero output table of V − 1 node rows
-        (hierarchical softmax) or V rows (cbow)."""
+        (hierarchical softmax) or V rows (cbow); both at ``table_dtype``."""
         cfg = self.config
         gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
         v = self.corpus.vocab_size
         out_rows = max(self.tree.num_nodes, 1) if self.hs else v
-        return init_params(gen, v, cfg.dim, self.device, out_rows=out_rows)
+        return init_params(gen, v, cfg.dim, self.device, out_rows=out_rows,
+                           dtype=cfg.table_dtype)
 
     # -- training ----------------------------------------------------------
 
@@ -173,9 +185,9 @@ class CBOWHSTrainer:
                          cfg.shuffle_mode, generator)
             if cfg.shuffle_each_iter else None
         ),)
-        if self.hs:
-            return EpochDraws(shuffles)
-        return EpochDraws(shuffles, **draw_noise(self.noise, self.num_batches, generator))
+        noise = {} if self.hs else draw_noise(self.noise, self.num_batches, generator)
+        return EpochDraws(shuffles, **noise,
+                          salts=draw_salts(cfg, self.num_batches, generator))
 
     def learning_rate(self, step: int) -> float:
         return learning_rate(self.config, step, self.num_batches)
@@ -199,6 +211,7 @@ class CBOWHSTrainer:
         if not self.hs:
             step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
                                      self.device)
+        step_salts = epoch_salts(cfg, draws, nb)
         cbow = cfg.objective.startswith("cbow")
         losses = torch.empty((nb,), dtype=torch.float32, device=self.device)
         for step in range(nb):
@@ -210,6 +223,7 @@ class CBOWHSTrainer:
                     cbow=cbow, both_directions=cfg.both_directions,
                     combiner=cfg.combiner, shallow_sign=self._sign,
                     n_shallow=self.split.n_shallow if self.split else 0,
+                    **step_salts(step),
                 )
             else:
                 # cbow + negative sampling: the swapped pair, so the input
@@ -218,7 +232,7 @@ class CBOWHSTrainer:
                     params, batch.flip(1), lr, **step_noise(step),
                     negatives=cfg.negatives, both_directions=cfg.both_directions,
                     combiner=cfg.combiner, strat_group=cfg.strat_group,
-                    shared_groups=cfg.shared_groups,
+                    shared_groups=cfg.shared_groups, **step_salts(step),
                 )
             losses[step] = loss
         return params, torch.mean(losses)
@@ -240,7 +254,8 @@ class CBOWHSTrainer:
             start_iter = ckpt.latest_iteration(export_dir, cfg.dim) + 1
         if start_iter > 1:
             params, _, meta = ckpt.load_iteration(
-                export_dir, cfg.dim, start_iter - 1, device=self.device
+                export_dir, cfg.dim, start_iter - 1, device=self.device,
+                table_dtype=cfg.table_dtype,
             )
             if self.hs:
                 saved_depth = int(meta.get("hs_dense_depth", 0))

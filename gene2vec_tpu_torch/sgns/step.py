@@ -24,6 +24,14 @@ Noise draws: the shared and per-example modes take their alias draws as
 shapes), or draw them from ``generator`` (on the tables' device) with
 the ``noise`` table.
 
+bfloat16 tables: every row is upcast to float32 on load and the
+accumulators stay float32; K4 writes each table back by stochastic
+rounding (``stochastic_round``, the default) with the step's salt words —
+``sr_salts``, a (2, 2) table of uint32 words, emb's row then ctx's, as
+``jax.random.bits(fold_in(key, 0x51EB | 0x51EC), (2,), uint32)`` gives
+them (step.py:884-887, 207) — or drawn from ``generator``; with
+``stochastic_round`` off, by round-to-nearest-even.
+
 Two departures from the reference, both value-preserving:
 
 * the dense head/mid positive slabs (one-hot matmuls over
@@ -41,6 +49,7 @@ import math
 import warnings
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gene2vec_tpu_torch.config import NEGATIVE_MODES
@@ -103,6 +112,7 @@ def _step_stratified(
     k_negatives: int,
     lr: float,
     combiner: str,
+    salts=None,
 ) -> Tuple[SGNSParams, torch.Tensor]:
     emb, ctx = params
     v_size, d = ctx.shape
@@ -123,15 +133,16 @@ def _step_stratified(
     loss = torch.mean(loss_pos + loss_head + loss_tail)
     # K4: positive scatters into both accumulators, then both finalizes
     row_update(emb, ctx, acc_emb, acc_ctx, centers, contexts, d_center, v,
-               g_pos, lr, combiner)
+               g_pos, lr, combiner, salts)
     return params, loss
 
 
-def _step_sampled(params, centers, contexts, lr, combiner, noise_rows):
+def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, salts=None):
     """The shared and per-example steps: K1 for v, u and the positive
     logit; ``noise_rows(v, u, g_pos, acc_ctx)`` (K5a or K5b) for the noise
     term, its rows scattered into ``acc_ctx``; then K4's generic path:
-    [d_center | 1] by center, [g_pos·v | 1] by context, both finalizes."""
+    [d_center | 1] by center, [g_pos·v | 1] by context, both finalizes
+    (``salts``: see :func:`sr_salts_for`)."""
     emb, ctx = params
     v, u, g_pos, loss_pos = pos_logit(emb, ctx, centers, contexts)
     acc_emb = torch.zeros((emb.shape[0], emb.shape[1] + 1), dtype=torch.float32,
@@ -142,8 +153,9 @@ def _step_sampled(params, centers, contexts, lr, combiner, noise_rows):
     ones = torch.ones_like(g_pos)
     scatter_rows(acc_emb, centers, d_center, ones)
     scatter_rows(acc_ctx, contexts, g_pos[:, None] * v, ones)
-    finalize_rows(emb, acc_emb, lr, combiner)
-    finalize_rows(ctx, acc_ctx, lr, combiner)
+    salt_e, salt_c = (None, None) if salts is None else salts
+    finalize_rows(emb, acc_emb, lr, combiner, salt_e)
+    finalize_rows(ctx, acc_ctx, lr, combiner, salt_c)
     return params, loss
 
 
@@ -217,6 +229,25 @@ def _draws(negs, noise, generator, shape, device):
     return negs.to(device=device, dtype=torch.int32)
 
 
+def sr_salts_for(params: SGNSParams, sr_salts, stochastic_round: bool,
+                 generator: Optional[torch.Generator]):
+    """The step's stochastic-rounding salts as host ints [[s0, s1] of emb,
+    [s0, s1] of ctx (or of the HS node table)], or None when the tables
+    are float32 or ``stochastic_round`` is off (nearest-even write-back).
+    Without ``sr_salts`` the four words are drawn from ``generator``."""
+    if params.emb.dtype != torch.bfloat16 or not stochastic_round:
+        return None
+    if sr_salts is None:
+        dev = generator.device if generator is not None else torch.device("cpu")
+        sr_salts = torch.randint(0, 1 << 32, (2, 2), generator=generator,
+                                 dtype=torch.int64, device=dev)
+    words = np.asarray(
+        sr_salts.cpu() if isinstance(sr_salts, torch.Tensor) else sr_salts, dtype=np.int64)
+    if words.shape != (2, 2) or words.min() < 0 or words.max() >= 1 << 32:
+        raise ValueError(f"sr_salts must be (2, 2) uint32 words, got {words.tolist()}")
+    return words.tolist()
+
+
 def sgns_step(
     params: SGNSParams,
     pairs: torch.Tensor,  # (B, 2) int32
@@ -238,6 +269,8 @@ def sgns_step(
     positive_head: int = 0,
     positive_mid: int = 0,
     pos_quotas=None,
+    sr_salts=None,
+    stochastic_round: bool = True,
 ) -> Tuple[SGNSParams, torch.Tensor]:
     """One fused SGD step over a batch of corpus pairs; updates ``params``
     in place and returns (params, mean loss as a 0-d tensor).
@@ -251,7 +284,9 @@ def sgns_step(
     ``noise`` with ``generator`` (on the tables' device).
     ``positive_head``/``positive_mid`` with ``pos_quotas`` declare a
     class-segmented batch, validated as the reference does; the rows are
-    gathered either way, so it does not change the arithmetic."""
+    gathered either way, so it does not change the arithmetic.
+    ``sr_salts`` / ``stochastic_round``: the write-back of bfloat16 tables
+    (:func:`sr_salts_for`); float32 tables ignore both."""
     if negative_mode not in NEGATIVE_MODES:
         raise ValueError(f"unknown negative_mode {negative_mode!r}")
     dense_pos = positive_head > 0 and pos_quotas is not None
@@ -285,17 +320,21 @@ def sgns_step(
         g, per_group = shared_pool_layout(e, negatives, shared_pool, shared_pool_auto,
                                           shared_groups, both_directions)
         negs = _draws(negs, noise, generator, (g * per_group,), pairs.device)
+        salts = sr_salts_for(params, sr_salts, stochastic_round, generator)
         # K5b: each group of E/G examples against its own P/G pool slice; a
         # slot's weight is scale·Σ mask, in example units (step.py:398-441)
         return _step_sampled(params, centers, contexts, lr, combiner,
                              lambda v, u, g_pos, acc: shared_pool_kernel(
-                                 v, u, g_pos, contexts, negs, params.ctx, negatives, g, acc))
+                                 v, u, g_pos, contexts, negs, params.ctx, negatives, g, acc),
+                             salts)
     if negative_mode == "per_example":
         negs = _draws(negs, noise, generator, (e, negatives), pairs.device)
+        salts = sr_salts_for(params, sr_salts, stochastic_round, generator)
         # K5a: K draws per example, their rows scattered with weight = mask
         return _step_sampled(params, centers, contexts, lr, combiner,
                              lambda v, u, g_pos, acc: per_example(
-                                 v, u, g_pos, contexts, negs, params.ctx, acc))
+                                 v, u, g_pos, contexts, negs, params.ctx, acc),
+                             salts)
     if stratified is None:
         raise ValueError("negative_mode='stratified' needs a StratifiedSpec")
     if shared_groups > 0 and (shared_groups > e or e % shared_groups):
@@ -310,6 +349,7 @@ def sgns_step(
                                dtype=torch.int32).to(pairs.device)
     if tuple(blocks.shape) != (g,):
         raise ValueError(f"blocks must have shape ({g},), got {tuple(blocks.shape)}")
+    salts = sr_salts_for(params, sr_salts, stochastic_round, generator)
     return _step_stratified(
-        params, centers, contexts, stratified, blocks, negatives, lr, combiner
+        params, centers, contexts, stratified, blocks, negatives, lr, combiner, salts
     )

@@ -13,9 +13,11 @@ tail-block ids, or (shared and per-example noise) every step's alias
 draws — are one :class:`EpochDraws`.  ``train_epoch`` takes them
 explicitly (the parity tests hand in the reference's draws) or makes them
 from a CPU ``torch.Generator``; the alias draws then come per step from
-a generator on the device, seeded from that CPU generator.  ``run``
-seeds one per iteration from (seed, iteration), so a resumed run replays
-the stream an uninterrupted one would.
+a generator on the device, seeded from that CPU generator.  With
+bfloat16 tables and stochastic rounding, every step's salt words are an
+epoch draw too (``EpochDraws.salts``, drawn last so the other draws keep
+their stream).  ``run`` seeds one per iteration from (seed, iteration),
+so a resumed run replays the stream an uninterrupted one would.
 
 Left out of this slice (see ROADMAP.md): the observability hooks of the
 reference ``run`` (run manifest and events, phase timeline, goodput,
@@ -67,12 +69,16 @@ class EpochDraws(NamedTuple):
     (stratified noise): (num_batches, G) tail-block ids in [0, nb).
     ``negs`` (shared / per-example noise): (num_batches, P) or
     (num_batches, E, K) alias draws; without them, each step draws its
-    own on the device from a generator seeded with ``neg_seed``."""
+    own on the device from a generator seeded with ``neg_seed``.
+    ``salts`` (bfloat16 tables with stochastic rounding): (num_batches,
+    2, 2) uint32 words, each step's input-table row then its output-table
+    row (see ``sgns_step``)."""
 
     shuffles: Tuple[Optional[ShuffleDraw], ...]
     blocks: Optional[np.ndarray] = None
     negs: Optional[np.ndarray] = None
     neg_seed: Optional[int] = None
+    salts: Optional[np.ndarray] = None
 
 
 class NoiseSetup(NamedTuple):
@@ -142,6 +148,35 @@ def epoch_noise(noise: NoiseSetup, config: SGNSConfig, draws: EpochDraws,
         raise ValueError("draws carry neither negs nor neg_seed")
     gen = torch.Generator(device=device).manual_seed(draws.neg_seed)
     return lambda step: dict(pool, noise=noise.table, generator=gen)
+
+
+def uses_salts(config: SGNSConfig) -> bool:
+    """True when each step needs stochastic-rounding salts."""
+    return config.table_dtype == "bfloat16" and config.bf16_stochastic_round
+
+
+def draw_salts(config: SGNSConfig, num_batches: int, generator: torch.Generator):
+    """An epoch's salt words from the CPU ``generator``, or None."""
+    if not uses_salts(config):
+        return None
+    return torch.randint(0, 1 << 32, (num_batches, 2, 2), generator=generator,
+                         dtype=torch.int64).numpy()
+
+
+def epoch_salts(config: SGNSConfig, draws: EpochDraws,
+                num_batches: int) -> Callable[[int], dict]:
+    """Checks an epoch's salts; returns step → the write-back keywords of
+    that step's ``sgns_step`` / ``hs_step``."""
+    if not uses_salts(config):
+        return lambda step: {"stochastic_round": config.bf16_stochastic_round}
+    if draws.salts is None:
+        raise ValueError("bfloat16 tables with stochastic rounding need draws.salts")
+    salts = np.asarray(draws.salts, dtype=np.int64)
+    if salts.shape != (num_batches, 2, 2):
+        raise ValueError(f"draws.salts must be ({num_batches}, 2, 2), got {salts.shape}")
+    if salts.min() < 0 or salts.max() >= 1 << 32:
+        raise ValueError("draws.salts are not uint32 words")
+    return lambda step: {"sr_salts": salts[step], "stochastic_round": True}
 
 
 def learning_rate(config: SGNSConfig, step: int, num_batches: int) -> float:
@@ -277,7 +312,8 @@ class SGNSTrainer:
 
     def init(self, seed: Optional[int] = None) -> SGNSParams:
         gen = torch.Generator().manual_seed(self.config.seed if seed is None else seed)
-        return init_params(gen, self.corpus.vocab_size, self.config.dim, self.device)
+        return init_params(gen, self.corpus.vocab_size, self.config.dim, self.device,
+                           dtype=self.config.table_dtype)
 
     # -- training ----------------------------------------------------------
 
@@ -298,7 +334,8 @@ class SGNSTrainer:
                              cfg.batch_pairs, cfg.shuffle_mode, generator)
                 if cfg.shuffle_each_iter else None
             ),)
-        return EpochDraws(shuffles, **draw_noise(self.noise, self.num_batches, generator))
+        return EpochDraws(shuffles, **draw_noise(self.noise, self.num_batches, generator),
+                          salts=draw_salts(cfg, self.num_batches, generator))
 
     def learning_rate(self, step: int) -> float:
         return learning_rate(self.config, step, self.num_batches)
@@ -318,6 +355,7 @@ class SGNSTrainer:
         nb, bp = self.num_batches, cfg.batch_pairs
         step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
                                  self.device)
+        step_salts = epoch_salts(cfg, draws, nb)
         if self.pos_quotas is not None:
             pools = segmented_epoch_shuffle(
                 self.pairs, self.pos_quotas, nb, cfg.shuffle_mode,
@@ -345,6 +383,7 @@ class SGNSTrainer:
                 positive_head=cfg.positive_head if self.pos_quotas else 0,
                 positive_mid=cfg.positive_mid if self.pos_quotas else 0,
                 pos_quotas=self.pos_quotas,
+                **step_salts(step),
             )
             losses[step] = loss
         return params, torch.mean(losses)
@@ -364,7 +403,8 @@ class SGNSTrainer:
             start_iter = ckpt.latest_iteration(export_dir, cfg.dim) + 1
         if start_iter > 1:
             params, _, _ = ckpt.load_iteration(
-                export_dir, cfg.dim, start_iter - 1, device=self.device
+                export_dir, cfg.dim, start_iter - 1, device=self.device,
+                table_dtype=cfg.table_dtype,
             )
             log(f"resuming from iteration {start_iter - 1}")
         else:

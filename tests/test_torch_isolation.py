@@ -5,6 +5,7 @@ entry points refuse to run on the CPU unless the CPU is asked for."""
 import ast
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -85,6 +86,41 @@ def test_sources_scan_covers_the_serving_slice():
     assert OBJECTIVE_MODULES <= set(_port_modules())
     for mod in SERVING_MODULES | OBJECTIVE_MODULES:
         assert mod.replace(".", "/") + ".py" in scanned
+
+
+def _imported_port_modules(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "gene2vec_tpu_torch"):
+            out.add(node.module)
+        elif isinstance(node, ast.Import):
+            out |= {a.name for a in node.names if a.name.startswith("gene2vec_tpu_torch")}
+    return out
+
+
+def test_sources_scan_covers_the_bf16_slice():
+    """The fourth slice's new sources are scanned: ``kernels/stream_scale.py``
+    by the import scans; ``csrc/k12_stream_scale.cu``, like every CUDA
+    source, includes only the package's own headers and the toolkit's; and
+    every port module that ``tests/test_torch_bf16.py`` drives (a test may
+    import both packages) is one the import scans cover."""
+    mods = set(_port_modules())
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    assert "gene2vec_tpu_torch/kernels/stream_scale.py" in scanned
+    csrc = os.path.join(PKG, "kernels", "csrc")
+    sources = sorted(os.listdir(csrc))
+    assert "k12_stream_scale.cu" in sources
+    for name in sources:
+        with open(os.path.join(csrc, name), encoding="utf-8") as f:
+            text = f.read()
+        for inc in re.findall(r'^#include "([^"]+)"', text, re.M):
+            assert inc in sources, (name, inc)
+    used = _imported_port_modules(os.path.join(ROOT, "tests", "test_torch_bf16.py"))
+    assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+        m.rsplit(".", 1)[0] for m in mods}
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -217,9 +253,10 @@ def test_package_turns_tf32_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-#: options the port now trains (objectives, noise modes and their knobs)
+#: options the port now trains (objectives, noise modes and their knobs;
+#: bfloat16 tables and their write-back rounding)
 PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
-                  "shared_pool_auto"}
+                  "shared_pool_auto", "table_dtype", "bf16_stochastic_round"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -228,11 +265,12 @@ PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
     ("async_checkpoint", True), ("pos_layout_shards", 2), ("timeline", False),
     ("bf16_stochastic_round", False), ("hs_dense_depth", 4), ("shared_pool", 64),
     ("shared_pool_auto", False), ("data_axis", "x"), ("model_axis", "y"),
-    ("donate", False),
+    ("donate", False), ("compute_dtype", "bfloat16"),
 ])
 def test_config_rejects_unported_options(field, value):
-    """Options selecting code the port lacks raise; the objectives and
-    noise modes (and their knobs), ported since, are accepted as given."""
+    """Options selecting code the port lacks raise (bf16 arithmetic inside
+    the step among them); the objectives, noise modes, their knobs and
+    bfloat16 tables, ported since, are accepted as given."""
     from gene2vec_tpu_torch.config import SGNSConfig
 
     if field in PORTED_OPTIONS:
@@ -249,6 +287,8 @@ def test_config_rejects_unknown_objectives_and_modes():
         SGNSConfig(objective="glove")
     with pytest.raises(ValueError, match="negative_mode"):
         SGNSConfig(negative_mode="uniform")
+    with pytest.raises(ValueError, match="table_dtype"):
+        SGNSConfig(table_dtype="float16")
 
 
 def test_bf16_index_raises_on_the_card(monkeypatch):
@@ -280,13 +320,16 @@ def test_bf16_index_raises_on_the_card(monkeypatch):
 
 
 def _training_calls():
-    from gene2vec_tpu_torch.kernels import hs, per_example, row_update, shared_pool
+    from gene2vec_tpu_torch.kernels import (
+        hs, noise_head, noise_tail, per_example, pos_logit, row_update, shared_pool)
 
     f = torch.zeros(4, 3)
     g = torch.zeros(4)
     acc = torch.zeros(4, 4)
     ids = torch.zeros(4, dtype=torch.int32)
-    return [
+    t = f.to(torch.bfloat16)  # a bfloat16 table
+    salts = [[1, 2], [3, 4]]
+    f32_calls = [
         (per_example, "per_example", "k5_per_example",
          lambda: per_example.per_example(f, f, g, ids, ids[:, None], f, acc)),
         (shared_pool, "shared_pool", "k5_shared",
@@ -299,12 +342,33 @@ def _training_calls():
         (row_update, "finalize_rows", "k4_row_update",
          lambda: row_update.finalize_rows(f, acc, 0.1, "capped")),
     ]
+    bf16_calls = [
+        (pos_logit, "pos_logit", "k1_pos_logit", lambda: pos_logit.pos_logit(t, t, ids, ids)),
+        (noise_head, "noise_head", "k2_noise_head",
+         lambda: noise_head.noise_head(f, f, g, ids, t, g, 2, 5, acc)),
+        (noise_tail, "noise_tail", "k3_noise_tail",
+         lambda: noise_tail.noise_tail(f, ids, t, g, ids[:2], 0, 2, 2, 5, f, acc)),
+        (row_update, "row_update", "k4_row_update",
+         lambda: row_update.row_update(t, t, acc, acc, ids, ids, f, f, g, 0.1, "capped",
+                                       salts)),
+        (per_example, "per_example", "k5_per_example",
+         lambda: per_example.per_example(f, f, g, ids, ids[:, None], t, acc)),
+        (shared_pool, "shared_pool", "k5_shared",
+         lambda: shared_pool.shared_pool(f, f, g, ids, ids, t, 5, 2, acc)),
+        (hs, "hs", "k6_hs",
+         lambda: hs.hs(t, t[:3], ids, ids, ids[:, None], torch.zeros(4, 1), ids,
+                       torch.zeros(4, 2, dtype=torch.int8), acc[:3])),
+        (row_update, "finalize_rows", "k4_row_update",
+         lambda: row_update.finalize_rows(t, acc, 0.1, "capped", salts[0])),
+    ]
+    return f32_calls + bf16_calls
 
 
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(13))
 def test_training_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
-    """K5a, K5b, K6 and K4's generic entry points: a CUDA tensor reaches
-    the kernel (the loader, stubbed to raise), never the plain version."""
+    """K5a, K5b, K6 and K4's generic entry points, then (cases 5-12) every
+    training kernel on bfloat16 tables: a CUDA tensor reaches the kernel
+    (the loader, stubbed to raise), never the plain version."""
     from gene2vec_tpu_torch.kernels import _args, build
 
     mod, name, lib, call = _training_calls()[case]
@@ -316,6 +380,7 @@ def test_training_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, cas
 
     monkeypatch.setattr(build, "load", fake_load)
     monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(_args, "split_k", lambda *a: 1)  # reads the card's properties
     monkeypatch.setattr(mod, f"{name}_plain", lambda *a: pytest.fail("plain"))
     with pytest.raises(RuntimeError, match="unavailable"):
         call()
