@@ -7,14 +7,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. device and build — prints the card's name and power limit, builds the
    training kernels (K1-K6), the serving kernels (K7, K8, K9, K9r) and
-   the streaming probe K12 from ``gene2vec_tpu_torch/kernels/csrc`` with
-   nvcc for sm_90a, one compiler per source, all at once;
+   the Pallas probes' counterparts K12-K14 from
+   ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one compiler
+   per source, all at once;
 2. kernel check — each kernel at the default configuration's shapes
    (E = 8192 examples, D = 200, V = 24,447, H = 256, S = 512, 32 groups)
    against its plain PyTorch version on the same card and inputs, within
    the stated tolerance; times the kernel, the plain version and, where
-   one PyTorch call computes the same function, that call (CUDA events,
-   median of repeats, L2 flushed before each); one whole step on the
+   the shortest sequence of PyTorch library calls that computes the same
+   function (checked against the plain version; CUDA events, median of
+   repeats, L2 flushed before each); one whole step on the
    card against the plain step on the CPU, at a small ragged shape and
    at full width; then the other objectives' kernels at the same width —
    K5a (per-example draws), K5b (the auto-sized shared pool, G = 256,
@@ -39,7 +41,17 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    K8/K9 approximate scores bitwise — K8 and K9 on a bf16 index (B in
    {1, 64}, kb = 16; scores within 1e-6, near-ties counted), K8 at
    B = 64, rb = 16,384 (bitwise), and K9r's row gather at the Pallas
-   gather probes' shapes against ``table[idx]``;
+   gather probes' shapes and the GGIPNN lookup's against ``table[idx]``;
+   (2f) the remaining Pallas probes' counterparts at the probes' shapes —
+   K12 at scales 1.0000001, 2 and 1, float32 and bfloat16, bitwise; K13's
+   lane gather (bitwise) and scatter (within LANE_RTOL of each column's
+   scale, or one bfloat16 ulp); K14's staged copy at the six feature
+   probes, ``callh``'s 8-row tiles and ``vmem_probe``'s 8-60 MB with its
+   tile swept to the card's opt-in shared-memory limit, bitwise — each
+   with GB/s in the ``{"probes": ...}`` line; then one GGIPNN Adam step
+   card vs CPU at full width (V = 24,447, D = 200, B = 128, table frozen
+   and trained) and ``ggipnn_pairs_per_sec`` at B = 128 and 1024 with
+   the device idle share (``{"ggipnn_rate": ...}`` lines);
 3. training at full width — a Zipf pair corpus (V = 24,447, 4,000,000
    pairs) written as pair files and trained through the CLI with the
    default configuration for 3 iterations: the loss must be finite and
@@ -70,15 +82,28 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    phase 3's export it is reported only, since a structureless Zipf
    corpus trains near-parallel rows whose neighbor ranks differ by less
    than the int8 scan's error.  QPS and p50/p99 latency per export and
-   mode go to ``{"serving": ...}`` lines.  It runs right after phase 3.
+   mode go to ``{"serving": ...}`` lines.  It runs right after phase 3;
+6. GGIPNN over the clustered export — a predictionData/ directory
+   (262,144 / 16,384 / 32,768 pairs, half within one group, half random)
+   trained through ``python -m gene2vec_tpu_torch.cli.ggipnn`` in process:
+   the default (frozen table) at B = 128 and 1024 for 2 epochs, then
+   ``--embed-train --run-dir`` (the step loop, checkpoints); the loss
+   falls, the default run's test AUC reaches GG_AUC_FLOOR and
+   ``row_gather`` launches once per forward pass (``{"ggipnn": ...}``
+   lines); then the run's last checkpoint behind ``/v1/interaction`` of
+   ``cli/serve.py``: 400 requests of 1-64 pairs from 16 clients, every
+   score within 1e-5 of the host's CPU forward, ``trained_head`` true, an
+   unknown gene 400, QPS and p50/p99 on a ``{"serving": ...}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
 for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
 points ``row_scatter`` / ``row_finalize``, phase 3c's for the ``_bf16``
 rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
-K7-K9r; ``stream_scale`` phase 3's, 0: it is on no path; the script
-fails if any other kernel launched no time on its path) and the result line
+K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``;
+the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
+path; the script fails if any other kernel launched no time on its path)
+and the result line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
 with code 2 and prints no result.
 """
@@ -201,6 +226,18 @@ def compare(name, outputs):
             )
         worst = max(worst, float(diff.max()))
     return worst
+
+
+def same_bits(torch, got, want) -> bool:
+    """Bitwise equality of two float32 or bfloat16 tensors."""
+    return got.dtype == want.dtype and torch.equal(
+        got.view(torch.int16), want.view(torch.int16))
+
+
+def bf16_ulp(torch, t):
+    """One bfloat16 ulp at each |t| (8 significant bits), as float32."""
+    _, e = torch.frexp(t.float().abs())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
 
 
 def check_topk(name, got, want, score_of, tol):
@@ -355,13 +392,16 @@ def kernel_check(torch, reps: int, dtype=None):
     # K1
     got = pos_logit.pos_logit(emb, ctx, centers, contexts)
     want = pos_logit.pos_logit_plain(emb, ctx, centers, contexts)
+    c_l, x_l = centers.long(), contexts.long()
+    library_check("K1" + sfx, lib_pos_logit(torch, emb, ctx, c_l, x_l), want)
     torch.cuda.synchronize()
     err = compare("K1" + sfx, [(lbl, g, w, "max") for lbl, g, w in
                                zip(("v", "u", "g_pos", "loss_pos"), got, want)])
     row("pos_logit" + sfx, "k1_pos_logit.cu", "gene2vec_tpu/sgns/step.py:705",
         err, timer(lambda: pos_logit.pos_logit(emb, ctx, centers, contexts)),
         timer(lambda: pos_logit.pos_logit_plain(emb, ctx, centers, contexts)),
-        None, k1_bytes(c_ids, x_ids, D, tb), 2 * E * D)
+        timer(lambda: lib_pos_logit(torch, emb, ctx, c_l, x_l)),
+        k1_bytes(c_ids, x_ids, D, tb), 2 * E * D)
     v, u, g_pos, _ = want
 
     # K2 (into a zeroed accumulator, as in the step)
@@ -372,18 +412,22 @@ def kernel_check(torch, reps: int, dtype=None):
     torch.cuda.synchronize()
     err = compare("K2" + sfx, [("d_center", dk, dp, "rows"), ("loss_head", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
+    kq = K * spec.q[:HEAD]
+    a_l = acc0.clone()
+    library_check("K2" + sfx, [*lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_l), a_l],
+                  [dp, lp, a_p])
     a_t = acc0.clone()
     row("noise_head" + sfx, "k2_noise_head.cu", "gene2vec_tpu/sgns/step.py:736",
         err,
         timer(lambda: noise_head.noise_head(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: noise_head.noise_head_plain(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
-        None,
+        timer(lambda: lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_t)),
         4 * (2 * E * D + 3 * E + HEAD + 2 * HEAD * (D + 1) + E * D) + tb * HEAD * D,
         3 * 2 * E * HEAD * D)
 
     # K3
-    d_k, d_p = dp.clone(), dp.clone()
-    a_k, a_p = a_p.clone(), a_p.clone()
+    d_k, d_p, d_l = dp.clone(), dp.clone(), dp.clone()
+    a_k, a_p, a_l = a_p.clone(), a_p.clone(), a_p.clone()
     lk = noise_tail.noise_tail(v, contexts, ctx, spec.tail_w, blocks, spec.head,
                                spec.block, GROUP, K, d_k, a_k)
     lp = noise_tail.noise_tail_plain(v, contexts, ctx, spec.tail_w, blocks, spec.head,
@@ -391,6 +435,10 @@ def kernel_check(torch, reps: int, dtype=None):
     torch.cuda.synchronize()
     err = compare("K3" + sfx, [("loss_tail", lk, lp, "elems"), ("d_center", d_k, d_p, "rows")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
+    starts_t = noise_tail.block_starts(blocks, spec.head, spec.block, spec.tail_w.shape[0])
+    blk_rows = starts_t[:, None] + torch.arange(spec.block, device=dev)[None, :]
+    library_check("K3" + sfx, [lib_noise_tail(torch, v, x_l, ctx, spec.tail_w, blk_rows, float(K),
+                                              d_l, a_l), d_l, a_l], [lp, d_p, a_p])
     starts = np.minimum(spec.head + blk.astype(np.int64) * spec.block, V - spec.block)
     block_rows = set(itertools.chain.from_iterable(range(s, s + spec.block) for s in starts))
     distinct = len(block_rows)
@@ -401,7 +449,8 @@ def kernel_check(torch, reps: int, dtype=None):
                                             spec.block, GROUP, K, d_t, a_t)),
         timer(lambda: noise_tail.noise_tail_plain(v, contexts, ctx, spec.tail_w, blocks,
                                                   spec.head, spec.block, GROUP, K, d_t, a_t)),
-        None,
+        timer(lambda: lib_noise_tail(torch, v, x_l, ctx, spec.tail_w, blk_rows, float(K), d_t,
+                                     a_t)),
         4 * (E * D + E + g + distinct + 2 * E * D + 2 * distinct * (D + 1) + E)
         + tb * distinct * D,
         3 * 2 * E * spec.block * D)
@@ -472,6 +521,176 @@ def kernel_check(torch, reps: int, dtype=None):
     return rows
 
 
+# -- library yardsticks: for each kernel, the shortest sequence of PyTorch
+# library calls that computes its function on the same inputs (library_ms;
+# timed and checked here, never called by the port) --------------------------
+
+
+def lib_pos_logit(torch, emb, ctx, c_l, x_l):
+    """K1: two embedding lookups, a row-wise dot, the two epilogues."""
+    fn = torch.nn.functional
+    v, u = fn.embedding(c_l, emb).float(), fn.embedding(x_l, ctx).float()
+    logit = torch.linalg.vecdot(v, u)
+    return v, u, torch.sigmoid(logit) - 1.0, fn.softplus(-logit)
+
+
+def lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, head, acc):
+    """K2: the head GEMM, its masked epilogue, the two back-GEMMs into
+    d_center and the accumulator; ``kq`` = K · q[:H]."""
+    fn = torch.nn.functional
+    d = v.shape[1]
+    ch = ctx[:head].float()
+    logit = torch.mm(v, ch.T)
+    w = torch.where(x_l[:, None] == torch.arange(head, device=v.device), 0.0, kq)
+    g = torch.sigmoid(logit).mul_(w)
+    loss = torch.sum(fn.softplus(logit).mul_(w), 1)
+    d_center = torch.addmm(g_pos[:, None] * u, g, ch)
+    acc[:head, :d].addmm_(g.T, v)
+    acc[:head, d] += w.sum(0)
+    return d_center, loss
+
+
+def lib_noise_tail(torch, v, x_l, ctx, tail_w, rows, k, d_center, acc):
+    """K3: the drawn blocks' rows (``rows`` (G, S)), batched GEMMs per
+    group with the masked epilogue, the block-row payloads index-added."""
+    fn = torch.nn.functional
+    g_, _ = rows.shape
+    e, d = v.shape
+    blk = fn.embedding(rows, ctx).float()
+    vg = v.view(g_, e // g_, d)
+    logit = torch.bmm(vg, blk.transpose(1, 2))
+    wm = torch.where(rows[:, None, :] == x_l.view(g_, -1, 1), 0.0, k * tail_w[rows][:, None, :])
+    gt = torch.sigmoid(logit).mul_(wm)
+    loss = torch.sum(fn.softplus(logit).mul_(wm), -1).reshape(e)
+    d_center.view(g_, e // g_, d).baddbmm_(gt, blk)
+    pay = torch.cat([torch.bmm(gt.transpose(1, 2), vg), wm.sum(1)[..., None]], 2)
+    acc.index_add_(0, rows.reshape(-1), pay.reshape(-1, d + 1))
+    return loss
+
+
+def lib_finalize(torch, table, acc, lr, cap):
+    """K4's capped finalize, nearest-even for a bfloat16 table."""
+    d = table.shape[1]
+    div = torch.clamp_min(acc[:, d:] / cap, 1.0)
+    if table.dtype == torch.float32:
+        return table.addcdiv_(acc[:, :d], div, value=-lr)
+    return table.copy_(table.float().addcdiv_(acc[:, :d], div, value=-lr))
+
+
+def lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, acc):
+    """K5a: the (E, K, D) gather, batched dots, the masked epilogue, the
+    noise rows' payloads index-added."""
+    fn = torch.nn.functional
+    e, d = v.shape
+    un = fn.embedding(negs_l, ctx).float()
+    logit = torch.bmm(un, v[:, :, None])[..., 0]
+    m = (negs_l != x_l[:, None]).float()
+    loss = torch.sum(fn.softplus(logit).mul_(m), 1)
+    g = torch.sigmoid(logit).mul_(m)
+    d_center = torch.baddbmm(g_pos[:, None, None] * u[:, None, :], g[:, None, :], un)[:, 0]
+    acc.index_add_(0, negs_l.reshape(-1), torch.cat(
+        [(g[..., None] * v[:, None, :]).reshape(-1, d), m.reshape(-1, 1)], 1))
+    return d_center, loss
+
+
+def lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, groups, acc):
+    """K5b: the pool's rows, grouped batched GEMMs with the masked
+    epilogue, the pool rows' payloads index-added."""
+    fn = torch.nn.functional
+    e, d = v.shape
+    p, g = pool_l.shape[0], groups
+    un = fn.embedding(pool_l, ctx).float().view(g, p // g, d)
+    vg = v.view(g, e // g, d)
+    logit = torch.bmm(vg, un.transpose(1, 2))
+    m = torch.where(pool_l.view(g, 1, -1) == x_l.view(g, -1, 1), 0.0, scale)
+    loss = torch.sum(fn.softplus(logit) * m, -1).reshape(e)
+    gn = torch.sigmoid(logit).mul_(m)
+    d_center = torch.baddbmm(g_pos.view(g, -1, 1) * u.view(g, e // g, d), gn, un)
+    pay = torch.cat([torch.bmm(gn.transpose(1, 2), vg).reshape(p, d), m.sum(1).reshape(p, 1)], 1)
+    acc.index_add_(0, pool_l, pay)
+    return d_center.reshape(e, d), loss
+
+
+def lib_hs(torch, emb, node, in_l, t_l, points, codes, lengths, sign, acc):
+    """K6: the deep paths' node rows gathered, batched dots and the
+    code epilogue, payloads index-added; the dense shallow levels as
+    GEMMs against the sign rows."""
+    fn = torch.nn.functional
+    d = emb.shape[1]
+    v = fn.embedding(in_l, emb).float()
+    pts, cds = points[t_l].long(), codes[t_l]
+    mask = (torch.arange(points.shape[1], device=v.device)[None, :]
+            < lengths[t_l][:, None]).float()
+    w = fn.embedding(pts, node).float()
+    logit = torch.bmm(w, v[:, :, None])[..., 0]
+    loss_deep = torch.sum(fn.softplus((2.0 * cds - 1.0) * logit).mul_(mask), -1)
+    g = (torch.sigmoid(logit) - (1.0 - cds)).mul_(mask)
+    d_input = torch.bmm(g[:, None, :], w)[:, 0]
+    acc.index_add_(0, pts.reshape(-1), torch.cat(
+        [(g[..., None] * v[:, None, :]).reshape(-1, d), mask.reshape(-1, 1)], 1))
+    ns = sign.shape[1]
+    ws = node[:ns].float()
+    s = sign[t_l].float()
+    a = s.abs()
+    logit_s = torch.mm(v, ws.T)
+    loss_s = torch.sum(fn.softplus(-s * logit_s).mul_(a), -1)
+    g_s = a * (torch.sigmoid(logit_s) - (1.0 + s) / 2.0)
+    d_input = torch.addmm(d_input, g_s, ws)
+    acc[:ns, :d].addmm_(g_s.T, v)
+    acc[:ns, d] += a.sum(0)
+    return d_input, loss_deep, loss_s
+
+
+def lib_quant_scan(torch, qn, table_q_pad, scale, v_rows, rb):
+    """K8: query quantization, one int8 GEMM (``torch._int_mm``, which
+    needs a row count that is a multiple of 8: ``table_q_pad``), the scale
+    epilogue and ``torch.topk``."""
+    from gene2vec_tpu_torch.kernels import quant_scan
+
+    qq, qs = quant_scan.quantize_queries_plain(qn)
+    s = torch._int_mm(qq, table_q_pad.T)[:, :v_rows]
+    return torch.topk(s.float() * qs * scale[None, :], rb)
+
+
+def lib_ivf_scan(torch, qn, centroids, lists, table_q, scale, nprobe, rb):
+    """K9: centroid GEMM and top-nprobe, the probed lists' int8 rows
+    gathered, batched dots (int8 products summed exactly in float32), the
+    scale epilogue, padding masked, ``torch.topk``."""
+    from gene2vec_tpu_torch.kernels import quant_scan
+
+    b = qn.shape[0]
+    _, ci = torch.topk(qn @ centroids.T, nprobe)
+    cand = lists[ci].reshape(b, -1)
+    ok = cand >= 0
+    pos = cand.clamp_min(0).long()
+    qq, qs = quant_scan.quantize_queries_plain(qn)
+    dots = torch.bmm(table_q[pos].float(), qq.float()[:, :, None])[..., 0]
+    approx = torch.where(ok, dots * qs * scale[pos], float("-inf"))
+    rs, rp = torch.topk(approx, min(rb, approx.shape[1]))
+    return rs, torch.gather(pos, 1, rp)
+
+
+def lib_rescore(torch, qn, unit, ri, approx, k):
+    """K9r: the candidates' unit rows gathered, batched exact dots, the
+    non-finite candidates masked, ``torch.topk``."""
+    ok = torch.isfinite(approx)
+    pos = torch.where(ok, ri, 0).long()
+    exact = torch.bmm(unit[pos], qn[:, :, None])[..., 0].masked_fill_(~ok, float("-inf"))
+    s, p = torch.topk(exact, min(k, exact.shape[1]))
+    return s, torch.gather(pos, 1, p)
+
+
+def library_check(name, got, want, rtol=1e-4):
+    """A yardstick's outputs against the plain version's (float32 sums in
+    another order; top-k scores position by position): within ``rtol`` of
+    each output's max |plain|."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = (g.float() - w.float()).abs().masked_fill(g == w, 0.0)
+        scale = w.float().abs().masked_fill(~w.float().isfinite(), 0.0).max()
+        if not float(diff.max()) <= rtol * float(scale):
+            raise SystemExit(f"{name} library sequence: output {i} off by {float(diff.max()):.3e}")
+
+
 # -- phase 2b: the serving kernels against their plain versions ----------------
 
 SERVE_BATCHES = (1, 64)      # one query; a full batch bucket (max_batch)
@@ -530,6 +749,8 @@ def serving_kernel_check(torch, reps):
         f"built in {time.perf_counter() - t0:.1f}s")
     unit = torch.from_numpy(unit_np).to(dev)
     c, lst = index.n_clusters, index.list_len
+    # torch._int_mm takes a row count that is a multiple of 8
+    tq_pad = torch.cat([index.table_q, index.table_q.new_zeros(((-V) % 8, D))])
     timer = Timer(torch, reps)
     records, worst, ties = [], {}, {}
 
@@ -574,16 +795,21 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: topk_exact.topk_exact_plain(unit, q, kb)),
                    timer(lambda: torch.topk(torch.mm(qn, unit.T), kb)),
                    4 * (V * D + b * D) + 8 * b * kb, 2.0 * b * V * D)
-            # K8
+            # K8 (library: torch._int_mm takes more than 16 query rows)
             g8 = quant_scan.quant_scan(qn, index.table_q, index.scale, rb)
             w8 = quant_scan.quant_scan_plain(qn, index.table_q, index.scale, rb)
             torch.cuda.synchronize()
             bitwise("K8", g8, w8, slice(None))
+            t_lib = None
+            if b > 16:
+                library_check("K8", lib_quant_scan(torch, qn, tq_pad, index.scale, V, rb)[:1],
+                              w8[:1], rtol=1e-6)
+                t_lib = timer(lambda: lib_quant_scan(torch, qn, tq_pad, index.scale, V, rb))
             record("quant_scan", b, kb, 0.0,
                    timer(lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb)),
                    timer(lambda: quant_scan.quant_scan_plain(qn, index.table_q, index.scale,
                                                              rb)),
-                   None, V * D + 4 * V + 4 * b * D + 8 * b * rb, 0.0, 2.0 * b * V * D)
+                   t_lib, V * D + 4 * V + 4 * b * D + 8 * b * rb, 0.0, 2.0 * b * V * D)
             # K9: ids and scores bitwise where the probe is not a near-tie
             args9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
             g9 = ivf_scan.ivf_scan(*args9)
@@ -596,8 +822,10 @@ def serving_kernel_check(torch, reps):
             cand = index.lists[ci.long()].reshape(b, -1)
             cand = cand[cand >= 0]
             n_cand, n_rows = int(cand.numel()), int(torch.unique(cand).numel())
+            library_check("K9", lib_ivf_scan(torch, *args9)[:1], w9[:1], rtol=1e-6)
             record("ivf_scan", b, kb, 0.0, timer(lambda: ivf_scan.ivf_scan(*args9)),
-                   timer(lambda: ivf_scan.ivf_scan_plain(*args9)), None,
+                   timer(lambda: ivf_scan.ivf_scan_plain(*args9)),
+                   timer(lambda: lib_ivf_scan(torch, *args9)),
                    4 * c * D + 4 * b * D + 4 * b * nprobe * lst + n_rows * (D + 4)
                    + 8 * b * g9[0].shape[1],
                    2.0 * b * c * D, 2.0 * n_cand * D)
@@ -613,9 +841,12 @@ def serving_kernel_check(torch, reps):
             rs, ri = w8
             fin = torch.isfinite(rs)
             n_fin, n_rows = int(fin.sum()), int(torch.unique(ri[fin]).numel())
+            library_check("K9r", lib_rescore(torch, qn, unit, ri, rs, kb)[:1],
+                          rescore.rescore_plain(qn, unit, ri, rs, kb)[:1], rtol=SERVE_TOL)
             record("rescore", b, kb, err,
                    timer(lambda: rescore.rescore(qn, unit, ri, rs, kb)),
-                   timer(lambda: rescore.rescore_plain(qn, unit, ri, rs, kb)), None,
+                   timer(lambda: rescore.rescore_plain(qn, unit, ri, rs, kb)),
+                   timer(lambda: lib_rescore(torch, qn, unit, ri, rs, kb)),
                    8 * b * rb + 4 * b * D + 4 * n_rows * D + 8 * b * kb, 2.0 * n_fin * D)
     log(f"serving kernels: near-ties {ties} (stated: float32 sums in another order)")
     sources = {
@@ -681,40 +912,53 @@ STREAM_MB = (25, 100, 400)
 STREAM_MAIN_MB = 100       # the size whose times the kernels line carries
 
 
+#: K12's other instances at STREAM_MAIN_MB: (element type, scale)
+STREAM_VARIANTS = (("float32", 2.0), ("float32", 1.0), ("bfloat16", 1.0000001),
+                   ("bfloat16", 2.0), ("bfloat16", 1.0))
+
+
 def stream_probes(torch, reps):
     """K12 (``stream_scale``) at the Pallas streaming probe's sizes — (n, 256)
-    float32, n = MB·2²⁰/4/256 — bitwise against its plain version
-    ``x * 1.0000001``, which is also the library call (``torch.mul``).
+    float32, n = MB·2²⁰/4/256, x · 1.0000001 — then at STREAM_MAIN_MB for
+    each of STREAM_VARIANTS, each bitwise against its plain version
+    ``x * scale``, which is also the library call (``torch.mul``).
     Returns (the kernels-line row at STREAM_MAIN_MB, one record per size
-    with achieved GB/s: bytes read and written over the kernel's time)."""
+    and variant with achieved GB/s: bytes read and written over the
+    kernel's time)."""
     from gene2vec_tpu_torch.kernels import stream_scale
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(torch, reps)
     records, main_row = [], None
-    for mb in STREAM_MB:
-        n = mb * 1024 * 1024 // 4 // 256
-        x = torch.randn((n, 256), device=dev, generator=gen)
-        got, want = stream_scale.stream_scale(x), stream_scale.stream_scale_plain(x)
+    cases = [(mb, "float32", stream_scale.SCALE) for mb in STREAM_MB]
+    cases += [(STREAM_MAIN_MB, dt, sc) for dt, sc in STREAM_VARIANTS]
+    for mb, dtype, scale in cases:
+        es = 2 if dtype == "bfloat16" else 4
+        n = mb * 1024 * 1024 // es // 256
+        x = torch.randn((n, 256), device=dev, generator=gen).to(getattr(torch, dtype))
+        got = stream_scale.stream_scale(x, scale)
+        want = stream_scale.stream_scale_plain(x, scale)
         torch.cuda.synchronize()
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise SystemExit(f"stream_scale {mb} MB: not bitwise x * {stream_scale.SCALE}")
-        nbytes = 2 * 4 * n * 256
+        if not same_bits(torch, got, want):
+            raise SystemExit(f"stream_scale {mb} MB {dtype}: not bitwise x * {scale}")
+        nbytes = 2 * es * n * 256
         b_ms, b_by = bound(nbytes, float(n * 256))
-        rec = {"name": "stream_scale", "probe": "experiments/test_bw.py:39 pallas_copy_loop",
-               "mb": mb, "shape": [n, 256], "max_abs_err": 0.0,
-               "ms": timer(lambda: stream_scale.stream_scale(x)),
-               "plain_ms": timer(lambda: stream_scale.stream_scale_plain(x)),
-               "library_ms": timer(lambda: torch.mul(x, stream_scale.SCALE)),
+        rec = {"name": "stream_scale" + ("_bf16" if es == 2 else ""),
+               "probe": "experiments/test_bw.py:39 pallas_copy_loop", "mb": mb,
+               "dtype": dtype, "scale": scale, "shape": [n, 256], "max_abs_err": 0.0,
+               "ms": timer(lambda: stream_scale.stream_scale(x, scale)),
+               "plain_ms": timer(lambda: stream_scale.stream_scale_plain(x, scale)),
+               "library_ms": timer(lambda: torch.mul(x, scale)),
                "bound_ms": b_ms, "bound_by": b_by}
         rec["gb_per_s"] = nbytes / rec["ms"] / 1e6
         rec["library_gb_per_s"] = nbytes / rec["library_ms"] / 1e6
         records.append(rec)
-        log(f"stream_scale {mb} MB: kernel {rec['ms']:.4f} ms ({rec['gb_per_s']:.1f} GB/s), "
-            f"plain {rec['plain_ms']:.4f} ms, torch.mul {rec['library_ms']:.4f} ms "
-            f"({rec['library_gb_per_s']:.1f} GB/s), bound {b_ms:.4f} ms ({b_by})")
-        if mb == STREAM_MAIN_MB:
+        log(f"stream_scale {mb} MB {dtype} x {scale}: kernel {rec['ms']:.4f} ms "
+            f"({rec['gb_per_s']:.1f} GB/s), plain {rec['plain_ms']:.4f} ms, torch.mul "
+            f"{rec['library_ms']:.4f} ms ({rec['library_gb_per_s']:.1f} GB/s), bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if mb == STREAM_MAIN_MB and dtype == "float32" and scale == stream_scale.SCALE:
             main_row = {
                 "name": "stream_scale", "route": "cuda",
                 "source": "gene2vec_tpu_torch/kernels/csrc/k12_stream_scale.cu",
@@ -893,10 +1137,15 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     err = compare("K5a" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     n_neg = distinct(negs)
+    x_l, negs_l = contexts.long(), negs.long()
+    a_l = acc0.clone()
+    library_check("K5a" + sfx, [*lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_l), a_l],
+                  [dp, lp, a_p])
     a_t = acc0.clone()
     row("per_example" + sfx, "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
         lambda: per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_t),
-        lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t), None,
+        lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t),
+        lambda: lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_t),
         4 * (2 * E * D + 2 * E + E * K + 2 * n_neg * (D + 1) + E * D + E) + tb * n_neg * D,
         5 * E * K * D)
     log(f"per_example{sfx}: {n_neg} distinct noise rows of {E * K} draws")
@@ -912,11 +1161,15 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     err = compare("K5b" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
     n_pool = distinct(pool)
+    pool_l, scale = pool.long(), shared_pool.pool_scale(K, g, pool.shape[0])
+    a_l = acc0.clone()
+    library_check("K5b" + sfx, [*lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g,
+                                                 a_l), a_l], [dp, lp, a_p])
     a_t = acc0.clone()
     row("shared_pool" + sfx, "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
         lambda: shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         lambda: shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
-        None,
+        lambda: lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g, a_t),
         4 * (2 * E * D + 2 * E + g * per_group + 2 * n_pool * (D + 1) + E * D + E)
         + tb * n_pool * D,
         3 * 2 * E * per_group * D)
@@ -940,9 +1193,13 @@ def objective_kernel_check(torch, reps: int, dtype=None):
                                ("loss_shallow", lsk, lsp, "elems")]
                   + acc_outputs("acc_node", a_k, a_p, D))
     work = hs_work(split, c_ids, x_ids, D, tb)
+    args6_l = (emb, node, centers.long(), x_l, pts, cds, lens, sign)
+    a_l = a0.clone()
+    library_check("K6" + sfx, [*lib_hs(torch, *args6_l, a_l), a_l], [dp, ldp, lsp, a_p])
     a_t = a0.clone()
     row("hs" + sfx, "k6_hs.cu", "gene2vec_tpu/sgns/cbow_hs.py:65", err,
-        lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t), None,
+        lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t),
+        lambda: lib_hs(torch, *args6_l, a_t),
         work["bytes"], work["flops"])
     lengths = tree.lengths.astype(np.float64)
     w = counts / counts.sum()
@@ -984,12 +1241,20 @@ def objective_kernel_check(torch, reps: int, dtype=None):
             err_f, tol = float((t_k.float() - t_p.float()).abs().max()), "bitwise"
         else:
             err_f, tol = compare("K4 finalize_rows", [("ctx", t_k, t_p, "abs")]), None
+        lib = None
+        if salts is None:  # no PyTorch call rounds stochastically
+            t_l = ctx.clone()
+            library_check(name, [lib_finalize(torch, t_l, acc_pe, 0.0125, row_update._CAP)],
+                          [t_p], rtol=1e-2 if bf16 else 1e-6)
+            lib = lambda: lib_finalize(torch, t_t, acc_pe, 0.0125, row_update._CAP)  # noqa: E731
         t_t = ctx.clone()
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
             lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts),
             lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts),
-            None, touched * (4 * (D + 1) + 2 * tb * D),
+            lib, touched * (4 * (D + 1) + 2 * tb * D),
             3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0), tol)
+        if lib is None:
+            rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
     log(f"row_finalize{sfx}: {touched} touched rows of {V}")
     return rows
 
@@ -1362,14 +1627,14 @@ MODE_KERNELS = {
 }
 
 
-def start_server(export: str, mode: str, err_path: str):
-    """``cli/serve.py`` in a subprocess on the card; returns (process,
-    its stdout contract line)."""
+def start_server(export: str, mode: str, err_path: str, extra=()):
+    """``cli/serve.py`` in a subprocess on the card (``extra``: more
+    flags); returns (process, its stdout contract line)."""
     import selectors
 
     cmd = [sys.executable, "-m", "gene2vec_tpu_torch.cli.serve", "--export-dir", export,
            "--port", "0", "--index", mode, "--cache-size", "0", "--nprobe",
-           str(SERVE_NPROBE), "--poll-interval", "3600"]
+           str(SERVE_NPROBE), "--poll-interval", "3600", *extra]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     err = open(err_path, "w")
@@ -1541,7 +1806,7 @@ def scrape_launches(url: str):
 def write_clustered_export(path: str, seed: int = 11):
     """A full-width export (V = 24,447, D = 200) with neighbor structure —
     1,000 groups of ~24 genes around seeded centres — written with the
-    port's checkpoint writer."""
+    port's checkpoint writer.  Returns (the table, each gene's group)."""
     from gene2vec_tpu_torch.io.checkpoint import save_iteration
     from gene2vec_tpu_torch.io.vocab import Vocab
     from gene2vec_tpu_torch.sgns.model import SGNSParams
@@ -1549,11 +1814,13 @@ def write_clustered_export(path: str, seed: int = 11):
 
     rng = np.random.RandomState(seed)
     cent = rng.randn(1000, D).astype(np.float32)
-    emb = cent[rng.randint(0, 1000, V)] + 0.35 * rng.randn(V, D).astype(np.float32)
+    groups = rng.randint(0, 1000, V)
+    emb = cent[groups] + 0.35 * rng.randn(V, D).astype(np.float32)
     t = torch.from_numpy(emb)
     save_iteration(path, D, 1, SGNSParams(t, t), Vocab([f"G{i}" for i in range(V)],
                                                        np.ones(V, np.int64)),
                    txt_output=False)
+    return emb, groups
 
 
 def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
@@ -1605,6 +1872,542 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
         print(json.dumps({"serving": summary}), flush=True)
         log(f"serving {mode}: {summary}")
     return launches
+
+
+# -- phase 2f: the remaining Pallas probes (K12's new instances, K13, K14) -----
+
+#: experiments/test_lane_gather.py: a transposed (D, V) table, 192 buckets
+LANE_D, LANE_V = 256, 24576
+LANE_RTOL = 1e-6           # K13 scatter f32: per column, x that column's max |plain|
+#: the remaining probe rows: on no path of either package (launches 0)
+PROBE_ROWS = ("stream_scale", "stream_scale_bf16", "lane_gather", "lane_gather_bf16",
+              "lane_scatter", "lane_scatter_bf16", "staged_copy")
+
+
+def probe_row(name, src, replaces, rec, tolerance, shape):
+    return {"name": name, "route": "cuda",
+            "source": f"gene2vec_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": None, "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"], "shape": shape,
+            "tolerance": tolerance}
+
+
+def lane_probes(torch, reps):
+    """K13 (``lane_gather``, ``lane_scatter``) and K12's ``stream_copy``
+    instance at experiments/test_lane_gather.py's shapes, float32 and
+    bfloat16: the gather and the copy bitwise their plain versions, the
+    scatter within LANE_RTOL of each column's scale (float32) or one
+    bfloat16 ulp.  Library calls: ``torch.index_select`` (gather),
+    ``torch.index_add`` (scatter), ``torch.mul`` (copy).  Returns (kernels
+    rows, records with GB/s)."""
+    from gene2vec_tpu_torch.kernels import lane, stream_scale
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = Timer(torch, reps)
+    offs = torch.randint(0, lane.BUCKET, (8 * LANE_V // lane.BUCKET, lane.BUCKET), device=dev,
+                         generator=gen, dtype=torch.int32)
+    cols = lane.global_columns(offs)
+    rows, records = [], []
+    src = "experiments/test_lane_gather.py"
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        sfx, es = ("_bf16", 2) if bf16 else ("", 4)
+        t = torch.randn((LANE_D, LANE_V), device=dev, generator=gen).to(dtype)
+        g = (torch.randn((LANE_D, LANE_V), device=dev, generator=gen) * 0.01).to(dtype)
+        shape = {"D": LANE_D, "V": LANE_V, "dtype": str(dtype).split(".")[1]}
+        cases = (
+            ("lane_gather", f"{src}:57 bucketed_gather", "k13_lane.cu",
+             lambda: lane.lane_gather(t, offs), lambda: lane.lane_gather_plain(t, offs),
+             lambda: torch.index_select(t, 1, cols), 2 * LANE_D * LANE_V * es + 4 * LANE_V, 0.0),
+            ("lane_scatter", f"{src}:82 bucketed_scatter", "k13_lane.cu",
+             lambda: lane.lane_scatter(t, g, offs), lambda: lane.lane_scatter_plain(t, g, offs),
+             lambda: torch.index_add(t, 1, cols, g), 3 * LANE_D * LANE_V * es + 4 * LANE_V,
+             2.0 * LANE_D * LANE_V),
+            ("stream_scale", f"{src}:100 stream_copy", "k12_stream_scale.cu",
+             lambda: stream_scale.stream_scale(t), lambda: stream_scale.stream_scale_plain(t),
+             lambda: torch.mul(t, stream_scale.SCALE), 2 * LANE_D * LANE_V * es,
+             float(LANE_D * LANE_V)),
+        )
+        for name, probe, csrc, kern, plain, library, nbytes, flops in cases:
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            if name == "lane_scatter":
+                diff = (got.float() - want.float()).abs()
+                ok = (bool((diff <= bf16_ulp(torch, want)).all()) if bf16 else
+                      bool((diff.amax(0) <= LANE_RTOL * want.abs().amax(0)).all()))
+                tol = ("one bfloat16 ulp" if bf16 else
+                       f"{LANE_RTOL:g} x each column's max |plain|")
+                tol += f"; bitwise here: {same_bits(torch, got, want)}"
+            else:
+                ok, tol = same_bits(torch, got, want), "bitwise"
+            if not ok:
+                raise SystemExit(f"{name}{sfx} {probe}: error {err:.3e} beyond {tol}")
+            b_ms, b_by = bound(nbytes, flops)
+            rec = {"name": name + sfx, "probe": probe, **shape, "max_abs_err": err,
+                   "ms": timer(kern), "plain_ms": timer(plain), "library_ms": timer(library),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            rec["gb_per_s"] = nbytes / rec["ms"] / 1e6
+            records.append(rec)
+            log(f"{name}{sfx} [{probe}]: kernel {rec['ms']:.4f} ms ({rec['gb_per_s']:.1f} GB/s), "
+                f"plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), max abs err {err:.3e}")
+            if name != "stream_scale" or bf16:  # f32 streaming is phase 2's 100 MB row
+                rows.append(probe_row(name + sfx, csrc, probe.split(" ")[0], rec, tol, shape))
+    return rows, records
+
+
+#: experiments/test_feature_matrix.py's probes at (256, 256):
+#: (function, scale, head: 0 / "all" / rows, offset argument)
+FEATURE_PROBES = (
+    ("experiments/test_feature_matrix.py:35 calla", 2.0, "all", "idx"),
+    ("experiments/test_feature_matrix.py:62 callb", 1.0, 0, None),
+    ("experiments/test_feature_matrix.py:79 callc", 2.0, 0, None),
+    ("experiments/test_feature_matrix.py:96 calld", 1.0, 0, None),
+    ("experiments/test_feature_matrix.py:114 calle", 1.0, 0, None),
+    ("experiments/test_feature_matrix.py:132 callf", 1.0, 8, "sidx"),
+)
+#: experiments/test_vmem_dma.py:113: MB of input
+VMEM_MB = (8, 16, 24, 32, 48, 56, 60)
+VMEM_MAIN_MB = 32          # the size whose best tile the kernels line carries
+STAGED_TILES = (8, 16, 32, 64, 128)   # rows; then the card's largest
+
+
+def staged_probes(torch, reps):
+    """K14 (``staged_copy``) at every staging probe's shape, bitwise its
+    plain version: the six feature probes, ``callh``'s (1024, 256) in
+    8-row tiles and ``vmem_probe``'s (n, 256) at VMEM_MB with its tile
+    swept from 8 rows to the card's opt-in shared-memory limit.  Library
+    call: ``torch.mul`` (x · 2), ``Tensor.copy_`` (copies) or
+    ``torch.index_select`` (callf's shifted rows).  Returns (the kernels
+    row: VMEM_MAIN_MB at its fastest tile, records)."""
+    from gene2vec_tpu_torch.kernels import staged_copy as sc
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    timer = Timer(torch, reps)
+    records, main_row = [], None
+
+    def run(probe, x, scale, tile, offset, head, library):
+        got = sc.staged_copy(x, scale, tile, offset, head)
+        want = sc.staged_copy_plain(x, scale, offset, head)
+        torch.cuda.synchronize()
+        if not same_bits(torch, got, want):
+            raise SystemExit(f"staged_copy [{probe}] tile {tile}: not bitwise its plain version")
+        n, d = x.shape
+        b_ms, b_by = bound(2 * 4 * n * d, float(n * d))
+        rec = {"name": "staged_copy", "probe": probe, "shape": [n, d], "scale": scale,
+               "head": head, "tile_rows": tile, "max_abs_err": 0.0,
+               "ms": timer(lambda: sc.staged_copy(x, scale, tile, offset, head)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        if library is not None:
+            rec["plain_ms"] = timer(lambda: sc.staged_copy_plain(x, scale, offset, head))
+            rec["library_ms"] = timer(library)
+        rec["gb_per_s"] = 2 * 4 * n * d / rec["ms"] / 1e6
+        records.append(rec)
+        log(f"staged_copy [{probe}] ({n}, {d}) tile {tile}: kernel {rec['ms']:.4f} ms "
+            f"({rec['gb_per_s']:.1f} GB/s), plain {rec.get('plain_ms', float('nan')):.4f} ms, "
+            f"library {rec.get('library_ms', float('nan')):.4f} ms, bound {b_ms:.4f} ms")
+        return rec
+
+    x = torch.randn((256, 256), device=dev, generator=gen)
+    scalars = {"idx": torch.arange(256, dtype=torch.int32, device=dev),
+               "sidx": torch.tensor([[3]], dtype=torch.int32, device=dev)}
+    out = torch.empty_like(x)
+    shifted = torch.cat([torch.arange(3, 11), torch.arange(0, 248)]).to(dev)
+    for probe, scale, head, off in FEATURE_PROBES:
+        h = x.shape[0] if head == "all" else head
+        library = ((lambda: torch.index_select(x, 0, shifted)) if head == 8 else
+                   (lambda: torch.mul(x, 2.0)) if scale == 2.0 else (lambda: out.copy_(x)))
+        run(probe, x, scale, 8, scalars.get(off), h, library)
+    xh = torch.randn((1024, 256), device=dev, generator=gen)
+    run("experiments/test_dma2.py:83 callh", xh, 2.0, 8, None, 0, lambda: torch.mul(xh, 2.0))
+    for mb in VMEM_MB:
+        n = mb * 1024 * 1024 // 4 // 256
+        xv = torch.randn((n, 256), device=dev, generator=gen)
+        top = sc.max_tile_rows(xv, 256)
+        sweep = [run(f"experiments/test_vmem_dma.py:24 vmem_probe {mb} MB", xv, 2.0, tile, None,
+                     0, (lambda: torch.mul(xv, 2.0)) if tile == STAGED_TILES[0] else None)
+                 for tile in (*STAGED_TILES, top)]
+        best = min(sweep, key=lambda r: r["ms"])
+        log(f"staged_copy vmem_probe {mb} MB: fastest tile {best['tile_rows']} rows "
+            f"({best['ms']:.4f} ms; opt-in limit {top} rows)")
+        if mb == VMEM_MAIN_MB:
+            first = sweep[0]
+            main_row = probe_row(
+                "staged_copy", "k14_staged_copy.cu", "experiments/test_vmem_dma.py:24",
+                {**best, "plain_ms": first["plain_ms"], "library_ms": first["library_ms"]},
+                "bitwise", {"rows": n, "cols": 256, "mb": mb, "tile_rows": best["tile_rows"],
+                            "max_tile_rows": top})
+        del xv
+    return main_row, records
+
+
+# -- phase 6: GGIPNN (extrinsic evaluation) and /v1/interaction -----------------
+
+GG_B, GG_B_LARGE = 128, 1024      # the default batch; bench.py's _ggipnn_rate batch
+GG_TRAIN, GG_VALID, GG_TEST = 262_144, 16_384, 32_768
+GG_EPOCHS = 2                     # the frozen runs' epochs (the loss must fall)
+GG_LOSS_RTOL = 1e-5               # one step card vs CPU: the loss
+GG_PARAM_RTOL = 1e-4              # ... each tensor, x its max |CPU value|
+#: test AUC floor of the default run (frozen table, B = 128), from a CPU
+#: rehearsal at a quarter of the data (65,536 training pairs, 2 epochs: AUC
+#: 0.990); the B = 1024 and fine-tuning runs take 8x and 2x fewer steps and
+#: learned nothing at that size (AUC 0.50), so theirs is reported
+GG_AUC_FLOOR = 0.95
+GG_RATE_PAIRS = 262_144           # bench.py's _ggipnn_rate data size
+GG_PROFILED_STEPS = 256           # steps of the profiled window (the profiler
+                                  # slows a whole 2,048-step epoch ~10x)
+INTERACTION_REQUESTS = 400
+INTERACTION_WARMUP = 32           # untimed requests first: each handler
+                                  # thread's first CUDA work (cuBLAS handle)
+INTERACTION_MAX_PAIRS = 64        # the server's max_queries_per_request
+
+
+def ggipnn_vocab(v):
+    from gene2vec_tpu_torch.models.ggipnn_data import PairTextVocab
+
+    vocab = PairTextVocab()
+    vocab.id_to_token = [f"G{i}" for i in range(v)]
+    vocab.token_to_id = {t: i for i, t in enumerate(vocab.id_to_token)}
+    return vocab
+
+
+def ggipnn_step_parity(torch, v, d, b, embed_train):
+    """One GGIPNN Adam step on the card against the CPU from the same
+    params (``init_params_numpy``), batch (a repeated pair: duplicate ids
+    in the lookup) and dropout masks: loss within GG_LOSS_RTOL, accuracy
+    equal, each parameter tensor within GG_PARAM_RTOL of its max |CPU
+    value| (Adam divides by sqrt(v) + eps); a frozen table bitwise
+    unchanged on both."""
+    from gene2vec_tpu_torch.config import GGIPNNConfig
+    from gene2vec_tpu_torch.models.ggipnn import init_params_numpy
+    from gene2vec_tpu_torch.models.ggipnn_train import GGIPNNTrainer
+
+    cfg = GGIPNNConfig(embedding_dim=d, batch_size=b, embed_train=embed_train)
+    p0 = init_params_numpy(0, v, cfg)
+    rng = np.random.RandomState(1)
+    x = rng.randint(0, v, (b, 2)).astype(np.int32)
+    x[1] = x[0]
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, b)]
+    masks = [rng.rand(b, h) < cfg.dropout_keep_prob for h in cfg.hidden_dims]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tr = GGIPNNTrainer(cfg, ggipnn_vocab(v), device=dev)
+        tr.init_state(params=p0)
+        loss, acc = tr.train_step(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+                                  [torch.from_numpy(m).to(dev) for m in masks])
+        out[dev] = (float(loss), float(acc), tr.model.to_flat())
+    (lc, ac, pc), (lg, ag, pg) = out["cpu"], out["cuda"]
+    rel = abs(lc - lg) / abs(lc)
+    label = f"GGIPNN step card vs CPU (V {v}, D {d}, B {b}, embed_train {embed_train})"
+    if rel > GG_LOSS_RTOL or ac != ag:
+        raise SystemExit(f"{label}: loss {lg} vs {lc} (rel {rel:.2e}), accuracy {ag} vs {ac}")
+    worst = 0.0
+    for k in pc:
+        if k == "embedding" and not embed_train:
+            if not (np.array_equal(pg[k], p0[k]) and np.array_equal(pc[k], p0[k])):
+                raise SystemExit(f"{label}: the frozen table changed")
+            continue
+        err = float(np.abs(pg[k] - pc[k]).max()) / float(np.abs(pc[k]).max())
+        if err > GG_PARAM_RTOL:
+            raise SystemExit(f"{label}: {k} off by {err:.3e} of its scale")
+        worst = max(worst, err)
+    log(f"{label}: loss rel {rel:.2e}, params max rel {worst:.2e}")
+    return {"embed_train": embed_train, "loss_rel": rel, "max_param_rel": worst}
+
+
+def ggipnn_gather_row(torch, reps):
+    """K9r's row gather at the GGIPNN lookup's shapes — the (24,447, 200)
+    float32 table, E = 2 B ids at B = 128 (the kernels line's) and 1024 —
+    against ``table[idx]``; library call ``torch.index_select``."""
+    from gene2vec_tpu_torch.kernels import rescore
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    timer = Timer(torch, reps)
+    table = torch.randn((V, D), device=dev, generator=gen)
+    row, records = None, []
+    for b in (GG_B, GG_B_LARGE):
+        idx = torch.randint(0, V, (2 * b,), device=dev, generator=gen, dtype=torch.int32)
+        idx_l = idx.long()
+        if not torch.equal(rescore.row_gather(table, idx), table[idx_l]):
+            raise SystemExit(f"row_gather GGIPNN lookup B {b}: differs from table[idx]")
+        distinct = int(torch.unique(idx).numel())
+        b_ms, b_by = bound(4 * 2 * b + (distinct + 2 * b) * 4 * D, 0.0)
+        rec = {"name": "row_gather", "probe": "GGIPNN lookup (models/ggipnn.py)",
+               "table": [V, D], "dtype": "float32", "E": 2 * b, "max_abs_err": 0.0,
+               "ms": timer(lambda: rescore.row_gather(table, idx)),
+               "plain_ms": timer(lambda: rescore.row_gather_plain(table, idx)),
+               "library_ms": timer(lambda: torch.index_select(table, 0, idx_l)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        records.append(rec)
+        log(f"row_gather [GGIPNN lookup, B {b}]: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, index_select {rec['library_ms']:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if b == GG_B:
+            row = probe_row("row_gather", "k9r_rescore.cu",
+                            "experiments/test_pallas_gather.py:31", rec, "bitwise",
+                            {"table": [V, D], "E": 2 * b})
+    return row, records
+
+
+def ggipnn_rate(torch, batch, smi, n_pairs=GG_RATE_PAIRS):
+    """bench.py's ``ggipnn_pairs_per_sec`` on the card: scanned-fit epochs
+    of ``n_pairs`` random pairs at V = 24,447 with a random table — a
+    warm-up epoch, UNPROFILED_EPOCHS timed on the host clock ending in a
+    device sync — and a fit of GG_PROFILED_STEPS steps under
+    torch.profiler for the device busy time a step, the kernels that take
+    it and the host operations that cost most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gene2vec_tpu_torch.config import GGIPNNConfig
+    from gene2vec_tpu_torch.models.ggipnn_train import GGIPNNTrainer
+
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, V, (n_pairs, 2)).astype(np.int32)
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, n_pairs)]
+    tr = GGIPNNTrainer(GGIPNNConfig(batch_size=batch), ggipnn_vocab(V), device=DEVICE)
+    tr.init_state()
+    quiet = lambda msg: None  # noqa: E731
+    tr.fit(x, y, log=quiet)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(UNPROFILED_EPOCHS):
+        t0 = time.perf_counter()
+        tr.fit(x, y, log=quiet)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    n_prof = GG_PROFILED_STEPS * batch
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tr.fit(x[:n_prof], y[:n_prof], log=quiet)
+        torch.cuda.synchronize()
+    # device-side kernel records only: a user annotation on the device
+    # track (``Optimizer.step#Adam.step``) spans its kernels and the gaps
+    # between them
+    events = [ev for ev in prof.key_averages()
+              if not getattr(ev, "is_user_annotation", False)]
+    kernels_ms = {ev.key: ev.self_device_time_total / 1e3 for ev in events
+                  if ev.device_type == torch.autograd.DeviceType.CUDA
+                  and ev.self_device_time_total > 0}
+    host_ms = {ev.key: ev.self_cpu_time_total / 1e3 for ev in events
+               if ev.device_type == torch.autograd.DeviceType.CPU}
+    busy = sum(kernels_ms.values()) / GG_PROFILED_STEPS
+    steps = n_pairs // batch
+    wall = statistics.median(walls)
+    rec = {"batch": batch, "pairs": n_pairs, "steps_per_epoch": steps,
+           "ggipnn_pairs_per_sec": n_pairs / wall, "epoch_walls_s": walls,
+           "wall_ms_per_step": wall * 1e3 / steps, "busy_ms_per_step": busy,
+           "idle_share": 1 - busy / (wall * 1e3 / steps),
+           "kernels_per_step": sum(ev.count for ev in events
+                                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                                   and ev.self_device_time_total > 0) / GG_PROFILED_STEPS,
+           "card": smi}
+    print(json.dumps({"ggipnn_rate": rec}), flush=True)
+    log(f"ggipnn rate B {batch}: {rec['ggipnn_pairs_per_sec']:.0f} pairs/s, "
+        f"{rec['wall_ms_per_step']:.4f} ms/step, device busy {busy:.4f} ms/step in "
+        f"{rec['kernels_per_step']:.1f} kernels, idle share {rec['idle_share']:.4f}")
+    for name, ms in sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  device {ms / GG_PROFILED_STEPS:9.4f} ms/step  {name[:90]}")
+    for name, ms in sorted(host_ms.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"  host   {ms / GG_PROFILED_STEPS:9.4f} ms/step  {name[:90]}")
+    return rec
+
+
+def write_prediction_data(path, groups, sizes=(GG_TRAIN, GG_VALID, GG_TEST), seed=12):
+    """A ``predictionData/``-shaped directory over the clustered export's
+    genes: in each split half the pairs lie within one group (label 1) and
+    half are random pairs (label 0); the first V training pairs start at
+    every gene once, so the training vocab is the export's."""
+    rng = np.random.RandomState(seed)
+    v = len(groups)
+    names = np.array([f"G{i}" for i in range(v)], dtype=object)
+    order = np.argsort(groups, kind="stable")
+    sizes_g = np.bincount(groups)
+    starts = np.concatenate([[0], np.cumsum(sizes_g)[:-1]])
+    os.makedirs(path, exist_ok=True)
+    for split, n in zip(("train", "valid", "test"), sizes):
+        pos = n // 2
+        a = rng.randint(0, v, pos)
+        if split == "train":
+            a[:v] = rng.permutation(v)
+        b = order[starts[groups[a]] + rng.randint(0, 1 << 30, pos) % sizes_g[groups[a]]]
+        neg = rng.randint(0, v, (n - pos, 2))
+        pairs = np.concatenate([np.stack([a, b], 1), neg])
+        labels = np.concatenate([np.ones(pos, np.int64), np.zeros(n - pos, np.int64)])
+        with open(os.path.join(path, f"{split}_text.txt"), "w") as f:
+            f.write("\n".join(names[pairs[:, 0]] + " " + names[pairs[:, 1]]) + "\n")
+        with open(os.path.join(path, f"{split}_label.txt"), "w") as f:
+            f.write("\n".join(map(str, labels)) + "\n")
+
+
+def write_w2v(path, emb):
+    with open(path, "w", encoding="utf-8") as f:
+        f.write(f"{emb.shape[0]} {emb.shape[1]}\n")
+        for i, row in enumerate(emb):
+            f.write(f"G{i} " + " ".join(f"{x:.9g}" for x in row) + "\n")
+
+
+def ggipnn_forward_calls(n_train, n_valid, n_test, b, epochs, step_loop, evaluate_every=200):
+    """Forward passes (each one row-gather launch) of a run: its training
+    steps and its evaluation batches — dev at each epoch's end (scanned
+    fit) or every ``evaluate_every`` steps (step loop), then test."""
+    steps = -(-n_train // b)
+    dev = -(-n_valid // b)
+    evals = (epochs * steps) // evaluate_every if step_loop else epochs
+    return epochs * steps + evals * dev + -(-n_test // b)
+
+
+def ggipnn_cli(torch, work, smi, emb, groups, device=DEVICE, sizes=(GG_TRAIN, GG_VALID, GG_TEST),
+               auc_floor=None, checkpoint_every=1000):
+    """GGIPNN through ``python -m gene2vec_tpu_torch.cli.ggipnn`` (in
+    process, for the launch counts) on a predictionData/ directory over the
+    clustered export, its table as the ``--emb`` word2vec file: the
+    default (frozen table, scanned fit) at B = 128 and at B = 1024 for
+    GG_EPOCHS epochs, then ``--embed-train --run-dir`` (the step loop with
+    checkpoints) for one.  Gates: the loss falls (epoch means; the run
+    dir's first against last 200 step losses), the default run's test AUC
+    >= ``auc_floor``, ``row_gather`` launched once per forward pass and no
+    other kernel.
+    Returns (row_gather launches, the last checkpoint's path, records)."""
+    import contextlib
+    import io
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.cli import ggipnn
+
+    data = os.path.join(work, "predictionData")
+    write_prediction_data(data, groups, sizes)
+    w2v = os.path.join(work, "clustered_w2v.txt")
+    write_w2v(w2v, emb)
+    run_dir = os.path.join(work, "ggipnn_run")
+    n_train, n_valid, n_test = sizes
+    runs = (("frozen_b128", GG_B, GG_EPOCHS, []),
+            ("frozen_b1024", GG_B_LARGE, GG_EPOCHS, []),
+            ("embed_train_run_dir", GG_B, 1, ["--embed-train", "--run-dir", run_dir,
+                                              "--checkpoint-every", str(checkpoint_every)]))
+    launches, records = 0, []
+    for label, b, epochs, flags in runs:
+        kernels.reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = ggipnn.main(["--data-dir", data, "--emb", w2v, "--device", device,
+                              "--batch-size", str(b), "--num-epochs", str(epochs), *flags])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        text = buf.getvalue()
+        log(f"ggipnn {label}:\n{text.strip()}")
+        if rc != 0:
+            raise SystemExit(f"ggipnn {label}: CLI exited {rc}")
+        step_loop = bool(flags)
+        if step_loop:
+            with open(os.path.join(run_dir, "summaries", "train", "metrics.csv")) as f:
+                step_losses = [float(r["loss"]) for r in csv.DictReader(f)]
+            losses = [float(np.mean(step_losses[:200])), float(np.mean(step_losses[-200:]))]
+        else:
+            losses = [float(line.split(": loss ")[1].split()[0]) for line in text.splitlines()
+                      if line.startswith("epoch ")]
+        auc = float(text.split("The AUC score is ")[1].split()[0])
+        acc = float(text.split("test accuracy: ")[1].split()[0])
+        if len(losses) < 2 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise SystemExit(f"ggipnn {label}: loss not falling {losses}")
+        if label == "frozen_b128" and auc_floor is not None and auc < auc_floor:
+            raise SystemExit(f"ggipnn {label}: test AUC {auc:.4f} < {auc_floor}")
+        want = ggipnn_forward_calls(n_train, n_valid, n_test, b, epochs, step_loop)
+        others = {k: n for k, n in counts.items() if n and not k.startswith("row_gather")}
+        if device == "cuda" and (counts["row_gather"] != want or others):
+            raise SystemExit(f"ggipnn {label}: launches {counts}, expected row_gather {want} "
+                             "and nothing else")
+        launches += counts["row_gather"]
+        rec = {"run": label, "batch": b, "epochs": epochs, "train_pairs": n_train,
+               "losses": losses, "test_auc": auc, "test_accuracy": acc, "wall_s": wall,
+               "row_gather_launches": counts["row_gather"], "forward_calls": want,
+               "card": smi}
+        records.append(rec)
+        print(json.dumps({"ggipnn": rec}), flush=True)
+    ckpts = sorted((int(n.split("-")[1].split(".")[0]), n)
+                   for n in os.listdir(os.path.join(run_dir, "checkpoints")))
+    return launches, os.path.join(run_dir, "checkpoints", ckpts[-1][1]), records
+
+
+def serve_interaction(torch, export, checkpoint, work, smi):
+    """``/v1/interaction`` through ``cli/serve.py`` on the card with
+    ``--ggipnn-checkpoint``: INTERACTION_REQUESTS requests of 1-64 pairs
+    from SERVE_CLIENTS clients, timed after INTERACTION_WARMUP untimed
+    ones (checked alike).  Every score within SCORE_TOL of the
+    host's CPU forward of the same head on the same served rows,
+    ``trained_head`` true everywhere, an unknown gene answered 400, and
+    ``row_gather`` launched once per scored request (``/metrics``)."""
+    from gene2vec_tpu_torch.models.ggipnn import GGIPNN
+    from gene2vec_tpu_torch.models.ggipnn_obs import load_checkpoint
+    from gene2vec_tpu_torch.serve.registry import discover_newest
+
+    _, _, path = discover_newest(export)
+    with np.load(path) as z:
+        emb = np.asarray(z["emb"], np.float32)
+    with open(os.path.join(export, "vocab.tsv"), encoding="utf-8") as f:
+        tokens = [line.split("\t")[0] for line in f if line.strip()]
+    host = GGIPNN(len(tokens), emb.shape[1])
+    host.load_flat(load_checkpoint(checkpoint), head_only=True)
+    with torch.no_grad():
+        host.embedding.copy_(torch.from_numpy(emb))
+    host.eval()
+    rng = np.random.RandomState(9)
+    mixed = []
+    for _ in range(INTERACTION_WARMUP + INTERACTION_REQUESTS):
+        ids = rng.randint(0, len(tokens), (rng.randint(1, INTERACTION_MAX_PAIRS + 1), 2))
+        mixed.append(("POST", "/v1/interaction",
+                      {"pairs": [[tokens[a], tokens[b]] for a, b in ids]}))
+    warm, mixed = mixed[:INTERACTION_WARMUP], mixed[INTERACTION_WARMUP:]
+    t0 = time.perf_counter()
+    proc, contract = start_server(export, "exact", os.path.join(work, "serve_interaction.err"),
+                                  extra=["--ggipnn-checkpoint", checkpoint])
+    try:
+        up = time.perf_counter() - t0
+        unknown = drive(contract["url"], [("POST", "/v1/interaction",
+                                           {"pairs": [[tokens[0], "NOT_A_GENE"]]})], [])[0][0]
+        warm_answers, warm_lat, _ = drive(contract["url"], [], warm)
+        answers, lat, wall = drive(contract["url"], [], mixed)
+        counts = scrape_launches(contract["url"])
+    finally:
+        stop_server(proc)
+    if unknown[1] != 400:
+        raise SystemExit(f"/v1/interaction: unknown gene answered {unknown[1]}")
+    index = {t: i for i, t in enumerate(tokens)}
+    pairs, served = [], []
+    for (_, _, body), status, raw in warm_answers + answers:
+        if status != 200:
+            raise SystemExit(f"/v1/interaction answered {status}: {raw[:300]!r}")
+        doc = json.loads(raw)
+        if doc["trained_head"] is not True or [r["pair"] for r in doc["scores"]] != body["pairs"]:
+            raise SystemExit(f"/v1/interaction: bad answer {str(doc)[:300]}")
+        pairs += [[index[a], index[b]] for a, b in body["pairs"]]
+        served += [r["score"] for r in doc["scores"]]
+    with torch.no_grad():
+        logits = host(torch.tensor(pairs, dtype=torch.int32))
+        want = torch.softmax(logits, dim=-1)[:, 1].numpy()
+    err = float(np.abs(np.asarray(served) - want).max())
+    if err > SCORE_TOL:
+        raise SystemExit(f"/v1/interaction: score off the host's by {err:.3e}")
+    if counts.get("row_gather", 0) != len(warm_answers) + len(answers):
+        raise SystemExit(f"/v1/interaction: row_gather launches {counts}, expected "
+                         f"{len(warm_answers) + len(answers)} (one per scored request)")
+    lat_ms = np.sort(np.asarray(lat)) * 1e3
+    summary = {"export": os.path.basename(export), "route": "/v1/interaction",
+               "requests": len(answers), "pairs": len(pairs), "clients": SERVE_CLIENTS,
+               "qps": len(mixed) / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99)), "trained_head": True,
+               "warmup_requests": len(warm_answers), "warmup_max_ms": max(warm_lat) * 1e3,
+               "max_score_err": err, "unknown_gene_status": unknown[1], "launches": counts,
+               "startup_s": up, "card": smi}
+    print(json.dumps({"serving": summary}), flush=True)
+    log(f"serving /v1/interaction: {summary}")
+    return counts["row_gather"]
 
 
 UNPROFILED_EPOCHS = 3  # epochs per profile window timed on the host clock
@@ -1729,7 +2532,18 @@ def main() -> int:
     probes = gather_probes(torch, TIMED_REPS)
     stream_row, stream_recs = stream_probes(torch, TIMED_REPS)
     probes += stream_recs
+    lane_rows, lane_recs = lane_probes(torch, TIMED_REPS)
+    staged_row, staged_recs = staged_probes(torch, TIMED_REPS)
+    gather_row, gather_recs = ggipnn_gather_row(torch, TIMED_REPS)
+    probes += lane_recs + staged_recs + gather_recs
     log(f"serving kernel check and probes done in {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    # phase 6: GGIPNN — one step card vs CPU at full width, then the rates
+    for embed_train in (False, True):
+        ggipnn_step_parity(torch, V, D, GG_B, embed_train)
+    for batch in (GG_B, GG_B_LARGE):
+        ggipnn_rate(torch, batch, smi)
+    log(f"GGIPNN step and rate done in {time.perf_counter() - t0:.1f}s")
     prof_dir = os.path.join(os.getcwd(), "chip_smoke_profile")
     # the default step at float32 and bfloat16, in turns (f32, bf16, bf16, f32)
     widths = compare_widths(
@@ -1749,11 +2563,19 @@ def main() -> int:
         # is reported, not gated — the clustered export gates it
         served = serve_full_width(os.path.join(work, "export"), work, smi, gate_recall=False)
         clustered = os.path.join(work, "clustered")
-        write_clustered_export(clustered)
+        emb, groups = write_clustered_export(clustered)
         for name, n in serve_full_width(clustered, work, smi, gate_recall=True).items():
             served[name] = served.get(name, 0) + n
         counts.update(served)
         log(f"serving phase done in {time.perf_counter() - t0:.1f}s")
+        # phase 6: GGIPNN through the CLI over the clustered export, then
+        # its run-dir head behind /v1/interaction: row_gather's main path
+        t0 = time.perf_counter()
+        gathers, checkpoint, _ = ggipnn_cli(torch, work, smi, emb, groups,
+                                            auc_floor=GG_AUC_FLOOR)
+        gathers += serve_interaction(torch, clustered, checkpoint, work, smi)
+        counts["row_gather"] = gathers
+        log(f"GGIPNN phase done in {time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         # each new kernel's launches: the runs of phase 3b that drive it
         for label, run in train_objectives(torch, work, smi).items():
@@ -1786,11 +2608,14 @@ def main() -> int:
     log(f"quality phase done in {time.perf_counter() - t0:.1f}s")
 
     rows += serve_rows
+    rows.append(gather_row)
     rows.append(stream_row)
+    rows += lane_rows
+    rows.append(staged_row)
     for r in rows:
         r["launches"] = counts[r["name"]]
-    # stream_scale is a probe on no path the package runs: phase 3 reads 0
-    missing = [r["name"] for r in rows if r["name"] != "stream_scale" and not r["launches"]]
+    # the probes' counterparts are on no path the package runs: phase 3 reads 0
+    missing = [r["name"] for r in rows if r["name"] not in PROBE_ROWS and not r["launches"]]
     if missing:
         raise SystemExit(f"kernels not launched on their main path: {missing}")
 

@@ -1,13 +1,15 @@
 """Serve CLI: the similarity query server over an export dir, on the GPU.
 
     python -m gene2vec_tpu_torch.cli.serve --export-dir out/ --port 8000 \\
-        [--index exact|quant|ivf] [--device cuda|cpu]
+        [--index exact|quant|ivf] [--ggipnn-checkpoint model-<step>.npz] \\
+        [--device cuda|cpu]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
-answers ``/v1/similar``, ``/v1/embedding``, ``/v1/genes``, ``/healthz``
-and ``/metrics`` through the event loop and micro-batcher; the top-k
-work runs on the port's CUDA kernels.  ``--device`` defaults to
+answers ``/v1/similar``, ``/v1/embedding``, ``/v1/interaction``,
+``/v1/genes``, ``/healthz`` and ``/metrics`` through the event loop and
+micro-batcher; the top-k work and the interaction scorer's table lookup
+run on the port's CUDA kernels.  ``--device`` defaults to
 ``cuda`` and the server refuses to start without a GPU unless
 ``--device cpu`` is given.
 
@@ -75,6 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="IVF centroid count (default ~4*sqrt(vocab))")
     p.add_argument("--poll-interval", type=float, default=5.0,
                    help="seconds between export-dir rescans (hot swap)")
+    p.add_argument("--ggipnn-checkpoint", default=None,
+                   help="GGIPNN run checkpoint npz (checkpoints/model-<step>.npz) "
+                        "backing /v1/interaction (without it the MLP head is "
+                        "untrained and responses say so)")
     return p
 
 
@@ -119,7 +125,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         nprobe=args.nprobe,
         rescore_mult=args.rescore_mult,
     )
-    app = ServeApp(registry, config=config, metrics=metrics).start()
+    app = ServeApp(registry, config=config, metrics=metrics,
+                   ggipnn_checkpoint=args.ggipnn_checkpoint).start()
     server = make_server(app, args.host, args.port)
     host, port = server.server_address[:2]
     url = f"http://{host}:{port}"

@@ -1,5 +1,6 @@
-"""Training configuration — the reference's ``SGNSConfig`` with the same
-fields and defaults (``gene2vec_tpu/config.py:16-212``).
+"""Training configuration — the reference's ``SGNSConfig`` and
+``GGIPNNConfig`` with the same fields and defaults
+(``gene2vec_tpu/config.py:16-212, 216-240``).
 
 Defaults mirror the reference Gene2vec parameter block (dim=200, sg=1,
 window=1, min_count=1, 10 iterations) and gensim's SGNS defaults (5
@@ -18,6 +19,7 @@ port does not have are rejected at construction with a clear error (see
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,3 +108,28 @@ _UNSUPPORTED = (
     ("donate", lambda v: v,
      "the step always updates the tables in place"),
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class GGIPNNConfig:
+    """Gene-gene-interaction MLP config — the reference's fields and
+    defaults: batch 128, 1 epoch, Adam 1e-3, dropout keep 0.5, hidden
+    widths (100, 100, 10), L2 λ = 0, frozen pretrained embedding."""
+
+    embedding_dim: int = 200
+    sequence_length: int = 2
+    num_classes: int = 2
+    hidden_dims: Tuple[int, int, int] = (100, 100, 10)
+    dropout_keep_prob: float = 0.5
+    l2_lambda: float = 0.0
+    embed_train: bool = False
+    use_pretrained: bool = True
+    batch_size: int = 128
+    num_epochs: int = 1
+    learning_rate: float = 1e-3
+    evaluate_every: int = 200
+    checkpoint_every: int = 1000
+    seed: int = 10
+    scan_fit: bool = True          # whole-epoch fit with per-epoch dev eval;
+                                   # False = the per-batch step loop with
+                                   # every-N-steps evaluation

@@ -15,16 +15,24 @@ K7    ``topk_exact``   ``csrc/k7_topk_exact.cu``      serve/engine.py:43-59
 K8    ``quant_scan``   ``csrc/k8_quant_scan.cu``      serve/ann.py:397-426, 476-497
 K9    ``ivf_scan``     ``csrc/k9_ivf_scan.cu``        serve/ann.py:429-449, 550-571
 K9r   ``rescore``      ``csrc/k9r_rescore.cu``        serve/ann.py:452-467
-K12   ``stream_scale`` ``csrc/k12_stream_scale.cu``   experiments/test_bw.py:39
+K12   ``stream_scale`` ``csrc/k12_stream_scale.cu``   experiments/test_bw.py:39,
+                                                      test_lane_gather.py:100
+K13   ``lane``         ``csrc/k13_lane.cu``           experiments/test_lane_gather.py:57, 82
+K14   ``staged_copy``  ``csrc/k14_staged_copy.cu``    experiments/test_dma2.py:83,
+                                                      test_vmem_dma.py:24,
+                                                      test_feature_matrix.py:35-132
 ====  ===============  =============================  ==============================
 
 K1-K6 take float32 or bfloat16 tables (``SGNSConfig.table_dtype``); K4
 writes a bfloat16 table back by stochastic rounding (with the step's salt
-words) or round-to-nearest-even.  K12 is a probe on no path the package
-runs.
+words) or round-to-nearest-even.  K12-K14 are the counterparts of Pallas
+probes on no path the package runs.  (K10 and K11 are reserved for t-SNE
+and the co-expression mask.)
 
 ``rescore.row_gather`` is K9r's gather loop on its own, the counterpart
-of the Pallas row-gather probes in ``experiments/``.
+of the Pallas row-gather probes in ``experiments/``; it also carries the
+GGIPNN table lookup (``models/ggipnn.py``), in training and behind
+``/v1/interaction``.
 ``row_update.scatter_rows`` and ``row_update.finalize_rows`` are K4's
 generic entry points (one accumulator scatter; one table's finalize),
 which the per-example, shared and hierarchical-softmax steps use.
@@ -41,6 +49,7 @@ from __future__ import annotations
 from gene2vec_tpu_torch.kernels import (
     hs,
     ivf_scan,
+    lane,
     noise_head,
     noise_tail,
     per_example,
@@ -49,11 +58,13 @@ from gene2vec_tpu_torch.kernels import (
     rescore,
     row_update,
     shared_pool,
+    staged_copy,
     stream_scale,
     topk_exact,
 )
 
-#: name → wrapper module: the step's kernels in step order, then serving's
+#: name → wrapper module: the step's kernels in step order, serving's, then
+#: the probes' counterparts
 MODULES = {
     "pos_logit": pos_logit,
     "noise_head": noise_head,
@@ -67,6 +78,8 @@ MODULES = {
     "ivf_scan": ivf_scan,
     "rescore": rescore,
     "stream_scale": stream_scale,
+    "lane": lane,
+    "staged_copy": staged_copy,
 }
 
 
@@ -74,7 +87,7 @@ def launch_counts() -> dict:
     """Launches per entry point — each wrapper, K4's generic
     ``row_scatter`` / ``row_finalize`` and ``row_gather`` (K9r's gather
     alone) — and beside each total its launches per variant: ``<name>_bf16``
-    on bfloat16 tables, K4's ``_bf16_sr`` (stochastic rounding) and
+    on bfloat16 tables (K12 and K13 too), K4's ``_bf16_sr`` (stochastic rounding) and
     ``_bf16_rn`` (nearest-even) write-backs."""
     out = {}
     for mod in MODULES.values():

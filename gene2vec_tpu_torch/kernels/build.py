@@ -1,5 +1,5 @@
 """Build and load the port's CUDA kernels (the training steps' K1-K6, the
-serving kernels K7-K9r and the streaming probe K12).
+serving kernels K7-K9r and the probes' counterparts K12-K14).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -39,6 +39,8 @@ SOURCES = {
     "k9_ivf_scan": "k9_ivf_scan.cu",
     "k9r_rescore": "k9r_rescore.cu",
     "k12_stream_scale": "k12_stream_scale.cu",
+    "k13_lane": "k13_lane.cu",
+    "k14_staged_copy": "k14_staged_copy.cu",
 }
 
 NVCC_FLAGS = [

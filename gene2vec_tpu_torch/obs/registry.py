@@ -1,6 +1,6 @@
 """Metrics registry: named counters, gauges and histograms with labels,
 rendered as Prometheus text — the part of ``gene2vec_tpu/obs/registry.py``
-that ``/metrics`` needs, copied.
+that ``/metrics`` and a run's ``metrics.prom`` need, copied.
 
 Each distinct label set is its own series under one metric name (one
 ``# TYPE`` line per name); label values are escaped per the exposition
@@ -12,6 +12,7 @@ format.  Distinct label sets per metric are capped
 from __future__ import annotations
 
 import math
+import os
 import sys
 import threading
 from typing import Dict, List, Optional, Tuple, Union
@@ -253,3 +254,11 @@ class MetricsRegistry:
                 last_name = name
             lines.extend(inst.expose())
         return "\n".join(lines) + ("\n" if lines else "")
+
+    def snapshot_to(self, path: str) -> None:
+        """Atomic (tmp + rename) write of the Prometheus exposition."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(self.prometheus_text())
+        os.replace(tmp, path)

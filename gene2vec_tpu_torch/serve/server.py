@@ -7,6 +7,9 @@ Endpoints (all JSON except ``/metrics``):
   + ``"k"`` → per-query neighbor lists (gene queries drop the query row
   itself from its own neighbors); ``GET /v1/similar?gene=..&k=..``;
 * ``POST /v1/embedding`` — raw embedding rows for named genes;
+* ``POST /v1/interaction`` — ``{"pairs": [[gene, gene], ...]}`` → GGIPNN
+  softmax scores per pair (head from ``--ggipnn-checkpoint``;
+  ``trained_head`` says whether one was loaded);
 * ``GET  /v1/genes`` — a slice of the served vocab;
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
@@ -21,8 +24,8 @@ pre-serialized bodies keyed by (model version, gene, k), and concurrent
 identical misses coalesce onto one batcher ticket.  Everything else runs
 :meth:`ServeApp.handle` on a bounded worker pool.
 
-Not in this slice: ``/v1/interaction`` (GGIPNN scoring), the multi-model
-catalog, row shards, batch jobs, fault injection, tenant quotas and the
+Not in this slice: the multi-model catalog, row shards (and cross-shard
+interaction scoring), batch jobs, fault injection, tenant quotas and the
 flight recorder.
 """
 
@@ -48,6 +51,7 @@ from gene2vec_tpu_torch.serve.batcher import (
     RejectedError,
 )
 from gene2vec_tpu_torch.serve.engine import SimilarityEngine
+from gene2vec_tpu_torch.serve.interaction import InteractionScorer
 from gene2vec_tpu_torch.serve.eventloop import (
     ConnHandle,
     EventLoopConfig,
@@ -119,6 +123,7 @@ class ServeApp:
         registry: ModelRegistry,
         config: ServeConfig = ServeConfig(),
         metrics: Optional[MetricsRegistry] = None,
+        ggipnn_checkpoint: Optional[str] = None,
     ):
         self.registry = registry
         self.config = config if config is not None else ServeConfig()
@@ -144,6 +149,9 @@ class ServeApp:
             default_timeout_s=config.timeout_ms / 1000.0,
             metrics=self.metrics,
         )
+        self.ggipnn_checkpoint = ggipnn_checkpoint
+        self._scorer: Optional[InteractionScorer] = None
+        self._scorer_lock = threading.Lock()
         self._started = time.monotonic()
         #: kernel launches already published to /metrics, per kernel
         self._launches_published: Dict[str, int] = {}
@@ -320,6 +328,41 @@ class ServeApp:
             rows.append({"gene": g, "vector": [float(v) for v in model.emb[row]]})
         return {"model": self._model_doc(model), "embeddings": rows}
 
+    def _get_scorer(self, model) -> InteractionScorer:
+        """Scorer bound to the served iteration; rebuilt after hot swap."""
+        with self._scorer_lock:
+            if self._scorer is None or self._scorer.version != model.version:
+                with ambient_span("scorer_build", iteration=model.iteration):
+                    self._scorer = InteractionScorer(
+                        model, checkpoint_path=self.ggipnn_checkpoint,
+                        device=self.registry.device)
+            return self._scorer
+
+    def interaction(self, body: dict) -> dict:
+        model = self._model_or_503()
+        pairs = body.get("pairs")
+        if not isinstance(pairs, list) or not pairs or not all(
+            isinstance(p, list) and len(p) == 2 for p in pairs
+        ):
+            raise ApiError(400, "'pairs' must be a non-empty list of [gene, gene]")
+        if len(pairs) > self.config.max_queries_per_request:
+            raise ApiError(
+                400, f"at most {self.config.max_queries_per_request} pairs per request"
+            )
+        scorer = self._get_scorer(model)
+        try:
+            scores = scorer.score([tuple(p) for p in pairs])
+        except KeyError as e:
+            raise ApiError(
+                400, f"unknown gene {e.args[0]!r} (model iteration {model.iteration})"
+            ) from e
+        self.metrics.counter("serve_interaction_pairs_total").inc(len(pairs))
+        return {
+            "model": self._model_doc(model),
+            "trained_head": scorer.trained,
+            "scores": [{"pair": p, "score": round(s, 6)} for p, s in zip(pairs, scores)],
+        }
+
     @staticmethod
     def _int_param(query: Dict[str, List[str]], name: str, default: int) -> int:
         raw = query.get(name, [str(default)])[0]
@@ -402,6 +445,8 @@ class ServeApp:
             return 200, self.similar(body or {})
         if method == "POST" and route == "/v1/embedding":
             return 200, self.embedding(body or {})
+        if method == "POST" and route == "/v1/interaction":
+            return 200, self.interaction(body or {})
         return 404, {"error": f"no route {method} {route}"}
 
     def handle(self, method: str, path: str, body: Optional[dict]) -> Tuple[int, dict]:

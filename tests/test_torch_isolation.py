@@ -398,3 +398,116 @@ def test_cbow_hs_trainer_needs_cuda_unless_cpu_is_asked(monkeypatch):
             make_trainer(_tiny_corpus(), cfg)
         tr = CBOWHSTrainer(_tiny_corpus(), cfg, device="cpu")
         assert tr.init().emb.device.type == "cpu"
+
+
+#: the fifth slice's modules (GGIPNN, /v1/interaction, K13, K14)
+GGIPNN_MODULES = {
+    "gene2vec_tpu_torch.models.ggipnn", "gene2vec_tpu_torch.models.ggipnn_data",
+    "gene2vec_tpu_torch.models.ggipnn_obs", "gene2vec_tpu_torch.models.ggipnn_train",
+    "gene2vec_tpu_torch.eval.metrics", "gene2vec_tpu_torch.utils.metrics",
+    "gene2vec_tpu_torch.obs.run", "gene2vec_tpu_torch.cli.ggipnn",
+    "gene2vec_tpu_torch.serve.interaction", "gene2vec_tpu_torch.kernels.lane",
+    "gene2vec_tpu_torch.kernels.staged_copy",
+}
+
+
+def test_sources_scan_covers_the_ggipnn_slice():
+    """The fifth slice's modules import in the no-JAX subprocess above and
+    are scanned; K13/K14's CUDA sources are built by ``build.py``; every
+    port module the new tests drive is one the scans cover."""
+    from gene2vec_tpu_torch.kernels import build
+
+    mods = set(_port_modules())
+    assert GGIPNN_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in GGIPNN_MODULES:
+        assert mod.replace(".", "/") + ".py" in scanned
+    assert {"k13_lane.cu", "k14_staged_copy.cu"} <= set(build.SOURCES.values())
+    for test in ("test_torch_ggipnn.py", "test_torch_interaction.py", "test_torch_probes.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def test_ggipnn_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from gene2vec_tpu_torch.cli import ggipnn
+    from gene2vec_tpu_torch.config import GGIPNNConfig
+    from gene2vec_tpu_torch.models.ggipnn_data import PairTextVocab
+    from gene2vec_tpu_torch.models.ggipnn_train import GGIPNNTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vocab = PairTextVocab().fit(["A B", "B C"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GGIPNNTrainer(GGIPNNConfig(embedding_dim=4), vocab)
+    tr = GGIPNNTrainer(GGIPNNConfig(embedding_dim=4), vocab, device="cpu")
+    assert tr.init_state().embedding.device.type == "cpu"
+    for split in ("train", "valid", "test"):
+        (tmp_path / f"{split}_text.txt").write_text("A B\nB C\nC A\nA C\n")
+        (tmp_path / f"{split}_label.txt").write_text("1\n0\n1\n0\n")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ggipnn.main(["--data-dir", str(tmp_path), "--embedding-dim", "4"])
+    assert ggipnn.main(["--data-dir", str(tmp_path), "--embedding-dim", "4",
+                        "--batch-size", "2", "--device", "cpu"]) == 0
+
+
+def _probe_calls():
+    from gene2vec_tpu_torch.kernels import lane, staged_copy, stream_scale
+
+    t = torch.zeros(4, 128)
+    offs = torch.zeros(8, 128, dtype=torch.int32)
+    x = torch.zeros(16, 8)
+    return [
+        (lane, "lane_gather", "k13_lane", lambda: lane.lane_gather(t, offs)),
+        (lane, "lane_scatter", "k13_lane", lambda: lane.lane_scatter(t, t, offs)),
+        (lane, "lane_gather", "k13_lane",
+         lambda: lane.lane_gather(t.to(torch.bfloat16), offs)),
+        (staged_copy, "staged_copy", "k14_staged_copy",
+         lambda: staged_copy.staged_copy(x, 2.0, tile_rows=8)),
+        (staged_copy, "staged_copy", "k14_staged_copy",
+         lambda: staged_copy.staged_copy(x, 1.0, offset=torch.zeros(1, dtype=torch.int32),
+                                         head=8)),
+        (stream_scale, "stream_scale", "k12_stream_scale",
+         lambda: stream_scale.stream_scale(x.to(torch.bfloat16), 2.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_probe_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
+    """K13, K14 and K12's bfloat16 instance: a CUDA tensor reaches the
+    kernel (the loader, stubbed to raise), never the plain version."""
+    from gene2vec_tpu_torch.kernels import _args, build
+
+    mod, name, lib, call = _probe_calls()[case]
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mod, f"{name}_plain", lambda *a, **k: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        call()
+    assert loaded == [lib]
+
+
+def test_ggipnn_lookup_on_cuda_reaches_the_row_gather_kernel(monkeypatch):
+    """The GGIPNN forward's table lookup is K9r's row gather: on a CUDA
+    tensor it goes to the kernel (stubbed to raise), not ``table[ids]``."""
+    from gene2vec_tpu_torch.kernels import _args, build, rescore
+    from gene2vec_tpu_torch.models.ggipnn import GGIPNN
+
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(rescore, "row_gather_plain", lambda *a: pytest.fail("plain"))
+    model = GGIPNN(6, 4, (3, 3, 2))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        model(torch.zeros((2, 2), dtype=torch.int32))
+    assert loaded == ["k9r_rescore"]

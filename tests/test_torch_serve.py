@@ -227,7 +227,10 @@ def test_routes_and_errors(server):
     assert server.get("/v1/similar?gene=G1&k=x")[0] == 400
     assert server.get("/v1/genes?limit=-1")[0] == 400
     assert server.get("/v1/nothing")[0] == 404
-    assert server.post("/v1/interaction", {"pairs": [["G1", "G2"]]})[0] == 404
+    # GGIPNN scoring is served (untrained head without a checkpoint)
+    status, raw = server.post("/v1/interaction", {"pairs": [["G1", "G2"]]})
+    assert status == 200 and json.loads(raw)["trained_head"] is False
+    assert server.post("/v1/interaction", {"pairs": [["G1", "nope"]]})[0] == 400
 
 
 def test_serves_a_new_iteration_once_it_lands(export):
