@@ -38,7 +38,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    at serving width (V = 24,447, D = 200, B in {1, 64}, kb in {16, 512},
    rb = 4 kb, the default IVF geometry) against their plain versions —
    K7/K9r ids exact except stated near-ties and scores within 1e-6,
-   K8/K9 approximate scores bitwise — K8 and K9 on a bf16 index (B in
+   K8/K9 approximate scores bitwise, with K7's and K8's time over their
+   library sequences' beside run 5D's (a ``{"redesign": ...}`` line) and
+   their and their library sequences' device time by kernel at MAIN_SHAPE
+   (torch.profiler; the kernels line's ``device_ms``) —
+   then tie-heavy tables (duplicated rows straddling every keep-th place,
+   a zero row, rows past ``valid`` at -inf; B in {1, 3, 64}, kb in {1, 16,
+   512}) through K7, K8 (int8 and bf16), K9 and K9r, bitwise where the
+   scores are — K8 and K9 on a bf16 index (B in
    {1, 64}, kb = 16; scores within 1e-6, near-ties counted), K8 at
    B = 64, rb = 16,384 (bitwise), and K9r's row gather at the Pallas
    gather probes' shapes and the GGIPNN lookup's against ``table[idx]``;
@@ -455,11 +462,13 @@ def kernel_check(torch, reps: int, dtype=None):
         + tb * distinct * D,
         3 * 2 * E * spec.block * D)
 
-    # K4 (library: one index_add_ of both tables' [grad | 1] rows — the
-    # scatter half only; no single PyTorch call also finalizes).  Its bound
-    # counts only the rows these inputs touch — distinct centers; head,
-    # drawn blocks and distinct contexts — each read from its accumulator
-    # and read and written in its table; untouched rows have acc = 0.
+    # K4 (library: the whole sequence — one index_add_ of both tables'
+    # [grad | 1] rows into their accumulators, then lib_finalize on each
+    # table; none for stochastic rounding, which no PyTorch call does).
+    # Its bound counts only the rows these inputs touch — distinct
+    # centers; head, drawn blocks and distinct contexts — each read from
+    # its accumulator and read and written in its table; untouched rows
+    # have acc = 0.
     emb_rows = len(np.unique(c_ids))
     ctx_rows = len(block_rows.union(range(HEAD), x_ids.tolist()))
     d_center, acc_ctx = d_p, a_p
@@ -507,16 +516,26 @@ def kernel_check(torch, reps: int, dtype=None):
         else:
             err = max(err, compare(name, [("emb", ins[0], ref[0], "abs"),
                                           ("ctx", ins[1], ref[1], "abs")]))
+        t_lib = None
+        emb_l, ctx_l = emb.clone(), ctx.clone()
+        if salts is None:
+            lib_in = [emb.clone(), ctx.clone(), torch.cat([acc_emb, acc_ctx])]
+            lib_row_update(torch, *lib_in, idx, payload, lr)
+            library_check(name, [lib_in[0], lib_in[1], lib_in[2][:V], lib_in[2][V:]], ref,
+                          rtol=1e-2 if bf16 else 1e-4)
+            t_lib = timer(lambda: lib_row_update(torch, emb_l, ctx_l, both, idx, payload, lr))
         t_in = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err,
             timer(lambda: row_update.row_update(*t_in, centers, contexts, d_center, v,
                                                 g_pos, lr, "capped", salts)),
             timer(lambda: row_update.row_update_plain(*t_in, centers, contexts, d_center, v,
                                                       g_pos, lr, "capped", salts)),
-            timer(lambda: both.index_add_(0, idx, payload)),
+            t_lib,
             k4_bytes,
             2 * E * (D + 1) + 3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
             tol)
+        if t_lib is None:
+            rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
     log(f"row_update{sfx} touches {emb_rows} emb rows and {ctx_rows} ctx rows of {V}")
     return rows
 
@@ -575,6 +594,18 @@ def lib_finalize(torch, table, acc, lr, cap):
     if table.dtype == torch.float32:
         return table.addcdiv_(acc[:, :d], div, value=-lr)
     return table.copy_(table.float().addcdiv_(acc[:, :d], div, value=-lr))
+
+
+def lib_row_update(torch, emb, ctx, both, idx, payload, lr):
+    """K4 row_update: one index_add_ of both tables' [grad | 1] rows into
+    their stacked (2V, D+1) accumulators, then each table's capped
+    finalize (nearest-even for bfloat16)."""
+    from gene2vec_tpu_torch.kernels import row_update
+
+    v = emb.shape[0]
+    both.index_add_(0, idx, payload)
+    lib_finalize(torch, emb, both[:v], lr, row_update._CAP)
+    lib_finalize(torch, ctx, both[v:], lr, row_update._CAP)
 
 
 def lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, acc):
@@ -752,7 +783,7 @@ def serving_kernel_check(torch, reps):
     # torch._int_mm takes a row count that is a multiple of 8
     tq_pad = torch.cat([index.table_q, index.table_q.new_zeros(((-V) % 8, D))])
     timer = Timer(torch, reps)
-    records, worst, ties = [], {}, {}
+    records, worst, ties, breakdown = [], {}, {}, {}
 
     def record(name, b, kb, err, t_k, t_p, t_lib, bytes_moved, flops, int8_ops=0.0):
         b_ms, b_by = bound(bytes_moved, flops, int8_ops)
@@ -795,6 +826,11 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: topk_exact.topk_exact_plain(unit, q, kb)),
                    timer(lambda: torch.topk(torch.mm(qn, unit.T), kb)),
                    4 * (V * D + b * D) + 8 * b * kb, 2.0 * b * V * D)
+            if (b, kb) == MAIN_SHAPE:  # where the kernel's and library's time goes
+                breakdown["topk_exact"] = {
+                    "kernel": device_breakdown(torch, lambda: topk_exact.topk_exact(unit, q, kb)),
+                    "library": device_breakdown(
+                        torch, lambda: torch.topk(torch.mm(qn, unit.T), kb))}
             # K8 (library: torch._int_mm takes more than 16 query rows)
             g8 = quant_scan.quant_scan(qn, index.table_q, index.scale, rb)
             w8 = quant_scan.quant_scan_plain(qn, index.table_q, index.scale, rb)
@@ -810,6 +846,12 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: quant_scan.quant_scan_plain(qn, index.table_q, index.scale,
                                                              rb)),
                    t_lib, V * D + 4 * V + 4 * b * D + 8 * b * rb, 0.0, 2.0 * b * V * D)
+            if (b, kb) == MAIN_SHAPE:
+                breakdown["quant_scan"] = {
+                    "kernel": device_breakdown(
+                        torch, lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb)),
+                    "library": device_breakdown(
+                        torch, lambda: lib_quant_scan(torch, qn, tq_pad, index.scale, V, rb))}
             # K9: ids and scores bitwise where the probe is not a near-tie
             args9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
             g9 = ivf_scan.ivf_scan(*args9)
@@ -869,7 +911,54 @@ def serving_kernel_check(torch, reps):
                           else f"ids exact except near-ties; scores {SERVE_TOL:g}"),
             "near_ties": ties.get(name, 0),
         })
+        if name in breakdown:
+            rows[-1]["device_ms"] = breakdown[name]
+            log(f"{name} at B {MAIN_SHAPE[0]} kb {MAIN_SHAPE[1]}, device ms a call by kernel: "
+                f"{breakdown[name]}")
     return rows, records
+
+
+#: kernel ms over library_ms at MAIN_SHAPE in run 5D (PERF.md), before the
+#: staged-tile redesign of K7 and K8
+FACTOR_5D = {"topk_exact": 1.85, "quant_scan": 1.63}
+
+
+def redesign_factors(records) -> dict:
+    """K7 and K8 against their library sequences in this run: at each
+    timed shape, ms, library_ms and their ratio, beside run 5D's ratio at
+    MAIN_SHAPE."""
+    out = {}
+    for name, old in FACTOR_5D.items():
+        shapes = [{"batch": r["batch"], "kb": r["kb"], "ms": r["ms"],
+                   "library_ms": r["library_ms"],
+                   "factor": r["ms"] / r["library_ms"] if r["library_ms"] else None}
+                  for r in records if r["name"] == name]
+        out[name] = {"shapes": shapes, "factor_5d": old, "main_shape": list(MAIN_SHAPE)}
+        main = next(x for x in shapes if (x["batch"], x["kb"]) == MAIN_SHAPE)
+        log(f"{name}: {main['factor']:.3f}x its library sequence at B {MAIN_SHAPE[0]} kb "
+            f"{MAIN_SHAPE[1]} (run 5D, old design: {old}x)")
+    return out
+
+
+def device_breakdown(torch, fn, calls=10) -> dict:
+    """Device ms a call of ``fn`` by kernel name: torch.profiler over
+    ``calls`` calls after a warm-up (the table stays in L2, unlike the
+    Timer's flushed launches).  Empty where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = ev.key.split("(")[0].split("<")[0].replace("void ", "")
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / calls
+    return out
 
 
 def gather_probes(torch, reps):
@@ -1304,6 +1393,85 @@ def objective_step_parity(torch, v, d, b, kind, full_tables, dtype=None):
         out[dev] = (float(loss), p.emb.cpu(), p.ctx.cpu())
     step_verdict(torch, f"whole-step parity {kind} card vs CPU{' bf16' if bf16 else ''} "
                  f"(V {v}, D {d}, E {2 * b})", out, tables, bf16)
+
+
+#: the tie-heavy check's batches and k-buckets (phase 2b)
+TIE_BATCHES = (1, 3, 64)
+TIE_KBS = (1, 16, 512)
+
+
+def tie_heavy_inputs(torch, dev, b, v=3001, d=40, bases=50, seed=3):
+    """A table of `bases` distinct unit rows, each repeated ~v / bases
+    times (equal scores straddle every keep-th place), a zero row, and
+    `b` queries taken from the table's own rows."""
+    rng = np.random.RandomState(seed)
+    base = rng.randn(bases, d).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    unit = base[rng.randint(0, bases, v)]
+    unit[11] = 0.0
+    q = unit[rng.choice(np.arange(12, v), b)] * 2.0
+    return torch.from_numpy(unit).to(dev), torch.from_numpy(q).to(dev)
+
+
+def tie_heavy_check(torch, dev, b, kb):
+    """Duplicated rows, a zero row and masked rows (valid < V, -inf) at
+    batch b and k-bucket kb: K8 (int8) and K9 ids and scores bitwise the
+    plain versions' (K9 where the probe is not a near-tie); K7, K8 on a
+    bf16 table and K9r scores within SERVE_TOL and ids equal except
+    near-ties — the lower row first among equal scores.  Returns the
+    near-ties counted."""
+    from gene2vec_tpu_torch.kernels import _topk, ivf_scan, quant_scan, rescore, topk_exact
+    from gene2vec_tpu_torch.serve import ann
+
+    unit, q = tie_heavy_inputs(torch, dev, b)
+    v = unit.shape[0]
+    valid = v - 17
+    qn = _topk.normalize_plain(q)
+    where = f"tie-heavy B {b} kb {kb}"
+
+    def exact_of(ids):
+        s = (qn[:, None, :] * unit[ids]).sum(-1)
+        return s.masked_fill(ids >= valid, float("-inf"))
+
+    def bitwise(name, got, want, rows=slice(None)):
+        if not (torch.equal(got[0][rows].view(torch.int32), want[0][rows].view(torch.int32))
+                and torch.equal(got[1][rows], want[1][rows])):
+            raise SystemExit(f"{name} ({where}): not bitwise the plain version's")
+
+    ties = 0
+    got, want = topk_exact.topk_exact(unit, q, kb, valid), topk_exact.topk_exact_plain(
+        unit, q, kb, valid)
+    torch.cuda.synchronize()
+    ties += check_topk(f"K7 ({where})", got, want, exact_of, SERVE_TOL)[1]
+    index = ann.build_index(unit.cpu().numpy(), "ivf", device=dev)
+    rb = min(RESCORE_MULT * kb, v)
+    a8 = (qn, index.table_q, index.scale, rb, valid)
+    got, want = quant_scan.quant_scan(*a8), quant_scan.quant_scan_plain(*a8)
+    torch.cuda.synchronize()
+    bitwise("K8", got, want)
+    fs = rescore.rescore(qn, unit, got[1], got[0], kb)
+    fw = rescore.rescore_plain(qn, unit, want[1], want[0], kb)
+    torch.cuda.synchronize()
+    ties += check_topk(f"K9r ({where})", fs, fw, exact_of, SERVE_TOL)[1]
+    nprobe = min(max(8, -(-kb // index.list_len)), index.n_clusters)
+    a9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb, valid)
+    got, want = ivf_scan.ivf_scan(*a9), ivf_scan.ivf_scan_plain(*a9)
+    torch.cuda.synchronize()
+    tied = probe_near_ties(torch, qn, index.centroids, nprobe)
+    bitwise("K9", got, want, ~tied)
+    ties += int(tied.sum())
+    i16 = ann.build_index(unit.cpu().numpy(), "quant", quant_dtype="bf16", device=dev)
+    q16 = qn.to(torch.bfloat16).float()
+
+    def bf16_of(ids):
+        s = (q16[:, None, :] * i16.table_q[ids].float()).sum(-1)
+        return s.masked_fill(ids >= valid, float("-inf"))
+
+    a16 = (qn, i16.table_q, i16.scale, rb, valid)
+    got, want = quant_scan.quant_scan(*a16), quant_scan.quant_scan_plain(*a16)
+    torch.cuda.synchronize()
+    ties += check_topk(f"K8 bf16 ({where})", got, want, bf16_of, SERVE_TOL)[1]
+    return ties
 
 
 # -- phase 2d: the serving repairs (bf16 tables; lists past 8,192) -------------
@@ -2528,6 +2696,10 @@ def main() -> int:
     log(f"bf16 kernel check done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     serve_rows, serve_shapes = serving_kernel_check(torch, TIMED_REPS)
+    ties = sum(tie_heavy_check(torch, torch.device(DEVICE), b, kb)
+               for b in TIE_BATCHES for kb in TIE_KBS)
+    log(f"tie-heavy tables: K7-K9r held at B {TIE_BATCHES} x kb {TIE_KBS}, near-ties {ties}")
+    redesign = redesign_factors(serve_shapes)
     serve_shapes += serving_repairs_check(torch, TIMED_REPS)
     probes = gather_probes(torch, TIMED_REPS)
     stream_row, stream_recs = stream_probes(torch, TIMED_REPS)
@@ -2622,6 +2794,7 @@ def main() -> int:
     print(json.dumps({"serving_kernel_shapes": serve_shapes}))
     print(json.dumps({"probes": probes}))
     print(json.dumps({"table_widths": widths}))
+    print(json.dumps({"redesign": redesign}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -96,8 +96,6 @@ _UNSUPPORTED = (
      "written inline"),
     ("kernel_profile", lambda v: not v,
      "kernel cost attribution is not ported"),
-    ("timeline", lambda v: v,
-     "the phase timeline is not ported (the default writes none)"),
     ("pos_layout_shards", lambda v: v == 0,
      "a per-device batch layout needs the multi-GPU path, which is not "
      "ported"),
@@ -105,8 +103,6 @@ _UNSUPPORTED = (
      "device meshes are not ported"),
     ("model_axis", lambda v: v == "model",
      "device meshes are not ported"),
-    ("donate", lambda v: v,
-     "the step always updates the tables in place"),
 )
 
 

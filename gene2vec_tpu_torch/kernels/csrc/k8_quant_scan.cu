@@ -11,15 +11,18 @@
 // V*(D+4) = 5.0 MB at V = 24,447, D = 200 (~1.5 us at 3.35 TB/s); the
 // int8 operations (2*B*V*D) are far under the int8 tensor-core rate.
 //
-// Design: the K7 tile structure (topk_common.cuh) with an int8 scorer:
-// each block quantizes its queries into shared memory with correctly
-// rounded divisions, a thread per table row sums int8 products exactly in
-// int32 (dp4a over 4-byte words), and the rescale runs in the reference's
-// order without contraction — so the approximate scores are bitwise the
-// reference's.  IMMA tensor-core tiles come later.
+// Design: the staged structure of K7 (topk_common.cuh) with int8 tensor
+// cores.  Each block quantizes its queries into shared memory with
+// correctly rounded divisions (rows zero past D up to a multiple of 32:
+// a zero adds exactly 0), takes its chunk's rows in double-buffered tiles
+// of 64 rows — one TMA bulk copy a tile, the rows as stored — and scores
+// every query against each tile with mma.sync m16n8k32 s8 x s8 -> s32.
+// The int32 sums are exact and the rescale runs in the reference's order
+// without contraction, so the approximate scores are bitwise the
+// reference's.  Selection as K7's.
 //
-// A bf16 table (build_index(quant_dtype="bf16")) takes the same tile
-// structure with a bf16 scorer: the query is rounded to bf16, each
+// A bf16 table (build_index(quant_dtype="bf16")) takes the same staged
+// structure with K7's SIMT scorer: the query is rounded to bf16, each
 // bf16 x bf16 product is exact in float32 and the sum accumulates in
 // float32, as the reference's preferred_element_type=f32 dot — equal to
 // the plain version up to the order of the float32 sum.
@@ -28,77 +31,91 @@
 namespace {
 
 struct QuantScorer {
+  G2vStaging st;
   const float* qn;
   const signed char* table;
   const float* scale;
   int D;
   int valid;
+  int qstride;  // bytes per staged query row
+  int qg;       // the block's query group: the scales follow its rows
 
-  size_t query_bytes() const { return g2v_int8_query_bytes(D); }
+  __host__ __device__ static int query_rows(int QG) { return (QG + 15) & ~15; }
 
-  __device__ const float* scales(const unsigned char* qmem, int nq) const {
-    return reinterpret_cast<const float*>(qmem + ((nq * D + 3) & ~3));
+  __device__ const float* scales(const unsigned char* qmem, int QG) const {
+    return reinterpret_cast<const float*>(qmem + static_cast<size_t>(query_rows(QG)) * qstride);
   }
 
-  __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_int8(qn, q0, nq, D, reinterpret_cast<signed char*>(qmem),
-                           const_cast<float*>(scales(qmem, nq)));
+  __device__ void load_queries(unsigned char* qmem, int q0, int nq, int QG) const {
+    g2v_stage_queries_int8(qn, q0, nq, D, qstride, query_rows(QG),
+                           reinterpret_cast<signed char*>(qmem),
+                           const_cast<float*>(scales(qmem, QG)));
   }
 
-  __device__ void score_row(const unsigned char* qmem, int, int nq, int r, int* keys,
-                            int stride) const {
-    int acc[G2V_QB_MAX];
-    g2v_thread_dots_int8(table + static_cast<size_t>(r) * D,
-                         reinterpret_cast<const signed char*>(qmem), nq, D, acc);
-    const float* qs = scales(qmem, nq);
-    const float s_row = scale[r];
-#pragma unroll
-    for (int j = 0; j < G2V_QB_MAX; ++j) {
-      if (j < nq) {
-        keys[j * stride] = g2v_key(r >= valid ? -INFINITY : g2v_rescale(acc[j], qs[j], s_row));
-      }
-    }
+  __device__ void copy_rows(unsigned char* tile, int r, int rows) const {
+    g2v_copy_rows(table, D, r, rows, st.tstride, tile);
+  }
+
+  __device__ void score_tile(const unsigned char* tile, const unsigned char* qmem, int nq, int r,
+                             int rows, int TR, int* keys, int kstride) const {
+    g2v_imma_tile(tile, st.tstride, reinterpret_cast<const signed char*>(qmem), qstride,
+                  scales(qmem, qg), scale, nq, D, rows, TR, r, valid, keys, kstride);
   }
 };
 
 struct Bf16Scorer {
+  G2vStaging st;
   const float* qn;
   const __nv_bfloat16* table;
   int D;
   int valid;
+  int qstride;  // floats per staged query row
 
-  size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
-
-  __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_bf16(qn, q0, nq, D, reinterpret_cast<float*>(qmem));
+  __device__ void load_queries(unsigned char* qmem, int q0, int nq, int QG) const {
+    g2v_stage_queries_bf16(qn, q0, nq, D, qstride, g2v_simt_query_rows(QG),
+                           reinterpret_cast<float*>(qmem));
   }
 
-  __device__ void score_row(const unsigned char* qmem, int, int nq, int r, int* keys,
-                            int stride) const {
-    float acc[G2V_QB_MAX];
-    g2v_thread_dots_bf16(table + static_cast<size_t>(r) * D,
-                         reinterpret_cast<const float*>(qmem), nq, D, acc);
-#pragma unroll
-    for (int j = 0; j < G2V_QB_MAX; ++j) {
-      if (j < nq) keys[j * stride] = g2v_key(r >= valid ? -INFINITY : acc[j]);
-    }
+  __device__ void copy_rows(unsigned char* tile, int r, int rows) const {
+    g2v_copy_rows(table, D, r, rows, st.tstride, tile);
+  }
+
+  __device__ void score_tile(const unsigned char* tile, const unsigned char* qmem, int nq, int r,
+                             int rows, int TR, int* keys, int kstride) const {
+    g2v_simt_tile<__nv_bfloat16>(tile, st.tstride, reinterpret_cast<const float*>(qmem),
+                                 qstride, nq, D, rows, TR, r, valid, keys, kstride);
   }
 };
 
 }  // namespace
 
 // table_bf16 = 0: `table` is int8 with per-row `scale`; 1: bfloat16.
+// CH, QG, TR, slot, stride and the scratch buffers as k7_topk_exact's.
 G2V_EXPORT int k8_quant_scan(const float* qn, const void* table, const float* scale,
-                             int table_bf16, int V, int D, int B, int valid, int rb,
-                             int T, int QB, int* ka, int* ia, int* kb, int* ib,
-                             float* out_scores, int* out_rows, void* stream) {
+                             int table_bf16, int V, int D, int B, int valid, int rb, int CH,
+                             int QG, int TR, int slot, int stride, int* ka, int* ia, int* kb,
+                             int* ib, float* out_scores, int* out_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* base = static_cast<const unsigned char*>(table);
+  const bool aligned = reinterpret_cast<uintptr_t>(table) % 16 == 0;
   if (table_bf16) {
-    Bf16Scorer sc{qn, static_cast<const __nv_bfloat16*>(table), D, valid};
-    return g2v_run_topk(sc, G2vIdentity{}, V, B, QB, T, rb, ka, ia, kb, ib, out_scores,
-                        out_rows, st);
+    const int mode = D % 8 == 0 && aligned ? G2V_STAGE_CP_ASYNC : G2V_STAGE_COPY;
+    const int tstride = g2v_padded_stride(2 * ((D + 3) & ~3));
+    const int qstride = g2v_padded_stride(4 * ((D + 3) & ~3)) / 4;
+    Bf16Scorer sc{{base, 2 * D, tstride, mode}, qn,
+                  static_cast<const __nv_bfloat16*>(table), D, valid, qstride};
+    return g2v_run_staged(sc, g2v_simt_query_rows(QG) * qstride * 4, V, B, QG, CH, TR, rb, slot,
+                          stride, ka, ia, kb, ib, out_scores, out_rows, st);
   }
-  QuantScorer sc{qn, static_cast<const signed char*>(table), scale, D, valid};
-  return g2v_run_topk(sc, G2vIdentity{}, V, B, QB, T, rb, ka, ia, kb, ib, out_scores,
-                      out_rows, st);
+  // whole tiles as stored when rows are 4-byte multiples (the fragments'
+  // 32-bit loads), else rows copied into 16-byte multiples
+  const bool tma = D % 4 == 0 && aligned;
+  const int tstride = tma ? D : (D + 15) & ~15;
+  const int qstride = g2v_padded_stride((D + 31) & ~31);
+  QuantScorer sc{{base, D, tstride, tma ? G2V_STAGE_TMA : G2V_STAGE_COPY}, qn,
+                 static_cast<const signed char*>(table),
+                 scale, D, valid, qstride, QG};
+  const int query_bytes = QuantScorer::query_rows(QG) * (qstride + 4);
+  return g2v_run_staged(sc, query_bytes, V, B, QG, CH, TR, rb, slot, stride, ka, ia, kb, ib,
+                        out_scores, out_rows, st);
 }

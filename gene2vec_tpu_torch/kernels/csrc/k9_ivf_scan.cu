@@ -13,10 +13,11 @@
 // D = 200) and, per query, the probed lists' ids, int8 rows and scales
 // (nprobe*L*(D+8) = 0.2 MB at nprobe = 8, L = 128).
 //
-// Design: two runs of the tiled selection (topk_common.cuh).  The probe
-// scores the centroids for up to 8 queries a block (float32, a thread per
-// centroid) and keeps the top-nprobe.  The scan gives each query blocks
-// of its own, one tile of candidate positions each: a thread reads the
+// Design: two runs of the chunked selection (topk_common.cuh, two
+// launches each).  The probe scores the centroids for up to 8 queries a
+// block (float32, a thread per centroid) and keeps the top-nprobe.  The
+// scan gives each query blocks of its own, one chunk of candidate
+// positions each: a thread reads the
 // candidate id from the probed list, gathers its int8 row and scale and
 // sums exactly in int32 (dp4a), with the K8 rescale — so the approximate
 // scores are bitwise the reference's.  Ties order by candidate position,
@@ -36,7 +37,7 @@ struct CentroidScorer {
   size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
 
   __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_f32(qn, q0, nq, D, false, reinterpret_cast<float*>(qmem));
+    g2v_stage_queries_f32(qn, q0, nq, D, D, nq, false, reinterpret_cast<float*>(qmem));
   }
 
   __device__ void score_row(const unsigned char* qmem, int, int nq, int r, int* keys,
@@ -85,7 +86,7 @@ struct CandidateScorer {
   }
 
   __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_int8(qn, q0, nq, D, reinterpret_cast<signed char*>(qmem),
+    g2v_stage_queries_int8(qn, q0, nq, D, D, nq, reinterpret_cast<signed char*>(qmem),
                            const_cast<float*>(scales(qmem)));
   }
 
@@ -113,7 +114,7 @@ struct Bf16CandidateScorer {
   size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
 
   __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_bf16(qn, q0, nq, D, reinterpret_cast<float*>(qmem));
+    g2v_stage_queries_bf16(qn, q0, nq, D, D, nq, reinterpret_cast<float*>(qmem));
   }
 
   // one query a block (QB = 1), as CandidateScorer
@@ -134,26 +135,30 @@ struct Bf16CandidateScorer {
 }  // namespace
 
 // table_bf16 = 0: `table` is int8 with per-row `scale`; 1: bfloat16.
+// The probe runs over chunks of CHc centroids for groups of QBc queries
+// (runs of slot_c pairs, stride_c a query), the scan over chunks of CHn
+// candidate positions, one query a block (slot_n, stride_n).
 G2V_EXPORT int k9_ivf_scan(const float* qn, const float* centroids, const int* lists,
                            const void* table, const float* scale, int table_bf16,
                            int C, int L,
-                           int V, int D, int B, int nprobe, int valid, int r, int Tc,
-                           int QBc, int Tn, int* cka, int* cia, int* ckb, int* cib,
+                           int V, int D, int B, int nprobe, int valid, int r, int CHc,
+                           int QBc, int slot_c, int stride_c, int CHn, int slot_n,
+                           int stride_n, int* cka, int* cia, int* ckb, int* cib,
                            int* nka, int* nia, int* nkb, int* nib, float* probe_scores,
                            int* probe, float* out_scores, int* out_rows, void* stream) {
   (void)V;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   CentroidScorer cs{centroids, qn, D};
-  int err = g2v_run_topk(cs, G2vIdentity{}, C, B, QBc, Tc, nprobe, cka, cia, ckb, cib,
-                         probe_scores, probe, st);
+  int err = g2v_run_topk(cs, G2vIdentity{}, C, B, QBc, CHc, nprobe, slot_c, stride_c, cka, cia,
+                         ckb, cib, probe_scores, probe, st);
   if (err) return err;
   Candidates cand{lists, probe, nprobe, L, valid};
   if (table_bf16) {
     Bf16CandidateScorer sc{cand, qn, static_cast<const __nv_bfloat16*>(table), D};
-    return g2v_run_topk(sc, cand, nprobe * L, B, 1, Tn, r, nka, nia, nkb, nib,
-                        out_scores, out_rows, st);
+    return g2v_run_topk(sc, cand, nprobe * L, B, 1, CHn, r, slot_n, stride_n, nka, nia, nkb,
+                        nib, out_scores, out_rows, st);
   }
   CandidateScorer sc{cand, qn, static_cast<const signed char*>(table), scale, D};
-  return g2v_run_topk(sc, cand, nprobe * L, B, 1, Tn, r, nka, nia, nkb, nib, out_scores,
-                      out_rows, st);
+  return g2v_run_topk(sc, cand, nprobe * L, B, 1, CHn, r, slot_n, stride_n, nka, nia, nkb, nib,
+                      out_scores, out_rows, st);
 }

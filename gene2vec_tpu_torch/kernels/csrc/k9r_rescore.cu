@@ -21,7 +21,7 @@
 // most of it L2 hits since the 19.6 MB table fits in the 50 MB L2); the
 // row gather moves E rows in and E rows out.
 //
-// Design: the tiled selection of topk_common.cuh with one query a block
+// Design: the chunked selection of topk_common.cuh with one query a block
 // (candidates are per query) and a thread per candidate, which gathers
 // its row with float4 loads and takes the float32 dot.  Ties order by
 // candidate position, as the reference's top_k over its (B, r) matrix.
@@ -54,7 +54,7 @@ struct RescoreScorer {
   size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
 
   __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_f32(qn, q0, nq, D, false, reinterpret_cast<float*>(qmem));
+    g2v_stage_queries_f32(qn, q0, nq, D, D, nq, false, reinterpret_cast<float*>(qmem));
   }
 
   __device__ void score_row(const unsigned char* qmem, int q0, int, int p, int* keys,
@@ -95,15 +95,17 @@ static int launch_gather(const void* table, const int* idx, void* out, int E, in
 
 }  // namespace
 
+// Chunks of CH candidates, one query a block; runs of `slot` pairs,
+// `stride` pairs a query in each scratch buffer.
 G2V_EXPORT int k9r_rescore(const float* qn, const float* unit, const int* ri,
-                           const float* approx, int V, int D, int B, int r, int k, int T,
-                           int* ka, int* ia, int* kb, int* ib, float* out_scores,
-                           int* out_rows, void* stream) {
+                           const float* approx, int V, int D, int B, int r, int k, int CH,
+                           int slot, int stride, int* ka, int* ia, int* kb, int* ib,
+                           float* out_scores, int* out_rows, void* stream) {
   (void)V;
   RescoreMap cand{ri, approx, r};
   RescoreScorer sc{cand, qn, unit, D};
-  return g2v_run_topk(sc, cand, r, B, 1, T, k, ka, ia, kb, ib, out_scores, out_rows,
-                      static_cast<cudaStream_t>(stream));
+  return g2v_run_topk(sc, cand, r, B, 1, CH, k, slot, stride, ka, ia, kb, ib, out_scores,
+                      out_rows, static_cast<cudaStream_t>(stream));
 }
 
 // Row width in bytes; 16-byte words when the width and both pointers

@@ -85,7 +85,7 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
     status = lib.k9_ivf_scan(
         _args.ptr(qn), _args.ptr(centroids), _args.ptr(lists), _args.ptr(table_q),
         _args.ptr(scale), int(bf16), c, lst, v_rows, d, b, nprobe, valid, r,
-        pc.tile, pc.qb, pn.tile,
+        pc.tile, pc.qb, pc.slot, pc.stride, pn.tile, pn.slot, pn.stride,
         _args.ptr(scr_c[0]), _args.ptr(scr_c[1]), _args.ptr(scr_c[2]), _args.ptr(scr_c[3]),
         _args.ptr(scr_n[0]), _args.ptr(scr_n[1]), _args.ptr(scr_n[2]), _args.ptr(scr_n[3]),
         _args.ptr(probe_scores), _args.ptr(probe), _args.ptr(scores), _args.ptr(rows),
@@ -101,6 +101,6 @@ def _lib():
     fn = lib.k9_ivf_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P] + [I] * 12 + [P] * 12 + [P]
+        fn.argtypes = [P, P, P, P, P] + [I] * 16 + [P] * 12 + [P]
         fn.restype = I
     return lib

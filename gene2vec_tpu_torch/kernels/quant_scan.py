@@ -8,10 +8,11 @@ int8·int8 → int32 dot against the int8 table, rescale as
 ``float(acc) * qs * scale[row]``, mask rows ≥ ``valid`` to −inf and
 return the top-``rb`` (approximate scores, int32 rows).
 
-The int32 sum is exact and the rescale runs in the reference's order,
-so the approximate scores are bitwise the reference's, on the CPU and
-on the card alike.  A bf16 table (``build_index(quant_dtype="bf16")``)
-is scanned by the same kernel with a bf16 scorer: the query rounded to
+The int32 sum is exact (on the card: int8 tensor cores, ``mma.sync``
+s8 x s8 -> s32) and the rescale runs in the reference's order, so the
+approximate scores are bitwise the reference's, on the CPU and on the
+card alike.  A bf16 table (``build_index(quant_dtype="bf16")``) is
+scanned by the same staged kernel with a SIMT bf16 scorer: the query rounded to
 bf16, exact bf16 products summed in float32 (the reference's
 ``preferred_element_type=f32`` dot), equal to the plain version up to
 the order of the float32 sum.
@@ -81,14 +82,15 @@ def quant_scan(qn, table_q, scale, rb: int, valid: Optional[int] = None):
     valid = v_rows if valid is None else min(int(valid), v_rows)
     rb = min(rb, v_rows)
     lib = _lib()
-    qbytes = 4 * d if bf16 else d + 8
-    p = _topk.plan(v_rows, rb, b, qbytes, per_query=False, sms=_args.sm_count(qn))
+    kind = "bfloat16" if bf16 else "int8"
+    p = _topk.plan_staged(v_rows, rb, b, d, kind, sms=_args.sm_count(qn))
     scr = _topk.scratch(p, qn.device)
     scores = torch.empty((b, rb), dtype=torch.float32, device=qn.device)
     rows = torch.empty((b, rb), dtype=torch.int32, device=qn.device)
     status = lib.k8_quant_scan(
         _args.ptr(qn), _args.ptr(table_q), _args.ptr(scale), int(bf16), v_rows, d, b, valid,
-        rb, p.tile, p.qb, _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
+        rb, p.tile, p.qb, p.rows, p.slot, p.stride,
+        _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
     build.check(lib, status, "K8 quant_scan launch")
@@ -101,6 +103,6 @@ def _lib():
     fn = lib.k8_quant_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, P, P] + [I] * 11 + [P] * 7
         fn.restype = I
     return lib

@@ -57,7 +57,8 @@ def rescore(qn, unit, ri, approx, k: int):
     rows = torch.empty((b, k), dtype=torch.int32, device=qn.device)
     status = lib.k9r_rescore(
         _args.ptr(qn), _args.ptr(unit), _args.ptr(ri), _args.ptr(approx), v_rows, d, b, r,
-        k, p.tile, _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
+        k, p.tile, p.slot, p.stride,
+        _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
     build.check(lib, status, "K9r rescore launch")
@@ -94,7 +95,7 @@ def _lib():
     lib = build.load(_LIB)
     if lib.k9r_rescore.argtypes is None:
         P, I = _args.P, _args.I
-        lib.k9r_rescore.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P, P, P, P, P, P]
+        lib.k9r_rescore.argtypes = [P, P, P, P] + [I] * 8 + [P] * 7
         lib.k9r_rescore.restype = I
         lib.k9r_row_gather.argtypes = [P, P, P, I, I, P]
         lib.k9r_row_gather.restype = I

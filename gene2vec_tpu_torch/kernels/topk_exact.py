@@ -3,9 +3,11 @@
 Replaces ``gene2vec_tpu/serve/engine.py:43-59`` (``_topk_cosine``):
 normalize the queries (``q / max(‖q‖, 1e-12)``), score them against the
 (V, D) float32 unit matrix, set rows ≥ ``valid`` to −inf and return the
-top-``kb`` (scores, int32 rows) in ``lax.top_k``'s order.  The kernel
-never writes the (B, V) score matrix: each tile of rows keeps its own
-top-``kb`` in shared memory and a merge pass reduces the tiles.
+top-``kb`` (scores, int32 rows) in ``lax.top_k``'s order.  Two launches
+a call, and the (B, V) score matrix never reaches device memory: blocks
+stage chunks of rows in shared memory once for the whole batch and keep
+each query's top-``kb`` of their chunk; a final block a query selects
+across chunks and sorts only those.
 """
 
 from __future__ import annotations
@@ -40,13 +42,14 @@ def topk_exact(unit, queries, kb: int, valid: Optional[int] = None):
     _args.expect(queries, "queries", torch.float32, (b, d))
     valid = v_rows if valid is None else min(int(valid), v_rows)
     lib = _lib()
-    p = _topk.plan(v_rows, kb, b, 4 * d, per_query=False, sms=_args.sm_count(unit))
+    p = _topk.plan_staged(v_rows, kb, b, d, "float32", sms=_args.sm_count(unit))
     scr = _topk.scratch(p, unit.device)
     scores = torch.empty((b, kb), dtype=torch.float32, device=unit.device)
     rows = torch.empty((b, kb), dtype=torch.int32, device=unit.device)
     status = lib.k7_topk_exact(
         _args.ptr(unit), _args.ptr(queries), v_rows, d, b, valid, kb,
-        p.tile, p.qb, _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
+        p.tile, p.qb, p.rows, p.slot, p.stride,
+        _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(unit),
     )
     build.check(lib, status, "K7 topk_exact launch")
@@ -59,6 +62,6 @@ def _lib():
     fn = lib.k7_topk_exact
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, I, I, I, I, I, I, I, P, P, P, P, P, P, P]
+        fn.argtypes = [P, P] + [I] * 10 + [P] * 7
         fn.restype = I
     return lib

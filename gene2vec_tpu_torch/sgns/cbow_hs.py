@@ -21,12 +21,15 @@ node table (the reference's ``split(sr_key)``, cbow_hs.py:339-343).
 
 :class:`CBOWHSTrainer` mirrors the port's ``SGNSTrainer`` (init /
 draw_epoch / train_epoch / run, explicit draws, CUDA unless
-``device="cpu"``).  Left out as in ``SGNSTrainer``: the reference run's
-observability hooks, preemption handling and the multi-device paths.
+``device="cpu"``).  As in ``SGNSTrainer``: ``run`` writes the phase
+timeline and ``donate=False`` leaves the caller's tables untouched; left
+out are the reference run's other observability hooks, preemption
+handling and the multi-device paths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -60,7 +63,10 @@ from gene2vec_tpu_torch.sgns.train import (
     epoch_salts,
     learning_rate,
     noise_setup,
+    own_tables,
+    timed_epoch,
 )
+from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 from gene2vec_tpu_torch.utils.profiling import StepTimer
 
 OBJECTIVES = tuple(o for o in _ALL_OBJECTIVES if o != "sgns")
@@ -196,9 +202,11 @@ class CBOWHSTrainer:
         self, params: SGNSParams, draws: Optional[EpochDraws] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[SGNSParams, torch.Tensor]:
-        """One epoch; updates ``params`` in place.  Returns (params, the
-        mean step loss as a 0-d tensor on the device)."""
+        """One epoch; updates ``params`` in place, or copies of them with
+        ``donate=False`` (as ``SGNSTrainer.train_epoch``).  Returns (params,
+        the mean step loss as a 0-d tensor on the device)."""
         cfg = self.config
+        params = own_tables(params, cfg)
         if draws is None:
             draws = self.draw_epoch(generator if generator is not None
                                     else self.generator)
@@ -273,12 +281,21 @@ class CBOWHSTrainer:
             start_iter = 1
         pairs_per_epoch = self.num_batches * cfg.batch_pairs
         csv_path = os.path.join(export_dir, "training_log.csv")
+        tl = PhaseTimeline(enabled=cfg.timeline)
+        try:
+            return self._iterations(export_dir, start_iter, log, params, tl,
+                                    pairs_per_epoch, csv_path)
+        finally:
+            # observability residue: never masks the loop's own exception
+            with contextlib.suppress(Exception):
+                tl.flush(os.path.join(export_dir, TIMELINE_NAME))
+
+    def _iterations(self, export_dir, start_iter, log, params, tl, pairs_per_epoch,
+                    csv_path):
+        cfg = self.config
         for it in range(start_iter, cfg.num_iters + 1):
             t0 = time.perf_counter()
-            params, loss = self.train_epoch(
-                params, generator=epoch_generator(cfg.seed, it)
-            )
-            loss = float(loss)  # waits for the epoch to finish
+            params, loss = timed_epoch(self, tl, it, params)
             dt = time.perf_counter() - t0
             rate = pairs_per_epoch / dt if dt > 0 else float("inf")
             self.timer.record(pairs_per_epoch, dt)
@@ -286,22 +303,23 @@ class CBOWHSTrainer:
                 f"gene2vec [{cfg.objective}] dimension {cfg.dim} iteration "
                 f"{it} done: loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
             )
-            _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
-                                   "pairs_per_sec": rate, "seconds": dt})
-            ckpt.save_iteration(
-                export_dir, cfg.dim, it, params, self.corpus.vocab,
-                txt_output=cfg.txt_output,
-                meta={
-                    "loss": loss,
-                    "pairs_per_sec": rate,
-                    "objective": cfg.objective,
-                    # node-table layout tag: resume refuses a mismatch
-                    "hs_dense_depth": cfg.hs_dense_depth if self.hs else 0,
-                    "device": str(self.device),
-                    "rng": {"seed": cfg.seed,
-                            "epoch_generator": f"SeedSequence([{cfg.seed}, iteration])"},
-                },
-            )
+            with tl.phase("ckpt_stage", step=it):
+                _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
+                                       "pairs_per_sec": rate, "seconds": dt})
+                ckpt.save_iteration(
+                    export_dir, cfg.dim, it, params, self.corpus.vocab,
+                    txt_output=cfg.txt_output,
+                    meta={
+                        "loss": loss,
+                        "pairs_per_sec": rate,
+                        "objective": cfg.objective,
+                        # node-table layout tag: resume refuses a mismatch
+                        "hs_dense_depth": cfg.hs_dense_depth if self.hs else 0,
+                        "device": str(self.device),
+                        "rng": {"seed": cfg.seed, "epoch_generator":
+                                f"SeedSequence([{cfg.seed}, iteration])"},
+                    },
+                )
         return params
 
 

@@ -19,14 +19,21 @@ epoch draw too (``EpochDraws.salts``, drawn last so the other draws keep
 their stream).  ``run`` seeds one per iteration from (seed, iteration),
 so a resumed run replays the stream an uninterrupted one would.
 
-Left out of this slice (see ROADMAP.md): the observability hooks of the
-reference ``run`` (run manifest and events, phase timeline, goodput,
-kernel profiler), the background checkpoint writer, preemption handling
-and the multi-device paths.
+``run`` writes the reference's phase timeline (``timeline.jsonl``,
+``obs/timeline.py``) unless ``SGNSConfig(timeline=False)``.  With
+``SGNSConfig(donate=False)`` an epoch leaves the tables it is given
+untouched and returns updated copies (the reference's jit without buffer
+donation); the default updates them in place.
+
+Left out of this slice (see ROADMAP.md): the other observability hooks of
+the reference ``run`` (run manifest and events, goodput, kernel
+profiler), the background checkpoint writer, preemption handling and the
+multi-device paths.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import os
@@ -55,6 +62,7 @@ from gene2vec_tpu_torch.data.pipeline import (
 )
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
+from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
 from gene2vec_tpu_torch.sgns.step import num_tail_groups, sgns_step, shared_pool_layout
 from gene2vec_tpu_torch.utils.profiling import StepTimer
@@ -344,11 +352,14 @@ class SGNSTrainer:
         self, params: SGNSParams, draws: Optional[EpochDraws] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[SGNSParams, torch.Tensor]:
-        """One epoch; updates ``params`` in place.  Returns (params, the
-        mean step loss as a 0-d tensor on the device).  The draws are
-        ``draws`` if given, else made from ``generator``, else from the
-        trainer's own generator (seeded by ``config.seed``)."""
+        """One epoch; updates ``params`` in place (``config.donate``, the
+        default) or, with ``donate=False``, updates copies and leaves
+        ``params`` untouched.  Returns (params, the mean step loss as a 0-d
+        tensor on the device).  The draws are ``draws`` if given, else made
+        from ``generator``, else from the trainer's own generator (seeded by
+        ``config.seed``)."""
         cfg = self.config
+        params = own_tables(params, cfg)
         if draws is None:
             draws = self.draw_epoch(generator if generator is not None
                                     else self.generator)
@@ -412,34 +423,61 @@ class SGNSTrainer:
             start_iter = 1
         pairs_per_epoch = self.num_batches * cfg.batch_pairs
         csv_path = os.path.join(export_dir, "training_log.csv")
-        for it in range(start_iter, cfg.num_iters + 1):
-            log(f"gene2vec dimension {cfg.dim} iteration {it} start")
-            t0 = time.perf_counter()
-            params, loss = self.train_epoch(
-                params, generator=epoch_generator(cfg.seed, it)
-            )
-            loss = float(loss)  # waits for the epoch to finish
-            dt = time.perf_counter() - t0
-            rate = pairs_per_epoch / dt if dt > 0 else float("inf")
-            self.timer.record(pairs_per_epoch, dt)
-            log(
-                f"gene2vec dimension {cfg.dim} iteration {it} done: "
-                f"loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
-            )
-            _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
-                                   "pairs_per_sec": rate, "seconds": dt})
-            ckpt.save_iteration(
-                export_dir, cfg.dim, it, params, self.corpus.vocab,
-                txt_output=cfg.txt_output,
-                meta={
-                    "loss": loss,
-                    "pairs_per_sec": rate,
-                    "device": str(self.device),
-                    "rng": {"seed": cfg.seed,
-                            "epoch_generator": f"SeedSequence([{cfg.seed}, iteration])"},
-                },
-            )
+        tl = PhaseTimeline(enabled=cfg.timeline)
+        try:
+            for it in range(start_iter, cfg.num_iters + 1):
+                log(f"gene2vec dimension {cfg.dim} iteration {it} start")
+                t0 = time.perf_counter()
+                params, loss = timed_epoch(self, tl, it, params)
+                dt = time.perf_counter() - t0
+                rate = pairs_per_epoch / dt if dt > 0 else float("inf")
+                self.timer.record(pairs_per_epoch, dt)
+                log(
+                    f"gene2vec dimension {cfg.dim} iteration {it} done: "
+                    f"loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
+                )
+                with tl.phase("ckpt_stage", step=it):
+                    _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
+                                           "pairs_per_sec": rate, "seconds": dt})
+                    ckpt.save_iteration(
+                        export_dir, cfg.dim, it, params, self.corpus.vocab,
+                        txt_output=cfg.txt_output,
+                        meta={
+                            "loss": loss,
+                            "pairs_per_sec": rate,
+                            "device": str(self.device),
+                            "rng": {"seed": cfg.seed, "epoch_generator":
+                                    f"SeedSequence([{cfg.seed}, iteration])"},
+                        },
+                    )
+        finally:
+            # observability residue: never masks the loop's own exception
+            with contextlib.suppress(Exception):
+                tl.flush(os.path.join(export_dir, TIMELINE_NAME))
         return params
+
+
+def own_tables(params: SGNSParams, config: SGNSConfig) -> SGNSParams:
+    """The tables an epoch updates: ``params`` itself when the config
+    donates them (the default), else copies, so the caller's stay as
+    they were."""
+    if config.donate:
+        return params
+    return SGNSParams(params.emb.clone(), params.ctx.clone())
+
+
+def timed_epoch(trainer, tl: PhaseTimeline, it: int, params: SGNSParams):
+    """Iteration ``it`` of ``run`` in the reference's phases: the epoch's
+    draws (``host_ingest``), its step loop (``dispatch``: it returns once
+    the kernels are queued) and the wait for its loss (``compute``).
+    Returns (params, loss as a float)."""
+    with tl.phase("host_ingest", step=it):
+        draws = trainer.draw_epoch(epoch_generator(trainer.config.seed, it))
+    with tl.phase("dispatch", step=it):
+        params, loss = trainer.train_epoch(params, draws)
+    with tl.phase("compute", step=it):
+        loss = float(loss)  # waits for the epoch to finish
+    return params, loss
 
 
 def _append_csv(path: str, row: dict) -> None:

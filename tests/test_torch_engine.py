@@ -226,8 +226,12 @@ def test_long_rescore_tail_matches_reference():
 def test_plan_accepts_lists_longer_than_a_merge_block(keep, rows):
     from gene2vec_tpu_torch.kernels import _topk
 
-    p = _topk.plan(rows, keep, 64, 208, per_query=False, sms=132)
-    assert p.tile == _topk.TILE_MAX and p.ntiles == -(-rows // p.tile)
-    assert p.scratch == 64 * p.ntiles * keep
+    for p in (_topk.plan(rows, keep, 64, 208, per_query=False, sms=132),
+              _topk.plan_staged(rows, keep, 64, 200, "int8", sms=132)):
+        assert p.ntiles == -(-rows // p.tile) and p.slot == min(keep, p.tile)
+        # each query's region holds its runs and its keep survivors in
+        # whole SORT_MAX runs (the final block sorts and merges them there)
+        assert p.stride == max(p.ntiles * p.slot, -(-keep // _topk.SORT_MAX) * _topk.SORT_MAX)
+        assert p.scratch == 64 * p.stride
     with pytest.raises(ValueError, match="keep"):
         _topk.plan(rows, rows + 1, 1, 208, per_query=False)

@@ -254,9 +254,11 @@ def test_package_turns_tf32_off():
 
 
 #: options the port now trains (objectives, noise modes and their knobs;
-#: bfloat16 tables and their write-back rounding)
+#: bfloat16 tables and their write-back rounding; the phase timeline off;
+#: epochs that leave the caller's tables untouched)
 PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
-                  "shared_pool_auto", "table_dtype", "bf16_stochastic_round"}
+                  "shared_pool_auto", "table_dtype", "bf16_stochastic_round",
+                  "timeline", "donate"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -269,8 +271,9 @@ PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
 ])
 def test_config_rejects_unported_options(field, value):
     """Options selecting code the port lacks raise (bf16 arithmetic inside
-    the step among them); the objectives, noise modes, their knobs and
-    bfloat16 tables, ported since, are accepted as given."""
+    the step among them); the objectives, noise modes, their knobs,
+    bfloat16 tables, ``timeline=False`` and ``donate=False``, ported
+    since, are accepted as given."""
     from gene2vec_tpu_torch.config import SGNSConfig
 
     if field in PORTED_OPTIONS:
@@ -278,6 +281,82 @@ def test_config_rejects_unported_options(field, value):
         return
     with pytest.raises(NotImplementedError, match=field):
         SGNSConfig(**{field: value})
+
+
+def _f1_corpus(v=120, n=1536, seed=0):
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.io.vocab import Vocab
+
+    rng = np.random.RandomState(seed)
+    p = 1.0 / np.arange(1, v + 1)
+    p /= p.sum()
+    pairs = rng.choice(v, size=(n, 2), p=p).astype(np.int32)
+    counts = np.bincount(pairs.ravel(), minlength=v) + 1
+    return PairCorpus(Vocab([f"G{i}" for i in range(v)], counts), pairs)
+
+
+_F1_SMALL = dict(dim=8, batch_pairs=128, strat_head=16, strat_block=32, strat_group=32,
+                 positive_head=8, positive_mid=16, num_iters=2, txt_output=False)
+
+
+@pytest.mark.parametrize("objective", ["sgns", "sg_hs"])
+def test_timeline_is_written_in_the_reference_phases(tmp_path, objective):
+    """``timeline=True`` (the default) writes ``timeline.jsonl`` into the
+    export dir, which the unchanged JAX package's ``read_timeline`` reads:
+    host_ingest, dispatch, compute and ckpt_stage for every iteration."""
+    from gene2vec_tpu.obs.timeline import TIMELINE_NAME, read_timeline
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.obs import timeline as port_timeline
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+
+    cfg = SGNSConfig(objective=objective, **_F1_SMALL)
+    make_trainer(_f1_corpus(), cfg, device="cpu").run(str(tmp_path), log=lambda m: None)
+    path = os.path.join(str(tmp_path), TIMELINE_NAME)
+    recs = read_timeline(path)
+    assert port_timeline.TIMELINE_NAME == TIMELINE_NAME
+    assert port_timeline.read_timeline(path) == recs  # the port's copy reads the same
+    for it in (1, 2):
+        names = [r["name"] for r in recs if r.get("step") == it]
+        assert names == ["host_ingest", "dispatch", "compute", "ckpt_stage"], (it, names)
+    assert all(r["dur"] >= 0.0 for r in recs)
+
+
+def test_timeline_off_writes_no_file(tmp_path):
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME
+    from gene2vec_tpu_torch.sgns.train import SGNSTrainer
+
+    cfg = SGNSConfig(timeline=False, **_F1_SMALL)
+    SGNSTrainer(_f1_corpus(), cfg, device="cpu").run(str(tmp_path), log=lambda m: None)
+    assert os.path.exists(os.path.join(str(tmp_path), "training_log.csv"))
+    assert not os.path.exists(os.path.join(str(tmp_path), TIMELINE_NAME))
+
+
+@pytest.mark.parametrize("objective", ["sgns", "sg_hs"])
+def test_donate_off_leaves_the_callers_tables_and_trains_the_same(objective):
+    """``donate=False``: an epoch leaves the tables it was given bitwise as
+    they were and returns tables bitwise equal to the default (in-place)
+    epoch's on the same draws."""
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
+
+    corpus = _f1_corpus()
+    out = {}
+    for donate in (True, False):
+        tr = make_trainer(corpus, SGNSConfig(objective=objective, donate=donate, **_F1_SMALL),
+                          device="cpu")
+        params = tr.init()
+        before = [t.clone() for t in params]
+        new, loss = tr.train_epoch(params, tr.draw_epoch(epoch_generator(1, 1)))
+        out[donate] = ([t.clone() for t in new], float(loss))
+        if donate:
+            assert new.emb is params.emb and not torch.equal(params.emb, before[0])
+        else:
+            assert all(torch.equal(t, b) for t, b in zip(params, before))
+            assert new.emb is not params.emb
+    assert out[True][1] == out[False][1]
+    assert all(torch.equal(a, b) for a, b in zip(out[True][0], out[False][0]))
 
 
 def test_config_rejects_unknown_objectives_and_modes():
