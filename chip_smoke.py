@@ -2,6 +2,9 @@
 """GPU smoke run of the PyTorch port (``gene2vec_tpu_torch``) on one card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
+                                     # each checkout's own K1-K4 check, default
+                                     # step windows and phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -16,7 +19,10 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    the stated tolerance; times the kernel, the plain version and, where
    the shortest sequence of PyTorch library calls that computes the same
    function (checked against the plain version; CUDA events, median of
-   repeats, L2 flushed before each); one whole step on the
+   repeats, L2 flushed before each) — K2 and K3 (3xTF32 tensor cores,
+   two launches a call) must each be no slower than their library
+   sequence, their factors beside run 6D's on the ``{"redesign": ...}``
+   line; one whole step on the
    card against the plain step on the CPU, at a small ragged shape and
    at full width; then the other objectives' kernels at the same width —
    K5a (per-example draws), K5b (the auto-sized shared pool, G = 256,
@@ -133,6 +139,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12    # H100 SXM tf32 tensor cores, dense
 
 V, D, B, K = 24447, 200, 4096, 5
 E = 2 * B
@@ -190,12 +197,13 @@ def zipf_ids(rng, n, v):
     return rng.choice(v, size=n, p=p).astype(np.int32)
 
 
-def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: float = 0.0):
+def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: float = 0.0,
+          tf32_ops: float = 0.0):
     """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
     rate and the operations over the peak rate for their type."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = (flops / F32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
-             + bf16_ops / BF16_FLOP_PER_S)
+             + bf16_ops / BF16_FLOP_PER_S + tf32_ops / TF32_FLOP_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -382,8 +390,8 @@ def kernel_check(torch, reps: int, dtype=None):
     rows = []
 
     def row(name, fn_src, replaces, err, t_k, t_p, t_lib, bytes_moved, flops,
-            tolerance=None):
-        b_ms, b_by = bound(bytes_moved, flops)
+            tolerance=None, tf32_ops=0.0):
+        b_ms, b_by = bound(bytes_moved, flops, tf32_ops=tf32_ops)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"gene2vec_tpu_torch/kernels/csrc/{fn_src}",
@@ -395,6 +403,17 @@ def kernel_check(torch, reps: int, dtype=None):
         })
         log(f"{name}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain "
             f"{t_p:.4f} ms, library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
+
+    def tf32_route(flops_simt: float, passes: tuple):
+        """K2/K3 run on the tensor cores through a 3xTF32 split: their bound
+        is the split's passes at the TF32 rate (or the bytes), the float32
+        SIMT route's figure kept in the row's note."""
+        b_ms = bound(0.0, flops_simt)[0]
+        rows[-1]["bound_route"] = (f"TF32 passes {passes} (logits, d_center, acc) at "
+                                   f"{TF32_FLOP_PER_S / 1e12:g} TFLOP/s")
+        rows[-1]["bound_note"] = (f"float32 SIMT route: {b_ms:.4f} ms "
+                                  f"({flops_simt / 1e9:.2f} GFLOP at "
+                                  f"{F32_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
     # K1
     got = pos_logit.pos_logit(emb, ctx, centers, contexts)
@@ -424,13 +443,17 @@ def kernel_check(torch, reps: int, dtype=None):
     library_check("K2" + sfx, [*lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_l), a_l],
                   [dp, lp, a_p])
     a_t = acc0.clone()
+    # the tensor cores' passes: 3 a product, 2 where a bf16 table row is an
+    # operand (the logits and d_center; acc's g^T v is float32 either way)
+    passes = (2, 2, 3) if bf16 else (3, 3, 3)
     row("noise_head" + sfx, "k2_noise_head.cu", "gene2vec_tpu/sgns/step.py:736",
         err,
         timer(lambda: noise_head.noise_head(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: noise_head.noise_head_plain(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_t)),
         4 * (2 * E * D + 3 * E + HEAD + 2 * HEAD * (D + 1) + E * D) + tb * HEAD * D,
-        3 * 2 * E * HEAD * D)
+        0.0, tf32_ops=sum(passes) * 2 * E * HEAD * D)
+    tf32_route(3 * 2 * E * HEAD * D, passes)
 
     # K3
     d_k, d_p, d_l = dp.clone(), dp.clone(), dp.clone()
@@ -460,7 +483,8 @@ def kernel_check(torch, reps: int, dtype=None):
                                      a_t)),
         4 * (E * D + E + g + distinct + 2 * E * D + 2 * distinct * (D + 1) + E)
         + tb * distinct * D,
-        3 * 2 * E * spec.block * D)
+        0.0, tf32_ops=sum(passes) * 2 * E * spec.block * D)
+    tf32_route(3 * 2 * E * spec.block * D, passes)
 
     # K4 (library: the whole sequence — one index_add_ of both tables'
     # [grad | 1] rows into their accumulators, then lib_finalize on each
@@ -921,6 +945,29 @@ def serving_kernel_check(torch, reps):
 #: kernel ms over library_ms at MAIN_SHAPE in run 5D (PERF.md), before the
 #: staged-tile redesign of K7 and K8
 FACTOR_5D = {"topk_exact": 1.85, "quant_scan": 1.63}
+
+
+#: kernel ms over library_ms in run 6D (PERF.md), before the tensor-core
+#: redesign of K2 and K3
+FACTOR_6D = {"noise_head": 1.24, "noise_tail": 1.19, "noise_head_bf16": 1.07,
+             "noise_tail_bf16": 1.09}
+
+
+def noise_redesign(rows) -> dict:
+    """K2 and K3 (float32 and bfloat16 tables) against their library
+    sequences in this run, beside run 6D's factor; fails where a kernel is
+    slower than its library sequence."""
+    out = {}
+    for name, old in FACTOR_6D.items():
+        r = next(x for x in rows if x["name"] == name)
+        factor = r["ms"] / r["library_ms"]
+        out[name] = {"ms": r["ms"], "library_ms": r["library_ms"], "factor": factor,
+                     "factor_6d": old, "bound_ms": r["bound_ms"]}
+        log(f"{name}: {factor:.3f}x its library sequence (run 6D, old design: {old}x)")
+        if factor > 1.0:
+            raise SystemExit(f"{name}: {r['ms']:.4f} ms, slower than its library sequence "
+                             f"({r['library_ms']:.4f} ms)")
+    return out
 
 
 def redesign_factors(records) -> dict:
@@ -2656,12 +2703,55 @@ def compare_widths(windows, smi: str) -> dict:
             "card": smi}
 
 
+#: what ``--compare`` runs in each tree, with that tree's own chip_smoke:
+#: the K1-K4 kernel check at float32 and bfloat16 (the K2/K3 rows kept),
+#: the default step's profiled window at both widths, and phase 3's
+#: training run (pairs/s per iteration from its training log)
+COMPARE_RUN = """
+import csv, json, os, sys, tempfile
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+smi = cs.nvidia_smi_line()
+rows = cs.kernel_check(torch, cs.TIMED_REPS) + cs.kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
+keep = ("name", "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err")
+noise = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("noise_head", "noise_tail"))]
+windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
+           for kw in ({}, {"table_dtype": "bfloat16"})]
+with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+    cs.train_full_width(torch, work, smi)
+    with open(os.path.join(work, "export", "training_log.csv")) as f:
+        rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
+print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "noise": noise,
+                               "windows": windows, "cli_pairs_per_s": rates}))
+"""
+
+
+def compare_trees(trees) -> int:
+    """``python3 chip_smoke.py --compare DIR [DIR ...]``: COMPARE_RUN in
+    each checkout in the order given (parent, change, change, parent), each
+    in its own process and with its own kernels, one ``{"compare": ...}``
+    line a run on stdout."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", COMPARE_RUN], cwd=os.path.abspath(tree),
+                             capture_output=True, text=True, timeout=1800)
+        sys.stderr.write(out.stderr)
+        lines = [x for x in out.stdout.splitlines() if x.startswith("COMPARE ")]
+        if out.returncode != 0 or not lines:
+            log(f"compare: {tree} exited {out.returncode}")
+            return 1
+        print(json.dumps({"compare": json.loads(lines[-1][len("COMPARE "):])}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device available")
         return 2
+    if sys.argv[1:2] == ["--compare"]:
+        return compare_trees(sys.argv[2:])
     smi = nvidia_smi_line()
     log(f"device: {smi}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -2700,6 +2790,7 @@ def main() -> int:
                for b in TIE_BATCHES for kb in TIE_KBS)
     log(f"tie-heavy tables: K7-K9r held at B {TIE_BATCHES} x kb {TIE_KBS}, near-ties {ties}")
     redesign = redesign_factors(serve_shapes)
+    redesign.update(noise_redesign(rows))
     serve_shapes += serving_repairs_check(torch, TIMED_REPS)
     probes = gather_probes(torch, TIMED_REPS)
     stream_row, stream_recs = stream_probes(torch, TIMED_REPS)

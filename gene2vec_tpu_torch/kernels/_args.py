@@ -89,6 +89,19 @@ def split_k(tiles: int, groups: int, k_len: int, device: torch.device) -> int:
     return max(1, min(want, -(-k_len // 64)))
 
 
+def noise_ranges(tiles: int, k_len: int, t: torch.Tensor) -> int:
+    """How many example ranges K2/K3's second launch cuts a contraction of
+    ``k_len`` examples into, so that ``tiles`` output tiles times the
+    ranges put at most one block on each SM (ranges of at least 32)."""
+    return max(1, min(sm_count(t) // max(tiles, 1), -(-k_len // 32)))
+
+
+def padded_slab(s: int) -> int:
+    """K2/K3's g rows: ``s`` slab columns padded to a multiple of 4 (so
+    the second launch copies them in 16-byte pieces)."""
+    return -(-s // 4) * 4
+
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float

@@ -4,26 +4,28 @@
 // loss_head), :782-786 (d_center = g_pos*u + g_head @ ctx[:H]) and
 // :828-831 (acc[:H, :D] += g_head^T v; acc[:H, D] += K*q*sum(mask)).
 //
-// Bound on the H100: operations.  Three E x H x D products, 3 * 2*E*H*D =
-// 2.5 GFLOP at E = 8192, H = 256, D = 200 — ~38 us at the 67 TFLOP/s
-// float32 (non-tensor-core) peak — against ~20 MB of traffic (~6 us).  A
-// bfloat16 ctx halves the head slab's ~0.2 MB; the bound stays operations.
+// Bound on the H100: operations on the tensor cores.  Three E x H x D
+// products, 2*E*H*D = 0.84 GFLOP each at E = 8192, H = 256, D = 200, each
+// in three TF32 passes (two where one operand is a bfloat16 table row,
+// exact in tf32): 7.5 GFLOP on float32 tables, ~15 us at the 495 TFLOP/s
+// dense TF32 peak (5.9 GFLOP, ~12 us, on bfloat16 tables), against ~20 MB
+// of traffic (~6 us).  The float32 SIMT route's bound, 2.5 GFLOP at 67
+// TFLOP/s, is ~38 us.
 //
-// Design: the three phases of noise_gemm.cuh with one group (start 0,
-// S = H, w = q).  A simple SIMT tiled GEMM per phase, full float32 FMA (no
-// TF32: the reference and the plain version are float32).  The (E, H)
-// g_head matrix goes through device memory between phases (8 MB here);
-// phase 3 reduces over all E examples into only H rows, so it is split over
-// E (grid z) to put enough blocks on the card.
-#include "noise_gemm.cuh"
+// Design: noise_tc.cuh with one group (start 0, S = H, w = q): launch 1
+// gives each block 64 examples and stages the head's 256 rows once, in
+// four 64-row chunks, for both the logit and the d_center products on
+// 3xTF32 mma.sync; launch 2 contracts g_head^T v over E, cut into
+// example ranges so that about one block runs per SM.
+#include "noise_tc.cuh"
 
 G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
                              const int* contexts, const void* ctx,
                              const float* q, float kneg, float* g_scratch,
                              int* hits, float* loss_head, float* d_center,
-                             float* acc_ctx, int E, int D, int H, int splits,
+                             float* acc_ctx, int E, int D, int H, int Hp, int splits,
                              int bf16, void* stream) {
-  g2v::NoiseParams p;
+  g2v::tc::Params p{};
   p.v = v;
   p.u = u;
   p.g_pos = g_pos;
@@ -39,11 +41,10 @@ G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
   p.kneg = kneg;
   p.D = D;
   p.S = H;
+  p.Sp = Hp;
   p.Eg = E;
-  p.head = 0;
   p.vn = H;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::launch_noise_as<g2v::Slab::kContiguous>(
-      p, 1, bf16, static_cast<cudaStream_t>(stream));
+  return g2v::tc::launch_as(p, 1, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -9,27 +9,31 @@
 // group's payload is added straight into acc rows start_g..start_g+S
 // with atomics: no (nb, G) one-hot.
 //
-// Bound on the H100: operations.  Three G x (E/G) x S x D products,
-// 3 * 2*E*S*D = 5.0 GFLOP at E = 8192, S = 512, D = 200 — ~75 us at the
-// 67 TFLOP/s float32 peak — against ~50 MB of traffic (~15 us).  A
-// bfloat16 ctx halves the drawn blocks' bytes; the bound stays operations.
+// Bound on the H100: operations on the tensor cores.  Three
+// G x (E/G) x S x D products, 2*E*S*D = 1.7 GFLOP each at E = 8192,
+// S = 512, D = 200, each in three TF32 passes (two where one operand is a
+// bfloat16 table row): 15.1 GFLOP on float32 tables, ~30 us at the 495
+// TFLOP/s dense TF32 peak (11.7 GFLOP, ~24 us, on bfloat16 tables),
+// against ~50 MB of traffic (~15 us).  The float32 SIMT route's bound,
+// 5.0 GFLOP at 67 TFLOP/s, is ~75 us.
 //
-// Design: the three phases of noise_gemm.cuh with one group per grid z
-// slice; each block reads its group's drawn block id and clamps the start
-// itself.  Two groups may draw the same block and the clamped last block
-// overlaps its neighbour, so phase 3 adds with atomics.
-#include "noise_gemm.cuh"
+// Design: noise_tc.cuh with one group a grid row; each block reads its
+// group's drawn block id and clamps the start itself.  Launch 1 gives
+// each block 64 of a group's 256 examples and stages the group's 512 slab
+// rows once, in eight 64-row chunks, for both the logit and the d_center
+// products on 3xTF32 mma.sync — 128 blocks at the default shapes.  Two
+// groups may draw the same block and the clamped last block overlaps its
+// neighbour, so launch 2 adds the payloads with atomics.
+#include "noise_tc.cuh"
 
 G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
                              const void* ctx, const float* tail_w,
                              const int* blocks, float kneg, float* g_scratch,
                              int* hits, float* loss_tail, float* d_center,
-                             float* acc_ctx, int E, int D, int G, int S,
+                             float* acc_ctx, int E, int D, int G, int S, int Sp,
                              int head, int vn, int splits, int bf16, void* stream) {
-  g2v::NoiseParams p;
+  g2v::tc::Params p{};
   p.v = v;
-  p.u = nullptr;
-  p.g_pos = nullptr;
   p.contexts = contexts;
   p.ctx = ctx;
   p.w = tail_w;
@@ -42,11 +46,11 @@ G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
   p.kneg = kneg;
   p.D = D;
   p.S = S;
-  p.Eg = E / G;
+  p.Sp = Sp;
+  p.Eg = G ? E / G : 0;
   p.head = head;
   p.vn = vn;
   p.splits = splits;
   p.init_center = 0;
-  return g2v::launch_noise_as<g2v::Slab::kContiguous>(
-      p, G, bf16, static_cast<cudaStream_t>(stream));
+  return g2v::tc::launch_as(p, G, bf16, static_cast<cudaStream_t>(stream));
 }

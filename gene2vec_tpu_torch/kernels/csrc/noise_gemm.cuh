@@ -1,9 +1,11 @@
-// The dense noise terms: K2 (exact head), K3 (tail blocks), K5b (shared
-// pool) and K6's shallow phase (hierarchical softmax over the node prefix).
+// The dense noise terms of K5b (shared pool) and K6's shallow phase
+// (hierarchical softmax over the node prefix).  K2 and K3, the stratified
+// step's head and tail blocks, left this header for noise_tc.cuh (3xTF32
+// tensor cores, two launches); this one now serves K5b and K6 only.
 //
-// All compute, for G groups of Eg consecutive examples, each against its
-// own slab of S context rows — rows start_g .. start_g+S-1, or the S pool
-// ids ids[g*S .. g*S+S-1] (K5b):
+// Both compute, for G groups of Eg consecutive examples, each against its
+// own slab of S context rows — the S pool ids ids[g*S .. g*S+S-1] (K5b)
+// or the node rows 0 .. S-1 (K6, G = 1):
 //   logit[e, s]  = v[e] . ctx[row(g, s)]                        (phase 1)
 //   mask         = (row != contexts[e])
 //   g[e, s]      = (K * w[row]) * sigmoid(logit) * mask          (w = 1: pool)
@@ -11,12 +13,10 @@
 //   d_center[e] (+)= sum_s g[e, s] * ctx[row(g, s)]              (phase 2)
 //   acc[row, :D] += sum_e g[e, s] * v[e]                        (phase 3)
 //   acc[row,  D] += (K * w[row]) * sum_e mask                   (phase 3)
-// The head is G = 1, start = 0, S = H, w = q; the tail is one drawn block
-// per group, start_g = min(head + blocks[g]*S, vn - S), w = tail_w; the
-// shared pool is ids = the pool, w = 1, K = the importance scale K*G/P.
-// With `sign` (K6's shallow phase: G = 1, start 0, S = Ns node rows) the
-// epilogue is hierarchical softmax's instead: s = sign[targets[e], n] in
-// {+1, -1, 0}, g = |s| * (sigmoid(logit) - (1 + s)/2), loss += |s| *
+// The shared pool is ids = the pool, w = 1, K = the importance scale
+// K*G/P.  With `sign` (K6's shallow phase: G = 1, start 0, S = Ns node
+// rows) the epilogue is hierarchical softmax's instead: s = sign[targets[e],
+// n] in {+1, -1, 0}, g = |s| * (sigmoid(logit) - (1 + s)/2), loss += |s| *
 // softplus(-s * logit), and the weight column counts the examples whose
 // path holds the node (sum_e |s|).
 //
@@ -25,19 +25,18 @@
 // zero fill at ragged edges) and its own epilogue.  g goes through device
 // memory between phases.  Phase 3 contracts over examples; it is split
 // over K (grid z) when the tile count alone cannot fill the card, and adds
-// its partial sums with atomics — which K3 and K5b need anyway, since two
-// groups can draw the same block or pool row and the clamped last block
-// overlaps its neighbour.  The weight column uses an exact integer count
-// of the masked (or on-path) pairs, recorded by phase 1, so it is
-// sigma-free as in the reference.
+// its partial sums with atomics — which K5b needs anyway, since two
+// groups can draw the same pool row.  The weight column uses an exact
+// integer count of the masked (or on-path) pairs, recorded by phase 1, so
+// it is sigma-free as in the reference.
 //
-// The slab kind (contiguous rows, pool ids, HS sign rows) is a template
-// parameter of the kernels, fixed by each entry point, so K2 and K3 run
-// the contiguous-slab code with no per-element branch on the other kinds.
-// So is the table's element type T (float or __nv_bfloat16): the slab
-// rows, the GEMMs' B operand in phases 1 and 2, are upcast to float32 as
-// they are staged, and the shared-memory tiles, g and every sum stay
-// float32.  Phase 3's B operand is v, float32 whatever the table.
+// The slab kind (pool ids, HS sign rows) is a template parameter of the
+// kernels, fixed by each entry point, so each runs its own code with no
+// per-element branch on the other kind.  So is the table's element type T
+// (float or __nv_bfloat16): the slab rows, the GEMMs' B operand in phases
+// 1 and 2, are upcast to float32 as they are staged, and the shared-memory
+// tiles, g and every sum stay float32.  Phase 3's B operand is v, float32
+// whatever the table.
 #pragma once
 
 #include "common.cuh"
@@ -48,7 +47,6 @@ constexpr int BM = 64, BN = 64, BK = 16, TPB = 256;
 
 // Where a group's S slab rows come from, and which epilogue runs.
 enum class Slab {
-  kContiguous,  // rows start_g .. start_g + S - 1 (K2's head, K3's blocks)
   kPool,        // pool ids ids[g*S + s] (K5b)
   kSign,        // node rows 0 .. S - 1 with HS sign rows (K6's shallow phase)
 };
@@ -59,9 +57,8 @@ struct NoiseParams {
   const float* g_pos;     // (E,)
   const int* contexts;    // (E,)
   const void* ctx;        // (V, D) context table, float or bfloat16 (T)
-  const float* w;         // (V,) per-row noise weight: q (head) or tail_w
-  const int* blocks;      // (G,) drawn block ids; null for the head
-  const int* ids;         // (G*S,) pool row ids (K5b); null: contiguous slabs
+  const float* w;         // (V,) per-row noise weight (unused: pool and HS)
+  const int* ids;         // (G*S,) pool row ids (K5b); null for K6
   const signed char* sign;  // (V, S) HS sign rows (K6 shallow); null: SGNS
   const int* targets;     // (E,) HS targets whose sign rows are read
   float* g;               // (E, S) scratch
@@ -70,17 +67,16 @@ struct NoiseParams {
   float* d_center;        // (E, D)
   float* acc;             // (V, D+1) accumulator
   float kneg;             // K, the number of negatives
-  int D, S, Eg, head, vn, splits;
+  int D, S, Eg, splits;
   int init_center;        // 1: d_center = g_pos*u + ...; 0: d_center += ...
 };
 
-// The group's first slab row (kContiguous, kSign) or its offset into the
+// The group's first slab row (kSign: node row 0) or its offset into the
 // pool (kPool).
 template <Slab kSlab>
 __device__ __forceinline__ int group_start(const NoiseParams& p, int grp) {
   if constexpr (kSlab == Slab::kPool) return grp * p.S;
-  if (p.blocks == nullptr) return 0;
-  return min(p.head + p.blocks[grp] * p.S, p.vn - p.S);
+  return 0;
 }
 
 // Table row of slab slot s of the group starting at `start`.
@@ -90,7 +86,7 @@ __device__ __forceinline__ int slab_row(const NoiseParams& p, int start, int s) 
   return start + s;
 }
 
-// The slab as a GEMM operand: (base, row map) — contiguous rows from
+// The slab as a GEMM operand: (base, row map) — the node rows from
 // ctx + start*D, or the pool's rows of ctx.
 template <Slab kSlab, typename T>
 __device__ __forceinline__ const T* slab_base(const NoiseParams& p, int start) {

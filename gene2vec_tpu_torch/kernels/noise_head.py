@@ -13,7 +13,9 @@ exactly against ``ctx[:H]``::
     acc_ctx[:H,  D] += K·q_j·Σ_e mask                (σ-free row load)
 
 Returns (d_center, loss_head); ``acc_ctx`` is updated in place.  ``ctx``
-is float32 or bfloat16; its head rows are upcast to float32.
+is float32 or bfloat16; its head rows are upcast to float32.  On the card
+the products run on the tensor cores through a 3xTF32 split (two passes
+where the operand is a bfloat16 row), in two launches.
 """
 
 from __future__ import annotations
@@ -64,19 +66,19 @@ def noise_head(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
     _args.expect(acc_ctx, "acc_ctx", torch.float32, (v_size, d + 1))
     if q.shape[0] < head:
         raise ValueError(f"q has {q.shape[0]} rows, fewer than head={head}")
-    dev = v.device
-    g_scratch = torch.empty((e, head), dtype=torch.float32, device=dev)
-    hits = torch.zeros((head,), dtype=torch.int32, device=dev)
-    loss_head = torch.zeros((e,), dtype=torch.float32, device=dev)
-    d_center = torch.empty((e, d), dtype=torch.float32, device=dev)
-    tiles = -(-d // 64) * -(-head // 64)
-    splits = _args.split_k(tiles, 1, e, dev)
     lib = _lib()
+    dev = v.device
+    hp = _args.padded_slab(head)
+    g_scratch = torch.empty((e, hp), dtype=torch.float32, device=dev)
+    hits = torch.empty((head,), dtype=torch.int32, device=dev)
+    loss_head = torch.empty((e,), dtype=torch.float32, device=dev)
+    d_center = torch.empty((e, d), dtype=torch.float32, device=dev)
+    splits = _args.noise_ranges(-(-head // 128) * -(-d // 256), e, v)
     status = lib.k2_noise_head(
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(contexts),
         _args.ptr(ctx), _args.ptr(q), float(k_neg), _args.ptr(g_scratch),
         _args.ptr(hits), _args.ptr(loss_head), _args.ptr(d_center),
-        _args.ptr(acc_ctx), e, d, head, splits, bf16, _args.stream(v),
+        _args.ptr(acc_ctx), e, d, head, hp, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K2 noise_head launch")
     launches["noise_head", "bf16" if bf16 else ""] += 1
@@ -88,6 +90,6 @@ def _lib():
     fn = lib.k2_noise_head
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, P]
         fn.restype = I
     return lib

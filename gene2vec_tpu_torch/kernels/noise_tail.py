@@ -16,7 +16,9 @@ overlaps its neighbour)::
 Each group's (S, D+1) payload goes straight into ``acc_ctx`` (no (nb, G)
 one-hot).  Returns loss_tail; ``d_center`` and ``acc_ctx`` are updated in
 place.  ``ctx`` is float32 or bfloat16; the block rows are upcast to
-float32.
+float32.  On the card the products run on the tensor cores through a
+3xTF32 split (two passes where the operand is a bfloat16 row), in two
+launches.
 """
 
 from __future__ import annotations
@@ -82,18 +84,18 @@ def noise_tail(v, contexts, ctx, tail_w, blocks, head, block, group_size, k_neg,
     _args.expect(blocks, "blocks", torch.int32, (g,))
     _args.expect(d_center, "d_center", torch.float32, (e, d))
     _args.expect(acc_ctx, "acc_ctx", torch.float32, (v_size, d + 1))
-    dev = v.device
-    g_scratch = torch.empty((e, block), dtype=torch.float32, device=dev)
-    hits = torch.zeros((g, block), dtype=torch.int32, device=dev)
-    loss_tail = torch.zeros((e,), dtype=torch.float32, device=dev)
-    tiles = -(-d // 64) * -(-block // 64)
-    splits = _args.split_k(tiles, g, group_size, dev)
     lib = _lib()
+    dev = v.device
+    sp = _args.padded_slab(block)
+    g_scratch = torch.empty((e, sp), dtype=torch.float32, device=dev)
+    hits = torch.empty((g, block), dtype=torch.int32, device=dev)
+    loss_tail = torch.empty((e,), dtype=torch.float32, device=dev)
+    splits = _args.noise_ranges(g * -(-block // 128) * -(-d // 256), group_size, v)
     status = lib.k3_noise_tail(
         _args.ptr(v), _args.ptr(contexts), _args.ptr(ctx), _args.ptr(tail_w),
         _args.ptr(blocks), float(k_neg), _args.ptr(g_scratch), _args.ptr(hits),
         _args.ptr(loss_tail), _args.ptr(d_center), _args.ptr(acc_ctx),
-        e, d, g, block, head, v_noise, splits, bf16, _args.stream(v),
+        e, d, g, block, sp, head, v_noise, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K3 noise_tail launch")
     launches["noise_tail", "bf16" if bf16 else ""] += 1
@@ -105,6 +107,6 @@ def _lib():
     fn = lib.k3_noise_tail
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P]
         fn.restype = I
     return lib
