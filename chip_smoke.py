@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
-                                     # each checkout's own K1-K4 check, default
+                                     # each checkout's own K1-K4 check, K4's
+                                     # generic entries, the row gather, default
                                      # step windows and phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
@@ -69,7 +70,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    pairs) written as pair files and trained through the CLI with the
    default configuration for 3 iterations: the loss must be finite and
    falling, every export must verify, and every kernel must have launched
-   once per step of the run; then (3b) a 1,000,000-pair corpus trained
+   once per step of the run (before it, and before each run of 3b and
+   3c, ``touched_step_check``: one full-width step of that configuration
+   with K4's wrappers watched — every accumulator row outside the rows
+   the finalize visits all +0 bits, the tables bitwise every row's plain
+   finalize); then (3b) a 1,000,000-pair corpus trained
    for 2 iterations through the CLI once per ``--negative-mode
    per_example``, ``--negative-mode shared``, ``--objective sg_hs``,
    ``--objective cbow_hs`` and ``--objective cbow``, with the same checks
@@ -117,7 +122,10 @@ K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+``{"ok": true, "device": {...}}``; before them ``{"touched_rows": ...}``
+(the rows each of K4's finalizes visited, and their share) and
+``{"redesign": ...}`` (K2/K3's, K4's and the row gather's times over
+their library calls, the Timer's floor).  Without a CUDA device the script exits
 with code 2 and prints no result.
 """
 
@@ -290,6 +298,9 @@ def acc_outputs(prefix, got, want, d):
 
 
 SALTS = [[0x243F6A88, 0x85A308D3], [0x13198A2E, 0x03707344]]  # fixed SR salt words
+#: rows K4's finalize visits, by check: {table: [rows, share of V]} and the
+#: bound that counts them (the ``{"touched_rows": ...}`` line)
+TOUCHED_SHARES = {}
 SR_HASH_OPS = 8    # integer operations of the SR hash and carry, per element
 
 
@@ -489,12 +500,21 @@ def kernel_check(torch, reps: int, dtype=None):
     # K4 (library: the whole sequence — one index_add_ of both tables'
     # [grad | 1] rows into their accumulators, then lib_finalize on each
     # table; none for stochastic rounding, which no PyTorch call does).
-    # Its bound counts only the rows these inputs touch — distinct
-    # centers; head, drawn blocks and distinct contexts — each read from
-    # its accumulator and read and written in its table; untouched rows
-    # have acc = 0.
+    # The finalize visits the rows the step touched — emb: the centers;
+    # ctx: the contexts, K2's head and K3's drawn blocks — as the step
+    # passes them; its bound counts those rows, each read from its
+    # accumulator and read and written in its table.
+    from gene2vec_tpu_torch.kernels.row_update import Touched
+
+    ctx_set = Touched(prefix=spec.head, blocks=blocks, block=spec.block,
+                      limit=spec.tail_w.shape[0])
+    sets = (Touched(), ctx_set)
+    alone = (Touched(ids=centers), ctx_set._replace(ids=contexts))  # no scatter
     emb_rows = len(np.unique(c_ids))
     ctx_rows = len(block_rows.union(range(HEAD), x_ids.tolist()))
+    TOUCHED_SHARES["stratified" + sfx] = {
+        "emb": [emb_rows, emb_rows / V], "ctx": [ctx_rows, ctx_rows / V],
+        "bound": f"row_update{sfx} bound_ms"}
     d_center, acc_ctx = d_p, a_p
     acc_emb = torch.zeros((V, D + 1), device=dev)
     both = torch.zeros((2 * V, D + 1), device=dev)
@@ -510,33 +530,44 @@ def kernel_check(torch, reps: int, dtype=None):
         ins = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
         ref = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
         row_update.row_update(*ins, centers, contexts, d_center, v, g_pos, lr, "capped",
-                              salts)
+                              salts, sets)
         row_update.row_update_plain(*ref, centers, contexts, d_center, v, g_pos, lr,
-                                    "capped", salts)
+                                    "capped", salts, sets)
         torch.cuda.synchronize()
         err = compare(name, acc_outputs("acc_emb", ins[2], ref[2], D)
                       + acc_outputs("acc_ctx", ins[3], ref[3], D))
-        tol = None
+        # the touched rows against every row, on the kernel's own
+        # accumulators (its scatter's sums): bitwise
+        every = [emb.clone(), ctx.clone()]
+        for i in range(2):
+            row_update.finalize_rows_plain(every[i], ins[2 + i], lr, "capped",
+                                           None if salts is None else salts[i])
+        bitwise_tables(torch, name + " touched rows vs every row",
+                       [("emb", ins[0], every[0]), ("ctx", ins[1], every[1])])
+        # the finalize alone (no examples; the touched rows named) on the
+        # plain version's accumulators, against every row: bitwise
+        fin = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
+        fin_p = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
+        row_update.row_update(*fin, none, none, d_center[:0], v[:0], g_pos[:0], lr,
+                              "capped", salts, alone)
+        row_update.row_update_plain(*fin_p, none, none, d_center[:0], v[:0], g_pos[:0],
+                                    lr, "capped", salts)
+        torch.cuda.synchronize()
+        bitwise_tables(torch, name + " finalize", [("emb", fin[0], fin_p[0]),
+                                                   ("ctx", fin[1], fin_p[1])])
+        tol = (f"accumulators {REL_TOL:g} x per-row / per-element |plain|; tables "
+               f"{TABLE_ATOL:g}; the touched rows bitwise every row's finalize on the same "
+               "accumulators")
         if bf16:
             e_t, share = compare_bf16_tables(
                 torch, name, [("emb", ins[0], ref[0]), ("ctx", ins[1], ref[1])],
                 start=(emb, ctx))
             err = max(err, e_t)
-            # the finalize alone on identical accumulators: bitwise
-            fin = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
-            fin_p = [emb.clone(), ctx.clone(), ref[2].clone(), ref[3].clone()]
-            row_update.row_update(*fin, none, none, d_center[:0], v[:0], g_pos[:0], lr,
-                                  "capped", salts)
-            row_update.row_update_plain(*fin_p, none, none, d_center[:0], v[:0], g_pos[:0],
-                                        lr, "capped", salts)
-            torch.cuda.synchronize()
-            bitwise_tables(torch, name + " finalize", [("emb", fin[0], fin_p[0]),
-                                                       ("ctx", fin[1], fin_p[1])])
             tol = (f"accumulators {REL_TOL:g} x per-row / per-element |plain|; tables "
                    f"within one bf16 ulp or {F32_ULPS} float32 ulps of |t| + |t - new|, "
                    f"differing on <= {ULP_SHARE:g} "
-                   f"of touched elements (here {share:.2e}); finalize on identical "
-                   "accumulators bitwise")
+                   f"of touched elements (here {share:.2e}); the touched rows bitwise every "
+                   "row's finalize on the same accumulators")
         else:
             err = max(err, compare(name, [("emb", ins[0], ref[0], "abs"),
                                           ("ctx", ins[1], ref[1], "abs")]))
@@ -551,16 +582,17 @@ def kernel_check(torch, reps: int, dtype=None):
         t_in = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err,
             timer(lambda: row_update.row_update(*t_in, centers, contexts, d_center, v,
-                                                g_pos, lr, "capped", salts)),
+                                                g_pos, lr, "capped", salts, sets)),
             timer(lambda: row_update.row_update_plain(*t_in, centers, contexts, d_center, v,
-                                                      g_pos, lr, "capped", salts)),
+                                                      g_pos, lr, "capped", salts, sets)),
             t_lib,
             k4_bytes,
             2 * E * (D + 1) + 3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
             tol)
         if t_lib is None:
             rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
-    log(f"row_update{sfx} touches {emb_rows} emb rows and {ctx_rows} ctx rows of {V}")
+    log(f"row_update{sfx} touches {emb_rows} emb rows ({emb_rows / V:.3f}) and {ctx_rows} ctx "
+        f"rows ({ctx_rows / V:.3f}) of {V}: the bound's rows")
     return rows
 
 
@@ -970,6 +1002,51 @@ def noise_redesign(rows) -> dict:
     return out
 
 
+#: kernel ms over library_ms in run 7D (PERF.md), before the touched-rows
+#: redesign of K4
+FACTOR_7D_K4 = {"row_update": 0.952, "row_update_bf16_rn": 0.619, "row_scatter": 0.931,
+                "row_finalize": 1.036, "row_finalize_bf16_rn": 0.582}
+
+
+def k4_redesign(rows) -> dict:
+    """K4's entries against their library sequences in this run, beside run
+    7D's factor; fails where row_finalize is slower than its addcdiv_."""
+    out = {}
+    for name, old in FACTOR_7D_K4.items():
+        r = next(x for x in rows if x["name"] == name)
+        factor = r["ms"] / r["library_ms"]
+        out[name] = {"ms": r["ms"], "library_ms": r["library_ms"], "factor": factor,
+                     "factor_7d": old, "bound_ms": r["bound_ms"]}
+        log(f"{name}: {factor:.3f}x its library sequence (run 7D, all rows: {old}x)")
+        if name.startswith("row_finalize") and factor > 1.0:
+            raise SystemExit(f"{name}: {r['ms']:.4f} ms, slower than its library sequence "
+                             f"({r['library_ms']:.4f} ms)")
+    return out
+
+
+def gather_redesign(records) -> dict:
+    """The row gather against ``index_select`` at each probe and GGIPNN
+    shape in this run, with its share of the bytes bound."""
+    out = []
+    for r in records:
+        if r.get("name") != "row_gather":
+            continue
+        out.append({"probe": r["probe"], "dtype": r["dtype"], "E": r["E"], "ms": r["ms"],
+                    "library_ms": r["library_ms"], "factor": r["ms"] / r["library_ms"],
+                    "bound_ms": r["bound_ms"], "bound_share": r["bound_ms"] / r["ms"]})
+        log(f"row_gather {r['dtype']} E {r['E']}: {out[-1]['factor']:.3f}x index_select, "
+            f"{out[-1]['bound_share']:.3f} of its bytes bound")
+    return {"row_gather": out}
+
+
+def timer_floor(torch, reps) -> float:
+    """The Timer's time for a one-element fill: the launch and event
+    overhead inside every timed kernel, which the launch-bound shapes
+    (a few hundred rows) are mostly made of."""
+    x = torch.empty(1, device=DEVICE)
+    return Timer(torch, reps)(lambda: x.fill_(1.0))
+
+
 def redesign_factors(records) -> dict:
     """K7 and K8 against their library sequences in this run: at each
     timed shape, ms, library_ms and their ratio, beside run 5D's ratio at
@@ -1348,8 +1425,16 @@ def objective_kernel_check(torch, reps: int, dtype=None):
 
     # K4's generic entry points, at the per-example step's shapes: the
     # center rows' scatter (library: one index_add_ of the same payload)
-    # and ctx's finalize against K5a's accumulator
+    # and ctx's finalize against K5a's accumulator over the rows the step
+    # names (the draws), bitwise every row's plain finalize on the same
+    # accumulator (library: addcdiv_ over every row)
+    from gene2vec_tpu_torch.kernels.row_update import Touched
+
+    draws = Touched(ids=negs)
     touched = int((acc_pe[:, D] != 0).sum())
+    n_draws = len(np.unique(negs.cpu().numpy()))
+    TOUCHED_SHARES["per_example_ctx_draws" + sfx] = {
+        "ctx": [n_draws, n_draws / V], "bound": f"row_finalize{sfx} bound_ms"}
     if not bf16:
         ones = torch.ones((E,), device=dev)
         a_k, a_p = acc0.clone(), acc0.clone()
@@ -1357,6 +1442,13 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         row_update.scatter_rows_plain(a_p, centers, d_center, ones)
         torch.cuda.synchronize()
         err_s = compare("K4 scatter_rows", acc_outputs("acc_emb", a_k, a_p, D))
+        # the scattered rows: a finalize over their ids alone is bitwise
+        # every row's on the same accumulator
+        t_k, t_p = emb.clone(), emb.clone()
+        row_update.finalize_rows(t_k, a_k, 0.0125, "capped", None, Touched(ids=centers))
+        row_update.finalize_rows_plain(t_p, a_k, 0.0125, "capped")
+        torch.cuda.synchronize()
+        bitwise_tables(torch, "row_scatter rows", [("emb", t_k, t_p)])
         n_c = len(np.unique(c_ids))
         payload = torch.cat([d_center, ones[:, None]], 1)
         idx_l = centers.long()
@@ -1365,18 +1457,17 @@ def objective_kernel_check(torch, reps: int, dtype=None):
             lambda: row_update.scatter_rows(a_t, centers, d_center, ones),
             lambda: row_update.scatter_rows_plain(a_t, centers, d_center, ones),
             lambda: a_t.index_add_(0, idx_l, payload),
-            4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1))
+            4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1),
+            f"{REL_TOL:g} x per-row / per-element |plain|; a finalize over its ids "
+            "bitwise every row's")
     for mode, salts in ((("sr", SALTS[1]), ("rn", None)) if bf16 else (("", None),)):
         name = f"row_finalize{sfx}" + (f"_{mode}" if mode else "")
         t_k, t_p = ctx.clone(), ctx.clone()
-        row_update.finalize_rows(t_k, acc_pe, 0.0125, "capped", salts)
+        row_update.finalize_rows(t_k, acc_pe, 0.0125, "capped", salts, draws)
         row_update.finalize_rows_plain(t_p, acc_pe, 0.0125, "capped", salts)
         torch.cuda.synchronize()
-        if bf16:
-            bitwise_tables(torch, name, [("ctx", t_k, t_p)])
-            err_f, tol = float((t_k.float() - t_p.float()).abs().max()), "bitwise"
-        else:
-            err_f, tol = compare("K4 finalize_rows", [("ctx", t_k, t_p, "abs")]), None
+        bitwise_tables(torch, name + " touched rows vs every row", [("ctx", t_k, t_p)])
+        err_f = float((t_k.float() - t_p.float()).abs().max())
         lib = None
         if salts is None:  # no PyTorch call rounds stochastically
             t_l = ctx.clone()
@@ -1385,13 +1476,15 @@ def objective_kernel_check(torch, reps: int, dtype=None):
             lib = lambda: lib_finalize(torch, t_t, acc_pe, 0.0125, row_update._CAP)  # noqa: E731
         t_t = ctx.clone()
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
-            lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts),
-            lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts),
-            lib, touched * (4 * (D + 1) + 2 * tb * D),
-            3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0), tol)
+            lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts, draws),
+            lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts, draws),
+            lib, touched * (4 * (D + 1) + 2 * tb * D) + 4 * negs.numel(),
+            3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
+            "bitwise every row's finalize on the same accumulator")
         if lib is None:
             rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
-    log(f"row_finalize{sfx}: {touched} touched rows of {V}")
+    log(f"row_finalize{sfx}: {touched} touched rows of {V} ({touched / V:.3f}; the draws name "
+        f"{n_draws}): the bound's rows")
     return rows
 
 
@@ -1631,6 +1724,7 @@ def train_full_width(torch, work: str, smi: str):
     from gene2vec_tpu_torch.resilience.snapshot import verify_manifest
 
     data, out = os.path.join(work, "corpus"), os.path.join(work, "export")
+    touched_step_check(torch, "stratified")
     t0 = time.perf_counter()
     write_zipf_corpus(data, V, NUM_PAIRS)
     log(f"corpus written in {time.perf_counter() - t0:.1f}s")
@@ -1658,6 +1752,107 @@ def train_full_width(torch, work: str, smi: str):
     log(f"training ({smi}): losses {losses}, pairs/s per iteration "
         f"{rates}, launches { {k: n for k, n in counts.items() if n} }")
     return counts
+
+
+def touched_step_check(torch, label, **config_kw):
+    """One full-width step of the configuration ``config_kw`` (B Zipf pairs,
+    random tables at its width) through the trainer and the step's own
+    producers, with K4's wrappers watched.  Before each finalize, every
+    accumulator row outside the rows it visits — those the step names, and
+    in row_update the rows it scatters into — must be all +0 bits
+    (row_update: before its scatter and after); after it, the table must
+    equal, bit for bit,
+    every row's plain finalize of the same start table on the same
+    accumulator.  Runs outside any timed region.  Returns the rows each
+    finalize visited, {table: [rows, share]}, into TOUCHED_SHARES."""
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.kernels import row_update as ru
+    from gene2vec_tpu_torch.sgns import cbow_hs as ch
+    from gene2vec_tpu_torch.sgns import step as st
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
+
+    rng = np.random.RandomState(7)
+    pairs = np.stack([zipf_ids(rng, B, V), zipf_ids(rng, B, V)], 1)
+    counts = np.bincount(pairs.reshape(-1), minlength=V) + 1
+    vocab = Vocab([f"G{i}" for i in range(V)], counts)
+    tr = ch.make_trainer(PairCorpus(vocab, pairs), SGNSConfig(**config_kw), device=DEVICE)
+    p = tr.init()
+    gen = torch.Generator().manual_seed(7)
+    params = type(p)(*((torch.randn(t.shape, generator=gen) * 0.1).to(t.device, t.dtype)
+                       for t in p))
+    shares = {}
+    orig = st.row_update, st.finalize_rows, ch.finalize_rows
+
+    def visited(acc, ids, touched):
+        rows = torch.zeros(acc.shape[0], dtype=torch.bool, device=acc.device)
+        if touched is None:
+            return rows.fill_(True)
+        for i in ids:
+            rows[i.long()] = True
+        rows[touched.rows(acc.device)] = True
+        return rows
+
+    def invariant(what, acc, rows):
+        bad = (acc[~rows].view(torch.int32) != 0).any(1)
+        if bool(bad.any()):
+            r = int((~rows).nonzero()[int(bad.nonzero()[0])])
+            raise SystemExit(f"touched rows, {label}: {what} row {r} is outside the rows the "
+                             "finalize visits and is not all +0")
+
+    def same_as_every_row(what, table, start, acc, lr, combiner, salts):
+        want = start.clone()
+        ru.finalize_rows_plain(want, acc, lr, combiner, salts)
+        torch.cuda.synchronize()
+        bitwise_tables(torch, f"touched rows, {label}: {what}", [("table", table, want)])
+
+    def finalize(table, acc, lr, combiner, salts=None, touched=None):
+        rows = visited(acc, [], touched)
+        what = "emb" if not shares else "out table"
+        invariant(f"{what} accumulator", acc, rows)
+        start = table.clone()
+        orig[1](table, acc, lr, combiner, salts, touched)
+        same_as_every_row(f"finalize_rows {what}", table, start, acc, lr, combiner, salts)
+        n = int(rows.sum())
+        shares[what] = [n, n / table.shape[0]]
+
+    def update(emb, ctx, acc_emb, acc_ctx, centers, contexts, d_center, v, g_pos, lr,
+               combiner, salts=None, touched=None):
+        te, tc = (None, None) if touched is None else touched
+        sets = ((emb, acc_emb, visited(acc_emb, [centers], te), "emb"),
+                (ctx, acc_ctx, visited(acc_ctx, [contexts], tc), "ctx"))
+        for _, acc, rows, what in sets:
+            invariant(f"{what} accumulator before the scatter", acc, rows)
+        starts = emb.clone(), ctx.clone()
+        orig[0](emb, ctx, acc_emb, acc_ctx, centers, contexts, d_center, v, g_pos, lr,
+                combiner, salts, touched)
+        for i, (table, acc, rows, what) in enumerate(sets):
+            invariant(f"{what} accumulator after the scatter", acc, rows)
+            same_as_every_row(f"row_update {what}", table, starts[i], acc, lr, combiner,
+                              None if salts is None else salts[i])
+            n = int(rows.sum())
+            shares[what] = [n, n / table.shape[0]]
+
+    st.row_update, st.finalize_rows, ch.finalize_rows = update, finalize, finalize
+    try:
+        tr.train_epoch(params, generator=epoch_generator(1, 0))
+        torch.cuda.synchronize()
+    finally:
+        st.row_update, st.finalize_rows, ch.finalize_rows = orig
+    if tr.num_batches != 1 or len(shares) != 2:
+        raise SystemExit(f"touched rows, {label}: expected one step and two finalizes, got "
+                         f"{tr.num_batches} steps and {sorted(shares)}")
+    TOUCHED_SHARES[f"step {label}"] = shares
+    log(f"touched rows, {label}: the finalizes visited {shares} (rows, share); every other "
+        "accumulator row +0, tables bitwise every row's finalize")
+    return shares
+
+
+def config_of(flags) -> dict:
+    """The SGNSConfig fields a run's CLI flags set ("--negative-mode x" →
+    negative_mode="x")."""
+    return {f[2:].replace("-", "_"): x for f, x in zip(flags[::2], flags[1::2])}
 
 
 # -- phase 3b: every other objective and noise mode through the CLI ------------
@@ -1725,6 +1920,7 @@ def train_objectives(torch, work: str, smi: str, runs=OBJECTIVE_RUNS,
     out_counts = {}
     for label, flags, per_step in runs:
         out = os.path.join(work, f"export_{label}")
+        touched_step_check(torch, label, **config_of(flags))
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
         rc = gene2vec.main([data, out, "txt", "--iters", str(OBJECTIVE_ITERS), "--device",
@@ -2704,26 +2900,96 @@ def compare_widths(windows, smi: str) -> dict:
 
 
 #: what ``--compare`` runs in each tree, with that tree's own chip_smoke:
-#: the K1-K4 kernel check at float32 and bfloat16 (the K2/K3 rows kept),
-#: the default step's profiled window at both widths, and phase 3's
-#: training run (pairs/s per iteration from its training log)
+#: the K1-K4 kernel check and K4's generic entries (the objectives' check)
+#: at float32 and bfloat16 (the K2/K3 and K4 rows kept), the row gather at
+#: the probes' and the GGIPNN lookup's shapes, the host time of K4's
+#: wrappers and of the step body per step (host_times, below), the
+#: default step's profiled window at both widths, and phase 3's training
+#: run (pairs/s per iteration from its training log)
 COMPARE_RUN = """
-import csv, json, os, sys, tempfile
+import csv, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
+import numpy as np
 import torch
 import chip_smoke as cs
 smi = cs.nvidia_smi_line()
+
+
+def host_times(config_kw, epochs=3):
+    # Host time per step on the host clock, over `epochs` epochs of
+    # PROFILED_STEPS full-width steps after a warm-up: in K4's wrappers
+    # (each call's own time, the launches asynchronous) and in the step
+    # body (_step_stratified or _step_sampled: every wrapper of the step
+    # and its glue), beside the whole wall per step.
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.sgns import step as st
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
+
+    rng = np.random.RandomState(0)
+    n = cs.PROFILED_STEPS * cs.B
+    pairs = np.stack([cs.zipf_ids(rng, n, cs.V), cs.zipf_ids(rng, n, cs.V)], 1)
+    counts = np.bincount(pairs.reshape(-1), minlength=cs.V) + 1
+    tr = make_trainer(PairCorpus(Vocab([f"G{i}" for i in range(cs.V)], counts), pairs),
+                      SGNSConfig(**config_kw), device=cs.DEVICE)
+    params = tr.init()
+    names = ("row_update", "scatter_rows", "finalize_rows", "_step_stratified", "_step_sampled")
+    spent = dict.fromkeys(names, 0)
+    orig = {k: getattr(st, k) for k in names}
+
+    def timed(k):
+        def call(*a, **kw):
+            t0 = time.perf_counter_ns()
+            out = orig[k](*a, **kw)
+            spent[k] += time.perf_counter_ns() - t0
+            return out
+        return call
+
+    for k in names:
+        setattr(st, k, timed(k))
+    try:
+        params, loss = tr.train_epoch(params, generator=epoch_generator(1, 0))
+        float(loss)
+        walls, k4, body = [], [], []
+        for it in range(1, epochs + 1):
+            for k in names:
+                spent[k] = 0
+            t0 = time.perf_counter()
+            params, loss = tr.train_epoch(params, generator=epoch_generator(1, it))
+            float(loss)
+            walls.append((time.perf_counter() - t0) * 1e6 / tr.num_batches)
+            k4.append(sum(spent[k] for k in names[:3]) / 1e3 / tr.num_batches)
+            body.append(sum(spent[k] for k in names[3:]) / 1e3 / tr.num_batches)
+    finally:
+        for k in names:
+            setattr(st, k, orig[k])
+    return {"config": "_".join(str(v) for v in config_kw.values()) or "default",
+            "wall_us_per_step": walls, "k4_wrappers_us_per_step": k4,
+            "step_body_us_per_step": body}
+
+
 rows = cs.kernel_check(torch, cs.TIMED_REPS) + cs.kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
+rows += cs.objective_kernel_check(torch, cs.TIMED_REPS)
+rows += cs.objective_kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
 keep = ("name", "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err")
 noise = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("noise_head", "noise_tail"))]
+k4 = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("row_update", "row_scatter",
+                                                                     "row_finalize"))]
+gather = [{k: r[k] for k in ("probe", "dtype", "E", "ms", "library_ms", "bound_ms")}
+          for r in cs.gather_probes(torch, cs.TIMED_REPS) + cs.ggipnn_gather_row(torch, cs.TIMED_REPS)[1]]
+host = [host_times(kw) for kw in ({}, {"table_dtype": "bfloat16"},
+                                  {"negative_mode": "per_example"})]
 windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
            for kw in ({}, {"table_dtype": "bfloat16"})]
 with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
-print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "noise": noise,
-                               "windows": windows, "cli_pairs_per_s": rates}))
+print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "noise": noise, "k4": k4,
+                               "gather": gather, "host": host, "windows": windows,
+                               "cli_pairs_per_s": rates}))
 """
 
 
@@ -2799,6 +3065,10 @@ def main() -> int:
     staged_row, staged_recs = staged_probes(torch, TIMED_REPS)
     gather_row, gather_recs = ggipnn_gather_row(torch, TIMED_REPS)
     probes += lane_recs + staged_recs + gather_recs
+    redesign.update(k4_redesign(rows))
+    redesign.update(gather_redesign(probes))
+    redesign["timer_floor_ms"] = timer_floor(torch, TIMED_REPS)
+    log(f"timer floor (a one-element fill): {redesign['timer_floor_ms']:.4f} ms")
     log(f"serving kernel check and probes done in {time.perf_counter() - t0:.1f}s")
     t0 = time.perf_counter()
     # phase 6: GGIPNN — one step card vs CPU at full width, then the rates
@@ -2853,6 +3123,10 @@ def main() -> int:
             for name, n in run.items():
                 if "_bf16" in name:
                     counts[name] = counts.get(name, 0) + n
+        # K4's nearest-even write-backs through the touched rows too
+        for kw in ({}, {"negative_mode": "per_example"}):
+            touched_step_check(torch, "bf16_rn " + (kw.get("negative_mode") or "stratified"),
+                               table_dtype="bfloat16", bf16_stochastic_round=False, **kw)
         log(f"bf16 training phase done in {time.perf_counter() - t0:.1f}s")
 
     t0 = time.perf_counter()
@@ -2886,6 +3160,7 @@ def main() -> int:
     print(json.dumps({"probes": probes}))
     print(json.dumps({"table_widths": widths}))
     print(json.dumps({"redesign": redesign}))
+    print(json.dumps({"touched_rows": TOUCHED_SHARES}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

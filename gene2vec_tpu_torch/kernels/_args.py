@@ -29,6 +29,17 @@ TABLE_DTYPES = (torch.float32, torch.bfloat16)
 def expect(t: torch.Tensor, name: str, dtype, shape) -> None:
     """Raise unless ``t`` has ``dtype`` (or one of a tuple of dtypes),
     ``shape`` (None = any extent) and is contiguous."""
+    # the common case first, with no generator: every launch of a step
+    # passes through here several times
+    if t.dtype is dtype or (type(dtype) is tuple and t.dtype in dtype):
+        ts = t.shape
+        if len(ts) == len(shape):
+            for s, n in zip(shape, ts):
+                if s is not None and s != n:
+                    break
+            else:
+                if t.is_contiguous():
+                    return
     ok = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.dtype not in ok:
         raise TypeError(f"{name}: expected {' or '.join(map(str, ok))}, got {t.dtype}")

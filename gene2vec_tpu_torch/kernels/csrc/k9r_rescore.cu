@@ -11,10 +11,10 @@
 // counterpart of the Pallas row-gather probes
 // (experiments/test_pallas_gather.py:31 pallas_gather, a VMEM dynamic
 // gather of (32768, 256) f32/bf16 rows; experiments/test_dma2.py:95
-// make_gather, a DMA ring gathering E of (24576, 256) f32 rows).  On the
-// TPU a dynamic row index needs a DMA per row or a VMEM-resident table;
-// on the H100 a warp per row issues 16-byte loads straight from device
-// memory (or L2), with no staging.
+// make_gather, a DMA ring gathering E of (24576, 256) f32 rows) and the
+// GGIPNN table lookup.  On the TPU a dynamic row index needs a DMA per
+// row or a VMEM-resident table; on the H100 rows load straight from
+// device memory (or L2), with no staging.
 //
 // Bound on the H100: bytes — the r candidate rows of each query,
 // B*r*D*4 (at most 64 * 2048 * 800 B = 105 MB; 6.5 MB at B = 64, r = 128,
@@ -25,6 +25,19 @@
 // (candidates are per query) and a thread per candidate, which gathers
 // its row with float4 loads and takes the float32 dot.  Ties order by
 // candidate position, as the reference's top_k over its (B, r) matrix.
+//
+// The row gather: the one-warp-a-row design (8 rows a block, E/8 blocks
+// in waves, each warp's id load and row load two dependent round trips)
+// reached 48-59% of its bytes bound on the H100 at E = 32,768.  Now a
+// persistent grid (the SM count times the kernel's occupancy) of warps
+// that each take a row at a time: the next row's id is loaded before
+// this row's words, and every word of the row is loaded (read-only path)
+// before any is stored (streaming stores).  Words are 16 bytes when the
+// row width and both pointers allow, else 4, else 2.  (Four rows a warp
+// with the same loads measured no faster at E = 32,768 and slower at the
+// few-hundred-row GGIPNN lookups.)
+#include <algorithm>
+
 #include "topk_common.cuh"
 
 namespace {
@@ -71,24 +84,68 @@ struct RescoreScorer {
   }
 };
 
-// One warp per output row, lanes over the row's words of type W.
+constexpr int kGatherThreads = 128;
+constexpr int kGatherWords = 2;  // words a lane loads of a row before storing
+
+// A persistent grid, a warp a row at a time; lanes over the row's words
+// of type W, kGatherWords each loaded before any is stored.
 template <class W>
-__global__ void row_gather_kernel(const W* __restrict__ table, const int* __restrict__ idx,
-                                  W* __restrict__ out, int E, int words) {
-  const int e = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+__global__ void __launch_bounds__(kGatherThreads)
+    row_gather_kernel(const W* __restrict__ table, const int* __restrict__ idx,
+                      W* __restrict__ out, int E, int words) {
   const int lane = threadIdx.x & 31;
-  if (e >= E) return;  // warp-uniform
-  const W* src = table + static_cast<size_t>(idx[e]) * words;
-  W* dst = out + static_cast<size_t>(e) * words;
-  for (int w = lane; w < words; w += 32) dst[w] = src[w];
+  const int warps = (gridDim.x * kGatherThreads) >> 5;
+  int e = (blockIdx.x * kGatherThreads + threadIdx.x) >> 5;
+  int id = e < E ? __ldg(idx + e) : 0;
+  for (; e < E; e += warps) {
+    const int cur = id;
+    if (e + warps < E) id = __ldg(idx + e + warps);  // in flight while this row moves
+    const W* src = table + static_cast<size_t>(cur) * words;
+    W* dst = out + static_cast<size_t>(e) * words;
+    for (int w0 = 0; w0 < words; w0 += 32 * kGatherWords) {
+      W v[kGatherWords];
+#pragma unroll
+      for (int k = 0; k < kGatherWords; ++k) {
+        const int w = w0 + 32 * k + lane;
+        if (w < words) v[k] = __ldg(src + w);
+      }
+#pragma unroll
+      for (int k = 0; k < kGatherWords; ++k) {
+        const int w = w0 + 32 * k + lane;
+        if (w < words) __stcs(dst + w, v[k]);
+      }
+    }
+  }
+}
+
+// Resident blocks a multiprocessor holds of one instantiation (once per
+// library: internal linkage).
+template <class W>
+int gather_occupancy() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, row_gather_kernel<W>, kGatherThreads,
+                                                      0) != cudaSuccess ||
+        n < 1) {
+      n = 1;
+    }
+    blocks = n;
+  }
+  return blocks;
 }
 
 template <class W>
-static int launch_gather(const void* table, const int* idx, void* out, int E, int words,
-                         cudaStream_t st) {
-  const int threads = 256;
-  const long long blocks = (static_cast<long long>(E) * 32 + threads - 1) / threads;
-  row_gather_kernel<W><<<static_cast<unsigned>(blocks), threads, 0, st>>>(
+int launch_gather(const void* table, const int* idx, void* out, int E, int words,
+                  cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = (static_cast<long long>(E) + kGatherThreads / 32 - 1) /
+                         (kGatherThreads / 32);
+  const long long blocks =
+      std::max(1LL, std::min(want, static_cast<long long>(sms) * gather_occupancy<W>()));
+  row_gather_kernel<W><<<static_cast<unsigned>(blocks), kGatherThreads, 0, st>>>(
       static_cast<const W*>(table), idx, static_cast<W*>(out), E, words);
   return static_cast<int>(cudaGetLastError());
 }

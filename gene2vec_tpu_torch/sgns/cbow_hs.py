@@ -48,7 +48,7 @@ from gene2vec_tpu_torch.data.pipeline import (
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
 from gene2vec_tpu_torch.kernels.hs import hs
-from gene2vec_tpu_torch.kernels.row_update import finalize_rows, scatter_rows
+from gene2vec_tpu_torch.kernels.row_update import Touched, finalize_rows, scatter_rows
 from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
 from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step, sr_salts_for
@@ -116,10 +116,13 @@ def hs_step(
     if loss_shallow is not None:
         loss = loss + torch.mean(loss_shallow)
     # K4: input rows, then both finalizes (one divisor per node over its
-    # shallow and deep load together)
+    # shallow and deep load together) over the touched rows: the inputs;
+    # the shallow prefix and the targets' deep path nodes
     scatter_rows(acc_emb, inputs, d_input, torch.ones_like(loss_deep))
-    finalize_rows(emb, acc_emb, lr, combiner, salt_e)
-    finalize_rows(node, acc_node, lr, combiner, salt_n)
+    finalize_rows(emb, acc_emb, lr, combiner, salt_e, Touched(ids=inputs))
+    node_rows = Touched(prefix=n_shallow if shallow_sign is not None else 0,
+                        paths=(tree_points, tree_lengths, targets))
+    finalize_rows(node, acc_node, lr, combiner, salt_n, node_rows)
     return params, loss
 
 

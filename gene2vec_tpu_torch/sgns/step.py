@@ -63,7 +63,12 @@ from gene2vec_tpu_torch.kernels.noise_head import noise_head
 from gene2vec_tpu_torch.kernels.noise_tail import noise_tail
 from gene2vec_tpu_torch.kernels.per_example import per_example
 from gene2vec_tpu_torch.kernels.pos_logit import pos_logit
-from gene2vec_tpu_torch.kernels.row_update import finalize_rows, row_update, scatter_rows
+from gene2vec_tpu_torch.kernels.row_update import (
+    Touched,
+    finalize_rows,
+    row_update,
+    scatter_rows,
+)
 from gene2vec_tpu_torch.kernels.row_update import row_divisor as _row_divisor  # noqa: F401
 from gene2vec_tpu_torch.kernels.shared_pool import shared_pool as shared_pool_kernel
 from gene2vec_tpu_torch.sgns.model import SGNSParams
@@ -131,18 +136,23 @@ def _step_stratified(
         e // blocks.shape[0], k_negatives, d_center, acc_ctx,
     )
     loss = torch.mean(loss_pos + loss_head + loss_tail)
-    # K4: positive scatters into both accumulators, then both finalizes
+    # K4: positive scatters into both accumulators, then both finalizes over
+    # the touched rows: the centers; the contexts, K2's head and K3's blocks
+    ctx_rows = Touched(prefix=spec.head, blocks=blocks, block=spec.block,
+                       limit=spec.tail_w.shape[0])
     row_update(emb, ctx, acc_emb, acc_ctx, centers, contexts, d_center, v,
-               g_pos, lr, combiner, salts)
+               g_pos, lr, combiner, salts, (Touched(), ctx_rows))
     return params, loss
 
 
-def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, salts=None):
+def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, noise_ids,
+                  salts=None):
     """The shared and per-example steps: K1 for v, u and the positive
     logit; ``noise_rows(v, u, g_pos, acc_ctx)`` (K5a or K5b) for the noise
-    term, its rows scattered into ``acc_ctx``; then K4's generic path:
-    [d_center | 1] by center, [g_pos·v | 1] by context, both finalizes
-    (``salts``: see :func:`sr_salts_for`)."""
+    term, its rows (``noise_ids``) scattered into ``acc_ctx``; then K4's
+    generic path: [d_center | 1] by center, [g_pos·v | 1] by context, both
+    finalizes over the scattered rows and the noise rows (``salts``: see
+    :func:`sr_salts_for`)."""
     emb, ctx = params
     v, u, g_pos, loss_pos = pos_logit(emb, ctx, centers, contexts)
     acc_emb = torch.zeros((emb.shape[0], emb.shape[1] + 1), dtype=torch.float32,
@@ -154,8 +164,8 @@ def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, salts=Non
     scatter_rows(acc_emb, centers, d_center, ones)
     scatter_rows(acc_ctx, contexts, g_pos[:, None] * v, ones)
     salt_e, salt_c = (None, None) if salts is None else salts
-    finalize_rows(emb, acc_emb, lr, combiner, salt_e)
-    finalize_rows(ctx, acc_ctx, lr, combiner, salt_c)
+    finalize_rows(emb, acc_emb, lr, combiner, salt_e, Touched(ids=centers))
+    finalize_rows(ctx, acc_ctx, lr, combiner, salt_c, Touched(ids=(contexts, noise_ids)))
     return params, loss
 
 
@@ -326,7 +336,7 @@ def sgns_step(
         return _step_sampled(params, centers, contexts, lr, combiner,
                              lambda v, u, g_pos, acc: shared_pool_kernel(
                                  v, u, g_pos, contexts, negs, params.ctx, negatives, g, acc),
-                             salts)
+                             negs, salts)
     if negative_mode == "per_example":
         negs = _draws(negs, noise, generator, (e, negatives), pairs.device)
         salts = sr_salts_for(params, sr_salts, stochastic_round, generator)
@@ -334,7 +344,7 @@ def sgns_step(
         return _step_sampled(params, centers, contexts, lr, combiner,
                              lambda v, u, g_pos, acc: per_example(
                                  v, u, g_pos, contexts, negs, params.ctx, acc),
-                             salts)
+                             negs, salts)
     if stratified is None:
         raise ValueError("negative_mode='stratified' needs a StratifiedSpec")
     if shared_groups > 0 and (shared_groups > e or e % shared_groups):
