@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
-                                     # each checkout's own K1-K4 check, K4's
-                                     # generic entries, the row gather, default
-                                     # step windows and phase 3 run, in turns
+                                     # each checkout's own K1-K6 checks, the row
+                                     # gather, step windows (default, HS, shared)
+                                     # and phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -27,8 +27,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    card against the plain step on the CPU, at a small ragged shape and
    at full width; then the other objectives' kernels at the same width —
    K5a (per-example draws), K5b (the auto-sized shared pool, G = 256,
-   P/G = 128), K6 (hierarchical softmax at hs_dense_depth 10, both
-   phases) and K4's generic scatter and finalize — and one whole step of
+   P/G = 128; 3xTF32 tensor cores), K6 (hierarchical softmax at
+   hs_dense_depth 10, every path entry: its device ms by launch in the
+   row's ``device_ms``, its time at each count of shared-memory levels
+   on a ``{"hs_hot_levels": ...}`` line) and K4's generic scatter and
+   finalize — and one whole step of
    each of per_example, shared, sg_hs and cbow_hs card vs CPU at both
    shapes; (2e) every training kernel again on bfloat16 tables — K4 once
    per write-back, stochastic rounding and nearest-even, bitwise on
@@ -40,7 +43,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    float32 and bfloat16 in turns (f32, bf16, bf16, f32) and of those four
    (pairs/s over each window's wall, device busy time by kernel, idle
    share; Chrome traces to ``chip_smoke_profile/``; the widths' medians
-   on a ``{"table_widths": ...}`` line); K12 ``stream_scale`` at the streaming
+   on a ``{"table_widths": ...}`` line), then windows of the per_example,
+   shared, sg_hs and cbow_hs steps (``{"objective_windows": ...}``); K12 ``stream_scale`` at the streaming
    probe's 25, 100 and 400 MB (bitwise; GB/s beside ``torch.mul``); the serving kernels
    at serving width (V = 24,447, D = 200, B in {1, 64}, kb in {16, 512},
    rb = 4 kb, the default IVF geometry) against their plain versions —
@@ -698,34 +702,27 @@ def lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, groups, acc):
     return d_center.reshape(e, d), loss
 
 
-def lib_hs(torch, emb, node, in_l, t_l, points, codes, lengths, sign, acc):
-    """K6: the deep paths' node rows gathered, batched dots and the
-    code epilogue, payloads index-added; the dense shallow levels as
-    GEMMs against the sign rows."""
+def lib_hs(torch, emb, node, in_l, t_l, points, codes, lengths, shallow, acc):
+    """K6: every path entry's node row gathered (the shallow paths' and the
+    deep remainders' side by side), batched dots and the sign epilogue,
+    the payloads index-added."""
     fn = torch.nn.functional
     d = emb.shape[1]
+    ls = shallow.ids.shape[1]
     v = fn.embedding(in_l, emb).float()
-    pts, cds = points[t_l].long(), codes[t_l]
-    mask = (torch.arange(points.shape[1], device=v.device)[None, :]
-            < lengths[t_l][:, None]).float()
+    pts = torch.cat([shallow.ids[t_l], points[t_l]], 1).long()
+    sg = torch.cat([shallow.signs[t_l].float(), 1.0 - 2.0 * codes[t_l]], 1)
+    mask = torch.cat([shallow.signs[t_l].abs().float(),
+                      (torch.arange(points.shape[1], device=v.device)[None, :]
+                       < lengths[t_l][:, None]).float()], 1)
     w = fn.embedding(pts, node).float()
     logit = torch.bmm(w, v[:, :, None])[..., 0]
-    loss_deep = torch.sum(fn.softplus((2.0 * cds - 1.0) * logit).mul_(mask), -1)
-    g = (torch.sigmoid(logit) - (1.0 - cds)).mul_(mask)
+    loss = fn.softplus(-sg * logit).mul_(mask)
+    g = (torch.sigmoid(logit) - (1.0 + sg) / 2.0).mul_(mask)
     d_input = torch.bmm(g[:, None, :], w)[:, 0]
     acc.index_add_(0, pts.reshape(-1), torch.cat(
         [(g[..., None] * v[:, None, :]).reshape(-1, d), mask.reshape(-1, 1)], 1))
-    ns = sign.shape[1]
-    ws = node[:ns].float()
-    s = sign[t_l].float()
-    a = s.abs()
-    logit_s = torch.mm(v, ws.T)
-    loss_s = torch.sum(fn.softplus(-s * logit_s).mul_(a), -1)
-    g_s = a * (torch.sigmoid(logit_s) - (1.0 + s) / 2.0)
-    d_input = torch.addmm(d_input, g_s, ws)
-    acc[:ns, :d].addmm_(g_s.T, v)
-    acc[:ns, d] += a.sum(0)
-    return d_input, loss_deep, loss_s
+    return d_input, loss[:, ls:].sum(-1), loss[:, :ls].sum(-1)
 
 
 def lib_quant_scan(torch, qn, table_q_pad, scale, v_rows, rb):
@@ -1064,6 +1061,14 @@ def redesign_factors(records) -> dict:
     return out
 
 
+def kernel_name(key: str) -> str:
+    """A profiler event's kernel name without its return type, namespace
+    prefixes or arguments: ``void (anonymous namespace)::hs_kernel<float,
+    7, 1>(...)`` → ``hs_kernel``."""
+    name = key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+    return name.split("(")[0].split("<")[0].split("::")[-1] or key[:60]
+
+
 def device_breakdown(torch, fn, calls=10) -> dict:
     """Device ms a call of ``fn`` by kernel name: torch.profiler over
     ``calls`` calls after a warm-up (the table stays in L2, unlike the
@@ -1080,7 +1085,7 @@ def device_breakdown(torch, fn, calls=10) -> dict:
     out = {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            name = ev.key.split("(")[0].split("<")[0].replace("void ", "")
+            name = kernel_name(ev.key)
             out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / calls
     return out
 
@@ -1246,6 +1251,8 @@ def step_parity(torch, v, d, b, head, block, group, full_tables, dtype=None):
 # -- phase 2c: the other objectives' kernels (K4 generic, K5a, K5b, K6) -------
 
 HS_DEPTH = 10               # the default hs_dense_depth
+HS_HOT_SWEEP = (0, 2, 3, 4, 5, 6, 7)  # K6's tree levels reduced in shared memory, timed
+HS_HOT = {}                 # {"hs" / "hs_bf16": {"default": n, "ms": {levels: ms}}}
 OBJECTIVE_KERNELS = ("per_example", "shared_pool", "hs", "row_scatter", "row_finalize")
 
 
@@ -1304,6 +1311,7 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     from gene2vec_tpu_torch.data.negative_sampling import (
         build_alias_table, noise_distribution, sample_negatives)
     from gene2vec_tpu_torch.kernels import hs, per_example, pos_logit, row_update, shared_pool
+    from gene2vec_tpu_torch.sgns.cbow_hs import shallow_on
     from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
     from gene2vec_tpu_torch.sgns.step import shared_pool_layout
 
@@ -1325,8 +1333,8 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         return int(torch.unique(t).numel())
 
     def row(name, src, replaces, err, fn_k, fn_p, fn_lib, bytes_moved, flops,
-            tolerance=None):
-        b_ms, b_by = bound(bytes_moved, flops)
+            tolerance=None, tf32_ops=0.0):
+        b_ms, b_by = bound(bytes_moved, flops, tf32_ops=tf32_ops)
         t_k, t_p = timer(fn_k), timer(fn_p)
         t_lib = timer(fn_lib) if fn_lib is not None else None
         rows.append({
@@ -1379,26 +1387,35 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     library_check("K5b" + sfx, [*lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g,
                                                  a_l), a_l], [dp, lp, a_p])
     a_t = acc0.clone()
+    # noise_tc.cuh's 3xTF32 passes, as K2/K3: 3 a product, 2 where a bf16
+    # pool row is an operand (the logits and d_center)
+    passes = (2, 2, 3) if bf16 else (3, 3, 3)
     row("shared_pool" + sfx, "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
         lambda: shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         lambda: shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         lambda: lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g, a_t),
         4 * (2 * E * D + 2 * E + g * per_group + 2 * n_pool * (D + 1) + E * D + E)
         + tb * n_pool * D,
-        3 * 2 * E * per_group * D)
+        0.0, tf32_ops=sum(passes) * 2 * E * per_group * D)
+    simt = 3 * 2 * E * per_group * D
+    rows[-1]["bound_route"] = (f"TF32 passes {passes} (logits, d_center, acc) at "
+                               f"{TF32_FLOP_PER_S / 1e12:g} TFLOP/s")
+    rows[-1]["bound_note"] = (f"float32 SIMT route: {bound(0.0, simt)[0]:.4f} ms "
+                              f"({simt / 1e9:.2f} GFLOP at {F32_FLOP_PER_S / 1e12:g} TFLOP/s)")
     log(f"shared_pool{sfx}: G {g}, P/G {per_group}, {n_pool} distinct pool rows")
 
     # K6: sg_hs at hs_dense_depth 10 (input = center, path of the context)
     tree = build_huffman_tree(counts)
     split = split_shallow(tree, HS_DEPTH)
     ns, l_deep = split.n_shallow, split.points_deep.shape[1]
-    pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
-        split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
+    pts, cds, lens = (torch.from_numpy(a).to(dev) for a in (
+        split.points_deep, split.codes_deep, split.lengths_deep))
+    shallow = shallow_on(split, dev)
     node = (torch.randn((tree.num_nodes, D), generator=torch.Generator().manual_seed(2))
             * 0.1).to(dev, dtype)
     a0 = torch.zeros((tree.num_nodes, D + 1), device=dev)
     a_k, a_p = a0.clone(), a0.clone()
-    args6 = (emb, node, centers, contexts, pts, cds, lens, sign)
+    args6 = (emb, node, centers, contexts, pts, cds, lens, shallow)
     dk, ldk, lsk = hs.hs(*args6, a_k)
     dp, ldp, lsp = hs.hs_plain(*args6, a_p)
     torch.cuda.synchronize()
@@ -1406,7 +1423,7 @@ def objective_kernel_check(torch, reps: int, dtype=None):
                                ("loss_shallow", lsk, lsp, "elems")]
                   + acc_outputs("acc_node", a_k, a_p, D))
     work = hs_work(split, c_ids, x_ids, D, tb)
-    args6_l = (emb, node, centers.long(), x_l, pts, cds, lens, sign)
+    args6_l = (emb, node, centers.long(), x_l, pts, cds, lens, shallow)
     a_l = a0.clone()
     library_check("K6" + sfx, [*lib_hs(torch, *args6_l, a_l), a_l], [dp, ldp, lsp, a_p])
     a_t = a0.clone()
@@ -1414,6 +1431,22 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t),
         lambda: lib_hs(torch, *args6_l, a_t),
         work["bytes"], work["flops"])
+    # K6's time by launch (torch.profiler, L2 warm), and its kernel time at
+    # each count of tree levels reduced in shared memory, each run held
+    # against the plain version
+    rows[-1]["device_ms"] = device_breakdown(torch, lambda: hs.hs(*args6, a_t))
+    sweep = {}
+    for hot in HS_HOT_SWEEP:
+        a_k = a0.clone()
+        dk, ldk, lsk = hs.hs(*args6, a_k, hot_levels=hot)
+        torch.cuda.synchronize()
+        compare(f"K6{sfx} hot_levels {hot}", [
+            ("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
+            ("loss_shallow", lsk, lsp, "elems")] + acc_outputs("acc_node", a_k, a_p, D))
+        sweep[hot] = timer(lambda: hs.hs(*args6, a_t, hot_levels=hot))
+    HS_HOT["hs" + sfx] = {"default": hs.HOT_LEVELS, "ms": sweep}
+    log(f"hs{sfx}: device ms by launch {rows[-1]['device_ms']}; ms by hot levels {sweep} "
+        f"(default {hs.HOT_LEVELS})")
     lengths = tree.lengths.astype(np.float64)
     w = counts / counts.sum()
     log(f"hs{sfx} (depth {HS_DEPTH}): L {tree.points.shape[1]}, Ns {ns}, L_deep {l_deep}; "
@@ -1493,7 +1526,7 @@ def objective_step_parity(torch, v, d, b, kind, full_tables, dtype=None):
     depth 10) on the card against the plain step on the CPU, same inputs
     and draws: loss within rtol 1e-5, tables within TABLE_ATOL; at
     ``dtype`` bfloat16 with SALTS, as ``step_verdict`` says."""
-    from gene2vec_tpu_torch.sgns.cbow_hs import hs_step
+    from gene2vec_tpu_torch.sgns.cbow_hs import hs_step, shallow_on
     from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
     from gene2vec_tpu_torch.sgns.model import SGNSParams
     from gene2vec_tpu_torch.sgns.step import sgns_step, shared_pool_layout
@@ -1523,10 +1556,10 @@ def objective_step_parity(torch, v, d, b, kind, full_tables, dtype=None):
         p = SGNSParams(tables[0].to(dev, copy=True), tables[1].to(dev, copy=True))
         batch = torch.from_numpy(pairs).to(dev)
         if hs_kind:
-            pts, cds, lens, sign = (torch.from_numpy(a).to(dev) for a in (
-                split.points_deep, split.codes_deep, split.lengths_deep, split.sign))
+            pts, cds, lens = (torch.from_numpy(a).to(dev) for a in (
+                split.points_deep, split.codes_deep, split.lengths_deep))
             p, loss = hs_step(p, batch, pts, cds, lens, 0.025, cbow=kind == "cbow_hs",
-                              shallow_sign=sign, n_shallow=split.n_shallow, sr_salts=salts)
+                              shallow=shallow_on(split, dev), sr_salts=salts)
         else:
             p, loss = sgns_step(p, batch, 0.025, negative_mode=kind,
                                 negs=torch.from_numpy(negs).to(dev), sr_salts=salts)
@@ -2900,12 +2933,14 @@ def compare_widths(windows, smi: str) -> dict:
 
 
 #: what ``--compare`` runs in each tree, with that tree's own chip_smoke:
-#: the K1-K4 kernel check and K4's generic entries (the objectives' check)
-#: at float32 and bfloat16 (the K2/K3 and K4 rows kept), the row gather at
-#: the probes' and the GGIPNN lookup's shapes, the host time of K4's
-#: wrappers and of the step body per step (host_times, below), the
-#: default step's profiled window at both widths, and phase 3's training
-#: run (pairs/s per iteration from its training log)
+#: the K1-K4 kernel check and the objectives' check (K5a, K5b, K6, K4's
+#: generic entries) at float32 and bfloat16 (the K2/K3, K4, K5a, K5b and K6
+#: rows kept), the row gather at the probes' and the GGIPNN lookup's
+#: shapes, the host time of K4's wrappers and of the step body per step
+#: (host_times, below), the default step's profiled window at both widths,
+#: the sg_hs, cbow_hs and shared steps' windows and their kernels by name
+#: per step (step_kernels, below), and phase 3's training run (pairs/s per
+#: iteration from its training log)
 COMPARE_RUN = """
 import csv, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
@@ -2970,6 +3005,40 @@ def host_times(config_kw, epochs=3):
             "step_body_us_per_step": body}
 
 
+def step_kernels(config_kw):
+    # Device ms per step by kernel name over one profiled epoch of
+    # PROFILED_STEPS full-width steps (after a warm-up epoch): K6's and
+    # K5b's launches as the step makes them, whatever the tree's design.
+    from torch.profiler import ProfilerActivity, profile
+
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+    from gene2vec_tpu_torch.sgns.train import epoch_generator
+
+    rng = np.random.RandomState(0)
+    n = cs.PROFILED_STEPS * cs.B
+    pairs = np.stack([cs.zipf_ids(rng, n, cs.V), cs.zipf_ids(rng, n, cs.V)], 1)
+    counts = np.bincount(pairs.reshape(-1), minlength=cs.V) + 1
+    tr = make_trainer(PairCorpus(Vocab([f"G{i}" for i in range(cs.V)], counts), pairs),
+                      SGNSConfig(**config_kw), device=cs.DEVICE)
+    params = tr.init()
+    params, loss = tr.train_epoch(params, generator=epoch_generator(1, 0))
+    float(loss)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, loss = tr.train_epoch(params, generator=epoch_generator(1, 1))
+        float(loss)
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            name = ev.key.replace("(anonymous namespace)::", "").replace("void ", "", 1)
+            name = name.split("(")[0].split("<")[0].split("::")[-1] or ev.key[:60]
+            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / tr.num_batches
+    top = sorted(out.items(), key=lambda kv: -kv[1])[:8]
+    return {"config": "_".join(str(v) for v in config_kw.values()), "ms_per_step": dict(top)}
+
+
 rows = cs.kernel_check(torch, cs.TIMED_REPS) + cs.kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
 rows += cs.objective_kernel_check(torch, cs.TIMED_REPS)
 rows += cs.objective_kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
@@ -2977,19 +3046,30 @@ keep = ("name", "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err")
 noise = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("noise_head", "noise_tail"))]
 k4 = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("row_update", "row_scatter",
                                                                      "row_finalize"))]
+objectives = [{k: r[k] for k in keep} for r in rows
+              if r["name"].startswith(("per_example", "shared_pool", "hs"))]
 gather = [{k: r[k] for k in ("probe", "dtype", "E", "ms", "library_ms", "bound_ms")}
           for r in cs.gather_probes(torch, cs.TIMED_REPS) + cs.ggipnn_gather_row(torch, cs.TIMED_REPS)[1]]
 host = [host_times(kw) for kw in ({}, {"table_dtype": "bfloat16"},
                                   {"negative_mode": "per_example"})]
 windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
            for kw in ({}, {"table_dtype": "bfloat16"})]
+# the HS and shared steps: windows (pairs/s, busy ms/step, idle) and the
+# step's kernels by name
+objective_kw = ({"objective": "sg_hs"}, {"objective": "cbow_hs"}, {"negative_mode": "shared"},
+                {"objective": "sg_hs", "table_dtype": "bfloat16"},
+                {"negative_mode": "shared", "table_dtype": "bfloat16"})
+objective_windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
+                     for kw in objective_kw]
+kernels_by_step = [step_kernels(kw) for kw in objective_kw]
 with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
 print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "noise": noise, "k4": k4,
-                               "gather": gather, "host": host, "windows": windows,
-                               "cli_pairs_per_s": rates}))
+                               "objectives": objectives, "gather": gather, "host": host,
+                               "windows": windows, "objective_windows": objective_windows,
+                               "step_kernels": kernels_by_step, "cli_pairs_per_s": rates}))
 """
 
 
@@ -3083,8 +3163,9 @@ def main() -> int:
         [profile_steps(torch, PROFILED_STEPS, prof_dir, smi, **kw)
          for kw in ({}, {"table_dtype": "bfloat16"}, {"table_dtype": "bfloat16"}, {})], smi)
     log(f"default step, bf16 against f32: {widths['bf16_over_f32']}")
-    for kw in PLANTED_CONFIGS[1:5]:
-        profile_steps(torch, PROFILED_STEPS // 2, prof_dir, smi, **kw)
+    # the other objectives' steps (per_example, shared, sg_hs, cbow_hs)
+    objective_windows = [profile_steps(torch, PROFILED_STEPS // 2, prof_dir, smi, **kw)
+                         for kw in PLANTED_CONFIGS[1:5]]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
         t0 = time.perf_counter()
@@ -3159,6 +3240,8 @@ def main() -> int:
     print(json.dumps({"serving_kernel_shapes": serve_shapes}))
     print(json.dumps({"probes": probes}))
     print(json.dumps({"table_widths": widths}))
+    print(json.dumps({"objective_windows": objective_windows, "card": smi}))
+    print(json.dumps({"hs_hot_levels": HS_HOT, "card": smi}))
     print(json.dumps({"redesign": redesign}))
     print(json.dumps({"touched_rows": TOUCHED_SHARES}))
     print(smi)

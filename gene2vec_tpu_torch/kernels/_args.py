@@ -92,14 +92,6 @@ def sm_count(t: torch.Tensor) -> int:
                      else torch.cuda.current_device())
 
 
-def split_k(tiles: int, groups: int, k_len: int, device: torch.device) -> int:
-    """How many ranges to cut a contraction of ``k_len`` into so that
-    ``tiles * groups * splits`` blocks cover the card about twice."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // max(tiles * groups, 1))
-    return max(1, min(want, -(-k_len // 64)))
-
-
 def noise_ranges(tiles: int, k_len: int, t: torch.Tensor) -> int:
     """How many example ranges K2/K3's second launch cuts a contraction of
     ``k_len`` examples into, so that ``tiles`` output tiles times the

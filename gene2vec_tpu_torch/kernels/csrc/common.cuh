@@ -84,6 +84,22 @@ __device__ __forceinline__ int g2v_vec_span(int D) {
   return (D % W == 0) ? D : 0;
 }
 
+// Adds n floats val(0 .. n-1) into row with atomics, the lanes of one warp
+// together: float4 atomics on the row's 16-byte aligned middle, scalar
+// ones at its ends (accumulator rows are D + 1 floats apart).
+template <typename Val>
+__device__ __forceinline__ void g2v_add_row(float* row, int n, int lane, Val val) {
+  const int head = min(n, static_cast<int>((16 - reinterpret_cast<uintptr_t>(row) % 16) % 16) / 4);
+  const int body = (n - head) & ~3;
+  if (lane < head) atomicAdd(row + lane, val(lane));
+  for (int d = head + 4 * lane; d < head + body; d += 128) {
+    atomicAdd(reinterpret_cast<float4*>(row + d),
+              make_float4(val(d), val(d + 1), val(d + 2), val(d + 3)));
+  }
+  const int tail = head + body;
+  if (lane < n - tail) atomicAdd(row + tail + lane, val(tail + lane));
+}
+
 G2V_EXPORT const char* g2v_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

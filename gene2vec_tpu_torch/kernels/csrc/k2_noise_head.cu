@@ -46,5 +46,5 @@ G2V_EXPORT int k2_noise_head(const float* v, const float* u, const float* g_pos,
   p.vn = H;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::tc::launch_as(p, 1, bf16, static_cast<cudaStream_t>(stream));
+  return g2v::tc::launch_as<false>(p, 1, bf16, static_cast<cudaStream_t>(stream));
 }

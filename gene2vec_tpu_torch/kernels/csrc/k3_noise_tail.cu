@@ -52,5 +52,5 @@ G2V_EXPORT int k3_noise_tail(const float* v, const int* contexts,
   p.vn = vn;
   p.splits = splits;
   p.init_center = 0;
-  return g2v::tc::launch_as(p, G, bf16, static_cast<cudaStream_t>(stream));
+  return g2v::tc::launch_as<false>(p, G, bf16, static_cast<cudaStream_t>(stream));
 }

@@ -7,32 +7,41 @@
 //   g_neg = scale * sigmoid(neg_logit) * mask,
 //   d_center = g_pos*u + g_neg @ u_pool,
 //   acc[pool ids, :D] += g_neg^T @ v_g,
-//   acc[pool ids,  D] += scale * sum_e mask   (float32 count).
+//   acc[pool ids,  D] += scale * (E/G - hits)   (exact integer hits).
+// This is K2/K3's algebra (noise_tc.cuh) with a gathered slab and w = 1.
 //
-// Bound on the H100: operations.  Three G x (E/G) x (P/G) x D products:
-// with auto sizing (G = E/32, P/G = 128) 3 * 2 * E * 128 * D = 1.26 GFLOP
-// at E = 8192, D = 200 — ~19 us at the 67 TFLOP/s float32 peak — against
-// ~40 MB of traffic (the pool rows read twice, v and u, the pool rows'
-// accumulator rows, ~12 us).  A bfloat16 ctx halves the pool rows' reads;
-// the bound stays operations.
+// Bound on the H100: bytes.  ~51 MB at E = 8192, D = 200 with auto sizing
+// (G = E/32, P/G = 128, ~12,900 distinct pool rows): v and u read,
+// d_center written, the pool's distinct rows read and their accumulator
+// rows read and written once — ~15 us (~46 MB, ~14 us, bfloat16).  The
+// three G x (E/G) x (P/G) x D products, 2 * E * 128 * D = 0.42 GFLOP
+// each, take three TF32 passes each (two for the logits and d_center on
+// bfloat16 tables): 3.8 GFLOP, ~8 us at the 495 TFLOP/s dense TF32 peak
+// (2.9 GFLOP, ~6 us, bfloat16).  The float32 SIMT route's bound, 1.26
+// GFLOP at 67 TFLOP/s, was ~19 us.
 //
-// Design: K3's structure (noise_gemm.cuh) with each group's contiguous
-// block replaced by its P/G gathered pool rows: the GEMM tiles read ctx
-// through the pool's row ids, and phase 3 adds each slot's payload into
-// its pool row with atomics (a row drawn twice gets both).
-#include "noise_gemm.cuh"
+// Design: noise_tc.cuh's two launches, 3xTF32 mma.sync.  The slab is the
+// group's P/G pool rows, staged by cp.async row by row through the pool's
+// ids (16-byte copies where D * sizeof(T) allows); the mask compares the
+// pool id with the context.  With E/G <= 32 (the auto layout's 32) a
+// launch-1 block owns two groups, one a 32-row half of its 64-row tile,
+// each half against its own staged chunk, so that no tile row idles.
+// Launch 2 adds each slot's payload into its pool row with atomics: a
+// row drawn twice, in one group or in several, gets both.
+#include "noise_tc.cuh"
 
 G2V_EXPORT int k5_shared(const float* v, const float* u, const float* g_pos,
                          const int* contexts, const void* ctx, const int* pool,
-                         float scale, float* g_scratch, int* hits,
-                         float* loss_neg, float* d_center, float* acc_ctx, int E,
-                         int D, int G, int S, int splits, int bf16, void* stream) {
-  g2v::NoiseParams p{};
+                         float scale, float* g_scratch, int* hits, float* loss_neg,
+                         float* d_center, float* acc_ctx, int E, int D, int G, int S,
+                         int Sp, int splits, int bf16, void* stream) {
+  g2v::tc::Params p{};
   p.v = v;
   p.u = u;
   p.g_pos = g_pos;
   p.contexts = contexts;
   p.ctx = ctx;
+  p.w = nullptr;  // every pool slot weighs scale
   p.ids = pool;
   p.g = g_scratch;
   p.hits = hits;
@@ -42,9 +51,10 @@ G2V_EXPORT int k5_shared(const float* v, const float* u, const float* g_pos,
   p.kneg = scale;
   p.D = D;
   p.S = S;
-  p.Eg = E / G;
+  p.Sp = Sp;
+  p.Eg = G ? E / G : 0;
+  p.pair = p.Eg <= 32;
   p.splits = splits;
   p.init_center = 1;
-  return g2v::launch_noise_as<g2v::Slab::kPool>(
-      p, G, bf16, static_cast<cudaStream_t>(stream));
+  return g2v::tc::launch_as<true>(p, G, bf16, static_cast<cudaStream_t>(stream));
 }

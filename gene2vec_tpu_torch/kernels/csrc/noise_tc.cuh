@@ -1,18 +1,20 @@
-// The stratified step's noise terms on tensor cores: K2 (the exact head)
-// and K3 (the tail blocks).
+// The noise terms on tensor cores: K2 (the stratified step's exact head),
+// K3 (its tail blocks) and K5b (the shared grouped pool).
 //
-// Both compute, for G groups of Eg consecutive examples, each against its
-// own slab of S contiguous context rows start_g .. start_g + S - 1:
-//   logit[e, s]  = v[e] . ctx[start_g + s]
-//   mask         = (start_g + s != contexts[e])
+// All three compute, for G groups of Eg consecutive examples, each against
+// its own slab of S context rows row_g(0) .. row_g(S - 1):
+//   logit[e, s]  = v[e] . ctx[row_g(s)]
+//   mask         = (row_g(s) != contexts[e])
 //   g[e, s]      = (K * w[row]) * sigmoid(logit) * mask
 //   loss[e]      = sum_s (K * w[row]) * mask * softplus(logit)
-//   d_center[e]  (+)= sum_s g[e, s] * ctx[start_g + s]
+//   d_center[e]  (+)= sum_s g[e, s] * ctx[row_g(s)]
 //   acc[row, :D] += sum_e g[e, s] * v[e]
 //   acc[row,  D] += (K * w[row]) * (Eg - hits[g, s])
-// The head is G = 1, start 0, S = H, w = q (d_center = g_pos * u + ...);
-// the tail is one drawn block a group, start_g = min(head + blocks[g]*S,
-// vn - S), w = tail_w (d_center += ...).
+// The head is G = 1, row(s) = s, S = H, w = q (d_center = g_pos * u +
+// ...); the tail is one drawn block a group, row_g(s) = start_g + s with
+// start_g = min(head + blocks[g]*S, vn - S), w = tail_w (d_center += ...);
+// the shared pool gathers, row_g(s) = pool[g * S + s], with no w (K = the
+// pool's scale K*G/P; d_center = g_pos * u + ...).
 //
 // Arithmetic: float32 products on the tensor cores through a 3xTF32
 // split, mma.sync m16n8k8 tf32 with float32 accumulation.  Each float32
@@ -29,11 +31,13 @@
 //
 // Two launches a call:
 //   launch 1 (logits_center_kernel): a block owns 64 examples of one
-//     group and walks the group's slab in chunks of NC rows (64 at the
-//     default width), staged once each with cp.async into a double buffer
-//     beside the block's v rows.  From each staged chunk it computes the
-//     logit tile (warp pairs on 32 x NC/2 tiles, each warp half of d, the
-//     halves added through shared memory), the epilogue in registers
+//     group (or, with Eg <= 32, two groups, one a 32-row half of the tile)
+//     and walks the group's slab in chunks of NC rows (64 at the default
+//     width), staged once each with cp.async into a double buffer beside
+//     the block's v rows (row by row through the ids for a gathered
+//     slab).  From each staged chunk it computes the logit tile (warp
+//     pairs on 32 x NC/2 tiles, each warp half of d, the halves added
+//     through shared memory), the epilogue in registers
 //     (mask, K*w, sigmoid, softplus into the loss, the exact integer
 //     hits), the g tile — written to shared memory and once to device
 //     memory for launch 2 — and d_center += g_tile . chunk (32-row warp
@@ -45,8 +49,8 @@
 //     them: the head's 256 rows take E = 8192 examples, cut into ranges so
 //     that about one block runs per SM), g and v staged by cp.async in a
 //     ring of four 32-example chunks; the sums go into acc through shared
-//     memory with float4 atomics, which repeated and clamped blocks need
-//     anyway.
+//     memory with float4 atomics, which repeated and clamped blocks and
+//     pool rows drawn twice need anyway.
 // g thus goes through device memory once (one write, one read).
 //
 // Warps: 8 a block.  Fragments come from shared memory with 4-byte loads,
@@ -60,6 +64,7 @@
 #pragma once
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -82,13 +87,15 @@ struct Params {
   const void* ctx;        // (V, D) context table, float or bfloat16
   const float* w;         // per-row noise weight: q (head) or tail_w
   const int* blocks;      // (G,) drawn block ids; null for the head
+  const int* ids;         // (G, S) gathered slab rows (K5b's pool); null: contiguous
   float* g;               // (E, Sp) scratch: launch 1 writes, launch 2 reads
   int* hits;              // (G, S) masked-pair counts, zeroed before launch 1
   float* loss;            // (E,)
   float* d_center;        // (E, D)
   float* acc;             // (V, D+1)
   float kneg;
-  int D, S, Sp, Eg, head, vn;
+  int D, S, Sp, Eg, G, head, vn;
+  int pair;               // 1: a launch-1 block owns two groups (Eg <= 32), 32 rows each
   int init_center;        // 1: d_center = g_pos*u + ...; 0: d_center += ...
   int sv, sc;             // launch 1: v-tile and chunk row strides
   int sv3, chunk_e, splits;  // launch 2: v-chunk stride; examples a range; ranges
@@ -236,20 +243,21 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Block-wide copy of `rows` rows of n elements (row stride ld in device
-// memory, ss in shared memory), a warp a row: 16-byte cp.async where
-// every row is 16-byte aligned and a multiple of 16 bytes, else 4-byte
-// cp.async for float32 and plain copies for bfloat16.
-template <typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int ss, const T* src, size_t ld, int rows,
-                                          int n) {
+// Block-wide copy of `rows` rows of n elements, row r from src +
+// row_id(r) * ld to dst + r * ss (row stride ss in shared memory), a warp
+// a row: 16-byte cp.async where every row is 16-byte aligned and a
+// multiple of 16 bytes, else 4-byte cp.async for float32 and plain
+// copies for bfloat16.
+template <typename T, typename RowId>
+__device__ __forceinline__ void gather_rows(T* dst, int ss, const T* src, size_t ld, int rows,
+                                            int n, RowId row_id) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(T));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bool vec = n % kPer == 0 && ld % kPer == 0 &&
                    (reinterpret_cast<uintptr_t>(src) & 15) == 0;
   for (int r = warp; r < rows; r += kThreads / 32) {
     T* d = dst + static_cast<size_t>(r) * ss;
-    const T* s = src + r * ld;
+    const T* s = src + static_cast<size_t>(row_id(r)) * ld;
     if (vec) {
       for (int c = lane * kPer; c < n; c += 32 * kPer) cp16(d + c, s + c);
     } else {
@@ -264,6 +272,13 @@ __device__ __forceinline__ void copy_rows(T* dst, int ss, const T* src, size_t l
   }
 }
 
+// The same for rows r = 0 .. rows-1 of src, ld apart.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ss, const T* src, size_t ld, int rows,
+                                          int n) {
+  gather_rows(dst, ss, src, ld, rows, n, [](int r) { return r; });
+}
+
 __device__ __forceinline__ void zero_smem(unsigned char* p, size_t bytes) {
   uint4* q = reinterpret_cast<uint4*>(p);
   for (size_t i = threadIdx.x; i < bytes / 16; i += kThreads) q[i] = make_uint4(0, 0, 0, 0);
@@ -273,48 +288,137 @@ __device__ __forceinline__ int group_start(const Params& p, int grp) {
   return p.blocks == nullptr ? 0 : min(p.head + p.blocks[grp] * p.S, p.vn - p.S);
 }
 
+// The table row of slab column s of group grp (whose start is `start`):
+// contiguous (K2/K3), or through the pool's ids (kPool, K5b).
+template <bool kPool>
+__device__ __forceinline__ int slab_row(const Params& p, int grp, int start, int s) {
+  if constexpr (kPool) {
+    return __ldg(p.ids + static_cast<size_t>(grp) * p.S + s);
+  } else {
+    return start + s;
+  }
+}
+
+// K * w[row] (K2/K3), or K alone: a pool slot has no weight table (K5b).
+template <bool kPool>
+__device__ __forceinline__ float slab_weight(const Params& p, int row) {
+  if constexpr (kPool) {
+    return p.kneg;
+  } else {
+    return p.kneg * __ldg(p.w + row);
+  }
+}
+
 // -- launch 1: logits, epilogue, g, d_center ---------------------------------
 
 // Whether launch 1 splits its v tile once, into hi and lo beside it, or as
 // each fragment is loaded: the narrow tiles (D <= 208) have the room.
 __host__ __device__ constexpr bool presplit(int NT2) { return NT2 < 8; }
 
+// The launch-1 tile's rows: rows e0 .. e0 + 63 of group blockIdx.y (K2,
+// K3; K5b where E/G > 32).
+struct OneGroup {
+  int grp, ne, start;
+  size_t base;  // the tile's first example
+  __device__ explicit OneGroup(const Params& p) {
+    const int e0 = static_cast<int>(blockIdx.x) * kTileE;
+    grp = static_cast<int>(blockIdx.y);
+    ne = min(kTileE, p.Eg - e0);
+    start = group_start(p, grp);
+    base = static_cast<size_t>(grp) * p.Eg + e0;
+  }
+  __device__ int rows(int h) const { return max(0, min(32, ne - 32 * h)); }
+  __device__ int group(int) const { return grp; }
+  __device__ int first(int) const { return start; }
+  __device__ bool valid(int m) const { return m < ne; }
+  __device__ size_t example(int m) const { return base + m; }
+};
+
+// K5b's tile: one group as OneGroup, or (p.pair, E/G <= 32) two groups, a
+// 32-row half each: half h is group 2 * blockIdx.y + h, its E/G examples
+// in rows 32h ...
+struct Halves {
+  int grp[2], n[2], start[2];
+  size_t base[2];
+  __device__ explicit Halves(const Params& p) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (p.pair) {
+        grp[h] = 2 * static_cast<int>(blockIdx.y) + h;
+        n[h] = grp[h] < p.G ? min(p.Eg, 32) : 0;
+        base[h] = static_cast<size_t>(min(grp[h], p.G - 1)) * p.Eg;
+      } else {
+        const int e0 = static_cast<int>(blockIdx.x) * kTileE + 32 * h;
+        grp[h] = static_cast<int>(blockIdx.y);
+        n[h] = max(0, min(32, p.Eg - e0));
+        base[h] = static_cast<size_t>(blockIdx.y) * p.Eg + e0;
+      }
+      start[h] = 0;  // a pool's rows come through its ids
+    }
+  }
+  // by a half index known only at run time, without a local-memory array
+  __device__ int rows(int h) const { return h ? n[1] : n[0]; }
+  __device__ int group(int h) const { return h ? grp[1] : grp[0]; }
+  __device__ int first(int h) const { return h ? start[1] : start[0]; }
+  __device__ bool valid(int m) const { return (m & 31) < rows(m >> 5); }
+  __device__ size_t example(int m) const { return (m >> 5 ? base[1] : base[0]) + (m & 31); }
+};
+
 // Shared memory: v tile [64][sv] (its tf32 hi parts, after the first
 // wait, where presplit) | its lo parts [64][sv] (presplit) | chunks
-// [2][NC][sc] T | g tile [64][NC + 8]
-// f32, which first carries the logits' exchange | row losses [64] f32.
-// Grid (ceil(Eg/64), G, d-slices of 32 * NT2 columns).  In the logits the
+// [2][NH][NC][sc] T (NH = 1 + pair: one chunk a half's group) | g tile
+// [64][NC + 8] f32, which first carries the logits' exchange | row losses
+// [64] f32.  Grid (ceil(Eg/64), G, d-slices of 32 * NT2 columns), or
+// (1, ceil(G/2), d-slices) with two groups a block.  In the logits the
 // warps pair up (wt = warp & 3) on rows 32 (wt & 1) .. +32 x chunk rows
 // (wt >> 1) * NC/2 .. +NC/2, each warp of a pair over half of d; in
 // d_center warp (wr, wc) of 2 x 4 takes rows 32 wr .. +32 and the slice's
 // n-tiles wc * NT2 .. +NT2 (columns past D hold finite values that are
-// never stored).
-template <typename T, int NC, int NT2>
+// never stored).  Either way a warp's rows lie in one half: one group,
+// one slab.  kPool: K5b's gathered slab (and, with p.pair, two groups a
+// block); K2/K3 compile without it.
+template <typename T, int NC, int NT2, bool kPool>
 __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kExact = Elem<T>::kExact, kPre = presplit(NT2);
   constexpr int NT1 = NC / 16, GS = NC + 8;
-  const int grp = blockIdx.y, dslice = blockIdx.z;
-  const int e0 = blockIdx.x * kTileE, ne = min(kTileE, p.Eg - e0);
-  const size_t eg0 = static_cast<size_t>(grp) * p.Eg + e0;
-  const int start = group_start(p, grp);
+  const int dslice = blockIdx.z;
+  const bool pair = kPool && p.pair;
+  const std::conditional_t<kPool, Halves, OneGroup> hv(p);
+  const int NH = 1 + pair;
   const int SV = p.sv, SC = p.sc;
   float* vt = reinterpret_cast<float*>(smem);
   uint32_t* vlo = reinterpret_cast<uint32_t*>(vt + kTileE * SV);
   T* cb = reinterpret_cast<T*>(vt + (kPre ? 2 : 1) * kTileE * SV);
-  float* gt = reinterpret_cast<float*>(cb + 2 * NC * SC);
+  float* gt = reinterpret_cast<float*>(cb + 2 * NH * NC * SC);
   float* lsum = gt + kTileE * GS;
   zero_smem(smem, reinterpret_cast<unsigned char*>(lsum + kTileE) - smem);
   __syncthreads();
 
-  const T* slab = static_cast<const T*>(p.ctx) + static_cast<size_t>(start) * p.D;
+  const T* table = static_cast<const T*>(p.ctx);
+  const auto chunk = [&](int c, int h) { return cb + ((c & 1) * NH + (pair ? h : 0)) * NC * SC; };
   const int nchunks = (p.S + NC - 1) / NC;
   const auto stage = [&](int c) {
-    const int r0 = c * NC;
-    copy_rows(cb + (c & 1) * NC * SC, SC, slab + static_cast<size_t>(r0) * p.D, p.D,
-              min(NC, p.S - r0), p.D);
+    const int r0 = c * NC, rows = min(NC, p.S - r0);
+    for (int h = 0; h < NH; ++h) {
+      if (hv.rows(h) == 0) continue;
+      if constexpr (kPool) {
+        const int* ids = p.ids + static_cast<size_t>(hv.group(h)) * p.S + r0;
+        gather_rows(chunk(c, h), SC, table, p.D, rows, p.D, [&](int r) { return __ldg(ids + r); });
+      } else {
+        copy_rows(chunk(c, h), SC, table + static_cast<size_t>(hv.first(h) + r0) * p.D, p.D, rows,
+                  p.D);
+      }
+    }
   };
-  copy_rows(vt, SV, p.v + eg0 * p.D, p.D, ne, p.D);
+  if constexpr (kPool) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      copy_rows(vt + 32 * h * SV, SV, p.v + hv.example(32 * h) * p.D, p.D, hv.rows(h), p.D);
+    }
+  } else {
+    copy_rows(vt, SV, p.v + hv.base * p.D, p.D, hv.ne, p.D);
+  }
   stage(0);
   cp_commit();
   if (nchunks > 1) stage(1);
@@ -326,13 +430,14 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
   // x chunk rows nb .. nb + NC/2, each warp of it half of d (kh); each then
   // keeps m-tile kh, rows m0 and m0 + 8, with the partner's partial added
   const int wt = warp & 3, kh = warp >> 2;
-  const int m0 = (wt & 1) * 32 + kh * 16 + g;
+  const int hl = wt & 1;  // the logits' half
+  const int m0 = hl * 32 + kh * 16 + g;
   const int nb = (wt >> 1) * (NC / 2);
-  const int r1 = (warp & 1) * 32 + g;  // d_center: rows r1 + 8i, i < 4
+  const int r1 = (warp & 1) * 32 + g;  // d_center: rows r1 + 8i, i < 4 (half warp & 1)
   const int dcol = dslice * 32 * NT2 + (warp >> 1) * 8 * NT2;  // its first column
   int cm[2];
 #pragma unroll
-  for (int h = 0; h < 2; ++h) cm[h] = m0 + 8 * h < ne ? p.contexts[eg0 + m0 + 8 * h] : -1;
+  for (int h = 0; h < 2; ++h) cm[h] = hv.valid(m0 + 8 * h) ? p.contexts[hv.example(m0 + 8 * h)] : -1;
   const int Dk = (p.D + 7) & ~7;
   const bool owner = dslice == 0;  // writes g, hits and the loss
   float lpart[2] = {0.0f, 0.0f};
@@ -354,16 +459,23 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
       }
       __syncthreads();
     }
-    const T* ch = cb + (c & 1) * NC * SC;
     const int r0 = c * NC;
-    // K * w of this lane's slab columns, loaded before the logits need them
+    // K * w of this lane's slab columns (and a pool's table rows), loaded
+    // before the logits need them
+    int rid[NT1][2];  // kPool only
     float kw[NT1][2];
 #pragma unroll
     for (int j = 0; j < NT1; ++j) {
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         const int s = min(r0 + nb + 8 * j + 2 * t + q, p.S - 1);
-        kw[j][q] = p.kneg * __ldg(p.w + start + s);
+        if constexpr (kPool) {
+          const bool live = hv.rows(hl) > 0;
+          rid[j][q] = live ? slab_row<true>(p, hv.group(hl), 0, s) : -1;
+          kw[j][q] = live ? slab_weight<true>(p, rid[j][q]) : 0.0f;
+        } else {
+          kw[j][q] = slab_weight<false>(p, hv.first(0) + s);
+        }
       }
     }
 
@@ -374,11 +486,11 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < NT1; ++j) acc1[m][j][0] = acc1[m][j][1] = acc1[m][j][2] = acc1[m][j][3] = 0.0f;
     }
-    const int rp = (wt & 1) * 32 + g;  // the pair's rows rp + 8i, i < 4
+    const int rp = hl * 32 + g;  // the pair's rows rp + 8i, i < 4
     const float* vf = vt + rp * SV + t;
     const uint32_t* vh = reinterpret_cast<const uint32_t*>(vf);
     const uint32_t* vl = vlo + rp * SV + t;
-    const T* ba = ch + (nb + g) * SC + t;
+    const T* ba = chunk(c, hl) + (nb + g) * SC + t;
     const int khalf = ((Dk >> 3) + 1) >> 1;  // k-steps of the first half
 #pragma unroll 2
     for (int k0 = 8 * kh * khalf; k0 < (kh ? Dk : 8 * khalf); k0 += 8) {
@@ -430,12 +542,13 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = m0 + 8 * h;
+        const bool live = hv.valid(m);
         float gv[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {
           const int s = r0 + n + q;
-          const bool in = m < ne && s < p.S;
-          const bool hit = start + s == cm[h];
+          const bool in = live && s < p.S;
+          const bool hit = (kPool ? rid[j][q] : hv.first(0) + s) == cm[h];
           // K * w * mask, 0 past the data: g = that * sigmoid, loss += that * softplus
           const float wm = in && !hit ? kw[j][q] : 0.0f;
           float sig, sp;
@@ -445,15 +558,17 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
           if (in && hit) hits |= 1u << ((2 * j + h) * 2 + q);
         }
         *reinterpret_cast<float2*>(gt + m * GS + n) = make_float2(gv[0], gv[1]);
-        if (owner && m < ne && r0 + n < p.Sp) {
-          *reinterpret_cast<float2*>(p.g + (eg0 + m) * p.Sp + r0 + n) =
+        if (owner && live && r0 + n < p.Sp) {
+          *reinterpret_cast<float2*>(p.g + hv.example(m) * p.Sp + r0 + n) =
               make_float2(gv[0], gv[1]);
         }
       }
     }
     if (hits && owner) {  // rare: a context inside the slab
       for (int b = 0; b < 4 * NT1; ++b) {
-        if (hits >> b & 1) atomicAdd(&p.hits[grp * p.S + r0 + nb + 8 * (b >> 2) + 2 * t + (b & 1)], 1);
+        if (hits >> b & 1) {
+          atomicAdd(&p.hits[hv.group(hl) * p.S + r0 + nb + 8 * (b >> 2) + 2 * t + (b & 1)], 1);
+        }
       }
     }
     __syncthreads();  // the g tile in place
@@ -461,7 +576,7 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
     // d_center += g tile (rows r1 + 8i) . chunk (this warp's columns)
     const int kend = (min(NC, p.S - r0) + 7) & ~7;
     const float* ga = gt + r1 * GS + 2 * t;
-    const T* bb = ch + 2 * t * SC + dcol + g;
+    const T* bb = chunk(c, warp & 1) + 2 * t * SC + dcol + g;
 #pragma unroll 2
     for (int kk = 0; kk < kend; kk += 8) {
       uint32_t ah[2][4], al[2][4];
@@ -489,8 +604,9 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
     if (t == 0) atomicAdd(&lsum[m0 + 8 * h], lpart[h]);
   }
   // d_center: the tile's sums through shared memory (over the v tile and
-  // chunks, free now), then row by row, 4 rows a warp at a time with every
-  // base loaded before any store, so that the loads overlap
+  // chunks, free now), then row by row, 4 rows a warp at a time (all in
+  // one half) with every base loaded before any store, so that the loads
+  // overlap
   constexpr int DT = 32 * NT2 + 4;  // the staged tile's row stride
   float* tile = vt;
 #pragma unroll
@@ -504,13 +620,17 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
   __syncthreads();
   const int d0 = dslice * 32 * NT2, dn = min(32 * NT2, p.D - d0);
   constexpr int kCols = NT2;  // columns a lane: lane + 32k, k < NT2 (32 * NT2 in all)
-  for (int rb = warp * 4; rb < ne; rb += 4 * (kThreads / 32)) {
+  for (int rb = warp * 4; rb < kTileE; rb += 4 * (kThreads / 32)) {
+    const int nh = hv.rows(rb >> 5), k0 = rb & 31;
+    if (k0 >= nh) continue;  // warp-uniform
+    const size_t e0 = hv.example(rb);
     float base[4][kCols];
 #pragma unroll
     for (int rr = 0; rr < 4; ++rr) {
-      const size_t o = (eg0 + min(rb + rr, ne - 1)) * p.D + d0;
+      const size_t er = e0 + min(rr, nh - 1 - k0);
+      const size_t o = er * p.D + d0;
       if (p.init_center) {
-        const float gp = p.g_pos[eg0 + min(rb + rr, ne - 1)];
+        const float gp = p.g_pos[er];
 #pragma unroll
         for (int k = 0; k < kCols; ++k) {
           base[rr][k] = __fmul_rn(gp, p.u[o + min(lane + 32 * k, dn - 1)]);
@@ -524,15 +644,16 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
     for (int rr = 0; rr < 4; ++rr) {
 #pragma unroll
       for (int k = 0; k < kCols; ++k) {
-        const int r = rb + rr, c = lane + 32 * k;
-        if (r < ne && c < dn) {
-          p.d_center[(eg0 + r) * p.D + d0 + c] = __fadd_rn(base[rr][k], tile[r * DT + c]);
+        const int c = lane + 32 * k;
+        if (k0 + rr < nh && c < dn) {
+          p.d_center[(e0 + rr) * p.D + d0 + c] = __fadd_rn(base[rr][k], tile[(rb + rr) * DT + c]);
         }
       }
     }
   }
   __syncthreads();
-  if (owner && threadIdx.x < ne) p.loss[eg0 + threadIdx.x] = lsum[threadIdx.x];
+  const int m = threadIdx.x;
+  if (owner && m < kTileE && hv.valid(m)) p.loss[hv.example(m)] = lsum[m];
 }
 
 // -- launch 2: acc rows ------------------------------------------------------
@@ -542,7 +663,7 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
 // read.  Grid (ceil(S/128), G * splits, d-slices of 16 * NT3 columns).
 // Warp (wr, wc) of 4 x 2 takes slab rows 32 wr .. +32 and the slice's
 // n-tiles wc * NT3 .. +NT3.
-template <int NT3>
+template <int NT3, bool kPool>
 __global__ void __launch_bounds__(kThreads) rows_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int s0 = blockIdx.x * kTileS;
@@ -625,24 +746,17 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(Params p) {
   __syncthreads();
   const int D1 = p.D + 1;
   for (int r = warp; r < min(kTileS, p.S - s0); r += kThreads / 32) {
-    float* arow = p.acc + static_cast<size_t>(start + s0 + r) * D1 + d0;
+    float* arow = p.acc + static_cast<size_t>(slab_row<kPool>(p, grp, start, s0 + r)) * D1 + d0;
     const float* trow = tile + r * TS;
-    const int head = min(dn, static_cast<int>((16 - reinterpret_cast<uintptr_t>(arow) % 16) % 16) / 4);
-    const int body = (dn - head) & ~3;
-    if (lane < head) atomicAdd(arow + lane, trow[lane]);
-    for (int d = head + 4 * lane; d < head + body; d += 128) {
-      atomicAdd(reinterpret_cast<float4*>(arow + d),
-                make_float4(trow[d], trow[d + 1], trow[d + 2], trow[d + 3]));
-    }
-    if (lane < dn - head - body) atomicAdd(arow + head + body + lane, trow[head + body + lane]);
+    g2v_add_row(arow, dn, lane, [&](int d) { return trow[d]; });
   }
   if (blockIdx.z == 0 && split_id == 0 && threadIdx.x < kTileS) {
     const int s = s0 + threadIdx.x;
     if (s < p.S) {
-      const int row = start + s;
+      const int row = slab_row<kPool>(p, grp, start, s);
       const int cnt = p.Eg - p.hits[grp * p.S + s];
       atomicAdd(&p.acc[static_cast<size_t>(row) * D1 + p.D],
-                (p.kneg * p.w[row]) * static_cast<float>(cnt));
+                slab_weight<kPool>(p, row) * static_cast<float>(cnt));
     }
   }
 }
@@ -653,7 +767,7 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(Params p) {
 inline int stride_4mod8(int n) { return n + ((12 - n % 8) % 8); }
 
 // Lets kKernel take the card's whole opt-in shared memory, once per device.
-// Static, so that each library (K2's, K3's) keeps its own flags: an inline
+// Static, so that each library (K2's, K3's, K5b's) keeps its own flags: an inline
 // function's static would be one object across every loaded library.
 template <auto kKernel>
 static int allow_smem() {
@@ -669,29 +783,30 @@ static int allow_smem() {
   return static_cast<int>(err);
 }
 
-template <typename T, int NC, int NT2, int NT3>
+template <typename T, bool kPool, int NC, int NT2, int NT3>
 inline int launch_at(Params p, int G, cudaStream_t stream) {
   const int dslices1 = (p.D + 32 * NT2 - 1) / (32 * NT2);
   const int dslices3 = (p.D + 16 * NT3 - 1) / (16 * NT3);
   const size_t bytes1 =
       4 * static_cast<size_t>(kTileE) * ((presplit(NT2) ? 2 : 1) * p.sv + NC + 8 + 1) +
-      2 * static_cast<size_t>(NC) * p.sc * sizeof(T);
+      2 * static_cast<size_t>(1 + (kPool && p.pair)) * NC * p.sc * sizeof(T);
   p.sv3 = stride_4mod8((min(p.D, 16 * NT3) + 7) & ~7);
   const size_t bytes2 = static_cast<size_t>(kStages * kChunkE) * (kGs3 + p.sv3) * 4 + 1024;
   // launch 2's example ranges: whole chunks, as many as asked for
   p.chunk_e = ((p.Eg + p.splits - 1) / p.splits + kChunkE - 1) / kChunkE * kChunkE;
   p.splits = (p.Eg + p.chunk_e - 1) / p.chunk_e;
-  int status = allow_smem<logits_center_kernel<T, NC, NT2>>();
-  if (status == 0) status = allow_smem<rows_kernel<NT3>>();
+  int status = allow_smem<logits_center_kernel<T, NC, NT2, kPool>>();
+  if (status == 0) status = allow_smem<rows_kernel<NT3, kPool>>();
   if (status != 0) return status;
   cudaError_t err = cudaMemsetAsync(p.hits, 0, sizeof(int) * G * p.S, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  logits_center_kernel<T, NC, NT2>
-      <<<dim3((p.Eg + kTileE - 1) / kTileE, G, dslices1), kThreads, bytes1, stream>>>(p);
+  const dim3 grid1 = kPool && p.pair ? dim3(1, (G + 1) / 2, dslices1)
+                                     : dim3((p.Eg + kTileE - 1) / kTileE, G, dslices1);
+  logits_center_kernel<T, NC, NT2, kPool><<<grid1, kThreads, bytes1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  rows_kernel<NT3><<<dim3((p.S + kTileS - 1) / kTileS, G * p.splits, dslices3), kThreads,
-                     bytes2, stream>>>(p);
+  rows_kernel<NT3, kPool><<<dim3((p.S + kTileS - 1) / kTileS, G * p.splits, dslices3),
+                            kThreads, bytes2, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -699,33 +814,45 @@ inline int launch_at(Params p, int G, cudaStream_t stream) {
 // n-tiles a warp by D, the v tile split once up to D = 200 (float32
 // tables; 208 bf16), then d-slices of 256 columns and the v tile split as
 // loaded, in chunks of 64 slab rows, or 32 / 16 where a wide D leaves no
-// room for 64.  Returns a CUDA error code (cudaErrorInvalidValue where D
-// is too wide for even 16-row chunks: float32 D > 584, bfloat16 D > 696).
-template <typename T>
+// room for 64 (two groups a block stage two chunks of each).  Returns a
+// CUDA error code (cudaErrorInvalidValue where D is too wide for even
+// 16-row chunks: float32 D > 584, bfloat16 D > 696, at one group a block).
+template <typename T, bool kPool>
 inline int launch(Params p, int G, cudaStream_t stream) {
   if (p.Eg == 0 || G == 0) return 0;
+  p.G = G;
+  p.pair = kPool && p.pair;
   const int Dk = (p.D + 7) & ~7;
   p.sv = stride_4mod8(Dk);
   // chunk rows 4 mod 8 words apart (bfloat16: 8 mod 16 elements)
   p.sc = sizeof(T) == 4 ? stride_4mod8(Dk) : 2 * stride_4mod8((Dk + 1) / 2);
   const auto fits = [&](int nc, int vparts) {
     return 4 * static_cast<size_t>(kTileE) * (vparts * p.sv + nc + 8 + 1) +
-               2 * static_cast<size_t>(nc) * p.sc * sizeof(T) <= kMaxSmem;
+               2 * static_cast<size_t>(1 + p.pair) * nc * p.sc * sizeof(T) <= kMaxSmem;
   };
   const int tiles = Dk / 8;  // 8-column n-tiles of d
   if (tiles <= 26 && fits(64, 2)) {
-    if (tiles <= 8) return launch_at<T, 64, 2, 4>(p, G, stream);
-    if (tiles <= 16) return launch_at<T, 64, 4, 8>(p, G, stream);
-    return launch_at<T, 64, 7, 13>(p, G, stream);
+    if (tiles <= 8) return launch_at<T, kPool, 64, 2, 4>(p, G, stream);
+    if (tiles <= 16) return launch_at<T, kPool, 64, 4, 8>(p, G, stream);
+    return launch_at<T, kPool, 64, 7, 13>(p, G, stream);
   }
-  if (fits(64, 1)) return launch_at<T, 64, 8, 16>(p, G, stream);
-  if (fits(32, 1)) return launch_at<T, 32, 8, 16>(p, G, stream);
-  if (fits(16, 1)) return launch_at<T, 16, 8, 16>(p, G, stream);
+  if constexpr (kPool) {
+    if (p.pair && tiles <= 26 && fits(32, 2)) {  // two float32 chunks of 64 rows do not fit
+      if (tiles <= 8) return launch_at<T, kPool, 32, 2, 4>(p, G, stream);
+      if (tiles <= 16) return launch_at<T, kPool, 32, 4, 8>(p, G, stream);
+      return launch_at<T, kPool, 32, 7, 13>(p, G, stream);
+    }
+  }
+  if (fits(64, 1)) return launch_at<T, kPool, 64, 8, 16>(p, G, stream);
+  if (fits(32, 1)) return launch_at<T, kPool, 32, 8, 16>(p, G, stream);
+  if (fits(16, 1)) return launch_at<T, kPool, 16, 8, 16>(p, G, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// kPool: K5b's gathered slabs (p.ids); K2 and K3 launch without.
+template <bool kPool>
 inline int launch_as(const Params& p, int G, int bf16, cudaStream_t stream) {
-  return bf16 ? launch<__nv_bfloat16>(p, G, stream) : launch<float>(p, G, stream);
+  return bf16 ? launch<__nv_bfloat16, kPool>(p, G, stream) : launch<float, kPool>(p, G, stream);
 }
 
 }  // namespace tc

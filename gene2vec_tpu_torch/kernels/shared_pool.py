@@ -13,7 +13,10 @@ P/G slice of the pool of P alias draws::
     acc_ctx[pool] += [g_negᵀ @ v_g | scale·Σ_e mask]   (float32 count)
 
 Returns (d_center, loss_neg); ``acc_ctx`` is updated in place.  ``ctx``
-is float32 or bfloat16; the pool rows are upcast to float32.
+is float32 or bfloat16; the pool rows are upcast to float32.  On the card
+the products run on the tensor cores through K2/K3's 3xTF32 split (two
+passes where the operand is a bfloat16 row), in two launches, with each
+group's pool rows gathered into the staged slab.
 """
 
 from __future__ import annotations
@@ -72,17 +75,17 @@ def shared_pool(v, u, g_pos, contexts, pool, ctx, k_neg: int, groups: int, acc_c
     lib = _lib()
     dev = v.device
     s = p // g
-    g_scratch = torch.empty((e, s), dtype=torch.float32, device=dev)
-    hits = torch.zeros((p,), dtype=torch.int32, device=dev)
-    loss_neg = torch.zeros((e,), dtype=torch.float32, device=dev)
+    sp = _args.padded_slab(s)
+    g_scratch = torch.empty((e, sp), dtype=torch.float32, device=dev)
+    hits = torch.empty((g, s), dtype=torch.int32, device=dev)
+    loss_neg = torch.empty((e,), dtype=torch.float32, device=dev)
     d_center = torch.empty((e, d), dtype=torch.float32, device=dev)
-    tiles = -(-d // 64) * -(-s // 64)
-    splits = _args.split_k(tiles, g, e // g, dev)
+    splits = _args.noise_ranges(g * -(-s // 128) * -(-d // 256), e // g, v)
     status = lib.k5_shared(
         _args.ptr(v), _args.ptr(u), _args.ptr(g_pos), _args.ptr(contexts),
         _args.ptr(ctx), _args.ptr(pool), pool_scale(k_neg, g, p), _args.ptr(g_scratch),
         _args.ptr(hits), _args.ptr(loss_neg), _args.ptr(d_center), _args.ptr(acc_ctx),
-        e, d, g, s, splits, bf16, _args.stream(v),
+        e, d, g, s, sp, splits, bf16, _args.stream(v),
     )
     build.check(lib, status, "K5b shared_pool launch")
     launches["shared_pool", "bf16" if bf16 else ""] += 1
@@ -94,6 +97,6 @@ def _lib():
     fn = lib.k5_shared
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, F, P, P, P, P, P, I, I, I, I, I, I, I, P]
         fn.restype = I
     return lib

@@ -11,9 +11,11 @@ in which token is the input and which is the target:
 * ``cbow_hs``  — input = the context row, the path of the center.
 
 Hierarchical softmax runs through K6 (``kernels/hs.py``): with
-``hs_dense_depth > 0`` the first tree levels are scored densely against
-the contiguous node-table prefix (``huffman.split_shallow``) and only the
-deep remainders of rare tokens' paths are gathered.  The node table has
+``hs_dense_depth > 0`` the first tree levels live in a contiguous
+node-table prefix (``huffman.split_shallow``), which the reference scores
+densely; the port visits each target's shallow path as a short list
+(``huffman.shallow_paths``, built once by the trainer) beside the deep
+remainders of rare tokens' paths.  The node table has
 V − 1 rows; its accumulator and the input table's finalize through K4's
 generic entry points with the SGNS step's combiner.  bfloat16 tables write
 back as in the SGNS step, with the salts of the input table and of the
@@ -49,7 +51,12 @@ from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
 from gene2vec_tpu_torch.kernels.hs import hs
 from gene2vec_tpu_torch.kernels.row_update import Touched, finalize_rows, scatter_rows
-from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
+from gene2vec_tpu_torch.sgns.huffman import (
+    ShallowPaths,
+    build_huffman_tree,
+    shallow_paths,
+    split_shallow,
+)
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
 from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step, sr_salts_for
 from gene2vec_tpu_torch.sgns.train import (
@@ -72,6 +79,14 @@ from gene2vec_tpu_torch.utils.profiling import StepTimer
 OBJECTIVES = tuple(o for o in _ALL_OBJECTIVES if o != "sgns")
 
 
+def shallow_on(split, device) -> ShallowPaths:
+    """:func:`shallow_paths` of ``split`` as tensors on ``device``: K6's
+    shallow levels, built once per tree."""
+    paths = shallow_paths(split)
+    return ShallowPaths(torch.from_numpy(paths.ids).to(device),
+                        torch.from_numpy(paths.signs).to(device), paths.n_shallow)
+
+
 def hs_step(
     params: SGNSParams,   # emb = input table, ctx = (V-1, D) node table
     pairs: torch.Tensor,
@@ -83,23 +98,19 @@ def hs_step(
     cbow: bool,
     both_directions: bool = True,
     combiner: str = "capped",
-    shallow_sign: Optional[torch.Tensor] = None,  # (V, Ns) int8, split layout
-    n_shallow: int = 0,
+    shallow: Optional[ShallowPaths] = None,  # of tensors, split layout
     sr_salts=None,
     stochastic_round: bool = True,
 ) -> Tuple[SGNSParams, torch.Tensor]:
     """One hierarchical-softmax SGD step over a batch of corpus pairs;
     updates ``params`` in place and returns (params, loss).  With
-    ``shallow_sign``/``n_shallow`` (the :func:`split_shallow` layout;
-    ``tree_*`` are then the deep remainders) the first levels are scored
-    densely against ``node[:n_shallow]``.  bfloat16 tables: ``sr_salts``
+    ``shallow`` (:func:`shallow_on` of the :func:`split_shallow` layout;
+    ``tree_*`` are then the deep remainders) the first levels are those of
+    ``node[:n_shallow]`` — the reference's ``shallow_sign`` rows as short
+    paths.  bfloat16 tables: ``sr_salts``
     is (2, 2) uint32 words, the input table's row then the node table's
     (``bits(split(sr_key))``, cbow_hs.py:339-343), or drawn from the
     default generator; ``stochastic_round`` off rounds to nearest-even."""
-    if shallow_sign is not None and shallow_sign.shape[1] != n_shallow:
-        raise ValueError(
-            f"shallow_sign has {shallow_sign.shape[1]} columns, n_shallow={n_shallow}"
-        )
     salts = sr_salts_for(params, sr_salts, stochastic_round, None)
     salt_e, salt_n = (None, None) if salts is None else salts
     centers, contexts = _examples_from_pairs(pairs, both_directions)
@@ -108,10 +119,9 @@ def hs_step(
     d = emb.shape[1]
     acc_emb = torch.zeros((emb.shape[0], d + 1), dtype=torch.float32, device=emb.device)
     acc_node = torch.zeros((node.shape[0], d + 1), dtype=torch.float32, device=emb.device)
-    # K6: the deep path rows gathered, the shallow prefix dense
+    # K6: every path entry, shallow and deep, gathered
     d_input, loss_deep, loss_shallow = hs(emb, node, inputs, targets, tree_points,
-                                          tree_codes, tree_lengths, shallow_sign,
-                                          acc_node)
+                                          tree_codes, tree_lengths, shallow, acc_node)
     loss = torch.mean(loss_deep)
     if loss_shallow is not None:
         loss = loss + torch.mean(loss_shallow)
@@ -120,7 +130,7 @@ def hs_step(
     # the shallow prefix and the targets' deep path nodes
     scatter_rows(acc_emb, inputs, d_input, torch.ones_like(loss_deep))
     finalize_rows(emb, acc_emb, lr, combiner, salt_e, Touched(ids=inputs))
-    node_rows = Touched(prefix=n_shallow if shallow_sign is not None else 0,
+    node_rows = Touched(prefix=shallow.n_shallow if shallow is not None else 0,
                         paths=(tree_points, tree_lengths, targets))
     finalize_rows(node, acc_node, lr, combiner, salt_n, node_rows)
     return params, loss
@@ -157,14 +167,16 @@ class CBOWHSTrainer:
         self.noise = None
         if self.hs:
             self.tree = build_huffman_tree(corpus.vocab.counts)
+            self._shallow = None
             if config.hs_dense_depth > 0 and self.tree.num_nodes > 1:
                 self.split = split_shallow(self.tree, config.hs_dense_depth)
                 arrays = (self.split.points_deep, self.split.codes_deep,
-                          self.split.lengths_deep, self.split.sign)
+                          self.split.lengths_deep)
+                self._shallow = shallow_on(self.split, self.device)
             else:
-                arrays = (self.tree.points, self.tree.codes, self.tree.lengths, None)
-            self._points, self._codes, self._lengths, self._sign = (
-                None if a is None else torch.from_numpy(a).to(self.device) for a in arrays
+                arrays = (self.tree.points, self.tree.codes, self.tree.lengths)
+            self._points, self._codes, self._lengths = (
+                torch.from_numpy(a).to(self.device) for a in arrays
             )
         else:
             e = config.batch_pairs * (2 if config.both_directions else 1)
@@ -232,9 +244,7 @@ class CBOWHSTrainer:
                 params, loss = hs_step(
                     params, batch, self._points, self._codes, self._lengths, lr,
                     cbow=cbow, both_directions=cfg.both_directions,
-                    combiner=cfg.combiner, shallow_sign=self._sign,
-                    n_shallow=self.split.n_shallow if self.split else 0,
-                    **step_salts(step),
+                    combiner=cfg.combiner, shallow=self._shallow, **step_salts(step),
                 )
             else:
                 # cbow + negative sampling: the swapped pair, so the input

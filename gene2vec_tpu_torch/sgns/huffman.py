@@ -114,6 +114,42 @@ def split_shallow(tree: HuffmanTree, depth: int) -> ShallowSplit:
     )
 
 
+class ShallowPaths(NamedTuple):
+    """Each token's shallow path as a short list, for K6: the nonzero
+    entries of its :class:`ShallowSplit` sign row in level order (root
+    first).  Fields are numpy arrays from :func:`shallow_paths`, or the
+    same arrays as tensors on the training device."""
+
+    ids: object       # (V, Ls) int32 — shallow node ids, level order; 0 past the path
+    signs: object     # (V, Ls) int8 — the sign row's entry at each id; 0 past the path
+    n_shallow: int    # the node prefix the ids lie in: [0, n_shallow)
+
+
+def shallow_paths(split: ShallowSplit) -> ShallowPaths:
+    """The compact form of ``split.sign``: per token, its nonzero columns
+    (at most ``depth`` of them, as a prefix of Ls = the longest row's
+    count) in descending column order, which is level order.
+
+    Why descending is level order: internal nodes are numbered in
+    creation order, a parent after its children, and ``split_shallow``
+    renumbers the shallow ones keeping that order — so along any path
+    the ids fall from the root down.  K6 relies on it: a level-l entry
+    is the l-th of its row, and the path's codes above it name the
+    node's place in level l."""
+    sign = split.sign
+    v = sign.shape[0]
+    rows, rcols = np.nonzero(sign[:, ::-1])         # row-major: descending columns
+    cols = sign.shape[1] - 1 - rcols
+    count = np.bincount(rows, minlength=v)
+    ls = max(int(count.max()) if v else 0, 1)
+    pos = np.arange(rows.size) - np.repeat(np.cumsum(count) - count, count)
+    ids = np.zeros((v, ls), np.int32)
+    signs = np.zeros((v, ls), np.int8)
+    ids[rows, pos] = cols
+    signs[rows, pos] = sign[rows, cols]
+    return ShallowPaths(ids=ids, signs=signs, n_shallow=split.n_shallow)
+
+
 def build_huffman_tree(counts: np.ndarray) -> HuffmanTree:
     """Standard word2vec Huffman construction over token counts.
 

@@ -230,9 +230,9 @@ def _hs_setup(depth, seed=0):
     tree = jhuff.build_huffman_tree(counts)
     if depth:
         s = jhuff.split_shallow(tree, depth)
-        arrays = (s.points_deep, s.codes_deep, s.lengths_deep, s.sign, s.n_shallow)
+        arrays = (s.points_deep, s.codes_deep, s.lengths_deep, s.sign, s)
     else:
-        arrays = (tree.points, tree.codes, tree.lengths, None, 0)
+        arrays = (tree.points, tree.codes, tree.lengths, None, None)
     return pairs, tree.num_nodes, arrays
 
 
@@ -240,19 +240,20 @@ def _hs_setup(depth, seed=0):
 @pytest.mark.parametrize("depth", [0, 3])
 @pytest.mark.parametrize("sr", [True, False], ids=["sr", "nearest"])
 def test_hs_step_matches(cbow, depth, sr):
-    pairs, nodes, (pts, cds, lens, sign, ns) = _hs_setup(depth, seed=1)
+    pairs, nodes, (pts, cds, lens, sign, split) = _hs_setup(depth, seed=1)
     pairs[:40, 1] = 0  # the hottest token's path in 80 examples: capped binds
     jp = _bf16_tables(V, nodes, D, seed=1)
     sr_key = jax.random.PRNGKey(5)
     jsign = None if sign is None else jnp.asarray(sign)
     want, wloss = jcbow.hs_step(
         jp, jnp.asarray(pairs), jnp.asarray(pts), jnp.asarray(cds), jnp.asarray(lens),
-        jnp.float32(0.05), cbow=cbow, shallow_sign=jsign, n_shallow=ns,
+        jnp.float32(0.05), cbow=cbow, shallow_sign=jsign,
+        n_shallow=split.n_shallow if split else 0,
         sr_key=sr_key if sr else None)
     tp = from_jax_params(jp.emb, jp.ctx)
     got, gloss = tcbow.hs_step(
         tp, _t(pairs), _t(pts), _t(cds), _t(lens), 0.05, cbow=cbow,
-        shallow_sign=None if sign is None else _t(sign), n_shallow=ns,
+        shallow=None if split is None else tcbow.shallow_on(split, "cpu"),
         stochastic_round=sr, sr_salts=_hs_salts(sr_key) if sr else None)
     _check_step(got, gloss, want, wloss, "cbow_hs" if cbow else "sg_hs")
 

@@ -84,6 +84,33 @@ def test_huffman_and_split_are_array_identical(counts):
             np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("counts", [
+    [2, 2], [5, 5, 5, 5, 5], [1, 2, 3, 4, 5, 6, 7, 8],
+    list(_zipf_corpus()[1]), list(np.arange(600, 0, -1) ** 2),
+], ids=["pair", "ties", "ramp", "zipf", "square"])
+def test_shallow_paths_are_the_sign_rows_in_level_order(counts):
+    """K6's compact shallow layout: scattered back it is the reference's
+    ``split_shallow`` sign matrix entry for entry, and each row's ids are
+    the tree's first levels of that token's path, root first."""
+    tree = jhuff.build_huffman_tree(np.asarray(counts))
+    for depth in (1, 3, 10, 40):
+        split = jhuff.split_shallow(tree, depth)
+        paths = thuff.shallow_paths(split)
+        assert paths.ids.dtype == np.int32 and paths.signs.dtype == np.int8
+        assert paths.n_shallow == split.n_shallow
+        back = np.zeros_like(split.sign)
+        rows = np.repeat(np.arange(len(back)), paths.ids.shape[1])
+        back[rows, paths.ids.reshape(-1)] += paths.signs.reshape(-1)
+        np.testing.assert_array_equal(back, split.sign)
+        n = np.minimum(tree.lengths, depth)
+        for t in range(len(n)):
+            np.testing.assert_array_equal(paths.ids[t, :n[t]],
+                                          split.perm[tree.points[t, :n[t]]])
+            np.testing.assert_array_equal(paths.signs[t, :n[t]],
+                                          1 - 2 * tree.codes[t, :n[t]])
+            assert not paths.signs[t, n[t]:].any() and not paths.ids[t, n[t]:].any()
+
+
 # -- K6 and the HS step ---------------------------------------------------------
 
 
@@ -95,22 +122,24 @@ def _hs_setup(depth, seed=0, v=V, d=D):
     node = (rng.randn(tree.num_nodes, d) * 0.1).astype(np.float32)
     if depth:
         s = jhuff.split_shallow(tree, depth)
-        arrays = (s.points_deep, s.codes_deep, s.lengths_deep, s.sign, s.n_shallow)
+        arrays = (s.points_deep, s.codes_deep, s.lengths_deep, s.sign, s)
     else:
-        arrays = (tree.points, tree.codes, tree.lengths, None, 0)
+        arrays = (tree.points, tree.codes, tree.lengths, None, None)
     return pairs[:B], emb, node, arrays
 
 
-@pytest.mark.parametrize("depth", [0, 3])
+@pytest.mark.parametrize("depth", [0, 3, 10])
 def test_k6_plain_matches_jax(depth):
-    pairs, emb, node, (pts, cds, lens, sign, ns) = _hs_setup(depth)
+    pairs, emb, node, (pts, cds, lens, sign, split) = _hs_setup(depth)
+    ns = split.n_shallow if split else 0
     inputs, targets = pairs[:, 0], pairs[:, 1]
     loss, d_input, d_node, jpts, mask = jcbow.hs_loss_and_grads(
         jnp.asarray(emb), jnp.asarray(node), jnp.asarray(inputs), jnp.asarray(targets),
         jnp.asarray(pts), jnp.asarray(cds), jnp.asarray(lens))
     acc = torch.zeros((node.shape[0], D + 1))
     di, ld, ls = khs.hs(_t(emb), _t(node), _t(inputs), _t(targets), _t(pts), _t(cds),
-                        _t(lens), None if sign is None else _t(sign), acc)
+                        _t(lens), None if split is None else tcbow.shallow_on(split, "cpu"),
+                        acc)
     np.testing.assert_allclose(float(ld.mean()), float(loss), rtol=1e-6)
     want_acc = jnp.zeros((node.shape[0], D + 1)).at[jpts.reshape(-1)].add(
         jnp.concatenate([d_node.reshape(-1, D), mask.reshape(-1, 1)], axis=1))
@@ -153,20 +182,23 @@ def test_k6_bound_counts_only_on_path_entries(depth):
 
 
 @pytest.mark.parametrize("cbow", [False, True], ids=["sg_hs", "cbow_hs"])
-@pytest.mark.parametrize("depth", [0, 3])
+@pytest.mark.parametrize("depth", [0, 3, 10])
 @pytest.mark.parametrize("combiner", ["capped", "sum"])
 def test_hs_step_matches(cbow, depth, combiner):
-    pairs, emb, node, (pts, cds, lens, sign, ns) = _hs_setup(depth, seed=1)
+    pairs, emb, node, (pts, cds, lens, sign, split) = _hs_setup(depth, seed=1)
+    ns = split.n_shallow if split else 0
     pairs = pairs.copy()
     pairs[:40, 1] = 0  # the hottest token's path in 80 examples: capped binds
     jp = JParams(emb=jnp.asarray(emb), ctx=jnp.asarray(node))
-    kw = dict(cbow=cbow, combiner=combiner, n_shallow=ns)
+    kw = dict(cbow=cbow, combiner=combiner)
     want, wloss = jcbow.hs_step(
         jp, jnp.asarray(pairs), jnp.asarray(pts), jnp.asarray(cds), jnp.asarray(lens),
-        jnp.float32(0.05), shallow_sign=None if sign is None else jnp.asarray(sign), **kw)
+        jnp.float32(0.05), shallow_sign=None if sign is None else jnp.asarray(sign),
+        n_shallow=ns, **kw)
     tp = from_jax_params(emb, node)
-    got, gloss = tcbow.hs_step(tp, _t(pairs), _t(pts), _t(cds), _t(lens), 0.05,
-                               shallow_sign=None if sign is None else _t(sign), **kw)
+    got, gloss = tcbow.hs_step(
+        tp, _t(pairs), _t(pts), _t(cds), _t(lens), 0.05,
+        shallow=None if split is None else tcbow.shallow_on(split, "cpu"), **kw)
     np.testing.assert_allclose(float(gloss), float(wloss), rtol=1e-6)
     assert_rows_close(got.emb.numpy(), want.emb)
     assert_rows_close(got.ctx.numpy(), want.ctx)

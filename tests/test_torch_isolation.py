@@ -398,6 +398,14 @@ def test_bf16_index_raises_on_the_card(monkeypatch):
         quant_scan.quant_scan(qn, table.float(), torch.ones(8), 4)
 
 
+def _shallow():
+    """A two-level shallow-path layout for four tokens (K6's argument)."""
+    from gene2vec_tpu_torch.sgns.huffman import ShallowPaths
+
+    return ShallowPaths(torch.zeros(4, 2, dtype=torch.int32),
+                        torch.zeros(4, 2, dtype=torch.int8), 2)
+
+
 def _training_calls():
     from gene2vec_tpu_torch.kernels import (
         hs, noise_head, noise_tail, per_example, pos_logit, row_update, shared_pool)
@@ -415,7 +423,7 @@ def _training_calls():
          lambda: shared_pool.shared_pool(f, f, g, ids, ids, f, 5, 2, acc)),
         (hs, "hs", "k6_hs",
          lambda: hs.hs(f, f[:3], ids, ids, ids[:, None], torch.zeros(4, 1), ids,
-                       torch.zeros(4, 2, dtype=torch.int8), acc[:3])),
+                       _shallow(), acc[:3])),
         (row_update, "scatter_rows", "k4_row_update",
          lambda: row_update.scatter_rows(acc, ids, f, g)),
         (row_update, "finalize_rows", "k4_row_update",
@@ -436,7 +444,7 @@ def _training_calls():
          lambda: shared_pool.shared_pool(f, f, g, ids, ids, t, 5, 2, acc)),
         (hs, "hs", "k6_hs",
          lambda: hs.hs(t, t[:3], ids, ids, ids[:, None], torch.zeros(4, 1), ids,
-                       torch.zeros(4, 2, dtype=torch.int8), acc[:3])),
+                       _shallow(), acc[:3])),
         (row_update, "finalize_rows", "k4_row_update",
          lambda: row_update.finalize_rows(t, acc, 0.1, "capped", salts[0])),
     ]
@@ -459,7 +467,6 @@ def test_training_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, cas
 
     monkeypatch.setattr(build, "load", fake_load)
     monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
-    monkeypatch.setattr(_args, "split_k", lambda *a: 1)  # reads the card's properties
     monkeypatch.setattr(mod, f"{name}_plain", lambda *a: pytest.fail("plain"))
     with pytest.raises(RuntimeError, match="unavailable"):
         call()

@@ -1,5 +1,7 @@
-"""The 3xTF32 split that K2 and K3 compute their products with, modelled in
-numpy and held against float64 at the default step's shapes.
+"""The 3xTF32 split that K2, K3 and K5b compute their products with,
+modelled in numpy and held against float64 at the default step's shapes
+(K5b: the shared pool's auto layout, G = 256 groups of E/G = 32 examples
+against P/G = 128 pool rows each).
 
 The card kernels (``csrc/noise_tc.cuh``) split each float32 operand x into
 hi = rna(x) and lo = rna(x - hi) — rna rounds to tf32's 10 mantissa bits,
@@ -20,6 +22,7 @@ import pytest
 from chip_smoke import REL_TOL
 
 D, E, H, S = 200, 8192, 256, 512
+EG, PG = 32, 128  # K5b's auto layout: examples and pool rows a group
 #: the model's share of REL_TOL against the float32 plain product: its
 #: worst row error over the row's max
 MODEL_SHARE = 0.25
@@ -119,3 +122,50 @@ def test_one_tf32_pass_would_miss_the_budget():
     a, b = v[:512], ctx[:S].T
     want = a.astype(np.float64) @ b.astype(np.float64)
     assert row_error((tf32_rna(a) @ tf32_rna(b)).astype(np.float32), want) > 10 * REL_TOL
+
+
+def pool_operands(groups=64, seed=1, v_size=24447):
+    """K5b's operands for ``groups`` of the auto layout's groups: v rows,
+    each group's P/G pool rows (Zipf draws, so rows repeat) and g =
+    scale * sigmoid(logit) * mask (scale = K*G/P = 5/128)."""
+    rng = np.random.RandomState(seed)
+    emb = (rng.randn(v_size, D) * 0.1).astype(np.float32)
+    ctx = (rng.randn(v_size, D) * 0.1).astype(np.float32)
+    v = emb[zipf_ids(rng, groups * EG, v_size)].reshape(groups, EG, D)
+    contexts = zipf_ids(rng, groups * EG, v_size).reshape(groups, EG)
+    pool = zipf_ids(rng, groups * PG, v_size).reshape(groups, PG)
+    rows = ctx[pool]                                              # (G, P/G, D)
+    logit = np.einsum("ged,gsd->ges", v.astype(np.float64), rows.astype(np.float64))
+    mask = pool[:, None, :] != contexts[:, :, None]
+    g = (5.0 / PG * mask / (1 + np.exp(-logit))).astype(np.float32)
+    return v, rows, g
+
+
+@pytest.mark.parametrize("name", ["logits (k = D)", "d_center (k = P/G)", "acc rows (k = E/G)"])
+@pytest.mark.parametrize("b_bf16", [False, True])
+def test_shared_pool_products_stay_well_inside_the_card_budget(name, b_bf16):
+    """K5b's three products on noise_tc.cuh's split, group by group:
+    contractions of D = 200, P/G = 128 and E/G = 32.  The card holds K5b
+    to K2/K3's REL_TOL; the model's worst row error against the float32
+    product stays within MODEL_SHARE of it, and against float64 within
+    F32_FACTOR of the float32 product's.  bfloat16 pool rows are exact in
+    tf32 (2 passes)."""
+    v, rows, g = pool_operands()
+    if b_bf16:
+        bits = rows.view(np.uint32)
+        rows = ((bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(
+            np.float32)
+    got, plain, exact64 = [], [], []
+    for vg, rg, gg in zip(v, rows, g):
+        if name.startswith("logits"):
+            a, b, exact = vg, rg.T, b_bf16
+        elif name.startswith("d_center"):
+            a, b, exact = gg, rg, b_bf16
+        else:
+            a, b, exact = gg.T, vg, False  # both float32 whatever the table
+        got.append(product(a, b, exact))
+        plain.append((a @ b).astype(np.float32))
+        exact64.append(a.astype(np.float64) @ b.astype(np.float64))
+    got, plain, exact64 = (np.concatenate(x) for x in (got, plain, exact64))
+    assert row_error(got, plain) <= MODEL_SHARE * REL_TOL
+    assert row_error(got, exact64) <= F32_FACTOR * row_error(plain, exact64)

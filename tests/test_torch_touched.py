@@ -125,7 +125,7 @@ def _jax_and_port_step(kind, bf16):
             return tcbow.hs_step(
                 tp, _t(pairs), _t(split.points_deep), _t(split.codes_deep),
                 _t(split.lengths_deep), 0.05, cbow=kind == "cbow_hs",
-                shallow_sign=_t(split.sign), n_shallow=split.n_shallow, sr_salts=salts)
+                shallow=tcbow.shallow_on(split, "cpu"), sr_salts=salts)
     else:
         jp = _tables(V, bf16, seed=1)
         jnoise = jns.build_alias_table(jns.noise_distribution(counts))
