@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
                                      # each checkout's own K1-K6 checks, the row
-                                     # gather, step windows (default, HS, shared)
-                                     # and phase 3 run, in turns
+                                     # gather, step windows (default, HS, shared,
+                                     # per_example) and phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -670,7 +670,7 @@ def lib_row_update(torch, emb, ctx, both, idx, payload, lr):
 
 def lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, acc):
     """K5a: the (E, K, D) gather, batched dots, the masked epilogue, the
-    noise rows' payloads index-added."""
+    positive contexts' and the noise rows' payloads in one index_add_."""
     fn = torch.nn.functional
     e, d = v.shape
     un = fn.embedding(negs_l, ctx).float()
@@ -679,8 +679,10 @@ def lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, acc):
     loss = torch.sum(fn.softplus(logit).mul_(m), 1)
     g = torch.sigmoid(logit).mul_(m)
     d_center = torch.baddbmm(g_pos[:, None, None] * u[:, None, :], g[:, None, :], un)[:, 0]
-    acc.index_add_(0, negs_l.reshape(-1), torch.cat(
-        [(g[..., None] * v[:, None, :]).reshape(-1, d), m.reshape(-1, 1)], 1))
+    gw = torch.cat([g_pos[:, None], g], 1)
+    acc.index_add_(0, torch.cat([x_l[:, None], negs_l], 1).reshape(-1), torch.cat(
+        [(gw[..., None] * v[:, None, :]).reshape(-1, d),
+         torch.cat([torch.ones_like(g_pos)[:, None], m], 1).reshape(-1, 1)], 1))
     return d_center, loss
 
 
@@ -1363,13 +1365,16 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     library_check("K5a" + sfx, [*lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_l), a_l],
                   [dp, lp, a_p])
     a_t = acc0.clone()
+    # the accumulator rows it adds to: the draws' and the positive contexts'
+    n_acc = distinct(torch.cat([negs.reshape(-1), contexts]))
     row("per_example" + sfx, "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
         lambda: per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_t),
         lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t),
         lambda: lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_t),
-        4 * (2 * E * D + 2 * E + E * K + 2 * n_neg * (D + 1) + E * D + E) + tb * n_neg * D,
-        5 * E * K * D)
-    log(f"per_example{sfx}: {n_neg} distinct noise rows of {E * K} draws")
+        4 * (2 * E * D + 2 * E + E * K + 2 * n_acc * (D + 1) + E * D + E) + tb * n_neg * D,
+        5 * E * K * D + 2 * E * D)
+    log(f"per_example{sfx}: {n_neg} distinct noise rows of {E * K} draws; {n_acc} "
+        "accumulator rows with the positive contexts'")
     acc_pe, d_center = a_p, dp
 
     # K5b: the auto-sized grouped pool
@@ -1459,13 +1464,13 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     # K4's generic entry points, at the per-example step's shapes: the
     # center rows' scatter (library: one index_add_ of the same payload)
     # and ctx's finalize against K5a's accumulator over the rows the step
-    # names (the draws), bitwise every row's plain finalize on the same
-    # accumulator (library: addcdiv_ over every row)
+    # names (the contexts and the draws), bitwise every row's plain
+    # finalize on the same accumulator (library: addcdiv_ over every row)
     from gene2vec_tpu_torch.kernels.row_update import Touched
 
-    draws = Touched(ids=negs)
+    draws = Touched(ids=(contexts, negs))
     touched = int((acc_pe[:, D] != 0).sum())
-    n_draws = len(np.unique(negs.cpu().numpy()))
+    n_draws = len(np.unique(np.concatenate([negs.cpu().numpy().reshape(-1), x_ids])))
     TOUCHED_SHARES["per_example_ctx_draws" + sfx] = {
         "ctx": [n_draws, n_draws / V], "bound": f"row_finalize{sfx} bound_ms"}
     if not bf16:
@@ -1511,13 +1516,13 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
             lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts, draws),
             lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts, draws),
-            lib, touched * (4 * (D + 1) + 2 * tb * D) + 4 * negs.numel(),
+            lib, touched * (4 * (D + 1) + 2 * tb * D) + 4 * (negs.numel() + E),
             3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
             "bitwise every row's finalize on the same accumulator")
         if lib is None:
             rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
-    log(f"row_finalize{sfx}: {touched} touched rows of {V} ({touched / V:.3f}; the draws name "
-        f"{n_draws}): the bound's rows")
+    log(f"row_finalize{sfx}: {touched} touched rows of {V} ({touched / V:.3f}; the contexts "
+        f"and draws name {n_draws}): the bound's rows")
     return rows
 
 
@@ -1895,7 +1900,7 @@ OBJECTIVE_PAIRS, OBJECTIVE_ITERS = 1_000_000, 2
 #: must not launch in that run
 OBJECTIVE_RUNS = (
     ("per_example", ["--negative-mode", "per_example"],
-     {"pos_logit": 1, "per_example": 1, "row_scatter": 2, "row_finalize": 2}),
+     {"pos_logit": 1, "per_example": 1, "row_scatter": 1, "row_finalize": 2}),
     ("shared", ["--negative-mode", "shared"],
      {"pos_logit": 1, "shared_pool": 1, "row_scatter": 2, "row_finalize": 2}),
     ("sg_hs", ["--objective", "sg_hs"], {"hs": 1, "row_scatter": 1, "row_finalize": 2}),
@@ -1914,7 +1919,7 @@ BF16_RUNS = (
     ("bf16_sg_hs", _BF16 + ["--objective", "sg_hs"],
      {"hs_bf16": 1, "row_scatter": 1, "row_finalize_bf16_sr": 2}),
     ("bf16_per_example", _BF16 + ["--negative-mode", "per_example"],
-     {"pos_logit_bf16": 1, "per_example_bf16": 1, "row_scatter": 2,
+     {"pos_logit_bf16": 1, "per_example_bf16": 1, "row_scatter": 1,
       "row_finalize_bf16_sr": 2}),
     ("bf16_shared", _BF16 + ["--negative-mode", "shared"],
      {"pos_logit_bf16": 1, "shared_pool_bf16": 1, "row_scatter": 2,
@@ -2934,13 +2939,13 @@ def compare_widths(windows, smi: str) -> dict:
 
 #: what ``--compare`` runs in each tree, with that tree's own chip_smoke:
 #: the K1-K4 kernel check and the objectives' check (K5a, K5b, K6, K4's
-#: generic entries) at float32 and bfloat16 (the K2/K3, K4, K5a, K5b and K6
-#: rows kept), the row gather at the probes' and the GGIPNN lookup's
+#: generic entries) at float32 and bfloat16 (the K1, K2/K3, K4, K5a, K5b
+#: and K6 rows kept), the row gather at the probes' and the GGIPNN lookup's
 #: shapes, the host time of K4's wrappers and of the step body per step
 #: (host_times, below), the default step's profiled window at both widths,
-#: the sg_hs, cbow_hs and shared steps' windows and their kernels by name
-#: per step (step_kernels, below), and phase 3's training run (pairs/s per
-#: iteration from its training log)
+#: the sg_hs, cbow_hs, shared and per_example steps' windows and their
+#: kernels by name per step (step_kernels, below), and phase 3's training
+#: run (pairs/s per iteration from its training log)
 COMPARE_RUN = """
 import csv, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
@@ -3043,6 +3048,7 @@ rows = cs.kernel_check(torch, cs.TIMED_REPS) + cs.kernel_check(torch, cs.TIMED_R
 rows += cs.objective_kernel_check(torch, cs.TIMED_REPS)
 rows += cs.objective_kernel_check(torch, cs.TIMED_REPS, torch.bfloat16)
 keep = ("name", "ms", "library_ms", "plain_ms", "bound_ms", "max_abs_err")
+k1 = [{k: r[k] for k in keep} for r in rows if r["name"].startswith("pos_logit")]
 noise = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("noise_head", "noise_tail"))]
 k4 = [{k: r[k] for k in keep} for r in rows if r["name"].startswith(("row_update", "row_scatter",
                                                                      "row_finalize"))]
@@ -3054,11 +3060,13 @@ host = [host_times(kw) for kw in ({}, {"table_dtype": "bfloat16"},
                                   {"negative_mode": "per_example"})]
 windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
            for kw in ({}, {"table_dtype": "bfloat16"})]
-# the HS and shared steps: windows (pairs/s, busy ms/step, idle) and the
-# step's kernels by name
+# the HS, shared and per_example steps: windows (pairs/s, busy ms/step,
+# idle) and the step's kernels by name
 objective_kw = ({"objective": "sg_hs"}, {"objective": "cbow_hs"}, {"negative_mode": "shared"},
+                {"negative_mode": "per_example"},
                 {"objective": "sg_hs", "table_dtype": "bfloat16"},
-                {"negative_mode": "shared", "table_dtype": "bfloat16"})
+                {"negative_mode": "shared", "table_dtype": "bfloat16"},
+                {"negative_mode": "per_example", "table_dtype": "bfloat16"})
 objective_windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
                      for kw in objective_kw]
 kernels_by_step = [step_kernels(kw) for kw in objective_kw]
@@ -3066,7 +3074,8 @@ with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
-print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "noise": noise, "k4": k4,
+print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "noise": noise,
+                               "k4": k4,
                                "objectives": objectives, "gather": gather, "host": host,
                                "windows": windows, "objective_windows": objective_windows,
                                "step_kernels": kernels_by_step, "cli_pairs_per_s": rates}))

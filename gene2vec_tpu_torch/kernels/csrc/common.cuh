@@ -39,24 +39,32 @@ __device__ __forceinline__ float g2v_ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
-// Elements per row load: one float, or 8 bfloat16 in one 16-byte load.
-// A float row keeps its element-wise load (and so its summation order).
+// A 16-byte chunk of a table row: 4 float32 or 8 bfloat16 elements.  A
+// row of D % kElems == 0 elements from a 16-byte aligned table loads in
+// such chunks (every row then starts 16-byte aligned).
 template <typename T>
-struct G2vVec {
-  static constexpr int kWidth = 1;
+struct G2vChunk;
+template <>
+struct G2vChunk<float> {
+  static constexpr int kElems = 4;
 };
 template <>
-struct G2vVec<__nv_bfloat16> {
-  static constexpr int kWidth = 8;
+struct G2vChunk<__nv_bfloat16> {
+  static constexpr int kElems = 8;
 };
 
-// Elements [0, kWidth) at p as float32 in registers; for bfloat16, p must
-// be 16-byte aligned (a row of D % 8 == 0 elements from an aligned base).
-__device__ __forceinline__ void g2v_ld_vec(const float* p, float (&out)[1]) {
-  out[0] = *p;
+__device__ __forceinline__ uint4 g2v_ld_chunk(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
 }
-__device__ __forceinline__ void g2v_ld_vec(const __nv_bfloat16* p, float (&out)[8]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+
+// A chunk's elements as float32 (exact for both element types).
+__device__ __forceinline__ void g2v_chunk_floats(const uint4& raw, float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void g2v_chunk_floats(const uint4& raw, float (&out)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -66,22 +74,29 @@ __device__ __forceinline__ void g2v_ld_vec(const __nv_bfloat16* p, float (&out)[
   }
 }
 
-// Store kWidth float32 values at p: one float, or 8 as two 16-byte stores
-// (p 32-byte aligned: a float32 row of D % 8 == 0 elements, chunk start).
-__device__ __forceinline__ void g2v_st_vec(float* p, const float (&x)[1]) { *p = x[0]; }
-__device__ __forceinline__ void g2v_st_vec(float* p, const float (&x)[8]) {
-  float4* q = reinterpret_cast<float4*>(p);
-  q[0] = make_float4(x[0], x[1], x[2], x[3]);
-  q[1] = make_float4(x[4], x[5], x[6], x[7]);
+// N (4 or 8) float32 values at p, 16-byte aligned, as float4 loads / stores.
+template <int N>
+__device__ __forceinline__ void g2v_ld_floats(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p) + i);
+    x[4 * i] = q.x;
+    x[4 * i + 1] = q.y;
+    x[4 * i + 2] = q.z;
+    x[4 * i + 3] = q.w;
+  }
+}
+template <int N>
+__device__ __forceinline__ void g2v_st_floats(float* p, const float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) {
+    reinterpret_cast<float4*>(p)[i] =
+        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  }
 }
 
-// How many leading elements of a D-wide row load in chunks of kWidth: all
-// of them when D is a multiple of the width (every row then starts
-// 16-byte aligned), else none (the row loads element-wise).
-template <typename T>
-__device__ __forceinline__ int g2v_vec_span(int D) {
-  constexpr int W = G2vVec<T>::kWidth;
-  return (D % W == 0) ? D : 0;
+__host__ __device__ inline bool g2v_aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // Adds n floats val(0 .. n-1) into row with atomics, the lanes of one warp

@@ -1,18 +1,19 @@
 """K5a — per-example noise (source: ``csrc/k5_per_example.cu``).
 
 Replaces ``gene2vec_tpu/sgns/step.py:97-130`` (``sgns_loss_and_grads``,
-its noise half) and the noise rows of ``_step_per_example``
-(``:289-334``): K alias draws per example, gensim's estimator::
+its noise half) and the ctx scatter of ``_step_per_example``
+(``:289-334``): K alias draws per example, gensim's estimator, and the
+reference's one fused scatter of the positive contexts and the draws::
 
     neg_logit = v · ctx[negs]ᵀ                   (E, K)
     mask      = negs != contexts[e]
     loss_neg  = Σ_k mask·softplus(neg_logit)
     g_neg     = σ(neg_logit)·mask
     d_center  = g_pos·u + Σ_k g_neg·ctx[negs]
-    acc_ctx[negs] += [g_neg·v | mask]
+    acc_ctx[contexts ++ negs] += [g_pos·v | 1] ++ [g_neg·v | mask]
 
 Returns (d_center, loss_neg); ``acc_ctx`` is updated in place.  The
-positive rows and the finalize go through K4's generic entry points.
+centers' rows and the finalize go through K4's generic entry points.
 ``ctx`` is float32 or bfloat16; the drawn rows are upcast to float32.
 """
 
@@ -39,8 +40,10 @@ def per_example_plain(v, u, g_pos, contexts, negs, ctx, acc_ctx):
     g_neg = torch.sigmoid(neg_logit) * mask
     d_center = g_pos[:, None] * u + torch.einsum("ek,ekd->ed", g_neg, u_neg)
     d_neg = g_neg[:, :, None] * v[:, None, :]
-    acc_ctx.index_add_(0, negs.reshape(-1).long(),
-                       torch.cat([d_neg.reshape(-1, d), mask.reshape(-1, 1)], dim=1))
+    ids = torch.cat([contexts, negs.reshape(-1)]).long()
+    grads = torch.cat([g_pos[:, None] * v, d_neg.reshape(-1, d)])
+    weights = torch.cat([torch.ones_like(g_pos), mask.reshape(-1)])
+    acc_ctx.index_add_(0, ids, torch.cat([grads, weights[:, None]], dim=1))
     return d_center, loss_neg
 
 

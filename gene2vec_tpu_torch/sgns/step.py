@@ -146,13 +146,14 @@ def _step_stratified(
 
 
 def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, noise_ids,
-                  salts=None):
+                  salts=None, adds_contexts=False):
     """The shared and per-example steps: K1 for v, u and the positive
     logit; ``noise_rows(v, u, g_pos, acc_ctx)`` (K5a or K5b) for the noise
     term, its rows (``noise_ids``) scattered into ``acc_ctx``; then K4's
-    generic path: [d_center | 1] by center, [g_pos·v | 1] by context, both
-    finalizes over the scattered rows and the noise rows (``salts``: see
-    :func:`sr_salts_for`)."""
+    generic path: [d_center | 1] by center, [g_pos·v | 1] by context
+    (unless ``adds_contexts``: K5a adds them with its draws, the
+    reference's one fused scatter), both finalizes over the scattered
+    rows and the noise rows (``salts``: see :func:`sr_salts_for`)."""
     emb, ctx = params
     v, u, g_pos, loss_pos = pos_logit(emb, ctx, centers, contexts)
     acc_emb = torch.zeros((emb.shape[0], emb.shape[1] + 1), dtype=torch.float32,
@@ -162,7 +163,8 @@ def _step_sampled(params, centers, contexts, lr, combiner, noise_rows, noise_ids
     loss = torch.mean(loss_pos + loss_neg)
     ones = torch.ones_like(g_pos)
     scatter_rows(acc_emb, centers, d_center, ones)
-    scatter_rows(acc_ctx, contexts, g_pos[:, None] * v, ones)
+    if not adds_contexts:
+        scatter_rows(acc_ctx, contexts, g_pos[:, None] * v, ones)
     salt_e, salt_c = (None, None) if salts is None else salts
     finalize_rows(emb, acc_emb, lr, combiner, salt_e, Touched(ids=centers))
     finalize_rows(ctx, acc_ctx, lr, combiner, salt_c, Touched(ids=(contexts, noise_ids)))
@@ -340,11 +342,12 @@ def sgns_step(
     if negative_mode == "per_example":
         negs = _draws(negs, noise, generator, (e, negatives), pairs.device)
         salts = sr_salts_for(params, sr_salts, stochastic_round, generator)
-        # K5a: K draws per example, their rows scattered with weight = mask
+        # K5a: K draws per example, their rows scattered with weight = mask,
+        # and the positive contexts' rows with weight 1 (step.py:320-332)
         return _step_sampled(params, centers, contexts, lr, combiner,
                              lambda v, u, g_pos, acc: per_example(
                                  v, u, g_pos, contexts, negs, params.ctx, acc),
-                             negs, salts)
+                             negs, salts, adds_contexts=True)
     if stratified is None:
         raise ValueError("negative_mode='stratified' needs a StratifiedSpec")
     if shared_groups > 0 and (shared_groups > e or e % shared_groups):

@@ -90,24 +90,50 @@ def test_sampler_draws_the_noise_distribution():
 # -- the kernels' plain versions and K4's generic entry points ------------------
 
 
-def test_k5a_plain_matches_jax():
+def _k5a_draws(case, pairs, k):
+    """Each case's (B, k) draws: random ids, then the case's pattern."""
+    negs = np.array(jax.random.randint(jax.random.PRNGKey(3), (B, k), 0, V), np.int32)
+    if case == "all_masked":
+        negs[:] = pairs[:, 1:2]  # every draw hits its positive
+    elif case == "hot_row":
+        negs[:, -1] = 0  # one id drawn by every example
+    else:
+        negs[:, 0] = pairs[:, 1]  # every example's first draw hits its positive
+    return negs
+
+
+@pytest.mark.parametrize("case,k,bf16", [
+    ("fused", K, False), ("all_masked", K, False), ("hot_row", K, False),
+    ("k1", 1, False), ("bf16_ctx", K, True),
+], ids=["fused", "all_masked", "hot_row", "k1", "bf16_ctx"])
+def test_k5a_plain_matches_jax(case, k, bf16):
+    """K5a's plain version against the reference's noise half and its one
+    fused ctx scatter of the positive contexts and the draws
+    (step.py:320-332), which K5a's accumulator now holds."""
     p = _params()
+    if bf16:  # a bfloat16 ctx; the reference upcasts its rows to float32
+        p = JParams(emb=p.emb, ctx=p.ctx.astype(jnp.bfloat16))
     pairs = _zipf_pairs(V, B)
     c, x = jnp.asarray(pairs[:, 0]), jnp.asarray(pairs[:, 1])
-    negs = np.array(jax.random.randint(jax.random.PRNGKey(3), (B, K), 0, V), np.int32)
-    negs[:, 0] = pairs[:, 1]  # every example's first draw hits its positive
+    negs = _k5a_draws(case, pairs, k)
     loss, (d_center, d_pos, d_neg), mask = jstep.sgns_loss_and_grads(p, c, x, jnp.asarray(negs))
-    want_acc = jstep._scatter_accumulator(V, jnp.asarray(negs.reshape(-1)),
-                                          d_neg.reshape(-1, D), mask.reshape(-1), jnp.float32)
-    v, u = p.emb[c], p.ctx[x]
+    want_acc = jstep._scatter_accumulator(
+        V, jnp.concatenate([x, jnp.asarray(negs.reshape(-1))]),
+        jnp.concatenate([d_pos, d_neg.reshape(-1, D)]),
+        jnp.concatenate([jnp.ones_like(x, jnp.float32), mask.reshape(-1)]), jnp.float32)
+    v, u = p.emb[c], p.ctx[x].astype(jnp.float32)
     g_pos = jax.nn.sigmoid(jnp.sum(v * u, -1)) - 1.0
+    ctx = _t(p.ctx.astype(jnp.float32))
+    ctx = ctx.to(torch.bfloat16) if bf16 else ctx  # exact: the values are bf16's
     acc = torch.zeros((V, D + 1))
-    dc, ln = per_example.per_example(_t(v), _t(u), _t(g_pos), _t(x), _t(negs), _t(p.ctx), acc)
+    dc, ln = per_example.per_example(_t(v), _t(u), _t(g_pos), _t(x), _t(negs), ctx, acc)
     assert_rows_close(dc.numpy(), d_center)
     want_loss = jax.nn.softplus(-jnp.sum(v * u, -1)) + ln.numpy()
     np.testing.assert_allclose(float(np.mean(np.asarray(want_loss))), float(loss),
                                rtol=LOSS_RTOL)
     np.testing.assert_allclose(acc.numpy(), np.asarray(want_acc), rtol=1e-6, atol=1e-7)
+    if case == "all_masked":  # only the positive contexts reach the accumulator
+        np.testing.assert_array_equal(acc[:, D].numpy(), np.bincount(pairs[:, 1], minlength=V))
 
 
 @pytest.mark.parametrize("groups", [1, 8])
@@ -257,3 +283,20 @@ def test_step_draws_from_a_generator_and_checks_shapes():
     with pytest.raises(ValueError, match="stratified' only"):
         tstep.sgns_step(p, _t(pairs), 0.05, negative_mode="shared", noise=noise,
                         positive_head=8, pos_quotas=(32, 32, 64))
+
+
+@pytest.mark.parametrize("mode,scatters", [("per_example", 1), ("shared", 2)])
+def test_sampled_steps_scatter_calls(monkeypatch, mode, scatters):
+    """K5a adds the positive contexts' rows itself (the reference's one
+    fused ctx scatter), so the per_example step calls K4's generic scatter
+    for the centers alone; the shared step scatters centers and contexts."""
+    calls = []
+    orig = tstep.scatter_rows
+    monkeypatch.setattr(tstep, "scatter_rows", lambda *a: calls.append(a) or orig(*a))
+    pairs = _zipf_pairs(V, B, seed=7)
+    noise = tns.build_alias_table(tns.noise_distribution(_counts(pairs)))
+    p = from_jax_params(*map(np.asarray, _params()))
+    tstep.sgns_step(p, _t(pairs), 0.05, negative_mode=mode, noise=noise,
+                    generator=torch.Generator().manual_seed(3))
+    centers, contexts = tstep._examples_from_pairs(_t(pairs))
+    assert [torch.equal(c[1], x) for c, x in zip(calls, (centers, contexts))] == [True] * scatters
