@@ -5,7 +5,8 @@
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
                                      # each checkout's own K1-K6 checks, the row
                                      # gather, step windows (default, HS, shared,
-                                     # per_example) and phase 3 run, in turns
+                                     # per_example), the K12 and K14 probes and
+                                     # phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -60,6 +61,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    {1, 64}, kb = 16; scores within 1e-6, near-ties counted), K8 at
    B = 64, rb = 16,384 (bitwise), and K9r's row gather at the Pallas
    gather probes' shapes and the GGIPNN lookup's against ``table[idx]``;
+   (2g) tables of D = 1,024 (past every narrow tile's limit): one whole
+   step of the default stratified mode, per_example, shared, sg_hs and
+   cbow_hs at V = 3,001 card vs CPU, float32 and bfloat16 with SR; those
+   five steps at full vocabulary in short profiled windows (a
+   ``{"wide_windows": ...}`` line); a clustered export of that width
+   served in exact, quant and ivf modes as phase 5 serves (every answer
+   checked, recall gated);
    (2f) the remaining Pallas probes' counterparts at the probes' shapes —
    K12 at scales 1.0000001, 2 and 1, float32 and bfloat16, bitwise; K13's
    lane gather (bitwise) and scatter (within LANE_RTOL of each column's
@@ -222,7 +230,10 @@ def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: flo
 REL_TOL = 2e-5     # kernel vs plain: float32 sums in another order, atomics
 TABLE_ATOL = 2e-6  # updated tables, the one-step bar of the parity tests
 ULP_SHARE = 1e-3   # bf16 tables: touched elements one ulp from the plain version
-F32_ULPS = 4       # bf16 tables: float32 ulps of new = t − lr·update apart, at most
+F32_ULPS = 4       # bf16 tables: float32 ulps of new = t − lr·update apart, at most,
+TABLE_ULPS = 80    # ... plus these of the table's largest |t − new| (compare_bf16_tables):
+#                    twice the CPU's own float32 step's distance from a float64 one
+#                    (tests/test_torch_wide.py::test_float32_step_error_model)
 
 
 def compare(name, outputs):
@@ -320,31 +331,43 @@ def table_ulps(torch, a, b):
 def compare_bf16_tables(torch, name, pairs, start):
     """bf16 tables written back from float32 sums taken in another order
     (atomics), each from its table ``start``: each element equal to the
-    plain version's, one bf16 ulp from it, or within F32_ULPS float32 ulps
-    of |t| + |t − new| (the float32 error of new = t − lr·update, with t
-    the start and new the plain result; near zero, where the two cancel,
-    that error spans several of the result's small bf16 ulps) — and at most
-    ULP_SHARE of the touched elements (those of rows either side changed
-    from ``start``) differing at all.  Returns (max abs error, the share
-    that differs)."""
+    plain version's, one bf16 ulp from it, or within the float32 error of
+    new = t − lr·update (t the start, new the plain result): F32_ULPS
+    float32 ulps of |t| + |t − new| (the last operations' rounding) plus
+    TABLE_ULPS of the table's largest |t − new| (the update's sums over the
+    batch and its gradients' sigmoids, whose error follows the magnitudes
+    summed and not this element's update: near zero, where t and lr·update
+    cancel, that error spans several of the result's small bf16 ulps; a
+    row's own largest update undercounts it where the row's gradients are
+    small, as on a Huffman tree's deep nodes) — and at most ULP_SHARE of
+    the touched elements (those of rows either side changed from
+    ``start``) differing at all.  Returns (max abs error, the share that
+    differs)."""
     worst, share = 0.0, 0.0
     for i, (label, g, w) in enumerate(pairs):
         ulps = table_ulps(torch, g, w)
         diff = (g.float() - w.float()).abs()
         t = start[i].float()
-        f32_err = F32_ULPS * 2.0 ** -23 * (t.abs() + (t - w.float()).abs())
-        far = (ulps > 1) & (diff > f32_err)
+        upd = (t - w.float()).abs()
+        own = F32_ULPS * 2.0 ** -23 * (t.abs() + upd)
+        scale = 2.0 ** -23 * upd.max()
+        bar = own + TABLE_ULPS * scale
+        far = (ulps > 1) & (diff > bar)
         if bool(far.any()):
             j = int(far.reshape(-1).nonzero()[0])
             raise SystemExit(f"{name}: {label} {int(ulps.reshape(-1)[j])} bf16 ulps "
                              f"({float(diff.reshape(-1)[j]):.3e}, float32 bar "
-                             f"{float(f32_err.reshape(-1)[j]):.3e}) from the plain version "
-                             f"at {j}")
-        if int(ulps.max()) > 1:
-            log(f"{name}: {label} {int((ulps > 1).sum())} elements more than one ulp "
-                f"apart, each within {F32_ULPS} float32 ulps of |t| + |t - new| (at most "
-                f"{float(diff[ulps > 1].max()):.2e} against "
-                f"{float(f32_err[ulps > 1].min()):.2e})")
+                             f"{float(bar.reshape(-1)[j]):.3e}) from the plain version at {j}")
+        apart = ulps > 1
+        if bool(apart.any()):
+            # the readings: the worst element against the whole bar, against
+            # its own term alone, and in float32 ulps of the table's update
+            use = float((diff / bar)[apart].max())
+            own_x = float((diff / own)[apart].max())
+            log(f"{name}: {label} {int(apart.sum())} elements more than one ulp apart, the "
+                f"worst at {use:.3f} of its bar ({own_x:.2f}x the |t| + |t - new| term alone; "
+                f"{float(diff[apart].max() / scale):.1f} float32 ulps of the table's largest "
+                f"update; bar {F32_ULPS} and {TABLE_ULPS} ulps)")
         touched = ((g != start[i]) | (w != start[i])).any(1)
         n = int(touched.sum()) * g.shape[1]
         off = int((ulps[touched] > 0).sum())
@@ -1206,7 +1229,12 @@ def step_verdict(torch, label, out, start, bf16):
             raise SystemExit(f"{label}: loss rel {rel:.2e} > 1e-6")
         return
     errs = (rel, float((ec - eg).abs().max()), float((cc - cg).abs().max()))
-    log(f"{label}: loss rel {errs[0]:.2e}, emb {errs[1]:.2e}, out table {errs[2]:.2e}")
+    # the differences in float32 ulps of each table's largest update, the
+    # unit of compare_bf16_tables' TABLE_ULPS
+    ulps = [err / (2.0 ** -23 * max(float((t.float() - c).abs().max()), 1e-30))
+            for err, c, t in ((errs[1], ec, start[0]), (errs[2], cc, start[1]))]
+    log(f"{label}: loss rel {errs[0]:.2e}, emb {errs[1]:.2e}, out table {errs[2]:.2e} "
+        f"({ulps[0]:.1f}, {ulps[1]:.1f} float32 ulps of the table's largest update)")
     if not (errs[0] <= 1e-5 and errs[1] <= TABLE_ATOL and errs[2] <= TABLE_ATOL):
         raise SystemExit(f"{label} failed: {errs}")
 
@@ -2252,30 +2280,35 @@ def scrape_launches(url: str):
         r'^kernel_launches_total\{kernel="([a-z_]+)"\} (\S+)$', text, re.M)}
 
 
-def write_clustered_export(path: str, seed: int = 11):
-    """A full-width export (V = 24,447, D = 200) with neighbor structure —
-    1,000 groups of ~24 genes around seeded centres — written with the
-    port's checkpoint writer.  Returns (the table, each gene's group)."""
+def write_clustered_export(path: str, seed: int = 11, v: int = V, d: int = D,
+                           n_groups: int = 1000):
+    """An export (by default full width, V = 24,447, D = 200) with
+    neighbor structure — ``n_groups`` groups of ~24 genes around seeded
+    centres — written with the port's checkpoint writer.  Returns (the
+    table, each gene's group)."""
     from gene2vec_tpu_torch.io.checkpoint import save_iteration
     from gene2vec_tpu_torch.io.vocab import Vocab
     from gene2vec_tpu_torch.sgns.model import SGNSParams
     import torch
 
     rng = np.random.RandomState(seed)
-    cent = rng.randn(1000, D).astype(np.float32)
-    groups = rng.randint(0, 1000, V)
-    emb = cent[groups] + 0.35 * rng.randn(V, D).astype(np.float32)
+    cent = rng.randn(n_groups, d).astype(np.float32)
+    groups = rng.randint(0, n_groups, v)
+    emb = cent[groups] + 0.35 * rng.randn(v, d).astype(np.float32)
     t = torch.from_numpy(emb)
-    save_iteration(path, D, 1, SGNSParams(t, t), Vocab([f"G{i}" for i in range(V)],
-                                                       np.ones(V, np.int64)),
+    save_iteration(path, d, 1, SGNSParams(t, t), Vocab([f"G{i}" for i in range(v)],
+                                                       np.ones(v, np.int64)),
                    txt_output=False)
     return emb, groups
 
 
 def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
-    """Serve one export through ``cli/serve.py`` once per index mode and
-    check every answer; returns the kernel launches summed over the three
-    servers."""
+    """Serve one export through ``cli/serve.py`` once per index mode (the
+    three servers started side by side, then driven one at a time, each
+    stopped when its answers are in) and check every answer; returns the
+    kernel launches summed over the three servers."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from gene2vec_tpu_torch.serve.registry import discover_newest, l2_normalize
 
     dim, it, path = discover_newest(export)
@@ -2291,36 +2324,82 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
     geometry = {"median_pair_cosine": float(np.median(np.sum(unit[pick[0]] * unit[pick[1]], 1))),
                 "mean_unit_row_norm": float(np.linalg.norm(unit.mean(0)))}
     log(f"{os.path.basename(export)}: {geometry}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SERVE_MODES)) as pool:
+        futures = {mode: pool.submit(start_server, export, mode,
+                                     os.path.join(work, f"serve_{mode}.err"))
+                   for mode in SERVE_MODES}
+    up = time.perf_counter() - t0
+    servers = {mode: f.result() for mode, f in futures.items() if f.exception() is None}
     launches = {}
-    for mode in SERVE_MODES:
-        t0 = time.perf_counter()
-        proc, contract = start_server(export, mode, os.path.join(work, f"serve_{mode}.err"))
-        try:
-            up = time.perf_counter() - t0
-            if not contract["device"].startswith("cuda") or contract["iteration"] != it:
-                raise SystemExit(f"{mode} server contract {contract}")
-            buckets, mixed = request_plan(tokens, emb, np.random.RandomState(7))
-            answers, lat, wall = drive(contract["url"], buckets, mixed)
-            counts = scrape_launches(contract["url"])
-        finally:
-            stop_server(proc)
-        n, ties, recall, short = check_answers(mode, answers, unit, token_id, gate_recall)
-        must, must_not = MODE_KERNELS[mode]
-        if any(counts.get(k, 0) <= 0 for k in must) or any(counts.get(k, 0) for k in must_not):
-            raise SystemExit(f"{mode}: kernel launches {counts}, expected {must} only")
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
-        lat_ms = np.sort(np.asarray(lat)) * 1e3
-        summary = {"export": os.path.basename(export), "mode": mode,
-                   "requests": len(answers), "queries": n,
-                   "clients": SERVE_CLIENTS, "qps": len(mixed) / wall,
-                   "p50_ms": float(np.percentile(lat_ms, 50)),
-                   "p99_ms": float(np.percentile(lat_ms, 99)), "recall_at_10": recall,
-                   "near_ties": ties, "short_slots": short, "launches": counts,
-                   "startup_s": up, "table": geometry, "card": smi}
-        print(json.dumps({"serving": summary}), flush=True)
-        log(f"serving {mode}: {summary}")
+    try:
+        for f in futures.values():
+            if f.exception() is not None:
+                raise f.exception()
+        for mode in SERVE_MODES:
+            proc, contract = servers[mode]
+            try:
+                if not contract["device"].startswith("cuda") or contract["iteration"] != it:
+                    raise SystemExit(f"{mode} server contract {contract}")
+                buckets, mixed = request_plan(tokens, emb, np.random.RandomState(7))
+                answers, lat, wall = drive(contract["url"], buckets, mixed)
+                counts = scrape_launches(contract["url"])
+            finally:
+                stop_server(proc)
+            n, ties, recall, short = check_answers(mode, answers, unit, token_id, gate_recall)
+            must, must_not = MODE_KERNELS[mode]
+            if (any(counts.get(k, 0) <= 0 for k in must)
+                    or any(counts.get(k, 0) for k in must_not)):
+                raise SystemExit(f"{mode}: kernel launches {counts}, expected {must} only")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            lat_ms = np.sort(np.asarray(lat)) * 1e3
+            summary = {"export": os.path.basename(export), "mode": mode,
+                       "requests": len(answers), "queries": n,
+                       "clients": SERVE_CLIENTS, "qps": len(mixed) / wall,
+                       "p50_ms": float(np.percentile(lat_ms, 50)),
+                       "p99_ms": float(np.percentile(lat_ms, 99)), "recall_at_10": recall,
+                       "near_ties": ties, "short_slots": short, "launches": counts,
+                       "startup_s": up, "table": geometry, "card": smi}
+            print(json.dumps({"serving": summary}), flush=True)
+            log(f"serving {mode}: {summary}")
+    finally:
+        for proc, _ in servers.values():
+            if proc.poll() is None:
+                stop_server(proc)
     return launches
+
+
+# -- phase 2g: wide tables on the card ------------------------------------------
+
+#: a small vocabulary (so that the CPU's plain steps stay quick) at a width
+#: past every narrow tile's limit (K2/K3 584, K5b 432, K6 512, K7 792)
+WIDE_V, WIDE_D = 3001, 1024
+WIDE_KINDS = ("per_example", "shared", "sg_hs", "cbow_hs")
+
+
+def wide_width_check(torch, work: str, smi: str):
+    """Phase 2g: tables of WIDE_D columns, which the kernels' wide routes
+    take.  One whole step of the default stratified mode and of each of
+    WIDE_KINDS at V = WIDE_V, card vs CPU, float32 and bfloat16 with SR,
+    held as ``step_verdict`` says.  Then the full-vocabulary default step
+    and WIDE_KINDS' steps at that width in short profiled windows (wall and
+    busy ms/step on a ``{"wide_windows": ...}`` line), and a clustered
+    export of that width served through ``cli/serve.py`` in exact, quant
+    and ivf modes, every answer checked as phase 5 checks, recall gated."""
+    t0 = time.perf_counter()
+    for dtype in (None, torch.bfloat16):
+        step_parity(torch, WIDE_V, WIDE_D, B, HEAD, BLOCK, GROUP, full_tables=True, dtype=dtype)
+        for kind in WIDE_KINDS:
+            objective_step_parity(torch, WIDE_V, WIDE_D, B, kind, full_tables=True, dtype=dtype)
+    prof_dir = os.path.join(os.getcwd(), "chip_smoke_profile")
+    windows = [profile_steps(torch, PROFILED_STEPS // 4, prof_dir, smi, dim=WIDE_D, **kw)
+               for kw in PLANTED_CONFIGS[:5]]
+    print(json.dumps({"wide_windows": windows, "dim": WIDE_D, "card": smi}), flush=True)
+    path = os.path.join(work, "wide")
+    write_clustered_export(path, v=WIDE_V, d=WIDE_D, n_groups=WIDE_V // 24)
+    serve_full_width(path, work, smi, gate_recall=True)
+    log(f"wide tables (D {WIDE_D}) done in {time.perf_counter() - t0:.1f}s")
 
 
 # -- phase 2f: the remaining Pallas probes (K12's new instances, K13, K14) -----
@@ -2944,7 +3023,10 @@ def compare_widths(windows, smi: str) -> dict:
 #: shapes, the host time of K4's wrappers and of the step body per step
 #: (host_times, below), the default step's profiled window at both widths,
 #: the sg_hs, cbow_hs, shared and per_example steps' windows and their
-#: kernels by name per step (step_kernels, below), and phase 3's training
+#: kernels by name per step (step_kernels, below), the K12 and K14 probes
+#: (stream_probes' sizes, stream_copy's shape, staged_probes' feature
+#: probes, callh and vmem_probe sweep: their records), the serving kernels
+#: K7-K9r at MAIN_SHAPE (their kernels-line rows), and phase 3's training
 #: run (pairs/s per iteration from its training log)
 COMPARE_RUN = """
 import csv, json, os, sys, tempfile, time
@@ -3070,6 +3152,14 @@ objective_kw = ({"objective": "sg_hs"}, {"objective": "cbow_hs"}, {"negative_mod
 objective_windows = [cs.profile_steps(torch, cs.PROFILED_STEPS, "chip_smoke_profile", smi, **kw)
                      for kw in objective_kw]
 kernels_by_step = [step_kernels(kw) for kw in objective_kw]
+probe_keep = ("name", "probe", "mb", "dtype", "scale", "shape", "tile_rows", "ms", "plain_ms",
+              "library_ms", "bound_ms", "gb_per_s")
+probes = cs.stream_probes(torch, cs.TIMED_REPS)[1]
+probes += [r for r in cs.lane_probes(torch, cs.TIMED_REPS)[1]
+           if r["name"].startswith("stream_scale")]
+probes += cs.staged_probes(torch, cs.TIMED_REPS)[1]
+probes = [{k: r[k] for k in probe_keep if k in r} for r in probes]
+serving = [{k: r[k] for k in keep} for r in cs.serving_kernel_check(torch, cs.TIMED_REPS)[0]]
 with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
@@ -3078,7 +3168,9 @@ print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "nois
                                "k4": k4,
                                "objectives": objectives, "gather": gather, "host": host,
                                "windows": windows, "objective_windows": objective_windows,
-                               "step_kernels": kernels_by_step, "cli_pairs_per_s": rates}))
+                               "step_kernels": kernels_by_step, "probes": probes,
+                               "serving": serving,
+                               "cli_pairs_per_s": rates}))
 """
 
 
@@ -3139,6 +3231,9 @@ def main() -> int:
         objective_step_parity(torch, 613, 40, 512, kind, full_tables=False, dtype=bf16)
         objective_step_parity(torch, V, D, B, kind, full_tables=True, dtype=bf16)
     log(f"bf16 kernel check done in {time.perf_counter() - t0:.1f}s")
+    # phase 2g: wide tables — each training mode's step and each serving mode
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        wide_width_check(torch, work, smi)
     t0 = time.perf_counter()
     serve_rows, serve_shapes = serving_kernel_check(torch, TIMED_REPS)
     ties = sum(tie_heavy_check(torch, torch.device(DEVICE), b, kb)

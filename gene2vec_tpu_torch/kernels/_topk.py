@@ -15,7 +15,9 @@ block that selects the top-``keep`` of its ``ntiles`` runs, sorts them and
 writes them.  Plans are pure functions of their arguments and cached
 (a serving call costs host time).  :func:`plan_staged` plans K7 and K8, whose blocks stage
 tiles of ``rows`` table rows in shared memory and score every query of a
-group of up to 64 against them; :func:`plan` plans K9 and K9r, a thread a
+group of up to 64 against them (rows too wide for a 32-row tile beside
+one query: tiles of ``dslice``-column slices of the rows, whose partial
+scores add up before the select); :func:`plan` plans K9 and K9r, a thread a
 row or candidate and up to 8 queries a block (one for per-query
 candidates).  Lists longer than ``SORT_MAX`` (any ``keep`` up to the row
 count works, as in the reference) are sorted in ``SORT_MAX`` runs that
@@ -50,6 +52,9 @@ QG_MAX = 64
 SELECT_BYTES = QG_MAX * (3 * 8 + 4 * 20)
 #: bytes per element of a staged table, by kind
 ELEMENT_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+#: rows of a d-sliced tile; the widest slice (a multiple of 32 columns)
+SLICED_ROWS = 32
+SLICE_MAX = 1024
 
 
 def order_keys(scores: torch.Tensor) -> torch.Tensor:
@@ -93,14 +98,16 @@ class Plan:
     stride: int     # pairs a query takes in each scratch buffer
     rows: int       # rows a staged tile holds (0: not staged)
     scratch: int    # pairs in each of the four scratch buffers
+    dslice: int = 0  # columns a staged d-slice holds (0: whole rows)
 
 
-def _finish(n: int, keep: int, batch: int, tile: int, qb: int, rows: int = 0) -> Plan:
+def _finish(n: int, keep: int, batch: int, tile: int, qb: int, rows: int = 0,
+            dslice: int = 0) -> Plan:
     ntiles = _ceil(n, tile)
     slot = min(keep, tile)
     long_list = _round_up(keep, SORT_MAX) if keep > SORT_MAX else 0
     stride = max(ntiles * slot, long_list)
-    return Plan(tile, qb, ntiles, slot, stride, rows, batch * stride)
+    return Plan(tile, qb, ntiles, slot, stride, rows, batch * stride, dslice)
 
 
 def _check_keep(n: int, keep: int) -> None:
@@ -138,6 +145,16 @@ def staged_tile_bytes(d: int, kind: str, rows: int) -> int:
     return _round_up(rows * stride + 32, 128)
 
 
+def sliced_tile_bytes(ds: int, kind: str, rows: int) -> int:
+    """Shared memory of one staged tile of ``ds``-column d-slices
+    (``k7_topk_exact.cu``, ``k8_quant_scan.cu``): padded rows."""
+    if kind == "int8":
+        stride = _padded_stride(ds)
+    else:
+        stride = _padded_stride(ELEMENT_BYTES[kind] * _round_up(ds, 4))
+    return _round_up(rows * stride + 32, 128)
+
+
 def _padded_stride(nbytes: int) -> int:
     s = _round_up(nbytes, 16)
     return s + 16 if (s // 4) % 8 == 0 else s
@@ -167,10 +184,11 @@ def plan_staged(n: int, keep: int, batch: int, d: int, kind: str, sms: int = 0) 
     """Plan of the staged scan (K7, K8) over ``n`` table rows of width
     ``d`` and element ``kind`` ("float32", "bfloat16" or "int8"), top-
     ``keep``.  A block scores up to ``QG_MAX`` queries against tiles of 64
-    rows (32 where 64 do not fit; fewer queries where neither does);
-    chunks are multiples of the tile, sized so that the grid about covers
-    the ``sms`` multiprocessors once, at most ``CHUNK_MAX`` rows and what
-    shared memory holds."""
+    rows (32 where 64 do not fit; fewer queries where neither does; d-
+    slices of 32-row tiles where not even one query fits beside whole
+    rows); chunks are multiples of the tile, sized so that the grid about
+    covers the ``sms`` multiprocessors once, at most ``CHUNK_MAX`` rows and
+    what shared memory holds."""
     _check_keep(n, keep)
     qg = min(QG_MAX, batch)
     while True:
@@ -178,13 +196,40 @@ def plan_staged(n: int, keep: int, batch: int, d: int, kind: str, sms: int = 0) 
         if rows:
             break
         if qg == 1:
-            raise ValueError(f"rows of width {d} ({kind}) do not fit a scan block")
+            return _plan_sliced(n, keep, batch, d, kind, sms)
         qg = _ceil(qg, 2)
     groups = _ceil(batch, qg)
     fit = (SMEM_BUDGET - staged_smem(d, kind, qg, 0, rows)) // (4 * qg) // rows * rows
     want = _round_up(_ceil(n, max(1, sms // groups)), rows)
     tile = max(rows, min(want, CHUNK_MAX // rows * rows, fit))
     return _finish(n, keep, batch, tile, qg, rows)
+
+
+def _plan_sliced(n: int, keep: int, batch: int, d: int, kind: str, sms: int) -> Plan:
+    """The staged scan of rows too wide for a 32-row tile beside one query:
+    tiles of SLICED_ROWS rows staged as d-slices, the widest multiple of 32
+    columns (up to SLICE_MAX) that fits beside the queries, which take at
+    most half the budget (fewer queries a block where they would take
+    more)."""
+    rows = SLICED_ROWS
+    qg = min(QG_MAX, batch)
+    while qg > 1 and staged_query_bytes(d, kind, qg) > SMEM_BUDGET // 2:
+        qg = _ceil(qg, 2)
+
+    def smem(ds: int, tile: int) -> int:
+        return (2 * sliced_tile_bytes(ds, kind, rows) + staged_query_bytes(d, kind, qg)
+                + 4 * qg * tile + SELECT_BYTES)
+
+    ds = next((w for w in range(min(SLICE_MAX, _round_up(d, 32)), 0, -32)
+               if smem(w, rows) <= SMEM_BUDGET), 0)
+    if not ds:
+        raise ValueError(f"rows of width {d} ({kind}) do not fit a scan block, not even "
+                         f"in d-slices: its queries take more than half of it")
+    groups = _ceil(batch, qg)
+    fit = (SMEM_BUDGET - smem(ds, 0)) // (4 * qg) // rows * rows
+    want = _round_up(_ceil(n, max(1, sms // groups)), rows)
+    tile = max(rows, min(want, CHUNK_MAX // rows * rows, fit))
+    return _finish(n, keep, batch, tile, qg, rows, ds)
 
 
 def scratch(p: Plan, device) -> torch.Tensor:

@@ -26,17 +26,31 @@
 // Bound on the H100: bytes — x read once and out written once (2 * N * D
 // * 4 bytes: 0.5 MB for the (256, 256) probes, 16-120 MB for vmem_probe).
 //
-// Design: one tile of tile_rows rows a block.  Thread 0 initialises an
-// mbarrier for one arrival, arms it with the tile's byte count
-// (arrive.expect_tx) and issues one bulk copy global -> shared for each
-// contiguous source range of the tile (two where the tile straddles
-// head); every thread waits on the barrier's phase 0, then scales and
-// stores the tile with 16-byte stores.  Tiles run from 8 rows (callh) to
-// the card's opt-in shared-memory limit (dynamic shared memory, set with
-// cudaFuncSetAttribute above 48 KB).  It is simple and correct, not fast:
-// a block waits for its whole tile before it computes, and nothing
-// overlaps the next tile's load.  Bulk copies need 16-byte aligned
-// addresses and sizes: the wrapper requires D % 4 == 0 and aligned bases.
+// Design: a one-shot grid, one tile of tile_rows rows a block; the blocks
+// an SM holds at once are the ring, each waiting on its own tile while
+// the others' copies are in flight.  Thread 0 initialises an mbarrier for
+// one arrival, arms it with the tile's byte count (arrive.expect_tx) and
+// issues one bulk copy global -> shared for each contiguous source range
+// of the tile (two where the tile straddles head); every thread waits on
+// the barrier's phase 0, then scales its 16-byte vectors and stores them
+// straight to device memory.  The offset is read only by a block with
+// rows below head, and only when 0 < head < N (head = N clamps every
+// offset to 0): the earlier design read it in front of every block's
+// copy, a device-memory latency before calla's only load.  Tried on an
+// H100 and not kept: persistent blocks, two an SM, each walking its tiles
+// through a ring of 2-4 slots with one elected thread keeping the next
+// loads in flight, the tile sent back by one bulk store (cp.async.bulk
+// shared -> global, bulk_group, wait_group.read before a slot's reuse)
+// or by the threads' stores.  It was no faster at any size and slower on
+// the small probes and at 8, 16 and 60 MB: the resident blocks an SM
+// holds already keep loads in flight, and a ring's set-up sits on a small
+// probe's critical path.  Tiles run from 8 rows (callh) to the card's
+// opt-in shared-memory limit (dynamic shared memory, set with
+// cudaFuncSetAttribute above 48 KB).  Bulk copies need
+// 16-byte aligned addresses and sizes: the wrapper requires D % 4 == 0
+// and aligned bases.  (Every thread staging its own vectors by 16-byte
+// cp.async copies, in place of the bulk copy and its barrier, was slower
+// on the small probes too.)
 #include "common.cuh"
 
 namespace {
@@ -74,32 +88,32 @@ __global__ void staged_copy_kernel(const float* __restrict__ x, float* __restric
   float* tile = reinterpret_cast<float*>(smem);
   const int r0 = blockIdx.x * tile_rows;
   const int r1 = min(r0 + tile_rows, N);
+  const int h1 = min(r1, head);  // rows r0 .. h1 come from the offset
   const uint32_t row_bytes = static_cast<uint32_t>(D) * 4u;
+  const int n4 = (r1 - r0) * D / 4;
   const uint32_t bar = smem_addr(&bar_word);
   if (threadIdx.x == 0) {
+    // the offset's load in flight while the barrier is set up
+    const int raw = r0 < h1 && head < N ? __ldg(offset) : 0;
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(1) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
                  "r"(static_cast<uint32_t>(r1 - r0) * row_bytes)
                  : "memory");
-    const int h1 = min(r1, head);
+    const int t0 = max(r0, head);
+    if (t0 < r1) {  // the rows past head first: they need no offset
+      bulk_load(tile + static_cast<size_t>(t0 - r0) * D, x + static_cast<size_t>(t0 - head) * D,
+                static_cast<uint32_t>(r1 - t0) * row_bytes, bar);
+    }
     if (r0 < h1) {
-      const int off = min(max(offset != nullptr ? __ldg(offset) : 0, 0), N - head);
+      const int off = min(max(raw, 0), N - head);
       bulk_load(tile, x + static_cast<size_t>(off + r0) * D,
                 static_cast<uint32_t>(h1 - r0) * row_bytes, bar);
     }
-    const int t0 = max(r0, head);
-    if (t0 < r1)
-      bulk_load(tile + static_cast<size_t>(t0 - r0) * D, x + static_cast<size_t>(t0 - head) * D,
-                static_cast<uint32_t>(r1 - t0) * row_bytes, bar);
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
   wait_phase(bar, 0);
-  __syncthreads();  // every thread has passed the wait: retire the barrier
-  if (threadIdx.x == 0)
-    asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
-  const int n4 = (r1 - r0) * D / 4;
   const float4* src = reinterpret_cast<const float4*>(tile);
   float4* dst = reinterpret_cast<float4*>(out + static_cast<size_t>(r0) * D);
   for (int i = threadIdx.x; i < n4; i += blockDim.x) {

@@ -43,6 +43,16 @@
 // away: float4 atomics on the row's 16-byte aligned middle, scalar ones
 // at its ends (acc rows are D + 1 floats apart).  The table element type
 // T (float or bfloat16, emb and node alike) is upcast on load.
+//
+// Wide rows (D > 512, hs_wide_kernel): a lane's columns no longer fit its
+// registers, so each entry walks the row in 512-column parts twice — once
+// for the dot product, whose lane partials run on across the parts and
+// are summed by the warp only after the last one (the logit is whole
+// before the epilogue), then for d_input, carried in the example's own
+// d_input row (each lane reads back only what it wrote) — with v re-read
+// from the input row (L1) instead of held.  Hot levels as above, as many
+// as the shared memory holds at that width: the launcher lowers `hot`
+// until the hot rows fit, at either width.
 #include <atomic>
 
 #include "common.cuh"
@@ -260,11 +270,134 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) hs_kernel(HsParams p) {
   }
 }
 
-constexpr size_t kMaxSmem = 232448;  // the H100's opt-in shared memory a block
+// Shared memory of hs_wide_kernel: hot rows [nhot][D + 1] f32 | their
+// node ids [nhot] | each example's hot entries: g [per_block][hot] f32 and
+// slot [per_block][hot] int (-1 past the path).  No v rows.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kMinBlocks) hs_wide_kernel(HsParams p) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int NJ = 16;  // columns a lane takes of a 512-column part
+  const int D = p.D, D1 = D + 1, H = p.hot;
+  const int nhot = (1 << H) - 1;
+  float* hacc = smem;
+  int* hid = reinterpret_cast<int*>(hacc + nhot * D1);
+  float* gh = reinterpret_cast<float*>(hid + nhot);
+  int* sl = reinterpret_cast<int*>(gh + p.per_block * H);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = threadIdx.x; i < nhot * D1; i += kThreads) hacc[i] = 0.0f;
+  for (int i = threadIdx.x; i < nhot; i += kThreads) hid[i] = -1;
+  __syncthreads();
 
+  const T* emb = static_cast<const T*>(p.emb);
+  const T* node = static_cast<const T*>(p.node);
+  const int e_begin = static_cast<int>(blockIdx.x) * p.per_block;
+  const int ne = min(p.E - e_begin, p.per_block);
+  for (int k = warp; k < ne; k += kWarps) {
+    const int e = e_begin + k;
+    const T* er = emb + static_cast<size_t>(__ldg(p.inputs + e)) * D;
+    const int t = __ldg(p.targets + e);
+    int ns = 0;
+    unsigned cbits = 0;  // bit l: the level-l code (sign -1)
+    if (p.sids != nullptr) {
+      for (int j0 = 0; j0 < p.Ls; j0 += 32) {
+        const int j = j0 + lane;
+        const int s = j < p.Ls ? __ldg(p.ssigns + static_cast<size_t>(t) * p.Ls + j) : 0;
+        ns += __popc(__ballot_sync(0xffffffffu, s != 0));
+        if (j0 == 0) cbits = __ballot_sync(0xffffffffu, s < 0);
+      }
+    }
+    if (lane < H) sl[k * H + lane] = -1;
+    const int n = ns + min(__ldg(p.lengths + t), p.L);
+    float* di = p.d_input + static_cast<size_t>(e) * D;
+    float loss_s = 0.0f, loss_d = 0.0f;
+    for (int i = 0; i < n; ++i) {
+      int id;
+      float sg;
+      if (i < ns) {
+        const size_t o = static_cast<size_t>(t) * p.Ls + i;
+        id = __ldg(p.sids + o);
+        sg = static_cast<float>(__ldg(p.ssigns + o));
+      } else {
+        const size_t o = static_cast<size_t>(t) * p.L + (i - ns);
+        id = __ldg(p.points + o);
+        sg = 1.0f - 2.0f * __ldg(p.codes + o);
+      }
+      const T* wr = node + static_cast<size_t>(id) * D;
+      float dot = 0.0f;
+      for (int d0 = 0; d0 < D; d0 += 32 * NJ) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int d = d0 + lane + 32 * j;
+          if (d < D) dot = fmaf(ldg(er + d), ldg(wr + d), dot);
+        }
+      }
+      float sig, sp;
+      sigmoid_softplus(g2v_warp_sum(dot), sg, sig, sp);
+      const float g = sig - (1.0f + sg) * 0.5f;
+      if (i < ns) {
+        loss_s += sp;
+      } else {
+        loss_d += sp;
+      }
+      for (int d0 = 0; d0 < D; d0 += 32 * NJ) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int d = d0 + lane + 32 * j;
+          if (d < D) di[d] = fmaf(g, ldg(wr + d), i ? di[d] : 0.0f);
+        }
+      }
+      if (i < H && i < ns) {  // a hot entry is left for the block's pass
+        if (lane == 0) {
+          const int slot = (1 << i) - 1 + (i ? __brev(cbits << (32 - i)) : 0);
+          hid[slot] = id;
+          gh[k * H + i] = g;
+          sl[k * H + i] = slot;
+        }
+      } else {
+        g2v_add_row(p.acc + static_cast<size_t>(id) * D1, D1, lane,
+                    [&](int d) { return d < D ? __fmul_rn(g, ldg(er + d)) : 1.0f; });
+      }
+    }
+    if (n == 0) {
+      for (int d = lane; d < D; d += 32) di[d] = 0.0f;
+    }
+    if (lane == 0) {
+      p.loss_deep[e] = loss_d;
+      if (p.sids != nullptr) p.loss_shallow[e] = loss_s;
+    }
+  }
+  if (H == 0) return;
+  __syncthreads();
+  for (int d = threadIdx.x; d < D1; d += kThreads) {
+    for (int k = 0; k < ne; ++k) {
+      const float x =
+          d < D ? ldg(emb + static_cast<size_t>(__ldg(p.inputs + e_begin + k)) * D + d) : 1.0f;
+      for (int i = 0; i < H; ++i) {
+        const int slot = sl[k * H + i];
+        if (slot < 0) break;
+        float* a = hacc + slot * D1 + d;
+        *a += d < D ? __fmul_rn(gh[k * H + i], x) : 1.0f;
+      }
+    }
+  }
+  __syncthreads();
+  for (int slot = warp; slot < nhot; slot += kWarps) {
+    const int n = hid[slot];
+    if (n < 0) continue;
+    const float* row = hacc + slot * D1;
+    g2v_add_row(p.acc + static_cast<size_t>(n) * D1, D1, lane, [&](int d) { return row[d]; });
+  }
+}
+
+constexpr size_t kMaxSmem = 232448;  // the H100's opt-in shared memory a block
+constexpr int kMaxNarrowD = 512;     // widths hs_kernel holds in registers
+
+// Shared memory of a block: hs_kernel's, with the block's v rows, or
+// hs_wide_kernel's, without.
 size_t smem_bytes(int hot, int D, int per_block) {
   const size_t nhot = (1u << hot) - 1;
-  return 4 * (nhot * (D + 1) + nhot + static_cast<size_t>(per_block) * (D + 2 * hot));
+  const size_t vrows = D <= kMaxNarrowD ? static_cast<size_t>(D) : 0;
+  return 4 * (nhot * (D + 1) + nhot + static_cast<size_t>(per_block) * (vrows + 2 * hot));
 }
 
 // Lets kKernel take the card's whole opt-in shared memory, once per
@@ -283,27 +416,29 @@ int allow_smem() {
   return static_cast<int>(err);
 }
 
-template <typename T, int NJ, int C>
+template <auto kKernel>
 int launch_at(const HsParams& p, size_t bytes, cudaStream_t stream) {
-  const int status = allow_smem<hs_kernel<T, NJ, C>>();
+  const int status = allow_smem<kKernel>();
   if (status != 0) return status;
   const int blocks = (p.E + p.per_block - 1) / p.per_block;
-  hs_kernel<T, NJ, C><<<blocks, kThreads, bytes, stream>>>(p);
+  kKernel<<<blocks, kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Columns a lane by D (up to 512), and entries a chunk so that a chunk's
-// node values take ~32 registers.
+// Columns a lane by D (up to 512; past it the wide kernel), and entries a
+// chunk so that a chunk's node values take ~32 registers; hot levels
+// lowered until the block's shared memory fits.
 template <typename T>
-int launch(const HsParams& p, cudaStream_t stream) {
+int launch(HsParams p, cudaStream_t stream) {
+  while (p.hot > 0 && smem_bytes(p.hot, p.D, p.per_block) > kMaxSmem) --p.hot;
   const size_t bytes = smem_bytes(p.hot, p.D, p.per_block);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.D <= 64) return launch_at<T, 2, 8>(p, bytes, stream);
-  if (p.D <= 128) return launch_at<T, 4, 4>(p, bytes, stream);
-  if (p.D <= 224) return launch_at<T, 7, 1>(p, bytes, stream);
-  if (p.D <= 256) return launch_at<T, 8, 1>(p, bytes, stream);
-  if (p.D <= 512) return launch_at<T, 16, 1>(p, bytes, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (p.D <= 64) return launch_at<hs_kernel<T, 2, 8>>(p, bytes, stream);
+  if (p.D <= 128) return launch_at<hs_kernel<T, 4, 4>>(p, bytes, stream);
+  if (p.D <= 224) return launch_at<hs_kernel<T, 7, 1>>(p, bytes, stream);
+  if (p.D <= 256) return launch_at<hs_kernel<T, 8, 1>>(p, bytes, stream);
+  if (p.D <= kMaxNarrowD) return launch_at<hs_kernel<T, 16, 1>>(p, bytes, stream);
+  return launch_at<hs_wide_kernel<T>>(p, bytes, stream);
 }
 
 }  // namespace
@@ -311,7 +446,7 @@ int launch(const HsParams& p, cudaStream_t stream) {
 // sids/ssigns null: no shallow levels (loss_shallow untouched).  hot:
 // levels reduced in shared memory, 0..7, at most Ls.  per_block: examples
 // a block.  bf16: 0 for float32 tables, 1 for bfloat16 (emb and node).
-// Returns a CUDA error code (cudaErrorInvalidValue for D > 512).
+// Takes any D (past 512 the wide kernel).  Returns a CUDA error code.
 G2V_EXPORT int k6_hs(const void* emb, const void* node, const int* inputs,
                      const int* targets, const int* points, const float* codes,
                      const int* lengths, int L, const int* sids,

@@ -20,7 +20,9 @@
 // radix select keeps each query's top-kb of the chunk, and the final
 // launch selects across chunks, sorts the kb survivors and writes them.
 // The queries are normalized inside each block in a fixed order, so every
-// block sees the same qn.
+// block sees the same qn.  Rows too wide for a 32-row tile beside one
+// query (D >= 800) are staged as d-slices of DS columns, each slice's
+// float32 partial added to the last before the select.
 #include "topk_common.cuh"
 
 namespace {
@@ -38,34 +40,37 @@ struct ExactScorer {
                           reinterpret_cast<float*>(qmem));
   }
 
-  __device__ void copy_rows(unsigned char* tile, int r, int rows) const {
-    g2v_copy_rows(unit, D, r, rows, st.tstride, tile);
+  __device__ void copy_rows(unsigned char* tile, int r, int rows, int d0, int ds) const {
+    g2v_copy_rows(unit, D, r, rows, st.tstride, tile, d0, ds);
   }
 
   __device__ void score_tile(const unsigned char* tile, const unsigned char* qmem, int nq, int r,
-                             int rows, int TR, int* keys, int kstride) const {
-    g2v_simt_tile<float>(tile, st.tstride, reinterpret_cast<const float*>(qmem), qstride, nq, D,
-                         rows, TR, r, valid, keys, kstride);
+                             int rows, int TR, int d0, int ds, int part, int* keys,
+                             int kstride) const {
+    g2v_simt_tile<float>(tile, st.tstride, reinterpret_cast<const float*>(qmem), qstride, nq, ds,
+                         rows, TR, r, valid, d0, part, keys, kstride);
   }
 };
 
 }  // namespace
 
-// CH rows a chunk, QG queries a block, TR rows a tile, `slot` pairs a
-// chunk's run, `stride` pairs each query's region of the scratch buffers
-// (ka/ia: runs; kb/ib: long-list survivors).
+// CH rows a chunk, QG queries a block, TR rows a tile, DS columns a
+// d-slice (0: whole rows), `slot` pairs a chunk's run, `stride` pairs each
+// query's region of the scratch buffers (ka/ia: runs; kb/ib: long-list
+// survivors).
 G2V_EXPORT int k7_topk_exact(const float* unit, const float* queries, int V, int D, int B,
-                             int valid, int kb, int CH, int QG, int TR, int slot, int stride,
-                             int* ka, int* ia, int* kb_buf, int* ib, float* out_scores,
-                             int* out_rows, void* stream) {
+                             int valid, int kb, int CH, int QG, int TR, int DS, int slot,
+                             int stride, int* ka, int* ia, int* kb_buf, int* ib,
+                             float* out_scores, int* out_rows, void* stream) {
   const int mode = D % 4 == 0 && reinterpret_cast<uintptr_t>(unit) % 16 == 0
                        ? G2V_STAGE_CP_ASYNC
                        : G2V_STAGE_COPY;
-  // rows of D rounded up to 4 floats, padded (tile and queries alike)
-  const int tstride = g2v_padded_stride(4 * ((D + 3) & ~3));
-  const int qstride = tstride / 4;
-  ExactScorer sc{{reinterpret_cast<const unsigned char*>(unit), 4 * D, tstride, mode}, unit,
-                 queries, D, valid, qstride};
+  const int slice = DS > 0 ? DS : D;
+  // rows of a slice (and queries of D) rounded up to 4 floats, padded
+  const int tstride = g2v_padded_stride(4 * ((slice + 3) & ~3));
+  const int qstride = g2v_padded_stride(4 * ((D + 3) & ~3)) / 4;
+  ExactScorer sc{{reinterpret_cast<const unsigned char*>(unit), 4 * D, tstride, mode, slice, 4},
+                 unit, queries, D, valid, qstride};
   const int query_bytes = g2v_simt_query_rows(QG) * qstride * 4;
   return g2v_run_staged(sc, query_bytes, V, B, QG, CH, TR, kb, slot, stride, ka, ia, kb_buf,
                         ib, out_scores, out_rows, static_cast<cudaStream_t>(stream));

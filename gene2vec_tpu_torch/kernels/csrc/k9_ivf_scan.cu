@@ -43,7 +43,7 @@ struct CentroidScorer {
   __device__ void score_row(const unsigned char* qmem, int, int nq, int r, int* keys,
                             int stride) const {
     float acc[G2V_QB_MAX];
-    g2v_thread_dots_f32(centroids + static_cast<size_t>(r) * D,
+    g2v_thread_dots_f32<false>(centroids + static_cast<size_t>(r) * D,
                         reinterpret_cast<const float*>(qmem), nq, D, acc);
 #pragma unroll
     for (int j = 0; j < G2V_QB_MAX; ++j) {

@@ -78,7 +78,7 @@ struct RescoreScorer {
       return;
     }
     float acc[G2V_QB_MAX];
-    g2v_thread_dots_f32(unit + static_cast<size_t>(id) * D,
+    g2v_thread_dots_f32<true>(unit + static_cast<size_t>(id) * D,
                         reinterpret_cast<const float*>(qmem), 1, D, acc);
     keys[0] = g2v_key(acc[0]);
   }

@@ -53,6 +53,15 @@
 //     pool rows drawn twice need anyway.
 // g thus goes through device memory once (one write, one read).
 //
+// Wide rows: where even 16-row chunks of whole rows do not fit beside the
+// v tile (float32 D > 584, bfloat16 D > 696), launch 1 stages the v tile
+// and each chunk as 256-column d-slices instead (kWide), a (v slice, chunk
+// slice) pair a stage of its double buffer, and sums the logits fragment
+// across the slices in registers before the epilogue.  Every block of a
+// chunk visits the slices from the one after its own d-slice round to its
+// own, so that the slice its d_center product needs is the one in place
+// when the g tile is.
+//
 // Warps: 8 a block.  Fragments come from shared memory with 4-byte loads,
 // conflict-free: rows are padded to a stride of 4 mod 8 words, and where a
 // fragment's k index runs down the rows of a staged operand (the d_center
@@ -365,63 +374,87 @@ struct Halves {
 };
 
 // Shared memory: v tile [64][sv] (its tf32 hi parts, after the first
-// wait, where presplit) | its lo parts [64][sv] (presplit) | chunks
-// [2][NH][NC][sc] T (NH = 1 + pair: one chunk a half's group) | g tile
-// [64][NC + 8] f32, which first carries the logits' exchange | row losses
-// [64] f32.  Grid (ceil(Eg/64), G, d-slices of 32 * NT2 columns), or
-// (1, ceil(G/2), d-slices) with two groups a block.  In the logits the
-// warps pair up (wt = warp & 3) on rows 32 (wt & 1) .. +32 x chunk rows
-// (wt >> 1) * NC/2 .. +NC/2, each warp of a pair over half of d; in
-// d_center warp (wr, wc) of 2 x 4 takes rows 32 wr .. +32 and the slice's
+// wait, where presplit) | its lo parts [64][sv] (presplit; kWide: the
+// second buffer of the v slice, [2][64][sv], sv for 256 columns) | chunks
+// [2][NH][NC][sc] T (NH = 1 + pair: one chunk a half's group; kWide: of a
+// d-slice) | g tile [64][NC + 8] f32, which first carries the logits'
+// exchange | row losses [64] f32.  Grid (ceil(Eg/64), G, d-slices of 32 *
+// NT2 columns), or (1, ceil(G/2), d-slices) with two groups a block.  In
+// the logits the warps pair up (wt = warp & 3) on rows 32 (wt & 1) .. +32
+// x chunk rows (wt >> 1) * NC/2 .. +NC/2, each warp of a pair over half of
+// d; in d_center warp (wr, wc) of 2 x 4 takes rows 32 wr .. +32 and the slice's
 // n-tiles wc * NT2 .. +NT2 (columns past D hold finite values that are
 // never stored).  Either way a warp's rows lie in one half: one group,
 // one slab.  kPool: K5b's gathered slab (and, with p.pair, two groups a
 // block); K2/K3 compile without it.
-template <typename T, int NC, int NT2, bool kPool>
+template <typename T, int NC, int NT2, bool kPool, bool kWide = false>
 __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool kExact = Elem<T>::kExact, kPre = presplit(NT2);
+  static_assert(!kWide || !kPre, "a d-sliced v tile is split as loaded");
   constexpr int NT1 = NC / 16, GS = NC + 8;
+  constexpr int W = 32 * NT2;  // columns of a d-slice
   const int dslice = blockIdx.z;
+  const int nsl = kWide ? static_cast<int>(gridDim.z) : 1;  // slices a chunk is staged in
   const bool pair = kPool && p.pair;
   const std::conditional_t<kPool, Halves, OneGroup> hv(p);
   const int NH = 1 + pair;
   const int SV = p.sv, SC = p.sc;
   float* vt = reinterpret_cast<float*>(smem);
   uint32_t* vlo = reinterpret_cast<uint32_t*>(vt + kTileE * SV);
-  T* cb = reinterpret_cast<T*>(vt + (kPre ? 2 : 1) * kTileE * SV);
+  T* cb = reinterpret_cast<T*>(vt + (kPre || kWide ? 2 : 1) * kTileE * SV);
   float* gt = reinterpret_cast<float*>(cb + 2 * NH * NC * SC);
   float* lsum = gt + kTileE * GS;
   zero_smem(smem, reinterpret_cast<unsigned char*>(lsum + kTileE) - smem);
   __syncthreads();
 
   const T* table = static_cast<const T*>(p.ctx);
-  const auto chunk = [&](int c, int h) { return cb + ((c & 1) * NH + (pair ? h : 0)) * NC * SC; };
+  // stage u: chunk u (kWide: chunk u / nsl, d-slice slice_of(u)) in
+  // buffer u & 1, beside (kWide) that slice of the v tile
+  const auto chunk = [&](int u, int h) { return cb + ((u & 1) * NH + (pair ? h : 0)) * NC * SC; };
+  const auto vbuf = [&](int u) { return kWide ? vt + (u & 1) * kTileE * SV : vt; };
+  const auto slice_of = [&](int u) { return kWide ? (dslice + 1 + u % nsl) % nsl : 0; };
   const int nchunks = (p.S + NC - 1) / NC;
-  const auto stage = [&](int c) {
-    const int r0 = c * NC, rows = min(NC, p.S - r0);
+  const int nunits = nchunks * nsl;
+  const auto stage = [&](int u) {
+    const int c = u / nsl, r0 = c * NC, rows = min(NC, p.S - r0);
+    const int d0 = slice_of(u) * W, wn = kWide ? min(W, p.D - d0) : p.D;
+    if constexpr (kWide) {
+      float* vd = vbuf(u);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        copy_rows(vd + 32 * h * SV, SV, p.v + hv.example(32 * h) * p.D + d0, p.D, hv.rows(h), wn);
+      }
+      // the slice's columns past D up to the k-steps' 8 meet stale chunk
+      // columns: zero them in v
+      for (int i = threadIdx.x; i < kTileE * ((8 - wn % 8) % 8); i += kThreads) {
+        const int n = (8 - wn % 8) % 8;
+        vd[(i / n) * SV + wn + i % n] = 0.0f;
+      }
+    }
     for (int h = 0; h < NH; ++h) {
       if (hv.rows(h) == 0) continue;
       if constexpr (kPool) {
         const int* ids = p.ids + static_cast<size_t>(hv.group(h)) * p.S + r0;
-        gather_rows(chunk(c, h), SC, table, p.D, rows, p.D, [&](int r) { return __ldg(ids + r); });
+        gather_rows(chunk(u, h), SC, table + d0, p.D, rows, wn,
+                    [&](int r) { return __ldg(ids + r); });
       } else {
-        copy_rows(chunk(c, h), SC, table + static_cast<size_t>(hv.first(h) + r0) * p.D, p.D, rows,
-                  p.D);
+        copy_rows(chunk(u, h), SC, table + static_cast<size_t>(hv.first(h) + r0) * p.D + d0, p.D,
+                  rows, wn);
       }
     }
   };
-  if constexpr (kPool) {
+  if constexpr (kPool && !kWide) {  // the whole v tile, once (kWide: a slice a stage)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       copy_rows(vt + 32 * h * SV, SV, p.v + hv.example(32 * h) * p.D, p.D, hv.rows(h), p.D);
     }
-  } else {
+  } else if constexpr (!kWide) {
     copy_rows(vt, SV, p.v + hv.base * p.D, p.D, hv.ne, p.D);
   }
   stage(0);
   cp_commit();
-  if (nchunks > 1) stage(1);
+  if (nunits > 1) stage(1);
   cp_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -434,7 +467,8 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
   const int m0 = hl * 32 + kh * 16 + g;
   const int nb = (wt >> 1) * (NC / 2);
   const int r1 = (warp & 1) * 32 + g;  // d_center: rows r1 + 8i, i < 4 (half warp & 1)
-  const int dcol = dslice * 32 * NT2 + (warp >> 1) * 8 * NT2;  // its first column
+  // its first column (kWide: in the staged slice, which is the block's own)
+  const int dcol = (kWide ? 0 : dslice * 32 * NT2) + (warp >> 1) * 8 * NT2;
   int cm[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) cm[h] = hv.valid(m0 + 8 * h) ? p.contexts[hv.example(m0 + 8 * h)] : -1;
@@ -448,10 +482,14 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
     for (int j = 0; j < NT2; ++j) acc2[m][j][0] = acc2[m][j][1] = acc2[m][j][2] = acc2[m][j][3] = 0.0f;
   }
 
-  for (int c = 0; c < nchunks; ++c) {
+  int rid[NT1][2];  // kPool only
+  float kw[NT1][2];
+  float acc1[2][NT1][4];
+  for (int u = 0; u < nunits; ++u) {
+    const int c = u / nsl;  // the chunk (kWide: of this d-slice)
     cp_wait<1>();
-    __syncthreads();  // chunk c (and at c = 0 the v tile) in place
-    if (kPre && c == 0) {  // split the v tile once: hi in place, lo beside it
+    __syncthreads();  // stage u (and at u = 0 the v tile) in place
+    if (kPre && u == 0) {  // split the v tile once: hi in place, lo beside it
       for (int i = threadIdx.x; i < kTileE * SV; i += kThreads) {
         uint32_t hi;
         split(vt[i], hi, vlo[i]);
@@ -460,40 +498,41 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
       __syncthreads();
     }
     const int r0 = c * NC;
-    // K * w of this lane's slab columns (and a pool's table rows), loaded
-    // before the logits need them
-    int rid[NT1][2];  // kPool only
-    float kw[NT1][2];
+    if (u % nsl == 0) {  // a chunk's first stage
+      // K * w of this lane's slab columns (and a pool's table rows), loaded
+      // before the logits need them
 #pragma unroll
-    for (int j = 0; j < NT1; ++j) {
+      for (int j = 0; j < NT1; ++j) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int s = min(r0 + nb + 8 * j + 2 * t + q, p.S - 1);
-        if constexpr (kPool) {
-          const bool live = hv.rows(hl) > 0;
-          rid[j][q] = live ? slab_row<true>(p, hv.group(hl), 0, s) : -1;
-          kw[j][q] = live ? slab_weight<true>(p, rid[j][q]) : 0.0f;
-        } else {
-          kw[j][q] = slab_weight<false>(p, hv.first(0) + s);
+        for (int q = 0; q < 2; ++q) {
+          const int s = min(r0 + nb + 8 * j + 2 * t + q, p.S - 1);
+          if constexpr (kPool) {
+            const bool live = hv.rows(hl) > 0;
+            rid[j][q] = live ? slab_row<true>(p, hv.group(hl), 0, s) : -1;
+            kw[j][q] = live ? slab_weight<true>(p, rid[j][q]) : 0.0f;
+          } else {
+            kw[j][q] = slab_weight<false>(p, hv.first(0) + s);
+          }
         }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int j = 0; j < NT1; ++j) acc1[m][j][0] = acc1[m][j][1] = acc1[m][j][2] = acc1[m][j][3] = 0.0f;
       }
     }
 
-    // logits: this warp's half of d for the pair's 32 rows
-    float acc1[2][NT1][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int j = 0; j < NT1; ++j) acc1[m][j][0] = acc1[m][j][1] = acc1[m][j][2] = acc1[m][j][3] = 0.0f;
-    }
+    // logits: this warp's half of d (kWide: of the slice) for the pair's
+    // 32 rows, summed into acc1 across a chunk's slices
     const int rp = hl * 32 + g;  // the pair's rows rp + 8i, i < 4
-    const float* vf = vt + rp * SV + t;
+    const float* vf = vbuf(u) + rp * SV + t;
     const uint32_t* vh = reinterpret_cast<const uint32_t*>(vf);
     const uint32_t* vl = vlo + rp * SV + t;
-    const T* ba = chunk(c, hl) + (nb + g) * SC + t;
-    const int khalf = ((Dk >> 3) + 1) >> 1;  // k-steps of the first half
+    const T* ba = chunk(u, hl) + (nb + g) * SC + t;
+    const int dk = kWide ? (min(W, p.D - slice_of(u) * W) + 7) & ~7 : Dk;
+    const int khalf = ((dk >> 3) + 1) >> 1;  // k-steps of the first half
 #pragma unroll 2
-    for (int k0 = 8 * kh * khalf; k0 < (kh ? Dk : 8 * khalf); k0 += 8) {
+    for (int k0 = 8 * kh * khalf; k0 < (kh ? dk : 8 * khalf); k0 += 8) {
       uint32_t ah[2][4], al[2][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
@@ -510,6 +549,12 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
         }
       }
       mma_block<kExact, 2, NT1>(acc1, ah, al, ba + k0, 8 * SC, 4);
+    }
+    if (u % nsl != nsl - 1) {  // kWide: more slices of this chunk to come
+      __syncthreads();  // every warp is done with stage u's buffers
+      if (u + 2 < nunits) stage(u + 2);
+      cp_commit();
+      continue;
     }
     // the pair's exchange, through the g tile's space: this warp hands
     // over its partial of m-tile 1 - kh and adds the partner's of m-tile kh
@@ -576,7 +621,7 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
     // d_center += g tile (rows r1 + 8i) . chunk (this warp's columns)
     const int kend = (min(NC, p.S - r0) + 7) & ~7;
     const float* ga = gt + r1 * GS + 2 * t;
-    const T* bb = chunk(c, warp & 1) + 2 * t * SC + dcol + g;
+    const T* bb = chunk(u, warp & 1) + 2 * t * SC + dcol + g;
 #pragma unroll 2
     for (int kk = 0; kk < kend; kk += 8) {
       uint32_t ah[2][4], al[2][4];
@@ -591,8 +636,8 @@ __global__ void __launch_bounds__(kThreads) logits_center_kernel(Params p) {
       }
       mma_block<kExact, 2, NT2>(acc2, ah, al, bb + kk * SC, 8, SC);
     }
-    __syncthreads();  // every warp is done with chunk c and the g tile
-    if (c + 2 < nchunks) stage(c + 2);
+    __syncthreads();  // every warp is done with stage u and the g tile
+    if (u + 2 < nunits) stage(u + 2);
     cp_commit();
   }
 
@@ -783,26 +828,27 @@ static int allow_smem() {
   return static_cast<int>(err);
 }
 
-template <typename T, bool kPool, int NC, int NT2, int NT3>
+template <typename T, bool kPool, int NC, int NT2, int NT3, bool kWide = false>
 inline int launch_at(Params p, int G, cudaStream_t stream) {
   const int dslices1 = (p.D + 32 * NT2 - 1) / (32 * NT2);
   const int dslices3 = (p.D + 16 * NT3 - 1) / (16 * NT3);
   const size_t bytes1 =
-      4 * static_cast<size_t>(kTileE) * ((presplit(NT2) ? 2 : 1) * p.sv + NC + 8 + 1) +
+      4 * static_cast<size_t>(kTileE) * ((presplit(NT2) || kWide ? 2 : 1) * p.sv + NC + 8 + 1) +
       2 * static_cast<size_t>(1 + (kPool && p.pair)) * NC * p.sc * sizeof(T);
   p.sv3 = stride_4mod8((min(p.D, 16 * NT3) + 7) & ~7);
   const size_t bytes2 = static_cast<size_t>(kStages * kChunkE) * (kGs3 + p.sv3) * 4 + 1024;
   // launch 2's example ranges: whole chunks, as many as asked for
   p.chunk_e = ((p.Eg + p.splits - 1) / p.splits + kChunkE - 1) / kChunkE * kChunkE;
   p.splits = (p.Eg + p.chunk_e - 1) / p.chunk_e;
-  int status = allow_smem<logits_center_kernel<T, NC, NT2, kPool>>();
+  if (bytes1 > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  int status = allow_smem<logits_center_kernel<T, NC, NT2, kPool, kWide>>();
   if (status == 0) status = allow_smem<rows_kernel<NT3, kPool>>();
   if (status != 0) return status;
   cudaError_t err = cudaMemsetAsync(p.hits, 0, sizeof(int) * G * p.S, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid1 = kPool && p.pair ? dim3(1, (G + 1) / 2, dslices1)
                                      : dim3((p.Eg + kTileE - 1) / kTileE, G, dslices1);
-  logits_center_kernel<T, NC, NT2, kPool><<<grid1, kThreads, bytes1, stream>>>(p);
+  logits_center_kernel<T, NC, NT2, kPool, kWide><<<grid1, kThreads, bytes1, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rows_kernel<NT3, kPool><<<dim3((p.S + kTileS - 1) / kTileS, G * p.splits, dslices3),
@@ -814,9 +860,12 @@ inline int launch_at(Params p, int G, cudaStream_t stream) {
 // n-tiles a warp by D, the v tile split once up to D = 200 (float32
 // tables; 208 bf16), then d-slices of 256 columns and the v tile split as
 // loaded, in chunks of 64 slab rows, or 32 / 16 where a wide D leaves no
-// room for 64 (two groups a block stage two chunks of each).  Returns a
-// CUDA error code (cudaErrorInvalidValue where D is too wide for even
-// 16-row chunks: float32 D > 584, bfloat16 D > 696, at one group a block).
+// room for 64 (two groups a block stage two chunks of each).  Where two
+// groups a block leave no room, K5b takes one; where whole rows leave no
+// room for 16-row chunks (float32 D > 584, bfloat16 D > 696), launch 1
+// stages the v tile and the chunks as 256-column d-slices (kWide), in
+// chunks of 32 rows (float32) or 64 (bfloat16), at any D.  Returns a CUDA
+// error code.
 template <typename T, bool kPool>
 inline int launch(Params p, int G, cudaStream_t stream) {
   if (p.Eg == 0 || G == 0) return 0;
@@ -846,7 +895,13 @@ inline int launch(Params p, int G, cudaStream_t stream) {
   if (fits(64, 1)) return launch_at<T, kPool, 64, 8, 16>(p, G, stream);
   if (fits(32, 1)) return launch_at<T, kPool, 32, 8, 16>(p, G, stream);
   if (fits(16, 1)) return launch_at<T, kPool, 16, 8, 16>(p, G, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (p.pair) {  // K5b: one group a block, then the narrow layouts again
+    p.pair = 0;
+    return launch<T, kPool>(p, G, stream);
+  }
+  p.sv = stride_4mod8(256);
+  p.sc = sizeof(T) == 4 ? stride_4mod8(256) : 2 * stride_4mod8(128);
+  return launch_at<T, kPool, sizeof(T) == 4 ? 32 : 64, 8, 16, true>(p, G, stream);
 }
 
 // kPool: K5b's gathered slabs (p.ids); K2 and K3 launch without.

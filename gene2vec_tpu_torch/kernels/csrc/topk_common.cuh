@@ -10,7 +10,11 @@
 //    TMA bulk copy a tile on an mbarrier for int8 rows, 16-byte cp.async
 //    copies into padded rows for float32 and bf16) and score every query
 //    of the batch against each staged tile (g2v_staged_select), so a row
-//    leaves device memory once per call.  K9 and K9r score with one thread per row or candidate
+//    leaves device memory once per call.  Rows too wide for even a
+//    32-row tile beside one query are staged as d-slices of a tile: each
+//    slice's partial score (float32, or the exact int32 sum) waits in the
+//    key's place until the last slice adds its own and makes the key.
+//    K9 and K9r score with one thread per row or candidate
 //    (g2v_rows_select).  Then the block selects each query's top-min(keep,
 //    CH) of the chunk by a radix select (no sort), all queries side by
 //    side, and writes them, in no particular order, to the query's run in
@@ -541,15 +545,31 @@ __device__ void g2v_stage_queries_f32(const float* __restrict__ q, int q0, int n
   }
 }
 
+// A candidate's float32 dot (K9r, K9 on a bf16 table) is summed as four
+// interleaved partial sums (the columns d = 4i + k into part k), then (p0
+// + p1) + (p2 + p3): a single running sum over a wide row gathers a
+// rounding each step at the size of the whole score (at D = 1,024 over
+// 1e-6 on a unit score, against the plain version's batched products),
+// four quarter-size partials far less.  K9's centroid scores keep the
+// single running sum, a matrix product's own order (kParts false), so
+// that its probe ranks the lists as the plain version's product does.
+__device__ __forceinline__ float g2v_sum_parts(const float (&p)[4]) {
+  return (p[0] + p[1]) + (p[2] + p[3]);
+}
+
 // One thread's float32 dots of row `x` (D floats) with nq staged queries
 // (qs, D floats each, 16-byte aligned when D % 4 == 0): float4 loads of
 // the row when its width and address allow, else scalar loads; the
-// queries are read from shared memory as broadcasts.
+// queries are read from shared memory as broadcasts.  kParts: four
+// partial sums, else one running sum.
+template <bool kParts>
 __device__ __forceinline__ void g2v_thread_dots_f32(const float* __restrict__ x,
                                                     const float* qs, int nq, int D,
                                                     float* acc) {
+  constexpr int P = kParts ? 4 : 1;
+  float part[G2V_QB_MAX][4];
 #pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < G2V_QB_MAX; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
   if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
     const float4* x4 = reinterpret_cast<const float4*>(x);
 #pragma unroll 5
@@ -559,10 +579,10 @@ __device__ __forceinline__ void g2v_thread_dots_f32(const float* __restrict__ x,
       for (int j = 0; j < G2V_QB_MAX; ++j) {
         if (j < nq) {
           const float4 q = reinterpret_cast<const float4*>(qs + j * D)[c];
-          acc[j] = fmaf(q.x, v.x, acc[j]);
-          acc[j] = fmaf(q.y, v.y, acc[j]);
-          acc[j] = fmaf(q.z, v.z, acc[j]);
-          acc[j] = fmaf(q.w, v.w, acc[j]);
+          part[j][0] = fmaf(q.x, v.x, part[j][0]);
+          part[j][1 % P] = fmaf(q.y, v.y, part[j][1 % P]);
+          part[j][2 % P] = fmaf(q.z, v.z, part[j][2 % P]);
+          part[j][3 % P] = fmaf(q.w, v.w, part[j][3 % P]);
         }
       }
     }
@@ -571,10 +591,12 @@ __device__ __forceinline__ void g2v_thread_dots_f32(const float* __restrict__ x,
       const float v = __ldg(x + d);
 #pragma unroll
       for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) acc[j] = fmaf(qs[j * D + d], v, acc[j]);
+        if (j < nq) part[j][d % P] = fmaf(qs[j * D + d], v, part[j][d % P]);
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = kParts ? g2v_sum_parts(part[j]) : part[j][0];
 }
 
 // Staging of int8 queries: each normalized f32 query is quantized per row
@@ -663,13 +685,15 @@ __device__ void g2v_stage_queries_bf16(const float* __restrict__ qn, int q0, int
 // One thread's dots of bf16 row `x` (D values) with nq staged bf16-rounded
 // queries (qs, D floats each).  Each bf16 x bf16 product is exact in
 // float32 and the sum accumulates in float32 — the reference's
-// dot_general(..., preferred_element_type=f32).  16-byte loads of 8
-// values when the width and address allow, else one value at a time.
+// dot_general(..., preferred_element_type=f32) — in four interleaved
+// partial sums (g2v_sum_parts).  16-byte loads of 8 values when the width
+// and address allow, else one value at a time.
 __device__ __forceinline__ void g2v_thread_dots_bf16(const __nv_bfloat16* __restrict__ x,
                                                      const float* qs, int nq, int D,
                                                      float* acc) {
+  float part[G2V_QB_MAX][4];
 #pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < G2V_QB_MAX; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
   if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
     const uint4* x8 = reinterpret_cast<const uint4*>(x);
     for (int c = 0; c < (D >> 3); ++c) {
@@ -687,7 +711,7 @@ __device__ __forceinline__ void g2v_thread_dots_bf16(const __nv_bfloat16* __rest
         if (j < nq) {
           const float* q = qs + j * D + 8 * c;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[j] = fmaf(q[i], v[i], acc[j]);
+          for (int i = 0; i < 8; ++i) part[j][i & 3] = fmaf(q[i], v[i], part[j][i & 3]);
         }
       }
     }
@@ -696,10 +720,12 @@ __device__ __forceinline__ void g2v_thread_dots_bf16(const __nv_bfloat16* __rest
       const float v = __bfloat162float(x[d]);
 #pragma unroll
       for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) acc[j] = fmaf(qs[j * D + d], v, acc[j]);
+        if (j < nq) part[j][d & 3] = fmaf(qs[j * D + d], v, part[j][d & 3]);
       }
     }
   }
+#pragma unroll
+  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = g2v_sum_parts(part[j]);
 }
 
 static inline size_t g2v_int8_query_bytes(int D) {
@@ -746,9 +772,16 @@ __device__ __forceinline__ void g2v_wait_phase(uint32_t bar, uint32_t parity) {
 struct G2vStaging {
   const unsigned char* base;  // the table
   int row_bytes;              // one row in device memory
-  int tstride;                // one staged row in shared memory
-  int mode;                   // G2V_STAGE_*
+  int tstride;                // one staged row (of a d-slice) in shared memory
+  int mode;                   // G2V_STAGE_* (TMA only with whole rows)
+  int slice;                  // elements of a row a d-slice stages: D for whole rows
+  int elem;                   // bytes an element
 };
+
+// Score parts: a d-slice's partial starts a score (first), finishes it
+// into a key (last), or both (whole rows).
+#define G2V_PART_FIRST 1
+#define G2V_PART_LAST 2
 
 __device__ __forceinline__ void g2v_cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(g2v_smem_addr(dst)),
@@ -781,18 +814,25 @@ __device__ __forceinline__ float4 g2v_ld4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-// Block-wide zero-padded copy of `rows` table rows (D elements of T from
-// row r on) into a tile of tstride-byte rows: the staging of a table
-// whose rows cannot be bulk-copied.
+// Block-wide zero-padded copy of `rows` table rows (the ds elements of T
+// from column d0 of row r on) into a tile of tstride-byte rows: the
+// staging of a table whose rows cannot be bulk-copied.
 template <class T>
 __device__ void g2v_copy_rows(const T* __restrict__ table, int D, int r, int rows, int tstride,
-                              unsigned char* tile) {
+                              unsigned char* tile, int d0, int ds) {
   const int per_row = tstride / static_cast<int>(sizeof(T));
   for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
     const int j = i / per_row, d = i - j * per_row;
     reinterpret_cast<T*>(tile + static_cast<size_t>(j) * tstride)[d] =
-        d < D ? table[static_cast<size_t>(r + j) * D + d] : T(0.0f);
+        d < ds ? table[static_cast<size_t>(r + j) * D + d0 + d] : T(0.0f);
   }
+}
+
+// Where query q's score against tile row `row` goes: a partial (float32
+// bits, or int32) kept in its key's place, or, at the last part, the key.
+__device__ __forceinline__ void g2v_put_score(int* key, float acc, int part, bool masked) {
+  if (!(part & G2V_PART_FIRST)) acc += __int_as_float(*key);
+  *key = part & G2V_PART_LAST ? g2v_key(masked ? -INFINITY : acc) : __float_as_int(acc);
 }
 
 // SIMT scoring of a staged tile (rows of T, tstride bytes each, zero past
@@ -805,11 +845,13 @@ __device__ void g2v_copy_rows(const T* __restrict__ table, int D, int r, int row
 // one's FMAs run) and makes 16 QPT FMAs: 8 queries a thread (a full
 // batch) load 12 float4s for 128 FMAs, 4 load 8 for 64.  keys[q * kstride
 // + i] = the key of query q against tile row i (row r + i; -inf at or
-// past `valid`).
+// past `valid`).  A d-slice tile holds columns d0 .. d0 + D of the rows
+// (D its width), scored against the queries' same columns; `part` says
+// where its partial goes (g2v_put_score).
 template <class T, int QPT>
 __device__ void g2v_simt_tile_q(const unsigned char* tile, int tstride, const float* qs,
                                 int qstride, int nq, int D, int rows, int TR, int r, int valid,
-                                int* keys, int kstride) {
+                                int d0, int part, int* keys, int kstride) {
   int TQ = 1;
   while (TQ < 64 / QPT && QPT * TQ < nq) TQ <<= 1;
   const int RT = TR / 4;
@@ -823,7 +865,7 @@ __device__ void g2v_simt_tile_q(const unsigned char* tile, int tstride, const fl
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
   }
   const int D4 = (D + 3) >> 2;
-  const float* qrow = qs + static_cast<size_t>(QPT * tq) * qstride;
+  const float* qrow = qs + static_cast<size_t>(QPT * tq) * qstride + d0;
   const T* xrow = reinterpret_cast<const T*>(tile + static_cast<size_t>(rt) * tstride);
   const int xstep = RT * tstride / static_cast<int>(sizeof(T));  // elements between its rows
   float4 qv[QPT], xv[4];
@@ -871,7 +913,7 @@ __device__ void g2v_simt_tile_q(const unsigned char* tile, int tstride, const fl
     for (int j = 0; j < 4; ++j) {
       const int q = QPT * tq + i, row = rt + RT * j;
       if (q < nq && row < rows) {
-        keys[q * kstride + row] = g2v_key(r + row >= valid ? -INFINITY : acc[i][j]);
+        g2v_put_score(keys + q * kstride + row, acc[i][j], part, r + row >= valid);
       }
     }
   }
@@ -880,11 +922,13 @@ __device__ void g2v_simt_tile_q(const unsigned char* tile, int tstride, const fl
 template <class T>
 __device__ void g2v_simt_tile(const unsigned char* tile, int tstride, const float* qs,
                               int qstride, int nq, int D, int rows, int TR, int r, int valid,
-                              int* keys, int kstride) {
+                              int d0, int part, int* keys, int kstride) {
   if (nq > 32) {
-    g2v_simt_tile_q<T, 8>(tile, tstride, qs, qstride, nq, D, rows, TR, r, valid, keys, kstride);
+    g2v_simt_tile_q<T, 8>(tile, tstride, qs, qstride, nq, D, rows, TR, r, valid, d0, part, keys,
+                          kstride);
   } else {
-    g2v_simt_tile_q<T, 4>(tile, tstride, qs, qstride, nq, D, rows, TR, r, valid, keys, kstride);
+    g2v_simt_tile_q<T, 4>(tile, tstride, qs, qstride, nq, D, rows, TR, r, valid, d0, part, keys,
+                          kstride);
   }
 }
 
@@ -895,11 +939,13 @@ __device__ void g2v_simt_tile(const unsigned char* tile, int tstride, const floa
 // past nq up to the next multiple of 16).  mma.sync m16n8k32 s8 x s8 ->
 // s32: warp w takes the tile's 8-row slab w % (TR / 8) and every
 // (8 / (TR / 8))-th 16-query slab; the int32 sums are exact and the
-// rescale is the reference's, so the scores are bitwise.
+// rescale is the reference's, so the scores are bitwise.  A d-slice tile
+// (columns d0 .. d0 + D, d0 a multiple of 32) keeps its exact int32 sums
+// in the keys' place until the last slice rescales their total.
 __device__ void g2v_imma_tile(const unsigned char* tile, int tstride, const signed char* qq,
                               int qstride, const float* qscale, const float* __restrict__ scale,
-                              int nq, int D, int rows, int TR, int r, int valid, int* keys,
-                              int kstride) {
+                              int nq, int D, int rows, int TR, int r, int valid, int d0, int part,
+                              int* keys, int kstride) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int NT = TR / 8, WPN = (G2V_TOPK_THREADS / 32) / NT;
@@ -908,7 +954,7 @@ __device__ void g2v_imma_tile(const unsigned char* tile, int tstride, const sign
   const unsigned char* brow = tile + static_cast<size_t>(8 * nt + g) * tstride + 4 * t;
   for (int m = warp / NT; m < MT; m += WPN) {
     int c[4] = {0, 0, 0, 0};
-    const signed char* alo = qq + static_cast<size_t>(16 * m + g) * qstride + 4 * t;
+    const signed char* alo = qq + static_cast<size_t>(16 * m + g) * qstride + d0 + 4 * t;
     const signed char* ahi = alo + 8 * qstride;
     for (int k0 = 0; k0 < Dk; k0 += 32) {
       const int a0 = *reinterpret_cast<const int*>(alo + k0);
@@ -928,8 +974,12 @@ __device__ void g2v_imma_tile(const unsigned char* tile, int tstride, const sign
       const int q = 16 * m + g + 8 * (e >> 1), row = 8 * nt + 2 * t + (e & 1);
       if (q < nq && row < rows) {
         const int rg = r + row;
-        keys[q * kstride + row] =
-            g2v_key(rg >= valid ? -INFINITY : g2v_rescale(c[e], qscale[q], __ldg(scale + rg)));
+        int* key = keys + q * kstride + row;
+        const int sum = part & G2V_PART_FIRST ? c[e] : c[e] + *key;
+        *key = part & G2V_PART_LAST
+                   ? g2v_key(rg >= valid ? -INFINITY
+                                         : g2v_rescale(sum, qscale[q], __ldg(scale + rg)))
+                   : sum;
       }
     }
   }
@@ -938,16 +988,20 @@ __device__ void g2v_imma_tile(const unsigned char* tile, int tstride, const sign
 // Staged scorer interface (one struct per kernel, passed by value):
 //   G2vStaging st;                                   how rows are staged
 //   __device__ void load_queries(unsigned char* qmem, int q0, int nq, int QG) const;
-//   __device__ void copy_rows(unsigned char* tile, int r, int rows) const;
-//       the block-wide staging in G2V_STAGE_COPY mode
+//   __device__ void copy_rows(unsigned char* tile, int r, int rows, int d0, int ds) const;
+//       the block-wide staging in G2V_STAGE_COPY mode (columns d0 .. d0 + ds)
 //   __device__ void score_tile(const unsigned char* tile, const unsigned char* qmem,
-//                              int nq, int r, int rows, int TR, int* keys, int kstride) const;
+//                              int nq, int r, int rows, int TR, int d0, int ds, int part,
+//                              int* keys, int kstride) const;
 // Grid: chunks of CH rows x query groups of QG.  Shared memory: two tiles
 // of tile_bytes, the queries (query_bytes), QG x CH keys, the warps'
 // histograms.  A block stages tiles t and t + 1 ahead of scoring: the
 // copy of tile t + 2 starts once tile t is scored, so copies overlap
 // scoring; all QG queries score each tile while it is in shared memory.
-template <class S>
+// With d-slices (kSliced: st.slice < the row's elements) a stage is one
+// slice of a tile, the slices of a tile in turn, its keys summed across
+// them; whole rows compile with one slice, each score first and last.
+template <class S, bool kSliced>
 __global__ void __launch_bounds__(G2V_TOPK_THREADS)
 g2v_staged_select(S sc, int n, int B, int QG, int CH, int TR, int tile_bytes, int query_bytes,
                   int keep, int slot, int stride, int* __restrict__ okey,
@@ -961,10 +1015,13 @@ g2v_staged_select(S sc, int n, int B, int QG, int CH, int TR, int tile_bytes, in
   const int nrows = min(CH, n - r0);
   const int ntile = (nrows + TR - 1) / TR;
   const int lane = threadIdx.x & 31;
+  const G2vStaging st = sc.st;
+  const int width = st.row_bytes / st.elem;          // D
+  const int nsl = kSliced ? (width + st.slice - 1) / st.slice : 1;  // d-slices a tile
+  const int nunits = ntile * nsl;
   unsigned char* qmem = g2v_smem + 2 * static_cast<size_t>(tile_bytes);
   int* keys = reinterpret_cast<int*>(qmem + query_bytes);
   char* sel = reinterpret_cast<char*>(keys + static_cast<size_t>(QG) * CH);
-  const G2vStaging st = sc.st;
   const bool tma = st.mode == G2V_STAGE_TMA, cp = st.mode == G2V_STAGE_CP_ASYNC;
   if (tma && threadIdx.x == 0) {
     for (int b = 0; b < 2; ++b) {
@@ -975,13 +1032,16 @@ g2v_staged_select(S sc, int n, int B, int QG, int CH, int TR, int tile_bytes, in
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // stages tile t into buffer t & 1; cp.async copies then form one group
-  const auto stage = [&](int t) {
-    unsigned char* dst = g2v_smem + static_cast<size_t>(t & 1) * tile_bytes;
+  // stages unit u (tile u / nsl, its d-slice u % nsl) into buffer u & 1;
+  // cp.async copies then form one group
+  const auto stage = [&](int u) {
+    unsigned char* dst = g2v_smem + static_cast<size_t>(u & 1) * tile_bytes;
+    const int t = u / nsl, d0 = (u % nsl) * st.slice, ds = min(st.slice, width - d0);
     const int r = r0 + t * TR, rows = min(TR, nrows - t * TR);
-    const unsigned char* src = st.base + static_cast<size_t>(r) * st.row_bytes;
+    const unsigned char* src =
+        st.base + static_cast<size_t>(r) * st.row_bytes + static_cast<size_t>(d0) * st.elem;
     if (cp) {
-      const int cpr = st.row_bytes >> 4;
+      const int cpr = (ds * st.elem) >> 4;
       for (int c = threadIdx.x; c < rows * cpr; c += blockDim.x) {
         const int i = c / cpr, k = c - i * cpr;
         g2v_cp_async16(dst + static_cast<size_t>(i) * st.tstride + 16 * k,
@@ -990,7 +1050,7 @@ g2v_staged_select(S sc, int n, int B, int QG, int CH, int TR, int tile_bytes, in
       return;
     }
     if (!tma) {
-      sc.copy_rows(dst, r, rows);
+      sc.copy_rows(dst, r, rows, d0, ds);
       return;
     }
     if (threadIdx.x >= 32) return;
@@ -1011,17 +1071,22 @@ g2v_staged_select(S sc, int n, int B, int QG, int CH, int TR, int tile_bytes, in
   };
   stage(0);
   commit();
-  if (ntile > 1) stage(1);
-  commit();  // possibly empty: group g always holds tile g
+  if (nunits > 1) stage(1);
+  commit();  // possibly empty: group g always holds unit g
   sc.load_queries(qmem, q0, nq, QG);
-  for (int t = 0; t < ntile; ++t) {
-    if (tma) g2v_wait_phase(g2v_smem_addr(&bars[t & 1]), (t >> 1) & 1);
-    if (cp) asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // groups <= t done
-    __syncthreads();  // the tile (and, at t = 0, the queries) in place
-    sc.score_tile(g2v_smem + static_cast<size_t>(t & 1) * tile_bytes, qmem, nq, r0 + t * TR,
-                  min(TR, nrows - t * TR), TR, keys + t * TR, CH);
+  for (int u = 0; u < nunits; ++u) {
+    const int t = u / nsl, sl = u % nsl;
+    if (tma) g2v_wait_phase(g2v_smem_addr(&bars[u & 1]), (u >> 1) & 1);
+    if (cp) asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // groups <= u done
+    __syncthreads();  // the tile (and, at u = 0, the queries) in place
+    const int part = !kSliced ? G2V_PART_FIRST | G2V_PART_LAST
+                              : (sl == 0 ? G2V_PART_FIRST : 0) |
+                                    (sl == nsl - 1 ? G2V_PART_LAST : 0);
+    sc.score_tile(g2v_smem + static_cast<size_t>(u & 1) * tile_bytes, qmem, nq, r0 + t * TR,
+                  min(TR, nrows - t * TR), TR, sl * st.slice, min(st.slice, width - sl * st.slice),
+                  part, keys + t * TR, CH);
     __syncthreads();  // every thread is done with this buffer
-    if (t + 2 < ntile) stage(t + 2);
+    if (u + 2 < nunits) stage(u + 2);
     commit();
   }
   if (tma && threadIdx.x == 0) {
@@ -1045,9 +1110,11 @@ static int g2v_run_staged(const S& sc, int query_bytes, int n, int B, int QG, in
   const int tile_bytes = static_cast<int>(g2v_tile_bytes(TR, sc.st.tstride));
   const size_t smem = 2 * static_cast<size_t>(tile_bytes) + query_bytes +
                       static_cast<size_t>(QG) * CH * 4 + G2V_SELECT_BYTES;
-  int err = g2v_smem_attr(g2v_staged_select<S>, smem);
+  const auto kernel = sc.st.slice < sc.st.row_bytes / sc.st.elem ? g2v_staged_select<S, true>
+                                                                  : g2v_staged_select<S, false>;
+  int err = g2v_smem_attr(kernel, smem);
   if (err) return err;
-  g2v_staged_select<S><<<dim3(nchunks, (B + QG - 1) / QG), G2V_TOPK_THREADS, smem, stream>>>(
+  kernel<<<dim3(nchunks, (B + QG - 1) / QG), G2V_TOPK_THREADS, smem, stream>>>(
       sc, n, B, QG, CH, TR, tile_bytes, query_bytes, keep, slot, stride, ka, ia);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;

@@ -31,7 +31,9 @@ mean(loss_deep) + mean(loss_shallow), as the reference's (cbow_hs.py:159).
 
 On the card one launch scores every path entry, a warp an example, 16
 examples a block; the top ``hot_levels`` levels' accumulator rows are
-reduced in each block's shared memory before they reach ``acc_node``.
+reduced in each block's shared memory before they reach ``acc_node``
+(fewer levels where a wide row leaves no room for them).  Rows of any
+width: past 512 columns each entry walks its rows in 512-column parts.
 """
 
 from __future__ import annotations
@@ -109,8 +111,6 @@ def hs(emb, node, inputs, targets, points, codes, lengths, shallow, acc_node, *,
         _args.expect(shallow.signs, "shallow.signs", torch.int8, (v_size, ls))
         if shallow.n_shallow > n_nodes:
             raise ValueError(f"{shallow.n_shallow} shallow nodes, the table {n_nodes} rows")
-    if d > 512:
-        raise ValueError(f"K6 takes rows of at most 512 elements, not {d}")
     if not 0 <= hot_levels <= 7:
         raise ValueError(f"hot_levels={hot_levels} outside 0..7")
     lib = _lib()

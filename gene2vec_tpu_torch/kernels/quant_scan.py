@@ -89,7 +89,7 @@ def quant_scan(qn, table_q, scale, rb: int, valid: Optional[int] = None):
     rows = torch.empty((b, rb), dtype=torch.int32, device=qn.device)
     status = lib.k8_quant_scan(
         _args.ptr(qn), _args.ptr(table_q), _args.ptr(scale), int(bf16), v_rows, d, b, valid,
-        rb, p.tile, p.qb, p.rows, p.slot, p.stride,
+        rb, p.tile, p.qb, p.rows, p.dslice, p.slot, p.stride,
         _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
     )
@@ -103,6 +103,6 @@ def _lib():
     fn = lib.k8_quant_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P] + [I] * 11 + [P] * 7
+        fn.argtypes = [P, P, P] + [I] * 12 + [P] * 7
         fn.restype = I
     return lib

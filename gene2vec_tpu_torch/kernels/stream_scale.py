@@ -40,7 +40,7 @@ def stream_scale(x: torch.Tensor, scale: float = SCALE) -> torch.Tensor:
     out = torch.empty_like(x)
     lib = _lib()
     status = lib.k12_stream_scale(_args.ptr(x), _args.ptr(out), x.numel(), float(scale), bf16,
-                                  _args.sm_count(x), _args.stream(x))
+                                  _args.stream(x))
     build.check(lib, status, "K12 stream_scale launch")
     launches["stream_scale", "bf16" if bf16 else ""] += 1
     return out
@@ -51,6 +51,6 @@ def _lib():
     fn = lib.k12_stream_scale
     if fn.argtypes is None:
         P, I, L, F = _args.P, _args.I, _args.L, _args.F
-        fn.argtypes = [P, P, L, F, I, I, P]
+        fn.argtypes = [P, P, L, F, I, P]
         fn.restype = I
     return lib

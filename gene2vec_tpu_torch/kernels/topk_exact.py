@@ -48,7 +48,7 @@ def topk_exact(unit, queries, kb: int, valid: Optional[int] = None):
     rows = torch.empty((b, kb), dtype=torch.int32, device=unit.device)
     status = lib.k7_topk_exact(
         _args.ptr(unit), _args.ptr(queries), v_rows, d, b, valid, kb,
-        p.tile, p.qb, p.rows, p.slot, p.stride,
+        p.tile, p.qb, p.rows, p.dslice, p.slot, p.stride,
         _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
         _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(unit),
     )
@@ -62,6 +62,6 @@ def _lib():
     fn = lib.k7_topk_exact
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P] + [I] * 10 + [P] * 7
+        fn.argtypes = [P, P] + [I] * 11 + [P] * 7
         fn.restype = I
     return lib

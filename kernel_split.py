@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
-"""Where a training kernel's time goes, by builds with parts compiled out.
+"""Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [TREE ...]     # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k12] [TREE ...]   # on a machine with a CUDA card
 
-For K5a (``csrc/k5_per_example.cu``) of each checkout given (default:
-this one), builds its source as it is and with parts removed (the edits
-below, matched by text, so a variant that does not apply to a tree's
-source is skipped and says so; ``no_hot_rows`` sends every payload to
-global atomics), loads each build with ctypes and times
-it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median) at the
-default configuration's full width (E = 8192, K = 5, D = 200), on the
-same inputs ``chip_smoke.objective_kernel_check`` makes, at float32 and
-bfloat16 tables.  The full build is also timed with uniform draws in
-place of the alias draws: equal times say the hottest rows' atomics do
-not contend.  A build with a part removed computes a wrong result; it is
-timed, never checked.  One ``{"split": ...}`` line per tree on stdout,
-with each build's registers (``ptxas -v``) and the card's name and power
-limit.
+For the kernel named (default ``k5``) of each checkout given (default:
+this one), builds its source as it is and as each entry of its variant
+table makes it (edits matched by text, so a variant that does not apply to
+a tree's source is skipped and says so), loads each build with ctypes and
+times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
+``{"split": ...}`` line per tree on stdout, with each build's registers
+(``ptxas -v``) and the card's name and power limit.
+
+- ``k5``: K5a (``csrc/k5_per_example.cu``) with parts removed (its
+  scatters, the hot-row sums: ``no_hot_rows`` sends every payload to global
+  atomics) at the default configuration's full width (E = 8192, K = 5, D =
+  200), on the inputs ``chip_smoke.objective_kernel_check`` makes, at
+  float32 and bfloat16 tables.  The full build is also timed with uniform
+  draws in place of the alias draws: equal times say the hottest rows'
+  atomics do not contend.  A build with a part removed computes a wrong
+  result; it is timed, never checked.
+- ``k12``: K12 (``csrc/k12_stream_scale.cu``) with one design choice
+  changed (vectors a thread for float32 and bfloat16, evict-first cache
+  hints on the loads or on both), each build checked bitwise against
+  ``x * scale`` once and timed beside ``torch.mul`` at the kernels line's
+  K12 shapes: ``pallas_copy_loop``'s 25, 100 and 400 MB (float32, x
+  1.0000001), 100 MB bfloat16 and ``stream_copy``'s (256, 24576) float32
+  and bfloat16.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ import sys
 import tempfile
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SRC = os.path.join("gene2vec_tpu_torch", "kernels", "csrc", "k5_per_example.cu")
+CSRC = os.path.join("gene2vec_tpu_torch", "kernels", "csrc")
 
 _DRAWS = ("add_hot(hot, n[k], D, vs, g[k], 1.0f, lane);", ";"), \
     ("add_payload(acc, n[k], D, vs, g[k], 1.0f, lane);", ";")
@@ -38,43 +47,57 @@ _CONTEXTS = ("add_hot(hot, c, D, vs, gp, 1.0f, lane);", ";"), \
     ("add_payload(acc, c, D, vs, gp, 1.0f, lane);", ";")
 _SCALAR_PAYLOADS = ("atomicAdd(&acc[static_cast<size_t>(nk[k]) * D1 + d], __fmul_rn(gk[k], vd));",
                     ";")
+_LOADS_CS = ("v[k] = __ldg(x + i);", "v[k] = __ldcs(x + i);")
+_STORES_CS = ("out[i] = g2v_scale_vec<T>(v[k], scale);",
+              "__stcs(out + i, g2v_scale_vec<T>(v[k], scale));")
 
-#: variant → [(text, replacement)]; the first design (a column a lane,
-#: scalar atomics, each noise row read twice) and the register design
-#: name their parts differently
+#: kernel → (source file, variant → [(text, replacement)]); K5a's first
+#: design (a column a lane, scalar atomics, each noise row read twice) and
+#: its register design name their parts differently
 VARIANTS = {
-    "no_payload_atomics": [_SCALAR_PAYLOADS],  # first design: the draws' g·v atomics
-    "no_atomics": [  # first design: every atomic (payloads and counts)
-        _SCALAR_PAYLOADS,
-        ("atomicAdd(&acc[static_cast<size_t>(nk[k]) * D1 + D], 1.0f);", ";")],
-    "no_noise_scatter": [*_DRAWS],  # the draws' payloads
-    "no_context_scatter": [*_CONTEXTS],  # the positive contexts' payloads
-    "no_scatter": [*_DRAWS, *_CONTEXTS],
-    "no_hot_rows": [  # every payload by global atomics, none summed in shared memory
-        ("if (n[k] < kHot) {", "if (false) {"), ("if (c < kHot) {", "if (false) {")],
+    "k5": ("k5_per_example.cu", {
+        "no_payload_atomics": [_SCALAR_PAYLOADS],  # first design: the draws' g·v atomics
+        "no_atomics": [  # first design: every atomic (payloads and counts)
+            _SCALAR_PAYLOADS,
+            ("atomicAdd(&acc[static_cast<size_t>(nk[k]) * D1 + D], 1.0f);", ";")],
+        "no_noise_scatter": [*_DRAWS],  # the draws' payloads
+        "no_context_scatter": [*_CONTEXTS],  # the positive contexts' payloads
+        "no_scatter": [*_DRAWS, *_CONTEXTS],
+        "no_hot_rows": [  # every payload by global atomics, none summed in shared memory
+            ("if (n[k] < kHot) {", "if (false) {"), ("if (c < kHot) {", "if (false) {")],
+    }),
+    "k12": ("k12_stream_scale.cu", {
+        "f32_unroll2": [("constexpr int kUnrollF32 = 1;", "constexpr int kUnrollF32 = 2;")],
+        "f32_unroll4": [("constexpr int kUnrollF32 = 1;", "constexpr int kUnrollF32 = 4;")],
+        "bf16_unroll1": [("constexpr int kUnrollBf16 = 4;", "constexpr int kUnrollBf16 = 1;")],
+        "loads_evict_first": [_LOADS_CS],
+        "evict_first": [_LOADS_CS, _STORES_CS],
+    }),
 }
 
 
-def build(tree: str, work: str) -> dict:
-    """{variant: (library path, registers by kernel)}, built in parallel."""
+def build(tree: str, kernel: str, work: str) -> dict:
+    """{variant: (library path, registers by kernel)}, one nvcc each, all
+    started at once."""
     from gene2vec_tpu_torch.kernels import build as kb
 
-    csrc = os.path.join(tree, os.path.dirname(SRC))
-    with open(os.path.join(tree, SRC)) as f:
+    src_name, variants = VARIANTS[kernel]
+    csrc = os.path.join(tree, CSRC)
+    with open(os.path.join(csrc, src_name)) as f:
         text = f.read()
     sources = {"full": text}
-    for name, edits in VARIANTS.items():
-        out = text
-        if all(old in out for old, _ in edits):
+    for name, edits in variants.items():
+        if all(old in text for old, _ in edits):
+            out = text
             for old, new in edits:
                 out = out.replace(old, new)
             sources[name] = out
     procs = {}
     for name, body in sources.items():
-        src = os.path.join(work, f"k5_{name}.cu")
+        src = os.path.join(work, f"{kernel}_{name}.cu")
         with open(src, "w") as f:
             f.write(body)
-        lib = os.path.join(work, f"k5_{name}.so")
+        lib = os.path.join(work, f"{kernel}_{name}.so")
         procs[name] = (lib, subprocess.Popen(
             [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", csrc, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -82,13 +105,13 @@ def build(tree: str, work: str) -> dict:
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"{tree} {name}: nvcc exit {proc.returncode}\n{log}")
+            raise SystemExit(f"{tree} {kernel} {name}: nvcc exit {proc.returncode}\n{log}")
         regs = {}
         fn = None
         for line in log.splitlines():
-            m = re.search(r"Compiling entry function '\S*?(per_example\w*kernel)I(\S*?)EEv", line)
+            m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
-                fn = f"{m.group(1)}<{m.group(2)}>"
+                fn = kernel_name(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
                 regs[fn] = int(m.group(1))
@@ -96,7 +119,27 @@ def build(tree: str, work: str) -> dict:
     return built
 
 
-def run_tree(torch, tree: str, reps: int) -> dict:
+def kernel_name(mangled: str):
+    """``name<template arguments>`` of the first ``*_kernel`` in a mangled
+    name, read by its length prefixes (nvcc's per-file namespace holds
+    digits too), or None."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            i += 1
+            continue
+        j = i + len(m.group())
+        name = mangled[j:j + int(m.group())]
+        i = j + len(name)
+        if name.endswith("_kernel"):
+            rest = mangled[i:]
+            args = rest[1:rest.index("EEv")] if rest.startswith("I") and "EEv" in rest else ""
+            return f"{name}<{args}>"
+    return None
+
+
+def time_k5(torch, tree, built, timer, out):
     import chip_smoke as cs
     from gene2vec_tpu_torch.data.negative_sampling import (
         build_alias_table, noise_distribution, sample_negatives)
@@ -104,53 +147,110 @@ def run_tree(torch, tree: str, reps: int) -> dict:
     from gene2vec_tpu_torch.kernels.pos_logit import pos_logit_plain
 
     dev = torch.device("cuda")
-    timer = cs.Timer(torch, reps)
-    out = {"tree": os.path.abspath(tree), "ms": {}, "regs": {}}
+    counts, emb, ctx, c_ids, x_ids = cs.full_width_inputs(torch, dev)
+    contexts = torch.from_numpy(x_ids).to(dev)
+    noise = build_alias_table(noise_distribution(counts), device=dev)
+    draws = {"alias": sample_negatives(noise, torch.Generator(device=dev).manual_seed(0),
+                                       (cs.E, cs.K)),
+             "uniform": torch.randint(0, cs.V, (cs.E, cs.K), dtype=torch.int32, device=dev,
+                                      generator=torch.Generator(device=dev).manual_seed(0))}
+    for dtype in (torch.float32, torch.bfloat16):
+        table = ctx.to(dtype)
+        v, u, g_pos, _ = pos_logit_plain(emb.to(dtype), table,
+                                        torch.from_numpy(c_ids).to(dev), contexts)
+        acc = torch.zeros((cs.V, cs.D + 1), device=dev)
+        d_center = torch.empty_like(v)
+        loss = torch.empty_like(g_pos)
+        bf16 = int(dtype == torch.bfloat16)
+        for name, (path, _) in built.items():
+            fn = ctypes.CDLL(path).k5_per_example
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            for kind, negs in draws.items():
+                if kind == "uniform" and name != "full":
+                    continue
+
+                def call():
+                    status = fn(*(_args.ptr(t) for t in (
+                        v, u, g_pos, contexts, negs, table, loss, d_center, acc)),
+                        cs.E, cs.K, cs.D, bf16, _args.stream(v))
+                    if status:
+                        raise SystemExit(f"{tree} {name}: CUDA error {status}")
+
+                key = f"{name}{'_bf16' if bf16 else ''}" + ("_uniform" if kind == "uniform"
+                                                          else "")
+                out["ms"][key] = timer(call)
+                cs.log(f"split {tree} {key}: {out['ms'][key]:.4f} ms")
+
+
+def k12_cases(torch, gen):
+    """(label, x) at the kernels line's K12 shapes."""
+    dev = torch.device("cuda")
+    for mb in (25, 100, 400):
+        yield f"{mb}MB_f32", torch.randn((mb * 1024 * 1024 // 4 // 256, 256), device=dev,
+                                         generator=gen)
+    yield "100MB_bf16", torch.randn((100 * 1024 * 1024 // 2 // 256, 256), device=dev,
+                                    generator=gen).to(torch.bfloat16)
+    for dt in (torch.float32, torch.bfloat16):
+        yield f"stream_copy_{str(dt)[6:]}", torch.randn((256, 24576), device=dev,
+                                                        generator=gen).to(dt)
+
+
+def time_k12(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+    from gene2vec_tpu_torch.kernels.stream_scale import SCALE
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, x in k12_cases(torch, gen):
+        bf16 = int(x.dtype == torch.bfloat16)
+        res = out["ms"][label] = {"library_ms": timer(lambda: torch.mul(x, SCALE))}
+        dst = torch.empty_like(x)
+        for name, (path, _) in built.items():
+            fn = ctypes.CDLL(path).k12_stream_scale
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                           ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def call():
+                status = fn(_args.ptr(x), _args.ptr(dst), x.numel(), SCALE, bf16,
+                            _args.stream(x))
+                if status:
+                    raise SystemExit(f"{tree} {name}: CUDA error {status}")
+
+            call()
+            torch.cuda.synchronize()
+            if not cs.same_bits(torch, dst, torch.mul(x, SCALE)):
+                raise SystemExit(f"{tree} {name} {label}: not bitwise x * {SCALE}")
+            res[name] = timer(call)
+        cs.log(f"split {tree} {label}: {res}")
+        del x, dst
+
+
+TIMERS = {"k5": time_k5, "k12": time_k12}
+
+
+def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
+    import chip_smoke as cs
+
+    out = {"tree": os.path.abspath(tree), "kernel": kernel, "ms": {}, "regs": {}}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_split_", dir=ROOT) as work:
-        built = build(tree, work)
-        out["skipped"] = sorted(set(VARIANTS) - set(built))
-        counts, emb, ctx, c_ids, x_ids = cs.full_width_inputs(torch, dev)
-        contexts = torch.from_numpy(x_ids).to(dev)
-        noise = build_alias_table(noise_distribution(counts), device=dev)
-        draws = {"alias": sample_negatives(noise, torch.Generator(device=dev).manual_seed(0),
-                                           (cs.E, cs.K)),
-                 "uniform": torch.randint(0, cs.V, (cs.E, cs.K), dtype=torch.int32, device=dev,
-                                          generator=torch.Generator(device=dev).manual_seed(0))}
-        for dtype in (torch.float32, torch.bfloat16):
-            table = ctx.to(dtype)
-            v, u, g_pos, _ = pos_logit_plain(emb.to(dtype), table,
-                                            torch.from_numpy(c_ids).to(dev), contexts)
-            acc = torch.zeros((cs.V, cs.D + 1), device=dev)
-            d_center = torch.empty_like(v)
-            loss = torch.empty_like(g_pos)
-            bf16 = int(dtype == torch.bfloat16)
-            for name, (path, regs) in built.items():
-                lib = ctypes.CDLL(path)
-                fn = lib.k5_per_example
-                fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-                out["regs"][name] = regs
-                for kind, negs in draws.items():
-                    if kind == "uniform" and name != "full":
-                        continue
-
-                    def call():
-                        status = fn(*(_args.ptr(t) for t in (
-                            v, u, g_pos, contexts, negs, table, loss, d_center, acc)),
-                            cs.E, cs.K, cs.D, bf16, _args.stream(v))
-                        if status:
-                            raise SystemExit(f"{tree} {name}: CUDA error {status}")
-
-                    key = f"{name}{'_bf16' if bf16 else ''}" + ("_uniform" if kind == "uniform"
-                                                              else "")
-                    out["ms"][key] = timer(call)
-                    cs.log(f"split {tree} {key}: {out['ms'][key]:.4f} ms")
+        built = build(tree, kernel, work)
+        out["skipped"] = sorted(set(VARIANTS[kernel][1]) - set(built))
+        out["regs"] = {name: regs for name, (_, regs) in built.items()}
+        TIMERS[kernel](torch, tree, built, cs.Timer(torch, reps), out)
     return out
 
 
 def main() -> int:
     import torch
 
+    args = sys.argv[1:]
+    kernel = "k5"
+    if args[:1] == ["--kernel"]:
+        kernel, args = args[1], args[2:]
+    if kernel not in VARIANTS:
+        raise SystemExit(f"kernel_split: --kernel takes one of {sorted(VARIANTS)}")
     if not torch.cuda.is_available():
         print("kernel_split: no CUDA device available", file=sys.stderr)
         return 2
@@ -158,8 +258,8 @@ def main() -> int:
     import chip_smoke as cs
 
     smi = cs.nvidia_smi_line()
-    for tree in sys.argv[1:] or [ROOT]:
-        rec = run_tree(torch, tree, cs.TIMED_REPS)
+    for tree in args or [ROOT]:
+        rec = run_tree(torch, tree, kernel, cs.TIMED_REPS)
         rec["card"] = smi
         print(json.dumps({"split": rec}), flush=True)
     return 0

@@ -595,27 +595,36 @@ def test_cli_trains_bf16_tables(tmp_path, capsys):
 
 
 def test_bf16_table_gate_allows_only_the_float32_error_of_new():
-    """Past one bf16 ulp, an element passes only within F32_ULPS float32
-    ulps of |t| + |t - new|: a value near zero where t - lr·update cancels
-    may move several of its tiny ulps; one of 1e-5 may not."""
-    from chip_smoke import compare_bf16_tables
+    """Past one bf16 ulp, an element passes only within the float32 error
+    of new = t - lr·update: F32_ULPS float32 ulps of |t| + |t - new| plus
+    TABLE_ULPS of the table's largest |t - new|.  In a table whose updates
+    stay at 2e-4, a value of 1e-5 may move one ulp (row 1) but not three;
+    where some update reaches 0.05, a value near zero where t - lr·update
+    cancels may move several of its tiny ulps (row 0), and one of 1e-5
+    three (row 3, beyond the element term alone)."""
+    from chip_smoke import F32_ULPS, TABLE_ULPS, compare_bf16_tables
 
     t = torch.full((4, 1024), 0.05).to(torch.bfloat16)
     want = torch.full((4, 1024), 0.0498).to(torch.bfloat16)
-    want[0, 0], want[1, 0] = 1.5e-9, 1e-5
+    want[1, 0] = 1e-5
+    t[1, 0] = want[1, 0].float() + 2e-4
+    wide = want.clone()  # updates up to 0.05
+    wide[0, 0], wide[3, 0] = 1.5e-9, 1e-5
 
-    def moved(row, ulps):
-        got = want.clone()
+    def moved(w, row, ulps):
+        got = w.clone()
         bits = got[row, 0:1].view(torch.int16)
         got[row, 0:1] = (bits + ulps).view(torch.bfloat16)
         return got
 
-    for row, ulps in ((0, 5), (1, 1), (2, 1)):
-        err, share = compare_bf16_tables(torch, "gate", [("t", moved(row, ulps), want)],
+    diff = float(moved(wide, 3, 3)[3, 0].float() - wide[3, 0].float())
+    assert F32_ULPS * 2.0 ** -23 * 0.1 < diff < TABLE_ULPS * 2.0 ** -23 * 0.05
+    for w, row, ulps in ((want, 1, 1), (want, 2, 1), (wide, 0, 5), (wide, 3, 3)):
+        err, share = compare_bf16_tables(torch, "gate", [("t", moved(w, row, ulps), w)],
                                          start=(t,))
         assert share == 1 / 4096 and err > 0
     with pytest.raises(SystemExit, match="bf16 ulps"):
-        compare_bf16_tables(torch, "gate", [("t", moved(1, 3), want)], start=(t,))
+        compare_bf16_tables(torch, "gate", [("t", moved(want, 1, 3), want)], start=(t,))
     with pytest.raises(SystemExit, match="touched elements one ulp apart"):
         everywhere = (want.view(torch.int16) + 1).view(torch.bfloat16)
         compare_bf16_tables(torch, "gate", [("t", everywhere, want)], start=(t,))
