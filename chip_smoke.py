@@ -51,14 +51,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    rb = 4 kb, the default IVF geometry) against their plain versions —
    K7/K9r ids exact except stated near-ties and scores within 1e-6,
    K8/K9 approximate scores bitwise, with K7's and K8's time over their
-   library sequences' beside run 5D's (a ``{"redesign": ...}`` line) and
-   their and their library sequences' device time by kernel at MAIN_SHAPE
-   (torch.profiler; the kernels line's ``device_ms``) —
+   library sequences' beside run 5D's (a ``{"redesign": ...}`` line), K7-
+   K9r's and their library sequences' device time and K7-K9r's launches
+   by kernel at MAIN_SHAPE (torch.profiler; the kernels line's
+   ``device_ms``) and each shape's route (``_topk`` plans) —
    then tie-heavy tables (duplicated rows straddling every keep-th place,
    a zero row, rows past ``valid`` at -inf; B in {1, 3, 64}, kb in {1, 16,
    512}) through K7, K8 (int8 and bf16), K9 and K9r, bitwise where the
    scores are — K8 and K9 on a bf16 index (B in
-   {1, 64}, kb = 16; scores within 1e-6, near-ties counted), K8 at
+   {1, 64}, kb = 16; scores within 1e-6, near-ties counted; each timed
+   beside its library sequence), K8 at
    B = 64, rb = 16,384 (bitwise), and K9r's row gather at the Pallas
    gather probes' shapes and the GGIPNN lookup's against ``table[idx]``;
    (2g) tables of D = 1,024 (past every narrow tile's limit): one whole
@@ -779,6 +781,26 @@ def lib_ivf_scan(torch, qn, centroids, lists, table_q, scale, nprobe, rb):
     return rs, torch.gather(pos, 1, rp)
 
 
+def lib_quant_scan_bf16(torch, qn, table_q, scale, rb):
+    """K8 on a bf16 table: the query rounded to bf16, one float32 ``mm``
+    against the table in float32, ``torch.topk``."""
+    return torch.topk(torch.mm(qn.to(torch.bfloat16).float(), table_q.float().T), rb)
+
+
+def lib_ivf_scan_bf16(torch, qn, centroids, lists, table_q, scale, nprobe, rb):
+    """K9 on a bf16 table: centroid GEMM and top-nprobe, the probed lists'
+    bf16 rows gathered, batched float32 dots with the bf16-rounded query,
+    padding masked, ``torch.topk``."""
+    b = qn.shape[0]
+    _, ci = torch.topk(qn @ centroids.T, nprobe)
+    cand = lists[ci].reshape(b, -1)
+    ok = cand >= 0
+    pos = cand.clamp_min(0).long()
+    dots = torch.bmm(table_q[pos].float(), qn.to(torch.bfloat16).float()[:, :, None])[..., 0]
+    rs, rp = torch.topk(dots.masked_fill_(~ok, float("-inf")), min(rb, dots.shape[1]))
+    return rs, torch.gather(pos, 1, rp)
+
+
 def lib_rescore(torch, qn, unit, ri, approx, k):
     """K9r: the candidates' unit rows gathered, batched exact dots, the
     non-finite candidates masked, ``torch.topk``."""
@@ -818,6 +840,17 @@ GATHER_PROBES = (
     ("experiments/test_vmem_dma.py:49 dma_gather", 24576, 256, 32768, "float32"),
     ("experiments/test_dma2.py:56 callg", 24576, 256, 8, "float32"),
 )
+
+
+#: the route of K7 and K8 (``_topk.plan_staged``) at every shape
+STAGED_ROUTE = "staged tiles, chunks and a final launch"
+
+
+def ivf_route(ivf_scan, qn, centroids, table_q, nprobe, rb, list_len) -> str:
+    """K9's routes at a call's shapes: its probe's clusters and its scan's."""
+    pp, pl = ivf_scan.plans(qn, centroids, table_q, nprobe, rb, list_len)
+    return (f"probe: clusters of {pp.cluster} blocks for {pp.qg} queries; "
+            f"scan: {pl.describe()}")
 
 
 def probe_near_ties(torch, qn, centroids, nprobe):
@@ -863,14 +896,15 @@ def serving_kernel_check(torch, reps):
     timer = Timer(torch, reps)
     records, worst, ties, breakdown = [], {}, {}, {}
 
-    def record(name, b, kb, err, t_k, t_p, t_lib, bytes_moved, flops, int8_ops=0.0):
+    def record(name, b, kb, err, t_k, t_p, t_lib, bytes_moved, flops, int8_ops=0.0,
+               route=STAGED_ROUTE, launches=None):
         b_ms, b_by = bound(bytes_moved, flops, int8_ops)
         records.append({"name": name, "batch": b, "kb": kb, "max_abs_err": err, "ms": t_k,
                         "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
-                        "bound_by": b_by})
+                        "bound_by": b_by, "route": route, "launches_by_kernel": launches})
         worst[name] = max(worst.get(name, 0.0), err)
         log(f"{name} B {b} kb {kb}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain "
-            f"{t_p:.4f} ms, library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{t_p:.4f} ms, library {t_lib} ms, bound {b_ms:.4f} ms ({b_by}); {route}")
 
     def bitwise(name, got, want, rows):
         gs, gi = got[0][rows], got[1][rows]
@@ -905,10 +939,9 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: torch.topk(torch.mm(qn, unit.T), kb)),
                    4 * (V * D + b * D) + 8 * b * kb, 2.0 * b * V * D)
             if (b, kb) == MAIN_SHAPE:  # where the kernel's and library's time goes
-                breakdown["topk_exact"] = {
-                    "kernel": device_breakdown(torch, lambda: topk_exact.topk_exact(unit, q, kb)),
-                    "library": device_breakdown(
-                        torch, lambda: torch.topk(torch.mm(qn, unit.T), kb))}
+                breakdown["topk_exact"] = breakdown_of(
+                    torch, lambda: topk_exact.topk_exact(unit, q, kb),
+                    lambda: torch.topk(torch.mm(qn, unit.T), kb))
             # K8 (library: torch._int_mm takes more than 16 query rows)
             g8 = quant_scan.quant_scan(qn, index.table_q, index.scale, rb)
             w8 = quant_scan.quant_scan_plain(qn, index.table_q, index.scale, rb)
@@ -925,11 +958,9 @@ def serving_kernel_check(torch, reps):
                                                              rb)),
                    t_lib, V * D + 4 * V + 4 * b * D + 8 * b * rb, 0.0, 2.0 * b * V * D)
             if (b, kb) == MAIN_SHAPE:
-                breakdown["quant_scan"] = {
-                    "kernel": device_breakdown(
-                        torch, lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb)),
-                    "library": device_breakdown(
-                        torch, lambda: lib_quant_scan(torch, qn, tq_pad, index.scale, V, rb))}
+                breakdown["quant_scan"] = breakdown_of(
+                    torch, lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb),
+                    lambda: lib_quant_scan(torch, qn, tq_pad, index.scale, V, rb))
             # K9: ids and scores bitwise where the probe is not a near-tie
             args9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
             g9 = ivf_scan.ivf_scan(*args9)
@@ -948,7 +979,12 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: lib_ivf_scan(torch, *args9)),
                    4 * c * D + 4 * b * D + 4 * b * nprobe * lst + n_rows * (D + 4)
                    + 8 * b * g9[0].shape[1],
-                   2.0 * b * c * D, 2.0 * n_cand * D)
+                   2.0 * b * c * D, 2.0 * n_cand * D,
+                   route=ivf_route(ivf_scan, qn, index.centroids, index.table_q, nprobe, rb, lst),
+                   launches=launches_by_kernel(torch, lambda: ivf_scan.ivf_scan(*args9)))
+            if (b, kb) == MAIN_SHAPE:
+                breakdown["ivf_scan"] = breakdown_of(
+                    torch, lambda: ivf_scan.ivf_scan(*args9), lambda: lib_ivf_scan(torch, *args9))
             # K9r on both candidate sets; timed on the quant path's
             err = 0.0
             for label, (rs, ri) in (("quant", w8), ("ivf", w9)):
@@ -967,7 +1003,14 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: rescore.rescore(qn, unit, ri, rs, kb)),
                    timer(lambda: rescore.rescore_plain(qn, unit, ri, rs, kb)),
                    timer(lambda: lib_rescore(torch, qn, unit, ri, rs, kb)),
-                   8 * b * rb + 4 * b * D + 4 * n_rows * D + 8 * b * kb, 2.0 * n_fin * D)
+                   8 * b * rb + 4 * b * D + 4 * n_rows * D + 8 * b * kb, 2.0 * n_fin * D,
+                   route=rescore.plan(qn, unit, ri.shape[1], min(kb, ri.shape[1])).describe(),
+                   launches=launches_by_kernel(
+                       torch, lambda: rescore.rescore(qn, unit, ri, rs, kb)))
+            if (b, kb) == MAIN_SHAPE:
+                breakdown["rescore"] = breakdown_of(
+                    torch, lambda: rescore.rescore(qn, unit, ri, rs, kb),
+                    lambda: lib_rescore(torch, qn, unit, ri, rs, kb))
     log(f"serving kernels: near-ties {ties} (stated: float32 sums in another order)")
     sources = {
         "topk_exact": ("k7_topk_exact.cu", "gene2vec_tpu/serve/engine.py:43"),
@@ -985,6 +1028,7 @@ def serving_kernel_check(torch, reps):
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": main["library_ms"],
             "shape": {"batch": MAIN_SHAPE[0], "kb": MAIN_SHAPE[1], "V": V, "D": D},
+            "route": main["route"],
             "tolerance": ("bitwise" if name in ("quant_scan", "ivf_scan")
                           else f"ids exact except near-ties; scores {SERVE_TOL:g}"),
             "near_ties": ties.get(name, 0),
@@ -1094,11 +1138,14 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1] or key[:60]
 
 
-def device_breakdown(torch, fn, calls=10) -> dict:
+def device_breakdown(torch, fn, calls=10, launches=None) -> dict:
     """Device ms a call of ``fn`` by kernel name: torch.profiler over
     ``calls`` calls after a warm-up (the table stays in L2, unlike the
     Timer's flushed launches).  Empty where the profiler saw no device
-    time."""
+    time.  ``launches``, a dict, receives the launches a call by name.
+    The profiler may miss a launch or two of a window, so launches a call
+    are the events over the calls rounded, and ms a call the mean of the
+    events seen times that."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1107,12 +1154,36 @@ def device_breakdown(torch, fn, calls=10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    seen, counts = {}, {}
     for ev in prof.key_averages():
         if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
             name = kernel_name(ev.key)
-            out[name] = out.get(name, 0.0) + ev.self_device_time_total / 1e3 / calls
+            seen[name] = seen.get(name, 0.0) + ev.self_device_time_total / 1e3
+            counts[name] = counts.get(name, 0) + ev.count
+    out = {}
+    for name, ms in seen.items():
+        per_call = round(counts[name] / calls)
+        out[name] = ms / counts[name] * per_call if per_call else ms / calls
+        if launches is not None:
+            launches[name] = per_call
     return out
+
+
+def launches_by_kernel(torch, fn) -> dict:
+    """Launches a call of ``fn`` makes, by kernel name (torch.profiler over
+    ten calls)."""
+    launches = {}
+    device_breakdown(torch, fn, launches=launches)
+    return launches
+
+
+def breakdown_of(torch, kernel_fn, library_fn) -> dict:
+    """A kernel's and its library sequence's device ms a call by kernel
+    name (``device_breakdown``), with the kernel's launches a call by name."""
+    launches = {}
+    return {"kernel": device_breakdown(torch, kernel_fn, launches=launches),
+            "kernel_launches": launches,
+            "library": device_breakdown(torch, library_fn)}
 
 
 def gather_probes(torch, reps):
@@ -1705,14 +1776,17 @@ def serving_repairs_check(torch, reps):
     records = []
 
     def record(name, b, kb, rb, err, ties, fn_k, fn_p, bytes_moved, flops, int8_ops=0.0,
-               bf16_ops=0.0):
+               bf16_ops=0.0, fn_lib=None, route=STAGED_ROUTE):
         b_ms, b_by = bound(bytes_moved, flops, int8_ops, bf16_ops)
         rec = {"name": name, "batch": b, "kb": kb, "rb": rb, "max_abs_err": err,
                "near_ties": ties, "ms": timer(fn_k), "plain_ms": timer(fn_p),
-               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": timer(fn_lib) if fn_lib else None, "bound_ms": b_ms,
+               "bound_by": b_by, "route": route,
+               "launches_by_kernel": launches_by_kernel(torch, fn_k)}
         records.append(rec)
         log(f"{name} B {b} kb {kb} rb {rb}: max_abs_err {err:.3e}, near-ties {ties}, kernel "
-            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library {rec['library_ms']} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}); {route}")
 
     for b in SERVE_BATCHES:
         q = torch.from_numpy(unit_np[rng.choice(V, b, replace=False)] * 3.0).to(dev)
@@ -1728,9 +1802,11 @@ def serving_repairs_check(torch, reps):
         got, want = quant_scan.quant_scan(*a8), quant_scan.quant_scan_plain(*a8)
         torch.cuda.synchronize()
         err, ties = check_topk("K8 bf16", got, want, bf16_of, SERVE_TOL)
+        library_check("K8 bf16", lib_quant_scan_bf16(torch, *a8)[:1], want[:1], rtol=SERVE_TOL)
         record("quant_scan_bf16", b, kb, rb, err, ties, lambda: quant_scan.quant_scan(*a8),
                lambda: quant_scan.quant_scan_plain(*a8),
-               2 * V * D + 4 * b * D + 8 * b * rb, 0.0, bf16_ops=2.0 * b * V * D)
+               2 * V * D + 4 * b * D + 8 * b * rb, 0.0, bf16_ops=2.0 * b * V * D,
+               fn_lib=lambda: lib_quant_scan_bf16(torch, *a8))
         a9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
         got, want = ivf_scan.ivf_scan(*a9), ivf_scan.ivf_scan_plain(*a9)
         torch.cuda.synchronize()
@@ -1744,10 +1820,13 @@ def serving_repairs_check(torch, reps):
         cand = index.lists[ci.long()].reshape(b, -1)
         cand = cand[cand >= 0]
         n_rows = int(torch.unique(cand).numel())
+        library_check("K9 bf16", lib_ivf_scan_bf16(torch, *a9)[:1], want[:1], rtol=SERVE_TOL)
         record("ivf_scan_bf16", b, kb, rb, err, ties + int(tied.sum()),
                lambda: ivf_scan.ivf_scan(*a9), lambda: ivf_scan.ivf_scan_plain(*a9),
                4 * c * D + 4 * b * D + 4 * b * nprobe * lst + 2 * n_rows * D
-               + 8 * b * got[0].shape[1], 2.0 * b * c * D, bf16_ops=2.0 * int(cand.numel()) * D)
+               + 8 * b * got[0].shape[1], 2.0 * b * c * D, bf16_ops=2.0 * int(cand.numel()) * D,
+               fn_lib=lambda: lib_ivf_scan_bf16(torch, *a9),
+               route=ivf_route(ivf_scan, qn, index.centroids, index.table_q, nprobe, rb, lst))
     # R2 on the int8 index of the same table
     iq = ann.build_index(unit_np, "quant", device=dev)
     b = 64
@@ -3159,7 +3238,12 @@ probes += [r for r in cs.lane_probes(torch, cs.TIMED_REPS)[1]
            if r["name"].startswith("stream_scale")]
 probes += cs.staged_probes(torch, cs.TIMED_REPS)[1]
 probes = [{k: r[k] for k in probe_keep if k in r} for r in probes]
-serving = [{k: r[k] for k in keep} for r in cs.serving_kernel_check(torch, cs.TIMED_REPS)[0]]
+serve_rows, serve_recs = cs.serving_kernel_check(torch, cs.TIMED_REPS)
+serving = [dict({k: r[k] for k in keep}, **({"device_ms": r["device_ms"]} if "device_ms" in r
+                                            else {})) for r in serve_rows]
+serving_shapes = [{k: r.get(k) for k in ("name", "batch", "kb", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "route", "launches_by_kernel")}
+                  for r in serve_recs]
 with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
@@ -3169,7 +3253,7 @@ print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "nois
                                "objectives": objectives, "gather": gather, "host": host,
                                "windows": windows, "objective_windows": objective_windows,
                                "step_kernels": kernels_by_step, "probes": probes,
-                               "serving": serving,
+                               "serving": serving, "serving_shapes": serving_shapes,
                                "cli_pairs_per_s": rates}))
 """
 

@@ -7,26 +7,33 @@ of each float32, then of the row — what the kernels select and sort by
 (``csrc/topk_common.cuh``).  :func:`topk_plain` is that order in plain
 PyTorch: a stable descending sort of the keys.
 
-**Plans.**  A call makes two launches.  The scan cuts the ``n`` rows into
-chunks of ``tile`` rows; a block scores one chunk for ``qb`` queries and
-writes each query's top-``slot`` (``slot = min(keep, tile)``) to that
+**Plans.**  Plans are pure functions of their arguments and cached (a
+serving call costs host time), so CPU tests pin them.  :func:`plan_staged`
+plans K7 and K8: two launches a call.  The scan cuts the ``n`` rows into
+chunks of ``tile`` rows; a block stages tiles of ``rows`` table rows in
+shared memory, scores every query of a group of up to 64 against them
+(rows too wide for a 32-row tile beside one query: tiles of ``dslice``-
+column slices of the rows, whose partial scores add up before the select)
+and writes each query's top-``slot`` (``slot = min(keep, tile)``) to that
 query's run in the scratch buffers.  The final launch gives each query a
 block that selects the top-``keep`` of its ``ntiles`` runs, sorts them and
-writes them.  Plans are pure functions of their arguments and cached
-(a serving call costs host time).  :func:`plan_staged` plans K7 and K8, whose blocks stage
-tiles of ``rows`` table rows in shared memory and score every query of a
-group of up to 64 against them (rows too wide for a 32-row tile beside
-one query: tiles of ``dslice``-column slices of the rows, whose partial
-scores add up before the select); :func:`plan` plans K9 and K9r, a thread a
-row or candidate and up to 8 queries a block (one for per-query
-candidates).  Lists longer than ``SORT_MAX`` (any ``keep`` up to the row
+writes them.  Lists longer than ``SORT_MAX`` (any ``keep`` up to the row
 count works, as in the reference) are sorted in ``SORT_MAX`` runs that
 the final block merges in the scratch buffers, so each query's region
 (``stride`` pairs) holds at least ``keep`` rounded up to ``SORT_MAX``.
+
+:func:`plan_probe` plans K9's probe (a cluster of blocks that split the
+centroids, for a group of queries, selecting in the same launch) and
+:func:`plan_list` K9's scan and K9r: a query's candidate list in one
+block or cluster that keeps its real candidates, scores them a lane group
+a row and selects and sorts in the same launch (``route`` 0), or, for
+lists past what that holds, chunks that write runs for the final launch
+(``route`` 1).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -43,8 +50,6 @@ MERGE_MAX = 16384
 SORT_MAX = MERGE_MAX // 2
 #: most rows a scan block keeps scores for (a multiple of 64)
 CHUNK_MAX = 512
-#: most queries a thread-per-row block scores (registers: one sum each)
-QB_MAX = 8
 #: most queries a staged block scores
 QG_MAX = 64
 #: a scan block's select state (3 double words, 16 bins and 4 words for
@@ -113,26 +118,6 @@ def _finish(n: int, keep: int, batch: int, tile: int, qb: int, rows: int = 0,
 def _check_keep(n: int, keep: int) -> None:
     if not 1 <= keep <= n:
         raise ValueError(f"need 1 <= keep <= rows, got keep={keep}, rows={n}")
-
-
-@functools.lru_cache(maxsize=512)
-def plan(n: int, keep: int, batch: int, query_bytes: int, per_query: bool,
-         sms: int = 0) -> Plan:
-    """Plan of the thread-per-row scan (K9, K9r) over ``n`` rows, top-
-    ``keep``.  ``query_bytes`` is the shared memory one query takes in a
-    scan block; ``per_query`` means every query has rows of its own (a
-    candidate list), so blocks hold one query each.  Chunks start at
-    ``CHUNK_MAX`` rows and halve, down to 64, while the grid would cover
-    the ``sms`` multiprocessors less than twice; a block scores up to
-    ``QB_MAX`` queries, as many as its shared memory holds."""
-    _check_keep(n, keep)
-    qb = 1 if per_query else max(1, min(QB_MAX, batch))
-    tile = CHUNK_MAX
-    while tile > 64 and _ceil(n, tile) * _ceil(batch, qb) < 2 * sms:
-        tile //= 2
-    while qb > 1 and qb * (4 * tile + query_bytes) + SELECT_BYTES > SMEM_BUDGET:
-        qb -= 1
-    return _finish(n, keep, batch, tile, qb)
 
 
 def staged_tile_bytes(d: int, kind: str, rows: int) -> int:
@@ -236,3 +221,184 @@ def scratch(p: Plan, device) -> torch.Tensor:
     """The four scratch buffers: the runs' keys and ids, then the long-list
     survivors' keys and ids."""
     return torch.empty((4, max(p.scratch, 1)), dtype=torch.int32, device=device)
+
+
+# -- K9's probe, and one query's candidate list (K9's scan, K9r) ---------------
+
+#: most blocks a cluster holds (the portable cluster size)
+CLUSTER_MAX = 8
+#: words a lane loads of a row in one pass (csrc/topk_common.cuh
+#: G2V_LIST_WORDS)
+LIST_WORDS = 4
+#: fewest candidate positions a block of a query's cluster takes: shorter
+#: lists stay in fewer blocks
+SHARE_MIN = 256
+
+
+def _up16(n: int) -> int:
+    return _round_up(n, 16)
+
+
+def list_word(d: int, kind: str, address: int) -> int:
+    """Bytes a load of a list scan's row takes: the widest of 16 (8 for
+    int8), 4 and one element that the row width ``d`` and the table's
+    ``address`` allow (every row then starts on that boundary)."""
+    elem = ELEMENT_BYTES[kind]
+    for w in ((8, 4) if kind == "int8" else (16, 4)):
+        if (d * elem) % w == 0 and address % w == 0:
+            return w
+    return elem
+
+
+def list_query_bytes(d: int, kind: str) -> int:
+    """Shared memory of a list block's query: int8 rows padded to 16 bytes
+    and their scale (K9), else ``d`` floats."""
+    return _round_up(d, 16) + 16 if kind == "int8" else 4 * d
+
+
+def list_smem(share: int, ncand: int, p: int, query_bytes: int, src_bytes: int) -> int:
+    """Dynamic shared memory of a list block (``g2v_list_smem``): its
+    ``share`` (key, id) pairs, a cluster leader's ``ncand`` candidates
+    (key, tie, id) as sent and packed, ``p`` sort triples, the query and
+    the source's own."""
+    return (_up16(8 * share) + _up16(24 * ncand) + _up16(12 * p) + _up16(query_bytes)
+            + _up16(src_bytes))
+
+
+def _list_route0_smem(n: int, keep: int, nseg: int, query_bytes: int, src_bytes: int) -> int:
+    share = _ceil(n, nseg)
+    ncand = nseg * min(keep, share) if nseg > 1 else 0
+    return list_smem(share, ncand, next_pow2(min(keep, ncand if nseg > 1 else share)),
+                     query_bytes, src_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class ListPlan:
+    route: int      # 0: a block or cluster a query, one launch; 1: chunks + final
+    share: int      # candidate positions a block covers (S)
+    nseg: int       # blocks a query: its cluster (route 0) or its chunks (route 1)
+    lanes: int      # lanes that score one row together
+    word: int       # bytes a row load takes
+    slot: int       # route 1: pairs in a chunk's run
+    stride: int     # route 1: pairs a query takes in each run buffer
+    smem: int       # dynamic shared memory of a block
+
+    def describe(self) -> str:
+        if self.route == 0:
+            where = "one block" if self.nseg == 1 else f"a cluster of {self.nseg} blocks"
+            return f"{where} a query, one launch"
+        return f"chunks of {self.share} positions, runs and a final launch"
+
+
+@functools.lru_cache(maxsize=512)
+def plan_list(n: int, keep: int, batch: int, d: int, kind: str, word: int, src_bytes: int,
+              sms: int = 0) -> ListPlan:
+    """Plan of a list scan over ``n`` candidate positions a query (rows of
+    width ``d`` and element ``kind``, loads of ``word`` bytes; the
+    candidate source stages ``src_bytes``), top-``keep``.  Route 0 where
+    ``keep`` <= ``SORT_MAX`` and a block's share of the list, the
+    leader's candidates and the sort fit shared memory: the list is split
+    over a cluster of as many blocks, up to ``CLUSTER_MAX``, as keep every
+    block ``SHARE_MIN`` positions and the batch's blocks within the
+    ``sms`` multiprocessors (the sizes that measured best at the serving
+    shapes, runs 12C and 12G), more where a share does not fit, fewer
+    where the leader's candidates do not.  Else route 1: chunks sized so
+    that the grid about covers the multiprocessors."""
+    _check_keep(n, keep)
+    words = d * ELEMENT_BYTES[kind] // word
+    lanes = min(32, next_pow2(_ceil(words, LIST_WORDS)))
+    qbytes = list_query_bytes(d, kind)
+    nseg = 1
+    while (2 * nseg <= CLUSTER_MAX and _ceil(n, 2 * nseg) >= SHARE_MIN
+           and batch * 2 * nseg <= max(sms, 1)):
+        nseg *= 2
+    sizes = [nseg] + [c for c in (2, 4, 8) if c > nseg] + [c for c in (4, 2, 1) if c < nseg]
+    for nseg in sizes if keep <= SORT_MAX else ():
+        smem = _list_route0_smem(n, keep, nseg, qbytes, src_bytes)
+        if smem <= SMEM_BUDGET:
+            return ListPlan(0, _ceil(n, nseg), nseg, lanes, word, 0, 0, smem)
+    fit = (SMEM_BUDGET - list_smem(0, 0, 0, qbytes, src_bytes)) // 8 // 64 * 64
+    want = _round_up(_ceil(n, max(1, sms // batch)), 64)
+    share = max(64, min(fit, max(want, 1024)))
+    nseg = _ceil(n, share)
+    slot = min(keep, share)
+    long_list = _round_up(keep, SORT_MAX) if keep > SORT_MAX else 0
+    return ListPlan(1, share, nseg, lanes, word, slot, max(nseg * slot, long_list),
+                    list_smem(share, 0, 0, qbytes, src_bytes))
+
+
+def list_scratch(p: ListPlan, batch: int, n: int, device):
+    """Route 1's buffers in one tensor: the runs' keys and ids and the
+    long-list survivors' keys and ids (``batch * stride`` each), then each
+    kept candidate's row (``batch * n``); None for route 0, which needs
+    none."""
+    if p.route == 0:
+        return None
+    return torch.empty(4 * batch * p.stride + batch * n, dtype=torch.int32, device=device)
+
+
+def list_scratch_ptrs(scr, run: int):
+    """The five buffers of ``list_scratch`` (``run`` ints each of the
+    first four) as pointers; null pointers for None."""
+    if scr is None:
+        return [ctypes.c_void_p(0)] * 5
+    base = scr.data_ptr()
+    return [ctypes.c_void_p(base + 4 * i * run) for i in range(5)]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbePlan:
+    qg: int         # queries a cluster scores
+    qpt: int        # queries a thread scores against its row
+    share: int      # centroids a block of the cluster stages and scores
+    cluster: int    # blocks a cluster
+    rows: int       # centroid rows a staged tile holds
+    tstride: int    # bytes a staged row takes
+    cp: int         # 1: 16-byte cp.async copies; 0: element by element
+    smem: int       # dynamic shared memory of a block
+
+
+def probe_smem(c: int, nprobe: int, d: int, qg: int, qpt: int, cluster: int, rows: int,
+               tstride: int) -> int:
+    """Dynamic shared memory of a probe block (``k9_probe_kernel``): two
+    tiles (one where it holds all the block's centroids), the group's queries (rows padded to ``qpt``), its keys over the
+    block's centroids, each block's top-``nprobe`` candidates (key,
+    centroid) for the queries the block selects for, and a sort's triples."""
+    share = _ceil(c, cluster)
+    rows_q = _round_up(qg, qpt)
+    cand = _ceil(qg, cluster) * cluster * min(nprobe, share)
+    nbuf = 1 if rows >= share else 2
+    return (nbuf * _up16(rows * tstride) + _up16(4 * rows_q * _round_up(d, 4))
+            + 4 * (qg * share + 2 * cand + 3 * next_pow2(nprobe)))
+
+
+@functools.lru_cache(maxsize=512)
+def plan_probe(c: int, nprobe: int, batch: int, d: int, aligned: bool, sms: int = 0) -> ProbePlan:
+    """Plan of K9's probe over ``c`` centroids of width ``d`` (``aligned``:
+    the centroids start on a 16-byte boundary), top-``nprobe``: clusters
+    of up to ``CLUSTER_MAX`` blocks that split the centroids, each for a
+    group of queries sized so that the grid about covers the ``sms``
+    multiprocessors (fewer blocks a cluster or more queries a group
+    measured slower at the default geometry, runs 12E-12I); tiles of as
+    many centroid rows as shared memory holds (fewer queries a group where
+    not even one row fits)."""
+    _check_keep(c, nprobe)
+    cluster = 1
+    while 2 * cluster <= min(CLUSTER_MAX, c):
+        cluster *= 2
+    share = _ceil(c, cluster)
+    qg = min(max(1, _ceil(batch * cluster, max(sms, 1))), batch)
+    tstride = _padded_stride(4 * _round_up(d, 4))
+    while True:
+        qpt = min(4, next_pow2(qg))
+        fixed = probe_smem(c, nprobe, d, qg, qpt, cluster, 0, tstride)
+        rows = min(share, (SMEM_BUDGET - fixed) // (2 * tstride))
+        if rows >= 1:
+            break
+        if qg == 1:
+            raise ValueError(f"centroids of width {d} do not fit a probe block")
+        qg = _ceil(qg, 2)
+    cp = int(d % 4 == 0 and aligned)
+    return ProbePlan(qg, qpt, share, cluster, rows, tstride, cp,
+                     probe_smem(c, nprobe, d, qg, qpt, cluster, rows, tstride))
+

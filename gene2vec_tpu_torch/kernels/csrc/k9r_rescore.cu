@@ -21,10 +21,18 @@
 // most of it L2 hits since the 19.6 MB table fits in the 50 MB L2); the
 // row gather moves E rows in and E rows out.
 //
-// Design: the chunked selection of topk_common.cuh with one query a block
-// (candidates are per query) and a thread per candidate, which gathers
-// its row with float4 loads and takes the float32 dot.  Ties order by
-// candidate position, as the reference's top_k over its (B, r) matrix.
+// Design: one launch a call (topk_common.cuh g2v_list_select).  A block,
+// or a cluster of blocks that split the list, a query: the query's
+// approximate scores and candidate ids are read once, coalesced; the
+// candidates whose approximate score is finite are kept in position order;
+// a group of lanes scores a row from 16-byte loads (4-byte where the width
+// or address does not allow), G2V_LIST_ROWS rows a group in flight, each
+// lane summing its words in order and the group's lanes by a shuffle tree
+// (a tree of lane sums: less rounding at D = 1,024-1,520 than one running
+// sum or four interleaved partials); the leader selects the top-k and
+// sorts it in the same launch.  Lists past what a block holds take the
+// chunked route (runs, then g2v_final).  Ties order by candidate
+// position, as the reference's top_k over its (B, r) matrix.
 //
 // The row gather: the one-warp-a-row design (8 rows a block, E/8 blocks
 // in waves, each warp's id load and row load two dependent round trips)
@@ -42,45 +50,63 @@
 
 namespace {
 
-struct RescoreMap {
+// Candidate position p of query b -> its row, or -1 (approximate score
+// not finite: list padding or a row >= valid).
+struct RescoreSource {
   const int* ri;
   const float* approx;
   int r;
 
-  __device__ int row(int b, int p) const {
+  int src_bytes() const { return 0; }
+  __device__ void stage(int, int*) const {}
+  __device__ int id(int b, const int*, int p) const {
     const size_t i = static_cast<size_t>(b) * r + p;
-    return isfinite(approx[i]) ? ri[i] : -1;
-  }
-
-  __device__ int operator()(int b, int p) const {
-    const int id = row(b, p);
-    return id >= 0 ? id : 0;
+    return isfinite(__ldg(approx + i)) ? __ldg(ri + i) : -1;
   }
 };
 
-struct RescoreScorer {
-  RescoreMap cand;
+// float32 unit rows in words W (float4 or float): float32 sums.
+template <class W>
+struct UnitRows {
+  using Word = W;
+  using QWord = W;
+  using Acc = float;
+  const float* unit;
+  int D;
+  int words;
+  const float* q;
+
+  __device__ const W* row(int id) const {
+    return reinterpret_cast<const W*>(unit + static_cast<size_t>(id) * D);
+  }
+  __device__ W qword(int w) const { return reinterpret_cast<const W*>(q)[w]; }
+  __device__ float aux(int) const { return 1.0f; }
+  __device__ void add(const float4& x, const float4& qv, float& acc) const {
+    acc = fmaf(qv.x, x.x, acc);
+    acc = fmaf(qv.y, x.y, acc);
+    acc = fmaf(qv.z, x.z, acc);
+    acc = fmaf(qv.w, x.w, acc);
+  }
+  __device__ void add(const float& x, const float& qv, float& acc) const {
+    acc = fmaf(qv, x, acc);
+  }
+  __device__ float score(float acc, float) const { return acc; }
+};
+
+template <class W>
+struct UnitQuery {
   const float* qn;
   const float* unit;
   int D;
 
-  size_t query_bytes() const { return static_cast<size_t>(D) * 4; }
+  size_t query_bytes() const { return 4 * static_cast<size_t>(D); }
 
-  __device__ void load_queries(unsigned char* qmem, int q0, int nq) const {
-    g2v_stage_queries_f32(qn, q0, nq, D, D, nq, false, reinterpret_cast<float*>(qmem));
+  __device__ void stage(int b, unsigned char* qmem) const {
+    g2v_stage_queries_f32(qn, b, 1, D, D, 1, false, reinterpret_cast<float*>(qmem));
   }
-
-  __device__ void score_row(const unsigned char* qmem, int q0, int, int p, int* keys,
-                            int) const {
-    const int id = cand.row(q0, p);
-    if (id < 0) {
-      keys[0] = g2v_key(-INFINITY);
-      return;
-    }
-    float acc[G2V_QB_MAX];
-    g2v_thread_dots_f32<true>(unit + static_cast<size_t>(id) * D,
-                        reinterpret_cast<const float*>(qmem), 1, D, acc);
-    keys[0] = g2v_key(acc[0]);
+  __device__ UnitRows<W> bound(const unsigned char* qmem) const {
+    return UnitRows<W>{unit, D, D / static_cast<int>(sizeof(W) / 4),
+                       reinterpret_cast<const float*>(qmem)};
   }
 };
 
@@ -152,17 +178,23 @@ int launch_gather(const void* table, const int* idx, void* out, int E, int words
 
 }  // namespace
 
-// Chunks of CH candidates, one query a block; runs of `slot` pairs,
-// `stride` pairs a query in each scratch buffer.
+// route 0: clusters of nseg blocks of S candidates a query (one launch);
+// route 1: chunks of S candidates, runs of `slot` pairs, `stride` pairs a
+// query in ka/ia/kb/ib, aux B * r ints (two launches).  `lanes` lanes a
+// row, rows in words of word_bytes (16 or 4).
 G2V_EXPORT int k9r_rescore(const float* qn, const float* unit, const int* ri,
-                           const float* approx, int V, int D, int B, int r, int k, int CH,
-                           int slot, int stride, int* ka, int* ia, int* kb, int* ib,
-                           float* out_scores, int* out_rows, void* stream) {
-  (void)V;
-  RescoreMap cand{ri, approx, r};
-  RescoreScorer sc{cand, qn, unit, D};
-  return g2v_run_topk(sc, cand, r, B, 1, CH, k, slot, stride, ka, ia, kb, ib, out_scores,
-                      out_rows, static_cast<cudaStream_t>(stream));
+                           const float* approx, int D, int B, int r, int k, int route, int S,
+                           int nseg, int lanes, int word_bytes, int slot, int stride, int* ka,
+                           int* ia, int* kb, int* ib, int* aux, float* out_scores,
+                           int* out_rows, void* stream) {
+  const RescoreSource src{ri, approx, r};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (word_bytes == 16) {
+    return g2v_launch_list(src, UnitQuery<float4>{qn, unit, D}, route, r, B, S, nseg, k, lanes,
+                           slot, stride, ka, ia, kb, ib, aux, out_scores, out_rows, st);
+  }
+  return g2v_launch_list(src, UnitQuery<float>{qn, unit, D}, route, r, B, S, nseg, k, lanes,
+                         slot, stride, ka, ia, kb, ib, aux, out_scores, out_rows, st);
 }
 
 // Row width in bytes; 16-byte words when the width and both pointers

@@ -1,24 +1,22 @@
 // Top-k selection shared by the serving kernels K7, K8, K9, K9r.
 //
-// A call scores `n` rows for each of B queries and returns each query's
-// top-`keep` (score, id) in selection order, in two launches:
+// K7 and K8 score all n table rows for each of B queries and return each
+// query's top-`keep` (score, id) in selection order, in two launches:
 //
 // 1. Scan.  Rows are cut into chunks of CH rows (CH <= 512); one block
 //    scores one chunk for a group of queries and keeps the scores as
-//    int32 keys in shared memory.  K7 and K8 stage the chunk's rows into
+//    int32 keys in shared memory.  The block stages the chunk's rows into
 //    shared memory asynchronously (double-buffered tiles of TR rows: one
 //    TMA bulk copy a tile on an mbarrier for int8 rows, 16-byte cp.async
-//    copies into padded rows for float32 and bf16) and score every query
+//    copies into padded rows for float32 and bf16) and scores every query
 //    of the batch against each staged tile (g2v_staged_select), so a row
 //    leaves device memory once per call.  Rows too wide for even a
 //    32-row tile beside one query are staged as d-slices of a tile: each
 //    slice's partial score (float32, or the exact int32 sum) waits in the
 //    key's place until the last slice adds its own and makes the key.
-//    K9 and K9r score with one thread per row or candidate
-//    (g2v_rows_select).  Then the block selects each query's top-min(keep,
-//    CH) of the chunk by a radix select (no sort), all queries side by
-//    side, and writes them, in no particular order, to the query's run in
-//    device memory.
+//    Then the block selects each query's top-min(keep, CH) of the chunk by
+//    a radix select (no sort), all queries side by side, and writes them,
+//    in no particular order, to the query's run in device memory.
 // 2. Final (g2v_final).  One block per query selects the top-keep of its
 //    runs by the same radix select, sorts only those survivors
 //    (next_pow2(keep) pairs, bitonic, in shared memory), and writes the
@@ -26,6 +24,11 @@
 //    sort in G2V_SORT_MAX runs that the block then merges pairwise in
 //    device memory along the merge path, still in the same launch.
 // The (B, n) score matrix never reaches device memory.
+//
+// K9's scan and K9r score per-query candidate lists: one block or cluster
+// a query selects and sorts in one launch (g2v_list_select, the last
+// section); lists past what that holds take the chunked runs and
+// g2v_final.
 //
 // Order: lax.top_k's — value descending, +0 ahead of -0, -inf last, the
 // lower row first among equal values.  A score's key is its int32 bits ^
@@ -54,8 +57,6 @@
 
 #define G2V_TOPK_THREADS 256
 #define G2V_FINAL_THREADS 1024
-// most queries a thread-per-row block scores (registers: one sum each)
-#define G2V_QB_MAX 8
 // most queries a staged block scores
 #define G2V_QG_MAX 64
 // most survivors the final block sorts in shared memory at once
@@ -452,9 +453,9 @@ static int g2v_launch_final(const Map& map, int B, int nchunks, int slot, int st
   const size_t smem = 2 * static_cast<size_t>(g2v_next_pow2(min(keep, G2V_SORT_MAX))) * 4;
   int err = g2v_smem_attr(g2v_final<Map>, smem);
   if (err) return err;
-  // a short list (K9's probe and scan, K9r) takes four warps, whose passes
-  // (histograms cleared and summed, barriers) cost less; longer ones take
-  // all 32, whose many loads in flight a pass needs more
+  // a short list takes four warps, whose passes (histograms cleared and
+  // summed, barriers) cost less; longer ones take all 32, whose many loads
+  // in flight a pass needs more
   const int N = nchunks * slot;
   const int threads = N <= 256 ? 128 : G2V_FINAL_THREADS;
   g2v_final<Map><<<B, threads, smem, stream>>>(ka, ia, kb, ib, N, stride, keep, map,
@@ -462,62 +463,7 @@ static int g2v_launch_final(const Map& map, int B, int nchunks, int slot, int st
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- launch 1, thread per row (K9, K9r) -------------------------------------
-
-// Scorer interface (one struct per kernel, passed by value):
-//   size_t query_bytes() const;             shared memory for one query
-//   __device__ void load_queries(unsigned char* qmem, int q0, int nq) const;
-//       the whole block stages queries q0..q0+nq-1 into qmem
-//   __device__ void score_row(const unsigned char* qmem, int q0, int nq,
-//                             int r, int* keys, int stride) const;
-//       one thread scores row r for the nq queries and writes the key of
-//       query j to keys[j * stride]
-// Grid: chunks x query groups of QB.  Shared memory: QB x CH keys, the
-// warps' histograms, then the queries.
-template <class S>
-__global__ void __launch_bounds__(G2V_TOPK_THREADS)
-g2v_rows_select(S sc, int n, int B, int QB, int CH, int keep, int slot, int stride,
-                int* __restrict__ okey, int* __restrict__ oidx) {
-  extern __shared__ __align__(16) unsigned char g2v_smem[];
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * QB;
-  const int nq = min(QB, B - q0);
-  const int r0 = chunk * CH;
-  const int nrows = min(CH, n - r0);
-  int* keys = reinterpret_cast<int*>(g2v_smem);  // QB x CH
-  char* sel = reinterpret_cast<char*>(keys + static_cast<size_t>(QB) * CH);
-  unsigned char* qmem = reinterpret_cast<unsigned char*>(sel + G2V_SELECT_BYTES);
-  sc.load_queries(qmem, q0, nq);
-  __syncthreads();
-  for (int t = threadIdx.x; t < nrows; t += blockDim.x) {
-    sc.score_row(qmem, q0, nq, r0 + t, keys + t, CH);
-  }
-  __syncthreads();
-  g2v_block_select_runs(keys, CH, nq, nrows, r0, keep, slot,
-                        static_cast<size_t>(q0) * stride + static_cast<size_t>(chunk) * slot,
-                        stride, sel, okey, oidx);
-}
-
-// Runs the thread-per-row scan, then the final launch.  Returns a
-// cudaError_t.
-template <class S, class Map>
-static int g2v_run_topk(const S& sc, const Map& map, int n, int B, int QB, int CH, int keep,
-                        int slot, int stride, int* ka, int* ia, int* kb, int* ib,
-                        float* out_scores, int* out_ids, cudaStream_t stream) {
-  const int nchunks = (n + CH - 1) / CH;
-  const size_t smem = static_cast<size_t>(QB) * CH * 4 + G2V_SELECT_BYTES +
-                      static_cast<size_t>(QB) * sc.query_bytes();
-  int err = g2v_smem_attr(g2v_rows_select<S>, smem);
-  if (err) return err;
-  g2v_rows_select<S><<<dim3(nchunks, (B + QB - 1) / QB), G2V_TOPK_THREADS, smem, stream>>>(
-      sc, n, B, QB, CH, keep, slot, stride, ka, ia);
-  err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  return g2v_launch_final(map, B, nchunks, slot, stride, keep, ka, ia, kb, ib, out_scores,
-                          out_ids, stream);
-}
-
-// -- query staging and the thread-per-row scorers' dots ----------------------
+// -- query staging --------------------------------------------------------------
 
 // Block-wide staging of f32 query rows q0..q0+nq-1 into qs_out: rows of
 // `stride` floats, rows [nq, rows_out) and columns [D, stride) zero;
@@ -543,60 +489,6 @@ __device__ void g2v_stage_queries_f32(const float* __restrict__ q, int q0, int n
     const float norm = fmaxf(__fsqrt_rn(g2v_warp_sum(s)), 1e-12f);
     for (int d = lane; d < D; d += 32) row[d] = __fdiv_rn(row[d], norm);
   }
-}
-
-// A candidate's float32 dot (K9r, K9 on a bf16 table) is summed as four
-// interleaved partial sums (the columns d = 4i + k into part k), then (p0
-// + p1) + (p2 + p3): a single running sum over a wide row gathers a
-// rounding each step at the size of the whole score (at D = 1,024 over
-// 1e-6 on a unit score, against the plain version's batched products),
-// four quarter-size partials far less.  K9's centroid scores keep the
-// single running sum, a matrix product's own order (kParts false), so
-// that its probe ranks the lists as the plain version's product does.
-__device__ __forceinline__ float g2v_sum_parts(const float (&p)[4]) {
-  return (p[0] + p[1]) + (p[2] + p[3]);
-}
-
-// One thread's float32 dots of row `x` (D floats) with nq staged queries
-// (qs, D floats each, 16-byte aligned when D % 4 == 0): float4 loads of
-// the row when its width and address allow, else scalar loads; the
-// queries are read from shared memory as broadcasts.  kParts: four
-// partial sums, else one running sum.
-template <bool kParts>
-__device__ __forceinline__ void g2v_thread_dots_f32(const float* __restrict__ x,
-                                                    const float* qs, int nq, int D,
-                                                    float* acc) {
-  constexpr int P = kParts ? 4 : 1;
-  float part[G2V_QB_MAX][4];
-#pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
-  if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-#pragma unroll 5
-    for (int c = 0; c < (D >> 2); ++c) {
-      const float4 v = __ldg(x4 + c);
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) {
-          const float4 q = reinterpret_cast<const float4*>(qs + j * D)[c];
-          part[j][0] = fmaf(q.x, v.x, part[j][0]);
-          part[j][1 % P] = fmaf(q.y, v.y, part[j][1 % P]);
-          part[j][2 % P] = fmaf(q.z, v.z, part[j][2 % P]);
-          part[j][3 % P] = fmaf(q.w, v.w, part[j][3 % P]);
-        }
-      }
-    }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const float v = __ldg(x + d);
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) part[j][d % P] = fmaf(qs[j * D + d], v, part[j][d % P]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = kParts ? g2v_sum_parts(part[j]) : part[j][0];
 }
 
 // Staging of int8 queries: each normalized f32 query is quantized per row
@@ -632,33 +524,26 @@ __device__ void g2v_stage_queries_int8(const float* __restrict__ qn, int q0, int
   }
 }
 
-// One thread's int8 dots of row `x` (D int8) with nq staged int8 queries,
-// exact in int32: dp4a over 4-byte words when the width and address
-// allow, else byte by byte.
-__device__ __forceinline__ void g2v_thread_dots_int8(const signed char* __restrict__ x,
-                                                     const signed char* qq, int nq, int D,
-                                                     int* acc) {
+// One normalized f32 query quantized as g2v_stage_queries_int8 does, by
+// the whole block: the max |q| (order-free) by warp shuffles and one
+// barrier, then every column at once.  qq: `stride` bytes (zero past D).
+__device__ void g2v_stage_query_int8_block(const float* __restrict__ row, int D, int stride,
+                                           signed char* qq, float* qscale) {
+  __shared__ float wmax[32];
+  float m = 0.0f;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) m = fmaxf(m, fabsf(__ldg(row + d)));
 #pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = 0;
-  if ((D & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 3) == 0) {
-    const int* x4 = reinterpret_cast<const int*>(x);
-#pragma unroll 5
-    for (int c = 0; c < (D >> 2); ++c) {
-      const int v = __ldg(x4 + c);
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) acc[j] = __dp4a(v, reinterpret_cast<const int*>(qq + j * D)[c], acc[j]);
-      }
-    }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const int v = x[d];
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) acc[j] += v * static_cast<int>(qq[j * D + d]);
-      }
-    }
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) wmax[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0.0f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmaxf(m, wmax[w]);
+  const float s = fmaxf(__fmul_rn(m, 1.0f / 127.0f), 1e-12f);
+  for (int d = threadIdx.x; d < stride; d += blockDim.x) {
+    const float v = d < D ? rintf(__fdiv_rn(__ldg(row + d), s)) : 0.0f;
+    qq[d] = static_cast<signed char>(fminf(fmaxf(v, -127.0f), 127.0f));
   }
+  if (threadIdx.x == 0) *qscale = s;
 }
 
 // float(acc) * qs * scale, in that order, each product correctly rounded
@@ -680,56 +565,6 @@ __device__ void g2v_stage_queries_bf16(const float* __restrict__ qn, int q0, int
         ? __bfloat162float(__float2bfloat16_rn(__ldg(qn + static_cast<size_t>(q0 + j) * D + d)))
         : 0.0f;
   }
-}
-
-// One thread's dots of bf16 row `x` (D values) with nq staged bf16-rounded
-// queries (qs, D floats each).  Each bf16 x bf16 product is exact in
-// float32 and the sum accumulates in float32 — the reference's
-// dot_general(..., preferred_element_type=f32) — in four interleaved
-// partial sums (g2v_sum_parts).  16-byte loads of 8 values when the width
-// and address allow, else one value at a time.
-__device__ __forceinline__ void g2v_thread_dots_bf16(const __nv_bfloat16* __restrict__ x,
-                                                     const float* qs, int nq, int D,
-                                                     float* acc) {
-  float part[G2V_QB_MAX][4];
-#pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
-  if ((D & 7) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0) {
-    const uint4* x8 = reinterpret_cast<const uint4*>(x);
-    for (int c = 0; c < (D >> 3); ++c) {
-      const uint4 raw = __ldg(x8 + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        v[2 * i] = f.x;
-        v[2 * i + 1] = f.y;
-      }
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) {
-          const float* q = qs + j * D + 8 * c;
-#pragma unroll
-          for (int i = 0; i < 8; ++i) part[j][i & 3] = fmaf(q[i], v[i], part[j][i & 3]);
-        }
-      }
-    }
-  } else {
-    for (int d = 0; d < D; ++d) {
-      const float v = __bfloat162float(x[d]);
-#pragma unroll
-      for (int j = 0; j < G2V_QB_MAX; ++j) {
-        if (j < nq) part[j][d & 3] = fmaf(qs[j * D + d], v, part[j][d & 3]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < G2V_QB_MAX; ++j) acc[j] = g2v_sum_parts(part[j]);
-}
-
-static inline size_t g2v_int8_query_bytes(int D) {
-  return static_cast<size_t>(D) + 8;
 }
 
 // -- launch 1, staged tiles (K7, K8) ----------------------------------------
@@ -1130,4 +965,634 @@ __host__ __device__ inline int g2v_simt_query_rows(int QG) {
   int tq = 1;
   while (4 * tq < QG) tq <<= 1;
   return 4 * tq;
+}
+
+// -- one query's candidate list in one block or cluster (K9's scan, K9r) ----
+//
+// K9's scan and K9r score per-query candidate lists (probed inverted
+// lists; the approximate top-r) whose rows are scattered in the table.
+// A query's list of n candidate positions is cut into segments of S
+// positions.  A block takes one segment: it loads the segment's candidate
+// ids once, coalesced, keeps only the real ones (dropping list padding
+// and masked rows) in position order in shared memory, then scores those
+// rows with a group of `lanes` lanes a row — neighbouring lanes on
+// neighbouring words, G2V_LIST_ROWS rows a group at once, every word of
+// them loaded before any is used — and sums each row's lanes with
+// shuffles.  Then either
+// - (kRuns false) the query's segments are the blocks of one thread-block
+//   cluster (or one block): each sends its own top-min(keep, S) (key,
+//   position, id) — a select without a sort — to the leader's shared
+//   memory (distributed shared memory), and the leader packs them, selects
+//   the top-keep and sorts it in the same launch; or
+// - (kRuns true, lists past what a cluster holds) each segment is a chunk
+//   of the chunked selection: the block writes its top-min(keep, S) to the
+//   query's run for g2v_final, the second launch.
+// A kept candidate's tie is its candidate position: lax.top_k's order over
+// the reference's (B, n) candidate matrix.  Selects of up to G2V_RANK_MAX
+// entries rank them by counting, larger ones take the radix threshold.
+// Past the real candidates the output holds -inf with row 0, as the
+// reference's masked positions.
+
+#define G2V_LIST_THREADS 256
+// most blocks a query's cluster holds (the portable cluster size)
+#define G2V_LIST_CLUSTER_MAX 8
+// rows a lane group scores at once, and words a lane loads of each
+#define G2V_LIST_ROWS 4
+#define G2V_LIST_WORDS 4
+// entries at most that a select ranks by counting (one pass, no barrier);
+// more take the radix threshold and, for a sorted result, the bitonic sort
+#define G2V_RANK_MAX G2V_LIST_THREADS
+// build knobs for kernel_split.py (1 in a normal build): the select after
+// the scores; the row loads (0 scores each row by its id alone); the
+// compaction (0 keeps no candidate)
+#ifndef G2V_LIST_COMPACT
+#define G2V_LIST_COMPACT 1
+#endif
+#ifndef G2V_LIST_SELECT
+#define G2V_LIST_SELECT 1
+#endif
+#ifndef G2V_LIST_LOADS
+#define G2V_LIST_LOADS 1
+#endif
+// build knob for kernel_split.py (0 in a normal build): each block's
+// first thread stamps clock64() at its phase boundaries into
+// g2v_trace_buf[kernel][block][phase] (kernel 0: the list select, 1: K9's
+// probe), which g2v_trace_read copies out
+#ifndef G2V_TRACE
+#define G2V_TRACE 0
+#endif
+#define G2V_TRACE_BLOCKS 1024
+#define G2V_TRACE_PHASES 8
+#if G2V_TRACE
+__device__ long long g2v_trace_buf[2][G2V_TRACE_BLOCKS][G2V_TRACE_PHASES];
+#define G2V_MARK(kernel, phase)                                                      \
+  do {                                                                               \
+    const int blk_ = blockIdx.x + gridDim.x * blockIdx.y;                            \
+    if (threadIdx.x == 0 && blk_ < G2V_TRACE_BLOCKS) {                               \
+      g2v_trace_buf[kernel][blk_][phase] = clock64();                                \
+    }                                                                                \
+  } while (0)
+G2V_EXPORT int g2v_trace_read(void* dst) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, g2v_trace_buf, sizeof(g2v_trace_buf)));
+}
+G2V_EXPORT int g2v_trace_clear() {
+  void* p = nullptr;
+  const int err = static_cast<int>(cudaGetSymbolAddress(&p, g2v_trace_buf));
+  return err ? err : static_cast<int>(cudaMemset(p, 0, sizeof(g2v_trace_buf)));
+}
+#else
+#define G2V_MARK(kernel, phase) \
+  do {                          \
+  } while (0)
+#endif
+
+// One query's select state (block-wide).
+struct G2vSelect {
+  unsigned long long all_and, any_or;
+  int hist[256];
+  int bc[3];
+  int fill;
+};
+
+// hist[bin] += 1 for this lane (bin 256: none), the lanes running
+// together that share a bin adding once: entries crowd a few bins in a
+// select's first passes, and same-address shared-memory atomics
+// serialize.
+__device__ __forceinline__ void g2v_count_bin(int* hist, int bin) {
+  const unsigned peers = __match_any_sync(__activemask(), bin);
+  if (bin < 256 && __ffs(peers) - 1 == static_cast<int>(threadIdx.x & 31)) {
+    atomicAdd(&hist[bin], __popc(peers));
+  }
+}
+
+// A slot of `*fill` for each lane with `take`, one atomic for the lanes
+// running together; -1 for the others.
+__device__ __forceinline__ int g2v_take_slot(int* fill, bool take) {
+  const unsigned act = __activemask();
+  const unsigned mask = __ballot_sync(act, take);
+  if (!take) return -1;
+  const int lane = threadIdx.x & 31, leader = __ffs(mask) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(fill, __popc(mask));
+  base = __shfl_sync(mask, base, leader);
+  return base + __popc(mask & ((1u << lane) - 1));
+}
+
+// The threshold of the first `keep` (< the count) of the entries that
+// `each` visits, in selection order: entry (key, tie) is among them iff
+// (g2v_ord(key, tie) >> *hi_out) >= the returned prefix.  `each(f)` calls
+// f(key, tie) for every entry this thread owns, the same ones each call;
+// ties are distinct.  A first pass finds the bits every entry shares (an
+// AND and an OR of the ords); each further pass counts the next 8 bits of
+// the entries that match the prefix so far into one 256-bin histogram and
+// takes the bin in which the count from the top reaches the number still
+// needed, until every entry of that bin is needed.  Every thread calls it.
+template <class Each>
+__device__ unsigned long long g2v_list_threshold(const Each& each, int keep, G2vSelect* sm,
+                                                 int* hi_out) {
+  if (threadIdx.x == 0) {
+    sm->all_and = ~0ull;
+    sm->any_or = 0ull;
+  }
+  __syncthreads();
+  unsigned long long a = ~0ull, o = 0ull;
+  each([&](int k, int t) {
+    const unsigned long long x = g2v_ord(k, t);
+    a &= x;
+    o |= x;
+  });
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a &= __shfl_xor_sync(0xffffffffu, a, off);
+    o |= __shfl_xor_sync(0xffffffffu, o, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicAnd(&sm->all_and, a);
+    atomicOr(&sm->any_or, o);
+  }
+  __syncthreads();
+  int hi = 64 - __clzll(sm->all_and ^ sm->any_or);  // bits [hi, 64) are shared
+  unsigned long long prefix = hi >= 64 ? 0ull : sm->all_and >> hi;
+  int need = keep;
+  while (true) {
+    const int lo = max(0, hi - 8), width = hi - lo;
+    for (int b = threadIdx.x; b < 256; b += blockDim.x) sm->hist[b] = 0;
+    __syncthreads();
+    each([&](int k, int t) {
+      const unsigned long long x = g2v_ord(k, t);
+      const bool in = hi >= 64 || (x >> hi) == prefix;
+      g2v_count_bin(sm->hist, in ? static_cast<int>((x >> lo) & ((1u << width) - 1)) : 256);
+    });
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      int before, count;
+      const int bin = g2v_find_bin(sm->hist, need, &before, &count);
+      if (threadIdx.x == 0) {
+        sm->bc[0] = bin;
+        sm->bc[1] = before;
+        sm->bc[2] = count;
+      }
+    }
+    __syncthreads();
+    prefix = (prefix << width) | static_cast<unsigned>(sm->bc[0]);
+    need -= sm->bc[1];
+    const int count = sm->bc[2];
+    hi = lo;
+    // bc is next written after the next pass's barriers, which every
+    // thread reaches only once it has read it here
+    if (count == need || hi == 0) break;
+  }
+  *hi_out = hi;
+  return prefix;
+}
+
+// Sorts n (a power of two) triples (key, tie, idx) in shared memory into
+// selection order by (key, tie), idx riding along.  Every thread of the
+// block calls it; it synchronises before and after.
+__device__ void g2v_bitonic3(int* key, int* tie, int* idx, int n) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      __syncthreads();
+      for (int t = threadIdx.x; t < (n >> 1); t += blockDim.x) {
+        const int lo = 2 * stride * (t / stride) + (t % stride);
+        const int hi = lo + stride;
+        const bool up = (lo & size) == 0;
+        const int kl = key[lo], tl = tie[lo], kh = key[hi], th = tie[hi];
+        if (up ? g2v_before(kh, th, kl, tl) : g2v_before(kl, tl, kh, th)) {
+          const int il = idx[lo];
+          key[lo] = kh; tie[lo] = th; idx[lo] = idx[hi];
+          key[hi] = kl; tie[hi] = tl; idx[hi] = il;
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The first min(keep, n) of n entries (key[i], tie(i); ties distinct) in
+// selection order: out(r, i) once for each, r its rank where `sorted`,
+// else a distinct slot < min(keep, n).  Up to G2V_RANK_MAX entries are
+// ranked by counting the entries before each (a few neighbouring lanes an
+// entry; one pass, no barrier); more take the radix threshold, then
+// (sorted) a sort of the survivors in sk/st/sg (room for
+// next_pow2(min(keep, n)) each).  Every thread calls it.
+template <class Tie, class Out>
+__device__ void g2v_dense_topk(const int* key, const Tie& tie, int n, int keep, bool sorted,
+                               G2vSelect* sm, int* sk, int* st, int* sg, const Out& out) {
+  const int ns = min(keep, n);
+  if (ns == 0) return;
+  if (!sorted && n <= keep) {  // every entry, in any order
+    for (int i = threadIdx.x; i < n; i += blockDim.x) out(i, i);
+    return;
+  }
+  if (n <= G2V_RANK_MAX) {  // `parts` neighbouring lanes an entry, each counting a span
+    int parts = 1;
+    while (parts < 8 && 2 * parts * n <= static_cast<int>(blockDim.x)) parts <<= 1;
+    const int span = (n + parts - 1) / parts;
+    const int i = threadIdx.x / parts, q = threadIdx.x % parts;
+    int rank = 0;
+    if (i < n) {
+      const int k = key[i], t = tie(i);
+      const int j1 = min(n, (q + 1) * span);
+#pragma unroll 4
+      for (int j = q * span; j < j1; ++j) rank += g2v_before(key[j], tie(j), k, t);
+    }
+    for (int o = parts >> 1; o > 0; o >>= 1) rank += __shfl_xor_sync(0xffffffffu, rank, o);
+    if (i < n && q == 0 && rank < keep) out(rank, i);
+    return;
+  }
+  const auto each = [&](auto f) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) f(key[i], tie(i));
+  };
+  unsigned long long prefix = 0;
+  int hi = 0;
+  if (n > keep) prefix = g2v_list_threshold(each, keep, sm, &hi);
+  if (threadIdx.x == 0) sm->fill = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int k = key[i], t = tie(i);
+    const int s = g2v_take_slot(&sm->fill, n <= keep || (g2v_ord(k, t) >> hi) >= prefix);
+    if (s >= 0 && s < ns) {  // exactly ns pass; the guard keeps a fault in bounds
+      if (sorted) {
+        sk[s] = k;
+        st[s] = t;
+        sg[s] = i;
+      } else {
+        out(s, i);
+      }
+    }
+  }
+  if (!sorted) return;
+  __syncthreads();
+  if (ns <= G2V_RANK_MAX) {  // each survivor's rank by counting those before it
+    for (int a = threadIdx.x; a < ns; a += blockDim.x) {
+      const int k = sk[a], t = st[a];
+      int rank = 0;
+      for (int j = 0; j < ns; ++j) rank += g2v_before(sk[j], st[j], k, t);
+      out(rank, sg[a]);
+    }
+    return;
+  }
+  int P = 1;
+  while (P < ns) P <<= 1;
+  for (int a = ns + threadIdx.x; a < P; a += blockDim.x) {
+    sk[a] = INT_MIN;
+    st[a] = INT_MAX;
+    sg[a] = -1;
+  }
+  g2v_bitonic3(sk, st, sg, P);
+  for (int a = threadIdx.x; a < ns; a += blockDim.x) out(a, sg[a]);
+}
+
+// Block-wide, order-keeping compaction of the candidate positions [p0,
+// p1): cand(p) is the row of position p, or -1 where it is padding or
+// masked.  The rows go to ids[0 ..) in position order; returns their
+// count (to every thread).  Each thread takes G2V_COMPACT neighbouring
+// positions a round, all loaded before any is used.  scan: 32 ints.
+#define G2V_COMPACT 4
+template <class Cand>
+__device__ int g2v_compact(const Cand& cand, int p0, int p1, int* ids, int* scan) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  int base = 0;
+  for (int r0 = p0; r0 < p1; r0 += G2V_COMPACT * blockDim.x) {
+    int id[G2V_COMPACT];
+    int c = 0;
+#pragma unroll
+    for (int e = 0; e < G2V_COMPACT; ++e) {
+      const int p = r0 + G2V_COMPACT * threadIdx.x + e;
+      id[e] = p < p1 ? cand(p) : -1;
+    }
+#pragma unroll
+    for (int e = 0; e < G2V_COMPACT; ++e) c += id[e] >= 0;
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) scan[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < nw; ++w) {
+      const int x = scan[w];
+      before += w < warp ? x : 0;
+      total += x;
+    }
+    int o = base + before + incl - c;
+#pragma unroll
+    for (int e = 0; e < G2V_COMPACT; ++e) {
+      if (id[e] >= 0) ids[o++] = id[e];
+    }
+    base += total;
+    __syncthreads();  // scan is rewritten next round
+  }
+  return base;
+}
+
+// Scores rows ids[0 .. m) with groups of `lanes` lanes (a power of two <=
+// 32) a row: lane l of a group loads words l, l + lanes, ... of each of
+// its G2V_LIST_ROWS rows (G2V_LIST_WORDS a row a pass, every load of a
+// pass issued before any sum), adds them into its own sum (sc.add, in
+// word order) and the group sums its lanes by a shuffle tree; emit(i,
+// key, id) then takes row i's key (sc.score) on the group's first lane.
+// The query's words a lane needs are read once (once a pass for rows of
+// several passes) and serve every row.  The loop runs the same number of
+// times on every lane of a warp.
+//
+// Scorer interface:
+//   typename Word, QWord, Acc;  int words;   words a row
+//   __device__ const Word* row(int id) const;
+//   __device__ QWord qword(int w) const;     the query's word w
+//   __device__ float aux(int id) const;      a per-row factor (the int8 scale)
+//   __device__ void add(const Word& x, const QWord& q, Acc& acc) const;
+//   __device__ float score(Acc acc, float aux) const;
+template <class Sc, class Emit>
+__device__ void g2v_score_rows(const Sc& sc, const int* ids, int m, int lanes, const Emit& emit) {
+  using Word = typename Sc::Word;
+  using QWord = typename Sc::QWord;
+  using Acc = typename Sc::Acc;
+  constexpr int U = G2V_LIST_ROWS, J = G2V_LIST_WORDS;
+  const int lane = threadIdx.x & 31, gl = lane & (lanes - 1);
+  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int per_warp = (32 / lanes) * U;  // rows a warp scores at once
+  const bool one_pass = sc.words <= lanes * J;
+  QWord qv[J];
+  const auto load_query = [&](int c0) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int w = c0 + gl + lanes * j;
+      if (w < sc.words) qv[j] = sc.qword(w);
+    }
+  };
+  if (one_pass) load_query(0);
+  for (int w0 = warp * per_warp; w0 < m; w0 += nw * per_warp) {
+    const int i0 = w0 + (lane / lanes) * U;
+    int id[U];
+    float aux[U];
+    Acc acc[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      id[u] = i0 + u < m ? ids[i0 + u] : -1;
+      aux[u] = 1.0f;
+      acc[u] = Acc(0);
+    }
+#if G2V_LIST_LOADS
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (id[u] >= 0) aux[u] = sc.aux(id[u]);
+    }
+    for (int c0 = 0; c0 < sc.words; c0 += lanes * J) {
+      Word x[U][J];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const Word* row = id[u] >= 0 ? sc.row(id[u]) : nullptr;
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int w = c0 + gl + lanes * j;
+          if (row && w < sc.words) x[u][j] = __ldg(row + w);
+        }
+      }
+      if (!one_pass) load_query(c0);
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const int w = c0 + gl + lanes * j;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          if (id[u] >= 0 && w < sc.words) sc.add(x[u][j], qv[j], acc[u]);
+        }
+      }
+    }
+#else
+#pragma unroll
+    for (int u = 0; u < U; ++u) acc[u] = Acc(gl == 0 && id[u] >= 0 ? id[u] & 1023 : 0);
+#endif
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      for (int o = lanes >> 1; o > 0; o >>= 1) acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], o);
+    }
+    if (gl == 0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (id[u] >= 0) emit(i0 + u, g2v_key(sc.score(acc[u], aux[u])), id[u]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void g2v_cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned g2v_cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of `p` (this block's shared memory) in block `rank` of the
+// cluster, as a generic pointer.
+template <class T>
+__device__ __forceinline__ T* g2v_cluster_map(T* p, unsigned rank) {
+  const uint64_t local = reinterpret_cast<uint64_t>(p);
+  uint64_t remote;
+  asm volatile("mapa.u64 %0, %1, %2;\n" : "=l"(remote) : "l"(local), "r"(rank));
+  return reinterpret_cast<T*>(remote);
+}
+
+// Dynamic shared memory of a list block: its S (key, id) pairs, the
+// leader's ncand candidates (key, tie, id) as sent and packed, 3 x P ints
+// for a sort, the query (qbytes) and the candidate source's own
+// (src_bytes), each 16-byte aligned.
+static inline size_t g2v_list_smem(int S, int ncand, int P, int qbytes, int src_bytes) {
+  const auto up = [](size_t b) { return (b + 15) & ~static_cast<size_t>(15); };
+  return up(8 * static_cast<size_t>(S)) + up(24 * static_cast<size_t>(ncand)) +
+         up(12 * static_cast<size_t>(P)) + up(qbytes) + up(src_bytes);
+}
+
+// Candidate source interface (per kernel, by value):
+//   int src_bytes() const;                       shared memory it stages
+//   __device__ void stage(int b, int* smem) const;  block-wide, before the
+//       barrier that precedes the compaction (K9: the query's probe row)
+//   __device__ int id(int b, const int* smem, int p) const;  row or -1
+// Query scorer (per kernel, by value): the Scorer interface above, and
+//   size_t query_bytes() const;
+//   __device__ void stage(int b, unsigned char* qmem) const;  block-wide
+//   __device__ Sc bound(const unsigned char* qmem) const;  the scorer on
+//       the staged query
+//
+// Grid (kRuns false): B * nseg blocks in clusters of nseg, cluster b
+// being query b.  One block (nseg 1) selects and sorts its rows' top-keep
+// itself; in a cluster each block sends its own top-min(keep, S) (a
+// select without a sort) to the leader's candidates, and the leader packs
+// them and selects and sorts the top-keep of those.
+// (kRuns true) nseg x B blocks, no cluster: each block writes its
+// top-min(slot, rows) (key, tie) to its run, the rows to aux[b * n + tie]
+// and fill entries (-inf, n + seg * slot + j), which map to row 0.
+template <class Src, class Q, bool kRuns>
+__global__ void __launch_bounds__(G2V_LIST_THREADS)
+g2v_list_select(Src src, Q qs, int n, int S, int nseg, int keep, int P, int lanes, int qbytes,
+                int slot, int stride, int* __restrict__ rk, int* __restrict__ ri,
+                int* __restrict__ aux, float* __restrict__ out_s, int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned char g2v_smem[];
+  __shared__ G2vSelect sm;
+  __shared__ int scan[32];
+  __shared__ int counts[G2V_LIST_CLUSTER_MAX];
+  const int b = kRuns ? blockIdx.y : blockIdx.x / nseg;
+  const int seg = kRuns ? blockIdx.x : static_cast<int>(g2v_cluster_rank());
+  const bool cluster = !kRuns && nseg > 1;
+  const int K1 = min(keep, S);  // what a cluster's block sends its leader
+  const int ncand = cluster ? nseg * K1 : 0;
+  const auto up = [](size_t x) { return (x + 15) & ~static_cast<size_t>(15); };
+  int* keys = reinterpret_cast<int*>(g2v_smem);  // S
+  int* ids = keys + S;                            // S
+  int* ck = reinterpret_cast<int*>(g2v_smem + up(8 * static_cast<size_t>(S)));
+  int* ct = ck + ncand;
+  int* cid = ct + ncand;
+  int* dk = cid + ncand;  // the leader's candidates packed
+  int* dt = dk + ncand;
+  int* did = dt + ncand;
+  int* sk = reinterpret_cast<int*>(reinterpret_cast<unsigned char*>(ck) +
+                                   up(24 * static_cast<size_t>(ncand)));
+  int* st = sk + P;
+  int* sg = st + P;
+  unsigned char* qmem = reinterpret_cast<unsigned char*>(sk) + up(12 * static_cast<size_t>(P));
+  int* smem_src = reinterpret_cast<int*>(qmem + up(qbytes));
+  G2V_MARK(0, 0);
+  if (cluster) {  // every block of the cluster running before any writes remotely
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  }
+  src.stage(b, smem_src);
+  qs.stage(b, qmem);
+  __syncthreads();
+  G2V_MARK(0, 1);
+  const int p0 = seg * S, p1 = min(n, p0 + S);
+  const int m = G2V_LIST_COMPACT
+      ? g2v_compact([&](int p) { return src.id(b, smem_src, p); }, p0, p1, ids, scan)
+      : 0;
+  G2V_MARK(0, 2);
+  g2v_score_rows(qs.bound(qmem), ids, m, lanes, [&](int i, int key, int) { keys[i] = key; });
+  __syncthreads();
+  G2V_MARK(0, 3);
+  const auto position = [&](int i) { return p0 + i; };
+  if (kRuns) {
+    int* ok = rk + static_cast<size_t>(b) * stride + static_cast<size_t>(seg) * slot;
+    int* oi = ri + static_cast<size_t>(b) * stride + static_cast<size_t>(seg) * slot;
+    int* ax = aux + static_cast<size_t>(b) * n;
+    if (G2V_LIST_SELECT) {
+      g2v_dense_topk(keys, position, m, slot, false, &sm, sk, st, sg, [&](int s, int i) {
+        ok[s] = keys[i];
+        oi[s] = p0 + i;
+        ax[p0 + i] = ids[i];
+      });
+    }
+    for (int j = min(slot, m) + threadIdx.x; j < slot; j += blockDim.x) {
+      ok[j] = g2v_key(-INFINITY);
+      oi[j] = n + seg * slot + j;
+    }
+    return;
+  }
+  float* os = out_s + static_cast<size_t>(b) * keep;
+  int* oi = out_i + static_cast<size_t>(b) * keep;
+  int M = m;
+  if (!cluster) {
+    if (G2V_LIST_SELECT) {
+      g2v_dense_topk(keys, position, m, keep, true, &sm, sk, st, sg, [&](int r, int i) {
+        os[r] = g2v_unkey(keys[i]);
+        oi[r] = ids[i];
+      });
+    }
+  } else {
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    int* lk = g2v_cluster_map(ck, 0);
+    int* lt = g2v_cluster_map(ct, 0);
+    int* li = g2v_cluster_map(cid, 0);
+    const int base = seg * K1, ns = min(K1, m);
+    if (G2V_LIST_SELECT) {
+      g2v_dense_topk(keys, position, m, K1, false, &sm, sk, st, sg, [&](int s, int i) {
+        lk[base + s] = keys[i];
+        lt[base + s] = p0 + i;
+        li[base + s] = ids[i];
+      });
+    }
+    if (threadIdx.x == 0) g2v_cluster_map(counts, 0)[seg] = ns;
+    G2V_MARK(0, 4);
+    g2v_cluster_sync();  // the leader holds every block's candidates
+    G2V_MARK(0, 5);
+    if (seg != 0) return;
+    M = 0;
+    for (int s = 0; s < nseg; ++s) {
+      const int c = counts[s];
+      for (int j = threadIdx.x; j < c; j += blockDim.x) {
+        dk[M + j] = ck[s * K1 + j];
+        dt[M + j] = ct[s * K1 + j];
+        did[M + j] = cid[s * K1 + j];
+      }
+      M += c;
+    }
+    __syncthreads();
+    if (G2V_LIST_SELECT) {
+      g2v_dense_topk(dk, [&](int i) { return dt[i]; }, M, keep, true, &sm, sk, st, sg,
+                     [&](int r, int i) {
+                       os[r] = g2v_unkey(dk[i]);
+                       oi[r] = did[i];
+                     });
+    }
+  }
+  for (int i = M + threadIdx.x; i < keep; i += blockDim.x) {
+    os[i] = -INFINITY;
+    oi[i] = 0;
+  }
+  G2V_MARK(0, 6);
+}
+
+// Maps a chunked selection's tie to its row: aux[b * n + tie] for a kept
+// candidate, 0 for a fill entry.
+struct G2vAuxMap {
+  const int* aux;
+  int n;
+  __device__ int operator()(int b, int t) const {
+    return t < n ? aux[static_cast<size_t>(b) * n + t] : 0;
+  }
+};
+
+// Launches the list select: route 0 (clusters of nseg blocks, one a query,
+// one launch) or 1 (chunks of S positions, then g2v_final: two launches).
+// Scratch for route 1: rk/ri/kb/ib the runs (B * stride each), aux B * n.
+// Returns a cudaError_t.
+template <class Src, class Q>
+static int g2v_launch_list(const Src& src, const Q& qs, int route, int n, int B, int S, int nseg,
+                           int keep, int lanes, int slot, int stride, int* rk, int* ri, int* kb,
+                           int* ib, int* aux, float* out_s, int* out_i, cudaStream_t stream) {
+  const bool runs = route == 1;
+  const int ncand = !runs && nseg > 1 ? nseg * min(keep, S) : 0;
+  const int P = runs ? 0 : g2v_next_pow2(min(keep, nseg > 1 ? ncand : S));
+  const size_t smem = g2v_list_smem(S, ncand, P, qs.query_bytes(), src.src_bytes());
+  const auto kernel = runs ? g2v_list_select<Src, Q, true> : g2v_list_select<Src, Q, false>;
+  int err = g2v_smem_attr(kernel, smem);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.blockDim = dim3(G2V_LIST_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (runs) {
+    cfg.gridDim = dim3(nseg, B);
+  } else {
+    cfg.gridDim = dim3(nseg * B);
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = nseg;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, src, qs, n, S, nseg, keep, P, lanes,
+                                            static_cast<int>(qs.query_bytes()), slot, stride, rk,
+                                            ri, aux, out_s, out_i));
+  if (err) return err;
+  err = static_cast<int>(cudaGetLastError());
+  if (err || !runs) return err;
+  return g2v_launch_final(G2vAuxMap{aux, n}, B, nseg, slot, stride, keep, rk, ri, kb, ib, out_s,
+                          out_i, stream);
 }

@@ -10,6 +10,10 @@ the top-``r`` (r = min(rb, nprobe·L)) among each query's candidates as
 (approximate scores, int32 rows), masked candidates at −inf with row 0,
 ties broken by candidate position.  A bf16 table takes K8's bf16
 scorer (the query rounded to bf16, float32 sums).
+
+Two launches a call: the probe, and the scan with its select
+(``_topk.plan_list`` route 0); lists past what a block holds add the
+chunked select's final launch.
 """
 
 from __future__ import annotations
@@ -74,33 +78,60 @@ def ivf_scan(qn, centroids, lists, table_q, scale, nprobe: int, rb: int,
     n = nprobe * lst
     r = min(rb, n)
     lib = _lib()
-    sms = _args.sm_count(qn)
-    pc = _topk.plan(c, nprobe, b, 4 * d, per_query=False, sms=sms)
-    pn = _topk.plan(n, r, b, 4 * d if bf16 else d + 8, per_query=True, sms=sms)
-    scr_c, scr_n = _topk.scratch(pc, qn.device), _topk.scratch(pn, qn.device)
+    pp, pl = plans(qn, centroids, table_q, nprobe, rb, lst)
     probe = torch.empty((b, nprobe), dtype=torch.int32, device=qn.device)
-    probe_scores = torch.empty((b, nprobe), dtype=torch.float32, device=qn.device)
+    scr = _topk.list_scratch(pl, b, n, qn.device)
     scores = torch.empty((b, r), dtype=torch.float32, device=qn.device)
     rows = torch.empty((b, r), dtype=torch.int32, device=qn.device)
-    status = lib.k9_ivf_scan(
-        _args.ptr(qn), _args.ptr(centroids), _args.ptr(lists), _args.ptr(table_q),
-        _args.ptr(scale), int(bf16), c, lst, v_rows, d, b, nprobe, valid, r,
-        pc.tile, pc.qb, pc.slot, pc.stride, pn.tile, pn.slot, pn.stride,
-        _args.ptr(scr_c[0]), _args.ptr(scr_c[1]), _args.ptr(scr_c[2]), _args.ptr(scr_c[3]),
-        _args.ptr(scr_n[0]), _args.ptr(scr_n[1]), _args.ptr(scr_n[2]), _args.ptr(scr_n[3]),
-        _args.ptr(probe_scores), _args.ptr(probe), _args.ptr(scores), _args.ptr(rows),
-        _args.stream(qn),
-    )
+    status = launch(lib, qn, centroids, lists, table_q, scale, nprobe, valid, r, pp, pl, probe,
+                    scr, scores, rows)
     build.check(lib, status, "K9 ivf_scan launch")
     launches["ivf_scan", ""] += 1
     return scores, rows
 
 
+def plans(qn, centroids, table_q, nprobe: int, rb: int, list_len: int):
+    """(probe plan, scan plan) of a call: ``_topk.plan_probe`` and
+    ``_topk.plan_list`` for these tensors."""
+    c, d = centroids.shape
+    b = qn.shape[0]
+    kind = "bfloat16" if table_q.dtype == torch.bfloat16 else "int8"
+    n = nprobe * list_len
+    sms = _args.sm_count(qn)
+    pp = _topk.plan_probe(c, nprobe, b, d, centroids.data_ptr() % 16 == 0, sms)
+    pl = _topk.plan_list(n, min(rb, n), b, d, kind, _topk.list_word(d, kind, table_q.data_ptr()),
+                         4 * nprobe, sms)
+    return pp, pl
+
+
+def launch(lib, qn, centroids, lists, table_q, scale, nprobe, valid, r, pp, pl, probe, scr,
+           scores, rows) -> int:
+    """``k9_ivf_scan`` of ``lib`` on checked tensors and plans; returns its
+    status (a CUDA error code)."""
+    c, lst = lists.shape
+    b, d = qn.shape
+    n = nprobe * lst
+    ptr = _args.ptr
+    return lib.k9_ivf_scan(
+        ptr(qn), ptr(centroids), ptr(lists), ptr(table_q), ptr(scale),
+        int(table_q.dtype == torch.bfloat16), c, lst, d, b, nprobe, valid, r,
+        pp.qg, pp.qpt, pp.share, pp.cluster, pp.rows, pp.tstride, pp.cp, pp.smem,
+        pl.route, pl.share, pl.nseg, pl.lanes, pl.word, pl.slot, pl.stride,
+        ptr(probe), *_topk.list_scratch_ptrs(scr, b * pl.stride), ptr(scores), ptr(rows),
+        _args.stream(qn),
+    )
+
+
 def _lib():
-    lib = build.load(_LIB)
+    return bind(build.load(_LIB))
+
+
+def bind(lib):
+    """``lib`` (a build of ``csrc/k9_ivf_scan.cu``) with its entry point's
+    argument types set."""
     fn = lib.k9_ivf_scan
     if fn.argtypes is None:
         P, I = _args.P, _args.I
-        fn.argtypes = [P, P, P, P, P] + [I] * 16 + [P] * 12 + [P]
+        fn.argtypes = [P, P, P, P, P] + [I] * 23 + [P] * 8 + [P]
         fn.restype = I
     return lib

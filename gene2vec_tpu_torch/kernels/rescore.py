@@ -7,7 +7,9 @@ candidates, take the exact dot with the normalized query, drop the
 candidates whose approximate score is not finite (the reference's
 ``approx_ok``: list padding and rows ≥ ``valid`` carry −inf), and
 return the top-``k`` (scores, rows) with masked candidates at −inf and
-row 0, ties broken by candidate position.
+row 0, ties broken by candidate position: one launch a call where the
+list fits a block or cluster (``_topk.plan_list`` route 0), else the
+chunked runs and a final launch.
 
 :func:`row_gather` is the kernel's gather loop on its own —
 ``out[i] = table[idx[i]]`` for float32 and bfloat16 tables, the
@@ -51,19 +53,34 @@ def rescore(qn, unit, ri, approx, k: int):
     _args.expect(approx, "approx", torch.float32, (b, r))
     k = min(k, r)
     lib = _lib()
-    p = _topk.plan(r, k, b, 4 * d, per_query=True, sms=_args.sm_count(qn))
-    scr = _topk.scratch(p, qn.device)
+    p = plan(qn, unit, r, k)
+    scr = _topk.list_scratch(p, b, r, qn.device)
     scores = torch.empty((b, k), dtype=torch.float32, device=qn.device)
     rows = torch.empty((b, k), dtype=torch.int32, device=qn.device)
-    status = lib.k9r_rescore(
-        _args.ptr(qn), _args.ptr(unit), _args.ptr(ri), _args.ptr(approx), v_rows, d, b, r,
-        k, p.tile, p.slot, p.stride,
-        _args.ptr(scr[0]), _args.ptr(scr[1]), _args.ptr(scr[2]),
-        _args.ptr(scr[3]), _args.ptr(scores), _args.ptr(rows), _args.stream(qn),
-    )
+    status = launch(lib, qn, unit, ri, approx, k, p, scr, scores, rows)
     build.check(lib, status, "K9r rescore launch")
     launches["rescore", ""] += 1
     return scores, rows
+
+
+def plan(qn, unit, r: int, k: int) -> _topk.ListPlan:
+    """The ``_topk.plan_list`` of a call over ``r`` candidates, top-``k``."""
+    d = unit.shape[1]
+    return _topk.plan_list(r, k, qn.shape[0], d, "float32",
+                           _topk.list_word(d, "float32", unit.data_ptr()), 0,
+                           _args.sm_count(qn))
+
+
+def launch(lib, qn, unit, ri, approx, k, p, scr, scores, rows) -> int:
+    """``k9r_rescore`` of ``lib`` on checked tensors and a plan; returns its
+    status (a CUDA error code)."""
+    b, r = ri.shape
+    ptr = _args.ptr
+    return lib.k9r_rescore(
+        ptr(qn), ptr(unit), ptr(ri), ptr(approx), unit.shape[1], b, r, k, p.route, p.share,
+        p.nseg, p.lanes, p.word, p.slot, p.stride, *_topk.list_scratch_ptrs(scr, b * p.stride),
+        ptr(scores), ptr(rows), _args.stream(qn),
+    )
 
 
 def row_gather_plain(table, idx):
@@ -92,10 +109,15 @@ def row_gather(table, idx):
 
 
 def _lib():
-    lib = build.load(_LIB)
+    return bind(build.load(_LIB))
+
+
+def bind(lib):
+    """``lib`` (a build of ``csrc/k9r_rescore.cu``) with its entry points'
+    argument types set."""
     if lib.k9r_rescore.argtypes is None:
         P, I = _args.P, _args.I
-        lib.k9r_rescore.argtypes = [P, P, P, P] + [I] * 8 + [P] * 7
+        lib.k9r_rescore.argtypes = [P, P, P, P] + [I] * 11 + [P] * 8
         lib.k9r_rescore.restype = I
         lib.k9r_row_gather.argtypes = [P, P, P, I, I, P]
         lib.k9r_row_gather.restype = I

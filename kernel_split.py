@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [--kernel k5|k12] [TREE ...]   # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k9|k12] [TREE ...]   # on a machine with a CUDA card
 
 For the kernel named (default ``k5``) of each checkout given (default:
 this one), builds its source as it is and as each entry of its variant
@@ -19,6 +19,13 @@ times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
   draws in place of the alias draws: equal times say the hottest rows'
   atomics do not contend.  A build with a part removed computes a wrong
   result; it is timed, never checked.
+- ``k9``: K9 (``csrc/k9_ivf_scan.cu``) and K9r (``csrc/k9r_rescore.cu``)
+  with parts compiled out — the probe only (K9's scan launch gone), the
+  scan without the select (the leader selects and writes nothing), the
+  select without the row loads (each row scored by its id alone) — each
+  timed at the serving kernels' MAIN_SHAPE (B = 64, kb = 16: K9 over the
+  default IVF geometry of ``chip_smoke.serving_table``, K9r over K8's
+  top-64) on the inputs ``chip_smoke.serving_kernel_check`` makes.
 - ``k12``: K12 (``csrc/k12_stream_scale.cu``) with one design choice
   changed (vectors a thread for float32 and bfloat16, evict-first cache
   hints on the loads or on both), each build checked bitwise against
@@ -38,6 +45,8 @@ import subprocess
 import sys
 import tempfile
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join("gene2vec_tpu_torch", "kernels", "csrc")
 
@@ -51,11 +60,15 @@ _LOADS_CS = ("v[k] = __ldg(x + i);", "v[k] = __ldcs(x + i);")
 _STORES_CS = ("out[i] = g2v_scale_vec<T>(v[k], scale);",
               "__stcs(out + i, g2v_scale_vec<T>(v[k], scale));")
 
-#: kernel → (source file, variant → [(text, replacement)]); K5a's first
-#: design (a column a lane, scalar atomics, each noise row read twice) and
-#: its register design name their parts differently
+_K9_INCLUDE = '#include "topk_common.cuh"'
+_K9_PROBE_ONLY = ("#define K9_SCAN 1", "#define K9_SCAN 0")
+
+#: kernel → (source files, variant → [(text, replacement)]); a variant
+#: builds each source its edits all apply to.  K5a's first design (a
+#: column a lane, scalar atomics, each noise row read twice) and its
+#: register design name their parts differently
 VARIANTS = {
-    "k5": ("k5_per_example.cu", {
+    "k5": (("k5_per_example.cu",), {
         "no_payload_atomics": [_SCALAR_PAYLOADS],  # first design: the draws' g·v atomics
         "no_atomics": [  # first design: every atomic (payloads and counts)
             _SCALAR_PAYLOADS,
@@ -66,7 +79,17 @@ VARIANTS = {
         "no_hot_rows": [  # every payload by global atomics, none summed in shared memory
             ("if (n[k] < kHot) {", "if (false) {"), ("if (c < kHot) {", "if (false) {")],
     }),
-    "k12": ("k12_stream_scale.cu", {
+    "k9": (("k9_ivf_scan.cu", "k9r_rescore.cu"), {
+        "probe_only": [_K9_PROBE_ONLY],
+        "probe_no_dots": [_K9_PROBE_ONLY, ("#define K9_PROBE_DOTS 1", "#define K9_PROBE_DOTS 0")],
+        "probe_no_select": [_K9_PROBE_ONLY,
+                            ("#define K9_PROBE_SELECT 1", "#define K9_PROBE_SELECT 0")],
+        "no_select": [(_K9_INCLUDE, "#define G2V_LIST_SELECT 0\n" + _K9_INCLUDE)],
+        "no_loads": [(_K9_INCLUDE, "#define G2V_LIST_LOADS 0\n" + _K9_INCLUDE)],
+        "no_candidates": [(_K9_INCLUDE, "#define G2V_LIST_COMPACT 0\n" + _K9_INCLUDE)],
+        "trace": [(_K9_INCLUDE, "#define G2V_TRACE 1\n" + _K9_INCLUDE)],
+    }),
+    "k12": (("k12_stream_scale.cu",), {
         "f32_unroll2": [("constexpr int kUnrollF32 = 1;", "constexpr int kUnrollF32 = 2;")],
         "f32_unroll4": [("constexpr int kUnrollF32 = 1;", "constexpr int kUnrollF32 = 4;")],
         "bf16_unroll1": [("constexpr int kUnrollBf16 = 4;", "constexpr int kUnrollBf16 = 1;")],
@@ -77,45 +100,49 @@ VARIANTS = {
 
 
 def build(tree: str, kernel: str, work: str) -> dict:
-    """{variant: (library path, registers by kernel)}, one nvcc each, all
-    started at once."""
+    """{variant: ({source: library path}, registers by kernel)}, one nvcc
+    a (variant, source), all started at once."""
     from gene2vec_tpu_torch.kernels import build as kb
 
-    src_name, variants = VARIANTS[kernel]
+    src_names, variants = VARIANTS[kernel]
     csrc = os.path.join(tree, CSRC)
-    with open(os.path.join(csrc, src_name)) as f:
-        text = f.read()
-    sources = {"full": text}
-    for name, edits in variants.items():
-        if all(old in text for old, _ in edits):
-            out = text
-            for old, new in edits:
-                out = out.replace(old, new)
-            sources[name] = out
     procs = {}
-    for name, body in sources.items():
-        src = os.path.join(work, f"{kernel}_{name}.cu")
-        with open(src, "w") as f:
-            f.write(body)
-        lib = os.path.join(work, f"{kernel}_{name}.so")
-        procs[name] = (lib, subprocess.Popen(
-            [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", csrc, "-o", lib, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for src_name in src_names:
+        with open(os.path.join(csrc, src_name)) as f:
+            text = f.read()
+        sources = {"full": text}
+        for name, edits in variants.items():
+            if all(old in text for old, _ in edits):
+                out = text
+                for old, new in edits:
+                    out = out.replace(old, new)
+                sources[name] = out
+        for name, body in sources.items():
+            stem = f"{kernel}_{name}_{src_name[:-3]}"
+            src = os.path.join(work, f"{stem}.cu")
+            with open(src, "w") as f:
+                f.write(body)
+            lib = os.path.join(work, f"{stem}.so")
+            procs[name, src_name] = (lib, subprocess.Popen(
+                [kb.nvcc_path(), *kb.NVCC_FLAGS, "-I", csrc, "-o", lib, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     built = {}
-    for name, (lib, proc) in procs.items():
+    for (name, src_name), (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"{tree} {kernel} {name}: nvcc exit {proc.returncode}\n{log}")
-        regs = {}
+            raise SystemExit(f"{tree} {kernel} {name} {src_name}: nvcc exit {proc.returncode}\n"
+                             f"{log}")
+        paths, regs = built.setdefault(name, ({}, {}))
+        paths[src_name] = lib
         fn = None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 fn = kernel_name(m.group(1))
+                fn = fn and re.sub(r"N\d+_GLOBAL__N__\w+?_cu_[0-9a-f]+\d", "", fn)
             m = re.search(r"Used (\d+) registers", line)
             if m and fn:
                 regs[fn] = int(m.group(1))
-        built[name] = (lib, regs)
     return built
 
 
@@ -132,7 +159,7 @@ def kernel_name(mangled: str):
         j = i + len(m.group())
         name = mangled[j:j + int(m.group())]
         i = j + len(name)
-        if name.endswith("_kernel"):
+        if name.endswith("_kernel") or name.startswith("g2v_"):
             rest = mangled[i:]
             args = rest[1:rest.index("EEv")] if rest.startswith("I") and "EEv" in rest else ""
             return f"{name}<{args}>"
@@ -162,8 +189,8 @@ def time_k5(torch, tree, built, timer, out):
         d_center = torch.empty_like(v)
         loss = torch.empty_like(g_pos)
         bf16 = int(dtype == torch.bfloat16)
-        for name, (path, _) in built.items():
-            fn = ctypes.CDLL(path).k5_per_example
+        for name, (paths, _) in built.items():
+            fn = ctypes.CDLL(paths["k5_per_example.cu"]).k5_per_example
             fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             for kind, negs in draws.items():
@@ -206,8 +233,8 @@ def time_k12(torch, tree, built, timer, out):
         bf16 = int(x.dtype == torch.bfloat16)
         res = out["ms"][label] = {"library_ms": timer(lambda: torch.mul(x, SCALE))}
         dst = torch.empty_like(x)
-        for name, (path, _) in built.items():
-            fn = ctypes.CDLL(path).k12_stream_scale
+        for name, (paths, _) in built.items():
+            fn = ctypes.CDLL(paths["k12_stream_scale.cu"]).k12_stream_scale
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -227,7 +254,90 @@ def time_k12(torch, tree, built, timer, out):
         del x, dst
 
 
-TIMERS = {"k5": time_k5, "k12": time_k12}
+def time_k9(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _topk, ivf_scan, quant_scan, rescore
+    from gene2vec_tpu_torch.serve import ann
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(5)
+    unit_np = cs.serving_table(rng)
+    index = ann.build_index(unit_np, "ivf", device=dev)
+    unit = torch.from_numpy(unit_np).to(dev)
+    b, kb = cs.MAIN_SHAPE
+    rb = cs.RESCORE_MULT * kb
+    q_np = unit_np[rng.choice(cs.V, b, replace=False)] * 3.0
+    qn = _topk.normalize_plain(torch.from_numpy(q_np).to(dev))
+    nprobe = min(max(8, -(-kb // index.list_len)), index.n_clusters)
+    lst = index.list_len
+    n = nprobe * lst
+    r = min(rb, n)
+    pp, pl = ivf_scan.plans(qn, index.centroids, index.table_q, nprobe, rb, lst)
+    probe = torch.empty((b, nprobe), dtype=torch.int32, device=dev)
+    scr9 = _topk.list_scratch(pl, b, n, dev)
+    s9 = torch.empty((b, r), device=dev)
+    r9 = torch.empty((b, r), dtype=torch.int32, device=dev)
+    rs, ri = quant_scan.quant_scan_plain(qn, index.table_q, index.scale, rb)
+    k = min(kb, ri.shape[1])
+    pr = rescore.plan(qn, unit, ri.shape[1], k)
+    scr_r = _topk.list_scratch(pr, b, ri.shape[1], dev)
+    s_r = torch.empty((b, k), device=dev)
+    r_r = torch.empty((b, k), dtype=torch.int32, device=dev)
+    out["routes"] = {"ivf_scan": cs.ivf_route(ivf_scan, qn, index.centroids, index.table_q,
+                                              nprobe, rb, lst),
+                     "rescore": pr.describe()}
+    for name, (paths, _) in built.items():
+        for src_name, path in paths.items():
+            if src_name.startswith("k9_"):
+                lib = ivf_scan.bind(ctypes.CDLL(path))
+
+                def call():
+                    status = ivf_scan.launch(lib, qn, index.centroids, index.lists, index.table_q,
+                                             index.scale, nprobe, cs.V, r, pp, pl, probe, scr9,
+                                             s9, r9)
+                    if status:
+                        raise SystemExit(f"{tree} {name}: CUDA error {status}")
+                key = f"ivf_scan_{name}"
+            else:
+                lib = rescore.bind(ctypes.CDLL(path))
+
+                def call():
+                    status = rescore.launch(lib, qn, unit, ri, rs, k, pr, scr_r, s_r, r_r)
+                    if status:
+                        raise SystemExit(f"{tree} {name}: CUDA error {status}")
+                key = f"rescore_{name}"
+            out["ms"][key] = timer(call)
+            cs.log(f"split {tree} {key}: {out['ms'][key]:.4f} ms")
+            if name == "trace":
+                out.setdefault("phases", {}).update(trace_phases(torch, lib, call, key))
+
+
+def trace_phases(torch, lib, call, key) -> dict:
+    """A trace build's phase stamps after one call (``G2V_TRACE``): for each
+    kernel, the median over its blocks of the cycles from the block's first
+    stamp to each later one, and the largest."""
+    lib.g2v_trace_read.argtypes = [ctypes.c_void_p]
+    buf = np.zeros((2, 1024, 8), dtype=np.int64)
+    if lib.g2v_trace_clear():
+        raise SystemExit(f"{key}: g2v_trace_clear failed")
+    call()
+    torch.cuda.synchronize()
+    if lib.g2v_trace_read(buf.ctypes.data):
+        raise SystemExit(f"{key}: g2v_trace_read failed")
+    out = {}
+    for k, kernel in enumerate(("list_select", "probe")):
+        blocks = buf[k][buf[k][:, 0] != 0]
+        if not len(blocks):
+            continue
+        rel = {p: [int(b[p] - b[0]) for b in blocks if b[p]] for p in range(1, 8)}
+        out[f"{key}:{kernel}"] = {
+            "blocks": len(blocks),
+            "median_cycles": {p: float(np.median(v)) for p, v in rel.items() if v},
+            "max_cycles": {p: int(max(v)) for p, v in rel.items() if v}}
+    return out
+
+
+TIMERS = {"k5": time_k5, "k9": time_k9, "k12": time_k12}
 
 
 def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:

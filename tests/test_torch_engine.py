@@ -226,12 +226,16 @@ def test_long_rescore_tail_matches_reference():
 def test_plan_accepts_lists_longer_than_a_merge_block(keep, rows):
     from gene2vec_tpu_torch.kernels import _topk
 
-    for p in (_topk.plan(rows, keep, 64, 208, per_query=False, sms=132),
-              _topk.plan_staged(rows, keep, 64, 200, "int8", sms=132)):
-        assert p.ntiles == -(-rows // p.tile) and p.slot == min(keep, p.tile)
-        # each query's region holds its runs and its keep survivors in
-        # whole SORT_MAX runs (the final block sorts and merges them there)
-        assert p.stride == max(p.ntiles * p.slot, -(-keep // _topk.SORT_MAX) * _topk.SORT_MAX)
-        assert p.scratch == 64 * p.stride
+    p = _topk.plan_staged(rows, keep, 64, 200, "int8", sms=132)
+    assert p.ntiles == -(-rows // p.tile) and p.slot == min(keep, p.tile)
+    # each query's region holds its runs and its keep survivors in whole
+    # SORT_MAX runs (the final block sorts and merges them there)
+    assert p.stride == max(p.ntiles * p.slot, -(-keep // _topk.SORT_MAX) * _topk.SORT_MAX)
+    assert p.scratch == 64 * p.stride
+    # a list scan's keep past SORT_MAX takes the chunked route, its runs
+    # and survivors laid out the same way
+    q = _topk.plan_list(rows, keep, 64, 200, "int8", 8, 0, sms=132)
+    assert q.route == 1 and q.nseg == -(-rows // q.share) and q.slot == min(keep, q.share)
+    assert q.stride == max(q.nseg * q.slot, -(-keep // _topk.SORT_MAX) * _topk.SORT_MAX)
     with pytest.raises(ValueError, match="keep"):
-        _topk.plan(rows, rows + 1, 1, 208, per_query=False)
+        _topk.plan_list(rows, rows + 1, 1, 200, "int8", 8, 0)
