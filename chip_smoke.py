@@ -5,8 +5,8 @@
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
                                      # each checkout's own K1-K6 checks, the row
                                      # gather, step windows (default, HS, shared,
-                                     # per_example), the K12 and K14 probes and
-                                     # phase 3 run, in turns
+                                     # per_example), the K12, K13 and K14 probes
+                                     # and phase 3 run, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -72,8 +72,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    checked, recall gated);
    (2f) the remaining Pallas probes' counterparts at the probes' shapes —
    K12 at scales 1.0000001, 2 and 1, float32 and bfloat16, bitwise; K13's
-   lane gather (bitwise) and scatter (within LANE_RTOL of each column's
-   scale, or one bfloat16 ulp); K14's staged copy at the six feature
+   lane gather and scatter, bitwise (the scatter sums in its plain
+   version's order); K14's staged copy at the six feature
    probes, ``callh``'s 8-row tiles and ``vmem_probe``'s 8-60 MB with its
    tile swept to the card's opt-in shared-memory limit, bitwise — each
    with GB/s in the ``{"probes": ...}`` line; then one GGIPNN Adam step
@@ -2485,7 +2485,9 @@ def wide_width_check(torch, work: str, smi: str):
 
 #: experiments/test_lane_gather.py: a transposed (D, V) table, 192 buckets
 LANE_D, LANE_V = 256, 24576
-LANE_RTOL = 1e-6           # K13 scatter f32: per column, x that column's max |plain|
+#: K13's offset patterns (lane_offsets): the probe's random one and the
+#: tie-heavy and out-of-range ones
+LANE_PATTERNS = ("random", "identity", "reversed", "one_column", "twice", "clamped")
 #: the remaining probe rows: on no path of either package (launches 0)
 PROBE_ROWS = ("stream_scale", "stream_scale_bf16", "lane_gather", "lane_gather_bf16",
               "lane_scatter", "lane_scatter_bf16", "staged_copy")
@@ -2500,14 +2502,73 @@ def probe_row(name, src, replaces, rec, tolerance, shape):
             "tolerance": tolerance}
 
 
+def lane_offsets(pattern: str, nb: int, seed: int = 0):
+    """(given, clamped): (8·nb, 128) int32 offsets of a LANE_PATTERNS
+    pattern in rows 8b (the other rows random filler, which nothing reads),
+    and the same clamped into [0, 128) — what the kernels use, and what
+    the plain versions, which raise outside the range, are given.
+    ``one_column``: a bucket's 128 offsets all one column; ``twice``: 64
+    columns, each twice, in random order; ``clamped``: ~60% of them
+    outside [0, 128)."""
+    rng = np.random.RandomState(seed)
+    offs = rng.randint(0, 128, (8 * nb, 128)).astype(np.int32)
+    j = np.arange(128)
+    if pattern == "random":
+        rows = rng.randint(0, 128, (nb, 128))
+    elif pattern == "identity":
+        rows = np.tile(j, (nb, 1))
+    elif pattern == "reversed":
+        rows = np.tile(127 - j, (nb, 1))
+    elif pattern == "one_column":
+        rows = np.repeat(rng.randint(0, 128, (nb, 1)), 128, axis=1)
+    elif pattern == "twice":
+        rows = np.stack([rng.permutation(np.repeat(rng.permutation(128)[:64], 2))
+                         for _ in range(nb)])
+    elif pattern == "clamped":
+        rows = rng.randint(-300, 428, (nb, 128))
+    else:
+        raise ValueError(f"unknown offset pattern {pattern!r}")
+    offs[0::8] = rows
+    return offs, np.clip(offs, 0, 127).astype(np.int32)
+
+
+def lane_patterns_check(torch, d: int, v: int, dtype) -> None:
+    """K13's gather and scatter at (d, v) on every LANE_PATTERNS pattern,
+    bitwise their plain versions on the clamped offsets, one launch a
+    call."""
+    from gene2vec_tpu_torch.kernels import lane
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(d * 131 + v)
+    t = torch.randn((d, v), device=dev, generator=gen).to(dtype)
+    g = (torch.randn((d, v), device=dev, generator=gen) * 0.01).to(dtype)
+    sfx = "bf16" if dtype == torch.bfloat16 else ""
+    for i, pattern in enumerate(LANE_PATTERNS):
+        given, clamped = (torch.from_numpy(x).to(dev) for x in lane_offsets(pattern, v // 128, i))
+        for name, kern, plain in (
+                ("lane_gather", lambda: lane.lane_gather(t, given),
+                 lambda: lane.lane_gather_plain(t, clamped)),
+                ("lane_scatter", lambda: lane.lane_scatter(t, g, given),
+                 lambda: lane.lane_scatter_plain(t, g, clamped))):
+            before = lane.launches[name, sfx]
+            got = kern()
+            launched = lane.launches[name, sfx] - before
+            want = plain()
+            torch.cuda.synchronize()
+            if launched != 1 or not same_bits(torch, got, want):
+                raise SystemExit(f"{name} {sfx or 'f32'} ({d}, {v}) {pattern}: {launched} "
+                                 f"launches, bitwise {same_bits(torch, got, want)}")
+
+
 def lane_probes(torch, reps):
     """K13 (``lane_gather``, ``lane_scatter``) and K12's ``stream_copy``
     instance at experiments/test_lane_gather.py's shapes, float32 and
-    bfloat16: the gather and the copy bitwise their plain versions, the
-    scatter within LANE_RTOL of each column's scale (float32) or one
-    bfloat16 ulp.  Library calls: ``torch.index_select`` (gather),
-    ``torch.index_add`` (scatter), ``torch.mul`` (copy).  Returns (kernels
-    rows, records with GB/s)."""
+    bfloat16, each bitwise its plain version (the scatter adds each
+    column's contributors in the plain version's order), K13 also on
+    every LANE_PATTERNS pattern (``lane_patterns_check``).  Library
+    calls: ``torch.index_select`` (gather), ``torch.index_add``
+    (scatter), ``torch.mul`` (copy).  Returns (kernels rows, records with
+    GB/s)."""
     from gene2vec_tpu_torch.kernels import lane, stream_scale
 
     dev = torch.device(DEVICE)
@@ -2521,6 +2582,7 @@ def lane_probes(torch, reps):
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         sfx, es = ("_bf16", 2) if bf16 else ("", 4)
+        lane_patterns_check(torch, LANE_D, LANE_V, dtype)
         t = torch.randn((LANE_D, LANE_V), device=dev, generator=gen).to(dtype)
         g = (torch.randn((LANE_D, LANE_V), device=dev, generator=gen) * 0.01).to(dtype)
         shape = {"D": LANE_D, "V": LANE_V, "dtype": str(dtype).split(".")[1]}
@@ -2541,15 +2603,7 @@ def lane_probes(torch, reps):
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            if name == "lane_scatter":
-                diff = (got.float() - want.float()).abs()
-                ok = (bool((diff <= bf16_ulp(torch, want)).all()) if bf16 else
-                      bool((diff.amax(0) <= LANE_RTOL * want.abs().amax(0)).all()))
-                tol = ("one bfloat16 ulp" if bf16 else
-                       f"{LANE_RTOL:g} x each column's max |plain|")
-                tol += f"; bitwise here: {same_bits(torch, got, want)}"
-            else:
-                ok, tol = same_bits(torch, got, want), "bitwise"
+            ok, tol = same_bits(torch, got, want), "bitwise"
             if not ok:
                 raise SystemExit(f"{name}{sfx} {probe}: error {err:.3e} beyond {tol}")
             b_ms, b_by = bound(nbytes, flops)
@@ -3102,9 +3156,10 @@ def compare_widths(windows, smi: str) -> dict:
 #: shapes, the host time of K4's wrappers and of the step body per step
 #: (host_times, below), the default step's profiled window at both widths,
 #: the sg_hs, cbow_hs, shared and per_example steps' windows and their
-#: kernels by name per step (step_kernels, below), the K12 and K14 probes
-#: (stream_probes' sizes, stream_copy's shape, staged_probes' feature
-#: probes, callh and vmem_probe sweep: their records), the serving kernels
+#: kernels by name per step (step_kernels, below), the K12, K13 and K14
+#: probes (stream_probes' sizes, lane_probes' gather, scatter and
+#: stream_copy at (256, 24576), staged_probes' feature probes, callh and
+#: vmem_probe sweep: their records), the serving kernels
 #: K7-K9r at MAIN_SHAPE (their kernels-line rows), and phase 3's training
 #: run (pairs/s per iteration from its training log)
 COMPARE_RUN = """
@@ -3234,8 +3289,7 @@ kernels_by_step = [step_kernels(kw) for kw in objective_kw]
 probe_keep = ("name", "probe", "mb", "dtype", "scale", "shape", "tile_rows", "ms", "plain_ms",
               "library_ms", "bound_ms", "gb_per_s")
 probes = cs.stream_probes(torch, cs.TIMED_REPS)[1]
-probes += [r for r in cs.lane_probes(torch, cs.TIMED_REPS)[1]
-           if r["name"].startswith("stream_scale")]
+probes += cs.lane_probes(torch, cs.TIMED_REPS)[1]
 probes += cs.staged_probes(torch, cs.TIMED_REPS)[1]
 probes = [{k: r[k] for k in probe_keep if k in r} for r in probes]
 serve_rows, serve_recs = cs.serving_kernel_check(torch, cs.TIMED_REPS)

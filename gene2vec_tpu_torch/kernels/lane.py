@@ -13,6 +13,15 @@ of an (8·V/128, 128) int32 array —
 Tables are float32 or bfloat16.  Offsets outside [0, 128) are an error:
 the plain versions raise on the CPU, and the kernels clamp them into the
 bucket.  No path of the package runs these.
+
+Both are streaming passes, bound by bytes (each input read once, the
+output written once).  Each call is one launch of a one-shot grid, a
+block a tile of :func:`plan`'s rows × one bucket.  The gather's tile
+arrives by cp.async and leaves permuted in 16-byte stores.  The scatter
+holds its T chunks in registers and stages G; while both are in flight
+the block builds the bucket's contributor lists in parallel, then adds
+each column's contributors in increasing j (the plain version's order,
+so it is bitwise its plain version) and stores T + the sums.
 """
 
 from __future__ import annotations
@@ -28,6 +37,25 @@ launches = {("lane_gather", ""): 0, ("lane_gather", "bf16"): 0,
 
 _LIB = "k13_lane"
 BUCKET = 128
+#: a tile's rows by kernel and element size where the grid is large: the
+#: fastest at (256, 24576) on an H100 (``kernel_split.py --kernel k13``);
+#: and the least a plan halves down to
+MAX_ROWS = {("gather", 4): 32, ("gather", 2): 64, ("scatter", 4): 32, ("scatter", 2): 32}
+MIN_ROWS = 8
+#: tiles an SM the plan wants before it stops halving the tile
+TILES_PER_SM = 4
+
+
+def plan(kind: str, d: int, v: int, elem_bytes: int, sms: int) -> int:
+    """Rows a tile of the ``kind`` ("gather" or "scatter") kernel takes
+    for a (d, v) table of ``elem_bytes``-byte elements on a card of
+    ``sms`` SMs: MAX_ROWS, halved down to MIN_ROWS while the grid of
+    (v / 128) × ceil(d / rows) tiles would give fewer than TILES_PER_SM
+    an SM."""
+    rows = MAX_ROWS[kind, elem_bytes]
+    while rows > MIN_ROWS and (v // BUCKET) * -(-d // rows) < TILES_PER_SM * sms:
+        rows //= 2
+    return rows
 
 
 def bucket_offsets(offs: torch.Tensor) -> torch.Tensor:
@@ -87,8 +115,9 @@ def lane_gather(table: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     d, v, bf16 = _check(table, offs)
     out = torch.empty_like(table)
     lib = _lib()
+    rows = plan("gather", d, v, table.element_size(), _args.sm_count(table))
     status = lib.k13_lane_gather(_args.ptr(table), _args.ptr(offs), _args.ptr(out), d, v, bf16,
-                                 _args.stream(table))
+                                 rows, _args.stream(table))
     build.check(lib, status, "K13 lane_gather launch")
     launches["lane_gather", "bf16" if bf16 else ""] += 1
     return out
@@ -102,8 +131,9 @@ def lane_scatter(table: torch.Tensor, grads: torch.Tensor, offs: torch.Tensor) -
     d, v, bf16 = _check(table, offs, grads)
     out = torch.empty_like(table)
     lib = _lib()
+    rows = plan("scatter", d, v, table.element_size(), _args.sm_count(table))
     status = lib.k13_lane_scatter(_args.ptr(table), _args.ptr(grads), _args.ptr(offs),
-                                  _args.ptr(out), d, v, bf16, _args.stream(table))
+                                  _args.ptr(out), d, v, bf16, rows, _args.stream(table))
     build.check(lib, status, "K13 lane_scatter launch")
     launches["lane_scatter", "bf16" if bf16 else ""] += 1
     return out
@@ -113,8 +143,8 @@ def _lib():
     lib = build.load(_LIB)
     if lib.k13_lane_gather.argtypes is None:
         P, I = _args.P, _args.I
-        lib.k13_lane_gather.argtypes = [P, P, P, I, I, I, P]
+        lib.k13_lane_gather.argtypes = [P, P, P, I, I, I, I, P]
         lib.k13_lane_gather.restype = I
-        lib.k13_lane_scatter.argtypes = [P, P, P, P, I, I, I, P]
+        lib.k13_lane_scatter.argtypes = [P, P, P, P, I, I, I, I, P]
         lib.k13_lane_scatter.restype = I
     return lib

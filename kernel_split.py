@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [--kernel k5|k9|k12] [TREE ...]   # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k9|k12|k13] [TREE ...]   # on a machine with a CUDA card
 
 For the kernel named (default ``k5``) of each checkout given (default:
 this one), builds its source as it is and as each entry of its variant
@@ -33,6 +33,19 @@ times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
   K12 shapes: ``pallas_copy_loop``'s 25, 100 and 400 MB (float32, x
   1.0000001), 100 MB bfloat16 and ``stream_copy``'s (256, 24576) float32
   and bfloat16.
+- ``k13``: K13 (``csrc/k13_lane.cu``) with parts compiled out — no
+  contributor-list build (each column its own j), the lists built and
+  then replaced by that (``build_only``: the build's cost alone), no sum
+  (one read of G a column), a plain copy (loads and stores only: neither,
+  and the gather unpermuted), and the scatter without its register cap —
+  for this design and for its first one (a warp a row, lists built
+  serially: the ``first_`` entries), each timed at phase 2f's (256,
+  24576) float32 and bfloat16 on random offsets, beside ``torch.mul``
+  (a streaming pass, K12's rate) and the library calls ``index_select``
+  / ``index_add``.  The whole build is checked bitwise against the plain
+  versions, timed at every tile height it takes (``rows``; the uncapped
+  build too) and, for the scatter, with every offset one column (one list
+  of 128).
 """
 
 from __future__ import annotations
@@ -62,6 +75,20 @@ _STORES_CS = ("out[i] = g2v_scale_vec<T>(v[k], scale);",
 
 _K9_INCLUDE = '#include "topk_common.cuh"'
 _K9_PROBE_ONLY = ("#define K9_SCAN 1", "#define K9_SCAN 0")
+
+_K13_LISTS = ("#define K13_LISTS 1", "#define K13_LISTS 0")
+_K13_SUM = ("#define K13_SUM 1", "#define K13_SUM 0")
+
+# the first design: the serial list build (count, thread 0's prefix, fill)
+# made an identity, its sum loop one read, its gather unpermuted
+_FIRST_LISTS = [
+    ("    int n = 0;\n    for (int j = 0; j < kBucket; ++j) n += s_offs[j] == c;\n"
+     "    s_count[c] = n;", "    s_count[c] = 1;"),
+    ("  if (threadIdx.x == 0) {\n    int run = 0;", "  if (false) {\n    int run = 0;"),
+    ("    int k = s_start[c];\n    for (int j = 0; j < kBucket; ++j)\n"
+     "      if (s_offs[j] == c) s_list[k++] = j;", "    s_start[c] = c;\n    s_list[c] = c;")]
+_FIRST_SUM = ("      for (int i = s_start[c]; i < s_start[c] + s_count[c]; ++i)\n"
+            "        acc += to_f32(seg[warp][s_list[i]]);", "      acc = to_f32(seg[warp][c]);")
 
 #: kernel → (source files, variant → [(text, replacement)]); a variant
 #: builds each source its edits all apply to.  K5a's first design (a
@@ -95,6 +122,20 @@ VARIANTS = {
         "bf16_unroll1": [("constexpr int kUnrollBf16 = 4;", "constexpr int kUnrollBf16 = 1;")],
         "loads_evict_first": [_LOADS_CS],
         "evict_first": [_LOADS_CS, _STORES_CS],
+    }),
+    "k13": (("k13_lane.cu",), {
+        "no_lists": [_K13_LISTS],
+        "build_only": [("#define K13_LISTS 1", "#define K13_LISTS 2")],
+        "no_register_cap": [("kRows * sizeof(T) <= 64 ? 6 : 1", "1")],
+        "gather_one_stage": [("#define K13_GATHER_STAGES 2", "#define K13_GATHER_STAGES 1")],
+        "no_sum": [_K13_SUM],
+        "copy_only": [_K13_LISTS, _K13_SUM,
+                      ("#define K13_PERMUTE 1", "#define K13_PERMUTE 0")],
+        "first_no_lists": _FIRST_LISTS,
+        "first_no_sum": [_FIRST_SUM],
+        "first_copy_only": [*_FIRST_LISTS, _FIRST_SUM,
+                            ("e[k] = seg[warp][s_offs[4 * lane + k]];",
+                             "e[k] = seg[warp][4 * lane + k];")],
     }),
 }
 
@@ -337,7 +378,79 @@ def trace_phases(torch, lib, call, key) -> dict:
     return out
 
 
-TIMERS = {"k5": time_k5, "k9": time_k9, "k12": time_k12}
+def time_k13(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args, lane
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d, v = cs.LANE_D, cs.LANE_V
+    with open(os.path.join(tree, CSRC, "k13_lane.cu")) as f:
+        tiled = "int rows" in f.read()  # this design's entry points take the tile's rows
+    patterns = {"random": torch.randint(0, lane.BUCKET, (8 * v // lane.BUCKET, lane.BUCKET),
+                                        device=dev, generator=gen, dtype=torch.int32),
+                "one_column": torch.full((8 * v // lane.BUCKET, lane.BUCKET), 5,
+                                         dtype=torch.int32, device=dev)}
+    cols = lane.global_columns(patterns["random"])
+    sms = _args.sm_count(cols)
+    for dtype in (torch.float32, torch.bfloat16):
+        sfx = "_bf16" if dtype == torch.bfloat16 else ""
+        t = torch.randn((d, v), device=dev, generator=gen).to(dtype)
+        g = (torch.randn((d, v), device=dev, generator=gen) * 0.01).to(dtype)
+        res = out["ms"][f"lane{sfx}"] = {
+            "mul": timer(lambda: torch.mul(t, 1.0000001)),
+            "index_select": timer(lambda: torch.index_select(t, 1, cols)),
+            "index_add": timer(lambda: torch.index_add(t, 1, cols, g))}
+        es = t.element_size()
+        if tiled:
+            res["plan_rows"] = {fn: lane.plan(fn, d, v, es, sms) for fn in ("gather", "scatter")}
+        dst = torch.empty_like(t)
+        for name, (paths, _) in built.items():
+            lib = ctypes.CDLL(paths["k13_lane.cu"])
+            n_int = 4 if tiled else 3  # D, V, bf16 (, rows)
+            lib.k13_lane_gather.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [
+                ctypes.c_void_p]
+            lib.k13_lane_scatter.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int + [
+                ctypes.c_void_p]
+            for fn in ("gather", "scatter"):
+                heights = [None]
+                if tiled:
+                    heights = [lane.plan(fn, d, v, es, sms)]
+                    if name in ("full", "no_register_cap", "gather_one_stage"):
+                        heights = [8, 16, 32, 64]
+                for rows in heights:
+                    extra = [] if rows is None else [rows]
+                    for kind, offs in patterns.items():
+                        if kind != "random" and (name != "full" or fn == "gather"):
+                            continue
+                        if fn == "gather":
+                            def call():
+                                return lib.k13_lane_gather(
+                                    _args.ptr(t), _args.ptr(offs), _args.ptr(dst), d, v,
+                                    int(es == 2), *extra, _args.stream(t))
+                            want = lane.lane_gather_plain(t, offs)
+                        else:
+                            def call():
+                                return lib.k13_lane_scatter(
+                                    _args.ptr(t), _args.ptr(g), _args.ptr(offs), _args.ptr(dst),
+                                    d, v, int(es == 2), *extra, _args.stream(t))
+                            want = lane.lane_scatter_plain(t, g, offs)
+                        status = call()
+                        if status == 1 and rows != heights[0]:
+                            break  # cudaErrorInvalidValue: a height the kernel does not take
+                        if status:
+                            raise SystemExit(f"{tree} {name} {fn}{sfx} rows {rows}: CUDA error")
+                        torch.cuda.synchronize()
+                        if name == "full" and not cs.same_bits(torch, dst, want):
+                            raise SystemExit(f"{tree} {fn}{sfx} rows {rows} {kind}: not "
+                                             f"bitwise its plain version")
+                        key = f"{fn}_{name}" + (f"_rows{rows}" if len(heights) > 1 else "") + (
+                            f"_{kind}" if kind != "random" else "")
+                        res[key] = timer(call)
+        cs.log(f"split {tree} lane{sfx}: {res}")
+
+
+TIMERS = {"k5": time_k5, "k9": time_k9, "k12": time_k12, "k13": time_k13}
 
 
 def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:

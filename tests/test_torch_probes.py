@@ -25,7 +25,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from chip_smoke import bf16_ulp
+from chip_smoke import LANE_PATTERNS, bf16_ulp, lane_offsets
 from gene2vec_tpu_torch.kernels import lane, staged_copy, stream_scale
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -110,6 +110,103 @@ def test_lane_wrappers_check_offsets():
         lane.lane_gather(table, bad)
     with pytest.raises(ValueError, match="outside"):
         lane.lane_scatter(table, table, bad)
+
+
+#: a small table for the pattern tests: the probe's BlockSpecs read the
+#: module's D, V and NBUCKETS when it is called
+SMALL_D, SMALL_NB = 24, 4
+
+
+def small_lane_probe(probe):
+    mod = probe("test_lane_gather")
+    mod.D, mod.NBUCKETS = SMALL_D, SMALL_NB
+    mod.V = SMALL_NB * mod.BUCKET
+    return mod
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pattern", LANE_PATTERNS)
+def test_lane_gather_matches_bucketed_gather_on_every_pattern(probe, pattern, dtype):
+    """The plain gather against the probe on the tie-heavy and clamped
+    offset patterns (the clamped offsets given to both), bitwise."""
+    mod = small_lane_probe(probe)
+    table, _, _ = lane_inputs(mod, getattr(jnp, dtype))
+    given, clamped = lane_offsets(pattern, SMALL_NB)
+    want = to_np(jax.jit(mod.bucketed_gather)(table, jnp.asarray(clamped)))
+    got = lane.lane_gather(to_torch(table), torch.from_numpy(clamped))
+    assert got.shape == (SMALL_D, mod.V)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    if pattern == "clamped":
+        with pytest.raises(ValueError, match="outside"):
+            lane.lane_gather(to_torch(table), torch.from_numpy(given))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pattern", LANE_PATTERNS)
+def test_lane_scatter_matches_bucketed_scatter_on_every_pattern(probe, pattern, dtype):
+    """The plain scatter against the probe's one-hot dot on the same
+    patterns, within the module's scatter tolerance: a bucket's 128
+    offsets on one column sum 128 contributors into it."""
+    mod = small_lane_probe(probe)
+    table, _, grads = lane_inputs(mod, getattr(jnp, dtype))
+    given, clamped = lane_offsets(pattern, SMALL_NB)
+    want = to_np(jax.jit(mod.bucketed_scatter)(table, grads, jnp.asarray(clamped)))
+    got = lane.lane_scatter(to_torch(table), to_torch(grads),
+                            torch.from_numpy(clamped)).float().numpy()
+    err = np.abs(got - want)
+    if dtype == "float32":
+        assert (err.max(axis=0) <= SCATTER_RTOL * np.abs(want).max(axis=0)).all()
+    else:
+        assert (err <= bf16_ulp(torch, torch.from_numpy(want)).numpy()).all()
+    # columns no offset names keep the table's values
+    hit = np.zeros(mod.V, dtype=bool)
+    for b in range(SMALL_NB):
+        hit[b * mod.BUCKET + clamped[8 * b]] = True
+    np.testing.assert_array_equal(got[:, ~hit], to_np(table)[:, ~hit])
+    if pattern == "clamped":
+        with pytest.raises(ValueError, match="outside"):
+            lane.lane_scatter(to_torch(table), to_torch(grads), torch.from_numpy(given))
+
+
+#: (kernel, d, v, element bytes, SMs) -> rows a tile
+PLANS = [
+    (("gather", 256, 24576, 4, 132), 32),    # the probe's shape: 1,536 tiles
+    (("gather", 256, 24576, 2, 132), 64),    # 768 tiles of 16 KB
+    (("scatter", 256, 24576, 4, 132), 32),
+    (("scatter", 256, 24576, 2, 132), 32),
+    (("scatter", 1024, 24576, 2, 132), 32),
+    (("gather", 256, 128, 4, 132), 8),       # one bucket: rows split as far as they go
+    (("scatter", 1, 128, 2, 132), 8),
+    (("gather", 19, 1024, 2, 132), 8),
+    (("scatter", 256, 24576, 4, 16), 32),
+    (("gather", 256, 24576, 2, 1000), 8),    # a larger card takes smaller tiles
+]
+
+
+@pytest.mark.parametrize("args,rows", PLANS)
+def test_lane_plan_rows(args, rows):
+    assert lane.plan(*args) == rows
+
+
+@pytest.mark.parametrize("kind", ["gather", "scatter"])
+@pytest.mark.parametrize("es", [4, 2])
+def test_lane_plan_bounds(kind, es):
+    """Rows are a power of two from MIN_ROWS to MAX_ROWS; a plan halves
+    only while the grid holds fewer than TILES_PER_SM tiles an SM, and a
+    one-bucket table of more than 8 rows gets several blocks."""
+    top = lane.MAX_ROWS[kind, es]
+    for d in (1, 7, 8, 9, 64, 257, 1024, 5000):
+        for nb in (1, 3, 192, 1000):
+            for sms in (1, 78, 132, 264):
+                rows = lane.plan(kind, d, nb * lane.BUCKET, es, sms)
+                assert lane.MIN_ROWS <= rows <= top
+                assert rows & (rows - 1) == 0
+                if rows < top:
+                    assert nb * -(-d // (2 * rows)) < lane.TILES_PER_SM * sms
+                if rows > lane.MIN_ROWS:
+                    assert nb * -(-d // rows) >= lane.TILES_PER_SM * sms
+                if nb == 1 and d > 8:
+                    assert -(-d // rows) > 1
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
