@@ -5,14 +5,15 @@
     python3 chip_smoke.py --compare PARENT CHANGE CHANGE PARENT
                                      # each checkout's own K1-K6 checks, the row
                                      # gather, step windows (default, HS, shared,
-                                     # per_example), the K12, K13 and K14 probes
-                                     # and phase 3 run, in turns
+                                     # per_example), the K12, K13 and K14 probes,
+                                     # phase 3 run and K10c / K10 / K11, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. device and build — prints the card's name and power limit, builds the
-   training kernels (K1-K6), the serving kernels (K7, K8, K9, K9r) and
-   the Pallas probes' counterparts K12-K14 from
+   training kernels (K1-K6), the serving kernels (K7, K8, K9, K9r), the
+   pipeline's K10c, K10 and K11 and the Pallas probes' counterparts
+   K12-K14 from
    ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one compiler
    per source, all at once;
 2. kernel check — each kernel at the default configuration's shapes
@@ -82,13 +83,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    the device idle share (``{"ggipnn_rate": ...}`` lines);
 3. training at full width — a Zipf pair corpus (V = 24,447, 4,000,000
    pairs) written as pair files and trained through the CLI with the
-   default configuration for 3 iterations: the loss must be finite and
+   default configuration for 2 iterations: the loss must be finite and
    falling, every export must verify, and every kernel must have launched
    once per step of the run (before it, and before each run of 3b and
    3c, ``touched_step_check``: one full-width step of that configuration
    with K4's wrappers watched — every accumulator row outside the rows
    the finalize visits all +0 bits, the tables bitwise every row's plain
-   finalize); then (3b) a 1,000,000-pair corpus trained
+   finalize); then (3b) a 500,000-pair corpus trained
    for 2 iterations through the CLI once per ``--negative-mode
    per_example``, ``--negative-mode shared``, ``--objective sg_hs``,
    ``--objective cbow_hs`` and ``--objective cbow``, with the same checks
@@ -126,13 +127,40 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    ``cli/serve.py``: 400 requests of 1-64 pairs from 16 clients, every
    score within 1e-5 of the host's CPU forward, ``trained_head`` true, an
    unknown gene 400, QPS and p50/p99 on a ``{"serving": ...}`` line.
+7. the paper's pipeline — (7a) a GEO-style query directory made from a
+   seed (26,000 ``ENSEMBL|SYMBOL`` genes, of which V = 24,447 survive the
+   count filter and the symbol annotation; studies of 12 (dropped), 24,
+   64 and 160 samples; 400 planted modules of 12 genes; 40 pairs a study
+   planted at |corr| = 0.9) through ``python -m
+   gene2vec_tpu_torch.cli.generate_pairs`` in process, serial and
+   ``--parallel --num-workers 2`` (equal lines, K11 once per kept study);
+   per study K11 against its plain version and the float64 product on the
+   card (``k11_check``: bits may differ only within EPS_N = (n + 2)·2⁻²⁴
+   of the threshold, counted; on the 24-sample study also at threshold
+   0.3, where random pairs are dense) and the CLI's lines against the
+   float64 oracle's; K11 and its plain version (also the library
+   sequence) timed at n = 24 and 160; the host's unpack / nonzero /
+   format split
+   (``{"pipeline_corpus": ...}``); (7b) that corpus trained through
+   ``cli.gene2vec`` for 2 iterations and scored by ``cli.evaluate``
+   against a ``.gmt`` of the modules, ratio gated above 1
+   (``{"pipeline_eval": ...}``); (7c) t-SNE over phase 5's clustered
+   table (N = 24,447, PCA 50): K10c against its plain version (each P
+   entry within K10C_RTOL) and on a (256, 60,000) slab through the
+   long-row route, one K10 iteration against the plain one from the start
+   and 20 iterations on (K10_TOL), then ``cli.tsne --iters 250 1000``:
+   files and labels complete, groups separated (inter over intra mean
+   distance past TSNE_SEP), ms an iteration beside P's bytes bound
+   (``{"pipeline_tsne": ...}``).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
 for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
 points ``row_scatter`` / ``row_finalize``, phase 3c's for the ``_bf16``
 rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
-K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``;
+K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``,
+phase 7's ``generate_pairs`` runs for K11 and its ``cli.tsne`` run for
+K10c and K10;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -166,7 +194,7 @@ TF32_FLOP_PER_S = 495e12    # H100 SXM tf32 tensor cores, dense
 V, D, B, K = 24447, 200, 4096, 5
 E = 2 * B
 HEAD, BLOCK, GROUP = 256, 512, 256
-NUM_PAIRS, ITERS = 4_000_000, 3
+NUM_PAIRS, ITERS = 4_000_000, 2
 DEVICE = "cuda"
 STEP_KERNELS = ("pos_logit", "noise_head", "noise_tail", "row_update")
 TIMED_REPS = 20         # CUDA-event-timed launches per kernel (median)
@@ -2002,7 +2030,7 @@ def config_of(flags) -> dict:
 
 # -- phase 3b: every other objective and noise mode through the CLI ------------
 
-OBJECTIVE_PAIRS, OBJECTIVE_ITERS = 1_000_000, 2
+OBJECTIVE_PAIRS, OBJECTIVE_ITERS = 500_000, 2
 #: (label, CLI flags, {kernel: launches per step}) — every other kernel
 #: must not launch in that run
 OBJECTIVE_RUNS = (
@@ -2359,6 +2387,15 @@ def scrape_launches(url: str):
         r'^kernel_launches_total\{kernel="([a-z_]+)"\} (\S+)$', text, re.M)}
 
 
+def clustered_table(seed: int = 11, v: int = V, d: int = D, n_groups: int = 1000):
+    """A (v, d) float32 table of ``n_groups`` groups of genes around seeded
+    centres, and each gene's group."""
+    rng = np.random.RandomState(seed)
+    cent = rng.randn(n_groups, d).astype(np.float32)
+    groups = rng.randint(0, n_groups, v)
+    return cent[groups] + 0.35 * rng.randn(v, d).astype(np.float32), groups
+
+
 def write_clustered_export(path: str, seed: int = 11, v: int = V, d: int = D,
                            n_groups: int = 1000):
     """An export (by default full width, V = 24,447, D = 200) with
@@ -2370,10 +2407,7 @@ def write_clustered_export(path: str, seed: int = 11, v: int = V, d: int = D,
     from gene2vec_tpu_torch.sgns.model import SGNSParams
     import torch
 
-    rng = np.random.RandomState(seed)
-    cent = rng.randn(n_groups, d).astype(np.float32)
-    groups = rng.randint(0, n_groups, v)
-    emb = cent[groups] + 0.35 * rng.randn(v, d).astype(np.float32)
+    emb, groups = clustered_table(seed, v, d, n_groups)
     t = torch.from_numpy(emb)
     save_iteration(path, d, 1, SGNSParams(t, t), Vocab([f"G{i}" for i in range(v)],
                                                        np.ones(v, np.int64)),
@@ -3149,6 +3183,601 @@ def compare_widths(windows, smi: str) -> dict:
             "card": smi}
 
 
+# -- phase 7: the paper's pipeline (corpus with K11, training and the
+# intrinsic evaluation, t-SNE with K10c and K10) -------------------------------
+
+PIPE_GENES = 26_000           # query genes; V = 24,447 survive the filters below
+PIPE_LOW, PIPE_EMPTY = 600, 400   # genes below the count filter; empty symbols
+#                                   (the remaining 553 share symbols, all dropped)
+PIPE_STUDIES = (("SRP012", 12), ("SRP024", 24), ("SRP064", 64), ("SRP160", 160))
+PIPE_MIN_SAMPLES = 20         # the CLI's default: the 12-sample study is dropped
+PIPE_MODULES, PIPE_MODULE_GENES = 400, 12   # planted co-expression modules
+PIPE_AT_THR = 40              # planted pairs at |corr| = PIPE_THR, a study
+PIPE_THR = 0.9
+PIPE_TRAIN_ITERS = 2
+K11_MAIN_N = 160              # the study size whose K11 times the kernels line carries
+K11_DENSE = (24, 0.3)         # study size, threshold of K11's dense check: 0.3 lies in
+#                               the bulk of random pairs' |corr| (sd ~ n^-1/2 = 0.2)
+K10C_RTOL = 1e-4              # K10c against its plain version, each P entry
+K10C_SLAB = (256, 60_000)     # rows × columns of the long-row route's check
+K10_TOL = 1e-4                # K10 against its plain version, of its terms (k10_check)
+TSNE_SNAPSHOTS = (250, 1000)
+TSNE_SEP = 2.0                # inter-group over intra-group mean distance, at least
+TSNE_PERPLEXITY = 30.0
+
+
+def write_pipeline_query(root: str, seed: int = 14):
+    """A GEO-style query directory made from ``seed``: PIPE_GENES
+    ``ENSEMBL|SYMBOL`` genes (PIPE_LOW with zero counts, PIPE_EMPTY with
+    empty symbols, the rest past V sharing symbols: V survive), the studies
+    of PIPE_STUDIES, PIPE_MODULES modules of PIPE_MODULE_GENES genes
+    (log-TPM = a study factor + 0.15 noise: |corr| ≈ 0.98), PIPE_AT_THR
+    pairs a study planted at |corr| = PIPE_THR, and zeros (half-min
+    replaced) elsewhere.  TPM is written to 9 significant digits, which
+    moves a correlation by ~1e-8, far inside EPS_N.  Returns (the query
+    directory, the modules as lists of symbols)."""
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    n_dup = PIPE_GENES - V - PIPE_LOW - PIPE_EMPTY
+    syms = ([f"G{i}" for i in range(V)] + [f"LOW{i}" for i in range(PIPE_LOW)]
+            + [""] * PIPE_EMPTY + [f"DUP{i % (n_dup // 2)}" for i in range(n_dup)])
+    syms = [syms[i] for i in rng.permutation(PIPE_GENES)]
+    col = {s: j for j, s in enumerate(syms) if s.startswith("G")}
+    total = sum(n for _, n in PIPE_STUDIES)
+    logv = 3.0 + rng.randn(total, PIPE_GENES)
+    size = PIPE_MODULE_GENES
+    picked = rng.choice(V, PIPE_MODULES * size + 2 * PIPE_AT_THR * len(PIPE_STUDIES),
+                        replace=False)
+    modules = [[f"G{k}" for k in picked[m * size:(m + 1) * size]] for m in range(PIPE_MODULES)]
+    pair_cols = [col[f"G{k}"] for k in picked[PIPE_MODULES * size:]]
+    zeros = rng.rand(total, PIPE_GENES) < 5e-4
+    zeros[:, [col[f"G{k}"] for k in picked]] = False
+    r0 = 0
+    for si, (_, n) in enumerate(PIPE_STUDIES):
+        for genes in modules:
+            cols = [col[g] for g in genes]
+            logv[r0:r0 + n, cols] = (3.0 + rng.randn(n)[:, None]
+                                     + 0.15 * rng.randn(n, len(cols)))
+        for k in range(PIPE_AT_THR):
+            a, b = pair_cols[2 * (si * PIPE_AT_THR + k)], pair_cols[2 * (si * PIPE_AT_THR + k) + 1]
+            za = logv[r0:r0 + n, a] - logv[r0:r0 + n, a].mean()
+            e = rng.randn(n)
+            e -= e.mean()
+            e -= za * (za @ e) / (za @ za)
+            logv[r0:r0 + n, b] = 3.0 + (PIPE_THR * za / np.linalg.norm(za)
+                                        + np.sqrt(1 - PIPE_THR ** 2) * e / np.linalg.norm(e))
+        r0 += n
+    tpm = np.exp2(logv)
+    tpm[zeros] = 0.0
+    samples = [f"SRR{i:07d}" for i in range(total)]
+    ens = [f"ENSG{i:011d}" for i in range(PIPE_GENES)]
+    data = os.path.join(root, "query", "data")
+    os.makedirs(data)
+    pd.DataFrame({"SRA Study": [s for s, n in PIPE_STUDIES for _ in range(n)]},
+                 index=pd.Index(samples, name="Run")).to_csv(os.path.join(data, "SRARunTable.csv"))
+    # the two wide CSVs by %-formatting whole rows: pandas' writer takes
+    # ~5× as long at this width
+    row_fmt = ",".join(["%.9g"] * PIPE_GENES)
+    with open(os.path.join(data, "gene_counts_TPM.csv"), "w", encoding="utf-8") as f:
+        f.write("run," + ",".join(ens) + "\n")
+        for sample, row in zip(samples, tpm):
+            f.write(f"{sample},{row_fmt % tuple(row)}\n")
+    counts_row = {c: ",".join([str(c)] * total) for c in (0, 5)}
+    low = {j for j, s in enumerate(syms) if s.startswith("LOW")}
+    with open(os.path.join(data, "gene_counts.csv"), "w", encoding="utf-8") as f:
+        f.write("gene_id," + ",".join(samples) + "\n")
+        for j, (e, s) in enumerate(zip(ens, syms)):
+            f.write(f"{e}|{s},{counts_row[0 if j in low else 5]}\n")
+    return os.path.join(root, "query"), modules
+
+
+def k11_check(torch, z64, thr):
+    """K11 on the float32 cast of the (n, g) float64 standardized ``z64``
+    (on the card) against its plain version and the float64 product: the
+    masks may differ only on pairs whose float64 |corr| lies within
+    EPS_N = (n + 2)·2⁻²⁴ of ``thr``; no bit past g.  Returns (the kernel's
+    mask, the float64 mask, the mask of pairs within EPS_N, the
+    kernel-vs-plain flips, the kernel-vs-float64 flips)."""
+    from gene2vec_tpu_torch.kernels import coexpr_mask
+
+    n, g = z64.shape
+    z = z64.float().contiguous()
+    words = coexpr_mask.coexpr_mask(z, thr)
+    plain = coexpr_mask.coexpr_mask_plain(z, thr)
+    torch.cuda.synchronize()
+    if g % 32:
+        tail = words[:, -1].long() & ~((1 << (g % 32)) - 1) & 0xFFFFFFFF
+        if bool(tail.any()):
+            raise SystemExit(f"K11 (n {n}, g {g}): bits set past column {g}")
+    got, want = coexpr_mask.unpack(words, g), coexpr_mask.unpack(plain, g)
+    corr64 = torch.clamp(torch.abs(z64.T @ z64) / (n - 1), 0.0, 1.0)
+    near = (corr64 - thr).abs() <= coexpr_mask.eps_n(n)
+    exact = corr64 > thr
+    del corr64
+    if not torch.equal(got, got.T):
+        raise SystemExit(f"K11 (n {n}, g {g}): mask not symmetric")
+    flips = []
+    for label, other in (("plain", want), ("float64", exact)):
+        diff = got != other
+        if bool((diff & ~near).any()):
+            raise SystemExit(f"K11 (n {n}, g {g}, thr {thr}): {int((diff & ~near).sum())} "
+                             f"pairs differ from the {label} mask outside EPS_N")
+        flips.append(int(diff.sum()))
+    return got, exact, near, flips[0], flips[1]
+
+
+def k10c_check(torch, d2, perplexity, row0=0, rule="elems"):
+    """K10c against its plain version on the same squared distances: the
+    conditionals of an (R, N) slab from row ``row0`` (the route the size
+    picks), and for a square d² the symmetrized P.  ``rule`` "elems": each
+    entry within K10C_RTOL of the plain one; "rows": within K10C_RTOL of
+    its row's largest entry (the weights a row gives the gradient), for
+    rows long enough that the bisection's root itself moves with a float32
+    sum's last bits (an entry's relative error then grows with its
+    distance).  Returns (the kernel's result, the largest error under the
+    rule, the largest per-entry relative error)."""
+    from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
+
+    r, n = d2.shape
+    if r == n and row0 == 0:
+        got = kc.calibrate(d2, perplexity)
+        want = kc.symmetrize_plain(kc.conditional_plain(d2, perplexity))
+    else:
+        got = kc.conditional(d2, perplexity, row0)
+        want = kc.conditional_plain(d2, perplexity, row0)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    rel_elems = float((err / want.abs().masked_fill(want == 0, 1.0)).max())
+    rel = rel_elems if rule == "elems" else \
+        float((err / want.abs().amax(1, keepdim=True).clamp_min(1e-30)).max())
+    zero_ok = bool(((got == 0) == (want == 0)).all())
+    if not (rel <= K10C_RTOL and zero_ok):
+        raise SystemExit(f"K10c (R {r}, N {n}, row0 {row0}): error {rel:.3e} ({rule}; limit "
+                         f"{K10C_RTOL}), zeros agree {zero_ok}")
+    return got, rel, rel_elems
+
+
+def k10_terms(torch, p, y, gains, exaggeration, lr):
+    """(per element of vel, 4·lr·gains·(|rowsum_i·y_i| + Σ_j |g_ij|·|y_j|):
+    the size of the terms whose float32 sums make the velocity's update;
+    per element, |rowsum_i·y_i − Σ_j g_ij·y_j| over those terms without
+    the factor: how near the gradient cancels to 0).  grad = 4(rowsum·y −
+    g·y) cancels as the layout spreads, so two sum orders differ by a share
+    of the terms, not of the result."""
+    n = y.shape[0]
+    sq = torch.sum(y * y, dim=1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (y @ y.T)
+    num = 1.0 / (1.0 + torch.clamp_min(d2, 0.0))
+    del d2
+    g = (exaggeration * p - num / (num.sum() - n)) * num
+    del num
+    rowsum = g.sum(1, keepdim=True)
+    mag = (rowsum * y).abs() + g.abs() @ y.abs()
+    ratio = (rowsum * y - g @ y).abs() / (mag + 1e-30)
+    return 4.0 * lr * gains * mag, ratio
+
+
+def k10_check(torch, p, y, vel, gains, exaggeration, momentum, lr, ws=None):
+    """One K10 iteration (on copies) against the plain iteration from the
+    same state: vel within K10_TOL of its update's terms (k10_terms), y
+    within that plus K10_TOL of its largest entry (the centring's sum),
+    gains equal except where the gradient cancels to within K10_TOL of its
+    terms (its sign is then rounding's; such flips are counted).  Returns
+    (max |y − plain y| over max |y|, gains that differ)."""
+    from gene2vec_tpu_torch.kernels import tsne_step
+
+    yk, vk, gk = y.clone(), vel.clone(), gains.clone()
+    tsne_step.step_(p, yk, vk, gk, exaggeration, momentum, lr, ws)
+    yp, vp, gp = tsne_step.step_plain(p, y, vel, gains, exaggeration, momentum, lr)
+    torch.cuda.synchronize()
+    terms, ratio = k10_terms(torch, p, y, torch.maximum(gk, gp), exaggeration, lr)
+    y_scale = float(yp.abs().max())
+    same = gk == gp  # a flipped decision changes that element's step
+    bad_flips = int((~same & (ratio > K10_TOL)).sum())
+    v_err = float(((vk - vp).abs() / (terms + 1e-30))[same].max()) if bool(same.any()) else 0.0
+    y_err = float(((yk - yp).abs() / (terms + y_scale + 1e-30))[same].max()) \
+        if bool(same.any()) else 0.0
+    if not (max(v_err, y_err) <= K10_TOL and bad_flips == 0):
+        raise SystemExit(f"K10 (N {y.shape[0]}): vel / y errors {v_err:.3e} / {y_err:.3e} of "
+                         f"their terms (limit {K10_TOL}), {bad_flips} gains differ where the "
+                         f"gradient does not cancel")
+    return float((yk - yp).abs().max()) / max(y_scale, 1e-30), int((~same).sum())
+
+
+def pipeline_row(name, src, replaces, ms, plain_ms, library_ms, bound_ms, bound_by, err,
+                 tolerance, shape, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"gene2vec_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
+            "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "shape": shape, "tolerance": tolerance, **extra}
+
+
+def k11_timed(torch, z64, timer, slow):
+    """K11 and its plain version timed on one study's z; returns the
+    kernels-line fields.  The plain version (``mm``, the epilogue, the
+    packing) is also the shortest library sequence of K11's function, so
+    its time is ``library_ms`` too."""
+    from gene2vec_tpu_torch.kernels import coexpr_mask
+
+    n, g = z64.shape
+    z = z64.float().contiguous()
+    # C = zᵀz is symmetric: one triangle's g(g + 1)/2 dots of n products
+    # is all the function needs
+    b_ms, b_by = bound(n * g * 4 + g * (-(-g // 32)) * 4, float(g) * (g + 1) * n)
+    plain_ms = slow(lambda: coexpr_mask.coexpr_mask_plain(z, PIPE_THR))
+    return {"ms": timer(lambda: coexpr_mask.coexpr_mask(z, PIPE_THR)),
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "n": n, "g": g}
+
+
+def _run_spans(run_dir):
+    """The serial build's spans: [(study, n_pairs, seconds)] and {span:
+    seconds} of its other spans (load_inputs, write_output)."""
+    with open(os.path.join(run_dir, "events.jsonl"), encoding="utf-8") as f:
+        ends = [r for r in map(json.loads, filter(str.strip, f)) if r["type"] == "span_end"]
+    return ([(r["attrs"]["study"], r["attrs"]["n_pairs"], r["dur"]) for r in ends
+             if r["name"] == "study"],
+            {r["name"]: r["dur"] for r in ends if r["name"] != "study"})
+
+
+def pipeline_corpus(torch, work: str, smi: str, reps: int):
+    """Phase 7a: the query directory through ``python -m
+    gene2vec_tpu_torch.cli.generate_pairs`` (in process, for the launch
+    counts), serial and ``--parallel --num-workers 2``: the same lines,
+    K11 once per kept study.  Per kept study: V genes survive; K11 against
+    its plain version and the float64 product on the card (k11_check); the
+    CLI's lines against the float64 oracle's, which may differ only on
+    pairs within EPS_N.  K11 timed at each kept study's n; the host's
+    share (words to the host, unpack, nonzero, format) at the largest.
+    Returns (the serial pair file, the modules, K11's kernels-line row,
+    K11's launches)."""
+    import pandas as pd
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.cli import generate_pairs
+    from gene2vec_tpu_torch.corpus import builder
+    from gene2vec_tpu_torch.kernels import coexpr_mask
+
+    t0 = time.perf_counter()
+    query, modules = write_pipeline_query(os.path.join(work, "pipeline"))
+    log(f"phase 7a: query directory ({PIPE_GENES} genes, studies {PIPE_STUDIES}) written in "
+        f"{time.perf_counter() - t0:.1f}s")
+    kept = sum(n >= PIPE_MIN_SAMPLES for _, n in PIPE_STUDIES)
+    runs, walls, launches = {}, {}, 0
+    for label, extra in (("serial", []), ("parallel", ["--parallel", "--num-workers", "2"])):
+        out, run_dir = os.path.join(work, f"pairs_{label}.txt"), os.path.join(work, f"run_{label}")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = generate_pairs.main(["--query", query, "--out", out, "--run-dir", run_dir, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_k11 = kernels.launch_counts()["coexpr_mask"]
+        if rc != 0 or n_k11 != kept:
+            raise SystemExit(f"generate_pairs {label}: exit {rc}, K11 launched {n_k11} times "
+                             f"for {kept} studies")
+        launches += n_k11
+        walls[label] = wall
+        with open(out, encoding="utf-8") as f:
+            runs[label] = f.read().split("\n")
+        log(f"generate_pairs {label} ({smi}): {len(runs[label])} lines in {wall:.1f}s")
+    if runs["serial"] != runs["parallel"]:
+        raise SystemExit("generate_pairs: the parallel build's lines differ from the serial one's")
+
+    data = pd.read_csv(os.path.join(query, "data", "gene_counts_TPM.csv"), index_col=0)
+    counts = pd.read_csv(os.path.join(query, "data", "gene_counts.csv"))
+    table = pd.read_csv(os.path.join(query, "data", "SRARunTable.csv"), index_col=0)
+    data = data.loc[table.index.tolist()]
+    ghm = builder.half_min(data.values)
+    lines, pos, report = runs["serial"], 0, []
+    timer, slow = Timer(torch, reps), Timer(torch, 3)
+    timed = {}
+    studies, other = _run_spans(os.path.join(work, "run_serial"))
+    log(f"generate_pairs serial spans: {other}, studies "
+        f"{[(st, round(sec, 3)) for st, _, sec in studies]}")
+    for study, n_pairs, span_s in studies:
+        ids = table.index[table["SRA Study"] == study].tolist()
+        normed = builder.gene_annotated_data(data, counts, ids, global_half_min=ghm)
+        genes, n = list(normed.columns), len(ids)
+        if len(genes) != V:
+            raise SystemExit(f"{study}: {len(genes)} genes survive the filters, not {V}")
+        z64 = torch.from_numpy(np.ascontiguousarray(
+            builder._standardized_columns(normed.values)[0])).to(DEVICE)
+        got, exact, near, flips_plain, flips_64 = k11_check(torch, z64, PIPE_THR)
+        # the CLI's lines for this study against the float64 oracle
+        idx = {g: i for i, g in enumerate(genes)}
+        pairs = np.array([[idx[a] for a in x.split(" ")] for x in lines[pos:pos + n_pairs]],
+                         np.int64).reshape(-1, 2)
+        pos += n_pairs
+        cli = pairs[:, 0] * V + pairs[:, 1]
+        if not (np.diff(cli) > 0).all():
+            raise SystemExit(f"{study}: the CLI's pairs are not in row-major order")
+        exact.fill_diagonal_(False)
+        oracle = torch.nonzero(exact).cpu().numpy()
+        oracle = oracle[:, 0] * V + oracle[:, 1]
+        odd = np.setxor1d(cli, oracle)
+        odd_t = torch.from_numpy(odd).to(DEVICE)
+        if len(odd) and not bool(near[odd_t // V, odd_t % V].all()):
+            raise SystemExit(f"{study}: the CLI's pairs differ from the float64 oracle's "
+                             f"outside EPS_N")
+        rec = {"study": study, "n": n, "g": V, "pairs": int(n_pairs), "cli_span_s": span_s,
+               "within_eps": int(near.sum()),
+               "k11_vs_plain": flips_plain, "k11_vs_float64": flips_64,
+               "cli_vs_float64": int(len(odd))}
+        if n == max(n for _, n in PIPE_STUDIES):
+            # the host's share of one study: words to the host, unpack, nonzero, format
+            split = {}
+            t = time.perf_counter()
+            words = coexpr_mask.coexpr_mask(z64.float().contiguous(), PIPE_THR)
+            torch.cuda.synchronize()
+            split["kernel_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            words_h = words.cpu()
+            split["to_host_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            mask = coexpr_mask.unpack(words_h, V).numpy()
+            split["unpack_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            rows, cols = mask.nonzero()
+            split["nonzero_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            formatted = [f"{genes[r]} {genes[c]}" for r, c in zip(rows, cols) if r != c]
+            split["format_s"] = time.perf_counter() - t
+            if formatted != lines[pos - n_pairs:pos]:
+                raise SystemExit(f"{study}: the host split's lines differ from the CLI's")
+            rec["host_split"] = split
+            del mask, words_h
+        if n == K11_DENSE[0]:
+            # at 0.9 only the planted pairs lie near the threshold; at 0.3
+            # random pairs are dense around it, so products coarser than
+            # float32 (TF32's ~1e-3, say) would flip ~10⁶ pairs outside EPS_N
+            dense, _, near_d, d_plain, d_64 = k11_check(torch, z64, K11_DENSE[1])
+            rec["dense"] = {"thr": K11_DENSE[1], "pairs": int(dense.sum()),
+                            "within_eps": int(near_d.sum()), "k11_vs_plain": d_plain,
+                            "k11_vs_float64": d_64}
+            del dense, near_d
+        if n in (24, K11_MAIN_N):
+            timed[n] = k11_timed(torch, z64, timer, slow)
+            rec["timed"] = timed[n]
+        report.append(rec)
+        del got, exact, near, z64
+        log(f"K11 {study} ({smi}): {json.dumps(rec)}")
+    if pos != len(lines):
+        raise SystemExit(f"generate_pairs: {len(lines) - pos} lines outside the studies' spans")
+    print(json.dumps({"pipeline_corpus": report, "cli_spans": other,
+                      "cli_s": walls, "card": smi}))
+    main = timed[K11_MAIN_N]
+    row = pipeline_row(
+        "coexpr_mask", "k11_coexpr_mask.cu", "gene2vec_tpu/corpus/builder.py:145",
+        main["ms"], main["plain_ms"], main["library_ms"], main["bound_ms"], main["bound_by"],
+        float(any(r["k11_vs_plain"] for r in report)),
+        "bits equal the plain version's and the float64 mask's except pairs within "
+        "EPS_N = (n + 2)·2⁻²⁴ of the threshold (max_abs_err 1.0: some such bit differs)",
+        {"n": K11_MAIN_N, "g": V}, n24=timed.get(24),
+        within_eps_flips=sum(r["k11_vs_plain"] for r in report),
+        dense=next(r["dense"] for r in report if "dense" in r))
+    return os.path.join(work, "pairs_serial.txt"), modules, row, launches
+
+
+def pipeline_train_eval(torch, work: str, smi: str, pairs_path: str, modules):
+    """Phase 7b: the corpus of 7a trained through ``cli.gene2vec`` for
+    PIPE_TRAIN_ITERS iterations (default configuration), then ``cli.evaluate``
+    against a ``.gmt`` of the planted modules: the ratio must pass 1."""
+    import shutil
+
+    from gene2vec_tpu_torch.cli import evaluate, gene2vec
+
+    data, export = os.path.join(work, "pipeline_corpus"), os.path.join(work, "pipeline_export")
+    os.makedirs(data)
+    shutil.copy(pairs_path, os.path.join(data, "pairs.txt"))
+    t0 = time.perf_counter()
+    rc = gene2vec.main([data, export, "txt", "--iters", str(PIPE_TRAIN_ITERS), "--device", DEVICE])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise SystemExit(f"pipeline training exited {rc}")
+    train_s = time.perf_counter() - t0
+    gmt = os.path.join(work, "modules.gmt")
+    with open(gmt, "w", encoding="utf-8") as f:
+        for m, genes in enumerate(modules):
+            f.write(f"MODULE_{m}\tplanted\t" + "\t".join(genes) + "\n")
+    out = os.path.join(work, "intrinsic.json")
+    emb = os.path.join(export, f"gene2vec_dim_{D}_iter_{PIPE_TRAIN_ITERS}_w2v.txt")
+    if evaluate.main([emb, gmt, "--json", "--out", out]) != 0:
+        raise SystemExit("cli.evaluate failed")
+    with open(out, encoding="utf-8") as f:
+        ratio = json.load(f)["trained_target_func_ratio"]
+    rec = {"train_s": train_s, "iters": PIPE_TRAIN_ITERS, "ratio": ratio, "card": smi}
+    print(json.dumps({"pipeline_eval": rec}))
+    log(f"phase 7b: trained in {train_s:.1f}s, target-function ratio {ratio:.4f}")
+    if not ratio > 1.0:
+        raise SystemExit(f"intrinsic evaluation: ratio {ratio} not above 1")
+
+
+def tsne_separation(torch, coords, groups, chunk=2048):
+    """(mean intra-group distance, mean inter-group distance) over all
+    pairs of the layout, on the card."""
+    c = torch.from_numpy(np.asarray(coords, np.float64)).to(DEVICE)
+    grp = torch.from_numpy(np.asarray(groups)).to(DEVICE)
+    n = c.shape[0]
+    intra = inter = 0.0
+    n_intra = n_inter = 0
+    for i in range(0, n, chunk):
+        d = torch.cdist(c[i:i + chunk], c)
+        same = grp[i:i + chunk, None] == grp[None, :]
+        rows = torch.arange(i, min(i + chunk, n), device=c.device)
+        same[rows - i, rows] = False
+        other = ~same
+        other[rows - i, rows] = False
+        intra += float(d[same].sum())
+        inter += float(d[other].sum())
+        n_intra += int(same.sum())
+        n_inter += int(other.sum())
+    return intra / n_intra, inter / n_inter
+
+
+def pipeline_tsne(torch, work: str, smi: str, reps: int):
+    """Phase 7c: t-SNE at full width over a clustered export (phase 5's:
+    V = 24,447, D = 200, 1,000 groups; PCA to 50): K10c against its plain
+    version on the full (N, N) calibration and on an (R, 60,000) slab
+    through the long-row route; one K10 iteration against the plain one
+    from the start and from a state 20 kernel iterations on; then
+    ``cli.tsne --iters 250 1000`` on the export's matrix text (in process):
+    both files written, every label, inter-group over intra-group mean
+    distance past TSNE_SEP, K10c twice and K10 three times an iteration.
+    Returns (the K10c and K10 kernels-line rows, their launches)."""
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.cli import tsne as tsne_cli
+    from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
+    from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
+    from gene2vec_tpu_torch.kernels import tsne_step as ks
+    from gene2vec_tpu_torch.viz import tsne as viz
+
+    t0 = time.perf_counter()
+    emb, groups = write_clustered_export(os.path.join(work, "tsne_clustered"), v=V)
+    tokens = [f"G{i}" for i in range(V)]
+    emb_txt = os.path.join(work, "tsne_clustered.txt")
+    write_matrix_txt(emb_txt, tokens, emb)
+    log(f"phase 7c: clustered export and its matrix text written in "
+        f"{time.perf_counter() - t0:.1f}s")
+    timer, slow = Timer(torch, reps), Timer(torch, 3)
+    x = torch.from_numpy(viz.pca_reduce(emb, 50)).to(DEVICE)
+    d2 = viz._squared_distances(x)
+    p, rel, _ = k10c_check(torch, d2, TSNE_PERPLEXITY)
+    n = V
+    # d² read once, P written once; 51 passes of ~5 operations a pair (the
+    # exponential counted as one)
+    b10c = bound(2.0 * n * n * 4, 51.0 * n * n * 5)
+    k10c = {"ms": timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY)),
+            "plain_ms": slow(lambda: kc.symmetrize_plain(kc.conditional_plain(d2, TSNE_PERPLEXITY))),
+            "rel_err": rel}
+    # the long-row route: rows past the staged limit read global memory.
+    # Its points are drawn as the main path's are (groups of genes, PCA
+    # 50).  At 60,000 columns the bisection's root moves with the sums'
+    # last bits: entries far from a point, relative to themselves, moved
+    # 6.9e-4 on such rows and 5.2e-3 on structureless Gaussian points (one
+    # run each), so the slab holds each row to its own scale ("rows")
+    slab_rows, slab_cols = K10C_SLAB
+    wide, _ = clustered_table(seed=17, v=slab_cols, n_groups=slab_cols // 24)
+    pts = torch.from_numpy(viz.pca_reduce(wide, 50)).to(DEVICE)
+    row0 = slab_cols // 2
+    sq = (pts * pts).sum(1)
+    sub = pts[row0:row0 + slab_rows]
+    # _squared_distances' order, for rows row0 .. row0 + R − 1 only
+    slab = torch.clamp_min(sq[row0:row0 + slab_rows, None] - 2.0 * (sub @ pts.T) + sq[None, :],
+                           0.0).contiguous()
+    _, rel_long, elems_long = k10c_check(torch, slab, TSNE_PERPLEXITY, row0, rule="rows")
+    k10c["long_rows"] = {"rows": slab_rows, "cols": slab_cols, "staged": kc.staged(slab_cols),
+                         "rows_err": rel_long, "elems_rel_err": elems_long,
+                         "ms": timer(lambda: kc.conditional(slab, TSNE_PERPLEXITY, row0))}
+    del d2, slab, pts
+    log(f"K10c ({smi}): {json.dumps(k10c)}; phase 7c at {time.perf_counter() - t0:.1f}s")
+    # K10: from the start, then from a state 20 kernel iterations on
+    rng = np.random.RandomState(0)
+    y = torch.from_numpy((rng.randn(n, 2) * 1e-4).astype(np.float32)).to(DEVICE)
+    vel, gains = torch.zeros_like(y), torch.ones_like(y)
+    ws = ks.workspace(n, y.device)
+    err0, flips0 = k10_check(torch, p, y, vel, gains, 12.0, 0.5, 200.0, ws)
+    for _ in range(20):
+        ks.step_(p, y, vel, gains, 12.0, 0.5, 200.0, ws)
+    err1, flips1 = k10_check(torch, p, y, vel, gains, 12.0, 0.5, 200.0, ws)
+    # P read once, y / vel / gains read and written; ~9 operations on half
+    # the pairs (launch a) and ~17 on every pair (launch b)
+    b10 = bound(n * n * 4 + n * 2 * 4 * 6, 21.5 * n * n)
+    k10 = {"ms": timer(lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)),
+           "plain_ms": slow(lambda: ks.step_plain(p, y, vel, gains, 1.0, 0.8, 200.0)),
+           "y_err": [err0, err1], "gains_flips": [flips0, flips1]}
+    log(f"K10 ({smi}): {json.dumps(k10)}, bound {b10[0]:.4f} ms ({b10[1]}); phase 7c at "
+        f"{time.perf_counter() - t0:.1f}s")
+    del p, y, vel, gains
+    torch.cuda.empty_cache()
+    # the CLI
+    out = os.path.join(work, "tsne_out")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = tsne_cli.main([emb_txt, out, "--iters", *map(str, TSNE_SNAPSHOTS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = {"tsne_calibrate": 2, "tsne_calibrate_sym": 1, "tsne_step": 3 * TSNE_SNAPSHOTS[-1]}
+    if rc != 0 or any(counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"cli.tsne: exit {rc}, launches "
+                         f"{ {k: counts[k] for k in want} }, expected {want}")
+    with open(os.path.join(out, "labels.txt"), encoding="utf-8") as f:
+        labels = f.read().split()
+    if sorted(labels) != sorted(tokens):
+        raise SystemExit("cli.tsne: labels.txt does not hold every gene once")
+    sep = {}
+    for it in TSNE_SNAPSHOTS:
+        coords = np.loadtxt(os.path.join(out, f"tsne_iter_{it}.txt"))
+        if coords.shape != (n, 2) or not np.isfinite(coords).all():
+            raise SystemExit(f"cli.tsne: tsne_iter_{it}.txt has shape {coords.shape}")
+        intra, inter = tsne_separation(torch, coords, groups[[int(t[1:]) for t in labels]])
+        sep[it] = {"intra": intra, "inter": inter, "ratio": inter / intra}
+    rec = {"cli_s": wall, "separation": sep, "ms_per_iteration": k10["ms"],
+           "bound_ms_per_iteration": b10[0], "card": smi}
+    print(json.dumps({"pipeline_tsne": rec, "k10c": k10c, "k10": k10}))
+    log(f"phase 7c: cli.tsne {wall:.1f}s, separation {sep}, K10 {k10['ms']:.4f} ms an "
+        f"iteration against {b10[0]:.4f}")
+    if not sep[TSNE_SNAPSHOTS[-1]]["ratio"] > TSNE_SEP:
+        raise SystemExit(f"cli.tsne: groups do not separate ({sep})")
+    rows = [
+        pipeline_row("tsne_calibrate", "k10c_tsne_calibrate.cu", "gene2vec_tpu/viz/tsne.py:52",
+                     k10c["ms"], k10c["plain_ms"], None, b10c[0], b10c[1], rel,
+                     f"each P entry within {K10C_RTOL} of the plain version's (relative); the "
+                     f"long-row slab's within {K10C_RTOL} of its row's largest",
+                     {"n": n, "long_rows": list(K10C_SLAB)}, long_rows=k10c["long_rows"]),
+        pipeline_row("tsne_step", "k10_tsne_step.cu", "gene2vec_tpu/viz/tsne.py:143",
+                     k10["ms"], k10["plain_ms"], None, b10[0], b10[1], max(err0, err1),
+                     f"vel within {K10_TOL} of its update's terms, y within that plus "
+                     f"{K10_TOL} of max|y|, gains equal but where the gradient cancels",
+                     {"n": n}, gains_flips=[flips0, flips1]),
+    ]
+    return rows, {"tsne_calibrate": counts["tsne_calibrate"], "tsne_step": counts["tsne_step"]}
+
+
+def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
+    """K11, K10c and K10 timed at phase 7's full-width shapes on inputs made
+    from a seed (``--compare``): K11 on a standardized (160, 24,447) study,
+    K10c on the clustered table's PCA-50 distances, K10 on that P."""
+    from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
+    from gene2vec_tpu_torch.kernels import tsne_step as ks
+    from gene2vec_tpu_torch.viz import tsne as viz
+
+    timer = Timer(torch, reps)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn((K11_MAIN_N, V), generator=gen, device=DEVICE, dtype=torch.float64)
+    k11 = k11_timed(torch, (x - x.mean(0)) / x.std(0), timer, Timer(torch, 3))
+    emb, _ = clustered_table(v=V)
+    d2 = viz._squared_distances(torch.from_numpy(viz.pca_reduce(emb, 50)).to(DEVICE))
+    k10c_ms = timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY))
+    p = kc.calibrate(d2, TSNE_PERPLEXITY)
+    del d2
+    y = torch.from_numpy((np.random.RandomState(0).randn(V, 2) * 1e-4).astype(np.float32))
+    y = y.to(DEVICE)
+    vel, gains = torch.zeros_like(y), torch.ones_like(y)
+    ws = ks.workspace(V, y.device)
+    for _ in range(20):
+        ks.step_(p, y, vel, gains, 12.0, 0.5, 200.0, ws)
+    return {"coexpr_mask": {k: k11[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "tsne_calibrate_ms": k10c_ms,
+            "tsne_step_ms": timer(lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws))}
+
+
+def pipeline(torch, smi: str, reps: int = TIMED_REPS):
+    """Phase 7, the paper's pipeline on the card: corpus → training →
+    intrinsic evaluation, and t-SNE.  Returns (the K10c, K10 and K11
+    kernels-line rows, their launches on these paths)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        pairs, modules, k11_row, k11_launches = pipeline_corpus(torch, work, smi, reps)
+        pipeline_train_eval(torch, work, smi, pairs, modules)
+        rows, counts = pipeline_tsne(torch, work, smi, reps)
+    counts["coexpr_mask"] = k11_launches
+    log(f"pipeline phase done in {time.perf_counter() - t0:.1f}s")
+    return rows + [k11_row], counts
+
+
 #: what ``--compare`` runs in each tree, with that tree's own chip_smoke:
 #: the K1-K4 kernel check and the objectives' check (K5a, K5b, K6, K4's
 #: generic entries) at float32 and bfloat16 (the K1, K2/K3, K4, K5a, K5b
@@ -3160,8 +3789,9 @@ def compare_widths(windows, smi: str) -> dict:
 #: probes (stream_probes' sizes, lane_probes' gather, scatter and
 #: stream_copy at (256, 24576), staged_probes' feature probes, callh and
 #: vmem_probe sweep: their records), the serving kernels
-#: K7-K9r at MAIN_SHAPE (their kernels-line rows), and phase 3's training
-#: run (pairs/s per iteration from its training log)
+#: K7-K9r at MAIN_SHAPE (their kernels-line rows), phase 3's training
+#: run (pairs/s per iteration from its training log), and, in a tree that
+#: has them, the pipeline's K11, K10c and K10 (pipeline_kernel_times)
 COMPARE_RUN = """
 import csv, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
@@ -3302,13 +3932,15 @@ with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
+# the pipeline's kernels (K10c, K10, K11), in trees that have them
+pipeline = cs.pipeline_kernel_times(torch) if hasattr(cs, "pipeline_kernel_times") else None
 print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "noise": noise,
                                "k4": k4,
                                "objectives": objectives, "gather": gather, "host": host,
                                "windows": windows, "objective_windows": objective_windows,
                                "step_kernels": kernels_by_step, "probes": probes,
                                "serving": serving, "serving_shapes": serving_shapes,
-                               "cli_pairs_per_s": rates}))
+                               "cli_pairs_per_s": rates, "pipeline": pipeline}))
 """
 
 
@@ -3467,11 +4099,17 @@ def main() -> int:
         counts[name] = nearest[name]
     log(f"quality phase done in {time.perf_counter() - t0:.1f}s")
 
+    # phase 7: the paper's pipeline — the corpus (K11), training and the
+    # intrinsic evaluation, t-SNE (K10c, K10)
+    pipe_rows, pipe_counts = pipeline(torch, smi)
+    counts.update(pipe_counts)
+
     rows += serve_rows
     rows.append(gather_row)
     rows.append(stream_row)
     rows += lane_rows
     rows.append(staged_row)
+    rows += pipe_rows
     for r in rows:
         r["launches"] = counts[r["name"]]
     # the probes' counterparts are on no path the package runs: phase 3 reads 0

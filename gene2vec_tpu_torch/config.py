@@ -7,6 +7,9 @@ window=1, min_count=1, 10 iterations) and gensim's SGNS defaults (5
 negatives, alpha 0.025 → 1e-4, unigram^0.75 noise).  The per-field
 rationale lives in the reference config's comments.
 
+``CorpusConfig`` and ``TSNEConfig`` are the reference's corpus-builder
+and t-SNE defaults (``gene2vec_tpu/config.py:254-285``).
+
 This port trains every objective (sgns, cbow, sg_hs, cbow_hs) and every
 noise estimator (stratified, shared, per_example) with float32 or
 bfloat16 tables (``table_dtype``; bfloat16 write-backs round
@@ -129,3 +132,43 @@ class GGIPNNConfig:
     scan_fit: bool = True          # whole-epoch fit with per-epoch dev eval;
                                    # False = the per-batch step loop with
                                    # every-N-steps evaluation
+
+
+@dataclasses.dataclass(frozen=True)
+class CorpusConfig:
+    """Co-expression pair-corpus construction (reference
+    ``src/generate_gene_pairs.py:12-42``)."""
+
+    corr_threshold: float = 0.9
+    min_study_samples: int = 20
+    min_total_counts: float = 10.0
+    parallel: bool = False
+    ensembl: bool = False
+    num_workers: int = 0           # 0 → os.cpu_count()
+
+
+@dataclasses.dataclass(frozen=True)
+class TSNEConfig:
+    """t-SNE defaults from ``src/tsne_multi_core.py:31,42-52``.  The
+    iteration computes in float32; ``compute_dtype="bfloat16"`` (the
+    reference's bf16 (N, N) arrays) is refused until it is ported."""
+
+    pca_dims: int = 50
+    perplexity: float = 30.0
+    learning_rate: float = 200.0
+    n_iter: int = 1000
+    early_exaggeration: float = 12.0
+    exaggeration_iters: int = 250
+    momentum_start: float = 0.5
+    momentum_final: float = 0.8
+    momentum_switch_iter: int = 250
+    seed: int = 0
+    compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"TSNEConfig.compute_dtype={self.compute_dtype!r} is not "
+                "supported by gene2vec_tpu_torch: the bfloat16 (N, N) "
+                "iteration is not ported (K10 computes in float32)"
+            )

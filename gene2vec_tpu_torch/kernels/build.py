@@ -1,5 +1,6 @@
 """Build and load the port's CUDA kernels (the training steps' K1-K6, the
-serving kernels K7-K9r and the probes' counterparts K12-K14).
+serving kernels K7-K9r, t-SNE's K10c/K10, the co-expression mask K11 and
+the probes' counterparts K12-K14).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -38,6 +39,9 @@ SOURCES = {
     "k8_quant_scan": "k8_quant_scan.cu",
     "k9_ivf_scan": "k9_ivf_scan.cu",
     "k9r_rescore": "k9r_rescore.cu",
+    "k10c_tsne_calibrate": "k10c_tsne_calibrate.cu",
+    "k10_tsne_step": "k10_tsne_step.cu",
+    "k11_coexpr_mask": "k11_coexpr_mask.cu",
     "k12_stream_scale": "k12_stream_scale.cu",
     "k13_lane": "k13_lane.cu",
     "k14_staged_copy": "k14_staged_copy.cu",

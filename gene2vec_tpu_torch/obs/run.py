@@ -8,9 +8,10 @@ versions.  It exposes the tracer (``events.jsonl``), the metrics registry
 flags any step slower than 3× the rolling-window p99 as a ``stall`` event.
 
 Device facts come from ``torch.cuda`` (the reference asks
-``jax.devices()``).  The runtime probes (``Run.probe``, HBM/RSS gauges)
-wait for the port of ``obs/probes.py``.  Construction never raises for
-missing optional context (no git, no GPU).
+``jax.devices()``); ``probe_devices=False`` leaves them out of the
+manifest until :meth:`Run.annotate_backend`.  :meth:`Run.probe` samples
+``obs/probes.py`` into gauges and a ``probe`` event.  Construction never
+raises for missing optional context (no git, no GPU).
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import sys
 import time
 from typing import Dict, Optional
 
-from gene2vec_tpu_torch.obs import trace
+from gene2vec_tpu_torch.obs import probes, trace
 from gene2vec_tpu_torch.obs.registry import MetricsRegistry
 from gene2vec_tpu_torch.obs.trace import Tracer
 
@@ -125,7 +126,8 @@ class Run:
 
     def __init__(self, run_dir: str, name: str = "run", config=None,
                  manifest_extra: Optional[Dict] = None,
-                 watchdog: Optional[StallWatchdog] = None):
+                 watchdog: Optional[StallWatchdog] = None,
+                 probe_devices: bool = True):
         self.run_dir = os.path.abspath(run_dir)
         os.makedirs(self.run_dir, exist_ok=True)
         self.name = name
@@ -146,7 +148,7 @@ class Run:
             "config": _config_dict(config),
             "config_hash": config_hash(config),
             "versions": _versions(),
-            "backend": _device_info(),
+            "backend": _device_info() if probe_devices else {},
             "env": {k: os.environ[k] for k in ("CUDA_VISIBLE_DEVICES",) if k in os.environ},
             **(manifest_extra or {}),
         }
@@ -166,6 +168,11 @@ class Run:
         """Merge late-arriving facts into the on-disk manifest."""
         self.manifest.update(fields)
         self._write_manifest()
+
+    def annotate_backend(self) -> None:
+        """Merge the device facts into the manifest — for callers that
+        construct with ``probe_devices=False`` and reach the device later."""
+        self.annotate(backend=_device_info())
 
     # -- tracing -----------------------------------------------------------
 
@@ -191,6 +198,12 @@ class Run:
                      for k, v in attrs.items()}
             self.tracer.event("stall", type="stall", **canonical, **extra)
         return stalled
+
+    def probe(self) -> Dict:
+        """Sample runtime probes into gauges + one ``probe`` event."""
+        values = probes.sample(self.registry)
+        self.tracer.event("probe", **{k: v for k, v in values.items() if v is not None})
+        return values
 
     # -- lifecycle ---------------------------------------------------------
 

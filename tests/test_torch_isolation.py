@@ -8,6 +8,7 @@ import pkgutil
 import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -597,3 +598,156 @@ def test_ggipnn_lookup_on_cuda_reaches_the_row_gather_kernel(monkeypatch):
     with pytest.raises(RuntimeError, match="unavailable"):
         model(torch.zeros((2, 2), dtype=torch.int32))
     assert loaded == ["k9r_rescore"]
+
+
+#: the pipeline slice's modules (corpus with K11, t-SNE with K10c/K10, the
+#: intrinsic evaluation)
+PIPELINE_MODULES = {
+    "gene2vec_tpu_torch.corpus", "gene2vec_tpu_torch.corpus.builder",
+    "gene2vec_tpu_torch.viz", "gene2vec_tpu_torch.viz.tsne",
+    "gene2vec_tpu_torch.eval.target_function", "gene2vec_tpu_torch.cli.generate_pairs",
+    "gene2vec_tpu_torch.cli.tsne", "gene2vec_tpu_torch.cli.evaluate",
+    "gene2vec_tpu_torch.obs.probes", "gene2vec_tpu_torch.obs.ledger",
+    "gene2vec_tpu_torch.kernels.coexpr_mask", "gene2vec_tpu_torch.kernels.tsne_calibrate",
+    "gene2vec_tpu_torch.kernels.tsne_step",
+}
+
+
+def test_sources_scan_covers_the_pipeline_slice():
+    """The pipeline slice's modules import in the no-JAX subprocess above and
+    are scanned; K10c/K10/K11's CUDA sources are built by ``build.py``;
+    every port module the slice's tests drive is one the scans cover."""
+    from gene2vec_tpu_torch.kernels import build
+
+    mods = set(_port_modules())
+    assert PIPELINE_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in PIPELINE_MODULES:
+        path = mod.replace(".", "/")
+        assert path + ".py" in scanned or path + "/__init__.py" in scanned
+    assert {"k10c_tsne_calibrate.cu", "k10_tsne_step.cu",
+            "k11_coexpr_mask.cu"} <= set(build.SOURCES.values())
+    for test in ("test_torch_corpus.py", "test_torch_tsne.py",
+                 "test_torch_target_function.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def _toy_query(root):
+    import pandas as pd
+
+    d = os.path.join(root, "q", "data")
+    os.makedirs(d)
+    samples = [f"S{i}" for i in range(20)]
+    rng = np.random.RandomState(0)
+    tpm = rng.rand(20, 4) * 10 + 1
+    pd.DataFrame({"SRA Study": ["A"] * 20}, index=pd.Index(samples, name="Run")).to_csv(
+        os.path.join(d, "SRARunTable.csv"))
+    pd.DataFrame(tpm, index=pd.Index(samples, name="run"),
+                 columns=["E1", "E2", "E3", "E4"]).to_csv(os.path.join(d, "gene_counts_TPM.csv"))
+    counts = pd.DataFrame(np.round(tpm.T * 100), columns=samples)
+    counts.insert(0, "gene_id", ["E1|A", "E2|B", "E3|C", "E4|D"])
+    counts.to_csv(os.path.join(d, "gene_counts.csv"), index=False)
+    return os.path.join(root, "q")
+
+
+def test_corpus_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from gene2vec_tpu_torch.cli import generate_pairs
+    from gene2vec_tpu_torch.corpus import builder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    q = _toy_query(str(tmp_path))
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            builder.build_pairs(q, log=lambda s: None, **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            builder.abs_correlation_mask(np.eye(4), 0.5, **kw)
+    assert isinstance(builder.build_pairs(q, device="cpu", log=lambda s: None), list)
+    # the reference's float64 host path needs no device
+    assert isinstance(builder.build_pairs(q, backend="numpy", log=lambda s: None), list)
+    out = tmp_path / "pairs.txt"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generate_pairs.main(["--query", q, "--out", str(out)])
+    assert not out.exists()
+    assert generate_pairs.main(["--query", q, "--out", str(out), "--device", "cpu"]) == 0
+    assert generate_pairs.main(["--query", q, "--out", str(out), "--backend", "numpy"]) == 0
+
+
+def test_tsne_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    from gene2vec_tpu_torch.cli import tsne as tsne_cli
+    from gene2vec_tpu_torch.config import TSNEConfig
+    from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
+    from gene2vec_tpu_torch.viz.tsne import TSNE
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.RandomState(0).randn(12, 4).astype(np.float32)
+    cfg = TSNEConfig(pca_dims=0, perplexity=3.0)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            TSNE(config=cfg, device=dev).fit(x, snapshot_iters=[2], log=lambda s: None)
+    out = TSNE(config=cfg, device="cpu").fit(x, snapshot_iters=[2], log=lambda s: None)
+    assert out[2].shape == (12, 2)
+    emb = tmp_path / "emb.txt"
+    write_matrix_txt(str(emb), [f"G{i}" for i in range(12)], x)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsne_cli.main([str(emb), str(tmp_path / "t"), "--iters", "2"])
+    assert not (tmp_path / "t").exists()
+    assert tsne_cli.main([str(emb), str(tmp_path / "t"), "--iters", "2", "--perplexity", "3",
+                          "--device", "cpu"]) == 0
+
+
+def test_evaluate_runs_on_the_host_without_a_device(monkeypatch, tmp_path, capsys):
+    """The intrinsic evaluation is numpy on the host: no device to ask for,
+    and it runs where CUDA is absent."""
+    from gene2vec_tpu_torch.cli import evaluate
+    from gene2vec_tpu_torch.io.emb_io import write_word2vec_format
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rng = np.random.RandomState(0)
+    toks = [f"G{i}" for i in range(30)]
+    write_word2vec_format(str(tmp_path / "e.txt"), toks, rng.randn(30, 4).astype(np.float32))
+    (tmp_path / "p.gmt").write_text("P\turl\tG1\tG2\tG3\n")
+    assert evaluate.main([str(tmp_path / "e.txt"), str(tmp_path / "p.gmt")]) == 0
+    assert float(capsys.readouterr().out)
+    assert not torch.cuda.is_initialized()
+
+
+def _pipeline_calls():
+    from gene2vec_tpu_torch.kernels import coexpr_mask, tsne_calibrate, tsne_step
+
+    z = torch.zeros(6, 40)
+    d2 = torch.zeros(5, 5)
+    y = torch.zeros(5, 2)
+    return [
+        (coexpr_mask, "coexpr_mask", "k11_coexpr_mask",
+         lambda: coexpr_mask.coexpr_mask(z, 0.9)),
+        (tsne_calibrate, "conditional", "k10c_tsne_calibrate",
+         lambda: tsne_calibrate.conditional(d2, 3.0)),
+        (tsne_calibrate, "symmetrize", "k10c_tsne_calibrate",
+         lambda: tsne_calibrate.symmetrize_(d2)),
+        (tsne_step, "step", "k10_tsne_step",
+         lambda: tsne_step.step_(d2, y, y.clone(), y.clone(), 12.0, 0.5, 200.0,
+                                 ws=types.SimpleNamespace(n=5))),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_pipeline_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
+    """K11, K10c's two launches and K10: a CUDA tensor reaches the kernel
+    (the loader, stubbed to raise), never the plain version."""
+    from gene2vec_tpu_torch.kernels import _args, build
+
+    mod, name, lib, call = _pipeline_calls()[case]
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mod, f"{name}_plain", lambda *a, **k: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        call()
+    assert loaded == [lib]
