@@ -6,7 +6,8 @@
                                      # each checkout's own K1-K6 checks, the row
                                      # gather, step windows (default, HS, shared,
                                      # per_example), the K12, K13 and K14 probes,
-                                     # phase 3 run and K10c / K10 / K11, in turns
+                                     # phase 3 run and K10c / K10 (each by launch),
+                                     # cli.tsne and K11, in turns
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -147,11 +148,14 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    (``{"pipeline_eval": ...}``); (7c) t-SNE over phase 5's clustered
    table (N = 24,447, PCA 50): K10c against its plain version (each P
    entry within K10C_RTOL) and on a (256, 60,000) slab through the
-   long-row route, one K10 iteration against the plain one from the start
-   and 20 iterations on (K10_TOL), then ``cli.tsne --iters 250 1000``:
-   files and labels complete, groups separated (inter over intra mean
-   distance past TSNE_SEP), ms an iteration beside P's bytes bound
-   (``{"pipeline_tsne": ...}``).
+   long-row route, its two launches timed apart, the histogram of the
+   bisection steps its rows took; one K10 iteration against the plain one
+   from the start, 20 iterations on and 1,020 on (K10_TOL), K10's library
+   sequence (``lib_tsne_step``) and its launches by kernel name; then
+   ``cli.tsne --iters 250 1000``: files and labels complete, groups
+   separated (inter over intra mean distance past TSNE_SEP), K10c's two
+   launches and one K10 launch an iteration, ms an iteration beside P's
+   bytes bound (``{"pipeline_tsne": ...}``).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -190,6 +194,10 @@ F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
 BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
 TF32_FLOP_PER_S = 495e12    # H100 SXM tf32 tensor cores, dense
+# the special-function unit (MUFU: ex2, rcp): 16 lanes a clock on each of
+# the 132 SMs at the 1.98 GHz boost clock (H100 SXM; CUDA programming
+# guide's arithmetic-instruction throughput table for compute capability 9.0)
+SFU_OP_PER_S = 16 * 132 * 1.98e9
 
 V, D, B, K = 24447, 200, 4096, 5
 E = 2 * B
@@ -3338,19 +3346,21 @@ def k10c_check(torch, d2, perplexity, row0=0, rule="elems"):
     return got, rel, rel_elems
 
 
-def k10_terms(torch, p, y, gains, exaggeration, lr):
+def k10_terms(torch, p, y, gains, exaggeration, lr, z64=False):
     """(per element of vel, 4·lr·gains·(|rowsum_i·y_i| + Σ_j |g_ij|·|y_j|):
     the size of the terms whose float32 sums make the velocity's update;
     per element, |rowsum_i·y_i − Σ_j g_ij·y_j| over those terms without
     the factor: how near the gradient cancels to 0).  grad = 4(rowsum·y −
     g·y) cancels as the layout spreads, so two sum orders differ by a share
-    of the terms, not of the result."""
+    of the terms, not of the result.  ``z64``: Z = Σnum − N summed in
+    float64."""
     n = y.shape[0]
     sq = torch.sum(y * y, dim=1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (y @ y.T)
     num = 1.0 / (1.0 + torch.clamp_min(d2, 0.0))
     del d2
-    g = (exaggeration * p - num / (num.sum() - n)) * num
+    z = (num.sum(dtype=torch.float64) - n).float() if z64 else num.sum() - n
+    g = (exaggeration * p - num / z) * num
     del num
     rowsum = g.sum(1, keepdim=True)
     mag = (rowsum * y).abs() + g.abs() @ y.abs()
@@ -3358,20 +3368,48 @@ def k10_terms(torch, p, y, gains, exaggeration, lr):
     return 4.0 * lr * gains * mag, ratio
 
 
-def k10_check(torch, p, y, vel, gains, exaggeration, momentum, lr, ws=None):
+def step_plain_z64(torch, p, y, vel, gains, exaggeration, momentum, lr):
+    """``tsne_step.step_plain`` with Z = Σnum − N summed in float64, as K10
+    sums it: the plain iteration where its float32 Z cancels below
+    float32's resolution of N (a layout spread so far that Σ_{i≠j} num <
+    ulp(N); ROADMAP Queue C, F3)."""
+    n, k = y.shape
+    sq = torch.sum(y * y, dim=1)
+    d2 = sq[:, None] + sq[None, :]
+    for c in range(k):
+        d2 = d2 - 2.0 * y[:, c:c + 1] * y[:, c]
+    num = 1.0 / (1.0 + torch.clamp_min(d2, 0.0))
+    z = (torch.sum(num, dtype=torch.float64) - n).float()
+    g = (exaggeration * p - (1.0 / z) * num) * num
+    gy_ext = torch.matmul(g, torch.cat([y, torch.ones((n, 1), dtype=y.dtype, device=y.device)], 1))
+    grad = 4.0 * (gy_ext[:, k:] * y - gy_ext[:, :k])
+    gains = torch.clamp_min(torch.where(torch.sign(grad) == torch.sign(vel), gains * 0.8,
+                                        gains + 0.2), 0.01)
+    vel = momentum * vel - lr * gains * grad
+    y = y + vel
+    return y - torch.mean(y, dim=0), vel, gains
+
+
+def k10_check(torch, p, y, vel, gains, exaggeration, momentum, lr, ws=None, z64=False):
     """One K10 iteration (on copies) against the plain iteration from the
     same state: vel within K10_TOL of its update's terms (k10_terms), y
     within that plus K10_TOL of its largest entry (the centring's sum),
     gains equal except where the gradient cancels to within K10_TOL of its
-    terms (its sign is then rounding's; such flips are counted).  Returns
-    (max |y − plain y| over max |y|, gains that differ)."""
+    terms (its sign is then rounding's; such flips are counted).  ``z64``:
+    the plain iteration and the terms with Z summed in float64
+    (``step_plain_z64``), for a layout so spread that the float32 Z
+    cancels (F3).  Returns (max |y − plain y| over max |y|, gains that
+    differ)."""
     from gene2vec_tpu_torch.kernels import tsne_step
 
     yk, vk, gk = y.clone(), vel.clone(), gains.clone()
     tsne_step.step_(p, yk, vk, gk, exaggeration, momentum, lr, ws)
-    yp, vp, gp = tsne_step.step_plain(p, y, vel, gains, exaggeration, momentum, lr)
+    if z64:
+        yp, vp, gp = step_plain_z64(torch, p, y, vel, gains, exaggeration, momentum, lr)
+    else:
+        yp, vp, gp = tsne_step.step_plain(p, y, vel, gains, exaggeration, momentum, lr)
     torch.cuda.synchronize()
-    terms, ratio = k10_terms(torch, p, y, torch.maximum(gk, gp), exaggeration, lr)
+    terms, ratio = k10_terms(torch, p, y, torch.maximum(gk, gp), exaggeration, lr, z64)
     y_scale = float(yp.abs().max())
     same = gk == gp  # a flipped decision changes that element's step
     bad_flips = int((~same & (ratio > K10_TOL)).sum())
@@ -3383,6 +3421,72 @@ def k10_check(torch, p, y, vel, gains, exaggeration, momentum, lr, ws=None):
                          f"their terms (limit {K10_TOL}), {bad_flips} gains differ where the "
                          f"gradient does not cancel")
     return float((yk - yp).abs().max()) / max(y_scale, 1e-30), int((~same).sum())
+
+
+def k10c_bound(rows, cols, passes, symmetrize=True):
+    """(ms, by) for K10c's function on (rows, cols) squared distances whose
+    rows take ``passes`` passes in all (each row its bisection steps and
+    the pass that writes P_cond): d² read once and P written once, against
+    an exponential an element a pass at the special-function unit's rate
+    and the pass's float32 operations (−d·β, Σw, d·w, Σd·w: 4) at 67
+    TFLOP/s — the largest of the three.  The symmetrization's (P_cond +
+    P_condᵀ) / 2N and its clamp are 3 more operations an element."""
+    elems = float(passes) * cols
+    t = {"bytes": 2.0 * rows * cols * 4 / HBM_BYTES_PER_S,
+         "operations": max(elems / SFU_OP_PER_S,
+                           (4.0 * elems + 3.0 * rows * cols * symmetrize) / F32_FLOP_PER_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def k10_bound(n):
+    """(ms, by) for one K10 iteration at N = ``n``: P read once and y, vel,
+    gains read and written, against a pair's operations — d² 5, the clamp
+    and 1 + 2, g 3, the three sums 6 (FMAs counted as 2) at 67 TFLOP/s
+    and the IEEE reciprocal's MUFU.RCP (its 2 FMAs, 4 more, beside them)
+    at the special-function unit's rate: the larger."""
+    pairs = float(n) * n
+    t = {"bytes": (pairs * 4 + n * 2 * 4 * 6) / HBM_BYTES_PER_S,
+         "operations": max(pairs / SFU_OP_PER_S, 20.0 * pairs / F32_FLOP_PER_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def lib_tsne_step(torch, p, y, vel, gains, exaggeration, momentum, lr):
+    """K10's function as the shortest PyTorch sequence (timed as its
+    ``library_ms``, used nowhere in the port): d² by one ``addmm`` and an
+    in-place add, num by in-place clamp, add and ``reciprocal_``, Z by
+    ``sum``, g by two in-place passes over a copy of P, [gy | rowsum] by
+    one ``mm`` with [y | 1], then the (N, 2) epilogue.  Returns the new
+    (y, vel, gains)."""
+    n = y.shape[0]
+    sq = torch.sum(y * y, dim=1)
+    num = torch.addmm(sq[None, :], y, y.T, alpha=-2.0).add_(sq[:, None])
+    num.clamp_min_(0.0).add_(1.0).reciprocal_()
+    inv_z = 1.0 / (torch.sum(num) - n)
+    g = torch.mul(p, exaggeration).sub_(num * inv_z).mul_(num)
+    gy = torch.mm(g, torch.cat([y, torch.ones((n, 1), dtype=y.dtype, device=y.device)], 1))
+    grad = 4.0 * (gy[:, 2:] * y - gy[:, :2])
+    gains = torch.clamp_min(torch.where(torch.sign(grad) == torch.sign(vel), gains * 0.8,
+                                        gains + 0.2), 0.01)
+    vel = momentum * vel - lr * gains * grad
+    y = y + vel
+    return y - torch.mean(y, dim=0), vel, gains
+
+
+def library_step_check(torch, p, y, vel, gains):
+    """``lib_tsne_step`` against the plain iteration from the same state:
+    max |y − plain y| over max |plain y| (at most K10_TOL: its sums run in
+    another order)."""
+    from gene2vec_tpu_torch.kernels import tsne_step
+
+    got = lib_tsne_step(torch, p, y, vel, gains, 1.0, 0.8, 200.0)[0]
+    want = tsne_step.step_plain(p, y, vel, gains, 1.0, 0.8, 200.0)[0]
+    err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    if not err <= K10_TOL:
+        raise SystemExit(f"K10's library sequence: y {err:.3e} of its scale from the plain "
+                         f"iteration (limit {K10_TOL})")
+    return err
 
 
 def pipeline_row(name, src, replaces, ms, plain_ms, library_ms, bound_ms, bound_by, err,
@@ -3621,13 +3725,14 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     V = 24,447, D = 200, 1,000 groups; PCA to 50): K10c against its plain
     version on the full (N, N) calibration and on an (R, 60,000) slab
     through the long-row route; one K10 iteration against the plain one
-    from the start and from a state 20 kernel iterations on; then
+    from the start and from states 20 and 1,020 kernel iterations on; then
     ``cli.tsne --iters 250 1000`` on the export's matrix text (in process):
     both files written, every label, inter-group over intra-group mean
-    distance past TSNE_SEP, K10c twice and K10 three times an iteration.
+    distance past TSNE_SEP, K10c twice and K10 once an iteration.
     Returns (the K10c and K10 kernels-line rows, their launches)."""
     from gene2vec_tpu_torch import kernels
     from gene2vec_tpu_torch.cli import tsne as tsne_cli
+    from gene2vec_tpu_torch.config import TSNEConfig
     from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
     from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
     from gene2vec_tpu_torch.kernels import tsne_step as ks
@@ -3645,12 +3750,22 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     d2 = viz._squared_distances(x)
     p, rel, _ = k10c_check(torch, d2, TSNE_PERPLEXITY)
     n = V
-    # d² read once, P written once; 51 passes of ~5 operations a pair (the
-    # exponential counted as one)
-    b10c = bound(2.0 * n * n * 4, 51.0 * n * n * 5)
+    steps = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+    p_cond = kc.conditional(d2, TSNE_PERPLEXITY, steps=steps)
+    hist = {int(k): int(v) for k, v in enumerate(torch.bincount(steps.long()).tolist()) if v}
+    b10c = k10c_bound(n, n, int(steps.sum()) + n)
     k10c = {"ms": timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY)),
+            "conditional_ms": timer(lambda: kc.conditional(d2, TSNE_PERPLEXITY)),
+            "symmetrize_ms": timer(lambda: kc.symmetrize_(p_cond)),
             "plain_ms": slow(lambda: kc.symmetrize_plain(kc.conditional_plain(d2, TSNE_PERPLEXITY))),
-            "rel_err": rel}
+            "rel_err": rel, "staged": kc.staged(n), "steps_histogram": hist,
+            "mean_steps": float(steps.float().mean()),
+            "bound_ms": b10c[0], "bound_by": b10c[1],
+            "bound_51_passes_ms": k10c_bound(n, n, 51 * n)[0]}
+    del p_cond
+    # the plain version is the shortest library sequence too: the bisection
+    # is the function
+    k10c["library_ms"] = k10c["plain_ms"]
     # the long-row route: rows past the staged limit read global memory.
     # Its points are drawn as the main path's are (groups of genes, PCA
     # 50).  At 60,000 columns the bisection's root moves with the sums'
@@ -3667,12 +3782,20 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     slab = torch.clamp_min(sq[row0:row0 + slab_rows, None] - 2.0 * (sub @ pts.T) + sq[None, :],
                            0.0).contiguous()
     _, rel_long, elems_long = k10c_check(torch, slab, TSNE_PERPLEXITY, row0, rule="rows")
+    slab_steps = torch.zeros(slab_rows, dtype=torch.int32, device=DEVICE)
+    kc.conditional(slab, TSNE_PERPLEXITY, row0, steps=slab_steps)
+    b_long = k10c_bound(slab_rows, slab_cols, int(slab_steps.sum()) + slab_rows,
+                        symmetrize=False)
     k10c["long_rows"] = {"rows": slab_rows, "cols": slab_cols, "staged": kc.staged(slab_cols),
                          "rows_err": rel_long, "elems_rel_err": elems_long,
-                         "ms": timer(lambda: kc.conditional(slab, TSNE_PERPLEXITY, row0))}
+                         "ms": timer(lambda: kc.conditional(slab, TSNE_PERPLEXITY, row0)),
+                         "mean_steps": float(slab_steps.float().mean()),
+                         "bound_ms": b_long[0], "bound_by": b_long[1]}
     del d2, slab, pts
     log(f"K10c ({smi}): {json.dumps(k10c)}; phase 7c at {time.perf_counter() - t0:.1f}s")
-    # K10: from the start, then from a state 20 kernel iterations on
+    # K10: from the start, from a state 20 kernel iterations on, and from
+    # one 1,020 on (the reference's schedule: exaggeration and momentum
+    # switch at 250), where g's attractive and repulsive parts nearly cancel
     rng = np.random.RandomState(0)
     y = torch.from_numpy((rng.randn(n, 2) * 1e-4).astype(np.float32)).to(DEVICE)
     vel, gains = torch.zeros_like(y), torch.ones_like(y)
@@ -3681,14 +3804,21 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     for _ in range(20):
         ks.step_(p, y, vel, gains, 12.0, 0.5, 200.0, ws)
     err1, flips1 = k10_check(torch, p, y, vel, gains, 12.0, 0.5, 200.0, ws)
-    # P read once, y / vel / gains read and written; ~9 operations on half
-    # the pairs (launch a) and ~17 on every pair (launch b)
-    b10 = bound(n * n * 4 + n * 2 * 4 * 6, 21.5 * n * n)
+    lib_ms = timer(lambda: lib_tsne_step(torch, p, y, vel, gains, 1.0, 0.8, 200.0))
+    lib_err = library_step_check(torch, p, y, vel, gains)
+    launch_ms = device_breakdown(torch, lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws))
+    b10 = k10_bound(n)
     k10 = {"ms": timer(lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)),
            "plain_ms": slow(lambda: ks.step_plain(p, y, vel, gains, 1.0, 0.8, 200.0)),
-           "y_err": [err0, err1], "gains_flips": [flips0, flips1]}
-    log(f"K10 ({smi}): {json.dumps(k10)}, bound {b10[0]:.4f} ms ({b10[1]}); phase 7c at "
-        f"{time.perf_counter() - t0:.1f}s")
+           "library_ms": lib_ms, "library_y_err": lib_err, "launch_ms": launch_ms,
+           "bound_ms": b10[0], "bound_by": b10[1]}
+    cfg = TSNEConfig()
+    viz._segment(cfg, p, y, vel, gains, 20, 1000)
+    err2, flips2 = k10_check(torch, p, y, vel, gains, 1.0, cfg.momentum_final,
+                             cfg.learning_rate, ws)
+    k10.update({"y_err": [err0, err1, err2], "gains_flips": [flips0, flips1, flips2],
+                "late_max_abs_y": float(y.abs().max())})
+    log(f"K10 ({smi}): {json.dumps(k10)}; phase 7c at {time.perf_counter() - t0:.1f}s")
     del p, y, vel, gains
     torch.cuda.empty_cache()
     # the CLI
@@ -3699,7 +3829,7 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    want = {"tsne_calibrate": 2, "tsne_calibrate_sym": 1, "tsne_step": 3 * TSNE_SNAPSHOTS[-1]}
+    want = {"tsne_calibrate": 2, "tsne_calibrate_sym": 1, "tsne_step": TSNE_SNAPSHOTS[-1]}
     if rc != 0 or any(counts[k] != v for k, v in want.items()):
         raise SystemExit(f"cli.tsne: exit {rc}, launches "
                          f"{ {k: counts[k] for k in want} }, expected {want}")
@@ -3723,23 +3853,33 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
         raise SystemExit(f"cli.tsne: groups do not separate ({sep})")
     rows = [
         pipeline_row("tsne_calibrate", "k10c_tsne_calibrate.cu", "gene2vec_tpu/viz/tsne.py:52",
-                     k10c["ms"], k10c["plain_ms"], None, b10c[0], b10c[1], rel,
+                     k10c["ms"], k10c["plain_ms"], k10c["library_ms"], b10c[0], b10c[1], rel,
                      f"each P entry within {K10C_RTOL} of the plain version's (relative); the "
                      f"long-row slab's within {K10C_RTOL} of its row's largest",
-                     {"n": n, "long_rows": list(K10C_SLAB)}, long_rows=k10c["long_rows"]),
+                     {"n": n, "long_rows": list(K10C_SLAB)}, long_rows=k10c["long_rows"],
+                     launch_ms={"conditional": k10c["conditional_ms"],
+                                "symmetrize": k10c["symmetrize_ms"]},
+                     steps_histogram=hist),
         pipeline_row("tsne_step", "k10_tsne_step.cu", "gene2vec_tpu/viz/tsne.py:143",
-                     k10["ms"], k10["plain_ms"], None, b10[0], b10[1], max(err0, err1),
+                     k10["ms"], k10["plain_ms"], k10["library_ms"], b10[0], b10[1],
+                     max(err0, err1, err2),
                      f"vel within {K10_TOL} of its update's terms, y within that plus "
                      f"{K10_TOL} of max|y|, gains equal but where the gradient cancels",
-                     {"n": n}, gains_flips=[flips0, flips1]),
+                     {"n": n}, gains_flips=[flips0, flips1, flips2], launch_ms=launch_ms),
     ]
     return rows, {"tsne_calibrate": counts["tsne_calibrate"], "tsne_step": counts["tsne_step"]}
 
 
 def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     """K11, K10c and K10 timed at phase 7's full-width shapes on inputs made
-    from a seed (``--compare``): K11 on a standardized (160, 24,447) study,
-    K10c on the clustered table's PCA-50 distances, K10 on that P."""
+    from a seed (``--compare``, which runs the comparing checkout's copy of
+    this function on each tree's kernels): K11 on a standardized (160,
+    24,447) study, K10c on the clustered table's PCA-50 distances (whole,
+    and each launch apart), K10 on that P 20 iterations into a run (the
+    CUDA-event time and its launches' device ms by kernel name), and the
+    wall of ``cli.tsne --iters 250 1000`` on that table's matrix text."""
+    from gene2vec_tpu_torch.cli import tsne as tsne_cli
+    from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
     from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
     from gene2vec_tpu_torch.kernels import tsne_step as ks
     from gene2vec_tpu_torch.viz import tsne as viz
@@ -3750,7 +3890,11 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     k11 = k11_timed(torch, (x - x.mean(0)) / x.std(0), timer, Timer(torch, 3))
     emb, _ = clustered_table(v=V)
     d2 = viz._squared_distances(torch.from_numpy(viz.pca_reduce(emb, 50)).to(DEVICE))
-    k10c_ms = timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY))
+    k10c = {"ms": timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY)),
+            "conditional_ms": timer(lambda: kc.conditional(d2, TSNE_PERPLEXITY))}
+    p_cond = kc.conditional(d2, TSNE_PERPLEXITY)
+    k10c["symmetrize_ms"] = timer(lambda: kc.symmetrize_(p_cond))  # in place: timing only
+    del p_cond
     p = kc.calibrate(d2, TSNE_PERPLEXITY)
     del d2
     y = torch.from_numpy((np.random.RandomState(0).randn(V, 2) * 1e-4).astype(np.float32))
@@ -3759,9 +3903,26 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     ws = ks.workspace(V, y.device)
     for _ in range(20):
         ks.step_(p, y, vel, gains, 12.0, 0.5, 200.0, ws)
-    return {"coexpr_mask": {k: k11[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
-            "tsne_calibrate_ms": k10c_ms,
-            "tsne_step_ms": timer(lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws))}
+
+    def step():
+        ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)
+
+    out = {"coexpr_mask": {k: k11[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+           "tsne_calibrate_ms": k10c["ms"], "tsne_calibrate": k10c,
+           "tsne_step_ms": timer(step), "tsne_step_launch_ms": device_breakdown(torch, step)}
+    del p, y, vel, gains, ws
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        emb_txt = os.path.join(work, "emb.txt")
+        write_matrix_txt(emb_txt, [f"G{i}" for i in range(V)], emb)
+        t0 = time.perf_counter()
+        rc = tsne_cli.main([emb_txt, os.path.join(work, "out"), "--iters",
+                            *map(str, TSNE_SNAPSHOTS)])
+        torch.cuda.synchronize()
+        out["cli_tsne_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"cli.tsne exited {rc}")
+    return out
 
 
 def pipeline(torch, smi: str, reps: int = TIMED_REPS):
@@ -3790,10 +3951,12 @@ def pipeline(torch, smi: str, reps: int = TIMED_REPS):
 #: stream_copy at (256, 24576), staged_probes' feature probes, callh and
 #: vmem_probe sweep: their records), the serving kernels
 #: K7-K9r at MAIN_SHAPE (their kernels-line rows), phase 3's training
-#: run (pairs/s per iteration from its training log), and, in a tree that
-#: has them, the pipeline's K11, K10c and K10 (pipeline_kernel_times)
+#: run (pairs/s per iteration from its training log), and the pipeline's
+#: K11, K10c and K10 and cli.tsne's wall (pipeline_kernel_times: the
+#: comparing checkout's, whose path is this code's one argument, on this
+#: tree's kernels, so every tree is timed by the same code)
 COMPARE_RUN = """
-import csv, json, os, sys, tempfile, time
+import csv, importlib.util, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -3932,8 +4095,11 @@ with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
-# the pipeline's kernels (K10c, K10, K11), in trees that have them
-pipeline = cs.pipeline_kernel_times(torch) if hasattr(cs, "pipeline_kernel_times") else None
+# the pipeline's kernels (K10c, K10, K11) and cli.tsne
+spec = importlib.util.spec_from_file_location("chip_smoke_comparing", sys.argv[1])
+comparing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(comparing)
+pipeline = comparing.pipeline_kernel_times(torch)
 print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "noise": noise,
                                "k4": k4,
                                "objectives": objectives, "gather": gather, "host": host,
@@ -3950,7 +4116,8 @@ def compare_trees(trees) -> int:
     in its own process and with its own kernels, one ``{"compare": ...}``
     line a run on stdout."""
     for tree in trees:
-        out = subprocess.run([sys.executable, "-c", COMPARE_RUN], cwd=os.path.abspath(tree),
+        out = subprocess.run([sys.executable, "-c", COMPARE_RUN, os.path.abspath(__file__)],
+                             cwd=os.path.abspath(tree),
                              capture_output=True, text=True, timeout=1800)
         sys.stderr.write(out.stderr)
         lines = [x for x in out.stdout.splitlines() if x.startswith("COMPARE ")]

@@ -4,17 +4,22 @@ Replaces the body of ``gene2vec_tpu/viz/tsne.py:143-219`` (``_segment``):
 from the resident (N, N) P and the (N, 2) layout y, the Student-t kernel
 num = 1/(1 + d²), Z = Σnum − N, g = (exag·P − num/Z)·num, grad =
 4(rowsum(g)·y − g·y), the adaptive gains, momentum, y += vel and the
-re-centring.  One iteration is three launches (Z; gradient and update;
-centring); num and g are never stored, so P's bytes bound it.
+re-centring.  One iteration is one cooperative launch that streams P
+once: each row's sums of P·num·[y, 1] and num²·[y, 1] and Σnum, then
+(grid-wide) Z, every row's update and the centring; num and g are never
+stored, so P's bytes bound it.  On the card P is an (N, N) view of rows
+``tsne_calibrate.row_pitch(N)`` floats apart, as ``tsne_calibrate``
+writes it.
 
 :func:`step_` updates y, vel and gains in place (on the CPU as well).
 The host passes the iteration's exaggeration and momentum.
 
-Tolerance: Z's and the gradient's sums run in another order than XLA's
-(the arithmetic of each pair is the reference's, operation for
-operation), so one iteration agrees to float32 rounding of those sums;
-over many iterations the layout is chaotic and only its structure is
-compared.
+Tolerance: the kernel sums g's attractive and repulsive parts apart and
+then combines them with 1/Z (:func:`split_sums_plain` models that
+association), and its sums run in another order than XLA's (the
+arithmetic of each pair is the reference's, operation for operation), so
+one iteration agrees to float32 rounding of those sums; over many
+iterations the layout is chaotic and only its structure is compared.
 """
 
 from __future__ import annotations
@@ -23,14 +28,13 @@ import types
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, build, tsne_calibrate
 
-#: kernel launches, by launch: Z ("z"), gradient and update ("grad"),
-#: centring ("center")
-launches = {("tsne_step", "z"): 0, ("tsne_step", "grad"): 0, ("tsne_step", "center"): 0}
+#: kernel launches (one an iteration)
+launches = {("tsne_step", ""): 0}
 
 _LIB = "k10_tsne_step"
-Z_ROWS = 8   # kZRows of the source: rows a block of the Z launch, one partial a block
+ROW_WORDS = 8   # kRowWords of the source: a row's six sums, then y + vel
 
 
 def step_plain(p, y, vel, gains, exaggeration: float, momentum: float,
@@ -58,43 +62,70 @@ def step_plain(p, y, vel, gains, exaggeration: float, momentum: float,
     return y, vel, gains
 
 
+def split_sums_plain(p, y, exaggeration: float):
+    """The kernel's association of one iteration's sums in torch ops: Z
+    from Σnum, then [gy | rowsum] = exag·(P·num)@[y | 1] − (1/Z)·num²@[y |
+    1], the two parts summed apart (float64 Z, as the kernel's).  Returns
+    [gy | rowsum] (N, 3)."""
+    n, k = y.shape
+    sq = torch.sum(y * y, dim=1)
+    d2 = sq[:, None] + sq[None, :]
+    for c in range(k):
+        d2 = d2 - 2.0 * y[:, c:c + 1] * y[:, c]
+    num = 1.0 / (1.0 + torch.clamp_min(d2, 0.0))
+    z = (torch.sum(num, dtype=torch.float64) - n).to(torch.float32)
+    ext = torch.cat([y, torch.ones((n, 1), dtype=y.dtype, device=y.device)], dim=1)
+    attract = torch.matmul(p * num, ext)
+    repel = torch.matmul(num * num, ext)
+    return exaggeration * attract - (1.0 / z) * repel
+
+
 def workspace(n: int, device) -> types.SimpleNamespace:
-    """The kernel's scratch for an N-point layout: the new y before
-    centring, Z's per-block partials, the last-block ticket (0) and Z."""
+    """The kernel's scratch for an N-point layout: each row's sums and its
+    y + vel, the blocks' float64 partials (of Z, of Σ(y + vel)) and the
+    grid barrier's counter and generation (0).  On the CPU, where no
+    kernel runs, a grid of one."""
+    grid = 1
+    if torch.device(device).type != "cpu":
+        grid = _lib().k10_grid(n)
+        if grid < 0:
+            raise RuntimeError(f"K10 grid size: CUDA error {-grid}")
     return types.SimpleNamespace(
-        n=n,
-        y_new=torch.empty((n, 2), dtype=torch.float32, device=device),
-        partials=torch.empty((-(-n // Z_ROWS),), dtype=torch.float64, device=device),
-        ticket=torch.zeros((1,), dtype=torch.int32, device=device),
-        z=torch.empty((1,), dtype=torch.float32, device=device),
+        n=n, grid=grid,
+        rows=torch.empty((n, ROW_WORDS), dtype=torch.float32, device=device),
+        partials=torch.empty((grid, 4), dtype=torch.float64, device=device),
+        sync=torch.zeros((2,), dtype=torch.int32, device=device),
     )
 
 
 def step_(p: torch.Tensor, y: torch.Tensor, vel: torch.Tensor, gains: torch.Tensor,
           exaggeration: float, momentum: float, learning_rate: float, ws=None) -> None:
     """One iteration, updating y, vel and gains in place.  ``ws`` is a
-    :func:`workspace` (made here when None)."""
+    :func:`workspace` (made here when None).  On the card ``p`` is an
+    (N, N) view of padded rows (``tsne_calibrate.check_pitch``)."""
     if _args.on_cpu(p, y, vel, gains):
         new = step_plain(p, y, vel, gains, exaggeration, momentum, learning_rate)
         for t, v in zip((y, vel, gains), new):
             t.copy_(v)
         return
     n = y.shape[0]
-    _args.expect(p, "p", torch.float32, (n, n))
     for t, name in ((y, "y"), (vel, "vel"), (gains, "gains")):
         _args.expect(t, name, torch.float32, (n, 2))
     if ws is None:
         ws = workspace(n, y.device)
     if ws.n != n:
         raise ValueError(f"workspace for {ws.n} points, layout has {n}")
+    tsne_calibrate.check_pitch(p, "p", n, n)
+    if y.data_ptr() % 16:
+        raise ValueError("y: must start on a 16-byte boundary")
     lib = _lib()
     status = lib.k10_tsne_step(
-        _args.ptr(p), _args.ptr(y), _args.ptr(vel), _args.ptr(gains), n,
-        float(exaggeration), float(momentum), float(learning_rate), _args.ptr(ws.y_new),
-        _args.ptr(ws.partials), _args.ptr(ws.ticket), _args.ptr(ws.z), _args.stream(y))
+        _args.ptr(p), tsne_calibrate.row_pitch(n), _args.ptr(y), _args.ptr(vel),
+        _args.ptr(gains), n, float(exaggeration), float(momentum), float(learning_rate),
+        _args.ptr(ws.rows), _args.ptr(ws.partials), _args.ptr(ws.sync), ws.grid,
+        _args.stream(y))
     build.check(lib, status, "K10 tsne_step launch")
-    for part in ("z", "grad", "center"):
-        launches["tsne_step", part] += 1
+    launches["tsne_step", ""] += 1
 
 
 def _lib():
@@ -102,10 +133,21 @@ def _lib():
     fn = lib.k10_tsne_step
     if fn.argtypes is None:
         P, I, F = _args.P, _args.I, _args.F
-        fn.argtypes = [P, P, P, P, I, F, F, F, P, P, P, P, P]
+        fn.argtypes = [P, I, P, P, P, I, F, F, F, P, P, P, I, P]
         fn.restype = I
-        lib.k10_z_rows.restype = I
-        if lib.k10_z_rows() != Z_ROWS:  # the partials buffer is sized by Z_ROWS
-            raise RuntimeError(f"K10 library takes {lib.k10_z_rows()} rows a Z block, "
-                               f"the wrapper {Z_ROWS}")
+        lib.k10_grid.argtypes = [I]
+        lib.k10_grid.restype = I
+        lib.k10_reciprocal.argtypes = [P, P, _args.L, P]
+        lib.k10_reciprocal.restype = I
     return lib
+
+
+def reciprocal(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's reciprocal of each x ≥ 1 (a CUDA float32 tensor), for
+    the card test that holds it to the IEEE reciprocal."""
+    _args.expect(x, "x", torch.float32, (None,))
+    out = torch.empty_like(x)
+    lib = _lib()
+    build.check(lib, lib.k10_reciprocal(_args.ptr(x), _args.ptr(out), x.numel(),
+                                        _args.stream(x)), "K10 reciprocal launch")
+    return out

@@ -9,10 +9,12 @@ iteration count in one run.  Here:
   library GEMM the reference leaves to XLA), in the reference's order
   ``sq_i − 2·x·xᵀ + sq_j``, clamped at 0;
 * the perplexity calibration (``_calibrate_points``) is K10c
-  (``kernels/tsne_calibrate.py``): P is the one resident (N, N) array;
-* each iteration of ``_segment`` is K10 (``kernels/tsne_step.py``, three
-  launches that never store num or g), a Python loop over launches with
-  y, vel and gains resident on the device and one host copy per snapshot.
+  (``kernels/tsne_calibrate.py``): P is the one resident (N, N) array, on
+  the card a view of rows padded to a multiple of 32 floats;
+* each iteration of ``_segment`` is K10 (``kernels/tsne_step.py``, one
+  cooperative launch that streams P once and never stores num or g), a
+  Python loop over launches with y, vel and gains resident on the device
+  and one host copy per snapshot.
 
 On CPU tensors (``device="cpu"``) the kernels' plain versions run.
 """
@@ -47,7 +49,8 @@ def _squared_distances(x: torch.Tensor) -> torch.Tensor:
 
 
 def _calibrate_points(x: torch.Tensor, perplexity: float) -> torch.Tensor:
-    """Distances, then K10c's calibration: the symmetrized, normalized P.
+    """Distances, then K10c's calibration: the symmetrized, normalized P
+    (on the card an (N, N) view of padded rows, the layout K10 reads).
     The distances are freed once the conditionals are written."""
     from gene2vec_tpu_torch.kernels import tsne_calibrate
 
@@ -108,7 +111,7 @@ class TSNE:
 
 def _segment(cfg: TSNEConfig, p, y, vel, gains, start: int, steps: int) -> None:
     """``steps`` iterations from global iteration ``start``, updating y,
-    vel and gains in place: one K10 call (three launches) an iteration.
+    vel and gains in place: one K10 call (one launch) an iteration.
     Exaggeration and momentum switch on the global iteration number."""
     from gene2vec_tpu_torch.kernels import tsne_step
 

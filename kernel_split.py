@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [--kernel k5|k9|k12|k13] [TREE ...]   # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k9|k10|k10c|k12|k13] [TREE ...]   # on a machine with a CUDA card
 
 For the kernel named (default ``k5``) of each checkout given (default:
 this one), builds its source as it is and as each entry of its variant
@@ -46,6 +46,19 @@ times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
   versions, timed at every tile height it takes (``rows``; the uncapped
   build too) and, for the scatter, with every offset one column (one list
   of 128).
+- ``k10``: K10 (``csrc/k10_tsne_step.cu``) at phase 7c's N = 24,447 (P of
+  the clustered table's PCA-50 points at perplexity 30, a layout 20
+  iterations in) with parts compiled out — P's loads (P a constant), the
+  reciprocal (a plain multiply, or ``__frcp_rn`` where the design has its
+  own), the arithmetic (the P stream alone) — and, for the first design
+  (three launches: the ``first_`` entries), the Z pass and the centring.
+  Each launch's device ms from ``torch.profiler`` beside each build's
+  CUDA-event time.
+- ``k10c``: K10c (``csrc/k10c_tsne_calibrate.cu``) on those distances,
+  its two launches timed apart, with parts compiled out — the
+  exponential (the product in its place), the diagonal select (put back
+  where the design stages FLT_MAX; taken out of the first design), the
+  block sums, the early exit (all 50 steps).
 """
 
 from __future__ import annotations
@@ -89,6 +102,38 @@ _FIRST_LISTS = [
      "      if (s_offs[j] == c) s_list[k++] = j;", "    s_start[c] = c;\n    s_list[c] = c;")]
 _FIRST_SUM = ("      for (int i = s_start[c]; i < s_start[c] + s_count[c]; ++i)\n"
             "        acc += to_f32(seg[warp][s_list[i]]);", "      acc = to_f32(seg[warp][c]);")
+
+_K10_FIRST_Z = ("  z_partials_kernel<<<", "  if (false) z_partials_kernel<<<")
+_K10_FIRST_CENTER = ("  center_kernel<<<", "  if (false) center_kernel<<<")
+_K10_FIRST_P = ("pv[r] = r < rows ? __ldg(prow[r] + j) : 0.0f;", "pv[r] = r < rows ? 1e-9f : 0.0f;")
+_K10_FIRST_RCP = ("return __frcp_rn(__fadd_rn(1.0f, fmaxf(d, 0.0f)));",
+                  "return __fmul_rn(0.5f, __fadd_rn(1.0f, fmaxf(d, 0.0f)));")
+# the first K10c: one block a row, 50 steps, each with a two-level block sum
+_K10C_FIRST_SUMS = ("""  a = g2v_warp_sum(a);
+  b = g2v_warp_sum(b);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red[warp] = a;
+    red[kWarps + warp] = b;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    a = lane < kWarps ? red[lane] : 0.0f;
+    b = lane < kWarps ? red[kWarps + lane] : 0.0f;
+    a = g2v_warp_sum(a);
+    b = g2v_warp_sum(b);
+    if (lane == 0) {
+      red[2 * kWarps] = a;
+      red[2 * kWarps + 1] = b;
+    }
+  }
+  __syncthreads();
+  sw = red[2 * kWarps];
+  sdw = red[2 * kWarps + 1];
+  __syncthreads();  // red is reused by the next step
+""", "  sw = a;\n  sdw = b;\n")
+
+_K10C_ALL_STEPS = ("#define K10C_EARLY_EXIT 1", "#define K10C_EARLY_EXIT 0")
 
 #: kernel → (source files, variant → [(text, replacement)]); a variant
 #: builds each source its edits all apply to.  K5a's first design (a
@@ -136,6 +181,36 @@ VARIANTS = {
         "first_copy_only": [*_FIRST_LISTS, _FIRST_SUM,
                             ("e[k] = seg[warp][s_offs[4 * lane + k]];",
                              "e[k] = seg[warp][4 * lane + k];")],
+    }),
+    "k10": (("k10_tsne_step.cu",), {
+        "no_p_loads": [("#define K10_P_LOADS 1", "#define K10_P_LOADS 0")],
+        "plain_rcp": [("#define K10_RCP 1", "#define K10_RCP 0")],
+        "ieee_rcp": [("#define K10_RCP 1", "#define K10_RCP 2")],
+        "stream_only": [("#define K10_ARITH 1", "#define K10_ARITH 0")],
+        # one block an SM with up to 255 registers a thread, not two at 128
+        "one_block_an_sm": [("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)")],
+        "first_no_z": [_K10_FIRST_Z],
+        "first_no_p_loads": [_K10_FIRST_P],
+        "first_plain_rcp": [_K10_FIRST_RCP],
+        "first_no_center": [_K10_FIRST_CENTER],
+    }),
+    "k10c": (("k10c_tsne_calibrate.cu",), {
+        # the parts compiled out change the bisection's path, so those builds
+        # take all 50 steps, as "all_steps" does
+        "all_steps": [_K10C_ALL_STEPS],
+        "no_exp": [_K10C_ALL_STEPS, ("#define K10C_EXP 1", "#define K10C_EXP 0")],
+        "no_block_sums": [_K10C_ALL_STEPS,
+                          ("#define K10C_BLOCK_SUMS 1", "#define K10C_BLOCK_SUMS 0")],
+        "select": [("#define K10C_SELECT 0", "#define K10C_SELECT 1")],
+        # exp(x) as ex2.approx(x·log2 e): 2 float32 instructions and MUFU.EX2
+        # in place of expf's ~9 (timed only: its rounding is not expf's)
+        "ex2_approx": [("  return expf(__fmul_rn(-d, beta));",
+                        "  float r;\n  asm(\"ex2.approx.f32 %0, %1;\" : \"=f\"(r) : "
+                        "\"f\"(__fmul_rn(__fmul_rn(-d, beta), 1.44269504f)));\n  return r;")],
+        "first_no_exp": [("const float w = (j == diag) ? 0.0f : expf(__fmul_rn(-d, beta));",
+                          "const float w = (j == diag) ? 0.0f : __fmul_rn(-d, beta);")],
+        "first_no_select": [("(j == diag) ? 0.0f : expf(", "expf(")],
+        "first_no_block_sums": [_K10C_FIRST_SUMS],
     }),
 }
 
@@ -450,7 +525,166 @@ def time_k13(torch, tree, built, timer, out):
         cs.log(f"split {tree} lane{sfx}: {res}")
 
 
-TIMERS = {"k5": time_k5, "k9": time_k9, "k12": time_k12, "k13": time_k13}
+def tsne_inputs(torch):
+    """Phase 7c's t-SNE inputs at N = 24,447 (``chip_smoke.pipeline_tsne``'s
+    clustered table, PCA 50): the squared distances, P of this checkout's
+    calibration, and a layout, its velocity and gains 20 iterations in."""
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
+    from gene2vec_tpu_torch.kernels import tsne_step as ks
+    from gene2vec_tpu_torch.viz import tsne as viz
+
+    emb, _ = cs.clustered_table(v=cs.V)
+    d2 = viz._squared_distances(torch.from_numpy(viz.pca_reduce(emb, 50)).to("cuda"))
+    p = kc.calibrate(d2, cs.TSNE_PERPLEXITY)
+    y = torch.from_numpy((np.random.RandomState(0).randn(cs.V, 2) * 1e-4).astype(np.float32))
+    y = y.to("cuda")
+    vel, gains = torch.zeros_like(y), torch.ones_like(y)
+    ws = ks.workspace(cs.V, y.device)
+    for _ in range(20):
+        ks.step_(p, y, vel, gains, 12.0, 0.5, 200.0, ws)
+    torch.cuda.synchronize()
+    return d2, p, y, vel, gains
+
+
+def p_layout(torch, p, pitched: bool):
+    """P as a design takes it: rows contiguous (the first design) or an
+    (N, N) view of rows padded to a multiple of 32 floats."""
+    n = p.shape[0]
+    if not pitched:
+        return p.contiguous()
+    pitch = -(-n // 32) * 32
+    if p.stride() == (pitch, 1):
+        return p
+    buf = torch.zeros((n, pitch), dtype=p.dtype, device=p.device)
+    buf[:, :n] = p
+    return buf[:, :n]
+
+
+def time_k10(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+
+    _, p, y0, vel0, gains0 = tsne_inputs(torch)
+    n = y0.shape[0]
+    for name, (paths, _) in built.items():
+        lib = ctypes.CDLL(paths["k10_tsne_step.cu"])
+        first = not hasattr(lib, "k10_grid")
+        pv = p_layout(torch, p, not first)
+        y, vel, gains = y0.clone(), vel0.clone(), gains0.clone()
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = lib.k10_tsne_step
+        fn.restype = I
+        if first:
+            fn.argtypes = [P, P, P, P, I, F, F, F, P, P, P, P, P]
+            rows = lib.k10_z_rows()
+            scratch = (torch.empty((n, 2), device="cuda"),
+                       torch.empty((-(-n // rows),), dtype=torch.float64, device="cuda"),
+                       torch.zeros((1,), dtype=torch.int32, device="cuda"),
+                       torch.empty((1,), device="cuda"))
+            args = [_args.ptr(pv), _args.ptr(y), _args.ptr(vel), _args.ptr(gains), n, 1.0, 0.8,
+                    200.0, *map(_args.ptr, scratch), _args.stream(y)]
+        else:
+            fn.argtypes = [P, I, P, P, P, I, F, F, F, P, P, P, I, P]
+            lib.k10_grid.argtypes = [I]
+            grid = lib.k10_grid(n)
+            scratch = (torch.empty((n, 8), device="cuda"),
+                       torch.empty((grid, 4), dtype=torch.float64, device="cuda"),
+                       torch.zeros((2,), dtype=torch.int32, device="cuda"))
+            args = [_args.ptr(pv), pv.stride(0), _args.ptr(y), _args.ptr(vel), _args.ptr(gains),
+                    n, 1.0, 0.8, 200.0, *map(_args.ptr, scratch), grid, _args.stream(y)]
+
+        def call():
+            status = fn(*args)
+            if status:
+                raise SystemExit(f"{tree} k10 {name}: CUDA error {status}")
+
+        out["ms"][name] = timer(call)
+        out.setdefault("launch_ms", {})[name] = cs.device_breakdown(torch, call)
+        cs.log(f"split {tree} k10 {name}: {out['ms'][name]:.4f} ms, by launch "
+               f"{out['launch_ms'][name]}")
+        del pv
+
+
+def time_k10c(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+    from gene2vec_tpu_torch.kernels.tsne_calibrate import target_entropy
+
+    d2, p, _, _, _ = tsne_inputs(torch)
+    del p
+    n = d2.shape[0]
+    target = target_entropy(cs.TSNE_PERPLEXITY)
+    P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    with open(os.path.join(tree, CSRC, "k10c_tsne_calibrate.cu")) as f:
+        first = "K10C_EARLY_EXIT" not in f.read()  # the first design: no row pitch
+    for name, (paths, _) in built.items():
+        lib = ctypes.CDLL(paths["k10c_tsne_calibrate.cu"])
+        cal, sym = lib.k10c_calibrate_rows, lib.k10c_symmetrize
+        cal.restype = sym.restype = I
+        pitch = n if first else -(-n // 32) * 32
+        buf = torch.empty((n, pitch), device="cuda")
+        if first:
+            cal.argtypes = [P, I, I, L, F, I, I, P, P]
+            sym.argtypes = [P, I, P]
+            extra = [_args.ptr(buf)]
+            sym_args = [_args.ptr(buf), n, _args.stream(d2)]
+        else:
+            cal.argtypes = [P, I, I, L, F, I, I, P, I, P, P]
+            sym.argtypes = [P, I, I, P]
+            extra = [_args.ptr(buf), pitch, None]
+            sym_args = [_args.ptr(buf), n, pitch, _args.stream(d2)]
+
+        def call():  # the staged route, the main path's at this width
+            status = cal(_args.ptr(d2), n, n, 0, target, 50, 1, *extra, _args.stream(d2))
+            if status:
+                raise SystemExit(f"{tree} k10c {name}: CUDA error {status}")
+
+        out["ms"][f"conditional_{name}"] = timer(call)
+        # P_cond's bits summed as integers: equal sums across builds and
+        # trees say the conditionals agree bit for bit
+        out.setdefault("pcond_bits", {})[name] = int(
+            buf[:, :n].contiguous().view(torch.int32).to(torch.int64).sum())
+
+        def call_sym():
+            status = sym(*sym_args)
+            if status:
+                raise SystemExit(f"{tree} k10c {name} symmetrize: CUDA error {status}")
+
+        out["ms"][f"symmetrize_{name}"] = timer(call_sym)
+        cs.log(f"split {tree} k10c {name}: "
+               f"{ {k: v for k, v in out['ms'].items() if k.endswith(name)} }")
+        del buf
+
+
+def dump_sass(tree, built, kernel, out) -> None:
+    """Each build's SASS (``cuobjdump -sass``) into ``chip_smoke_sass/`` at
+    the root of this checkout (git ignores it), with its instruction count
+    by kernel in ``out["sass"]``."""
+    from gene2vec_tpu_torch.kernels import build as kb
+
+    tool = os.path.join(os.path.dirname(kb.nvcc_path()), "cuobjdump")
+    dest = os.path.join(ROOT, "chip_smoke_sass")
+    os.makedirs(dest, exist_ok=True)
+    tag = os.path.basename(os.path.abspath(tree)) or "tree"
+    for name, (paths, _) in built.items():
+        for src_name, path in paths.items():
+            text = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+            with open(os.path.join(dest, f"{tag}_{kernel}_{name}_{src_name[:-3]}.sass"),
+                      "w") as f:
+                f.write(text)
+            counts, fn = {}, None
+            for line in text.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    fn = kernel_name(m.group(1)) or m.group(1)[:60]
+                elif fn and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+                    counts[fn] = counts.get(fn, 0) + 1
+            out.setdefault("sass", {})[name] = counts
+
+
+TIMERS = {"k5": time_k5, "k9": time_k9, "k10": time_k10, "k10c": time_k10c,
+          "k12": time_k12, "k13": time_k13}
 
 
 def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
@@ -462,6 +696,8 @@ def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
         out["skipped"] = sorted(set(VARIANTS[kernel][1]) - set(built))
         out["regs"] = {name: regs for name, (_, regs) in built.items()}
         TIMERS[kernel](torch, tree, built, cs.Timer(torch, reps), out)
+        if kernel in ("k10", "k10c"):
+            dump_sass(tree, built, kernel, out)
     return out
 
 

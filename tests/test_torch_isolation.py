@@ -718,6 +718,7 @@ def _pipeline_calls():
 
     z = torch.zeros(6, 40)
     d2 = torch.zeros(5, 5)
+    p = tsne_calibrate.empty_rows(5, 5, "cpu").zero_()  # P's rows as the card keeps them
     y = torch.zeros(5, 2)
     return [
         (coexpr_mask, "coexpr_mask", "k11_coexpr_mask",
@@ -725,9 +726,9 @@ def _pipeline_calls():
         (tsne_calibrate, "conditional", "k10c_tsne_calibrate",
          lambda: tsne_calibrate.conditional(d2, 3.0)),
         (tsne_calibrate, "symmetrize", "k10c_tsne_calibrate",
-         lambda: tsne_calibrate.symmetrize_(d2)),
+         lambda: tsne_calibrate.symmetrize_(p)),
         (tsne_step, "step", "k10_tsne_step",
-         lambda: tsne_step.step_(d2, y, y.clone(), y.clone(), 12.0, 0.5, 200.0,
+         lambda: tsne_step.step_(p, y, y.clone(), y.clone(), 12.0, 0.5, 200.0,
                                  ws=types.SimpleNamespace(n=5))),
     ]
 
