@@ -3206,6 +3206,10 @@ PIPE_TRAIN_ITERS = 2
 K11_MAIN_N = 160              # the study size whose K11 times the kernels line carries
 K11_DENSE = (24, 0.3)         # study size, threshold of K11's dense check: 0.3 lies in
 #                               the bulk of random pairs' |corr| (sd ~ n^-1/2 = 0.2)
+#: K11's edges (n, g, threshold), checked in phase 7a beside the studies:
+#: g at and past its 128-column tiles and 4-float row pitch, n about its
+#: 8-sample stages, thresholds that set no bit, most bits and every bit
+K11_EDGES = ((7, 127, 0.3), (9, 129, 0.0), (8, 257, 1.0), (24, 4097, 0.05), (1, 130, -0.5))
 K10C_RTOL = 1e-4              # K10c against its plain version, each P entry
 K10C_SLAB = (256, 60_000)     # rows × columns of the long-row route's check
 K10_TOL = 1e-4                # K10 against its plain version, of its terms (k10_check)
@@ -3313,6 +3317,41 @@ def k11_check(torch, z64, thr):
                              f"pairs differ from the {label} mask outside EPS_N")
         flips.append(int(diff.sum()))
     return got, exact, near, flips[0], flips[1]
+
+
+def k11_study(torch, n: int):
+    """A standardized (n, V) float64 study on the card, drawn from seed 3:
+    K11's input in ``pipeline_kernel_times`` and ``kernel_split.py
+    --kernel k11``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    x = torch.randn((n, V), generator=gen, device=DEVICE, dtype=torch.float64)
+    return (x - x.mean(0)) / x.std(0)
+
+
+def planted_study(torch, rng, n: int, g: int):
+    """A standardized (n, g) float64 study on the host from ``rng``: column
+    1 ≈ column 0 (|corr| ~ 0.99 for n > 2), column min(2, g − 1)
+    constant (zero variance: all-zero after standardizing)."""
+    x = rng.randn(n, g)
+    if g > 1:
+        x[:, 1] = x[:, 0] + 0.05 * rng.randn(n)
+    x[:, min(2, g - 1)] = 3.0
+    x = x - x.mean(0)
+    std = x.std(0, ddof=1) if n > 1 else np.zeros(g)
+    return torch.from_numpy(np.where(std > 0, x / np.where(std > 0, std, 1.0), 0.0))
+
+
+def k11_edges(torch):
+    """K11 at K11_EDGES (k11_check each on a planted_study):
+    [{n, g, thr, pairs, within_eps, flips}]."""
+    out = []
+    for n, g, thr in K11_EDGES:
+        z64 = planted_study(torch, np.random.RandomState(n + g), n, g).to(DEVICE)
+        got, _, near, flips_plain, flips_64 = k11_check(torch, z64, thr)
+        out.append({"n": n, "g": g, "thr": thr, "pairs": int(got.sum()),
+                    "within_eps": int(near.sum()), "k11_vs_plain": flips_plain,
+                    "k11_vs_float64": flips_64})
+    return out
 
 
 def k10c_check(torch, d2, perplexity, row0=0, rule="elems"):
@@ -3534,7 +3573,8 @@ def pipeline_corpus(torch, work: str, smi: str, reps: int):
     its plain version and the float64 product on the card (k11_check); the
     CLI's lines against the float64 oracle's, which may differ only on
     pairs within EPS_N.  K11 timed at each kept study's n; the host's
-    share (words to the host, unpack, nonzero, format) at the largest.
+    share (words to the host, unpack, nonzero, format) at the largest;
+    then K11 at its tile edges (k11_edges).
     Returns (the serial pair file, the modules, K11's kernels-line row,
     K11's launches)."""
     import pandas as pd
@@ -3649,7 +3689,8 @@ def pipeline_corpus(torch, work: str, smi: str, reps: int):
         log(f"K11 {study} ({smi}): {json.dumps(rec)}")
     if pos != len(lines):
         raise SystemExit(f"generate_pairs: {len(lines) - pos} lines outside the studies' spans")
-    print(json.dumps({"pipeline_corpus": report, "cli_spans": other,
+    edges = k11_edges(torch)
+    print(json.dumps({"pipeline_corpus": report, "k11_edges": edges, "cli_spans": other,
                       "cli_s": walls, "card": smi}))
     main = timed[K11_MAIN_N]
     row = pipeline_row(
@@ -3786,9 +3827,12 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     kc.conditional(slab, TSNE_PERPLEXITY, row0, steps=slab_steps)
     b_long = k10c_bound(slab_rows, slab_cols, int(slab_steps.sum()) + slab_rows,
                         symmetrize=False)
+    plain_long = slow(lambda: kc.conditional_plain(slab, TSNE_PERPLEXITY, row0))
     k10c["long_rows"] = {"rows": slab_rows, "cols": slab_cols, "staged": kc.staged(slab_cols),
                          "rows_err": rel_long, "elems_rel_err": elems_long,
                          "ms": timer(lambda: kc.conditional(slab, TSNE_PERPLEXITY, row0)),
+                         # the plain version is the library sequence here too
+                         "plain_ms": plain_long, "library_ms": plain_long,
                          "mean_steps": float(slab_steps.float().mean()),
                          "bound_ms": b_long[0], "bound_by": b_long[1]}
     del d2, slab, pts
@@ -3873,11 +3917,12 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
 def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     """K11, K10c and K10 timed at phase 7's full-width shapes on inputs made
     from a seed (``--compare``, which runs the comparing checkout's copy of
-    this function on each tree's kernels): K11 on a standardized (160,
-    24,447) study, K10c on the clustered table's PCA-50 distances (whole,
-    and each launch apart), K10 on that P 20 iterations into a run (the
-    CUDA-event time and its launches' device ms by kernel name), and the
-    wall of ``cli.tsne --iters 250 1000`` on that table's matrix text."""
+    this function on each tree's kernels): K11 on standardized (160,
+    24,447) and (24, 24,447) studies (``k11_study``), K10c on the
+    clustered table's PCA-50 distances (whole, and each launch apart), K10
+    on that P 20 iterations into a run (the CUDA-event time and its
+    launches' device ms by kernel name), and the wall of ``cli.tsne
+    --iters 250 1000`` on that table's matrix text."""
     from gene2vec_tpu_torch.cli import tsne as tsne_cli
     from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
     from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
@@ -3885,9 +3930,8 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     from gene2vec_tpu_torch.viz import tsne as viz
 
     timer = Timer(torch, reps)
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    x = torch.randn((K11_MAIN_N, V), generator=gen, device=DEVICE, dtype=torch.float64)
-    k11 = k11_timed(torch, (x - x.mean(0)) / x.std(0), timer, Timer(torch, 3))
+    k11 = {n: k11_timed(torch, k11_study(torch, n), timer, Timer(torch, 3))
+           for n in (K11_MAIN_N, 24)}
     emb, _ = clustered_table(v=V)
     d2 = viz._squared_distances(torch.from_numpy(viz.pca_reduce(emb, 50)).to(DEVICE))
     k10c = {"ms": timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY)),
@@ -3907,7 +3951,9 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     def step():
         ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)
 
-    out = {"coexpr_mask": {k: k11[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+    keep = ("ms", "plain_ms", "library_ms", "bound_ms")
+    out = {"coexpr_mask": {k: k11[K11_MAIN_N][k] for k in keep},
+           "coexpr_mask_n24": {k: k11[24][k] for k in keep},
            "tsne_calibrate_ms": k10c["ms"], "tsne_calibrate": k10c,
            "tsne_step_ms": timer(step), "tsne_step_launch_ms": device_breakdown(torch, step)}
     del p, y, vel, gains, ws

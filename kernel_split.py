@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [--kernel k5|k9|k10|k10c|k12|k13] [TREE ...]   # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k9|k10|k10c|k11|k12|k13] [TREE ...]   # on a machine with a CUDA card
 
 For the kernel named (default ``k5``) of each checkout given (default:
 this one), builds its source as it is and as each entry of its variant
@@ -59,11 +59,25 @@ times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
   exponential (the product in its place), the diagonal select (put back
   where the design stages FLT_MAX; taken out of the first design), the
   block sums, the early exit (all 50 steps).
+- ``k11``: K11 (``csrc/k11_coexpr_mask.cu``) on a standardized seeded
+  (n, 24,447) z (``chip_smoke.k11_study``) at n = 160 and 24, threshold
+  0.9, with one part changed: the mirrored words not written
+  (``no_mirror``), the first design's division and clip in place of the
+  compare with a* (``div_epilogue``, handed the threshold), no compare or
+  packing (``no_epilogue``: the sums kept alive by one word a tile), one
+  stage and no copy in flight (``single_buffer``).  Each tree's words and
+  those of the builds that compute them are hashed (``words_sha256``);
+  ``bitwise`` says whether each equals the first tree's ``full`` build, so
+  ``kernel_split.py --kernel k11 PARENT CHANGE`` holds the change to the
+  parent's bits.  ``no_operand_loads`` reads one sample row a stage (the
+  FFMAs without their shared-memory loads; timed only).  The first
+  design takes z as it is and the threshold.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
 import os
 import re
@@ -134,6 +148,8 @@ _K10C_FIRST_SUMS = ("""  a = g2v_warp_sum(a);
 """, "  sw = a;\n  sdw = b;\n")
 
 _K10C_ALL_STEPS = ("#define K10C_EARLY_EXIT 1", "#define K10C_EARLY_EXIT 0")
+
+_K11_PASS = "const bool pass = fabsf(acc[r][h * 4 + c]) >= astar;"
 
 #: kernel → (source files, variant → [(text, replacement)]); a variant
 #: builds each source its edits all apply to.  K5a's first design (a
@@ -211,6 +227,18 @@ VARIANTS = {
                           "const float w = (j == diag) ? 0.0f : __fmul_rn(-d, beta);")],
         "first_no_select": [("(j == diag) ? 0.0f : expf(", "expf(")],
         "first_no_block_sums": [_K10C_FIRST_SUMS],
+    }),
+    "k11": (("k11_coexpr_mask.cu",), {
+        "no_mirror": [("#define K11_MIRROR 1", "#define K11_MIRROR 0")],
+        # astar holds the threshold in this build
+        "div_epilogue": [(_K11_PASS, "const bool pass = fminf(fmaxf(__fdiv_rn(fabsf("
+                                     "acc[r][h * 4 + c]), static_cast<float>(n - 1)), 0.0f), "
+                                     "1.0f) > astar;")],
+        "no_epilogue": [("#define K11_EPILOGUE 1", "#define K11_EPILOGUE 0")],
+        "single_buffer": [("#define K11_STAGES 2", "#define K11_STAGES 1")],
+        # every sample reads stage row 0: the loads leave the sample loop, the
+        # FFMAs stay (timed only)
+        "no_operand_loads": [("&sa[buf][kk][", "&sa[buf][0]["), ("&sb[buf][kk][", "&sb[buf][0][")],
     }),
 }
 
@@ -657,6 +685,61 @@ def time_k10c(torch, tree, built, timer, out):
         del buf
 
 
+#: the first tree's full-build words by study size (``time_k11``): each
+#: later tree is held to them bit for bit
+_K11_FIRST: dict = {}
+
+
+def time_k11(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+    from gene2vec_tpu_torch.kernels import coexpr_mask as cm
+
+    with open(os.path.join(tree, CSRC, "k11_coexpr_mask.cu")) as f:
+        first = "int pitch" not in f.read()  # the first design: z as it is, thr
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    g, thr = cs.V, cs.PIPE_THR
+    words = cm.words_per_row(g)
+    out["words_sha256"], out["bitwise"] = {}, {}
+    for n in (cs.K11_MAIN_N, 24):
+        z = cs.k11_study(torch, n).float().contiguous()
+        pitch = g if first else cm.row_pitch(g)
+        zp = torch.zeros((n, pitch), device="cuda")
+        zp[:, :g] = z
+        res = out["ms"][f"n{n}"] = {
+            "bound_ms": cs.bound(n * g * 4 + g * words * 4, float(g) * (g + 1) * n)[0]}
+        dst = torch.empty((g, words), dtype=torch.int32, device="cuda")
+        for name, (paths, _) in built.items():
+            fn = ctypes.CDLL(paths["k11_coexpr_mask.cu"]).k11_coexpr_mask
+            fn.restype = I
+            if first:
+                fn.argtypes = [P, I, I, F, P, P]
+                args = [_args.ptr(zp), n, g, thr, _args.ptr(dst), _args.stream(z)]
+            else:
+                fn.argtypes = [P, I, I, I, F, P, P]
+                cut = thr if name == "div_epilogue" else cm.sum_threshold(n, thr)
+                args = [_args.ptr(zp), pitch, n, g, cut, _args.ptr(dst), _args.stream(z)]
+
+            def call():
+                status = fn(*args)
+                if status:
+                    raise SystemExit(f"{tree} k11 {name} n {n}: CUDA error {status}")
+
+            dst.zero_()
+            call()
+            torch.cuda.synchronize()
+            if name in ("full", "div_epilogue", "single_buffer"):
+                key = f"n{n}_{name}"
+                out["words_sha256"][key] = hashlib.sha256(
+                    dst.cpu().numpy().tobytes()).hexdigest()[:16]
+                if name == "full" and n not in _K11_FIRST:
+                    _K11_FIRST[n] = dst.clone()
+                out["bitwise"][key] = bool(torch.equal(dst, _K11_FIRST[n]))
+            res[name] = timer(call)
+        cs.log(f"split {tree} k11 n {n}: {res}, bitwise {out['bitwise']}")
+        del z, zp, dst
+
+
 def dump_sass(tree, built, kernel, out) -> None:
     """Each build's SASS (``cuobjdump -sass``) into ``chip_smoke_sass/`` at
     the root of this checkout (git ignores it), with its instruction count
@@ -684,7 +767,7 @@ def dump_sass(tree, built, kernel, out) -> None:
 
 
 TIMERS = {"k5": time_k5, "k9": time_k9, "k10": time_k10, "k10c": time_k10c,
-          "k12": time_k12, "k13": time_k13}
+          "k11": time_k11, "k12": time_k12, "k13": time_k13}
 
 
 def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
@@ -696,7 +779,7 @@ def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
         out["skipped"] = sorted(set(VARIANTS[kernel][1]) - set(built))
         out["regs"] = {name: regs for name, (_, regs) in built.items()}
         TIMERS[kernel](torch, tree, built, cs.Timer(torch, reps), out)
-        if kernel in ("k10", "k10c"):
+        if kernel in ("k10", "k10c", "k11"):
             dump_sass(tree, built, kernel, out)
     return out
 

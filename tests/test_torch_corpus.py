@@ -218,6 +218,39 @@ def test_eps_n_covers_float32_error():
     assert worst < 1.0, worst
 
 
+@pytest.mark.parametrize("thr", [-0.1, 0.0, 0.1, 0.3, 0.5, 0.9, 0.999999, 1.0, 1.5])
+@pytest.mark.parametrize("n", [2, 7, 21, 24, 160, 985])
+def test_sum_threshold_is_the_references_epilogue(n, thr):
+    """K11 tests |sum| ≥ a* (``coexpr_mask.sum_threshold``) where the
+    reference divides, clips and compares (builder.py:166-170).  On ±2¹⁷
+    float32 patterns about a* (about +inf where a* is NaN: no sum passes),
+    their negatives, ±inf, NaN, ±0 and seeded random sums in [−n, n], the
+    test equals numpy's float32 epilogue everywhere, and jax.numpy's
+    wherever XLA's CPU keeps the sum and its quotient: it flushes
+    subnormals to 0, where numpy, the first design's ``__fdiv_rn`` and
+    the card keep IEEE's."""
+    import jax.numpy as jnp
+
+    a = coexpr_mask.sum_threshold(n, thr)
+    t32 = np.float32(thr)
+    assert np.isnan(a) == (t32 >= 1) and (a == 0.0) == (t32 < 0)
+    centre = 0x7F800000 if np.isnan(a) else int(np.float32(a).view(np.uint32))
+    pats = np.arange(max(0, centre - 2 ** 17), min(0x7F800000, centre + 2 ** 17) + 1)
+    v = pats.astype(np.uint32).view(np.float32)
+    rand = np.random.RandomState(n).uniform(-n, n, 100_000).astype(np.float32)
+    v = np.concatenate([v, -v, rand, np.float32([np.inf, -np.inf, np.nan, 0.0, -0.0])])
+    ours = np.abs(v) >= np.float32(a)
+    with np.errstate(all="ignore"):
+        quot = np.abs(v) / np.float32(n - 1)
+        np.testing.assert_array_equal(ours, np.clip(quot, np.float32(0.0), np.float32(1.0)) > t32)
+    ref = np.asarray(jnp.clip(jnp.abs(jnp.asarray(v)) / (n - 1), 0.0, 1.0) > thr)
+    tiny = np.float32(np.finfo(np.float32).tiny)
+    flushed = (v != 0) & ((np.abs(v) < tiny) | (quot < tiny))
+    np.testing.assert_array_equal(ours[~flushed], ref[~flushed])
+    if 0 < t32 < 1:  # a* is normal: the whole window is held to the reference
+        assert not flushed[:2 * len(pats)].any()
+
+
 @pytest.mark.parametrize("g", [1, 7, 31, 32, 33, 64, 70, 300])
 def test_word_packing_round_trips(g):
     import torch
