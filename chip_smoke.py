@@ -13,8 +13,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. device and build — prints the card's name and power limit, builds the
    training kernels (K1-K6), the serving kernels (K7, K8, K9, K9r), the
-   pipeline's K10c, K10 and K11 and the Pallas probes' counterparts
-   K12-K14 from
+   pipeline's K10c, K10, K11, K15 and K16 and the Pallas probes'
+   counterparts K12-K14 from
    ``gene2vec_tpu_torch/kernels/csrc`` with nvcc for sm_90a, one compiler
    per source, all at once;
 2. kernel check — each kernel at the default configuration's shapes
@@ -155,7 +155,19 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    ``cli.tsne --iters 250 1000``: files and labels complete, groups
    separated (inter over intra mean distance past TSNE_SEP), K10c's two
    launches and one K10 launch an iteration, ms an iteration beside P's
-   bytes bound (``{"pipeline_tsne": ...}``).
+   bytes bound (``{"pipeline_tsne": ...}``); (7d) UMAP over the same table
+   (PCA 50, k = 15): K15 against its plain version (``k15_check``: the same
+   neighbours, weights within K15_ATOL, the union bitwise the plain union
+   of the kernel's lists), K16 against the plain iteration from
+   ``viz.umap.start`` and from 200 kernel iterations on, the fast kernel
+   and ``fast_kernel=False`` (``k16_check``: y′ within K16_TOL of its
+   force's terms, clip flips and clipped coordinates counted), each beside
+   its plain version and library sequence; then ``cli.plot`` (where
+   neither plotly nor matplotlib is installed it writes the json alone
+   and logs that no image was drawn): the json holds every
+   gene once with finite coordinates, the groups separate past UMAP_SEP,
+   K15's two launches and one K16 launch an iteration
+   (``{"pipeline_umap": ...}``).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -163,8 +175,8 @@ for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
 points ``row_scatter`` / ``row_finalize``, phase 3c's for the ``_bf16``
 rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
 K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``,
-phase 7's ``generate_pairs`` runs for K11 and its ``cli.tsne`` run for
-K10c and K10;
+phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
+K10c and K10 and its ``cli.plot`` run for K15 and K16;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -3216,6 +3228,17 @@ K10_TOL = 1e-4                # K10 against its plain version, of its terms (k10
 TSNE_SNAPSHOTS = (250, 1000)
 TSNE_SEP = 2.0                # inter-group over intra-group mean distance, at least
 TSNE_PERPLEXITY = 30.0
+UMAP_K = 15                   # UMAPConfig().n_neighbors
+UMAP_ITERS = 400              # UMAPConfig().n_iters: K16's launches in cli.plot
+UMAP_MID = 200                # K16 checked from the start and this many iterations on
+#: K15's weights against its plain version's on the same d², absolute (w and
+#: P lie in [0, 1]): σ moves with the row sum's last bits, w by at most
+#: σ's relative change over e (the kernels module's docstring)
+K15_ATOL = 1e-5
+#: K16 against its plain version: each coordinate of y′ within K16_TOL of
+#: lr·(|rowsum·y_i| + Σ_j |coef_ij|·|y_j|) + max|y′| (k16_check)
+K16_TOL = 1e-5
+UMAP_SEP = 2.0                # inter-group over intra-group mean distance, at least
 
 
 def write_pipeline_query(root: str, seed: int = 14):
@@ -3971,15 +3994,286 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     return out
 
 
+def k15_check(torch, d2, k):
+    """K15 against its plain version on the same squared distances: each
+    row's neighbours the same set (the same order counted too), each weight
+    within K15_ATOL, the union of the kernel's (idx, w) bitwise the plain
+    union of the same (idx, w), and P within 2·K15_ATOL of the plain
+    graph's.  Returns (the kernel's P, a record of the errors)."""
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+
+    n = d2.shape[0]
+    idx, w = ug.knn_weights(d2, k)
+    p = ug.fuzzy_union(idx, w)
+    idx_p, w_p = ug.knn_weights_plain(d2, k)
+    torch.cuda.synchronize()
+    sets = bool(torch.equal(idx.sort(1).values, idx_p.sort(1).values))
+    order = bool(torch.equal(idx, idx_p))
+    w_err = float((w - w_p).abs().max())
+    union_bits = same_bits(torch, p.contiguous(), ug.fuzzy_union_plain(idx, w))
+    p_err = float((p - ug.fuzzy_union_plain(idx_p, w_p)).abs().max())
+    rec = {"n": n, "k": k, "sets_equal": sets, "order_equal": order, "w_err": w_err,
+           "union_bitwise": union_bits, "p_err": p_err, "nonzero": int((p > 0).sum())}
+    if not (sets and w_err <= K15_ATOL and union_bits and p_err <= 2 * K15_ATOL):
+        raise SystemExit(f"K15 (N {n}, k {k}): {rec} (limits: w {K15_ATOL}, P {2 * K15_ATOL})")
+    return p, rec
+
+
+def k16_check(torch, p, y, c, lr):
+    """One K16 iteration against the plain one from the same state: every
+    coordinate of y′ within K16_TOL of lr·terms + max|y′|, where terms =
+    |rowsum_i·y_i| + Σ_j |coef_ij|·|y_j| in float64 (the force cancels as
+    the layout spreads, so two sum orders differ by a share of its terms);
+    the clip decisions that differ where the plain force lies within
+    K16_TOL·terms of ±4 are counted.  Returns a record: the largest error
+    over its bound's terms, the clip flips, the forces near ±4 and the
+    clipped coordinates (where the force is clipped the check holds only
+    its sign)."""
+    from gene2vec_tpu_torch.kernels import umap_step as us
+
+    got = us.step(p, y, c, lr)
+    coef = us.coef_plain(p, y, c)
+    n = y.shape[0]
+    fr = torch.matmul(coef, torch.cat([y, torch.ones((n, 1), device=y.device)], 1))
+    y64 = y.double()
+    terms = (fr[:, 2:3].double() * y64).abs() + coef.abs().double() @ y64.abs()
+    del coef
+    force = fr[:, 2:3] * y - fr[:, :2]
+    want = y - lr * torch.clamp(force, -4.0, 4.0)
+    torch.cuda.synchronize()
+    y_scale = float(want.abs().max())
+    err = (got.double() - want.double()).abs()
+    ratio = float((err / (lr * terms + y_scale)).max())
+    near = ((force.double().abs() - 4.0).abs() <= K16_TOL * terms)
+    slack = float(np.spacing(np.float32(y_scale))) / lr
+    clipped_k = ((y64 - got.double()).abs() / lr) >= 4.0 - slack
+    flips = int((near & (clipped_k != (force.abs() > 4.0))).sum())
+    clipped = int((force.abs() > 4.0).sum())
+    rec = {"n": n, "err_share": ratio, "clip_flips": flips, "near_clip": int(near.sum()),
+           "clipped": clipped, "clipped_share": clipped / (2.0 * n), "max_abs_y": y_scale}
+    if not ratio <= K16_TOL:
+        raise SystemExit(f"K16 (N {n}, fast {c.fast_kernel}): {rec} (limit {K16_TOL})")
+    return rec
+
+
+def k15_bound(n, k):
+    """(ms, by) for K15's function: d² read once and P written once (N²
+    floats each), against the bisection's MUFU operations at the
+    special-function unit's rate: a row's k exponentials at each of its 64
+    steps and the last, and one reciprocal of σ a step (the division by σ
+    is that reciprocal's product): N·(k + 1)·65."""
+    t = {"bytes": 2.0 * n * n * 4 / HBM_BYTES_PER_S,
+         "operations": float(n) * (k + 1) * 65 / SFU_OP_PER_S}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def k16_bound(n, fast=True):
+    """(ms, by) for one K16 iteration: P read once and y read and y′
+    written, against the MUFU operations the function needs a pair at the
+    special-function unit's rate, and its float32 operations at 67
+    TFLOP/s: the largest.  The function needs, with r = 1/(um·(u + 1e-3)·
+    q_inv) one reciprocal, attract = 2ab·ub·(u + 1e-3)·r·p and repel =
+    2bγ·um·r·(1 − p): three rsqrts and one reciprocal a pair (pow: log2,
+    exp2 and one reciprocal), and u 5, the clamp 1, ub 1, q_inv 2, the
+    denominator 3, attract 4, repel 4, coef 1 and the sums 6 float32
+    operations.  K16 itself takes three IEEE divisions in the reference's
+    order (6 MUFU a pair, 5 with pow), a design choice outside the
+    bound."""
+    pairs = float(n) * n
+    t = {"bytes": (pairs * 4 + n * 2 * 4 * 2) / HBM_BYTES_PER_S,
+         "operations": max(pairs * (4 if fast else 3) / SFU_OP_PER_S,
+                           27.0 * pairs / F32_FLOP_PER_S)}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def lib_umap_graph(torch, d2, k):
+    """K15's function as the shortest PyTorch sequence (timed as its
+    ``library_ms``, used nowhere in the port): ``topk`` of the masked d²
+    (its order of ties unspecified), the bisection in torch ops and the
+    dense union."""
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+
+    masked = d2.clone()
+    masked.diagonal().fill_(float("inf"))
+    vals, idx = torch.topk(masked, k, dim=1, largest=False)
+    del masked
+    w = ug.smooth_knn_plain(torch.sqrt(vals.clamp_min_(0.0)), k)
+    return ug.fuzzy_union_plain(idx, w)
+
+
+def lib_umap_step(torch, p, y, c, lr):
+    """K16's function as the shortest PyTorch sequence (timed as its
+    ``library_ms``, used nowhere in the port): u by two broadcast
+    differences squared in place, ub, q_inv, attract and repel by in-place
+    passes, one ``mm`` with [y | 1], then the (N, 2) epilogue."""
+    n = y.shape[0]
+    u = torch.sub(y[:, :1], y[:, 0]).square_()
+    u.add_(torch.sub(y[:, 1:], y[:, 1]).square_())
+    um = u.clamp_min(1e-12)
+    ub = um.rsqrt().rsqrt_().rsqrt_().mul_(um) if c.fast_kernel else um.pow(c.b)
+    q = ub.mul(c.a).add_(1.0)
+    attract = ub.mul_(c.two_ab).div_(um).div_(q).mul_(p)
+    del um
+    repel = u.add_(1e-3).mul_(q)
+    del q
+    torch.div(c.two_bg, repel, out=repel).mul_(torch.rsub(p, 1.0))
+    coef = attract.sub_(repel)
+    del repel
+    coef.diagonal().zero_()
+    fr = torch.mm(coef, torch.cat([y, torch.ones((n, 1), device=y.device)], 1))
+    return y - lr * torch.clamp(fr[:, 2:3] * y - fr[:, :2], -4.0, 4.0)
+
+
+def pipeline_umap(torch, work: str, smi: str, reps: int):
+    """Phase 7d: UMAP at full width over phase 7c's clustered table (N =
+    24,447, D = 200, 1,000 groups; PCA to 50, k = 15): K15 against its plain
+    version (k15_check); K16 against the plain iteration from the start
+    and from a state UMAP_MID kernel iterations on, the fast kernel (the
+    main path's) and ``fast_kernel=False`` (k16_check); each timed beside
+    its plain version and library
+    sequence; then ``cli.plot`` on the table's matrix text (phase 7c's,
+    written here when 7d runs alone; in process):
+    the json holds every gene once with finite coordinates, the groups
+    separate (inter over intra mean distance past UMAP_SEP), K15's two
+    launches and one K16 launch an iteration.  Returns (the K15 and K16
+    kernels-line rows, their launches)."""
+    import importlib.util
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.cli import plot as plot_cli
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+    from gene2vec_tpu_torch.kernels import umap_step as us
+    from gene2vec_tpu_torch.viz import tsne as viz
+    from gene2vec_tpu_torch.viz.umap import UMAPConfig
+    from gene2vec_tpu_torch.viz.umap import start as umap_start
+
+    t0 = time.perf_counter()
+    emb, groups = clustered_table(v=V)  # phase 7c's table (write_clustered_export's seed)
+    emb_txt = os.path.join(work, "tsne_clustered.txt")
+    if not os.path.exists(emb_txt):  # phase 7d alone: no 7c before it
+        from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
+
+        write_matrix_txt(emb_txt, [f"G{i}" for i in range(V)], emb)
+    timer, slow = Timer(torch, reps), Timer(torch, 3)
+    x = viz.pca_reduce(emb, 50)
+    d2 = viz._squared_distances(torch.from_numpy(x).to(DEVICE))
+    n = V
+    p, k15 = k15_check(torch, d2, UMAP_K)
+    lib_p = lib_umap_graph(torch, d2, UMAP_K)
+    library_check("umap_graph", [lib_p], [p.contiguous()], rtol=2 * K15_ATOL)
+    del lib_p
+    b15 = k15_bound(n, UMAP_K)
+    k15.update({"ms": timer(lambda: ug.graph(d2, UMAP_K)),
+                "knn_weights_ms": timer(lambda: ug.knn_weights(d2, UMAP_K)),
+                "plain_ms": slow(lambda: ug.fuzzy_union_plain(
+                    *ug.knn_weights_plain(d2, UMAP_K))),
+                "library_ms": slow(lambda: lib_umap_graph(torch, d2, UMAP_K)),
+                "bound_ms": b15[0], "bound_by": b15[1]})
+    idx, w = ug.knn_weights(d2, UMAP_K)
+    k15["union_ms"] = timer(lambda: ug.fuzzy_union(idx, w))
+    del d2, idx, w
+    torch.cuda.empty_cache()
+    log(f"K15 ({smi}): {json.dumps(k15)}; phase 7d at {time.perf_counter() - t0:.1f}s")
+    # K16 from umap_layout's start and UMAP_MID iterations on, the fast
+    # kernel (the main path's) and pow: at the start nearly every force is
+    # clipped, 200 iterations on most are inside ±4, so the mid checks hold
+    # the force's value
+    c, y = umap_start(x, UMAPConfig(), DEVICE)
+    lr0 = us.learning_rate(1.0, 0, UMAP_ITERS)
+    checks = {"start": k16_check(torch, p, y, c, lr0)}
+    c_pow, y_pow = umap_start(x, UMAPConfig(fast_kernel=False), DEVICE)
+    checks["start_pow"] = k16_check(torch, p, y_pow, c_pow, lr0)
+    pow_ms = timer(lambda: us.step(p, y_pow, c_pow, lr0))
+    spare = torch.empty_like(y)
+    for it in range(UMAP_MID):
+        y, spare = us.step(p, y, c, us.learning_rate(1.0, it, UMAP_ITERS), out=spare), y
+    lr = us.learning_rate(1.0, UMAP_MID, UMAP_ITERS)
+    checks["mid"] = k16_check(torch, p, y, c, lr)
+    checks["mid_pow"] = k16_check(torch, p, y, c_pow, lr)
+    lib_y = lib_umap_step(torch, p, y, c, lr)
+    want = us.step_plain(p, y, c, lr)
+    lib_err = float((lib_y - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+    del lib_y, want
+    if not lib_err <= K16_TOL:
+        raise SystemExit(f"K16's library sequence: y′ {lib_err:.3e} of its scale from the "
+                         f"plain iteration (limit {K16_TOL})")
+    b16 = k16_bound(n)
+    k16 = {"ms": timer(lambda: us.step(p, y, c, lr, out=spare)),
+           "plain_ms": slow(lambda: us.step_plain(p, y, c, lr)),
+           "library_ms": slow(lambda: lib_umap_step(torch, p, y, c, lr)),
+           "library_y_err": lib_err, "pow_ms": pow_ms,
+           "bound_ms": b16[0], "bound_by": b16[1], "pow_bound_ms": k16_bound(n, False)[0],
+           "launch_ms": device_breakdown(torch, lambda: us.step(p, y, c, lr, out=spare)),
+           "checks": checks}
+    log(f"K16 ({smi}): {json.dumps(k16)}; phase 7d at {time.perf_counter() - t0:.1f}s")
+    del p, y, spare, y_pow
+    torch.cuda.empty_cache()
+    # the CLI: cli.plot's default method (UMAP at 2 components); where
+    # neither plotly nor matplotlib is installed it writes the json alone
+    out_prefix = os.path.join(work, "umap_out", "gene2vec")
+    images = [m for m in ("plotly", "matplotlib") if importlib.util.find_spec(m)]
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    rc = plot_cli.main([emb_txt, out_prefix])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    want = {"umap_graph": 2, "umap_graph_union": 1, "umap_step": UMAP_ITERS}
+    if rc != 0 or any(counts[k] != v for k, v in want.items()):
+        raise SystemExit(f"cli.plot: exit {rc}, launches "
+                         f"{ {k: counts[k] for k in want} }, expected {want}")
+    with open(out_prefix + ".json", encoding="utf-8") as f:
+        trace = json.load(f)["data"][0]
+    labels = trace["customdata"]
+    coords = np.stack([np.asarray(trace["x"], np.float64), np.asarray(trace["y"], np.float64)], 1)
+    if labels != [f"G{i}" for i in range(n)] or coords.shape != (n, 2) \
+            or not np.isfinite(coords).all():
+        raise SystemExit(f"cli.plot: the json does not hold every gene once with finite "
+                         f"coordinates ({len(labels)} labels, coords {coords.shape})")
+    intra, inter = tsne_separation(torch, coords, groups[[int(t[1:]) for t in labels]])
+    sep = {"intra": intra, "inter": inter, "ratio": inter / intra}
+    written = sorted(os.listdir(os.path.dirname(out_prefix)))
+    rec = {"images": images, "wall_s": wall, "files": written,
+           "separation": sep, "ms_per_iteration": k16["ms"], "bound_ms_per_iteration": b16[0],
+           "card": smi}
+    print(json.dumps({"pipeline_umap": rec, "k15": k15, "k16": k16}))
+    log(f"phase 7d: cli.plot {wall:.1f}s, separation {sep}, K16 {k16['ms']:.4f} ms an "
+        f"iteration against {b16[0]:.4f}")
+    if not sep["ratio"] > UMAP_SEP:
+        raise SystemExit(f"cli.plot: groups do not separate ({sep})")
+    err16 = max(r["err_share"] for r in checks.values())
+    rows = [
+        pipeline_row("umap_graph", "k15_umap_graph.cu", "gene2vec_tpu/viz/umap.py:114",
+                     k15["ms"], k15["plain_ms"], k15["library_ms"], b15[0], b15[1],
+                     max(k15["w_err"], k15["p_err"]),
+                     f"neighbour sets equal, each weight within {K15_ATOL} and P within "
+                     f"{2 * K15_ATOL} of the plain version's (absolute)",
+                     {"n": n, "k": UMAP_K},
+                     launch_ms={"knn_weights": k15["knn_weights_ms"], "union": k15["union_ms"]}),
+        pipeline_row("umap_step", "k16_umap_step.cu", "gene2vec_tpu/viz/umap.py:188",
+                     k16["ms"], k16["plain_ms"], k16["library_ms"], b16[0], b16[1], err16,
+                     f"y′ within {K16_TOL} of lr·(|rowsum·y| + Σ|coef|·|y|) + max|y′|; clip "
+                     f"flips counted where the force lies within that of ±4",
+                     {"n": n}, clip_flips={k: r["clip_flips"] for k, r in checks.items()},
+                     launch_ms=k16["launch_ms"]),
+    ]
+    return rows, {"umap_graph": counts["umap_graph"], "umap_step": counts["umap_step"]}
+
+
 def pipeline(torch, smi: str, reps: int = TIMED_REPS):
     """Phase 7, the paper's pipeline on the card: corpus → training →
-    intrinsic evaluation, and t-SNE.  Returns (the K10c, K10 and K11
-    kernels-line rows, their launches on these paths)."""
+    intrinsic evaluation, t-SNE and UMAP.  Returns (the K10c, K10, K15, K16
+    and K11 kernels-line rows, their launches on these paths)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
         pairs, modules, k11_row, k11_launches = pipeline_corpus(torch, work, smi, reps)
         pipeline_train_eval(torch, work, smi, pairs, modules)
         rows, counts = pipeline_tsne(torch, work, smi, reps)
+        umap_rows, umap_counts = pipeline_umap(torch, work, smi, reps)
+    rows += umap_rows
+    counts.update(umap_counts)
     counts["coexpr_mask"] = k11_launches
     log(f"pipeline phase done in {time.perf_counter() - t0:.1f}s")
     return rows + [k11_row], counts

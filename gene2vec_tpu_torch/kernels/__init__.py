@@ -24,14 +24,16 @@ K13   ``lane``            ``csrc/k13_lane.cu``             experiments/test_lane
 K14   ``staged_copy``     ``csrc/k14_staged_copy.cu``      experiments/test_dma2.py:83,
                                                            test_vmem_dma.py:24,
                                                            test_feature_matrix.py:35-132
+K15   ``umap_graph``      ``csrc/k15_umap_graph.cu``       viz/umap.py:114-157
+K16   ``umap_step``       ``csrc/k16_umap_step.cu``        viz/umap.py:188-225
 ====  ==================  ===============================  ======================================
 
 K1-K6 take float32 or bfloat16 tables (``SGNSConfig.table_dtype``); K4
 writes a bfloat16 table back by stochastic rounding (with the step's salt
 words) or round-to-nearest-even.  K12-K14 are the counterparts of Pallas
 probes on no path the package runs.  K10c/K10 (t-SNE's calibration and
-iteration) and K11 (the co-expression mask) carry the pipeline's
-visualization and corpus stages.
+iteration), K15/K16 (UMAP's graph and iteration) and K11 (the
+co-expression mask) carry the pipeline's visualization and corpus stages.
 
 ``rescore.row_gather`` is K9r's gather loop on its own, the counterpart
 of the Pallas row-gather probes in ``experiments/``; it also carries the
@@ -68,10 +70,12 @@ from gene2vec_tpu_torch.kernels import (
     topk_exact,
     tsne_calibrate,
     tsne_step,
+    umap_graph,
+    umap_step,
 )
 
 #: name → wrapper module: the step's kernels in step order, serving's, the
-#: pipeline's t-SNE and corpus kernels, then the probes' counterparts
+#: pipeline's t-SNE, UMAP and corpus kernels, then the probes' counterparts
 MODULES = {
     "pos_logit": pos_logit,
     "noise_head": noise_head,
@@ -86,6 +90,8 @@ MODULES = {
     "rescore": rescore,
     "tsne_calibrate": tsne_calibrate,
     "tsne_step": tsne_step,
+    "umap_graph": umap_graph,
+    "umap_step": umap_step,
     "coexpr_mask": coexpr_mask,
     "stream_scale": stream_scale,
     "lane": lane,

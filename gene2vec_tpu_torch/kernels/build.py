@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (the training steps' K1-K6, the
-serving kernels K7-K9r, t-SNE's K10c/K10, the co-expression mask K11 and
-the probes' counterparts K12-K14).
+serving kernels K7-K9r, t-SNE's K10c/K10, the co-expression mask K11,
+the probes' counterparts K12-K14 and UMAP's K15/K16).
 
 Each ``csrc/*.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Builds
@@ -45,6 +45,8 @@ SOURCES = {
     "k12_stream_scale": "k12_stream_scale.cu",
     "k13_lane": "k13_lane.cu",
     "k14_staged_copy": "k14_staged_copy.cu",
+    "k15_umap_graph": "k15_umap_graph.cu",
+    "k16_umap_step": "k16_umap_step.cu",
 }
 
 NVCC_FLAGS = [

@@ -67,7 +67,7 @@ class TSNE:
     ``fit(x, snapshot_iters=[...])`` returns {n_iter: (N, 2) layout} — the
     multi-iteration sweep of ``src/tsne_multi_core.py`` in one run.
     ``device``: ``"cuda"`` (the default; raises without a GPU) or
-    ``"cpu"``.
+    ``"cpu"``.  On the card the layout has 2 components (K10's).
     """
 
     config: TSNEConfig = dataclasses.field(default_factory=TSNEConfig)
@@ -83,6 +83,11 @@ class TSNE:
         from gene2vec_tpu_torch.device import resolve_device
 
         dev = resolve_device(self.device)
+        if dev.type == "cuda" and self.n_components != 2:
+            raise NotImplementedError(
+                f"t-SNE at n_components={self.n_components} does not run on the card: "
+                "K10 iterates 2-D layouts (ROADMAP.md, Queue B); pass device='cpu'"
+            )
         cfg = self.config
         snapshots = sorted(set(snapshot_iters or [cfg.n_iter]))
         x = np.asarray(x, np.float32)

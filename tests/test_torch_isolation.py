@@ -752,3 +752,109 @@ def test_pipeline_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, cas
     with pytest.raises(RuntimeError, match="unavailable"):
         call()
     assert loaded == [lib]
+
+
+#: the UMAP slice's modules (UMAP with K15/K16, the plot exports, the GTEx
+#: figures, the GeneView dashboard and their CLIs)
+UMAP_MODULES = {
+    "gene2vec_tpu_torch.viz.umap", "gene2vec_tpu_torch.viz.plot",
+    "gene2vec_tpu_torch.viz.gtex", "gene2vec_tpu_torch.viz.dash_app",
+    "gene2vec_tpu_torch.cli.plot", "gene2vec_tpu_torch.cli.dashboard",
+    "gene2vec_tpu_torch.kernels.umap_graph", "gene2vec_tpu_torch.kernels.umap_step",
+}
+
+
+def test_sources_scan_covers_the_umap_slice():
+    """The UMAP slice's modules import in the no-JAX subprocess above and
+    are scanned; K15/K16's CUDA sources are built by ``build.py`` and their
+    wrappers counted by ``kernels.launch_counts``; the dashboard's
+    stylesheet is the package's own; every port module the slice's tests
+    drive is one the scans cover."""
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.kernels import build
+
+    mods = set(_port_modules())
+    assert UMAP_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in UMAP_MODULES:
+        assert mod.replace(".", "/") + ".py" in scanned
+    assert {"k15_umap_graph.cu", "k16_umap_step.cu"} <= set(build.SOURCES.values())
+    assert {"umap_graph", "umap_graph_union", "umap_step"} <= set(kernels.launch_counts())
+    assert os.path.isfile(os.path.join(PKG, "viz", "assets", "geneview.css"))
+    for test in ("test_torch_umap.py", "test_torch_plot.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def test_umap_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from gene2vec_tpu_torch.viz.plot import reduce_embedding
+    from gene2vec_tpu_torch.viz.umap import UMAPConfig, umap_layout
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.random.RandomState(0).randn(12, 4).astype(np.float32)
+    cfg = UMAPConfig(pca_dims=4, n_iters=2)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            umap_layout(x, cfg, device=dev)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            reduce_embedding(x, "umap", device=dev)
+    assert umap_layout(x, cfg, device="cpu").shape == (12, 2)
+    assert reduce_embedding(x, "pca").shape == (12, 2)  # PCA is the host's: no device
+    assert not torch.cuda.is_initialized()
+
+
+def _umap_calls():
+    from gene2vec_tpu_torch.kernels import tsne_calibrate, umap_graph, umap_step
+
+    d2 = torch.zeros(5, 5)
+    idx = torch.zeros(5, 2, dtype=torch.int32)
+    w = torch.zeros(5, 2)
+    p = tsne_calibrate.empty_rows(5, 5, "cpu").zero_()
+    y = torch.zeros(5, 2)
+    c = umap_step.constants(1.5, 0.875, 1.0, True)
+    return [
+        (umap_graph, "knn_weights", "k15_umap_graph", lambda: umap_graph.knn_weights(d2, 2)),
+        (umap_graph, "fuzzy_union", "k15_umap_graph", lambda: umap_graph.fuzzy_union(idx, w)),
+        (umap_step, "step", "k16_umap_step", lambda: umap_step.step(p, y, c, 1.0)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(3))
+def test_umap_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
+    """K15's two launches and K16: a CUDA tensor reaches the kernel (the
+    loader, stubbed to raise), never the plain version."""
+    from gene2vec_tpu_torch.kernels import _args, build
+
+    mod, name, lib, call = _umap_calls()[case]
+    loaded = []
+
+    def fake_load(lib_name):
+        loaded.append(lib_name)
+        raise RuntimeError("kernel library unavailable")
+
+    monkeypatch.setattr(build, "load", fake_load)
+    monkeypatch.setattr(_args, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(mod, f"{name}_plain", lambda *a, **k: pytest.fail("plain"))
+    with pytest.raises(RuntimeError, match="unavailable"):
+        call()
+    assert loaded == [lib]
+
+
+def test_dashboard_and_gtex_run_on_the_host_without_a_device(monkeypatch, tmp_path):
+    """The GTEx figures and the dashboard's logic are host code: they run
+    where CUDA is absent and never touch it."""
+    from gene2vec_tpu_torch.viz import dash_app, gtex
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "labels.txt").write_text("A\nB\nC\n")
+    np.savetxt(tmp_path / "coords.txt", np.eye(3)[:, :2])
+    (tmp_path / "X_specific_genes.txt").write_text("A 1.0\nC 3.0\n")
+    assert len(gtex.run_gtex_figures(str(tmp_path / "labels.txt"), str(tmp_path / "coords.txt"),
+                                     str(tmp_path / "*specific_genes.txt"),
+                                     str(tmp_path / "figs"), log=lambda s: None)) == 1
+    (tmp_path / "fig.json").write_text('{"data": [{"customdata": ["A", "B"]}], "layout": {}}')
+    (tmp_path / "go.tsv").write_text("GO:1\tA\tone\n")
+    state = dash_app.build_app_state(str(tmp_path / "fig.json"), go_table=str(tmp_path / "go.tsv"))
+    assert state["sources"]["GO"]["members"] == {"GO:1": ["A"]}
+    assert not torch.cuda.is_initialized()
