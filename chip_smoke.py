@@ -7,7 +7,10 @@
                                      # gather, step windows (default, HS, shared,
                                      # per_example), the K12, K13 and K14 probes,
                                      # phase 3 run and K10c / K10 (each by launch),
-                                     # cli.tsne and K11, in turns
+                                     # cli.tsne and K11, K15, K16 and cli.plot,
+                                     # in turns
+    python3 chip_smoke.py --compare --parts umap PARENT CHANGE CHANGE PARENT
+                                     # K15, K16 and cli.plot alone
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -157,16 +160,18 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    launches and one K10 launch an iteration, ms an iteration beside P's
    bytes bound (``{"pipeline_tsne": ...}``); (7d) UMAP over the same table
    (PCA 50, k = 15): K15 against its plain version (``k15_check``: the same
-   neighbours, weights within K15_ATOL, the union bitwise the plain union
-   of the kernel's lists), K16 against the plain iteration from
+   neighbours, weights within K15_ATOL, the sparse graph bitwise the plain
+   union of the kernel's lists, densified only on the plain side), K16 on
+   that graph against the plain iteration from
    ``viz.umap.start`` and from 200 kernel iterations on, the fast kernel
    and ``fast_kernel=False`` (``k16_check``: y′ within K16_TOL of its
    force's terms, clip flips and clipped coordinates counted), each beside
-   its plain version and library sequence; then ``cli.plot`` (where
+   its plain version and library sequence (the dense sequences, P
+   densified outside the timed window); then ``cli.plot`` (where
    neither plotly nor matplotlib is installed it writes the json alone
    and logs that no image was drawn): the json holds every
    gene once with finite coordinates, the groups separate past UMAP_SEP,
-   K15's two launches and one K16 launch an iteration
+   K15's five launches and one K16 launch an iteration
    (``{"pipeline_umap": ...}``).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
@@ -1186,28 +1191,45 @@ def kernel_name(key: str) -> str:
     return name.split("(")[0].split("<")[0].split("::")[-1] or key[:60]
 
 
+#: profiler sessions device_breakdown tries before it reports no device time
+BREAKDOWN_TRIES = 3
+
+
 def device_breakdown(torch, fn, calls=10, launches=None) -> dict:
     """Device ms a call of ``fn`` by kernel name: torch.profiler over
     ``calls`` calls after a warm-up (the table stays in L2, unlike the
-    Timer's flushed launches).  Empty where the profiler saw no device
-    time.  ``launches``, a dict, receives the launches a call by name.
-    The profiler may miss a launch or two of a window, so launches a call
-    are the events over the calls rounded, and ms a call the mean of the
-    events seen times that."""
+    Timer's flushed launches).  ``launches``, a dict, receives the
+    launches a call by name.  The profiler may miss a launch or two of a
+    window, so launches a call are the events over the calls rounded, and
+    ms a call the mean of the events seen times that.  A session now and
+    then records no device activity at all, for a cause not yet found
+    (PERF.md §7, the profiler's empty sessions); rows read this (K10's
+    ``launch_ms``, K6's and the serving kernels' ``device_ms``), so such
+    a session is logged and run again, up to
+    BREAKDOWN_TRIES in all, and the result is empty only where every one
+    saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    seen, counts = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
-            name = kernel_name(ev.key)
-            seen[name] = seen.get(name, 0.0) + ev.self_device_time_total / 1e3
-            counts[name] = counts.get(name, 0) + ev.count
+    for attempt in range(1, BREAKDOWN_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        seen, counts = {}, {}
+        events = prof.key_averages()
+        for ev in events:
+            if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+                name = kernel_name(ev.key)
+                seen[name] = seen.get(name, 0.0) + ev.self_device_time_total / 1e3
+                counts[name] = counts.get(name, 0) + ev.count
+        if seen:
+            break
+        log(f"device_breakdown: session {attempt} saw no device time among its "
+            f"{len(events)} events "
+            f"({sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in events)} "
+            f"device events)")
     out = {}
     for name, ms in seen.items():
         per_call = round(counts[name] / calls)
@@ -3995,44 +4017,54 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
 
 
 def k15_check(torch, d2, k):
-    """K15 against its plain version on the same squared distances: each
-    row's neighbours the same set (the same order counted too), each weight
-    within K15_ATOL, the union of the kernel's (idx, w) bitwise the plain
-    union of the same (idx, w), and P within 2·K15_ATOL of the plain
-    graph's.  Returns (the kernel's P, a record of the errors)."""
+    """K15 against its plain version on the same squared distances (on the
+    card a view of padded rows): each row's neighbours the same set (the
+    same order counted too), each weight within K15_ATOL, the CSR union of
+    the kernel's (idx, w) bitwise the plain union of the same (idx, w)
+    (offsets, columns and values), and the densified P within 2·K15_ATOL of
+    the plain graph's (densified on the plain side only).  Returns (the
+    kernel's graph, a record of the errors)."""
     from gene2vec_tpu_torch.kernels import umap_graph as ug
 
     n = d2.shape[0]
     idx, w = ug.knn_weights(d2, k)
-    p = ug.fuzzy_union(idx, w)
+    g = ug.fuzzy_union(idx, w)
     idx_p, w_p = ug.knn_weights_plain(d2, k)
     torch.cuda.synchronize()
     sets = bool(torch.equal(idx.sort(1).values, idx_p.sort(1).values))
     order = bool(torch.equal(idx, idx_p))
     w_err = float((w - w_p).abs().max())
-    union_bits = same_bits(torch, p.contiguous(), ug.fuzzy_union_plain(idx, w))
-    p_err = float((p - ug.fuzzy_union_plain(idx_p, w_p)).abs().max())
+    gp = ug.fuzzy_union_plain(idx, w)
+    union_bits = bool(torch.equal(g.rowptr, gp.rowptr) and torch.equal(g.col, gp.col)
+                      and same_bits(torch, g.val, gp.val))
+    del gp
+    p_err = float((ug.to_dense(g) - ug.to_dense(ug.fuzzy_union_plain(idx_p, w_p))).abs().max())
+    lens = g.rowptr[1:] - g.rowptr[:-1]
     rec = {"n": n, "k": k, "sets_equal": sets, "order_equal": order, "w_err": w_err,
-           "union_bitwise": union_bits, "p_err": p_err, "nonzero": int((p > 0).sum())}
+           "union_bitwise": union_bits, "p_err": p_err, "nnz": g.nnz,
+           "max_row": int(lens.max()) if n else 0, "route": ug.stages(n, k)}
     if not (sets and w_err <= K15_ATOL and union_bits and p_err <= 2 * K15_ATOL):
         raise SystemExit(f"K15 (N {n}, k {k}): {rec} (limits: w {K15_ATOL}, P {2 * K15_ATOL})")
-    return p, rec
+    return g, rec
 
 
-def k16_check(torch, p, y, c, lr):
-    """One K16 iteration against the plain one from the same state: every
-    coordinate of y′ within K16_TOL of lr·terms + max|y′|, where terms =
-    |rowsum_i·y_i| + Σ_j |coef_ij|·|y_j| in float64 (the force cancels as
-    the layout spreads, so two sum orders differ by a share of its terms);
-    the clip decisions that differ where the plain force lies within
-    K16_TOL·terms of ±4 are counted.  Returns a record: the largest error
-    over its bound's terms, the clip flips, the forces near ±4 and the
-    clipped coordinates (where the force is clipped the check holds only
-    its sign)."""
+def k16_check(torch, g, y, c, lr, got=None, who="K16"):
+    """One K16 iteration on the graph ``g`` (or ``got``, another
+    sequence's y′ from the same state) against the plain one from the
+    same state: every coordinate of y′ within K16_TOL of lr·terms +
+    max|y′|, where terms = |rowsum_i·y_i| + Σ_j |coef_ij|·|y_j| in float64
+    (the force cancels as the layout spreads, so two sum orders differ by
+    a share of its terms); the plain side is the dense coef of the
+    densified graph; the clip decisions that differ where the plain force
+    lies within K16_TOL·terms of ±4 are counted.  Returns a record: the
+    largest error over its bound's terms, the clip flips, the forces near
+    ±4 and the clipped coordinates (where the force is clipped the check
+    holds only its sign)."""
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
     from gene2vec_tpu_torch.kernels import umap_step as us
 
-    got = us.step(p, y, c, lr)
-    coef = us.coef_plain(p, y, c)
+    got = us.step(g, y, c, lr) if got is None else got
+    coef = us.coef_plain(ug.to_dense(g), y, c)
     n = y.shape[0]
     fr = torch.matmul(coef, torch.cat([y, torch.ones((n, 1), device=y.device)], 1))
     y64 = y.double()
@@ -4052,40 +4084,59 @@ def k16_check(torch, p, y, c, lr):
     rec = {"n": n, "err_share": ratio, "clip_flips": flips, "near_clip": int(near.sum()),
            "clipped": clipped, "clipped_share": clipped / (2.0 * n), "max_abs_y": y_scale}
     if not ratio <= K16_TOL:
-        raise SystemExit(f"K16 (N {n}, fast {c.fast_kernel}): {rec} (limit {K16_TOL})")
+        raise SystemExit(f"{who} (N {n}, fast {c.fast_kernel}): {rec} (limit {K16_TOL})")
     return rec
 
 
-def k15_bound(n, k):
-    """(ms, by) for K15's function: d² read once and P written once (N²
-    floats each), against the bisection's MUFU operations at the
-    special-function unit's rate: a row's k exponentials at each of its 64
-    steps and the last, and one reciprocal of σ a step (the division by σ
-    is that reciprocal's product): N·(k + 1)·65."""
-    t = {"bytes": 2.0 * n * n * 4 / HBM_BYTES_PER_S,
+def dense_p_ms(n):
+    """The first UMAP design's bound figures, which counted a dense (N, N)
+    P: K15's d² read
+    and P written (2·N² floats), K16's P read (N² floats) and y, y′."""
+    return {"k15": 2.0 * n * n * 4 / HBM_BYTES_PER_S * 1e3,
+            "k16": (float(n) * n * 4 + n * 2 * 4 * 2) / HBM_BYTES_PER_S * 1e3}
+
+
+def k15_bound(n, k, nnz):
+    """(ms, by) for K15's function: d² read once (N² floats) and the CSR
+    written once (N + 1 offsets, a column and a value an entry), against
+    the bisection's MUFU operations at the special-function unit's rate:
+    a row's k exponentials at each of its 64 steps and the last, and one
+    reciprocal of σ a step (the division by σ is that reciprocal's
+    product): N·(k + 1)·65."""
+    t = {"bytes": (float(n) * n * 4 + (n + 1) * 4 + nnz * 8) / HBM_BYTES_PER_S,
          "operations": float(n) * (k + 1) * 65 / SFU_OP_PER_S}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
 
 
-def k16_bound(n, fast=True):
-    """(ms, by) for one K16 iteration: P read once and y read and y′
-    written, against the MUFU operations the function needs a pair at the
-    special-function unit's rate, and its float32 operations at 67
-    TFLOP/s: the largest.  The function needs, with r = 1/(um·(u + 1e-3)·
-    q_inv) one reciprocal, attract = 2ab·ub·(u + 1e-3)·r·p and repel =
-    2bγ·um·r·(1 − p): three rsqrts and one reciprocal a pair (pow: log2,
-    exp2 and one reciprocal), and u 5, the clamp 1, ub 1, q_inv 2, the
-    denominator 3, attract 4, repel 4, coef 1 and the sums 6 float32
-    operations.  K16 itself takes three IEEE divisions in the reference's
-    order (6 MUFU a pair, 5 with pow), a design choice outside the
-    bound."""
-    pairs = float(n) * n
-    t = {"bytes": (pairs * 4 + n * 2 * 4 * 2) / HBM_BYTES_PER_S,
+def k16_bound(n, nnz, fast=True):
+    """(ms, by) for one K16 iteration on the sparse graph: the least work
+    of the function, the largest of the MUFU operations at the
+    special-function unit's rate, the float32 operations at 67 TFLOP/s,
+    and the bytes of y, y′ and the CSR.  coef is symmetric, so each of
+    the N(N − 1)/2 distinct pairs needs one coef: three rsqrts and one
+    reciprocal (pow: log2, exp2 and one reciprocal), and 13 float32
+    operations (u 5, the clamp 1, ub 1, q_inv 2, the denominator 2, 2bγ·r
+    1, as the reciprocal r is counted apart) plus 5 in each of its two
+    rows' sums (two FMAs and an add): 23.  The stored entries' attraction
+    adds a few operations for each of nnz entries."""
+    pairs = float(n) * (n - 1) / 2
+    t = {"bytes": (n * 2 * 4 * 2 + (n + 1) * 4 + nnz * 8) / HBM_BYTES_PER_S,
          "operations": max(pairs * (4 if fast else 3) / SFU_OP_PER_S,
-                           27.0 * pairs / F32_FLOP_PER_S)}
+                           (23.0 * pairs + 8.0 * nnz) / F32_FLOP_PER_S)}
     by = max(t, key=t.get)
     return t[by] * 1e3, by
+
+
+def dense_union(torch, idx, w):
+    """The first UMAP design's plain union, the dense (N, N) P = W + Wᵀ −
+    W∘Wᵀ (timed in
+    K15's library sequence only)."""
+    n = idx.shape[0]
+    dense = torch.zeros((n, n), dtype=torch.float32, device=w.device)
+    rows = torch.arange(n, device=w.device)[:, None].expand_as(idx)
+    dense[rows, idx.long()] = w
+    return dense + dense.T - dense * dense.T
 
 
 def lib_umap_graph(torch, d2, k):
@@ -4100,12 +4151,13 @@ def lib_umap_graph(torch, d2, k):
     vals, idx = torch.topk(masked, k, dim=1, largest=False)
     del masked
     w = ug.smooth_knn_plain(torch.sqrt(vals.clamp_min_(0.0)), k)
-    return ug.fuzzy_union_plain(idx, w)
+    return dense_union(torch, idx, w)
 
 
 def lib_umap_step(torch, p, y, c, lr):
     """K16's function as the shortest PyTorch sequence (timed as its
-    ``library_ms``, used nowhere in the port): u by two broadcast
+    ``library_ms``, used nowhere in the port) on a dense P (the caller
+    densifies the graph outside the timed window): u by two broadcast
     differences squared in place, ub, q_inv, attract and repel by in-place
     passes, one ``mm`` with [y | 1], then the (N, 2) epilogue."""
     n = y.shape[0]
@@ -4126,17 +4178,68 @@ def lib_umap_step(torch, p, y, c, lr):
     return y - lr * torch.clamp(fr[:, 2:3] * y - fr[:, :2], -4.0, 4.0)
 
 
+#: K15's launches a graph build: the neighbours and weights, then the
+#: union's count, scan, fill and sort
+K15_LAUNCHES = 5
+
+
+def umap_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
+    """K15 and K16 timed at phase 7d's full-width shapes on inputs made
+    from a seed, and the wall of ``cli.plot`` (``--compare``, which runs
+    the comparing checkout's copy of this function on each tree's
+    modules): the tree's own distances of the clustered table's PCA-50
+    points, its ``umap_graph.graph`` on them, and whatever that returns
+    (the first design's dense P, or the sparse graph) handed straight to its
+    ``umap_step.step`` 20 iterations into a run."""
+    from gene2vec_tpu_torch.cli import plot as plot_cli
+    from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+    from gene2vec_tpu_torch.kernels import umap_step as us
+    from gene2vec_tpu_torch.viz import tsne as viz
+    from gene2vec_tpu_torch.viz import umap as umap_viz
+
+    timer = Timer(torch, reps)
+    emb, _ = clustered_table(v=V)
+    x = viz.pca_reduce(emb, 50)
+    d2 = umap_viz._squared_distances(torch.from_numpy(x).to(DEVICE))
+    out = {"graph_ms": timer(lambda: ug.graph(d2, UMAP_K)),
+           "knn_weights_ms": timer(lambda: ug.knn_weights(d2, UMAP_K))}
+    idx, w = ug.knn_weights(d2, UMAP_K)
+    out["union_ms"] = timer(lambda: ug.fuzzy_union(idx, w))
+    p = ug.graph(d2, UMAP_K)
+    del d2, idx, w
+    torch.cuda.empty_cache()
+    c, y = umap_viz.start(x, umap_viz.UMAPConfig(), DEVICE)
+    spare = torch.empty_like(y)
+    for it in range(20):
+        y, spare = us.step(p, y, c, us.learning_rate(1.0, it, UMAP_ITERS), out=spare), y
+    lr = us.learning_rate(1.0, 20, UMAP_ITERS)
+    out["step_ms"] = timer(lambda: us.step(p, y, c, lr, out=spare))
+    del p, y, spare
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        emb_txt = os.path.join(work, "emb.txt")
+        write_matrix_txt(emb_txt, [f"G{i}" for i in range(V)], emb)
+        t0 = time.perf_counter()
+        rc = plot_cli.main([emb_txt, os.path.join(work, "out", "gene2vec")])
+        torch.cuda.synchronize()
+        out["cli_plot_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"cli.plot exited {rc}")
+    return out
+
+
 def pipeline_umap(torch, work: str, smi: str, reps: int):
     """Phase 7d: UMAP at full width over phase 7c's clustered table (N =
     24,447, D = 200, 1,000 groups; PCA to 50, k = 15): K15 against its plain
     version (k15_check); K16 against the plain iteration from the start
     and from a state UMAP_MID kernel iterations on, the fast kernel (the
     main path's) and ``fast_kernel=False`` (k16_check); each timed beside
-    its plain version and library
-    sequence; then ``cli.plot`` on the table's matrix text (phase 7c's,
-    written here when 7d runs alone; in process):
+    its plain version and library sequence (the dense sequences, P
+    densified outside the timed window); then ``cli.plot`` on the table's
+    matrix text (phase 7c's, written here when 7d runs alone; in process):
     the json holds every gene once with finite coordinates, the groups
-    separate (inter over intra mean distance past UMAP_SEP), K15's two
+    separate (inter over intra mean distance past UMAP_SEP), K15's five
     launches and one K16 launch an iteration.  Returns (the K15 and K16
     kernels-line rows, their launches)."""
     import importlib.util
@@ -4146,6 +4249,7 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     from gene2vec_tpu_torch.kernels import umap_graph as ug
     from gene2vec_tpu_torch.kernels import umap_step as us
     from gene2vec_tpu_torch.viz import tsne as viz
+    from gene2vec_tpu_torch.viz import umap as umap_viz
     from gene2vec_tpu_torch.viz.umap import UMAPConfig
     from gene2vec_tpu_torch.viz.umap import start as umap_start
 
@@ -4158,19 +4262,21 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
         write_matrix_txt(emb_txt, [f"G{i}" for i in range(V)], emb)
     timer, slow = Timer(torch, reps), Timer(torch, 3)
     x = viz.pca_reduce(emb, 50)
-    d2 = viz._squared_distances(torch.from_numpy(x).to(DEVICE))
+    d2 = umap_viz._squared_distances(torch.from_numpy(x).to(DEVICE))
     n = V
-    p, k15 = k15_check(torch, d2, UMAP_K)
+    g, k15 = k15_check(torch, d2, UMAP_K)
+    p_dense = ug.to_dense(g)  # the library sequences' P, outside their timed windows
     lib_p = lib_umap_graph(torch, d2, UMAP_K)
-    library_check("umap_graph", [lib_p], [p.contiguous()], rtol=2 * K15_ATOL)
+    library_check("umap_graph", [lib_p], [p_dense], rtol=2 * K15_ATOL)
     del lib_p
-    b15 = k15_bound(n, UMAP_K)
+    b15 = k15_bound(n, UMAP_K, g.nnz)
+    old = dense_p_ms(n)
     k15.update({"ms": timer(lambda: ug.graph(d2, UMAP_K)),
                 "knn_weights_ms": timer(lambda: ug.knn_weights(d2, UMAP_K)),
                 "plain_ms": slow(lambda: ug.fuzzy_union_plain(
                     *ug.knn_weights_plain(d2, UMAP_K))),
                 "library_ms": slow(lambda: lib_umap_graph(torch, d2, UMAP_K)),
-                "bound_ms": b15[0], "bound_by": b15[1]})
+                "bound_ms": b15[0], "bound_by": b15[1], "dense_p_bound_ms": old["k15"]})
     idx, w = ug.knn_weights(d2, UMAP_K)
     k15["union_ms"] = timer(lambda: ug.fuzzy_union(idx, w))
     del d2, idx, w
@@ -4182,33 +4288,30 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     # the force's value
     c, y = umap_start(x, UMAPConfig(), DEVICE)
     lr0 = us.learning_rate(1.0, 0, UMAP_ITERS)
-    checks = {"start": k16_check(torch, p, y, c, lr0)}
+    checks = {"start": k16_check(torch, g, y, c, lr0)}
     c_pow, y_pow = umap_start(x, UMAPConfig(fast_kernel=False), DEVICE)
-    checks["start_pow"] = k16_check(torch, p, y_pow, c_pow, lr0)
-    pow_ms = timer(lambda: us.step(p, y_pow, c_pow, lr0))
+    checks["start_pow"] = k16_check(torch, g, y_pow, c_pow, lr0)
+    pow_ms = timer(lambda: us.step(g, y_pow, c_pow, lr0))
     spare = torch.empty_like(y)
     for it in range(UMAP_MID):
-        y, spare = us.step(p, y, c, us.learning_rate(1.0, it, UMAP_ITERS), out=spare), y
+        y, spare = us.step(g, y, c, us.learning_rate(1.0, it, UMAP_ITERS), out=spare), y
     lr = us.learning_rate(1.0, UMAP_MID, UMAP_ITERS)
-    checks["mid"] = k16_check(torch, p, y, c, lr)
-    checks["mid_pow"] = k16_check(torch, p, y, c_pow, lr)
-    lib_y = lib_umap_step(torch, p, y, c, lr)
-    want = us.step_plain(p, y, c, lr)
-    lib_err = float((lib_y - want).abs().max()) / max(float(want.abs().max()), 1e-30)
-    del lib_y, want
-    if not lib_err <= K16_TOL:
-        raise SystemExit(f"K16's library sequence: y′ {lib_err:.3e} of its scale from the "
-                         f"plain iteration (limit {K16_TOL})")
-    b16 = k16_bound(n)
-    k16 = {"ms": timer(lambda: us.step(p, y, c, lr, out=spare)),
-           "plain_ms": slow(lambda: us.step_plain(p, y, c, lr)),
-           "library_ms": slow(lambda: lib_umap_step(torch, p, y, c, lr)),
-           "library_y_err": lib_err, "pow_ms": pow_ms,
-           "bound_ms": b16[0], "bound_by": b16[1], "pow_bound_ms": k16_bound(n, False)[0],
-           "launch_ms": device_breakdown(torch, lambda: us.step(p, y, c, lr, out=spare)),
-           "checks": checks}
+    checks["mid"] = k16_check(torch, g, y, c, lr)
+    checks["mid_pow"] = k16_check(torch, g, y, c_pow, lr)
+    # the library sequence held by K16's own measure at the mid state
+    lib = k16_check(torch, g, y, c, lr, lib_umap_step(torch, p_dense, y, c, lr),
+                    "K16's library sequence")
+    b16 = k16_bound(n, g.nnz)
+    # no launch_ms: K16 is one launch a call, so the profiler's time of it
+    # would only repeat ``ms``
+    k16 = {"ms": timer(lambda: us.step(g, y, c, lr, out=spare)),
+           "plain_ms": slow(lambda: us.step_plain(g, y, c, lr)),
+           "library_ms": slow(lambda: lib_umap_step(torch, p_dense, y, c, lr)),
+           "library_y_err": lib["err_share"], "pow_ms": pow_ms,
+           "bound_ms": b16[0], "bound_by": b16[1], "pow_bound_ms": k16_bound(n, g.nnz, False)[0],
+           "dense_p_bound_ms": old["k16"], "checks": checks}
     log(f"K16 ({smi}): {json.dumps(k16)}; phase 7d at {time.perf_counter() - t0:.1f}s")
-    del p, y, spare, y_pow
+    del g, p_dense, y, spare, y_pow
     torch.cuda.empty_cache()
     # the CLI: cli.plot's default method (UMAP at 2 components); where
     # neither plotly nor matplotlib is installed it writes the json alone
@@ -4220,7 +4323,8 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     counts = kernels.launch_counts()
-    want = {"umap_graph": 2, "umap_graph_union": 1, "umap_step": UMAP_ITERS}
+    want = {"umap_graph": K15_LAUNCHES, "umap_graph_union": 1, "umap_graph_scan": 1,
+            "umap_graph_fill": 1, "umap_graph_sort": 1, "umap_step": UMAP_ITERS}
     if rc != 0 or any(counts[k] != v for k, v in want.items()):
         raise SystemExit(f"cli.plot: exit {rc}, launches "
                          f"{ {k: counts[k] for k in want} }, expected {want}")
@@ -4249,15 +4353,20 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
                      k15["ms"], k15["plain_ms"], k15["library_ms"], b15[0], b15[1],
                      max(k15["w_err"], k15["p_err"]),
                      f"neighbour sets equal, each weight within {K15_ATOL} and P within "
-                     f"{2 * K15_ATOL} of the plain version's (absolute)",
-                     {"n": n, "k": UMAP_K},
-                     launch_ms={"knn_weights": k15["knn_weights_ms"], "union": k15["union_ms"]}),
+                     f"{2 * K15_ATOL} of the plain version's (absolute); the CSR bitwise the "
+                     f"plain union of the same lists",
+                     {"n": n, "k": UMAP_K, "nnz": k15["nnz"]},
+                     launch_ms={"knn_weights": k15["knn_weights_ms"], "union": k15["union_ms"]},
+                     library_note="the dense sequence (topk, the bisection, the dense "
+                                  "union)", dense_p_bound_ms=old["k15"]),
         pipeline_row("umap_step", "k16_umap_step.cu", "gene2vec_tpu/viz/umap.py:188",
                      k16["ms"], k16["plain_ms"], k16["library_ms"], b16[0], b16[1], err16,
                      f"y′ within {K16_TOL} of lr·(|rowsum·y| + Σ|coef|·|y|) + max|y′|; clip "
                      f"flips counted where the force lies within that of ±4",
-                     {"n": n}, clip_flips={k: r["clip_flips"] for k, r in checks.items()},
-                     launch_ms=k16["launch_ms"]),
+                     {"n": n, "nnz": k15["nnz"]},
+                     clip_flips={k: r["clip_flips"] for k, r in checks.items()},
+                     library_note="the dense sequence on P densified outside the timed "
+                                  "window", dense_p_bound_ms=old["k16"]),
     ]
     return rows, {"umap_graph": counts["umap_graph"], "umap_step": counts["umap_step"]}
 
@@ -4294,7 +4403,10 @@ def pipeline(torch, smi: str, reps: int = TIMED_REPS):
 #: run (pairs/s per iteration from its training log), and the pipeline's
 #: K11, K10c and K10 and cli.tsne's wall (pipeline_kernel_times: the
 #: comparing checkout's, whose path is this code's one argument, on this
-#: tree's kernels, so every tree is timed by the same code)
+#: tree's kernels, so every tree is timed by the same code), and K15, K16
+#: and cli.plot's wall (umap_kernel_times, the comparing checkout's too:
+#: whatever the tree's ``umap_graph.graph`` returns goes straight to its
+#: ``umap_step.step``).  ``--parts umap`` runs the UMAP times alone.
 COMPARE_RUN = """
 import csv, importlib.util, json, os, sys, tempfile, time
 sys.path.insert(0, os.getcwd())
@@ -4302,6 +4414,13 @@ import numpy as np
 import torch
 import chip_smoke as cs
 smi = cs.nvidia_smi_line()
+spec = importlib.util.spec_from_file_location("chip_smoke_comparing", sys.argv[1])
+comparing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(comparing)
+if sys.argv[2] == "umap":
+    print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi,
+                                   "umap": comparing.umap_kernel_times(torch)}))
+    sys.exit(0)
 
 
 def host_times(config_kw, epochs=3):
@@ -4435,28 +4554,27 @@ with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
     cs.train_full_width(torch, work, smi)
     with open(os.path.join(work, "export", "training_log.csv")) as f:
         rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
-# the pipeline's kernels (K10c, K10, K11) and cli.tsne
-spec = importlib.util.spec_from_file_location("chip_smoke_comparing", sys.argv[1])
-comparing = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(comparing)
+# the pipeline's kernels (K10c, K10, K11) and cli.tsne, then UMAP's
 pipeline = comparing.pipeline_kernel_times(torch)
+umap = comparing.umap_kernel_times(torch)
 print("COMPARE " + json.dumps({"tree": os.getcwd(), "card": smi, "k1": k1, "noise": noise,
                                "k4": k4,
                                "objectives": objectives, "gather": gather, "host": host,
                                "windows": windows, "objective_windows": objective_windows,
                                "step_kernels": kernels_by_step, "probes": probes,
                                "serving": serving, "serving_shapes": serving_shapes,
-                               "cli_pairs_per_s": rates, "pipeline": pipeline}))
+                               "cli_pairs_per_s": rates, "pipeline": pipeline,
+                               "umap": umap}))
 """
 
 
-def compare_trees(trees) -> int:
-    """``python3 chip_smoke.py --compare DIR [DIR ...]``: COMPARE_RUN in
-    each checkout in the order given (parent, change, change, parent), each
-    in its own process and with its own kernels, one ``{"compare": ...}``
-    line a run on stdout."""
+def compare_trees(trees, parts: str = "all") -> int:
+    """``python3 chip_smoke.py --compare [--parts umap] DIR [DIR ...]``:
+    COMPARE_RUN in each checkout in the order given (parent, change,
+    change, parent), each in its own process and with its own kernels, one
+    ``{"compare": ...}`` line a run on stdout."""
     for tree in trees:
-        out = subprocess.run([sys.executable, "-c", COMPARE_RUN, os.path.abspath(__file__)],
+        out = subprocess.run([sys.executable, "-c", COMPARE_RUN, os.path.abspath(__file__), parts],
                              cwd=os.path.abspath(tree),
                              capture_output=True, text=True, timeout=1800)
         sys.stderr.write(out.stderr)
@@ -4475,7 +4593,13 @@ def main() -> int:
         log("chip_smoke: no CUDA device available")
         return 2
     if sys.argv[1:2] == ["--compare"]:
-        return compare_trees(sys.argv[2:])
+        args = sys.argv[2:]
+        parts = "all"
+        if args[:1] == ["--parts"]:
+            parts, args = args[1], args[2:]
+        if parts not in ("all", "umap"):
+            raise SystemExit(f"chip_smoke: --parts takes all or umap, not {parts}")
+        return compare_trees(args, parts)
     smi = nvidia_smi_line()
     log(f"device: {smi}")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))

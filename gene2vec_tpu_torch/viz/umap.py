@@ -8,14 +8,17 @@ every pair (McInnes et al. 2018, §3; the reference's docstring has the
 formulation).  Here:
 
 * ``fit_ab`` is the reference's numpy fit, bit for bit;
-* the distances are ``viz/tsne.py:_squared_distances`` (one float32
+* the distances are ``viz/tsne.py:_squared_distances``'s (one float32
   ``torch.matmul``) on PCA-reduced points (``pca_reduce``, bit for bit);
-* the graph is K15 (``kernels/umap_graph.py``, two launches): each row's
-  neighbours and weights, then the union into a dense P of padded rows;
-  the distances are freed once the neighbours are written;
-* each iteration is K16 (``kernels/umap_step.py``, one launch), from one
-  (N, 2) buffer into another, swapped between launches, starting from
-  :func:`start`; one host copy per callback.
+  on the card :func:`_squared_distances` writes them into rows padded to
+  ``tsne_calibrate.row_pitch(N)`` floats, the layout K15 bulk-copies;
+* the graph is K15 (``kernels/umap_graph.py``, five launches): each row's
+  neighbours and weights, then the union into a sparse P (CSR rows,
+  ``umap_graph.Graph``; no (N, N) P exists); the distances are freed once
+  the neighbours are written;
+* each iteration is K16 (``kernels/umap_step.py``, one launch), from y and
+  the graph, from one (N, 2) buffer into another, swapped between
+  launches, starting from :func:`start`; one host copy per callback.
 
 On CPU tensors (``device="cpu"``) the kernels' plain versions run.
 """
@@ -28,7 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from gene2vec_tpu_torch.viz.tsne import _squared_distances, pca_reduce
+from gene2vec_tpu_torch.viz import tsne
+from gene2vec_tpu_torch.viz.tsne import pca_reduce
 
 
 def fit_ab(
@@ -117,10 +121,28 @@ def _smooth_knn_weights(knn_d: torch.Tensor, n_neighbors: int, iters: int = 64) 
     return umap_graph.smooth_knn_plain(knn_d, n_neighbors, iters)
 
 
-def _fuzzy_graph(x: torch.Tensor, n_neighbors: int) -> torch.Tensor:
-    """The dense symmetrized fuzzy simplicial weights P (N, N) of the
-    points ``x`` (on the card an (N, N) view of padded rows).  The
-    distances are freed once K15 has written the neighbours and weights."""
+def _squared_distances(x: torch.Tensor) -> torch.Tensor:
+    """``viz/tsne.py:_squared_distances`` of the points ``x``; on the card
+    an (N, N) view of rows ``tsne_calibrate.row_pitch(N)`` floats apart:
+    one product x·[xᵀ | 0] into the padded rows, then the reference's
+    rank-1 terms and clamp in place (−2m + sq_i is sq_i − 2m bit for
+    bit)."""
+    from gene2vec_tpu_torch.kernels import tsne_calibrate
+
+    if x.device.type == "cpu":
+        return tsne._squared_distances(x)
+    n = x.shape[0]
+    xt = torch.zeros((x.shape[1], tsne_calibrate.row_pitch(n)), dtype=x.dtype, device=x.device)
+    xt[:, :n] = x.T
+    d = torch.mm(x, xt)[:, :n]
+    sq = torch.sum(x * x, dim=1)
+    return d.mul_(-2.0).add_(sq[:, None]).add_(sq[None, :]).clamp_min_(0.0)
+
+
+def _fuzzy_graph(x: torch.Tensor, n_neighbors: int) -> "umap_graph.Graph":
+    """The symmetrized fuzzy simplicial weights P of the points ``x`` as a
+    sparse ``umap_graph.Graph``.  The distances are freed once K15 has
+    written the neighbours and weights."""
     from gene2vec_tpu_torch.kernels import umap_graph
 
     d2 = _squared_distances(x)

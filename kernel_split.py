@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a kernel's time goes, by builds with one part changed or compiled out.
 
-    python3 kernel_split.py [--kernel k5|k9|k10|k10c|k11|k12|k13] [TREE ...]   # on a machine with a CUDA card
+    python3 kernel_split.py [--kernel k5|k9|k10|k10c|k11|k12|k13|k15|k16] [TREE ...]   # on a machine with a CUDA card
 
 For the kernel named (default ``k5``) of each checkout given (default:
 this one), builds its source as it is and as each entry of its variant
@@ -46,6 +46,27 @@ times it with ``chip_smoke.Timer`` (CUDA events, L2 flushed, median).  One
   versions, timed at every tile height it takes (``rows``; the uncapped
   build too) and, for the scatter, with every offset one column (one list
   of 128).
+- ``k16``: K16 (``csrc/k16_umap_step.cu``, the all-pairs design on the
+  sparse graph) at phase 7d's N = 24,447 (this checkout's graph of the
+  clustered table's PCA-50 points, a layout 20 iterations in), with one
+  part changed: no column mask in the pair loop (the stored entries and
+  the diagonal keep their p = 0 coef) or no stored entries' pass (both
+  timed only),
+  ``__fdiv_rn`` in place of the
+  branch-free division, 4 or 16 pairs side by side in place of 8, u^b as
+  u (no rsqrts; timed only), four blocks an SM in place of three; each
+  beside the whole build, which is checked against ``umap_step.step``'s
+  bits (``bitwise``: every build that computes the same function, by
+  name); each build's SASS under ``chip_smoke_sass/``.  A tree of
+  another design is skipped.
+- ``k15``: K15's launch 1 (``csrc/k15_umap_graph.cu``, ``k15_knn_weights``)
+  at phase 7d's N = 24,447, k = 15 (this checkout's padded distances of
+  the clustered table's PCA-50 points, staged as ``umap_graph.stages``
+  picks), with every row sent to the radix select (``radix_only``: the
+  candidate route under the k-th warp minimum compiled out), beside the
+  whole build; each build's lists and weights checked bitwise against
+  ``umap_graph.knn_weights``' (``bitwise``).  A tree of another design
+  is skipped.
 - ``k10``: K10 (``csrc/k10_tsne_step.cu``) at phase 7c's N = 24,447 (P of
   the clustered table's PCA-50 points at perplexity 30, a layout 20
   iterations in) with parts compiled out — P's loads (P a constant), the
@@ -151,6 +172,7 @@ _K10C_ALL_STEPS = ("#define K10C_EARLY_EXIT 1", "#define K10C_EARLY_EXIT 0")
 
 _K11_PASS = "const bool pass = fabsf(acc[r][h * 4 + c]) >= astar;"
 
+
 #: kernel → (source files, variant → [(text, replacement)]); a variant
 #: builds each source its edits all apply to.  K5a's first design (a
 #: column a lane, scalar atomics, each noise row read twice) and its
@@ -227,6 +249,25 @@ VARIANTS = {
                           "const float w = (j == diag) ? 0.0f : __fmul_rn(-d, beta);")],
         "first_no_select": [("(j == diag) ? 0.0f : expf(", "expf(")],
         "first_no_block_sums": [_K10C_FIRST_SUMS],
+    }),
+    "k15": (("k15_umap_graph.cu",), {
+        # every row through the radix select (no candidate route)
+        "radix_only": [("  if (k <= kFastK) {", "  if (false) {")],
+    }),
+    "k16": (("k16_umap_step.cu",), {
+        # no column mask in the pair loop: the stored entries and the
+        # diagonal keep their p = 0 coef (timed only)
+        "no_mask": [("coef[g] = (zero >> g) & 1u ? 0.0f : v;", "coef[g] = v;")],
+        # no stored entries' pass (timed only)
+        "no_stored": [("  stored_entries<kFast>(col, val, y, row_b, row_e, s, yi.x, yi.y, c, acc);",
+                       "")],
+        # __fdiv_rn (its range check and branch) in place of div_fast
+        "fdiv_rn": [("const float v = __fsub_rn(0.0f, div_fast(c.two_bg, den));",
+                     "const float v = __fsub_rn(0.0f, __fdiv_rn(c.two_bg, den));")],
+        "group4": [("constexpr int kGroup = 8;", "constexpr int kGroup = 4;")],
+        "group16": [("constexpr int kGroup = 8;", "constexpr int kGroup = 16;")],
+        "no_rsqrt": [("__fmul_rn(um, rsqrt_ftz(rsqrt_ftz(rsqrt_ftz(um))))", "um")],
+        "four_blocks": [("__launch_bounds__(kThreads, 3)", "__launch_bounds__(kThreads, 4)")],
     }),
     "k11": (("k11_coexpr_mask.cu",), {
         "no_mirror": [("#define K11_MIRROR 1", "#define K11_MIRROR 0")],
@@ -740,6 +781,92 @@ def time_k11(torch, tree, built, timer, out):
         del z, zp, dst
 
 
+def time_k15(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+    from gene2vec_tpu_torch.kernels import tsne_calibrate as kc
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+    from gene2vec_tpu_torch.viz import tsne as viz
+    from gene2vec_tpu_torch.viz import umap as uv
+
+    with open(os.path.join(tree, CSRC, "k15_umap_graph.cu")) as f:
+        if "int nstages" not in f.read():
+            out["note"] = "another design's K15 (rows read four times): not timed here"
+            return
+    emb, _ = cs.clustered_table(v=cs.V)
+    d2 = uv._squared_distances(torch.from_numpy(viz.pca_reduce(emb, 50)).to("cuda"))
+    n, k = d2.shape[0], cs.UMAP_K
+    want_idx, want_w = ug.knn_weights(d2, k)
+    idx, w = torch.empty_like(want_idx), torch.empty_like(want_w)
+    out["stages"] = ug.stages(n, k)
+    for name, (paths, _) in built.items():
+        lib = ctypes.CDLL(paths["k15_umap_graph.cu"])
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = lib.k15_knn_weights
+        fn.argtypes = [P, I, I, I, F, I, I, I, P, P, P]
+        fn.restype = I
+        args = [_args.ptr(d2), kc.row_pitch(n), n, k, ug.target(k), ug.ITERS, out["stages"],
+                _args.sm_count(d2), _args.ptr(idx), _args.ptr(w), _args.stream(d2)]
+
+        def call():
+            status = fn(*args)
+            if status:
+                raise SystemExit(f"{tree} k15 {name}: CUDA error {status}")
+
+        out["ms"][name] = timer(call)
+        call()
+        torch.cuda.synchronize()
+        out.setdefault("bitwise", {})[name] = bool(
+            torch.equal(idx, want_idx) and torch.equal(w.view(torch.int32),
+                                                       want_w.view(torch.int32)))
+        cs.log(f"split {tree} k15 {name}: {out['ms'][name]:.4f} ms")
+
+
+def time_k16(torch, tree, built, timer, out):
+    import chip_smoke as cs
+    from gene2vec_tpu_torch.kernels import _args
+    from gene2vec_tpu_torch.kernels import umap_graph as ug
+    from gene2vec_tpu_torch.kernels import umap_step as us
+    from gene2vec_tpu_torch.viz import tsne as viz
+    from gene2vec_tpu_torch.viz import umap as uv
+
+    with open(os.path.join(tree, CSRC, "k16_umap_step.cu")) as f:
+        if "rowptr" not in f.read():
+            out["note"] = "another design's K16 (a dense P): not timed here"
+            return
+    emb, _ = cs.clustered_table(v=cs.V)
+    x = viz.pca_reduce(emb, 50)
+    g = ug.graph(uv._squared_distances(torch.from_numpy(x).to("cuda")), cs.UMAP_K)
+    c, y = uv.start(x, uv.UMAPConfig(), "cuda")
+    spare = torch.empty_like(y)
+    for it in range(20):
+        y, spare = us.step(g, y, c, us.learning_rate(1.0, it, cs.UMAP_ITERS), out=spare), y
+    lr = us.learning_rate(1.0, 20, cs.UMAP_ITERS)
+    want = us.step(g, y, c, lr)
+    dst = torch.empty_like(y)
+    n = y.shape[0]
+    for name, (paths, _) in built.items():
+        lib = ctypes.CDLL(paths["k16_umap_step.cu"])
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = lib.k16_umap_step
+        fn.argtypes = [P, P, P, P, P, I, F, F, F, F, F, I, P]
+        fn.restype = I
+        args = [_args.ptr(g.rowptr), _args.ptr(g.col), _args.ptr(g.val), _args.ptr(y),
+                _args.ptr(dst), n, c.a, c.b, c.two_ab, c.two_bg, lr, 1, _args.stream(y)]
+
+        def call():
+            status = fn(*args)
+            if status:
+                raise SystemExit(f"{tree} k16 {name}: CUDA error {status}")
+
+        out["ms"][name] = timer(call)
+        call()
+        torch.cuda.synchronize()
+        out.setdefault("bitwise", {})[name] = bool(torch.equal(dst.view(torch.int32),
+                                                               want.view(torch.int32)))
+        cs.log(f"split {tree} k16 {name}: {out['ms'][name]:.4f} ms")
+
+
 def dump_sass(tree, built, kernel, out) -> None:
     """Each build's SASS (``cuobjdump -sass``) into ``chip_smoke_sass/`` at
     the root of this checkout (git ignores it), with its instruction count
@@ -767,7 +894,7 @@ def dump_sass(tree, built, kernel, out) -> None:
 
 
 TIMERS = {"k5": time_k5, "k9": time_k9, "k10": time_k10, "k10c": time_k10c,
-          "k11": time_k11, "k12": time_k12, "k13": time_k13}
+          "k11": time_k11, "k12": time_k12, "k13": time_k13, "k15": time_k15, "k16": time_k16}
 
 
 def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
@@ -779,7 +906,7 @@ def run_tree(torch, tree: str, kernel: str, reps: int) -> dict:
         out["skipped"] = sorted(set(VARIANTS[kernel][1]) - set(built))
         out["regs"] = {name: regs for name, (_, regs) in built.items()}
         TIMERS[kernel](torch, tree, built, cs.Timer(torch, reps), out)
-        if kernel in ("k10", "k10c", "k11"):
+        if kernel in ("k10", "k10c", "k11", "k15", "k16"):
             dump_sass(tree, built, kernel, out)
     return out
 

@@ -779,7 +779,8 @@ def test_sources_scan_covers_the_umap_slice():
     for mod in UMAP_MODULES:
         assert mod.replace(".", "/") + ".py" in scanned
     assert {"k15_umap_graph.cu", "k16_umap_step.cu"} <= set(build.SOURCES.values())
-    assert {"umap_graph", "umap_graph_union", "umap_step"} <= set(kernels.launch_counts())
+    assert {"umap_graph", "umap_graph_union", "umap_graph_scan", "umap_graph_fill",
+            "umap_graph_sort", "umap_step"} <= set(kernels.launch_counts())
     assert os.path.isfile(os.path.join(PKG, "viz", "assets", "geneview.css"))
     for test in ("test_torch_umap.py", "test_torch_plot.py"):
         used = _imported_port_modules(os.path.join(ROOT, "tests", test))
@@ -807,10 +808,11 @@ def test_umap_needs_cuda_unless_cpu_is_asked(monkeypatch):
 def _umap_calls():
     from gene2vec_tpu_torch.kernels import tsne_calibrate, umap_graph, umap_step
 
-    d2 = torch.zeros(5, 5)
+    d2 = tsne_calibrate.empty_rows(5, 5, "cpu").zero_()
     idx = torch.zeros(5, 2, dtype=torch.int32)
     w = torch.zeros(5, 2)
-    p = tsne_calibrate.empty_rows(5, 5, "cpu").zero_()
+    p = umap_graph.Graph(torch.zeros(6, dtype=torch.int32), torch.zeros(0, dtype=torch.int32),
+                         torch.zeros(0))
     y = torch.zeros(5, 2)
     c = umap_step.constants(1.5, 0.875, 1.0, True)
     return [
@@ -822,7 +824,7 @@ def _umap_calls():
 
 @pytest.mark.parametrize("case", range(3))
 def test_umap_wrappers_on_cuda_never_take_the_plain_version(monkeypatch, case):
-    """K15's two launches and K16: a CUDA tensor reaches the kernel (the
+    """K15's launch 1 and its union, and K16: a CUDA tensor reaches the kernel (the
     loader, stubbed to raise), never the plain version."""
     from gene2vec_tpu_torch.kernels import _args, build
 

@@ -9,7 +9,10 @@ Tolerances, each with its reason:
   and torch's exp is not XLA's, so σ moves by the sum's last bits over its
   slope; measured ≤ 2.7e-7);
 - the graph from the same d²: the neighbours equal in order, P within 5e-6
-  absolute (measured ≤ 1.2e-6);
+  absolute (measured ≤ 1.2e-6); the CSR union of the same (idx, w),
+  densified, bitwise the reference's union of them;
+- the sparse plain coef: bitwise the dense plain coef of the densified
+  graph (the same torch ops on the same values);
 - the graph from the points: the neighbour sets equal on inputs whose
   k-th and (k+1)-th distances lie further apart than the two d²'s largest
   difference (asserted), P within 1e-3 absolute — d² cancels for close
@@ -25,6 +28,7 @@ Tolerances, each with its reason:
 """
 
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -83,6 +87,16 @@ def _masked(d2):
     return np.where(np.eye(len(d2), dtype=bool), np.inf, d2)
 
 
+def _from_dense(p):
+    """The CSR graph of a dense P (its nonzero entries, rows in column
+    order)."""
+    pt = torch.from_numpy(np.asarray(p, np.float32))
+    rows, cols = torch.nonzero(pt, as_tuple=True)
+    rowptr = torch.zeros(pt.shape[0] + 1, dtype=torch.int32)
+    rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=pt.shape[0]), 0)
+    return umap_graph.Graph(rowptr, cols.to(torch.int32), pt[rows, cols])
+
+
 @pytest.mark.parametrize("k", [5, 15])
 @pytest.mark.parametrize("seed,n_per,pca", CASES)
 def test_graph_from_the_same_distances(seed, n_per, pca, k):
@@ -92,9 +106,65 @@ def test_graph_from_the_same_distances(seed, n_per, pca, k):
     idx, w = umap_graph.knn_weights(torch.from_numpy(d2), k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
     want = np.asarray(ref._fuzzy_graph(jnp.asarray(x), k))
-    got = umap_graph.fuzzy_union(idx, w).numpy()
+    g = umap_graph.fuzzy_union(idx, w)
+    got = umap_graph.to_dense(g).numpy()
     assert np.abs(got - want).max() <= 5e-6
     np.testing.assert_array_equal(got, got.T)
+    # the reference's own union of these (idx, w): the same bits
+    with mock.patch.object(ref, "_smooth_knn_weights", lambda d, kk: jnp.asarray(w.numpy())):
+        union = np.asarray(ref._fuzzy_graph(jnp.asarray(x), k))
+    assert np.array_equal(got.view(np.int32), union.view(np.int32))
+
+
+def _star(n=100, d=200, seed=0):
+    """A hub: point 0 at the origin, the rest on the unit sphere in random
+    directions (pairwise ~√2 apart), so every point has the hub nearest."""
+    rng = np.random.RandomState(seed)
+    v = rng.randn(n - 1, d)
+    return np.concatenate([np.zeros((1, d)), v / np.linalg.norm(v, axis=1, keepdims=True)]
+                          ).astype(np.float32)
+
+
+def _triples(groups=40, seed=0):
+    """Tight triples far apart: at k = 3 each point's third neighbour lies
+    in another triple, its weight exp(−shifted/σ) underflows to 0."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(groups, 2) * 50.0
+    return np.repeat(centers, 3, axis=0) + rng.randn(3 * groups, 2) * 1e-2
+
+
+@pytest.mark.parametrize("case", ["blobs", "star", "triples"])
+def test_graph_csr_invariants(case):
+    """The CSR graph: rows in ascending column order, no diagonal, no
+    stored zero, the pattern and the values symmetric bit for bit, every
+    edge of the lists present; the star's hub holds every other point
+    (in-degree past 2k); the triples' zero weights leave no entry."""
+    x = {"blobs": lambda: _points(0, 50, 10), "star": _star,
+         "triples": lambda: _triples().astype(np.float32)}[case]()
+    k = 3 if case != "blobs" else 15
+    d2 = port._squared_distances(torch.from_numpy(x))
+    idx, w = umap_graph.knn_weights(d2, k)
+    g = umap_graph.fuzzy_union(idx, w)
+    n = len(x)
+    assert g.rowptr.dtype == torch.int32 and g.col.dtype == torch.int32
+    assert g.rowptr[0] == 0 and g.rowptr[-1] == g.nnz and g.n == n
+    rp, col, val = g.rowptr.numpy(), g.col.numpy(), g.val.numpy()
+    rows = np.repeat(np.arange(n), np.diff(rp))
+    for i in range(n):
+        assert (np.diff(col[rp[i]:rp[i + 1]]) > 0).all()
+    assert (rows != col).all() and (val != 0).all()
+    dense = umap_graph.to_dense(g).numpy()
+    assert np.array_equal(dense.view(np.int32), dense.T.view(np.int32))
+    assert np.count_nonzero(dense) == g.nnz
+    nz = w.numpy() != 0
+    assert (dense[np.repeat(np.arange(n), k)[nz.ravel()], idx.numpy().ravel()[nz.ravel()]] != 0).all()
+    if case == "star":
+        assert (idx.numpy()[1:, 0] == 0).all()
+        assert rp[1] - rp[0] == n - 1 > 2 * k
+    if case == "triples":
+        assert (w.numpy() == 0).any()
+        assert g.nnz < len(set(zip(rows, col)) | {(j, i) for i, j in zip(
+            np.repeat(np.arange(n), k), idx.numpy().ravel())})
 
 
 @pytest.mark.parametrize("k", [5, 15])
@@ -110,7 +180,7 @@ def test_graph_from_the_points(seed, n_per, pca, k):
     row_err = np.where(near, np.abs(d2 - d2_ref), 0.0).max(axis=1)
     assert (s[:, k] - s[:, k - 1] > 2 * row_err).all()
     want = np.asarray(ref._fuzzy_graph(jnp.asarray(x), k))
-    got = port._fuzzy_graph(torch.from_numpy(x), k).numpy()
+    got = umap_graph.to_dense(port._fuzzy_graph(torch.from_numpy(x), k)).numpy()
     np.testing.assert_array_equal(got > 0, want > 0)  # the same edges
     assert np.abs(got - want).max() <= 1e-3
 
@@ -191,7 +261,7 @@ def test_one_iteration_matches(monkeypatch, seed, n_per, pca, fast):
     for y_in, it_in in ((y, 0), (y * 0.1, 1)):   # the start, and a layout 10× denser
         want = np.asarray(spy.fn(y_in, p, np.float32(it_in)))
         lr = umap_step.learning_rate(cfg.learning_rate, it_in, cfg.n_iters)
-        got = umap_step.step(torch.from_numpy(p), torch.from_numpy(y_in), c, lr).numpy()
+        got = umap_step.step(_from_dense(p), torch.from_numpy(y_in), c, lr).numpy()
         err, _ = _terms_error(p, y_in, got, want, c, lr)
         assert err <= TERMS_TOL, (it_in, err)
 
@@ -210,11 +280,47 @@ def test_ten_iterations_match(monkeypatch, seed, n_per, pca, fast):
     for it, ((y, p, it_ref), want) in enumerate(spy.calls):
         assert float(it_ref) == it
         lr = umap_step.learning_rate(cfg.learning_rate, it, cfg.n_iters)
-        got = umap_step.step(torch.from_numpy(p), torch.from_numpy(y), c, lr).numpy()
+        got = umap_step.step(_from_dense(p), torch.from_numpy(y), c, lr).numpy()
         err, n_near = _terms_error(p, y, got, want, c, lr)
         assert err <= TERMS_TOL, (it, err)
         near += n_near
     print(f"N {len(x)}: ten iterations within the bar; forces within it of ±4: {near}")
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("n", [2, 5, 16, 300])
+def test_graph_coef_is_bitwise_the_dense_coef(n, fast):
+    """The sparse plain coef (every pair's p = 0 term, the full formula at
+    the stored entries, 0 on the diagonal) is the dense plain coef of the
+    densified graph bit for bit, from the start and from a layout 10×
+    denser."""
+    x = port.pca_reduce(_blobs(-(-n // 3), seed=n)[0][:n], 10)
+    g = port._fuzzy_graph(torch.from_numpy(x), min(15, n - 1))
+    c, y = port.start(x, port.UMAPConfig(fast_kernel=fast), "cpu")
+    for yy in (y, y * 0.1):
+        got = umap_step.coef_graph_plain(g, yy, c)
+        want = umap_step.coef_plain(umap_graph.to_dense(g), yy, c)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("fast", [True, False])
+@pytest.mark.parametrize("seed,n_per,pca", CASES[:2])
+def test_one_iteration_from_the_csr(monkeypatch, seed, n_per, pca, fast):
+    """One iteration from the port's own CSR graph against the reference's
+    iterate on that graph densified, within the terms bar."""
+    x, _ = _blobs(n_per, seed=seed)
+    cfg = ref.UMAPConfig(pca_dims=pca, n_iters=2, fast_kernel=fast)
+    spy, _ = _reference_run(monkeypatch, x, cfg)
+    (y, _, _), _ = spy.calls[0]
+    xp = port.pca_reduce(x, pca)
+    g = port._fuzzy_graph(torch.from_numpy(xp), cfg.n_neighbors)
+    p = umap_graph.to_dense(g).numpy()
+    c = _constants(cfg)
+    want = np.asarray(spy.fn(y, p, np.float32(0)))
+    lr = umap_step.learning_rate(cfg.learning_rate, 0, cfg.n_iters)
+    got = umap_step.step(g, torch.from_numpy(y), c, lr).numpy()
+    err, _ = _terms_error(p, y, got, want, c, lr)
+    assert err <= TERMS_TOL, err
 
 
 def test_fuzzy_graph_and_start_equal_the_references(monkeypatch):
@@ -226,7 +332,7 @@ def test_fuzzy_graph_and_start_equal_the_references(monkeypatch):
     (y0, p, _), _ = spy.calls[0]
     seen = []
     monkeypatch.setattr(umap_step, "step", lambda p_, y_, *a, **k: seen.append(
-        (p_.numpy().copy(), y_.numpy().copy())) or y_)
+        (umap_graph.to_dense(p_).numpy(), y_.numpy().copy())) or y_)
     port.umap_layout(x, port.UMAPConfig(pca_dims=10, n_iters=1), device="cpu")
     np.testing.assert_array_equal(seen[0][1], y0)
     assert np.abs(seen[0][0] - p).max() <= 1e-3
