@@ -106,6 +106,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    default configuration, each of those five and bf16 tables with SR;
    bf16 with nearest-even write-back (default and per_example) is
    reported, not gated, and is the main path of K4's nearest-even rows;
+   (4b) the quality tooling as the reference bench's gate runs it:
+   ``train_epochs`` over ``eval/planted.py``'s corpus at dim 64 (batch
+   1,024, 15 epochs) and at D = 200, each gated on INTRA_MIN, INTER_MAX
+   and the loss escaping ln 2·(1 + K) − 1; the holdout protocol
+   (``eval/holdout.py``) on a reference-format split written from a seed
+   (its AUC printed, the band not asserted); one ``fit_epoch`` card vs
+   CPU at full width (``{"quality_tooling": ...}``).  Every CLI training
+   run of phases 3-3c is also held to the reference run's records
+   (``check_run_records``: the manifest's config hash and goodput block,
+   one step span an iteration, metrics.prom, each checkpoint's hash);
 5. serving at full width — phase 3's export, then a clustered export of
    the same width (V = 24,447, D = 200, 1,000 groups of ~24 genes),
    each served through ``cli/serve.py`` in a subprocess on the card once
@@ -176,10 +186,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
-for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
+and phase 4b's for K1-K4, phase 3b's runs' for K5a, K5b, K6 and K4's generic entry
 points ``row_scatter`` / ``row_finalize``, phase 3c's for the ``_bf16``
 rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
-K7-K9r, phase 6's CLI runs and interaction server for ``row_gather``,
+K7-K9r, phase 6's CLI runs and interaction server and phase 4b's
+``fit_epoch`` for ``row_gather``,
 phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
 K10c and K10 and its ``cli.plot`` run for K15 and K16;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
@@ -1966,6 +1977,7 @@ def train_full_width(torch, work: str, smi: str):
         raise SystemExit(f"launch counts {counts}, expected {want}")
     log(f"training ({smi}): losses {losses}, pairs/s per iteration "
         f"{rates}, launches { {k: n for k, n in counts.items() if n} }")
+    check_run_records(out, ITERS, "phase 3")
     return counts
 
 
@@ -2169,6 +2181,7 @@ def train_objectives(torch, work: str, smi: str, runs=OBJECTIVE_RUNS,
         out_counts[label] = counts
         log(f"training {label} ({smi}): losses {losses}, pairs/s per iteration {rates}, "
             f"{wall:.1f}s, launches { {k: n for k, n in counts.items() if n} }")
+        check_run_records(out, OBJECTIVE_ITERS, f"training {label}")
     return out_counts
 
 
@@ -2197,42 +2210,208 @@ def planted_quality(torch, gate: bool = True, **config_kw):
     15 epochs), for the configuration ``config_kw`` selects; without
     ``gate`` the separation is reported only."""
     from gene2vec_tpu_torch.config import SGNSConfig
-    from gene2vec_tpu_torch.data.pipeline import PairCorpus
-    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.eval import planted
     from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
     from gene2vec_tpu_torch.sgns.train import epoch_generator
 
-    rng = np.random.RandomState(0)
-    lines = []
-    for c in range(10):
-        genes = [f"C{c}G{i}" for i in range(20)]
-        for _ in range(2000):
-            a, b = rng.choice(20, 2, replace=False)
-            lines.append((genes[a], genes[b]))
-    vocab = Vocab.from_pairs(lines)
+    vocab, corpus = planted.planted_corpus()
     cfg = SGNSConfig(dim=64, batch_pairs=1024, num_iters=15, **config_kw)
-    tr = make_trainer(PairCorpus(vocab, vocab.encode_pairs(lines)), cfg, device=DEVICE)
+    tr = make_trainer(corpus, cfg, device=DEVICE)
     params = tr.init()
     for it in range(1, 16):
         params, loss = tr.train_epoch(params, generator=epoch_generator(cfg.seed, it))
-    emb = params.emb.float().cpu().numpy()
-    m = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
-    idx = vocab.token_to_id
-    crng = np.random.RandomState(1)
-    intra, inter = [], []
-    for c in range(10):
-        ids = [idx[f"C{c}G{i}"] for i in range(8)]
-        intra += [m[a] @ m[b] for a, b in itertools.combinations(ids, 2)]
-    for _ in range(500):
-        c1, c2 = crng.choice(10, 2, replace=False)
-        inter.append(m[idx[f"C{c1}G{crng.randint(20)}"]] @ m[idx[f"C{c2}G{crng.randint(20)}"]])
-    intra, inter = float(np.mean(intra)), float(np.mean(inter))
-    log(f"planted clusters {config_kw or 'default'}: intra {intra:.4f} (> 0.95), inter "
-        f"{inter:.4f} (< 0.6), last loss {float(loss):.4f}{'' if gate else ' (reported)'}")
+    intra, inter = planted.cluster_cosines(vocab, params.emb.float().cpu().numpy())
+    log(f"planted clusters {config_kw or 'default'}: intra {intra:.4f} (> {planted.INTRA_MIN}), "
+        f"inter {inter:.4f} (< {planted.INTER_MAX}), last loss {float(loss):.4f}"
+        f"{'' if gate else ' (reported)'}")
     if not np.isfinite(float(loss)):
         raise SystemExit(f"planted clusters ({config_kw}): loss {float(loss)}")
-    if gate and not (intra > 0.95 and inter < 0.6):
+    if gate and not (intra > planted.INTRA_MIN and inter < planted.INTER_MAX):
         raise SystemExit(f"planted clusters did not separate ({config_kw}): {intra}, {inter}")
+
+
+# -- phase 4b: the quality tooling and the run records -------------------------
+
+#: the holdout protocol's synthetic reference-format split: HOLDOUT_GENES
+#: genes in HOLDOUT_GROUPS groups; HOLDOUT_PAIRS labelled pairs, half
+#: within one group (label 1) and half at random (label 0); trained as the
+#: reference gate trains (D, B, 50 epochs)
+HOLDOUT_GENES, HOLDOUT_GROUPS, HOLDOUT_PAIRS, HOLDOUT_EPOCHS = 4000, 200, 60_000, 50
+#: batches of the fit_epoch parity check (B = GG_B, full width)
+FIT_EPOCH_BATCHES = 8
+
+
+def write_holdout_split(path: str, seed: int = 15) -> None:
+    """A ``train_text.txt`` / ``train_label.txt`` split in the reference's
+    format (predictionData/'s), made from ``seed``."""
+    rng = np.random.RandomState(seed)
+    group = rng.randint(0, HOLDOUT_GROUPS, HOLDOUT_GENES)
+    members = [np.flatnonzero(group == g) for g in range(HOLDOUT_GROUPS)]
+    half = HOLDOUT_PAIRS // 2
+    lines, labels = [], []
+    for g in rng.randint(0, HOLDOUT_GROUPS, half):
+        a, b = rng.choice(members[g], 2, replace=False)
+        lines.append(f"G{a} G{b}")
+        labels.append(1)
+    for a, b in rng.randint(0, HOLDOUT_GENES, (half, 2)):
+        lines.append(f"G{a} G{b}")
+        labels.append(int(group[a] == group[b]))
+    order = rng.permutation(len(lines))
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "train_text.txt"), "w") as f:
+        f.write("".join(lines[i] + "\n" for i in order))
+    with open(os.path.join(path, "train_label.txt"), "w") as f:
+        f.write("".join(f"{labels[i]}\n" for i in order))
+
+
+def fit_epoch_parity(torch, batches=FIT_EPOCH_BATCHES):
+    """One ``GGIPNNTrainer.fit_epoch`` on the card against the CPU's from
+    the same params, data and ``FitDraws`` (batch order and dropout
+    masks), the table trained, at full width: each parameter tensor within
+    GG_PARAM_RTOL of its max |CPU value| and the mean loss within
+    GG_LOSS_RTOL (GGIPNN's bar); the accuracy is reported (a prediction
+    within rounding of a tie may flip after several steps)."""
+    from gene2vec_tpu_torch.config import GGIPNNConfig
+    from gene2vec_tpu_torch.models.ggipnn import init_params_numpy
+    from gene2vec_tpu_torch.models.ggipnn_train import FitDraws, GGIPNNTrainer
+
+    v, d, b = V, D, GG_B
+    cfg = GGIPNNConfig(embedding_dim=d, batch_size=b, embed_train=True)
+    p0 = init_params_numpy(2, v, cfg)
+    rng = np.random.RandomState(16)
+    n = b * batches + b // 2  # a ragged tail the epoch leaves out
+    x = rng.randint(0, v, (n, 2)).astype(np.int32)
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, n)]
+    draws = FitDraws(masks=[[rng.rand(b, h) < cfg.dropout_keep_prob for h in cfg.hidden_dims]
+                            for _ in range(batches)],
+                     orders=rng.permutation(batches)[None])
+    out = {}
+    for dev in ("cpu", DEVICE):
+        tr = GGIPNNTrainer(cfg, ggipnn_vocab(v), device=dev)
+        tr.init_state(params=p0)
+        _, _, loss, acc = tr.fit_epoch(x, y, draws)
+        out[dev] = (float(loss), float(acc), tr.model.to_flat())
+    (lc, ac, pc), (lg, ag, pg) = out["cpu"], out[DEVICE]
+    label = f"fit_epoch card vs CPU (V {v}, D {d}, B {b}, {batches} batches)"
+    rel = abs(lc - lg) / abs(lc)
+    worst = max(float(np.abs(pg[k] - pc[k]).max()) / float(np.abs(pc[k]).max()) for k in pc)
+    if not (rel <= GG_LOSS_RTOL and worst <= GG_PARAM_RTOL):
+        raise SystemExit(f"{label}: loss {lg} vs {lc} (rel {rel:.2e}), params max rel "
+                         f"{worst:.2e}")
+    log(f"{label}: loss rel {rel:.2e}, params max rel {worst:.2e}, accuracy {ag} vs {ac}")
+    return {"loss_rel": rel, "max_param_rel": worst, "accuracy": [ag, ac]}
+
+
+def quality_tooling(torch, work: str, smi: str) -> dict:
+    """The port's quality tooling on the card, as the reference bench's
+    gate runs it (bench.py:987-1084): ``train_epochs`` over
+    ``eval/planted.py``'s corpus at the gate's settings (dim 64, batch
+    min(B, 1024), 15 epochs) and at D = 200, each gated on INTRA_MIN,
+    INTER_MAX and the loss escaping ln 2·(1 + K) − 1; the holdout protocol
+    (``eval/holdout.py``) on a split written from a seed (its AUC
+    printed, the band not asserted: the split is synthetic); one
+    ``fit_epoch`` card vs CPU.  The launch counts, zeroed before and read
+    after: K1-K4 once per step of every ``train_epochs`` run, ``row_gather``
+    once per step of the card's ``fit_epoch``.  Returns them."""
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.eval import holdout, planted
+    from gene2vec_tpu_torch.sgns.train import train_epochs
+
+    plateau = float(np.log(2.0) * (1 + K))
+    kernels.reset_launch_counts()
+    steps = 0
+    out = {"card": smi}
+    for dim in (64, D):
+        t0 = time.perf_counter()
+        vocab, corpus = planted.planted_corpus()
+        cfg = SGNSConfig(dim=dim, batch_pairs=min(B, 1024))
+        emb, losses = train_epochs(corpus, cfg, 15, device=DEVICE)
+        steps += (corpus.num_pairs // cfg.batch_pairs) * 15
+        intra, inter = planted.cluster_cosines(vocab, emb)
+        rec = {"intra": intra, "inter": inter, "loss_first": losses[0],
+               "loss_last": losses[-1], "s": time.perf_counter() - t0}
+        out[f"planted_dim_{dim}"] = rec
+        log(f"phase 4b: planted, dim {dim} ({smi}): {json.dumps(rec)}")
+        if not (np.isfinite(emb).all() and intra > planted.INTRA_MIN
+                and inter < planted.INTER_MAX and losses[-1] < plateau - 1.0):
+            raise SystemExit(f"phase 4b: the planted gate failed at dim {dim}: {rec}")
+    t0 = time.perf_counter()
+    root = os.path.join(work, "holdout_data")
+    write_holdout_split(root)
+    corpus, split = holdout.load_holdout(root)
+    emb, losses = train_epochs(corpus, SGNSConfig(dim=D, batch_pairs=B), HOLDOUT_EPOCHS,
+                               device=DEVICE)
+    steps += (corpus.num_pairs // min(B, corpus.num_pairs)) * HOLDOUT_EPOCHS
+    if not (np.isfinite(emb).all() and np.isfinite(losses).all()):
+        raise SystemExit(f"phase 4b: holdout training diverged: {losses[:3]}...")
+    auc = holdout.holdout_cos_auc(corpus.vocab, emb, split)
+    out["holdout"] = {"pairs": corpus.num_pairs, "held_out": len(split.hold_pairs),
+                      "auc": auc, "in_gate_band": holdout.auc_in_gate_band(auc),
+                      "loss_first": losses[0], "loss_last": losses[-1],
+                      "s": time.perf_counter() - t0}
+    log(f"phase 4b: holdout ({smi}): {json.dumps(out['holdout'])} (the band is reported: "
+        "the split is synthetic)")
+    out["fit_epoch"] = fit_epoch_parity(torch)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = expected_launches(dict.fromkeys(STEP_KERNELS, 1), steps, STEP_KERNELS)
+    want["row_gather"] = FIT_EPOCH_BATCHES
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise SystemExit(f"phase 4b: launch counts {got}, expected {want}")
+    print(json.dumps({"quality_tooling": out}))
+    return got
+
+
+def parse_prometheus(text: str) -> dict:
+    """{series: value} of a Prometheus text exposition (every line a
+    comment or ``name{labels} value``); raises on a line that is neither."""
+    out = {}
+    for line in text.splitlines():
+        if not line.strip() or line.startswith("#"):
+            continue
+        series, _, value = line.rpartition(" ")
+        name = series.split("{", 1)[0]
+        if not name or not name.replace("_", "a").replace(":", "a").isalnum():
+            raise ValueError(f"metrics.prom: bad line {line!r}")
+        out[series] = float(value.replace("+Inf", "inf"))
+    return out
+
+
+def check_run_records(out: str, iterations: int, label: str) -> dict:
+    """The reference run's records in the export dir ``out``: manifest.json
+    with ``config_hash`` (its own config's hash) and a goodput block whose
+    buckets sum to ``wall_s``; events.jsonl with one ``iteration`` step
+    span per iteration; metrics.prom that parses, ``pairs_total`` among its
+    series; each checkpoint's meta with the manifest's ``config_hash``."""
+    from gene2vec_tpu_torch.obs.run import config_hash
+
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    g = manifest.get("goodput") or {}
+    if manifest.get("config_hash") != config_hash(manifest.get("config")):
+        raise SystemExit(f"{label}: manifest config_hash {manifest.get('config_hash')}")
+    if not g or abs(sum(g["buckets_s"].values()) - g["wall_s"]) > 1e-5:
+        raise SystemExit(f"{label}: goodput buckets do not sum to wall_s: {g}")
+    with open(os.path.join(out, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f if line.strip()]
+    steps = [e["attrs"]["iteration"] for e in events
+             if e["type"] == "span_end" and e["name"] == "iteration"]
+    if steps != list(range(1, iterations + 1)):
+        raise SystemExit(f"{label}: iteration step spans {steps}")
+    with open(os.path.join(out, "metrics.prom")) as f:
+        series = parse_prometheus(f.read())
+    if series.get("pairs_total", 0) <= 0:
+        raise SystemExit(f"{label}: metrics.prom has no pairs_total")
+    for it in range(1, iterations + 1):
+        with np.load(os.path.join(out, f"gene2vec_dim_{D}_iter_{it}.npz")) as z:
+            if json.loads(str(z["meta"])).get("config_hash") != manifest["config_hash"]:
+                raise SystemExit(f"{label}: iteration {it} meta lacks the config_hash")
+    rec = {"config_hash": manifest["config_hash"], "wall_s": g["wall_s"],
+           "fractions": g["fractions"], "events": len(events), "series": len(series)}
+    log(f"run records, {label}: {json.dumps(rec)}")
+    return rec
 
 
 # -- phase 5: serving through the CLI ------------------------------------------
@@ -4729,6 +4908,13 @@ def main() -> int:
     for name in ("row_update_bf16_rn", "row_finalize_bf16_rn"):
         counts[name] = nearest[name]
     log(f"quality phase done in {time.perf_counter() - t0:.1f}s")
+    # phase 4b: the quality tooling (planted gate, holdout, fit_epoch); its
+    # K1-K4 and row_gather launches count on the kernels line too
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        for name, n in quality_tooling(torch, work, smi).items():
+            counts[name] += n
+    log(f"quality tooling phase done in {time.perf_counter() - t0:.1f}s")
 
     # phase 7: the paper's pipeline — the corpus (K11), training and the
     # intrinsic evaluation, t-SNE (K10c, K10)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from gene2vec_tpu_torch.kernels import _args, build
-from gene2vec_tpu_torch.kernels.pos_logit import softplus
+from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`noise_head`, by table width
 #: ("" float32, "bf16")
@@ -44,7 +44,7 @@ def noise_head_plain(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
     g_head = k * q_head[None, :] * torch.sigmoid(logit) * mask
     loss_head = k * torch.sum(q_head[None, :] * mask * softplus(logit), dim=-1)
     d_center = g_pos[:, None] * u + g_head @ ctx_head
-    acc_ctx[:head, :d] += g_head.T @ v
+    acc_ctx[:head, :d] += sum_tn(g_head, v)
     acc_ctx[:head, d] += k * q_head * torch.sum(mask, dim=0)
     return d_center, loss_head
 

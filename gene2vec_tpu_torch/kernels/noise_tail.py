@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from gene2vec_tpu_torch.kernels import _args, build
-from gene2vec_tpu_torch.kernels.pos_logit import softplus
+from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`noise_tail`, by table width
 #: ("" float32, "bf16")
@@ -56,7 +56,7 @@ def noise_tail_plain(v, contexts, ctx, tail_w, blocks, head, block, group_size,
     g_tail = w_tail * torch.sigmoid(logit) * mask
     loss_tail = torch.sum(w_tail * mask * softplus(logit), dim=-1).reshape(e)
     d_center += torch.bmm(g_tail, ctx_blk).reshape(e, d)
-    d_rows = torch.bmm(g_tail.transpose(1, 2), vg)                          # (G, S, D)
+    d_rows = sum_tn(g_tail, vg)                                             # (G, S, D)
     u_tail = w_tail[:, 0, :] * torch.sum(mask, dim=1)
     payload = torch.cat([d_rows, u_tail[:, :, None]], dim=2)
     acc_ctx.index_add_(0, rows.reshape(-1), payload.reshape(-1, d + 1))

@@ -26,6 +26,37 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
+#: the longest stretch of a reduction over examples that the plain versions
+#: hand to one GEMM (:func:`sum_tn`)
+TN_CHUNK = 1024
+
+
+def sum_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """aᵀ @ b over the examples axis (-2) of (K, M) and (K, N), or of
+    batches (G, K, M) and (G, K, N), for the plain versions: the products of
+    chunks of at most :data:`TN_CHUNK` rows, one ``bmm``, added in chunk
+    order.  A CPU GEMM with a long reduction may split it across threads,
+    and its error then depends on torch's thread count (MKL at K = 8,192:
+    ~3 ulps of the result's largest entry at 1-4 threads, ~20 at 8); one
+    batched product of short chunks keeps the error of a short sum."""
+    flat = a.dim() == 2
+    if flat:
+        a, b = a[None], b[None]
+    g, k, m = a.shape
+    n = b.shape[2]
+    c = max(1, -(-k // TN_CHUNK))
+    if c > 1 and k % TN_CHUNK:
+        pad = c * TN_CHUNK - k  # zero rows add exact zeros
+        a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+        b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    parts = torch.bmm(a.reshape(g * c, -1, m).transpose(1, 2),
+                      b.reshape(g * c, -1, n)).reshape(g, c, m, n)
+    out = parts[:, 0]
+    for i in range(1, c):
+        out = out + parts[:, i]
+    return out[0] if flat else out
+
+
 def pos_logit_plain(emb, ctx, centers, contexts):
     v = emb.index_select(0, centers).float()
     u = ctx.index_select(0, contexts).float()

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from gene2vec_tpu_torch.kernels import _args, build
-from gene2vec_tpu_torch.kernels.pos_logit import softplus
+from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`shared_pool`, by table width
 #: ("" float32, "bf16")
@@ -50,7 +50,7 @@ def shared_pool_plain(v, u, g_pos, contexts, pool, ctx, k_neg, groups, acc_ctx):
     loss_neg = scale * torch.sum(mask * softplus(neg_logit), dim=-1).reshape(e)
     g_neg = scale * torch.sigmoid(neg_logit) * mask
     d_center = g_pos[:, None] * u + torch.bmm(g_neg, u_negg).reshape(e, d)
-    d_negrow = torch.bmm(g_neg.transpose(1, 2), vg).reshape(p, d)
+    d_negrow = sum_tn(g_neg, vg).reshape(p, d)
     weights = scale * mask.sum(dim=1).reshape(p)
     acc_ctx.index_add_(0, pool.long(), torch.cat([d_negrow, weights[:, None]], dim=1))
     return d_center, loss_neg

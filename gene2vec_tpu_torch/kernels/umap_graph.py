@@ -148,10 +148,27 @@ def neighbors_plain(d2: torch.Tensor, k: int):
     return idx[:, :k], vals[:, :k]
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root of ``x`` >= 0 (XLA's
+    ``sqrt`` and CUDA's ``sqrtf``).  torch's float32 ``sqrt`` on the CPU
+    misses it by one ulp on ~1 in 5 arguments, and one ulp of a neighbour
+    distance moves its row's bisection of σ.  The float64 root rounded to
+    float32 is then corrected against the two half-way points, whose
+    squares float64 holds exactly."""
+    xd = x.double()
+    s = torch.sqrt(xd).float()
+    sd = s.double()
+    up = torch.nextafter(s, torch.full_like(s, math.inf))
+    down = torch.nextafter(s, torch.zeros_like(s))
+    mid_up, mid_down = (sd + up.double()) / 2, (sd + down.double()) / 2
+    return torch.where(mid_up * mid_up < xd, up,
+                       torch.where(mid_down * mid_down > xd, down, s))
+
+
 def knn_weights_plain(d2: torch.Tensor, k: int):
     """Launch 1's function in torch ops: (idx (N, k) int32, w (N, k))."""
     idx, vals = neighbors_plain(d2, k)
-    knn_d = torch.sqrt(torch.clamp_min(vals, 0.0))
+    knn_d = sqrt_rn(torch.clamp_min(vals, 0.0))
     return idx.to(torch.int32), smooth_knn_plain(knn_d, k)
 
 

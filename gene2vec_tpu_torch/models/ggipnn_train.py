@@ -13,6 +13,8 @@ ROC-AUC from the positive-class column (``scores[:, 1]``).
   scanned fit's equivalent: the host ``RandomState`` permutation once,
   ``np.resize`` wrap-padded to a batch multiple, a random batch order
   per epoch and per-epoch dev evaluation.
+* :meth:`GGIPNNTrainer.fit_epoch` is one epoch of the scanned fit over
+  pre-encoded tensors: a random batch order and per-step dropout masks.
 * Every draw is injectable (:class:`FitDraws`): each step's dropout
   masks and each epoch's batch order.  Without them the masks come from
   a generator on the device seeded with ``seed + 1`` and the orders from
@@ -21,12 +23,16 @@ ROC-AUC from the positive-class column (``scores[:, 1]``).
   its per-batch losses include the padded rows (a reference quirk that
   evaluation's loss shows).
 
-Not ported: the phase timeline, goodput and the ``ggipnn_step`` profiler
-name (A6a, A16), and preemption (A6b).
+``run_classification(run_dir=)`` records the observed step loop's phase
+timeline (``timeline.jsonl``) and stamps the goodput block into the run's
+manifest.  Not ported: the ``ggipnn_step`` profiler name (A16) and
+preemption (A6b).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -45,6 +51,8 @@ from gene2vec_tpu_torch.models.ggipnn_data import (
     read_lines,
 )
 from gene2vec_tpu_torch.models.ggipnn_obs import GGIPNNRun, _flatten_params
+from gene2vec_tpu_torch.obs import goodput
+from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 
 
 class FitDraws(NamedTuple):
@@ -53,7 +61,8 @@ class FitDraws(NamedTuple):
     ``masks``: indexed by the fit's step (0-based, across epochs), that
     step's dropout masks — one (b, h) bool array per hidden layer.
     ``orders`` (scanned fit only): (num_epochs, num_batches), each
-    epoch's batch order."""
+    epoch's batch order.  For one :meth:`GGIPNNTrainer.fit_epoch` the
+    steps and epochs are that epoch's own (``orders`` (1, num_batches))."""
 
     masks: Optional[Sequence] = None
     orders: Optional[np.ndarray] = None
@@ -163,12 +172,16 @@ class GGIPNNTrainer:
     def fit(self, x_train: np.ndarray, y_train: np.ndarray,
             x_valid: Optional[np.ndarray] = None, y_valid: Optional[np.ndarray] = None,
             log: Callable[[str], None] = print, run=None,
-            draws: Optional[FitDraws] = None) -> GGIPNN:
+            draws: Optional[FitDraws] = None,
+            timeline: Optional[PhaseTimeline] = None) -> GGIPNN:
         """Train.  With ``run`` (a :class:`~gene2vec_tpu_torch.models.
         ggipnn_obs.GGIPNNRun`) the reference's observed step loop runs
         whatever ``scan_fit`` says: per-step train summaries with gradient
         sparsity, dev summaries every ``evaluate_every`` steps,
-        checkpoints every ``checkpoint_every`` steps keeping 5."""
+        checkpoints every ``checkpoint_every`` steps keeping 5.
+        ``timeline`` records each step of the step loop in the phases
+        host_ingest / dispatch / compute; the caller flushes it."""
+        tl = timeline if timeline is not None else PhaseTimeline(enabled=False)
         cfg = self.config
         if self.optimizer is None:
             self.init_state()
@@ -180,15 +193,19 @@ class GGIPNNTrainer:
         for i, batch in enumerate(batch_iter(stacked, cfg.batch_size, cfg.num_epochs,
                                              seed=cfg.seed)):
             t0 = time.perf_counter()
-            bx, by = self._tensors(batch[:, :nx], batch[:, nx:])
-            masks = self._masks(draws, i, len(batch), gen)
-            if run is not None:
-                loss, acc, grads = self.train_step_grads(bx, by, masks)
-            else:
-                loss, acc = self.train_step(bx, by, masks)
+            step_no = self._step + 1
+            with tl.phase("host_ingest", step=step_no):
+                bx, by = self._tensors(batch[:, :nx], batch[:, nx:])
+                masks = self._masks(draws, i, len(batch), gen)
+            with tl.phase("dispatch", step=step_no):
+                if run is not None:
+                    loss, acc, grads = self.train_step_grads(bx, by, masks)
+                else:
+                    loss, acc = self.train_step(bx, by, masks)
             self._step += 1
             if run is not None:
-                loss_f, acc_f = float(loss), float(acc)  # waits for the step
+                with tl.phase("compute", step=step_no):
+                    loss_f, acc_f = float(loss), float(acc)  # waits for the step
                 run.obs.record_step("train_step", time.perf_counter() - t0, step=self._step)
                 run.log_train(self._step, loss_f, acc_f, grads)
             if self._step % cfg.evaluate_every == 0:
@@ -203,10 +220,56 @@ class GGIPNNTrainer:
                 run.checkpoint(self._step, self.model)
         return self.model
 
+    def fit_epoch(self, x, y, draws: Optional[FitDraws] = None,
+                  order_generator: Optional[torch.Generator] = None,
+                  mask_generator: Optional[torch.Generator] = None):
+        """One training epoch of the scanned fit (the reference's public
+        ``fit_epoch``) over pre-encoded (N, 2) ids and (N, C) one-hot
+        labels, tensors on the trainer's device or arrays: N // batch_size
+        batches in a random order (``draws.orders[0]``, else a permutation
+        from ``order_generator``, a CPU generator seeded with ``seed + 1``
+        by default), each step's dropout masks ``draws.masks[step]`` or
+        drawn from ``mask_generator`` (on the device).  On the card the
+        lookup runs ``row_gather``.  Returns (model, optimizer, mean loss,
+        mean accuracy), the means as 0-d device tensors."""
+        cfg = self.config
+        bs = cfg.batch_size
+        num_batches = int(x.shape[0]) // bs
+        if num_batches == 0:
+            # zero batches would return a NaN loss with the model untouched
+            raise ValueError(f"{x.shape[0]} examples is fewer than one batch "
+                             f"(batch_size={bs})")
+        if self.optimizer is None:
+            self.init_state()
+        if not isinstance(x, torch.Tensor):
+            x, y = self._tensors(x, y)
+        if draws is not None and draws.orders is not None:
+            perm = np.asarray(draws.orders[0], dtype=np.int64)
+            if sorted(perm.tolist()) != list(range(num_batches)):
+                raise ValueError(f"the batch order is not a permutation of "
+                                 f"{num_batches} batches")
+        else:
+            if order_generator is None:
+                order_generator = torch.Generator().manual_seed(cfg.seed + 1)
+            perm = torch.randperm(num_batches, generator=order_generator).numpy()
+        if mask_generator is None:
+            mask_generator = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        losses, accs = [], []
+        for step in range(num_batches):
+            s = int(perm[step]) * bs
+            masks = self._masks(draws, step, bs, mask_generator)
+            loss, acc = self.train_step(x[s:s + bs], y[s:s + bs], masks)
+            losses.append(loss)
+            accs.append(acc)
+        self._step += num_batches
+        return (self.model, self.optimizer, torch.stack(losses).mean(),
+                torch.stack(accs).mean())
+
     def _fit_scanned(self, x_train, y_train, x_valid, y_valid, log,
                      draws: Optional[FitDraws]) -> GGIPNN:
-        """The reference's scanned-epoch path, step by step: per-epoch dev
-        evaluation instead of the every-``evaluate_every`` cadence."""
+        """The reference's scanned-epoch path, one :meth:`fit_epoch` an
+        epoch: per-epoch dev evaluation instead of the
+        every-``evaluate_every`` cadence."""
         cfg = self.config
         n = x_train.shape[0]
         bs = cfg.batch_size
@@ -216,27 +279,17 @@ class GGIPNNTrainer:
         idx = np.resize(order, ((n + bs - 1) // bs) * bs)
         x, y = self._tensors(x_train[idx], y_train[idx])
         num_batches = x.shape[0] // bs
-        if num_batches == 0:
-            raise ValueError(f"{n} examples is fewer than one batch (batch_size={bs})")
         order_gen = torch.Generator().manual_seed(cfg.seed + 1)
         mask_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         for epoch in range(cfg.num_epochs):
-            if draws is not None and draws.orders is not None:
-                perm = np.asarray(draws.orders[epoch], dtype=np.int64)
-                if sorted(perm.tolist()) != list(range(num_batches)):
-                    raise ValueError(f"orders[{epoch}] is not a permutation of "
-                                     f"{num_batches} batches")
-            else:
-                perm = torch.randperm(num_batches, generator=order_gen).numpy()
-            losses, accs = [], []
-            for step in range(num_batches):
-                s = int(perm[step]) * bs
-                masks = self._masks(draws, epoch * num_batches + step, bs, mask_gen)
-                loss, acc = self.train_step(x[s:s + bs], y[s:s + bs], masks)
-                losses.append(loss)
-                accs.append(acc)
-            self._step += num_batches
-            loss, acc = torch.stack(losses).mean(), torch.stack(accs).mean()
+            epoch_draws = None
+            if draws is not None:
+                masks, orders = draws
+                epoch_draws = FitDraws(
+                    masks=(None if masks is None
+                           else masks[epoch * num_batches:(epoch + 1) * num_batches]),
+                    orders=None if orders is None else orders[epoch:epoch + 1])
+            _, _, loss, acc = self.fit_epoch(x, y, epoch_draws, order_gen, mask_gen)
             msg = f"epoch {epoch + 1}: loss {float(loss):.4f} acc {float(acc):.4f}"
             if x_valid is not None and y_valid is not None:
                 dev = self.evaluate(x_valid, y_valid)
@@ -305,14 +358,24 @@ def run_classification(data_dir: str, emb_path: Optional[str],
         result = trainer.evaluate(*enc["test"])
     else:
         run = GGIPNNRun(run_dir, config=config)
+        tl = PhaseTimeline()
         log(f"Writing to {run.out_dir}")
+        wall_t0 = time.perf_counter()
         try:
             with run.obs.span("fit", train_examples=len(enc["train"][0])):
-                trainer.fit(*enc["train"], *enc["valid"], log=log, run=run)
+                trainer.fit(*enc["train"], *enc["valid"], log=log, run=run, timeline=tl)
             with run.obs.span("test_eval"):
                 result = trainer.evaluate(*enc["test"])
             run.obs.event("test_result", **result)
+            run.obs.probe()
         finally:
+            # the timeline and goodput are observability residue: they never
+            # mask the run's own exception
+            with contextlib.suppress(Exception):
+                wall_s = time.perf_counter() - wall_t0
+                tl.flush(os.path.join(run.out_dir, TIMELINE_NAME))
+                goodput.stamp(run.obs, goodput.summarize(
+                    tl.records(), wall_s, pairs_total=trainer._step * config.batch_size))
             run.close()
     log(f"test accuracy: {result['accuracy']:.4f}")
     if "auc" in result:

@@ -1,12 +1,24 @@
-"""Metrics registry: named counters, gauges and histograms with labels,
-rendered as Prometheus text — the part of ``gene2vec_tpu/obs/registry.py``
-that ``/metrics`` and a run's ``metrics.prom`` need, copied.
+"""Metrics registry: named counters/gauges/histograms, with labels — a
+copy of ``gene2vec_tpu/obs/registry.py``.
+
+Trainers register instruments once and update them per iteration; the
+registry renders a Prometheus-style text exposition
+(:meth:`MetricsRegistry.prometheus_text`) and snapshots it to disk at a
+bounded cadence (:meth:`MetricsRegistry.maybe_snapshot`, called from the
+per-iteration log path, so no background thread is needed).
 
 Each distinct label set is its own series under one metric name (one
 ``# TYPE`` line per name); label values are escaped per the exposition
-format.  Distinct label sets per metric are capped
-(:attr:`MetricsRegistry.max_label_sets`, warn-then-drop) and
-``metrics_dropped_labels_total`` counts the capped lookups.
+format (``\\`` → ``\\\\``, ``"`` → ``\\"``, newline → ``\\n``).  Distinct
+label sets per metric are capped (:attr:`MetricsRegistry.max_label_sets`,
+warn-then-drop) and ``metrics_dropped_labels_total`` counts the capped
+lookups.
+
+The per-row CSV of every trainer (``training_log.csv`` through
+:class:`~gene2vec_tpu_torch.utils.metrics.MetricsLogger`) is the
+registry's CSV sink: :meth:`MetricsRegistry.log_row` writes the row
+through the attached logger and mirrors numeric values into same-named
+gauges, so the Prometheus export always carries the latest row.
 """
 
 from __future__ import annotations
@@ -16,6 +28,8 @@ import os
 import sys
 import threading
 from typing import Dict, List, Optional, Tuple, Union
+
+from gene2vec_tpu_torch.utils.metrics import MetricsLogger
 
 # powers-of-4 seconds-scale buckets: 61 µs .. 4,096 s covers everything
 # from a jitted step to a full corpus build
@@ -41,6 +55,28 @@ def escape_label_value(value: str) -> str:
         .replace('"', '\\"')
         .replace("\n", "\\n")
     )
+
+
+def unescape_label_value(value: str) -> str:
+    """Inverse of :func:`escape_label_value` (scrape parsers use it)."""
+    out: List[str] = []
+    i = 0
+    while i < len(value):
+        c = value[i]
+        if c == "\\" and i + 1 < len(value):
+            nxt = value[i + 1]
+            if nxt == "n":
+                out.append("\n")
+            elif nxt in ("\\", '"'):
+                out.append(nxt)
+            else:  # unknown escape: keep both chars, like Prometheus
+                out.append(c)
+                out.append(nxt)
+            i += 2
+            continue
+        out.append(c)
+        i += 1
+    return "".join(out)
 
 
 def _label_suffix(labels: Optional[Dict[str, str]]) -> str:
@@ -93,6 +129,9 @@ class Gauge:
     def set(self, value: float) -> None:
         self._value = float(value)
 
+    def inc(self, amount: float = 1.0) -> None:
+        self._value += amount
+
     @property
     def value(self) -> float:
         return self._value
@@ -104,7 +143,7 @@ class Gauge:
 
 
 class Histogram:
-    """Cumulative-bucket histogram (Prometheus semantics)."""
+    """Cumulative-bucket histogram (Prometheus semantics) + min/max."""
 
     TYPE = "histogram"
 
@@ -116,6 +155,8 @@ class Histogram:
         self._counts = [0] * (len(self.buckets) + 1)  # +1 for +Inf
         self._sum = 0.0
         self._count = 0
+        self._min = math.inf
+        self._max = -math.inf
         self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
@@ -127,6 +168,24 @@ class Histogram:
             self._counts[i] += 1
             self._sum += value
             self._count += 1
+            self._min = min(self._min, value)
+            self._max = max(self._max, value)
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    @property
+    def mean(self) -> float:
+        return self._sum / self._count if self._count else 0.0
+
+    @property
+    def max(self) -> float:
+        return self._max if self._count else 0.0
 
     def expose(self) -> List[str]:
         suffix = _label_suffix(self.labels)
@@ -155,7 +214,8 @@ class MetricsRegistry:
     most :attr:`max_label_sets` distinct label sets — beyond that,
     updates collapse into a shared detached instrument (invisible to
     the exposition) and ``metrics_dropped_labels_total`` counts the
-    capped lookups."""
+    capped lookups, so a per-gene/per-trace label can never grow the
+    scrape without bound."""
 
     #: distinct label sets allowed per metric name (warn-then-drop)
     max_label_sets = 64
@@ -168,6 +228,8 @@ class MetricsRegistry:
         self._warned_names: set = set()
         self._overflow: Dict[Tuple[str, str], object] = {}
         self._lock = threading.RLock()
+        self._csv: Optional[MetricsLogger] = None
+        self._last_snapshot = 0.0
 
     def _get(self, cls, name: str, help: str, labels=None, **kw):
         key = (name, tuple(sorted((labels or {}).items())))
@@ -239,6 +301,24 @@ class MetricsRegistry:
         return self._get(Histogram, name, help, labels=labels,
                          buckets=buckets)
 
+    def remove(self, name: str, labels=None) -> bool:
+        """Drop one series from the exposition (and free its label-set
+        slot).  For series keyed by inherently ephemeral label values —
+        the fleet aggregator's ``fleet_scrape_staleness{target=}``
+        gauges, whose ephemeral-port targets never recur — where
+        leaving a dead series behind would grow the scrape without
+        bound.  Returns whether the series existed."""
+        key = (name, tuple(sorted((labels or {}).items())))
+        with self._lock:
+            if self._instruments.pop(key, None) is None:
+                return False
+            remaining = self._label_sets.get(name, 1) - 1
+            if remaining > 0:
+                self._label_sets[name] = remaining
+            else:
+                self._label_sets.pop(name, None)
+            return True
+
     # -- exposition --------------------------------------------------------
 
     def prometheus_text(self) -> str:
@@ -262,3 +342,41 @@ class MetricsRegistry:
         with open(tmp, "w", encoding="utf-8") as f:
             f.write(self.prometheus_text())
         os.replace(tmp, path)
+
+    def maybe_snapshot(
+        self, path: str, interval_s: float = 15.0, now: float = None
+    ) -> bool:
+        """Time-gated :meth:`snapshot_to` — call from any periodic code
+        path (the per-iteration log row); writes at most once per
+        ``interval_s``."""
+        import time
+
+        now = time.monotonic() if now is None else now
+        if now - self._last_snapshot < interval_s:
+            return False
+        self._last_snapshot = now
+        self.snapshot_to(path)
+        return True
+
+    # -- CSV sink ----------------------------------------------------------
+
+    def attach_csv(
+        self, csv_path: str, tensorboard_dir: Optional[str] = None
+    ) -> MetricsLogger:
+        """Attach the per-row CSV sink (the repo's ``training_log.csv``
+        convention); rows then flow through :meth:`log_row`."""
+        self._csv = MetricsLogger(csv_path, tensorboard_dir=tensorboard_dir)
+        return self._csv
+
+    def log_row(self, step: int, metrics: Dict[str, float]) -> None:
+        """One iteration row: CSV append + same-named gauges updated."""
+        if self._csv is not None:
+            self._csv.log(step, metrics)
+        for k, v in metrics.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                self.gauge(k).set(v)
+
+    def close(self) -> None:
+        if self._csv is not None:
+            self._csv.close()
+            self._csv = None

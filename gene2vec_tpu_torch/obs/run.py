@@ -4,8 +4,9 @@ A :class:`Run` owns one run directory and writes, at construction, a
 ``manifest.json`` recording what configuration produced the run: config
 dict + deterministic config hash, git sha, argv, device facts and library
 versions.  It exposes the tracer (``events.jsonl``), the metrics registry
-(``metrics.prom`` at close) and a step clock whose :class:`StallWatchdog`
-flags any step slower than 3× the rolling-window p99 as a ``stall`` event.
+(``metrics.prom`` snapshots + the trainer's CSV sink) and a step clock
+whose :class:`StallWatchdog` flags any step slower than 3× the
+rolling-window p99 as a ``stall`` event.
 
 Device facts come from ``torch.cuda`` (the reference asks
 ``jax.devices()``); ``probe_devices=False`` leaves them out of the
@@ -17,6 +18,7 @@ raises for missing optional context (no git, no GPU).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -25,7 +27,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 from gene2vec_tpu_torch.obs import probes, trace
 from gene2vec_tpu_torch.obs.registry import MetricsRegistry
@@ -127,7 +129,7 @@ class Run:
     def __init__(self, run_dir: str, name: str = "run", config=None,
                  manifest_extra: Optional[Dict] = None,
                  watchdog: Optional[StallWatchdog] = None,
-                 probe_devices: bool = True):
+                 probe_devices: bool = True, snapshot_interval_s: float = 15.0):
         self.run_dir = os.path.abspath(run_dir)
         os.makedirs(self.run_dir, exist_ok=True)
         self.name = name
@@ -135,6 +137,7 @@ class Run:
         self.registry = MetricsRegistry()
         self.tracer = Tracer(os.path.join(self.run_dir, EVENTS_NAME))
         self.watchdog = watchdog or StallWatchdog()
+        self._snapshot_interval = snapshot_interval_s
         self._closed = False
         self.manifest = {
             "name": name,
@@ -169,6 +172,13 @@ class Run:
         self.manifest.update(fields)
         self._write_manifest()
 
+    def mark_interrupted(self, reason: str = "preempted", **fields) -> None:
+        """Stamp the on-disk manifest ``interrupted=true`` (the
+        preemption-drain contract): a resumed run can tell a drained
+        predecessor from one that finished."""
+        self.annotate(interrupted=True, interrupted_reason=reason, **fields)
+        self.tracer.event("interrupted", reason=reason, **fields)
+
     def annotate_backend(self) -> None:
         """Merge the device facts into the manifest — for callers that
         construct with ``probe_devices=False`` and reach the device later."""
@@ -199,6 +209,24 @@ class Run:
             self.tracer.event("stall", type="stall", **canonical, **extra)
         return stalled
 
+    @contextlib.contextmanager
+    def step(self, name: str = "step", **attrs) -> Iterator[Dict]:
+        """A watchdog-clocked span: :meth:`record_step` plus the
+        span_start/span_end records in the timeline."""
+        t0 = time.perf_counter()
+        with self.tracer.span(name, **attrs) as out:
+            yield out
+        self.record_step(name, time.perf_counter() - t0, **attrs)
+
+    # -- metrics -----------------------------------------------------------
+
+    def log_row(self, step: int, metrics: Dict[str, float]) -> None:
+        """Per-iteration row → CSV sink + gauges + a bounded-cadence
+        ``metrics.prom`` snapshot."""
+        self.registry.log_row(step, metrics)
+        self.registry.maybe_snapshot(os.path.join(self.run_dir, METRICS_NAME),
+                                     self._snapshot_interval)
+
     def probe(self) -> Dict:
         """Sample runtime probes into gauges + one ``probe`` event."""
         values = probes.sample(self.registry)
@@ -213,6 +241,7 @@ class Run:
         self._closed = True
         self.tracer.event("run_end", run=self.name)
         self.registry.snapshot_to(os.path.join(self.run_dir, METRICS_NAME))
+        self.registry.close()
         if trace.get_tracer() is self.tracer:
             trace.set_tracer(None)
         self.tracer.close()

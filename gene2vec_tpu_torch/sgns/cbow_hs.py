@@ -23,18 +23,16 @@ node table (the reference's ``split(sr_key)``, cbow_hs.py:339-343).
 
 :class:`CBOWHSTrainer` mirrors the port's ``SGNSTrainer`` (init /
 draw_epoch / train_epoch / run, explicit draws, CUDA unless
-``device="cpu"``).  As in ``SGNSTrainer``: ``run`` writes the phase
-timeline and ``donate=False`` leaves the caller's tables untouched; left
-out are the reference run's other observability hooks, preemption
-handling and the multi-device paths.
+``device="cpu"``).  As in ``SGNSTrainer``: ``run`` writes the reference
+run's records (manifest with goodput, events, metrics, training log,
+timeline) and ``donate=False`` leaves the caller's tables untouched; left
+out are the kernel profiler, preemption handling and the multi-device
+paths.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
-import time
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -48,7 +46,6 @@ from gene2vec_tpu_torch.data.pipeline import (
     host_preshuffle,
 )
 from gene2vec_tpu_torch.device import resolve_device
-from gene2vec_tpu_torch.io import checkpoint as ckpt
 from gene2vec_tpu_torch.kernels.hs import hs
 from gene2vec_tpu_torch.kernels.row_update import Touched, finalize_rows, scatter_rows
 from gene2vec_tpu_torch.sgns.huffman import (
@@ -62,18 +59,15 @@ from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step, sr_sal
 from gene2vec_tpu_torch.sgns.train import (
     EpochDraws,
     SGNSTrainer,
-    _append_csv,
     draw_noise,
     draw_salts,
-    epoch_generator,
     epoch_noise,
     epoch_salts,
     learning_rate,
     noise_setup,
+    observed_run,
     own_tables,
-    timed_epoch,
 )
-from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 from gene2vec_tpu_torch.utils.profiling import StepTimer
 
 OBJECTIVES = tuple(o for o in _ALL_OBJECTIVES if o != "sgns")
@@ -264,76 +258,38 @@ class CBOWHSTrainer:
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
     ) -> SGNSParams:
-        """The reference iteration loop: resume from the newest verified
-        iteration (refusing a checkpoint of another ``hs_dense_depth``:
-        node-table row ids depend on the split), else init fresh; each
-        iteration trains one epoch, appends to ``training_log.csv`` and
-        exports with the ``objective`` and ``hs_dense_depth`` meta."""
+        """The reference iteration loop with its records
+        (``train.observed_run``): resume from the newest verified iteration
+        (refusing a checkpoint of another ``hs_dense_depth``: node-table
+        row ids depend on the split), else init fresh; each iteration
+        trains one epoch, logs its row and exports with the ``objective``
+        and ``hs_dense_depth`` meta."""
         cfg = self.config
-        os.makedirs(export_dir, exist_ok=True)
-        if start_iter is None:
-            start_iter = ckpt.latest_iteration(export_dir, cfg.dim) + 1
-        if start_iter > 1:
-            params, _, meta = ckpt.load_iteration(
-                export_dir, cfg.dim, start_iter - 1, device=self.device,
-                table_dtype=cfg.table_dtype,
-            )
-            if self.hs:
-                saved_depth = int(meta.get("hs_dense_depth", 0))
-                if saved_depth != cfg.hs_dense_depth:
-                    raise ValueError(
-                        f"checkpoint in {export_dir} was saved with "
-                        f"hs_dense_depth={saved_depth}, config has "
-                        f"{cfg.hs_dense_depth}: node-table layouts differ "
-                        "— resume with the saved depth or start a fresh "
-                        "export dir"
-                    )
-            log(f"resuming from iteration {start_iter - 1}")
-        else:
-            params = self.init()
-            start_iter = 1
-        pairs_per_epoch = self.num_batches * cfg.batch_pairs
-        csv_path = os.path.join(export_dir, "training_log.csv")
-        tl = PhaseTimeline(enabled=cfg.timeline)
-        try:
-            return self._iterations(export_dir, start_iter, log, params, tl,
-                                    pairs_per_epoch, csv_path)
-        finally:
-            # observability residue: never masks the loop's own exception
-            with contextlib.suppress(Exception):
-                tl.flush(os.path.join(export_dir, TIMELINE_NAME))
 
-    def _iterations(self, export_dir, start_iter, log, params, tl, pairs_per_epoch,
-                    csv_path):
-        cfg = self.config
-        for it in range(start_iter, cfg.num_iters + 1):
-            t0 = time.perf_counter()
-            params, loss = timed_epoch(self, tl, it, params)
-            dt = time.perf_counter() - t0
-            rate = pairs_per_epoch / dt if dt > 0 else float("inf")
-            self.timer.record(pairs_per_epoch, dt)
-            log(
-                f"gene2vec [{cfg.objective}] dimension {cfg.dim} iteration "
-                f"{it} done: loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
-            )
-            with tl.phase("ckpt_stage", step=it):
-                _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
-                                       "pairs_per_sec": rate, "seconds": dt})
-                ckpt.save_iteration(
-                    export_dir, cfg.dim, it, params, self.corpus.vocab,
-                    txt_output=cfg.txt_output,
-                    meta={
-                        "loss": loss,
-                        "pairs_per_sec": rate,
-                        "objective": cfg.objective,
-                        # node-table layout tag: resume refuses a mismatch
-                        "hs_dense_depth": cfg.hs_dense_depth if self.hs else 0,
-                        "device": str(self.device),
-                        "rng": {"seed": cfg.seed, "epoch_generator":
-                                f"SeedSequence([{cfg.seed}, iteration])"},
-                    },
+        def check_resume(meta):
+            saved_depth = int(meta.get("hs_dense_depth", 0))
+            if self.hs and saved_depth != cfg.hs_dense_depth:
+                raise ValueError(
+                    f"checkpoint in {export_dir} was saved with "
+                    f"hs_dense_depth={saved_depth}, config has "
+                    f"{cfg.hs_dense_depth}: node-table layouts differ "
+                    "— resume with the saved depth or start a fresh "
+                    "export dir"
                 )
-        return params
+
+        return observed_run(
+            self, export_dir, start_iter, log, name=cfg.objective,
+            label=f"[{cfg.objective}] ", check_resume=check_resume,
+            manifest_extra={
+                "num_pairs": self.corpus.num_pairs,
+                "vocab_size": self.corpus.vocab_size,
+                "num_batches": self.num_batches,
+                "hs_shallow_nodes": self.split.n_shallow if self.split else 0,
+            },
+            # node-table layout tag: resume refuses a mismatch
+            meta_extra={"objective": cfg.objective,
+                        "hs_dense_depth": cfg.hs_dense_depth if self.hs else 0},
+        )
 
 
 def make_trainer(corpus: PairCorpus, config: SGNSConfig, device=None):

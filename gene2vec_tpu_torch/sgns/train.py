@@ -19,27 +19,32 @@ epoch draw too (``EpochDraws.salts``, drawn last so the other draws keep
 their stream).  ``run`` seeds one per iteration from (seed, iteration),
 so a resumed run replays the stream an uninterrupted one would.
 
-``run`` writes the reference's phase timeline (``timeline.jsonl``,
-``obs/timeline.py``) unless ``SGNSConfig(timeline=False)``.  With
+``run`` writes what the reference's ``run`` writes into the export dir
+(:func:`observed_run`): ``manifest.json`` with the config hash and, at
+the end, the goodput block (``obs/goodput.py``), ``events.jsonl`` (one
+``iteration`` step span an iteration), ``metrics.prom``,
+``training_log.csv`` through the registry's CSV sink, and the phase
+timeline (``timeline.jsonl``) unless ``SGNSConfig(timeline=False)``; each
+checkpoint's meta carries ``config_hash``.  With
 ``SGNSConfig(donate=False)`` an epoch leaves the tables it is given
 untouched and returns updated copies (the reference's jit without buffer
 donation); the default updates them in place.
 
-Left out of this slice (see ROADMAP.md): the other observability hooks of
-the reference ``run`` (run manifest and events, goodput, kernel
-profiler), the background checkpoint writer, preemption handling and the
-multi-device paths.
+:func:`train_epochs` is the quality tooling's loop (fresh init, one epoch
+an iteration), :func:`make_train_epoch` the epoch function a trainer runs.
+
+Left out (see ROADMAP.md): the kernel profiler, the background checkpoint
+writer, preemption handling and the multi-device paths.
 """
 
 from __future__ import annotations
 
 import contextlib
-import csv
 import dataclasses
 import os
 import time
 import warnings
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -62,6 +67,8 @@ from gene2vec_tpu_torch.data.pipeline import (
 )
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
+from gene2vec_tpu_torch.obs import goodput
+from gene2vec_tpu_torch.obs.run import Run
 from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
 from gene2vec_tpu_torch.sgns.step import num_tail_groups, sgns_step, shared_pool_layout
@@ -253,6 +260,7 @@ class SGNSTrainer:
         # draws for train_epoch calls that pass neither draws nor a generator
         self.generator = torch.Generator().manual_seed(config.seed)
         self.timer = StepTimer()
+        self._epoch_fn = make_train_epoch(self)
 
     @staticmethod
     def _resolve_positive_head(config, corpus):
@@ -358,46 +366,10 @@ class SGNSTrainer:
         tensor on the device).  The draws are ``draws`` if given, else made
         from ``generator``, else from the trainer's own generator (seeded by
         ``config.seed``)."""
-        cfg = self.config
-        params = own_tables(params, cfg)
         if draws is None:
             draws = self.draw_epoch(generator if generator is not None
                                     else self.generator)
-        nb, bp = self.num_batches, cfg.batch_pairs
-        step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
-                                 self.device)
-        step_salts = epoch_salts(cfg, draws, nb)
-        if self.pos_quotas is not None:
-            pools = segmented_epoch_shuffle(
-                self.pairs, self.pos_quotas, nb, cfg.shuffle_mode,
-                draws=draws.shuffles, enabled=cfg.shuffle_each_iter,
-            )
-        else:
-            shuffled = epoch_shuffle(
-                self.pairs, self.global_num_pairs, nb, bp, cfg.shuffle_mode,
-                draw=draws.shuffles[0], enabled=cfg.shuffle_each_iter,
-            )
-        losses = torch.empty((nb,), dtype=torch.float32, device=self.device)
-        for step in range(nb):
-            if self.pos_quotas is not None:
-                batch = segmented_batch(pools, self.pos_quotas, step)
-            else:
-                batch = shuffled[step * bp : (step + 1) * bp]
-            params, loss = sgns_step(
-                params, batch, self.learning_rate(step),
-                **step_noise(step),
-                negatives=cfg.negatives,
-                both_directions=cfg.both_directions,
-                combiner=cfg.combiner,
-                strat_group=cfg.strat_group,
-                shared_groups=cfg.shared_groups,
-                positive_head=cfg.positive_head if self.pos_quotas else 0,
-                positive_mid=cfg.positive_mid if self.pos_quotas else 0,
-                pos_quotas=self.pos_quotas,
-                **step_salts(step),
-            )
-            losses[step] = loss
-        return params, torch.mean(losses)
+        return self._epoch_fn(params, draws)
 
     def run(
         self,
@@ -405,56 +377,182 @@ class SGNSTrainer:
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
     ) -> SGNSParams:
-        """The reference iteration loop: resume from the newest verified
-        iteration if present, else init fresh; each iteration reshuffles,
-        trains one epoch, appends to ``training_log.csv`` and exports."""
-        cfg = self.config
-        os.makedirs(export_dir, exist_ok=True)
+        """The reference iteration loop (:func:`observed_run`): resume from
+        the newest verified iteration if present, else init fresh; each
+        iteration reshuffles, trains one epoch, logs its row and exports."""
+        return observed_run(
+            self, export_dir, start_iter, log, name="sgns", log_start=True,
+            manifest_extra={
+                "num_pairs": self.global_num_pairs,
+                "vocab_size": self.corpus.vocab_size,
+                "num_batches": self.num_batches,
+                "pos_quotas": list(self.pos_quotas) if self.pos_quotas else None,
+            },
+        )
+
+
+def make_train_epoch(trainer: SGNSTrainer) -> Callable:
+    """The epoch function of ``trainer``: (params, draws) -> (params, the
+    mean step loss as a 0-d tensor on the device), one epoch under the
+    :class:`EpochDraws` ``draws`` — the reference's jitted epoch
+    (train.py:56-157) as a loop over the port's steps, K1-K4 on the card
+    at the default config.  It reads the trainer's corpus, noise and
+    config when called."""
+
+    def train_epoch(params: SGNSParams, draws: EpochDraws
+                    ) -> Tuple[SGNSParams, torch.Tensor]:
+        cfg = trainer.config
+        params = own_tables(params, cfg)
+        nb, bp = trainer.num_batches, cfg.batch_pairs
+        step_noise = epoch_noise(trainer.noise, cfg, draws, nb, trainer.corpus.vocab_size,
+                                 trainer.device)
+        step_salts = epoch_salts(cfg, draws, nb)
+        quotas = trainer.pos_quotas
+        if quotas is not None:
+            pools = segmented_epoch_shuffle(
+                trainer.pairs, quotas, nb, cfg.shuffle_mode,
+                draws=draws.shuffles, enabled=cfg.shuffle_each_iter,
+            )
+        else:
+            shuffled = epoch_shuffle(
+                trainer.pairs, trainer.global_num_pairs, nb, bp, cfg.shuffle_mode,
+                draw=draws.shuffles[0], enabled=cfg.shuffle_each_iter,
+            )
+        losses = torch.empty((nb,), dtype=torch.float32, device=trainer.device)
+        for step in range(nb):
+            if quotas is not None:
+                batch = segmented_batch(pools, quotas, step)
+            else:
+                batch = shuffled[step * bp : (step + 1) * bp]
+            params, loss = sgns_step(
+                params, batch, trainer.learning_rate(step),
+                **step_noise(step),
+                negatives=cfg.negatives,
+                both_directions=cfg.both_directions,
+                combiner=cfg.combiner,
+                strat_group=cfg.strat_group,
+                shared_groups=cfg.shared_groups,
+                positive_head=cfg.positive_head if quotas else 0,
+                positive_mid=cfg.positive_mid if quotas else 0,
+                pos_quotas=quotas,
+                **step_salts(step),
+            )
+            losses[step] = loss
+        return params, torch.mean(losses)
+
+    return train_epoch
+
+
+def train_epochs(corpus: PairCorpus, config: SGNSConfig, epochs: int,
+                 draws: Optional[Sequence[EpochDraws]] = None, device=None):
+    """The quality tooling's loop (the reference's ``train_epochs``, shared
+    by its bench gate and quality tests so they all train identically):
+    fresh init, then iteration ``it`` (1-based) under ``draws[it - 1]`` or
+    the draws of ``epoch_generator(config.seed, it)``, as ``run`` makes
+    them.  Returns (emb[:V] as a float32 numpy array, per-epoch losses)."""
+    trainer = SGNSTrainer(corpus, config, device=device)
+    if draws is not None and len(draws) < epochs:
+        raise ValueError(f"{len(draws)} epochs of draws for {epochs} epochs")
+    params = trainer.init()
+    losses = []
+    for it in range(1, epochs + 1):
+        d = (draws[it - 1] if draws is not None
+             else trainer.draw_epoch(epoch_generator(config.seed, it)))
+        params, loss = trainer.train_epoch(params, d)
+        losses.append(float(loss))
+    return params.emb[: corpus.vocab_size].float().cpu().numpy(), losses
+
+
+def observed_run(trainer, export_dir: str, start_iter: Optional[int],
+                 log: Callable[[str], None], *, name: str, manifest_extra: dict,
+                 log_start: bool = False, label: str = "", meta_extra=None,
+                 check_resume: Optional[Callable[[dict], None]] = None) -> SGNSParams:
+    """The reference's ``run`` loop for either trainer, observed as the
+    reference observes it (sgns/train.py:605-773, cbow_hs.py:442-580): a
+    :class:`Run` in the export dir (``manifest.json``, ``events.jsonl``,
+    ``metrics.prom``), ``training_log.csv`` through the registry's CSV
+    sink, one ``iteration`` step span an iteration, ``pairs_total``, the
+    phase timeline, and the goodput block stamped at the end.  Resumes
+    from the newest verified iteration (``check_resume`` sees its meta),
+    else inits fresh; each checkpoint's meta carries ``config_hash``, the
+    device, the draws' lineage and ``meta_extra``.  Only the timeline
+    flush and the goodput stamp are guarded, so that they never mask the
+    loop's own exception."""
+    cfg = trainer.config
+    run = Run(export_dir, name=name, config=cfg, manifest_extra=manifest_extra)
+    run.registry.attach_csv(os.path.join(export_dir, "training_log.csv"))
+    tl = PhaseTimeline(enabled=cfg.timeline)
+    wall_t0 = time.perf_counter()
+    pairs_done = 0.0
+    best_rate = 0.0
+    # everything after the Run's construction runs under its finally, so a
+    # failed resume still closes the run
+    try:
         if start_iter is None:
             start_iter = ckpt.latest_iteration(export_dir, cfg.dim) + 1
         if start_iter > 1:
-            params, _, _ = ckpt.load_iteration(
-                export_dir, cfg.dim, start_iter - 1, device=self.device,
-                table_dtype=cfg.table_dtype,
-            )
+            with run.span("resume", iteration=start_iter - 1):
+                params, _, saved = ckpt.load_iteration(
+                    export_dir, cfg.dim, start_iter - 1, device=trainer.device,
+                    table_dtype=cfg.table_dtype,
+                )
+                if check_resume is not None:
+                    check_resume(saved)
             log(f"resuming from iteration {start_iter - 1}")
         else:
-            params = self.init()
+            with run.span("init_params"):
+                params = trainer.init()
             start_iter = 1
-        pairs_per_epoch = self.num_batches * cfg.batch_pairs
-        csv_path = os.path.join(export_dir, "training_log.csv")
-        tl = PhaseTimeline(enabled=cfg.timeline)
-        try:
-            for it in range(start_iter, cfg.num_iters + 1):
-                log(f"gene2vec dimension {cfg.dim} iteration {it} start")
-                t0 = time.perf_counter()
-                params, loss = timed_epoch(self, tl, it, params)
-                dt = time.perf_counter() - t0
-                rate = pairs_per_epoch / dt if dt > 0 else float("inf")
-                self.timer.record(pairs_per_epoch, dt)
-                log(
-                    f"gene2vec dimension {cfg.dim} iteration {it} done: "
-                    f"loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
-                )
+        pairs_per_epoch = trainer.num_batches * cfg.batch_pairs
+        pairs_counter = run.registry.counter("pairs_total")
+        for it in range(start_iter, cfg.num_iters + 1):
+            if log_start:
+                log(f"gene2vec {label}dimension {cfg.dim} iteration {it} start")
+            t0 = time.perf_counter()
+            with run.step("iteration", iteration=it, pairs=pairs_per_epoch) as span_out:
+                params, loss = timed_epoch(trainer, tl, it, params)
+                span_out["loss"] = loss
+            dt = time.perf_counter() - t0
+            rate = pairs_per_epoch / dt if dt > 0 else float("inf")
+            trainer.timer.record(pairs_per_epoch, dt)
+            pairs_counter.inc(pairs_per_epoch)
+            pairs_done += pairs_per_epoch
+            if dt > 0 and it != start_iter:
+                # the peak leaves out the first iteration (the kernels' build)
+                best_rate = max(best_rate, rate)
+            log(
+                f"gene2vec {label}dimension {cfg.dim} iteration {it} done: "
+                f"loss={loss:.4f} {rate:,.0f} pairs/s ({dt:.2f}s)"
+            )
+            run.log_row(it, {"loss": loss, "pairs_per_sec": rate, "seconds": dt})
+            run.probe()
+            with run.span("checkpoint", iteration=it, mode="sync"):
                 with tl.phase("ckpt_stage", step=it):
-                    _append_csv(csv_path, {"step": it, "time": time.time(), "loss": loss,
-                                           "pairs_per_sec": rate, "seconds": dt})
                     ckpt.save_iteration(
-                        export_dir, cfg.dim, it, params, self.corpus.vocab,
+                        export_dir, cfg.dim, it, params, trainer.corpus.vocab,
                         txt_output=cfg.txt_output,
                         meta={
                             "loss": loss,
                             "pairs_per_sec": rate,
-                            "device": str(self.device),
+                            "config_hash": run.manifest.get("config_hash"),
+                            **(meta_extra or {}),
+                            "device": str(trainer.device),
                             "rng": {"seed": cfg.seed, "epoch_generator":
                                     f"SeedSequence([{cfg.seed}, iteration])"},
                         },
                     )
-        finally:
-            # observability residue: never masks the loop's own exception
-            with contextlib.suppress(Exception):
-                tl.flush(os.path.join(export_dir, TIMELINE_NAME))
-        return params
+    finally:
+        # the timeline and goodput are observability residue: they never
+        # mask the loop's own exception
+        with contextlib.suppress(Exception):
+            wall_s = time.perf_counter() - wall_t0
+            tl.flush(os.path.join(run.run_dir, TIMELINE_NAME))
+            goodput.stamp(run, goodput.summarize(
+                tl.records(), wall_s, pairs_total=pairs_done,
+                peak_pairs_per_sec=best_rate or None,
+            ))
+        run.close()
+    return params
 
 
 def own_tables(params: SGNSParams, config: SGNSConfig) -> SGNSParams:
@@ -478,14 +576,3 @@ def timed_epoch(trainer, tl: PhaseTimeline, it: int, params: SGNSParams):
     with tl.phase("compute", step=it):
         loss = float(loss)  # waits for the epoch to finish
     return params, loss
-
-
-def _append_csv(path: str, row: dict) -> None:
-    """One row of ``training_log.csv`` (the reference's columns, sorted)."""
-    fields = sorted(row)
-    new = not os.path.exists(path)
-    with open(path, "a", encoding="utf-8", newline="") as f:
-        w = csv.DictWriter(f, fields)
-        if new:
-            w.writeheader()
-        w.writerow(row)

@@ -860,3 +860,44 @@ def test_dashboard_and_gtex_run_on_the_host_without_a_device(monkeypatch, tmp_pa
     state = dash_app.build_app_state(str(tmp_path / "fig.json"), go_table=str(tmp_path / "go.tsv"))
     assert state["sources"]["GO"]["members"] == {"GO:1": ["A"]}
     assert not torch.cuda.is_initialized()
+
+
+#: the quality tooling and run records' modules (the planted check, the
+#: holdout protocol, goodput, and the trainers and registry they extend)
+QUALITY_MODULES = {
+    "gene2vec_tpu_torch.eval", "gene2vec_tpu_torch.eval.planted",
+    "gene2vec_tpu_torch.eval.holdout", "gene2vec_tpu_torch.obs.goodput",
+    "gene2vec_tpu_torch.obs.registry", "gene2vec_tpu_torch.obs.run",
+    "gene2vec_tpu_torch.sgns.train", "gene2vec_tpu_torch.sgns.cbow_hs",
+    "gene2vec_tpu_torch.models.ggipnn_train",
+}
+
+
+def test_sources_scan_covers_the_quality_slice():
+    """The quality tooling's and run records' modules import in the no-JAX
+    subprocess above and are scanned; every port module their tests drive
+    is one the scans cover."""
+    mods = set(_port_modules())
+    assert QUALITY_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in QUALITY_MODULES - {"gene2vec_tpu_torch.eval"}:
+        assert mod.replace(".", "/") + ".py" in scanned
+    assert "gene2vec_tpu_torch/eval/__init__.py" in scanned
+    for test in ("test_torch_quality.py", "test_torch_obs_run.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def test_quality_tooling_needs_cuda_unless_cpu_is_asked(monkeypatch):
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.sgns.train import train_epochs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = SGNSConfig(dim=4, batch_pairs=8, strat_head=2, strat_block=2, strat_group=4)
+    for dev in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            train_epochs(_tiny_corpus(), cfg, 1, device=dev)
+    emb, losses = train_epochs(_tiny_corpus(), cfg, 1, device="cpu")
+    assert emb.shape == (4, 4) and len(losses) == 1
+    assert not torch.cuda.is_initialized()

@@ -7,10 +7,19 @@ Tolerances, each with its reason:
 - the smooth-kNN weights from the same distances: 1e-6 absolute (w lies
   in [0, 1]; the bisection's sum of k exponentials runs in another order
   and torch's exp is not XLA's, so σ moves by the sum's last bits over its
-  slope; measured ≤ 2.7e-7);
-- the graph from the same d²: the neighbours equal in order, P within 5e-6
-  absolute (measured ≤ 1.2e-6); the CSR union of the same (idx, w),
-  densified, bitwise the reference's union of them;
+  slope; measured ≤ 2.7e-7).  A bisection step whose Σexp lies within
+  rounding of log2(k) may be decided one way by the reference and the
+  other by the port; from that step on the two σ differ, each inside that
+  step's interval [lo, hi].  So each row whose decisions differ is first
+  asserted to have, at the first such step, both sums within FLIP_ULPS
+  float32 ulps of log2(k), and is then held to the larger of the bar and
+  the interval's width in w (``_flip_bars``); every other row to the bar;
+- the graph from the same d²: the neighbours and their distances equal
+  (the port's root is correctly rounded, as XLA's is: ``sqrt_rn``), P
+  within 5e-6 absolute (measured ≤ 1.2e-6), an entry of two rows with
+  differing decisions within the larger of 5e-6 and their widths' sum;
+  the CSR union of the same (idx, w), densified, bitwise the reference's
+  union of them;
 - the sparse plain coef: bitwise the dense plain coef of the densified
   graph (the same torch ops on the same values);
 - the graph from the points: the neighbour sets equal on inputs whose
@@ -73,6 +82,83 @@ def test_fit_ab_is_bitwise(min_dist, spread, fixed_b):
     assert port.fit_ab(min_dist, spread, fixed_b) == ref.fit_ab(min_dist, spread, fixed_b)
 
 
+#: float32 ulps of log2(k) within which a bisection step's Σexp lies where
+#: the reference and the port decide it differently: the k terms are each
+#: below 1 and their exps differ by about an ulp, so the two sums differ by
+#: about k ulps of 1, a few ulps of log2(k) for the k here (measured ≤ 3)
+FLIP_ULPS = 8
+#: w's rounding beside the interval's width: a few ulps of 1 (w <= 1)
+W_ROUNDING = 4 * 2.0 ** -24
+
+
+def _ref_bisection(knn_d, k):
+    """The reference's bisection (``viz/umap.py:_smooth_knn_weights``)
+    with each step's (lo, hi, Σexp) kept: (w, lo, hi, val), the last three
+    (steps, N)."""
+    rho = knn_d[:, :1]
+    target = jnp.log2(jnp.float32(k))
+    shifted = jnp.maximum(knn_d - rho, 0.0)
+
+    def body(carry, _):
+        lo, hi = carry
+        mid = 0.5 * (lo + hi)
+        val = jnp.sum(jnp.exp(-shifted / mid), axis=1, keepdims=True)
+        return ((jnp.where(val > target, lo, mid), jnp.where(val > target, mid, hi)),
+                (lo[:, 0], hi[:, 0], val[:, 0]))
+
+    n = knn_d.shape[0]
+    init = (jnp.full((n, 1), 1e-6, jnp.float32), jnp.full((n, 1), 1e3, jnp.float32))
+    (lo, hi), trace = jax.lax.scan(body, init, None, length=umap_graph.ITERS)
+    w = jnp.exp(-shifted / (0.5 * (lo + hi)))
+    return (np.asarray(w), *(np.asarray(t) for t in trace))
+
+
+def _port_bisection(knn_d, k):
+    """``umap_graph.smooth_knn_plain`` with each step's (lo, hi, Σexp)
+    kept, as :func:`_ref_bisection`."""
+    rho = knn_d[:, :1]
+    tgt = torch.tensor(umap_graph.target(k))
+    shifted = torch.clamp_min(knn_d - rho, 0.0)
+    n = knn_d.shape[0]
+    lo, hi = torch.full((n, 1), 1e-6), torch.full((n, 1), 1e3)
+    trace = []
+    for _ in range(umap_graph.ITERS):
+        mid = 0.5 * (lo + hi)
+        val = torch.sum(torch.exp(-shifted / mid), dim=1, keepdim=True)
+        trace.append((lo[:, 0], hi[:, 0], val[:, 0]))
+        gt = val > tgt
+        lo, hi = torch.where(gt, lo, mid), torch.where(gt, mid, hi)
+    w = torch.exp(-shifted / (0.5 * (lo + hi)))
+    return (w.numpy(), *(torch.stack(t).numpy() for t in zip(*trace)))
+
+
+def _flip_bars(knn_d, k, want, got, bar):
+    """Each row's bar for |got - want| (the port's and the reference's
+    weights of the sorted neighbour distances ``knn_d``): ``bar``, or for a
+    row whose bisection decisions differ, the larger of ``bar`` and the
+    width in w of the interval [lo, hi] both sides shared before the first
+    such step, after asserting that both sums there lie within FLIP_ULPS
+    float32 ulps of log2(k).  Returns (bars, the rows that differ)."""
+    w_ref, lo_r, hi_r, val_r = _ref_bisection(jnp.asarray(knn_d), k)
+    w_port, lo_p, hi_p, val_p = _port_bisection(torch.from_numpy(np.array(knn_d)), k)
+    # the copies are the functions themselves
+    assert np.array_equal(w_ref, want) and np.array_equal(w_port, got)
+    tgt = np.float32(umap_graph.target(k))
+    differ = (lo_r != lo_p) | (hi_r != hi_p)  # the interval after a differing decision
+    rows = np.flatnonzero(differ.any(0))
+    bars = np.full(len(knn_d), bar)
+    shifted = np.maximum(knn_d - knn_d[:, :1], 0.0).astype(np.float64)
+    for r in rows:
+        s = int(np.argmax(differ[:, r])) - 1
+        assert s >= 0 and lo_r[s, r] == lo_p[s, r] and hi_r[s, r] == hi_p[s, r]
+        for val in (val_r[s, r], val_p[s, r]):
+            assert abs(float(val) - float(tgt)) <= FLIP_ULPS * np.spacing(tgt), (r, s, val)
+        lo, hi = float(lo_r[s, r]), float(hi_r[s, r])
+        width = float(np.max(np.exp(-shifted[r] / hi) - np.exp(-shifted[r] / lo)))
+        bars[r] = max(bar, width + W_ROUNDING)
+    return bars, rows
+
+
 @pytest.mark.parametrize("k", [1, 5, 15, 40])
 def test_smooth_knn_weights_match(k):
     rng = np.random.RandomState(k)
@@ -80,7 +166,8 @@ def test_smooth_knn_weights_match(k):
     knn_d[:7] = knn_d[:7, :1]  # rows whose neighbours all lie at one distance
     want = np.asarray(ref._smooth_knn_weights(jnp.asarray(knn_d), k))
     got = port._smooth_knn_weights(torch.from_numpy(knn_d), k).numpy()
-    assert np.abs(got - want).max() <= 1e-6
+    bars, _ = _flip_bars(knn_d, k, want, got, 1e-6)
+    assert (np.abs(got - want).max(1) <= bars).all()
 
 
 def _masked(d2):
@@ -102,13 +189,21 @@ def _from_dense(p):
 def test_graph_from_the_same_distances(seed, n_per, pca, k):
     x = _points(seed, n_per, pca)
     d2 = np.array(ref._squared_distances(jnp.asarray(x)))
-    _, want_idx = jax.lax.top_k(-jnp.asarray(_masked(d2)), k)
+    neg_d2, want_idx = jax.lax.top_k(-jnp.asarray(_masked(d2)), k)
     idx, w = umap_graph.knn_weights(torch.from_numpy(d2), k)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx))
+    # the reference's distances (its own expression, _fuzzy_graph:150)
+    knn_d = np.asarray(jnp.sqrt(jnp.maximum(-neg_d2, 0.0)))
+    _, vals = umap_graph.neighbors_plain(torch.from_numpy(d2), k)
+    np.testing.assert_array_equal(umap_graph.sqrt_rn(vals.clamp_min(0.0)).numpy(), knn_d)
+    bars, _ = _flip_bars(knn_d, k, np.asarray(ref._smooth_knn_weights(jnp.asarray(knn_d), k)),
+                         w.numpy(), 5e-6)
     want = np.asarray(ref._fuzzy_graph(jnp.asarray(x), k))
     g = umap_graph.fuzzy_union(idx, w)
     got = umap_graph.to_dense(g).numpy()
-    assert np.abs(got - want).max() <= 5e-6
+    # P_ab = w_ab + w_ba − w_ab·w_ba moves by at most |Δw_ab| + |Δw_ba|
+    extra = np.where(bars > 5e-6, bars, 0.0)
+    assert (np.abs(got - want) <= np.maximum(5e-6, extra[:, None] + extra[None, :])).all()
     np.testing.assert_array_equal(got, got.T)
     # the reference's own union of these (idx, w): the same bits
     with mock.patch.object(ref, "_smooth_knn_weights", lambda d, kk: jnp.asarray(w.numpy())):

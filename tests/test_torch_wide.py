@@ -22,6 +22,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from gene2vec_tpu.data import negative_sampling as jns
 from gene2vec_tpu.data.negative_sampling import NoiseTable
 from gene2vec_tpu.data.negative_sampling import build_stratified_spec as jax_spec
 from gene2vec_tpu.sgns import cbow_hs as jcbow
@@ -161,25 +162,36 @@ W_V, W_B = 3001, 4096
 W_HEAD, W_BLOCK, W_GROUP = 256, 512, 256
 
 
+#: the negative-sampling kinds of the witness (``cbow``: the SGNS step on
+#: the swapped pairs, stratified noise, as ``CBOWHSTrainer`` runs it)
+SGNS_KINDS = {"stratified": "stratified", "cbow": "stratified",
+              "per_example": "per_example", "shared": "shared"}
+
+
 def _float64_witness(kind, d):
-    """(start tables, the port's float32 plain step, JAX's float64 step) for
-    ``kind`` at phase 2g's shape: Zipf pairs, bf16-valued tables of scale
-    0.1, the stratified blocks or the Huffman tree at depth 10."""
+    """(start tables, a function of no arguments that runs the port's
+    float32 plain step, JAX's float64 step) for ``kind`` at phase 2g's
+    shape: Zipf pairs, bf16-valued tables of scale 0.1, the stratified
+    blocks, the alias draws of the sampled modes (JAX's own, handed to the
+    port) or the Huffman tree at depth 10."""
     from chip_smoke import HS_DEPTH, zipf_ids
 
     rng = np.random.RandomState(3)
     pairs = np.stack([zipf_ids(rng, W_B, W_V), zipf_ids(rng, W_B, W_V)], 1)
     counts = np.sort(np.bincount(pairs.reshape(-1), minlength=W_V) + 1)[::-1].copy()
-    tree = jhuff.build_huffman_tree(counts) if kind != "stratified" else None
+    if kind == "cbow":
+        pairs = np.ascontiguousarray(pairs[:, ::-1])
+    mode = SGNS_KINDS.get(kind)
+    tree = jhuff.build_huffman_tree(counts) if mode is None else None
     gen = torch.Generator().manual_seed(3)
     start = [(torch.randn((n, d), generator=gen) * 0.1).to(torch.bfloat16).float()
              for n in (W_V, tree.num_nodes if tree else W_V)]
-    tp = tstep.SGNSParams(start[0].clone(), start[1].clone())
+    port = {}
     with jax.enable_x64(True):  # the step draws its blocks as ``blocks`` does here
         jp = JParams(*(jnp.asarray(t.numpy().astype(np.float64)) for t in start))
         lr = jnp.float64(0.025)
-        if tree is None:
-            key = jax.random.PRNGKey(3)
+        key = jax.random.PRNGKey(3)
+        if mode == "stratified":
             spec = jax_spec(counts, W_HEAD, W_BLOCK)
             g = tstep.num_tail_groups(2 * W_B, W_GROUP)
             blocks = np.asarray(jax.random.randint(key, (g,), 0, spec.nb)).astype(np.int32)
@@ -189,6 +201,17 @@ def _float64_witness(kind, d):
                                        negative_mode="stratified", stratified=spec,
                                        negatives=K, strat_group=W_GROUP,
                                        compute_dtype=jnp.float64)
+            port = {"stratified": build_stratified_spec(counts, W_HEAD, W_BLOCK),
+                    "blocks": _t(blocks), "strat_group": W_GROUP}
+        elif mode is not None:
+            noise = jns.build_alias_table(jns.noise_distribution(counts))
+            shape = ((2 * W_B, K) if mode == "per_example"
+                     else (np.prod(tstep.shared_pool_layout(2 * W_B, K)),))
+            negs = np.asarray(jns.sample_negatives(noise, key, shape))
+            exact, _ = jstep.sgns_step(jp, jnp.asarray(pairs), noise, key, lr,
+                                       negative_mode=mode, negatives=K,
+                                       compute_dtype=jnp.float64)
+            port = {"negative_mode": mode, "negs": _t(negs)}
         else:
             split = jhuff.split_shallow(tree, HS_DEPTH)
             exact, _ = jcbow.hs_step(
@@ -197,44 +220,66 @@ def _float64_witness(kind, d):
                 shallow_sign=jnp.asarray(split.sign), n_shallow=split.n_shallow,
                 cbow=kind == "cbow_hs", compute_dtype=jnp.float64)
         exact = [np.asarray(exact.emb), np.asarray(exact.ctx)]
-    if tree is None:
-        got, _ = tstep.sgns_step(tp, _t(pairs), 0.025,
-                                 stratified=build_stratified_spec(counts, W_HEAD, W_BLOCK),
-                                 blocks=_t(blocks), negatives=K, strat_group=W_GROUP)
-    else:
-        got, _ = tcbow.hs_step(tp, _t(pairs), _t(split.points_deep), _t(split.codes_deep),
-                               _t(split.lengths_deep), 0.025, cbow=kind == "cbow_hs",
-                               shallow=tcbow.shallow_on(split, "cpu"))
-    return start, [got.emb, got.ctx], exact
+
+    def step():
+        tp = tstep.SGNSParams(start[0].clone(), start[1].clone())
+        if mode is not None:
+            got, _ = tstep.sgns_step(tp, _t(pairs), 0.025, negatives=K, **port)
+        else:
+            got, _ = tcbow.hs_step(tp, _t(pairs), _t(split.points_deep),
+                                   _t(split.codes_deep), _t(split.lengths_deep), 0.025,
+                                   cbow=kind == "cbow_hs",
+                                   shallow=tcbow.shallow_on(split, "cpu"))
+        return [got.emb, got.ctx]
+
+    return start, step, exact
+
+
+#: torch's CPU thread counts the witness runs at (a GEMM's split of a long
+#: reduction depends on it)
+WITNESS_THREADS = (1, 8)
 
 
 @pytest.mark.parametrize("kind,d", [("stratified", 200), ("stratified", 1024),
-                                    ("sg_hs", 1024), ("cbow_hs", 1024)])
+                                    ("sg_hs", 1024), ("cbow_hs", 1024),
+                                    ("cbow", 200), ("cbow", 1024),
+                                    ("per_example", 1024), ("shared", 1024)])
 def test_float32_step_error_model(kind, d):
     """The witness behind ``chip_smoke.TABLE_ULPS``: the port's plain step
     in float32 (the sums behind every bfloat16 write-back) against the JAX
-    step in float64 at phase 2g's shape (V 3001, E 8192).  Each element is
-    within F32_ULPS float32 ulps of |t| + |t - new| plus TABLE_ULPS / 2 of
-    the table's largest |t - new| of the exact result, so two float32 steps
-    (the card's and the CPU's) differ by at most the whole bar.  The
-    element term alone does not hold even for float32 itself, and the
-    element's row's largest update undercounts the error on the Huffman
-    tree's nodes: run with -s for the readings."""
+    step in float64 at phase 2g's shape (V 3001, E 8192), with torch on 1
+    and on 8 CPU threads.  Each element is within F32_ULPS float32 ulps of
+    |t| + |t - new| plus TABLE_ULPS / 2 of the table's largest |t - new| of
+    the exact result, so two float32 steps (the card's and the CPU's)
+    differ by at most the whole bar.  The element term alone does not hold
+    even for float32 itself, and the element's row's largest update
+    undercounts the error on the Huffman tree's nodes: run with -s for the
+    readings."""
     from chip_smoke import F32_ULPS, TABLE_ULPS
 
-    start, got, exact = _float64_witness(kind, d)
+    start, step, exact = _float64_witness(kind, d)
     eps = 2.0 ** -23
-    for name, new, want, t in zip(("emb", "out table"), got, exact, start):
-        t = t.numpy().astype(np.float64)
-        diff = np.abs(new.numpy().astype(np.float64) - want)
-        upd = np.abs(t - want)
-        own = F32_ULPS * eps * (np.abs(t) + upd)
-        moved = upd.max(1) > 0  # rows the step left alone are equal on both sides
-        assert np.all(diff[~moved] == 0)
-        row = eps * upd[moved].max(1, keepdims=True)
-        table = eps * upd.max()
-        print(f"{kind} D {d} {name}: {float((diff / np.maximum(own, 1e-300)).max()):.1f}x "
-              f"the element term alone; {float((diff[moved] / row).max()):.1f} float32 ulps "
-              f"of the row's largest update, {float(diff.max() / table):.1f} of the table's")
-        assert (diff > own).any()  # the element term alone is not float32's error
-        assert np.all(diff <= own + TABLE_ULPS / 2 * table), float(diff.max() / table)
+    threads = torch.get_num_threads()
+    try:
+        for n in WITNESS_THREADS:
+            torch.set_num_threads(n)
+            got = step()
+            for name, new, want, t in zip(("emb", "out table"), got, exact, start):
+                t = t.numpy().astype(np.float64)
+                diff = np.abs(new.numpy().astype(np.float64) - want)
+                upd = np.abs(t - want)
+                own = F32_ULPS * eps * (np.abs(t) + upd)
+                moved = upd.max(1) > 0  # rows the step left alone are equal on both sides
+                assert np.all(diff[~moved] == 0)
+                row = eps * upd[moved].max(1, keepdims=True)
+                table = eps * upd.max()
+                print(f"{kind} D {d} {n} threads {name}: "
+                      f"{float((diff / np.maximum(own, 1e-300)).max()):.1f}x the element "
+                      f"term alone; {float((diff[moved] / row).max()):.1f} float32 ulps of "
+                      f"the row's largest update, {float(diff.max() / table):.1f} of the "
+                      "table's")
+                assert (diff > own).any()  # the element term alone is not float32's error
+                assert np.all(diff <= own + TABLE_ULPS / 2 * table), (
+                    n, name, float(diff.max() / table))
+    finally:
+        torch.set_num_threads(threads)
