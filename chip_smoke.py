@@ -206,7 +206,6 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import csv
-import itertools
 import json
 import os
 import statistics
@@ -217,15 +216,10 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
-INT8_OP_PER_S = 1979e12     # H100 SXM int8 tensor cores, dense
-BF16_FLOP_PER_S = 989e12    # H100 SXM bf16 tensor cores, dense
-TF32_FLOP_PER_S = 495e12    # H100 SXM tf32 tensor cores, dense
-# the special-function unit (MUFU: ex2, rcp): 16 lanes a clock on each of
-# the 132 SMs at the 1.98 GHz boost clock (H100 SXM; CUDA programming
-# guide's arithmetic-instruction throughput table for compute capability 9.0)
-SFU_OP_PER_S = 16 * 132 * 1.98e9
+# Every bound comes from the kernel modules' ``work`` counts through
+# ``gene2vec_tpu_torch/obs/profiler.py:bound`` (the H100's data-sheet rates
+# live there), imported where used: ``--compare`` loads this file beside
+# older trees' packages.
 
 V, D, B, K = 24447, 200, 4096, 5
 E = 2 * B
@@ -281,16 +275,6 @@ def zipf_ids(rng, n, v):
     p = 1.0 / np.arange(1, v + 1)
     p /= p.sum()
     return rng.choice(v, size=n, p=p).astype(np.int32)
-
-
-def bound(bytes_moved: float, flops: float, int8_ops: float = 0.0, bf16_ops: float = 0.0,
-          tf32_ops: float = 0.0):
-    """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
-    rate and the operations over the peak rate for their type."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = (flops / F32_FLOP_PER_S + int8_ops / INT8_OP_PER_S
-             + bf16_ops / BF16_FLOP_PER_S + tf32_ops / TF32_FLOP_PER_S)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 REL_TOL = 2e-5     # kernel vs plain: float32 sums in another order, atomics
@@ -372,6 +356,17 @@ def torch_where_equal(a, b):
     return (a - b).abs().masked_fill(a == b, 0.0)
 
 
+def row_bar_share(torch, got, want) -> float:
+    """The largest of each row's max |got − want| over its "rows" bar
+    (REL_TOL × the row's max |want|): at most 1 where ``compare`` passes
+    (an all-zero row: 0 when equal, inf otherwise)."""
+    err = (got - want).abs().reshape(got.shape[0], -1).amax(1)
+    bar = REL_TOL * want.abs().reshape(want.shape[0], -1).amax(1)
+    share = torch.where(bar > 0, err / torch.where(bar > 0, bar, torch.ones_like(bar)),
+                        torch.where(err > 0, float("inf"), 0.0))
+    return float(share.max())
+
+
 def acc_outputs(prefix, got, want, d):
     """An accumulator's [gradient | weight] columns, held separately."""
     return [(f"{prefix}[:, :D]", got[:, :d], want[:, :d], "rows"),
@@ -382,7 +377,6 @@ SALTS = [[0x243F6A88, 0x85A308D3], [0x13198A2E, 0x03707344]]  # fixed SR salt wo
 #: rows K4's finalize visits, by check: {table: [rows, share of V]} and the
 #: bound that counts them (the ``{"touched_rows": ...}`` line)
 TOUCHED_SHARES = {}
-SR_HASH_OPS = 8    # integer operations of the SR hash and carry, per element
 
 
 def table_ulps(torch, a, b):
@@ -452,13 +446,17 @@ def bitwise_tables(torch, name, pairs):
             raise SystemExit(f"{name}: {label} not bitwise the plain version's ({n} elements)")
 
 
-def k1_bytes(c_ids, x_ids, d: int, table_bytes: int) -> int:
-    """What K1's function must move for ids ``c_ids`` / ``x_ids``: the ids,
-    each distinct emb and ctx row read once (``table_bytes`` a column),
-    and v, u, g_pos and the loss written as float32."""
-    e = len(c_ids)
-    rows = len(np.unique(c_ids)) + len(np.unique(x_ids))
-    return 4 * (2 * e + 2 * e * d + 2 * e) + table_bytes * rows * d
+def tf32_note(row, passes):
+    """A row of a kernel on the tensor cores through a 3xTF32 split (K2, K3,
+    K5b): its bound is the split's passes at the TF32 rate (or the bytes);
+    the float32 SIMT route's figure goes in the row's note."""
+    from gene2vec_tpu_torch.obs.profiler import F32_FLOP_PER_S, TF32_FLOP_PER_S, bound
+
+    simt = row["work"]["simt_flops"]
+    row["bound_route"] = (f"TF32 passes {passes} (logits, d_center, acc) at "
+                          f"{TF32_FLOP_PER_S / 1e12:g} TFLOP/s")
+    row["bound_note"] = (f"float32 SIMT route: {bound({'flops': simt})[0]:.4f} ms "
+                         f"({simt / 1e9:.2f} GFLOP at {F32_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
 
 def kernel_check(torch, reps: int, dtype=None):
@@ -469,7 +467,8 @@ def kernel_check(torch, reps: int, dtype=None):
     scatter's atomics reorder the float32 sums), and bitwise when the
     finalize runs alone on identical accumulators."""
     from gene2vec_tpu_torch.data.negative_sampling import build_stratified_spec
-    from gene2vec_tpu_torch.kernels import noise_head, noise_tail, pos_logit, row_update
+    from gene2vec_tpu_torch.kernels import _work, noise_head, noise_tail, pos_logit, row_update
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dtype = dtype or torch.float32
     bf16 = dtype == torch.bfloat16
@@ -493,31 +492,20 @@ def kernel_check(torch, reps: int, dtype=None):
     timer = Timer(torch, reps)
     rows = []
 
-    def row(name, fn_src, replaces, err, t_k, t_p, t_lib, bytes_moved, flops,
-            tolerance=None, tf32_ops=0.0):
-        b_ms, b_by = bound(bytes_moved, flops, tf32_ops=tf32_ops)
+    def row(name, fn_src, replaces, err, t_k, t_p, t_lib, work, tolerance=None):
+        b_ms, b_by = bound(work)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"gene2vec_tpu_torch/kernels/csrc/{fn_src}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": t_lib,
+            "library_ms": t_lib, "work": work,
             "tolerance": tolerance or (f"{REL_TOL:g} x per-row / per-element |plain|; "
                                        f"tables {TABLE_ATOL:g}"),
         })
         log(f"{name}: max_abs_err {err:.3e}, kernel {t_k:.4f} ms, plain "
             f"{t_p:.4f} ms, library {t_lib} ms, bound {b_ms:.4f} ms ({b_by})")
 
-    def tf32_route(flops_simt: float, passes: tuple):
-        """K2/K3 run on the tensor cores through a 3xTF32 split: their bound
-        is the split's passes at the TF32 rate (or the bytes), the float32
-        SIMT route's figure kept in the row's note."""
-        b_ms = bound(0.0, flops_simt)[0]
-        rows[-1]["bound_route"] = (f"TF32 passes {passes} (logits, d_center, acc) at "
-                                   f"{TF32_FLOP_PER_S / 1e12:g} TFLOP/s")
-        rows[-1]["bound_note"] = (f"float32 SIMT route: {b_ms:.4f} ms "
-                                  f"({flops_simt / 1e9:.2f} GFLOP at "
-                                  f"{F32_FLOP_PER_S / 1e12:g} TFLOP/s)")
 
     # K1
     got = pos_logit.pos_logit(emb, ctx, centers, contexts)
@@ -531,7 +519,7 @@ def kernel_check(torch, reps: int, dtype=None):
         err, timer(lambda: pos_logit.pos_logit(emb, ctx, centers, contexts)),
         timer(lambda: pos_logit.pos_logit_plain(emb, ctx, centers, contexts)),
         timer(lambda: lib_pos_logit(torch, emb, ctx, c_l, x_l)),
-        k1_bytes(c_ids, x_ids, D, tb), 2 * E * D)
+        pos_logit.work(c_ids, x_ids, D, tb))
     v, u, g_pos, _ = want
 
     # K2 (into a zeroed accumulator, as in the step)
@@ -547,17 +535,13 @@ def kernel_check(torch, reps: int, dtype=None):
     library_check("K2" + sfx, [*lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_l), a_l],
                   [dp, lp, a_p])
     a_t = acc0.clone()
-    # the tensor cores' passes: 3 a product, 2 where a bf16 table row is an
-    # operand (the logits and d_center; acc's g^T v is float32 either way)
-    passes = (2, 2, 3) if bf16 else (3, 3, 3)
     row("noise_head" + sfx, "k2_noise_head.cu", "gene2vec_tpu/sgns/step.py:736",
         err,
         timer(lambda: noise_head.noise_head(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: noise_head.noise_head_plain(v, u, g_pos, contexts, ctx, spec.q, HEAD, K, a_t)),
         timer(lambda: lib_noise_head(torch, v, u, g_pos, x_l, ctx, kq, HEAD, a_t)),
-        4 * (2 * E * D + 3 * E + HEAD + 2 * HEAD * (D + 1) + E * D) + tb * HEAD * D,
-        0.0, tf32_ops=sum(passes) * 2 * E * HEAD * D)
-    tf32_route(3 * 2 * E * HEAD * D, passes)
+        noise_head.work(E, HEAD, D, tb))
+    tf32_note(rows[-1], _work.TF32_PASSES[bf16])
 
     # K3
     d_k, d_p, d_l = dp.clone(), dp.clone(), dp.clone()
@@ -573,9 +557,6 @@ def kernel_check(torch, reps: int, dtype=None):
     blk_rows = starts_t[:, None] + torch.arange(spec.block, device=dev)[None, :]
     library_check("K3" + sfx, [lib_noise_tail(torch, v, x_l, ctx, spec.tail_w, blk_rows, float(K),
                                               d_l, a_l), d_l, a_l], [lp, d_p, a_p])
-    starts = np.minimum(spec.head + blk.astype(np.int64) * spec.block, V - spec.block)
-    block_rows = set(itertools.chain.from_iterable(range(s, s + spec.block) for s in starts))
-    distinct = len(block_rows)
     d_t, a_t = dp.clone(), a_p.clone()
     row("noise_tail" + sfx, "k3_noise_tail.cu", "gene2vec_tpu/sgns/step.py:748",
         err,
@@ -585,10 +566,8 @@ def kernel_check(torch, reps: int, dtype=None):
                                                   spec.head, spec.block, GROUP, K, d_t, a_t)),
         timer(lambda: lib_noise_tail(torch, v, x_l, ctx, spec.tail_w, blk_rows, float(K), d_t,
                                      a_t)),
-        4 * (E * D + E + g + distinct + 2 * E * D + 2 * distinct * (D + 1) + E)
-        + tb * distinct * D,
-        0.0, tf32_ops=sum(passes) * 2 * E * spec.block * D)
-    tf32_route(3 * 2 * E * spec.block * D, passes)
+        noise_tail.work(blocks, E, spec.head, spec.block, spec.tail_w.shape[0], D, tb))
+    tf32_note(rows[-1], _work.TF32_PASSES[bf16])
 
     # K4 (library: the whole sequence — one index_add_ of both tables'
     # [grad | 1] rows into their accumulators, then lib_finalize on each
@@ -603,8 +582,9 @@ def kernel_check(torch, reps: int, dtype=None):
                       limit=spec.tail_w.shape[0])
     sets = (Touched(), ctx_set)
     alone = (Touched(ids=centers), ctx_set._replace(ids=contexts))  # no scatter
-    emb_rows = len(np.unique(c_ids))
-    ctx_rows = len(block_rows.union(range(HEAD), x_ids.tolist()))
+    k4_work = {salted: row_update.work(centers, contexts, D, V, tb, sets, salted)
+               for salted in (False, True)}
+    emb_rows, ctx_rows = k4_work[False]["emb_rows"], k4_work[False]["ctx_rows"]
     TOUCHED_SHARES["stratified" + sfx] = {
         "emb": [emb_rows, emb_rows / V], "ctx": [ctx_rows, ctx_rows / V],
         "bound": f"row_update{sfx} bound_ms"}
@@ -616,8 +596,6 @@ def kernel_check(torch, reps: int, dtype=None):
     payload = torch.cat([torch.cat([d_center, ones], 1),
                          torch.cat([g_pos[:, None] * v, ones], 1)])
     none = centers[:0]
-    touched = emb_rows + ctx_rows
-    k4_bytes = 4 * (2 * E + 2 * E * D + E + touched * (D + 1)) + 2 * tb * touched * D
     for mode, salts in ((("sr", SALTS), ("rn", None)) if bf16 else (("", None),)):
         name = f"row_update{sfx}" + (f"_{mode}" if mode else "")
         ins = [emb.clone(), ctx.clone(), acc_emb.clone(), acc_ctx.clone()]
@@ -678,10 +656,7 @@ def kernel_check(torch, reps: int, dtype=None):
                                                 g_pos, lr, "capped", salts, sets)),
             timer(lambda: row_update.row_update_plain(*t_in, centers, contexts, d_center, v,
                                                       g_pos, lr, "capped", salts, sets)),
-            t_lib,
-            k4_bytes,
-            2 * E * (D + 1) + 3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
-            tol)
+            t_lib, k4_work[salts is not None], tol)
         if t_lib is None:
             rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
     log(f"row_update{sfx} touches {emb_rows} emb rows ({emb_rows / V:.3f}) and {ctx_rows} ctx "
@@ -944,6 +919,7 @@ def serving_kernel_check(torch, reps):
     kernels-line rows (times at MAIN_SHAPE, errors over every shape) and
     one record per (kernel, shape)."""
     from gene2vec_tpu_torch.kernels import _topk, ivf_scan, quant_scan, rescore, topk_exact
+    from gene2vec_tpu_torch.obs.profiler import bound
     from gene2vec_tpu_torch.serve import ann
 
     dev = torch.device(DEVICE)
@@ -960,9 +936,8 @@ def serving_kernel_check(torch, reps):
     timer = Timer(torch, reps)
     records, worst, ties, breakdown = [], {}, {}, {}
 
-    def record(name, b, kb, err, t_k, t_p, t_lib, bytes_moved, flops, int8_ops=0.0,
-               route=STAGED_ROUTE, launches=None):
-        b_ms, b_by = bound(bytes_moved, flops, int8_ops)
+    def record(name, b, kb, err, t_k, t_p, t_lib, work, route=STAGED_ROUTE, launches=None):
+        b_ms, b_by = bound(work)
         records.append({"name": name, "batch": b, "kb": kb, "max_abs_err": err, "ms": t_k,
                         "plain_ms": t_p, "library_ms": t_lib, "bound_ms": b_ms,
                         "bound_by": b_by, "route": route, "launches_by_kernel": launches})
@@ -1001,7 +976,7 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: topk_exact.topk_exact(unit, q, kb)),
                    timer(lambda: topk_exact.topk_exact_plain(unit, q, kb)),
                    timer(lambda: torch.topk(torch.mm(qn, unit.T), kb)),
-                   4 * (V * D + b * D) + 8 * b * kb, 2.0 * b * V * D)
+                   topk_exact.work(V, D, b, kb))
             if (b, kb) == MAIN_SHAPE:  # where the kernel's and library's time goes
                 breakdown["topk_exact"] = breakdown_of(
                     torch, lambda: topk_exact.topk_exact(unit, q, kb),
@@ -1020,7 +995,7 @@ def serving_kernel_check(torch, reps):
                    timer(lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb)),
                    timer(lambda: quant_scan.quant_scan_plain(qn, index.table_q, index.scale,
                                                              rb)),
-                   t_lib, V * D + 4 * V + 4 * b * D + 8 * b * rb, 0.0, 2.0 * b * V * D)
+                   t_lib, quant_scan.work(V, D, b, rb))
             if (b, kb) == MAIN_SHAPE:
                 breakdown["quant_scan"] = breakdown_of(
                     torch, lambda: quant_scan.quant_scan(qn, index.table_q, index.scale, rb),
@@ -1033,17 +1008,13 @@ def serving_kernel_check(torch, reps):
             tied = probe_near_ties(torch, qn, index.centroids, nprobe)
             ties["ivf_scan"] = ties.get("ivf_scan", 0) + int(tied.sum())
             bitwise("K9", g9, w9, ~tied)
-            _, ci = _topk.topk_plain(qn @ index.centroids.T, nprobe)
-            cand = index.lists[ci.long()].reshape(b, -1)
-            cand = cand[cand >= 0]
-            n_cand, n_rows = int(cand.numel()), int(torch.unique(cand).numel())
+            cand = ivf_scan.probed(qn, index.centroids, index.lists, nprobe)
             library_check("K9", lib_ivf_scan(torch, *args9)[:1], w9[:1], rtol=1e-6)
             record("ivf_scan", b, kb, 0.0, timer(lambda: ivf_scan.ivf_scan(*args9)),
                    timer(lambda: ivf_scan.ivf_scan_plain(*args9)),
                    timer(lambda: lib_ivf_scan(torch, *args9)),
-                   4 * c * D + 4 * b * D + 4 * b * nprobe * lst + n_rows * (D + 4)
-                   + 8 * b * g9[0].shape[1],
-                   2.0 * b * c * D, 2.0 * n_cand * D,
+                   ivf_scan.work(b, D, c, nprobe, lst, g9[0].shape[1], int(cand.numel()),
+                                 int(torch.unique(cand).numel())),
                    route=ivf_route(ivf_scan, qn, index.centroids, index.table_q, nprobe, rb, lst),
                    launches=launches_by_kernel(torch, lambda: ivf_scan.ivf_scan(*args9)))
             if (b, kb) == MAIN_SHAPE:
@@ -1059,15 +1030,13 @@ def serving_kernel_check(torch, reps):
                 err = max(err, e)
                 ties["rescore"] = ties.get("rescore", 0) + n
             rs, ri = w8
-            fin = torch.isfinite(rs)
-            n_fin, n_rows = int(fin.sum()), int(torch.unique(ri[fin]).numel())
             library_check("K9r", lib_rescore(torch, qn, unit, ri, rs, kb)[:1],
                           rescore.rescore_plain(qn, unit, ri, rs, kb)[:1], rtol=SERVE_TOL)
             record("rescore", b, kb, err,
                    timer(lambda: rescore.rescore(qn, unit, ri, rs, kb)),
                    timer(lambda: rescore.rescore_plain(qn, unit, ri, rs, kb)),
                    timer(lambda: lib_rescore(torch, qn, unit, ri, rs, kb)),
-                   8 * b * rb + 4 * b * D + 4 * n_rows * D + 8 * b * kb, 2.0 * n_fin * D,
+                   rescore.work(b, D, rb, kb, *rescore.candidates(rs, ri)),
                    route=rescore.plan(qn, unit, ri.shape[1], min(kb, ri.shape[1])).describe(),
                    launches=launches_by_kernel(
                        torch, lambda: rescore.rescore(qn, unit, ri, rs, kb)))
@@ -1272,6 +1241,7 @@ def gather_probes(torch, reps):
     ``table[idx]``; library call: ``torch.index_select`` (which the plain
     version also is)."""
     from gene2vec_tpu_torch.kernels import rescore
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1287,9 +1257,7 @@ def gather_probes(torch, reps):
         torch.cuda.synchronize()
         if not torch.equal(got, table[idx_l]):
             raise SystemExit(f"row_gather ({rows}, {d}) {dtype} E {e}: differs from table[idx]")
-        row_bytes = d * table.element_size()
-        distinct = int(torch.unique(idx).numel())
-        b_ms, b_by = bound(4 * e + (distinct + e) * row_bytes, 0.0)
+        b_ms, b_by = bound(rescore.gather_work(idx, d * table.element_size()))
         rec = {"name": "row_gather", "probe": probe, "table": [rows, d], "dtype": dtype, "E": e,
                "max_abs_err": 0.0, "ms": timer(lambda: rescore.row_gather(table, idx)),
                "plain_ms": timer(lambda: rescore.row_gather_plain(table, idx)),
@@ -1321,6 +1289,7 @@ def stream_probes(torch, reps):
     and variant with achieved GB/s: bytes read and written over the
     kernel's time)."""
     from gene2vec_tpu_torch.kernels import stream_scale
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1337,8 +1306,9 @@ def stream_probes(torch, reps):
         torch.cuda.synchronize()
         if not same_bits(torch, got, want):
             raise SystemExit(f"stream_scale {mb} MB {dtype}: not bitwise x * {scale}")
-        nbytes = 2 * es * n * 256
-        b_ms, b_by = bound(nbytes, float(n * 256))
+        work = stream_scale.work(n * 256, es)
+        nbytes = work["bytes"]
+        b_ms, b_by = bound(work)
         rec = {"name": "stream_scale" + ("_bf16" if es == 2 else ""),
                "probe": "experiments/test_bw.py:39 pallas_copy_loop", "mb": mb,
                "dtype": dtype, "scale": scale, "shape": [n, 256], "max_abs_err": 0.0,
@@ -1435,6 +1405,8 @@ def step_parity(torch, v, d, b, head, block, group, full_tables, dtype=None):
 HS_DEPTH = 10               # the default hs_dense_depth
 HS_HOT_SWEEP = (0, 2, 3, 4, 5, 6, 7)  # K6's tree levels reduced in shared memory, timed
 HS_HOT = {}                 # {"hs" / "hs_bf16": {"default": n, "ms": {levels: ms}}}
+K6_REPEATS = 100            # K6 launches held against the reference sum, per hot-levels case
+K6_SHARES = {}              # {"hs" / "hs_bf16": {levels: the largest reading / the row bar}}
 OBJECTIVE_KERNELS = ("per_example", "shared_pool", "hs", "row_scatter", "row_finalize")
 
 
@@ -1451,34 +1423,6 @@ def full_width_inputs(torch, dev):
     return counts, emb, ctx, c_ids, x_ids
 
 
-def hs_work(split, c_ids, x_ids, d: int, table_bytes: int = 4) -> dict:
-    """What K6's function needs for inputs ``c_ids`` and targets ``x_ids``
-    under ``split`` (a ``ShallowSplit``): bytes (distinct input rows and
-    touched node rows read once, the accumulator's touched rows read and
-    written once, the sign rows of the distinct targets) and float32
-    operations.  Only on-path entries count: a zero sign multiplies the
-    loss, g_s and the weight column, so the dense shallow products off
-    the path feed nothing.  ``table_bytes``: bytes per table element."""
-    e = len(x_ids)
-    targets = np.unique(x_ids)
-    deep_entries = int(split.lengths_deep[x_ids].sum())
-    shallow_entries = int(np.abs(split.sign[x_ids].astype(np.int64)).sum())
-    deep_nodes = np.unique(np.concatenate(
-        [split.points_deep[t, :split.lengths_deep[t]] for t in targets]))
-    shallow_nodes = np.unique(np.nonzero(split.sign[targets])[1])
-    n_in, n_tg = len(np.unique(c_ids)), len(targets)
-    n_nodes = len(shallow_nodes) + len(deep_nodes)
-    l_deep = split.points_deep.shape[1]
-    return {
-        "bytes": 4 * (2 * e + n_tg * (l_deep * 2 + 1) + e * d + 2 * e
-                      + 2 * n_nodes * (d + 1)) + n_tg * split.n_shallow
-                 + table_bytes * (n_in + n_nodes) * d,
-        "flops": 3 * 2 * shallow_entries * d + 5 * deep_entries * d,
-        "deep_entries": deep_entries, "shallow_entries": shallow_entries,
-        "deep_nodes": len(deep_nodes), "shallow_nodes": len(shallow_nodes),
-    }
-
-
 def objective_kernel_check(torch, reps: int, dtype=None):
     """K5a (per-example draws), K5b (the shared pool), K6 (hierarchical
     softmax, both phases, hs_dense_depth 10) and K4's generic scatter and
@@ -1492,7 +1436,9 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     repeated."""
     from gene2vec_tpu_torch.data.negative_sampling import (
         build_alias_table, noise_distribution, sample_negatives)
-    from gene2vec_tpu_torch.kernels import hs, per_example, pos_logit, row_update, shared_pool
+    from gene2vec_tpu_torch.kernels import (_work, hs, per_example, pos_logit, row_update,
+                                            shared_pool)
+    from gene2vec_tpu_torch.obs.profiler import bound
     from gene2vec_tpu_torch.sgns.cbow_hs import shallow_on
     from gene2vec_tpu_torch.sgns.huffman import build_huffman_tree, split_shallow
     from gene2vec_tpu_torch.sgns.step import shared_pool_layout
@@ -1511,19 +1457,15 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     timer = Timer(torch, reps)
     rows = []
 
-    def distinct(t):
-        return int(torch.unique(t).numel())
-
-    def row(name, src, replaces, err, fn_k, fn_p, fn_lib, bytes_moved, flops,
-            tolerance=None, tf32_ops=0.0):
-        b_ms, b_by = bound(bytes_moved, flops, tf32_ops=tf32_ops)
+    def row(name, src, replaces, err, fn_k, fn_p, fn_lib, work, tolerance=None):
+        b_ms, b_by = bound(work)
         t_k, t_p = timer(fn_k), timer(fn_p)
         t_lib = timer(fn_lib) if fn_lib is not None else None
         rows.append({
             "name": name, "route": "cuda", "source": f"gene2vec_tpu_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": None, "max_abs_err": err,
             "ms": t_k, "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": t_lib,
+            "library_ms": t_lib, "work": work,
             "tolerance": tolerance or (f"{REL_TOL:g} x per-row / per-element |plain|; "
                                        f"tables {TABLE_ATOL:g}"),
         })
@@ -1539,22 +1481,18 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     torch.cuda.synchronize()
     err = compare("K5a" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
-    n_neg = distinct(negs)
     x_l, negs_l = contexts.long(), negs.long()
     a_l = acc0.clone()
     library_check("K5a" + sfx, [*lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_l), a_l],
                   [dp, lp, a_p])
     a_t = acc0.clone()
-    # the accumulator rows it adds to: the draws' and the positive contexts'
-    n_acc = distinct(torch.cat([negs.reshape(-1), contexts]))
+    work = per_example.work(contexts, negs, D, tb)
     row("per_example" + sfx, "k5_per_example.cu", "gene2vec_tpu/sgns/step.py:97", err,
         lambda: per_example.per_example(v, u, g_pos, contexts, negs, ctx, a_t),
         lambda: per_example.per_example_plain(v, u, g_pos, contexts, negs, ctx, a_t),
-        lambda: lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_t),
-        4 * (2 * E * D + 2 * E + E * K + 2 * n_acc * (D + 1) + E * D + E) + tb * n_neg * D,
-        5 * E * K * D + 2 * E * D)
-    log(f"per_example{sfx}: {n_neg} distinct noise rows of {E * K} draws; {n_acc} "
-        "accumulator rows with the positive contexts'")
+        lambda: lib_per_example(torch, v, u, g_pos, x_l, negs_l, ctx, a_t), work)
+    log(f"per_example{sfx}: {work['draw_rows']} distinct noise rows of {E * K} draws; "
+        f"{work['acc_rows']} accumulator rows with the positive contexts'")
     acc_pe, d_center = a_p, dp
 
     # K5b: the auto-sized grouped pool
@@ -1566,28 +1504,18 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     torch.cuda.synchronize()
     err = compare("K5b" + sfx, [("d_center", dk, dp, "rows"), ("loss_neg", lk, lp, "elems")]
                   + acc_outputs("acc_ctx", a_k, a_p, D))
-    n_pool = distinct(pool)
     pool_l, scale = pool.long(), shared_pool.pool_scale(K, g, pool.shape[0])
     a_l = acc0.clone()
     library_check("K5b" + sfx, [*lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g,
                                                  a_l), a_l], [dp, lp, a_p])
     a_t = acc0.clone()
-    # noise_tc.cuh's 3xTF32 passes, as K2/K3: 3 a product, 2 where a bf16
-    # pool row is an operand (the logits and d_center)
-    passes = (2, 2, 3) if bf16 else (3, 3, 3)
+    work = shared_pool.work(E, pool, g, D, tb)
     row("shared_pool" + sfx, "k5_shared.cu", "gene2vec_tpu/sgns/step.py:337", err,
         lambda: shared_pool.shared_pool(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
         lambda: shared_pool.shared_pool_plain(v, u, g_pos, contexts, pool, ctx, K, g, a_t),
-        lambda: lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g, a_t),
-        4 * (2 * E * D + 2 * E + g * per_group + 2 * n_pool * (D + 1) + E * D + E)
-        + tb * n_pool * D,
-        0.0, tf32_ops=sum(passes) * 2 * E * per_group * D)
-    simt = 3 * 2 * E * per_group * D
-    rows[-1]["bound_route"] = (f"TF32 passes {passes} (logits, d_center, acc) at "
-                               f"{TF32_FLOP_PER_S / 1e12:g} TFLOP/s")
-    rows[-1]["bound_note"] = (f"float32 SIMT route: {bound(0.0, simt)[0]:.4f} ms "
-                              f"({simt / 1e9:.2f} GFLOP at {F32_FLOP_PER_S / 1e12:g} TFLOP/s)")
-    log(f"shared_pool{sfx}: G {g}, P/G {per_group}, {n_pool} distinct pool rows")
+        lambda: lib_shared_pool(torch, v, u, g_pos, x_l, pool_l, ctx, scale, g, a_t), work)
+    tf32_note(rows[-1], _work.TF32_PASSES[bf16])
+    log(f"shared_pool{sfx}: G {g}, P/G {per_group}, {work['pool_rows']} distinct pool rows")
 
     # K6: sg_hs at hs_dense_depth 10 (input = center, path of the context)
     tree = build_huffman_tree(counts)
@@ -1603,35 +1531,45 @@ def objective_kernel_check(torch, reps: int, dtype=None):
     args6 = (emb, node, centers, contexts, pts, cds, lens, shallow)
     dk, ldk, lsk = hs.hs(*args6, a_k)
     dp, ldp, lsp = hs.hs_plain(*args6, a_p)
+    # acc_node's reference: the plain version's float32 terms summed in
+    # float64 in one order.  The plain version on the card sums the same
+    # terms by atomics too, so against its accumulator two run-to-run
+    # orders would share the row bar; against this sum only the kernel's
+    a_ref = hs.acc_reference(a0, hs.path_terms(*args6)).to(dev)
     torch.cuda.synchronize()
     err = compare("K6" + sfx, [("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
                                ("loss_shallow", lsk, lsp, "elems")]
-                  + acc_outputs("acc_node", a_k, a_p, D))
-    work = hs_work(split, c_ids, x_ids, D, tb)
+                  + acc_outputs("acc_node", a_k, a_ref, D))
+    work = hs.work(centers, contexts, pts, lens, shallow, D, tb)
     args6_l = (emb, node, centers.long(), x_l, pts, cds, lens, shallow)
     a_l = a0.clone()
     library_check("K6" + sfx, [*lib_hs(torch, *args6_l, a_l), a_l], [dp, ldp, lsp, a_p])
     a_t = a0.clone()
     row("hs" + sfx, "k6_hs.cu", "gene2vec_tpu/sgns/cbow_hs.py:65", err,
         lambda: hs.hs(*args6, a_t), lambda: hs.hs_plain(*args6, a_t),
-        lambda: lib_hs(torch, *args6_l, a_t),
-        work["bytes"], work["flops"])
+        lambda: lib_hs(torch, *args6_l, a_t), work)
     # K6's time by launch (torch.profiler, L2 warm), and its kernel time at
-    # each count of tree levels reduced in shared memory, each run held
-    # against the plain version
+    # each count of tree levels reduced in shared memory, each count's
+    # K6_REPEATS launches held against the plain version and the reference
+    # sum (the largest reading, as a share of the row bar, in K6_SHARES)
     rows[-1]["device_ms"] = device_breakdown(torch, lambda: hs.hs(*args6, a_t))
-    sweep = {}
+    sweep, shares = {}, {}
     for hot in HS_HOT_SWEEP:
-        a_k = a0.clone()
-        dk, ldk, lsk = hs.hs(*args6, a_k, hot_levels=hot)
-        torch.cuda.synchronize()
-        compare(f"K6{sfx} hot_levels {hot}", [
-            ("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
-            ("loss_shallow", lsk, lsp, "elems")] + acc_outputs("acc_node", a_k, a_p, D))
+        for _ in range(K6_REPEATS):
+            a_k = a0.clone()
+            dk, ldk, lsk = hs.hs(*args6, a_k, hot_levels=hot)
+            torch.cuda.synchronize()
+            compare(f"K6{sfx} hot_levels {hot}", [
+                ("d_input", dk, dp, "rows"), ("loss_deep", ldk, ldp, "elems"),
+                ("loss_shallow", lsk, lsp, "elems")] + acc_outputs("acc_node", a_k, a_ref, D))
+            shares[hot] = max(shares.get(hot, 0.0),
+                              row_bar_share(torch, a_k[:, :D], a_ref[:, :D]))
         sweep[hot] = timer(lambda: hs.hs(*args6, a_t, hot_levels=hot))
     HS_HOT["hs" + sfx] = {"default": hs.HOT_LEVELS, "ms": sweep}
+    K6_SHARES["hs" + sfx] = shares
     log(f"hs{sfx}: device ms by launch {rows[-1]['device_ms']}; ms by hot levels {sweep} "
-        f"(default {hs.HOT_LEVELS})")
+        f"(default {hs.HOT_LEVELS}); acc_node against the reference sum over {K6_REPEATS} "
+        f"launches a count, the largest row reading as a share of the bar: {shares}")
     lengths = tree.lengths.astype(np.float64)
     w = counts / counts.sum()
     log(f"hs{sfx} (depth {HS_DEPTH}): L {tree.points.shape[1]}, Ns {ns}, L_deep {l_deep}; "
@@ -1650,7 +1588,7 @@ def objective_kernel_check(torch, reps: int, dtype=None):
 
     draws = Touched(ids=(contexts, negs))
     touched = int((acc_pe[:, D] != 0).sum())
-    n_draws = len(np.unique(np.concatenate([negs.cpu().numpy().reshape(-1), x_ids])))
+    n_draws = row_update.visited_rows(draws, V)
     TOUCHED_SHARES["per_example_ctx_draws" + sfx] = {
         "ctx": [n_draws, n_draws / V], "bound": f"row_finalize{sfx} bound_ms"}
     if not bf16:
@@ -1667,15 +1605,13 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         row_update.finalize_rows_plain(t_p, a_k, 0.0125, "capped")
         torch.cuda.synchronize()
         bitwise_tables(torch, "row_scatter rows", [("emb", t_k, t_p)])
-        n_c = len(np.unique(c_ids))
         payload = torch.cat([d_center, ones[:, None]], 1)
         idx_l = centers.long()
         a_t = acc0.clone()
         row("row_scatter", "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:229", err_s,
             lambda: row_update.scatter_rows(a_t, centers, d_center, ones),
             lambda: row_update.scatter_rows_plain(a_t, centers, d_center, ones),
-            lambda: a_t.index_add_(0, idx_l, payload),
-            4 * (E + E * D + E + 2 * n_c * (D + 1)), E * (D + 1),
+            lambda: a_t.index_add_(0, idx_l, payload), row_update.scatter_work(centers, D),
             f"{REL_TOL:g} x per-row / per-element |plain|; a finalize over its ids "
             "bitwise every row's")
     for mode, salts in ((("sr", SALTS[1]), ("rn", None)) if bf16 else (("", None),)):
@@ -1696,8 +1632,7 @@ def objective_kernel_check(torch, reps: int, dtype=None):
         row(name, "k4_row_update.cu", "gene2vec_tpu/sgns/step.py:248", err_f,
             lambda: row_update.finalize_rows(t_t, acc_pe, 0.0125, "capped", salts, draws),
             lambda: row_update.finalize_rows_plain(t_t, acc_pe, 0.0125, "capped", salts, draws),
-            lib, touched * (4 * (D + 1) + 2 * tb * D) + 4 * (negs.numel() + E),
-            3 * D * touched + (SR_HASH_OPS * D * touched if salts else 0),
+            lib, row_update.finalize_work(draws, V, D, tb, salts is not None),
             "bitwise every row's finalize on the same accumulator")
         if lib is None:
             rows[-1]["library_note"] = "no PyTorch call rounds stochastically"
@@ -1844,6 +1779,7 @@ def serving_repairs_check(torch, reps):
     its plain version, scores and ids bitwise.  Returns one record per
     (kernel, shape) for the ``serving_kernel_shapes`` line."""
     from gene2vec_tpu_torch.kernels import _topk, ivf_scan, quant_scan
+    from gene2vec_tpu_torch.obs.profiler import bound
     from gene2vec_tpu_torch.serve import ann
 
     dev = torch.device(DEVICE)
@@ -1856,9 +1792,8 @@ def serving_repairs_check(torch, reps):
     timer = Timer(torch, reps)
     records = []
 
-    def record(name, b, kb, rb, err, ties, fn_k, fn_p, bytes_moved, flops, int8_ops=0.0,
-               bf16_ops=0.0, fn_lib=None, route=STAGED_ROUTE):
-        b_ms, b_by = bound(bytes_moved, flops, int8_ops, bf16_ops)
+    def record(name, b, kb, rb, err, ties, fn_k, fn_p, work, fn_lib=None, route=STAGED_ROUTE):
+        b_ms, b_by = bound(work)
         rec = {"name": name, "batch": b, "kb": kb, "rb": rb, "max_abs_err": err,
                "near_ties": ties, "ms": timer(fn_k), "plain_ms": timer(fn_p),
                "library_ms": timer(fn_lib) if fn_lib else None, "bound_ms": b_ms,
@@ -1885,8 +1820,7 @@ def serving_repairs_check(torch, reps):
         err, ties = check_topk("K8 bf16", got, want, bf16_of, SERVE_TOL)
         library_check("K8 bf16", lib_quant_scan_bf16(torch, *a8)[:1], want[:1], rtol=SERVE_TOL)
         record("quant_scan_bf16", b, kb, rb, err, ties, lambda: quant_scan.quant_scan(*a8),
-               lambda: quant_scan.quant_scan_plain(*a8),
-               2 * V * D + 4 * b * D + 8 * b * rb, 0.0, bf16_ops=2.0 * b * V * D,
+               lambda: quant_scan.quant_scan_plain(*a8), quant_scan.work(V, D, b, rb, "bfloat16"),
                fn_lib=lambda: lib_quant_scan_bf16(torch, *a8))
         a9 = (qn, index.centroids, index.lists, index.table_q, index.scale, nprobe, rb)
         got, want = ivf_scan.ivf_scan(*a9), ivf_scan.ivf_scan_plain(*a9)
@@ -1897,15 +1831,12 @@ def serving_repairs_check(torch, reps):
             "K9 bf16", (got[0][keep], got[1][keep]), (want[0][keep], want[1][keep]),
             lambda ids: (q16[keep][:, None, :] * index.table_q[ids].float()).sum(-1),
             SERVE_TOL)
-        _, ci = _topk.topk_plain(qn @ index.centroids.T, nprobe)
-        cand = index.lists[ci.long()].reshape(b, -1)
-        cand = cand[cand >= 0]
-        n_rows = int(torch.unique(cand).numel())
+        cand = ivf_scan.probed(qn, index.centroids, index.lists, nprobe)
         library_check("K9 bf16", lib_ivf_scan_bf16(torch, *a9)[:1], want[:1], rtol=SERVE_TOL)
         record("ivf_scan_bf16", b, kb, rb, err, ties + int(tied.sum()),
                lambda: ivf_scan.ivf_scan(*a9), lambda: ivf_scan.ivf_scan_plain(*a9),
-               4 * c * D + 4 * b * D + 4 * b * nprobe * lst + 2 * n_rows * D
-               + 8 * b * got[0].shape[1], 2.0 * b * c * D, bf16_ops=2.0 * int(cand.numel()) * D,
+               ivf_scan.work(b, D, c, nprobe, lst, got[0].shape[1], int(cand.numel()),
+                             int(torch.unique(cand).numel()), "bfloat16"),
                fn_lib=lambda: lib_ivf_scan_bf16(torch, *a9),
                route=ivf_route(ivf_scan, qn, index.centroids, index.table_q, nprobe, rb, lst))
     # R2 on the int8 index of the same table
@@ -1920,8 +1851,7 @@ def serving_repairs_check(torch, reps):
             and torch.equal(got[1], want[1])):
         raise SystemExit(f"K8 at rb {LONG_RB}: not bitwise the plain version's")
     record("quant_scan", b, 512, LONG_RB, 0.0, 0, lambda: quant_scan.quant_scan(*a8),
-           lambda: quant_scan.quant_scan_plain(*a8),
-           V * D + 4 * V + 4 * b * D + 8 * b * LONG_RB, 0.0, int8_ops=2.0 * b * V * D)
+           lambda: quant_scan.quant_scan_plain(*a8), quant_scan.work(V, D, b, LONG_RB))
     return records
 
 
@@ -2362,6 +2292,219 @@ def quality_tooling(torch, work: str, smi: str) -> dict:
         raise SystemExit(f"phase 4b: launch counts {got}, expected {want}")
     print(json.dumps({"quality_tooling": out}))
     return got
+
+
+# -- phase 4c: kernel cost attribution (obs/profiler.py) -----------------------
+
+ATTR_PAIRS = 500_000        # the profiled training runs' corpus
+K10_MEASURE_SHARE = 0.10    # KernelProfiler.measure against the Timer's K10 row (7c)
+ATTR_ITERS = 2              # ... and iterations
+ATTR_SPAN_SHARE = 0.02      # attributed seconds against the iteration spans
+ATTR_NAMES = ("sgns_train_step", "cbow_hs_step", "ggipnn_step")
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)   # the server's batch buckets (max_batch 64)
+
+
+def attribution_records(run_dir: str, names) -> dict:
+    """{name: record} of ``run_dir``'s kernels.jsonl: each of ``names`` with
+    non-null flops, bytes_accessed, best_wall_s and utilization against
+    the card's data-sheet peaks, its utilization at most 1.0 (past it a
+    work count is wrong: a count fault to repair, not a bar to move)."""
+    from gene2vec_tpu_torch.obs.profiler import read_kernels
+
+    recs = {r["name"]: r for r in read_kernels(run_dir)}
+    for name in names:
+        r = recs.get(name)
+        if r is None or any(r.get(k) is None for k in
+                            ("flops", "bytes_accessed", "best_wall_s", "utilization")):
+            raise SystemExit(f"kernels.jsonl in {run_dir}: {name} incomplete: {r}")
+        if r["backend"].get("provenance") != "gpu-device-facts":
+            raise SystemExit(f"{name}: peaks {r['backend']}, not the card's data sheet")
+        if r["utilization"] > 1.0:
+            raise SystemExit(f"{name}: utilization {r['utilization']:.3f} over 1.0 (a work "
+                             "count is wrong)")
+    return recs
+
+
+def attribution_summary(rec: dict) -> dict:
+    """A record's printed fields; the bound is utilization × best wall (the
+    larger of the bytes' and the operations' least time)."""
+    return {"best_wall_s": rec["best_wall_s"], "utilization": rec["utilization"],
+            "bound": rec["bound"], "bound_ms": rec["utilization"] * rec["best_wall_s"] * 1e3,
+            "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+            "calls": rec["calls"], "compile_s": rec["compile_s"],
+            "peak_memory_bytes": rec["peak_memory_bytes"]}
+
+
+def profiled_training(torch, work: str, objective: str, name: str, pairs, vocab) -> dict:
+    """One ``run()`` of the default configuration at ``objective`` with
+    ``kernel_profile`` over ``pairs`` (ATTR_ITERS iterations, no text
+    export): its record of ``name``, the attributed seconds within
+    ATTR_SPAN_SHARE of the iteration spans' sum, goodput's per-kernel
+    breakdown summing to its compute bucket.  Returns the summary with the
+    ``kernel_attribution`` span's seconds (the attributed epoch and its
+    host pass of distinct-row counts)."""
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
+
+    out = os.path.join(work, objective)
+    cfg = SGNSConfig(objective=objective, num_iters=ATTR_ITERS, txt_output=False,
+                     kernel_profile=True)
+    tr = make_trainer(PairCorpus(vocab, pairs), cfg, device=DEVICE)
+    t0 = time.perf_counter()
+    tr.run(out, log=log)
+    wall = time.perf_counter() - t0
+    rec = attribution_records(out, (name,))[name]
+    with open(os.path.join(out, "events.jsonl")) as f:
+        ends = [e for e in map(json.loads, filter(str.strip, f)) if e["type"] == "span_end"]
+    spans = sum(e["dur"] for e in ends if e["name"] == "iteration")
+    if abs(rec["wall_s"] - spans) > ATTR_SPAN_SHARE * spans:
+        raise SystemExit(f"{name}: attributed {rec['wall_s']:.4f}s, the iteration spans "
+                         f"{spans:.4f}s")
+    with open(os.path.join(out, "manifest.json")) as f:
+        g = json.load(f)["goodput"]
+    kernels_s = g.get("compute_kernels_s") or {}
+    if name not in kernels_s or abs(sum(kernels_s.values()) - g["buckets_s"]["compute"]) > 1e-5:
+        raise SystemExit(f"{name}: goodput's kernel breakdown {kernels_s} against its compute "
+                         f"bucket {g['buckets_s']['compute']}")
+    with open(os.path.join(out, "metrics.prom")) as f:
+        series = parse_prometheus(f.read())
+    if f'kernel_utilization{{kernel="{name}"}}' not in series:
+        raise SystemExit(f"{name}: metrics.prom lacks its kernel_* gauges")
+    attribution = next(e["dur"] for e in ends if e["name"] == "kernel_attribution")
+    return {**attribution_summary(rec), "wall_s": rec["wall_s"], "iteration_spans_s": spans,
+            "span_share": abs(rec["wall_s"] - spans) / spans, "run_wall_s": wall,
+            "attribution_span_s": attribution, "pairs_per_epoch": tr.num_batches * cfg.batch_pairs,
+            "goodput_kernels_s": kernels_s, "export": out}
+
+
+def serve_attribution(torch, export: str, work: str) -> dict:
+    """Each index mode's server (``cli/serve.py --kernel-profile``, a
+    subprocess on the card): one POST filling each batch bucket, /metrics
+    scraped before and after; every bucket's ``kernel_flops`` present and
+    the requests' ``kernel_launches_total`` equal to what the same requests
+    launch through an in-process ``ServeApp`` without the flag."""
+    import http.client
+    from urllib.parse import urlparse
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.obs.profiler import bound
+    from gene2vec_tpu_torch.serve.registry import ModelRegistry
+    from gene2vec_tpu_torch.serve.server import ServeApp, ServeConfig
+
+    rng = np.random.RandomState(22)
+    requests = [{"genes": [f"G{i}" for i in rng.choice(V, n, replace=False)], "k": 10}
+                for n in SERVE_BUCKETS]
+    out = {}
+    for mode in SERVE_MODES:
+        registry = ModelRegistry(export, index_mode=mode, device=DEVICE)
+        if not registry.refresh():
+            raise SystemExit(f"{export}: no export to serve")
+        app = ServeApp(registry, ServeConfig(index=mode, cache_size=0,
+                                             nprobe=SERVE_NPROBE)).start()
+        try:
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()
+            for body in requests:
+                status, _ = app.handle("POST", "/v1/similar", body)
+                if status != 200:
+                    raise SystemExit(f"{mode} in process: POST /v1/similar {status}")
+            torch.cuda.synchronize()
+            after = kernels.launch_counts()
+            plain = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+            model = registry.model
+            kb = app.engine.k_bucket(16, len(model))
+            bounds = {b: bound(app.engine.bucket_work(
+                b, kb, app.engine.r_bucket(kb, len(model)), len(model), model.dim, len(model),
+                getattr(model, "ann", None)))[0] for b in SERVE_BUCKETS}
+        finally:
+            app.stop()
+        proc, info = start_server(export, mode, os.path.join(work, f"attr_{mode}.err"),
+                                  ("--kernel-profile",))
+        try:
+            u = urlparse(info["url"])
+            conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+
+            def scrape():
+                status, raw, _ = _send(conn, "GET", "/metrics", None)
+                if status != 200:
+                    raise SystemExit(f"{mode} /metrics: {status}")
+                return parse_prometheus(raw.decode())
+
+            first = scrape()
+            for body in requests:
+                status, _, _ = _send(conn, "POST", "/v1/similar", body)
+                if status != 200:
+                    raise SystemExit(f"{mode} server: POST /v1/similar {status}")
+            last = scrape()
+            conn.close()
+        finally:
+            stop_server(proc)
+        with open(os.path.join(work, f"attr_{mode}.err")) as f:
+            said = [ln for ln in f if ln.startswith("kernel profile:")]
+        key = 'kernel_launches_total{kernel="%s"}'
+        served = {k: last.get(key % k, 0) - first.get(key % k, 0) for k in kernels.launch_counts()
+                  if last.get(key % k, 0) != first.get(key % k, 0)}
+        if served != plain:
+            raise SystemExit(f"{mode}: launches with --kernel-profile {served}, without {plain}")
+        flops = {b: last.get(f'kernel_flops{{kernel="serve_topk_{mode}/b{b}"}}')
+                 for b in SERVE_BUCKETS}
+        if not said or not all(flops.values()):
+            raise SystemExit(f"{mode}: kernel_flops by bucket {flops}; stderr {said}")
+        out[mode] = {"launches": served, "kernel_flops": flops, "bound_ms": bounds,
+                     "kernel_bytes_accessed": {
+                         b: last.get(f'kernel_bytes_accessed{{kernel="serve_topk_{mode}/b{b}"}}')
+                         for b in SERVE_BUCKETS}}
+        log(f"serve_topk_{mode}: {json.dumps(out[mode])}")
+    return out
+
+
+def kernel_attribution(torch, work: str, smi: str) -> dict:
+    """Phase 4c: kernel cost attribution (``obs/profiler.py``) on the card —
+    the default configuration's SGNS and CBOW-HS runs with
+    ``kernel_profile`` (``profiled_training``), GGIPNN's step attributed at
+    B = 1,024 (``GGIPNNTrainer.profile_kernel``) with one timed
+    ``fit_epoch`` over 262,144 pairs observed, and a ``--kernel-profile``
+    server in each index mode over the SGNS run's export
+    (``serve_attribution``).  Every record carries the card's peaks and a
+    utilization of at most 1.0.  A ``{"kernel_attribution": ...}`` stdout
+    line with each name's best wall, utilization and bound."""
+    from gene2vec_tpu_torch.config import GGIPNNConfig
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.models.ggipnn_train import GGIPNNTrainer
+    from gene2vec_tpu_torch.obs.profiler import KernelProfiler
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(21)
+    pairs = np.stack([zipf_ids(rng, ATTR_PAIRS, V), zipf_ids(rng, ATTR_PAIRS, V)], 1)
+    vocab = Vocab([f"G{i}" for i in range(V)], np.bincount(pairs.reshape(-1), minlength=V) + 1)
+    out = {}
+    for objective, name in (("sgns", "sgns_train_step"), ("cbow_hs", "cbow_hs_step")):
+        out[name] = profiled_training(torch, work, objective, name, pairs, vocab)
+        log(f"{name} ({smi}): {json.dumps(out[name])}")
+    cfg = GGIPNNConfig(embedding_dim=D, batch_size=GG_B_LARGE)
+    tr = GGIPNNTrainer(cfg, ggipnn_vocab(V), device=DEVICE)
+    tr.init_state()
+    x = rng.randint(0, V, (GG_RATE_PAIRS, 2)).astype(np.int32)
+    y = np.eye(2, dtype=np.float32)[rng.randint(0, 2, GG_RATE_PAIRS)]
+    gg_dir = os.path.join(work, "ggipnn")
+    kp = KernelProfiler(run_dir=gg_dir, device=DEVICE)
+    tr.profile_kernel(kp, None, None, x[:GG_B_LARGE], y[:GG_B_LARGE])
+    xt, yt = tr._tensors(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, loss, _ = tr.fit_epoch(xt, yt)
+    float(loss)
+    kp.observe("ggipnn_step", time.perf_counter() - t0, calls=GG_RATE_PAIRS // GG_B_LARGE)
+    kp.flush()
+    out["ggipnn_step"] = attribution_summary(
+        attribution_records(gg_dir, ("ggipnn_step",))["ggipnn_step"])
+    log(f"ggipnn_step ({smi}): {json.dumps(out['ggipnn_step'])}")
+    out["serving"] = serve_attribution(torch, out["sgns_train_step"]["export"], work)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"kernel_attribution": out, "card": smi}), flush=True)
+    log(f"kernel attribution phase: {out['phase_s']:.1f}s")
+    return out
 
 
 def parse_prometheus(text: str) -> dict:
@@ -2825,6 +2968,7 @@ def lane_probes(torch, reps):
     (scatter), ``torch.mul`` (copy).  Returns (kernels rows, records with
     GB/s)."""
     from gene2vec_tpu_torch.kernels import lane, stream_scale
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2844,24 +2988,23 @@ def lane_probes(torch, reps):
         cases = (
             ("lane_gather", f"{src}:57 bucketed_gather", "k13_lane.cu",
              lambda: lane.lane_gather(t, offs), lambda: lane.lane_gather_plain(t, offs),
-             lambda: torch.index_select(t, 1, cols), 2 * LANE_D * LANE_V * es + 4 * LANE_V, 0.0),
+             lambda: torch.index_select(t, 1, cols), lane.gather_work(LANE_D, LANE_V, es)),
             ("lane_scatter", f"{src}:82 bucketed_scatter", "k13_lane.cu",
              lambda: lane.lane_scatter(t, g, offs), lambda: lane.lane_scatter_plain(t, g, offs),
-             lambda: torch.index_add(t, 1, cols, g), 3 * LANE_D * LANE_V * es + 4 * LANE_V,
-             2.0 * LANE_D * LANE_V),
+             lambda: torch.index_add(t, 1, cols, g), lane.scatter_work(LANE_D, LANE_V, es)),
             ("stream_scale", f"{src}:100 stream_copy", "k12_stream_scale.cu",
              lambda: stream_scale.stream_scale(t), lambda: stream_scale.stream_scale_plain(t),
-             lambda: torch.mul(t, stream_scale.SCALE), 2 * LANE_D * LANE_V * es,
-             float(LANE_D * LANE_V)),
+             lambda: torch.mul(t, stream_scale.SCALE), stream_scale.work(LANE_D * LANE_V, es)),
         )
-        for name, probe, csrc, kern, plain, library, nbytes, flops in cases:
+        for name, probe, csrc, kern, plain, library, work in cases:
             got, want = kern(), plain()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             ok, tol = same_bits(torch, got, want), "bitwise"
             if not ok:
                 raise SystemExit(f"{name}{sfx} {probe}: error {err:.3e} beyond {tol}")
-            b_ms, b_by = bound(nbytes, flops)
+            b_ms, b_by = bound(work)
+            nbytes = work["bytes"]
             rec = {"name": name + sfx, "probe": probe, **shape, "max_abs_err": err,
                    "ms": timer(kern), "plain_ms": timer(plain), "library_ms": timer(library),
                    "bound_ms": b_ms, "bound_by": b_by}
@@ -2900,6 +3043,7 @@ def staged_probes(torch, reps):
     ``torch.index_select`` (callf's shifted rows).  Returns (the kernels
     row: VMEM_MAIN_MB at its fastest tile, records)."""
     from gene2vec_tpu_torch.kernels import staged_copy as sc
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -2913,7 +3057,8 @@ def staged_probes(torch, reps):
         if not same_bits(torch, got, want):
             raise SystemExit(f"staged_copy [{probe}] tile {tile}: not bitwise its plain version")
         n, d = x.shape
-        b_ms, b_by = bound(2 * 4 * n * d, float(n * d))
+        work = sc.work(n, d)
+        b_ms, b_by = bound(work)
         rec = {"name": "staged_copy", "probe": probe, "shape": [n, d], "scale": scale,
                "head": head, "tile_rows": tile, "max_abs_err": 0.0,
                "ms": timer(lambda: sc.staged_copy(x, scale, tile, offset, head)),
@@ -2921,7 +3066,7 @@ def staged_probes(torch, reps):
         if library is not None:
             rec["plain_ms"] = timer(lambda: sc.staged_copy_plain(x, scale, offset, head))
             rec["library_ms"] = timer(library)
-        rec["gb_per_s"] = 2 * 4 * n * d / rec["ms"] / 1e6
+        rec["gb_per_s"] = work["bytes"] / rec["ms"] / 1e6
         records.append(rec)
         log(f"staged_copy [{probe}] ({n}, {d}) tile {tile}: kernel {rec['ms']:.4f} ms "
             f"({rec['gb_per_s']:.1f} GB/s), plain {rec.get('plain_ms', float('nan')):.4f} ms, "
@@ -3040,6 +3185,7 @@ def ggipnn_gather_row(torch, reps):
     float32 table, E = 2 B ids at B = 128 (the kernels line's) and 1024 —
     against ``table[idx]``; library call ``torch.index_select``."""
     from gene2vec_tpu_torch.kernels import rescore
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -3051,8 +3197,7 @@ def ggipnn_gather_row(torch, reps):
         idx_l = idx.long()
         if not torch.equal(rescore.row_gather(table, idx), table[idx_l]):
             raise SystemExit(f"row_gather GGIPNN lookup B {b}: differs from table[idx]")
-        distinct = int(torch.unique(idx).numel())
-        b_ms, b_by = bound(4 * 2 * b + (distinct + 2 * b) * 4 * D, 0.0)
+        b_ms, b_by = bound(rescore.gather_work(idx, 4 * D))
         rec = {"name": "row_gather", "probe": "GGIPNN lookup (models/ggipnn.py)",
                "table": [V, D], "dtype": "float32", "E": 2 * b, "max_abs_err": 0.0,
                "ms": timer(lambda: rescore.row_gather(table, idx)),
@@ -3686,35 +3831,6 @@ def k10_check(torch, p, y, vel, gains, exaggeration, momentum, lr, ws=None, z64=
     return float((yk - yp).abs().max()) / max(y_scale, 1e-30), int((~same).sum())
 
 
-def k10c_bound(rows, cols, passes, symmetrize=True):
-    """(ms, by) for K10c's function on (rows, cols) squared distances whose
-    rows take ``passes`` passes in all (each row its bisection steps and
-    the pass that writes P_cond): d² read once and P written once, against
-    an exponential an element a pass at the special-function unit's rate
-    and the pass's float32 operations (−d·β, Σw, d·w, Σd·w: 4) at 67
-    TFLOP/s — the largest of the three.  The symmetrization's (P_cond +
-    P_condᵀ) / 2N and its clamp are 3 more operations an element."""
-    elems = float(passes) * cols
-    t = {"bytes": 2.0 * rows * cols * 4 / HBM_BYTES_PER_S,
-         "operations": max(elems / SFU_OP_PER_S,
-                           (4.0 * elems + 3.0 * rows * cols * symmetrize) / F32_FLOP_PER_S)}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by
-
-
-def k10_bound(n):
-    """(ms, by) for one K10 iteration at N = ``n``: P read once and y, vel,
-    gains read and written, against a pair's operations — d² 5, the clamp
-    and 1 + 2, g 3, the three sums 6 (FMAs counted as 2) at 67 TFLOP/s
-    and the IEEE reciprocal's MUFU.RCP (its 2 FMAs, 4 more, beside them)
-    at the special-function unit's rate: the larger."""
-    pairs = float(n) * n
-    t = {"bytes": (pairs * 4 + n * 2 * 4 * 6) / HBM_BYTES_PER_S,
-         "operations": max(pairs / SFU_OP_PER_S, 20.0 * pairs / F32_FLOP_PER_S)}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by
-
-
 def lib_tsne_step(torch, p, y, vel, gains, exaggeration, momentum, lr):
     """K10's function as the shortest PyTorch sequence (timed as its
     ``library_ms``, used nowhere in the port): d² by one ``addmm`` and an
@@ -3763,20 +3879,17 @@ def pipeline_row(name, src, replaces, ms, plain_ms, library_ms, bound_ms, bound_
 
 def k11_timed(torch, z64, timer, slow):
     """K11 and its plain version timed on one study's z; returns the
-    kernels-line fields.  The plain version (``mm``, the epilogue, the
-    packing) is also the shortest library sequence of K11's function, so
-    its time is ``library_ms`` too."""
+    kernels-line fields but the bound (``coexpr_mask.work``: ``--compare``
+    runs this on older trees' kernels).  The plain version (``mm``, the
+    epilogue, the packing) is also the shortest library sequence of K11's
+    function, so its time is ``library_ms`` too."""
     from gene2vec_tpu_torch.kernels import coexpr_mask
 
     n, g = z64.shape
     z = z64.float().contiguous()
-    # C = zᵀz is symmetric: one triangle's g(g + 1)/2 dots of n products
-    # is all the function needs
-    b_ms, b_by = bound(n * g * 4 + g * (-(-g // 32)) * 4, float(g) * (g + 1) * n)
     plain_ms = slow(lambda: coexpr_mask.coexpr_mask_plain(z, PIPE_THR))
     return {"ms": timer(lambda: coexpr_mask.coexpr_mask(z, PIPE_THR)),
-            "plain_ms": plain_ms, "library_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "n": n, "g": g}
+            "plain_ms": plain_ms, "library_ms": plain_ms, "n": n, "g": g}
 
 
 def _run_spans(run_dir):
@@ -3807,6 +3920,7 @@ def pipeline_corpus(torch, work: str, smi: str, reps: int):
     from gene2vec_tpu_torch.cli import generate_pairs
     from gene2vec_tpu_torch.corpus import builder
     from gene2vec_tpu_torch.kernels import coexpr_mask
+    from gene2vec_tpu_torch.obs.profiler import bound
 
     t0 = time.perf_counter()
     query, modules = write_pipeline_query(os.path.join(work, "pipeline"))
@@ -3907,6 +4021,9 @@ def pipeline_corpus(torch, work: str, smi: str, reps: int):
             del dense, near_d
         if n in (24, K11_MAIN_N):
             timed[n] = k11_timed(torch, z64, timer, slow)
+            # C = zᵀz is symmetric: one triangle's dots is all the function needs
+            b_ms, b_by = bound(coexpr_mask.work(*z64.shape))
+            timed[n].update(bound_ms=b_ms, bound_by=b_by)
             rec["timed"] = timed[n]
         report.append(rec)
         del got, exact, near, z64
@@ -3996,6 +4113,7 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     distance past TSNE_SEP, K10c twice and K10 once an iteration.
     Returns (the K10c and K10 kernels-line rows, their launches)."""
     from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.obs.profiler import KernelProfiler, bound
     from gene2vec_tpu_torch.cli import tsne as tsne_cli
     from gene2vec_tpu_torch.config import TSNEConfig
     from gene2vec_tpu_torch.io.emb_io import write_matrix_txt
@@ -4018,7 +4136,7 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     steps = torch.zeros(n, dtype=torch.int32, device=DEVICE)
     p_cond = kc.conditional(d2, TSNE_PERPLEXITY, steps=steps)
     hist = {int(k): int(v) for k, v in enumerate(torch.bincount(steps.long()).tolist()) if v}
-    b10c = k10c_bound(n, n, int(steps.sum()) + n)
+    b10c = bound(kc.work(n, n, int(steps.sum()) + n))
     k10c = {"ms": timer(lambda: kc.calibrate(d2, TSNE_PERPLEXITY)),
             "conditional_ms": timer(lambda: kc.conditional(d2, TSNE_PERPLEXITY)),
             "symmetrize_ms": timer(lambda: kc.symmetrize_(p_cond)),
@@ -4026,7 +4144,7 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
             "rel_err": rel, "staged": kc.staged(n), "steps_histogram": hist,
             "mean_steps": float(steps.float().mean()),
             "bound_ms": b10c[0], "bound_by": b10c[1],
-            "bound_51_passes_ms": k10c_bound(n, n, 51 * n)[0]}
+            "bound_51_passes_ms": bound(kc.work(n, n, 51 * n))[0]}
     del p_cond
     # the plain version is the shortest library sequence too: the bisection
     # is the function
@@ -4049,8 +4167,8 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     _, rel_long, elems_long = k10c_check(torch, slab, TSNE_PERPLEXITY, row0, rule="rows")
     slab_steps = torch.zeros(slab_rows, dtype=torch.int32, device=DEVICE)
     kc.conditional(slab, TSNE_PERPLEXITY, row0, steps=slab_steps)
-    b_long = k10c_bound(slab_rows, slab_cols, int(slab_steps.sum()) + slab_rows,
-                        symmetrize=False)
+    b_long = bound(kc.work(slab_rows, slab_cols, int(slab_steps.sum()) + slab_rows,
+                           symmetrize=False))
     plain_long = slow(lambda: kc.conditional_plain(slab, TSNE_PERPLEXITY, row0))
     k10c["long_rows"] = {"rows": slab_rows, "cols": slab_cols, "staged": kc.staged(slab_cols),
                          "rows_err": rel_long, "elems_rel_err": elems_long,
@@ -4075,11 +4193,19 @@ def pipeline_tsne(torch, work: str, smi: str, reps: int):
     lib_ms = timer(lambda: lib_tsne_step(torch, p, y, vel, gains, 1.0, 0.8, 200.0))
     lib_err = library_step_check(torch, p, y, vel, gains)
     launch_ms = device_breakdown(torch, lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws))
-    b10 = k10_bound(n)
+    b10 = bound(ks.work(n))
     k10 = {"ms": timer(lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)),
            "plain_ms": slow(lambda: ks.step_plain(p, y, vel, gains, 1.0, 0.8, 200.0)),
            "library_ms": lib_ms, "library_y_err": lib_err, "launch_ms": launch_ms,
            "bound_ms": b10[0], "bound_by": b10[1]}
+    # the profiler's timing of the same iteration (CUDA events: torch.profiler
+    # saw no time of this cooperative launch in some runs) against the Timer's
+    best = KernelProfiler(device=DEVICE).measure(
+        "tsne_step", lambda: ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws), iters=TIMED_REPS)
+    k10["profiler_measure_ms"] = best * 1e3
+    if not abs(best * 1e3 - k10["ms"]) <= K10_MEASURE_SHARE * k10["ms"]:
+        raise SystemExit(f"K10: KernelProfiler.measure {best * 1e3:.4f} ms, the Timer "
+                         f"{k10['ms']:.4f} ms (more than {K10_MEASURE_SHARE:g} apart)")
     cfg = TSNEConfig()
     viz._segment(cfg, p, y, vel, gains, 20, 1000)
     err2, flips2 = k10_check(torch, p, y, vel, gains, 1.0, cfg.momentum_final,
@@ -4175,7 +4301,7 @@ def pipeline_kernel_times(torch, reps: int = TIMED_REPS) -> dict:
     def step():
         ks.step_(p, y, vel, gains, 1.0, 0.8, 200.0, ws)
 
-    keep = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keep = ("ms", "plain_ms", "library_ms")
     out = {"coexpr_mask": {k: k11[K11_MAIN_N][k] for k in keep},
            "coexpr_mask_n24": {k: k11[24][k] for k in keep},
            "tsne_calibrate_ms": k10c["ms"], "tsne_calibrate": k10c,
@@ -4265,46 +4391,6 @@ def k16_check(torch, g, y, c, lr, got=None, who="K16"):
     if not ratio <= K16_TOL:
         raise SystemExit(f"{who} (N {n}, fast {c.fast_kernel}): {rec} (limit {K16_TOL})")
     return rec
-
-
-def dense_p_ms(n):
-    """The first UMAP design's bound figures, which counted a dense (N, N)
-    P: K15's d² read
-    and P written (2·N² floats), K16's P read (N² floats) and y, y′."""
-    return {"k15": 2.0 * n * n * 4 / HBM_BYTES_PER_S * 1e3,
-            "k16": (float(n) * n * 4 + n * 2 * 4 * 2) / HBM_BYTES_PER_S * 1e3}
-
-
-def k15_bound(n, k, nnz):
-    """(ms, by) for K15's function: d² read once (N² floats) and the CSR
-    written once (N + 1 offsets, a column and a value an entry), against
-    the bisection's MUFU operations at the special-function unit's rate:
-    a row's k exponentials at each of its 64 steps and the last, and one
-    reciprocal of σ a step (the division by σ is that reciprocal's
-    product): N·(k + 1)·65."""
-    t = {"bytes": (float(n) * n * 4 + (n + 1) * 4 + nnz * 8) / HBM_BYTES_PER_S,
-         "operations": float(n) * (k + 1) * 65 / SFU_OP_PER_S}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by
-
-
-def k16_bound(n, nnz, fast=True):
-    """(ms, by) for one K16 iteration on the sparse graph: the least work
-    of the function, the largest of the MUFU operations at the
-    special-function unit's rate, the float32 operations at 67 TFLOP/s,
-    and the bytes of y, y′ and the CSR.  coef is symmetric, so each of
-    the N(N − 1)/2 distinct pairs needs one coef: three rsqrts and one
-    reciprocal (pow: log2, exp2 and one reciprocal), and 13 float32
-    operations (u 5, the clamp 1, ub 1, q_inv 2, the denominator 2, 2bγ·r
-    1, as the reciprocal r is counted apart) plus 5 in each of its two
-    rows' sums (two FMAs and an add): 23.  The stored entries' attraction
-    adds a few operations for each of nnz entries."""
-    pairs = float(n) * (n - 1) / 2
-    t = {"bytes": (n * 2 * 4 * 2 + (n + 1) * 4 + nnz * 8) / HBM_BYTES_PER_S,
-         "operations": max(pairs * (4 if fast else 3) / SFU_OP_PER_S,
-                           (23.0 * pairs + 8.0 * nnz) / F32_FLOP_PER_S)}
-    by = max(t, key=t.get)
-    return t[by] * 1e3, by
 
 
 def dense_union(torch, idx, w):
@@ -4427,6 +4513,7 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     from gene2vec_tpu_torch.cli import plot as plot_cli
     from gene2vec_tpu_torch.kernels import umap_graph as ug
     from gene2vec_tpu_torch.kernels import umap_step as us
+    from gene2vec_tpu_torch.obs.profiler import bound
     from gene2vec_tpu_torch.viz import tsne as viz
     from gene2vec_tpu_torch.viz import umap as umap_viz
     from gene2vec_tpu_torch.viz.umap import UMAPConfig
@@ -4448,8 +4535,8 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     lib_p = lib_umap_graph(torch, d2, UMAP_K)
     library_check("umap_graph", [lib_p], [p_dense], rtol=2 * K15_ATOL)
     del lib_p
-    b15 = k15_bound(n, UMAP_K, g.nnz)
-    old = dense_p_ms(n)
+    b15 = bound(ug.work(n, UMAP_K, g.nnz))
+    old = {"k15": bound(ug.dense_work(n))[0], "k16": bound(us.dense_work(n))[0]}
     k15.update({"ms": timer(lambda: ug.graph(d2, UMAP_K)),
                 "knn_weights_ms": timer(lambda: ug.knn_weights(d2, UMAP_K)),
                 "plain_ms": slow(lambda: ug.fuzzy_union_plain(
@@ -4480,14 +4567,15 @@ def pipeline_umap(torch, work: str, smi: str, reps: int):
     # the library sequence held by K16's own measure at the mid state
     lib = k16_check(torch, g, y, c, lr, lib_umap_step(torch, p_dense, y, c, lr),
                     "K16's library sequence")
-    b16 = k16_bound(n, g.nnz)
+    b16 = bound(us.work(n, g.nnz))
     # no launch_ms: K16 is one launch a call, so the profiler's time of it
     # would only repeat ``ms``
     k16 = {"ms": timer(lambda: us.step(g, y, c, lr, out=spare)),
            "plain_ms": slow(lambda: us.step_plain(g, y, c, lr)),
            "library_ms": slow(lambda: lib_umap_step(torch, p_dense, y, c, lr)),
            "library_y_err": lib["err_share"], "pow_ms": pow_ms,
-           "bound_ms": b16[0], "bound_by": b16[1], "pow_bound_ms": k16_bound(n, g.nnz, False)[0],
+           "bound_ms": b16[0], "bound_by": b16[1],
+           "pow_bound_ms": bound(us.work(n, g.nnz, False))[0],
            "dense_p_bound_ms": old["k16"], "checks": checks}
     log(f"K16 ({smi}): {json.dumps(k16)}; phase 7d at {time.perf_counter() - t0:.1f}s")
     del g, p_dense, y, spare, y_pow
@@ -4915,6 +5003,9 @@ def main() -> int:
         for name, n in quality_tooling(torch, work, smi).items():
             counts[name] += n
     log(f"quality tooling phase done in {time.perf_counter() - t0:.1f}s")
+    # phase 4c: kernel cost attribution (profiled runs, GGIPNN, the servers)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        kernel_attribution(torch, work, smi)
 
     # phase 7: the paper's pipeline — the corpus (K11), training and the
     # intrinsic evaluation, t-SNE (K10c, K10)
@@ -4939,6 +5030,8 @@ def main() -> int:
     print(json.dumps({"table_widths": widths}))
     print(json.dumps({"objective_windows": objective_windows, "card": smi}))
     print(json.dumps({"hs_hot_levels": HS_HOT, "card": smi}))
+    print(json.dumps({"k6_acc_check": {"repeats": K6_REPEATS, "bar": REL_TOL,
+                                       "largest_share": K6_SHARES}, "card": smi}))
     print(json.dumps({"redesign": redesign}))
     print(json.dumps({"touched_rows": TOUCHED_SHARES}))
     print(smi)

@@ -2,7 +2,7 @@
 
     python -m gene2vec_tpu_torch.cli.serve --export-dir out/ --port 8000 \\
         [--index exact|quant|ivf] [--ggipnn-checkpoint model-<step>.npz] \\
-        [--device cuda|cpu]
+        [--kernel-profile] [--device cuda|cpu]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
@@ -75,6 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="exact-rescore tail size as a multiple of k (quant/ivf)")
     p.add_argument("--ann-clusters", type=int, default=None,
                    help="IVF centroid count (default ~4*sqrt(vocab))")
+    p.add_argument("--kernel-profile", action="store_true",
+                   help="count each engine batch bucket's kernel work at startup and "
+                        "publish per-bucket kernel cost gauges (kernel_flops, "
+                        "kernel_bytes_accessed) on /metrics; launches no kernel")
     p.add_argument("--poll-interval", type=float, default=5.0,
                    help="seconds between export-dir rescans (hot swap)")
     p.add_argument("--ggipnn-checkpoint", default=None,
@@ -124,9 +128,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         index=args.index,
         nprobe=args.nprobe,
         rescore_mult=args.rescore_mult,
+        kernel_profile=args.kernel_profile,
     )
     app = ServeApp(registry, config=config, metrics=metrics,
                    ggipnn_checkpoint=args.ggipnn_checkpoint).start()
+    if args.kernel_profile:
+        profiled = app.profile_kernels()
+        print(f"kernel profile: {len(profiled)} engine buckets attributed ({args.index})",
+              file=sys.stderr)
     server = make_server(app, args.host, args.port)
     host, port = server.server_address[:2]
     url = f"http://{host}:{port}"

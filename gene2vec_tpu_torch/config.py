@@ -97,8 +97,6 @@ _UNSUPPORTED = (
     ("async_checkpoint", lambda v: not v,
      "the background checkpoint writer is not ported; exports are "
      "written inline"),
-    ("kernel_profile", lambda v: not v,
-     "kernel cost attribution is not ported"),
     ("pos_layout_shards", lambda v: v == 0,
      "a per-device batch layout needs the multi-GPU path, which is not "
      "ported"),

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 from typing import Dict
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -57,6 +58,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: wall seconds this process has spent in :func:`build_all` compiling
+_built = [0.0]
 
 
 def nvcc_path() -> str:
@@ -89,6 +92,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
     lands beside each library as ``<name>.log``."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     procs = {}
     for name, src in SOURCES.items():
         out = lib_path(name)
@@ -112,9 +116,17 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
                 os.unlink(tmp)
             continue
         os.replace(tmp, out)
+    if procs:
+        _built[0] += time.perf_counter() - t0
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return {name: lib_path(name) for name in SOURCES}
+
+
+def build_seconds() -> float:
+    """Wall seconds this process has spent compiling kernels so far (the
+    profiler's ``compile_s`` is its growth over one call)."""
+    return _built[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -141,6 +141,13 @@ def unpack(words: torch.Tensor, g: int) -> torch.Tensor:
     return bits.view(torch.bool).reshape(words.shape[0], words.shape[1] * 32)[:, :g]
 
 
+def work(n: int, g: int) -> dict:
+    """What K11's function needs for z of ``n`` samples × ``g`` genes
+    (``_work.py``): z read once, the packed mask written; C = zᵀz is
+    symmetric, so one triangle's g(g + 1)/2 dots of n products."""
+    return {"bytes": n * g * 4 + g * words_per_row(g) * 4, "flops": float(g) * (g + 1) * n}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k11_coexpr_mask

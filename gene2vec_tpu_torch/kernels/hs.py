@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
 #: kernel launches made through :func:`hs`, by table width
@@ -57,30 +57,57 @@ PER_BLOCK = 16
 _LIB = "k6_hs"
 
 
-def hs_plain(emb, node, inputs, targets, points, codes, lengths, shallow, acc_node):
+def path_terms(emb, node, inputs, targets, points, codes, lengths, shallow):
+    """The plain version's terms, the deep levels' and then (with
+    ``shallow``) the shallow levels': per part (loss (E,), d_input's part
+    (E, D), acc_node's rows (E·L,) int64, their [g·v | mask] rows
+    (E·L, D + 1) float32)."""
     d = emb.shape[1]
     v = emb[inputs.long()].float()
     t = targets.long()
 
     def path(pts, signs, mask):
-        # one sigmoid per path entry: (loss, d_input part); acc_node updated
+        # one sigmoid per path entry
         w = node[pts].float()                                   # (E, L, D)
         logit = torch.einsum("ed,eld->el", v, w)
         loss = torch.sum(mask * softplus(-signs * logit), dim=-1)
         g = mask * (torch.sigmoid(logit) - (1.0 + signs) / 2.0)
         d_node = g[:, :, None] * v[:, None, :]
-        acc_node.index_add_(0, pts.reshape(-1),
-                            torch.cat([d_node.reshape(-1, d), mask.reshape(-1, 1)], dim=1))
-        return loss, torch.einsum("el,eld->ed", g, w)
+        return (loss, torch.einsum("el,eld->ed", g, w), pts.reshape(-1),
+                torch.cat([d_node.reshape(-1, d), mask.reshape(-1, 1)], dim=1))
 
     mask = (torch.arange(points.shape[1], device=emb.device)[None, :]
             < lengths[t][:, None]).float()
-    loss_deep, d_input = path(points[t].long(), 1.0 - 2.0 * codes[t], mask)
+    parts = [path(points[t].long(), 1.0 - 2.0 * codes[t], mask)]
+    if shallow is not None:
+        s = shallow.signs[t].float()
+        parts.append(path(shallow.ids[t].long(), s, s.abs()))
+    return parts
+
+
+def hs_plain(emb, node, inputs, targets, points, codes, lengths, shallow, acc_node):
+    parts = path_terms(emb, node, inputs, targets, points, codes, lengths, shallow)
+    for _, _, rows, payload in parts:
+        acc_node.index_add_(0, rows, payload)
+    loss_deep, d_input = parts[0][:2]
     if shallow is None:
         return d_input, loss_deep, None
-    s = shallow.signs[t].float()
-    loss_shallow, d_shallow = path(shallow.ids[t].long(), s, s.abs())
+    loss_shallow, d_shallow = parts[1][:2]
     return d_input + d_shallow, loss_deep, loss_shallow
+
+
+def acc_reference(acc_node, parts) -> torch.Tensor:
+    """``acc_node`` plus the accumulator terms of ``parts``
+    (:func:`path_terms`, each term float32 as the plain version computes
+    it) summed in float64 on the CPU, one term after another: the sum a
+    kernel's accumulator is held against.  The kernel and the plain version
+    on the card both add float32 terms by atomics, in an order that differs
+    from run to run; against this sum only the kernel's own order shows.
+    Returns a float64 tensor on the CPU."""
+    ref = acc_node.detach().to("cpu", torch.float64)
+    for _, _, rows, payload in parts:
+        ref.index_add_(0, rows.cpu(), payload.cpu().double())
+    return ref
 
 
 def hs(emb, node, inputs, targets, points, codes, lengths, shallow, acc_node, *,
@@ -129,6 +156,44 @@ def hs(emb, node, inputs, targets, points, codes, lengths, shallow, acc_node, *,
     build.check(lib, status, "K6 hs launch")
     launches["hs", "bf16" if bf16 else ""] += 1
     return d_input, loss_deep, (loss_shallow if shallow is not None else None)
+
+
+def work(inputs, targets, points, lengths, shallow, d: int, table_bytes: int = 4) -> dict:
+    """What K6's function needs for ``inputs`` and ``targets`` over the
+    deep paths (``points``, ``lengths``) and ``shallow`` (or None), as
+    :func:`hs` takes them (``_work.py``): the ids, d_input and both losses
+    once, each distinct target's path entries (points and codes of the
+    deep layout, lengths, its sign row of the dense shallow layout: Ns
+    bytes), each distinct input row and touched node row read once and the
+    node's accumulator row read and written.  Only on-path entries count:
+    a zero sign multiplies the loss, g_s and the weight column, so dense
+    shallow products off the path feed nothing; 3 products of D a shallow
+    entry (dot, d_input, the accumulator) as FMAs, 5 a column a deep
+    one."""
+    e = _work.count(targets)
+    t = torch.as_tensor(targets).long()
+    tg = torch.unique(t)
+    lengths = torch.as_tensor(lengths).long()
+    points = torch.as_tensor(points)
+    deep_entries = int(lengths[t].sum())
+    on = torch.arange(points.shape[1], device=points.device)[None, :] < lengths[tg][:, None]
+    deep_nodes = _work.distinct(points[tg][on])
+    shallow_entries = shallow_nodes = n_shallow = 0
+    if shallow is not None:
+        signs = torch.as_tensor(shallow.signs)
+        shallow_entries = int((signs[t] != 0).sum())
+        shallow_nodes = _work.distinct(torch.as_tensor(shallow.ids)[tg][signs[tg] != 0])
+        n_shallow = shallow.n_shallow
+    n_in, n_tg = _work.distinct(inputs), int(tg.numel())
+    n_nodes = shallow_nodes + deep_nodes
+    l_deep = points.shape[1]
+    return {
+        "bytes": 4 * (2 * e + n_tg * (l_deep * 2 + 1) + e * d + 2 * e + 2 * n_nodes * (d + 1))
+        + n_tg * n_shallow + table_bytes * (n_in + n_nodes) * d,
+        "flops": 3 * 2 * shallow_entries * d + 5 * deep_entries * d,
+        "deep_entries": deep_entries, "shallow_entries": shallow_entries,
+        "deep_nodes": deep_nodes, "shallow_nodes": shallow_nodes,
+    }
 
 
 def _lib():

@@ -122,6 +122,31 @@ def launch(lib, qn, centroids, lists, table_q, scale, nprobe, valid, r, pp, pl, 
     )
 
 
+def probed(qn, centroids, lists, nprobe: int) -> torch.Tensor:
+    """The candidate ids (-1 padding dropped) of the lists each query
+    probes, as the plain version probes them."""
+    _, ci = _topk.topk_plain(qn @ centroids.T, nprobe)
+    cand = lists[ci.long()].reshape(qn.shape[0], -1)
+    return cand[cand >= 0]
+
+
+def work(batch: int, d: int, n_clusters: int, nprobe: int, list_len: int, width: int,
+         n_cand: int, n_rows: int, kind: str = "int8") -> dict:
+    """What K9's function needs for ``batch`` queries probing ``nprobe`` of
+    ``n_clusters`` lists of ``list_len`` slots, ``n_cand`` candidates in
+    all on ``n_rows`` distinct index rows (:func:`probed`), ``width`` kept
+    a query (``_work.py``): the centroids, queries and probed lists read
+    once, each distinct candidate row (int8 with its scale, or bf16) once,
+    the kept (score, id) written; the probe's dots in float32, the
+    candidates' on the int8 tensor cores or as bf16 products."""
+    head = 4 * n_clusters * d + 4 * batch * d + 4 * batch * nprobe * list_len
+    if kind == "int8":
+        return {"bytes": head + n_rows * (d + 4) + 8 * batch * width,
+                "flops": 2.0 * batch * n_clusters * d, "int8_ops": 2.0 * n_cand * d}
+    return {"bytes": head + 2 * n_rows * d + 8 * batch * width,
+            "flops": 2.0 * batch * n_clusters * d, "bf16_ops": 2.0 * n_cand * d}
+
+
 def _lib():
     return bind(build.load(_LIB))
 

@@ -139,6 +139,19 @@ def lane_scatter(table: torch.Tensor, grads: torch.Tensor, offs: torch.Tensor) -
     return out
 
 
+def gather_work(d: int, v: int, elem_bytes: int = 4) -> dict:
+    """What ``lane_gather`` needs for a (D, V) table (``_work.py``): the
+    table read and the (D, V) result written, an int32 offset a column."""
+    return {"bytes": 2 * d * v * elem_bytes + 4 * v, "flops": 0.0}
+
+
+def scatter_work(d: int, v: int, elem_bytes: int = 4) -> dict:
+    """What ``lane_scatter`` needs for a (D, V) table: the table and the
+    gradients read, the result written, an offset a column; a
+    multiply-add an element."""
+    return {"bytes": 3 * d * v * elem_bytes + 4 * v, "flops": 2.0 * d * v}
+
+
 def _lib():
     lib = build.load(_LIB)
     if lib.k13_lane_gather.argtypes is None:

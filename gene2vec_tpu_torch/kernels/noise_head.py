@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`noise_head`, by table width
@@ -83,6 +83,19 @@ def noise_head(v, u, g_pos, contexts, ctx, q, head, k_neg, acc_ctx):
     build.check(lib, status, "K2 noise_head launch")
     launches["noise_head", "bf16" if bf16 else ""] += 1
     return d_center, loss_head
+
+
+def work(e: int, head: int, d: int, table_bytes: int = 4) -> dict:
+    """What K2's function needs for ``e`` examples against ``head`` rows
+    (``_work.py``): v, u, d_center, g_pos, the contexts, the loss and q
+    read or written once, the head rows and their accumulator rows, and
+    the three (E, H, D) products as 3xTF32 tensor-core passes
+    (``simt_flops``: the same products on the float32 SIMT route)."""
+    passes = _work.TF32_PASSES[table_bytes == 2]
+    return {"bytes": 4 * (2 * e * d + 3 * e + head + 2 * head * (d + 1) + e * d)
+            + table_bytes * head * d,
+            "flops": 0.0, "tf32_ops": sum(passes) * 2 * e * head * d,
+            "simt_flops": 3 * 2 * e * head * d}
 
 
 def _lib():

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`noise_tail`, by table width
@@ -100,6 +100,28 @@ def noise_tail(v, contexts, ctx, tail_w, blocks, head, block, group_size, k_neg,
     build.check(lib, status, "K3 noise_tail launch")
     launches["noise_tail", "bf16" if bf16 else ""] += 1
     return loss_tail
+
+
+def block_rows(blocks, head: int, block: int, v_noise: int) -> torch.Tensor:
+    """(G, S) ctx rows of the drawn tail blocks."""
+    starts = block_starts(torch.as_tensor(blocks), head, block, v_noise)
+    return starts[:, None] + torch.arange(block, device=starts.device)[None, :]
+
+
+def work(blocks, e: int, head: int, block: int, v_noise: int, d: int,
+         table_bytes: int = 4) -> dict:
+    """What K3's function needs for ``e`` examples in ``len(blocks)``
+    groups, each against its drawn block of ``block`` rows (``_work.py``):
+    v, the contexts, the draws, d_center read and written, the loss, each
+    distinct block row and its accumulator row once; the three (E, S, D)
+    products as 3xTF32 passes (``simt_flops``: on the SIMT route)."""
+    g = _work.count(blocks)
+    distinct = _work.distinct(block_rows(blocks, head, block, v_noise))
+    passes = _work.TF32_PASSES[table_bytes == 2]
+    return {"bytes": 4 * (e * d + e + g + distinct + 2 * e * d + 2 * distinct * (d + 1) + e)
+            + table_bytes * distinct * d,
+            "flops": 0.0, "tf32_ops": sum(passes) * 2 * e * block * d,
+            "simt_flops": 3 * 2 * e * block * d, "block_rows": distinct}
 
 
 def _lib():

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus
 
 #: kernel launches made through :func:`per_example`, by table width
@@ -71,6 +71,21 @@ def per_example(v, u, g_pos, contexts, negs, ctx, acc_ctx):
     build.check(lib, status, "K5a per_example launch")
     launches["per_example", "bf16" if bf16 else ""] += 1
     return d_center, loss_neg
+
+
+def work(contexts, negs, d: int, table_bytes: int = 4) -> dict:
+    """What K5a's function needs for (E, K) draws ``negs`` (``_work.py``):
+    v, u, d_center, g_pos, the contexts, the draws and the loss once, each
+    distinct drawn row once, and each accumulator row it adds to (the
+    draws' and the positive contexts') read and written once; 5 float32
+    operations a draw and column (dot, and the d_center and accumulator
+    FMAs) and 2 a column for the positive context's row."""
+    e, k = (int(s) for s in negs.shape)
+    n_neg = _work.distinct(negs)
+    n_acc = _work.distinct(negs, contexts)
+    return {"bytes": 4 * (2 * e * d + 2 * e + e * k + 2 * n_acc * (d + 1) + e * d + e)
+            + table_bytes * n_neg * d,
+            "flops": 5 * e * k * d + 2 * e * d, "draw_rows": n_neg, "acc_rows": n_acc}
 
 
 def _lib():

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 
 #: kernel launches made through :func:`pos_logit`, by table width
 #: ("" float32, "bf16")
@@ -86,6 +86,17 @@ def pos_logit(emb, ctx, centers, contexts):
     build.check(lib, status, "K1 pos_logit launch")
     launches["pos_logit", "bf16" if bf16 else ""] += 1
     return v, u, g_pos, loss_pos
+
+
+def work(centers, contexts, d: int, table_bytes: int = 4) -> dict:
+    """What K1's function needs for ids ``centers`` / ``contexts``
+    (``_work.py``): the ids, each distinct emb and ctx row read once
+    (``table_bytes`` an element), v, u, g_pos and the loss written as
+    float32; a dot of D products an example."""
+    e = _work.count(centers)
+    rows = _work.distinct(centers) + _work.distinct(contexts)
+    return {"bytes": 4 * (2 * e + 2 * e * d + 2 * e) + table_bytes * rows * d,
+            "flops": 2 * e * d}
 
 
 def _lib():

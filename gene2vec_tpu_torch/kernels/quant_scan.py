@@ -98,6 +98,19 @@ def quant_scan(qn, table_q, scale, rb: int, valid: Optional[int] = None):
     return scores, rows
 
 
+def work(n_rows: int, d: int, batch: int, rb: int, kind: str = "int8") -> dict:
+    """What K8's function needs for ``batch`` queries over an ``n_rows``
+    index of ``kind`` int8 (a float32 scale a row) or bfloat16
+    (``_work.py``): the index and queries read once, the top ``rb`` written;
+    a dot of D products a (query, row) on the int8 tensor cores, or in
+    bf16 products."""
+    if kind == "int8":
+        return {"bytes": n_rows * d + 4 * n_rows + 4 * batch * d + 8 * batch * rb,
+                "flops": 0.0, "int8_ops": 2.0 * batch * n_rows * d}
+    return {"bytes": 2 * n_rows * d + 4 * batch * d + 8 * batch * rb,
+            "flops": 0.0, "bf16_ops": 2.0 * batch * n_rows * d}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k8_quant_scan

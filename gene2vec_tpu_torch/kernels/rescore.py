@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, _topk, build
+from gene2vec_tpu_torch.kernels import _args, _topk, _work, build
 
 #: kernel launches made through :func:`rescore` and :func:`row_gather`
 launches = {("rescore", ""): 0, ("row_gather", ""): 0}
@@ -106,6 +106,30 @@ def row_gather(table, idx):
     build.check(lib, status, "K9r row_gather launch")
     launches["row_gather", ""] += 1
     return out
+
+
+def work(batch: int, d: int, rb: int, kb: int, n_fin: int, n_rows: int) -> dict:
+    """What K9r's function needs for ``batch`` queries with ``rb``
+    candidates each, ``n_fin`` of them finite on ``n_rows`` distinct unit
+    rows (``_work.py``): the candidates and queries read once, each distinct
+    row once, the top ``kb`` written; a float32 dot of D products a finite
+    candidate."""
+    return {"bytes": 8 * batch * rb + 4 * batch * d + 4 * n_rows * d + 8 * batch * kb,
+            "flops": 2.0 * n_fin * d}
+
+
+def candidates(approx, ri):
+    """(finite candidates, distinct rows among them) of K8's or K9's output."""
+    fin = torch.isfinite(approx)
+    return int(fin.sum()), _work.distinct(ri[fin])
+
+
+def gather_work(idx, row_bytes: int) -> dict:
+    """What ``row_gather`` needs for ids ``idx`` from rows of ``row_bytes``
+    bytes: the ids and each distinct row read once, the (E, D) rows
+    written."""
+    e = _work.count(idx)
+    return {"bytes": 4 * e + (_work.distinct(idx) + e) * row_bytes, "flops": 0.0}
 
 
 def _lib():

@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 
 #: kernel launches made through :func:`row_update`, :func:`scatter_rows`
 #: (``row_scatter``) and :func:`finalize_rows` (``row_finalize``), by
@@ -405,6 +405,86 @@ def finalize_rows(table, acc, lr: float, combiner: str, salts=None,
         ws.advance()
     build.check(lib, status, "K4 finalize_rows launch")
     launches["row_finalize", _variant(bf16, sr)] += 1
+
+
+# -- work counts (``_work.py``) ------------------------------------------------
+
+#: integer operations of the stochastic-rounding hash and carry, an element
+SR_HASH_OPS = 8
+
+
+def _device_of(*parts):
+    for p in parts:
+        if isinstance(p, torch.Tensor):
+            return p.device
+        if isinstance(p, (tuple, list)):
+            dev = _device_of(*p)
+            if dev is not None:
+                return dev
+    return None
+
+
+def visited_rows(touched: Optional[Touched], n_rows: int, scattered=None) -> int:
+    """Rows a finalize visits: ``n_rows`` (every row) for ``touched`` None,
+    else the distinct rows of ``touched`` and the ids ``scattered``."""
+    if touched is None:
+        return n_rows
+    dev = _device_of(scattered, *touched) or torch.device("cpu")
+    return int(_plain_rows(touched, dev, scattered).numel())
+
+
+def _ids_read(touched: Optional[Touched]) -> int:
+    """Row ids a finalize reads to name its rows: the id lists, the block
+    draws, the path targets with each distinct target's lengths entry and
+    path row."""
+    if touched is None:
+        return 0
+    n = sum(_work.count(i) for i in touched.id_lists())
+    if touched.blocks is not None:
+        n += _work.count(touched.blocks)
+    if touched.paths is not None:
+        points, _, targets = touched.paths
+        n += _work.count(targets) + _work.distinct(targets) * (points.shape[1] + 1)
+    return n
+
+
+def work(centers, contexts, d: int, n_rows: int, table_bytes: int = 4,
+         touched=None, salts: bool = False) -> dict:
+    """What K4's ``row_update`` needs for ids ``centers`` / ``contexts``
+    into tables of ``n_rows`` rows and the finalizes' row sets ``touched``
+    (as :func:`row_update` takes it): the ids, d_center, v and g_pos read
+    once, each visited row's accumulator read and its table row read and
+    written; the scatters' FMAs, 3 operations a visited element, and with
+    ``salts`` the stochastic rounding's hash."""
+    e = _work.count(centers)
+    sets = (None, None) if touched is None else touched
+    emb_rows = visited_rows(sets[0], n_rows, centers)
+    ctx_rows = visited_rows(sets[1], n_rows, contexts)
+    rows = emb_rows + ctx_rows
+    return {"bytes": 4 * (2 * e + 2 * e * d + e + rows * (d + 1)) + 2 * table_bytes * rows * d,
+            "flops": 2 * e * (d + 1) + 3 * d * rows + (SR_HASH_OPS * d * rows if salts else 0),
+            "emb_rows": emb_rows, "ctx_rows": ctx_rows}
+
+
+def scatter_work(idx, d: int) -> dict:
+    """What ``scatter_rows`` needs for ids ``idx``: the ids, the gradients
+    and weights read once, each distinct accumulator row read and
+    written; an add an element."""
+    r = _work.count(idx)
+    n = _work.distinct(idx)
+    return {"bytes": 4 * (r + r * d + r + 2 * n * (d + 1)), "flops": r * (d + 1)}
+
+
+def finalize_work(touched: Optional[Touched], n_rows: int, d: int, table_bytes: int = 4,
+                  salts: bool = False) -> dict:
+    """What ``finalize_rows`` needs over the rows of ``touched`` in a table
+    of ``n_rows`` rows: each visited row's accumulator read and table row
+    read and written, the ids that name them; 3 operations a visited
+    element, and with ``salts`` the stochastic rounding's hash."""
+    rows = visited_rows(touched, n_rows)
+    return {"bytes": rows * (4 * (d + 1) + 2 * table_bytes * d) + 4 * _ids_read(touched),
+            "flops": 3 * d * rows + (SR_HASH_OPS * d * rows if salts else 0),
+            "rows": rows}
 
 
 def _lib():

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gene2vec_tpu_torch.kernels import _args, build
+from gene2vec_tpu_torch.kernels import _args, _work, build
 from gene2vec_tpu_torch.kernels.pos_logit import softplus, sum_tn
 
 #: kernel launches made through :func:`shared_pool`, by table width
@@ -90,6 +90,21 @@ def shared_pool(v, u, g_pos, contexts, pool, ctx, k_neg: int, groups: int, acc_c
     build.check(lib, status, "K5b shared_pool launch")
     launches["shared_pool", "bf16" if bf16 else ""] += 1
     return d_center, loss_neg
+
+
+def work(e: int, pool, groups: int, d: int, table_bytes: int = 4) -> dict:
+    """What K5b's function needs for ``e`` examples in ``groups`` groups
+    against the pool ``pool`` (G·P/G draws; ``_work.py``): v, u, d_center,
+    g_pos, the contexts, the pool and the loss once, each distinct pool
+    row and its accumulator row once; the three (E, P/G, D) products as
+    3xTF32 passes (``simt_flops``: on the SIMT route)."""
+    per_group = _work.count(pool) // groups
+    n_pool = _work.distinct(pool)
+    passes = _work.TF32_PASSES[table_bytes == 2]
+    return {"bytes": 4 * (2 * e * d + 2 * e + groups * per_group + 2 * n_pool * (d + 1)
+                          + e * d + e) + table_bytes * n_pool * d,
+            "flops": 0.0, "tf32_ops": sum(passes) * 2 * e * per_group * d,
+            "simt_flops": 3 * 2 * e * per_group * d, "pool_rows": n_pool}
 
 
 def _lib():

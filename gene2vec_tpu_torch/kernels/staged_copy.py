@@ -99,6 +99,12 @@ def _max_tile_bytes(index: int) -> int:
     return out.value
 
 
+def work(n: int, d: int) -> dict:
+    """What K14's function needs for an (n, d) float32 x (``_work.py``): x
+    read and the result written; a product an element."""
+    return {"bytes": 2 * 4 * n * d, "flops": float(n * d)}
+
+
 def _lib():
     lib = build.load(_LIB)
     if lib.k14_staged_copy.argtypes is None:

@@ -46,6 +46,12 @@ def stream_scale(x: torch.Tensor, scale: float = SCALE) -> torch.Tensor:
     return out
 
 
+def work(numel: int, elem_bytes: int = 4) -> dict:
+    """What K12's function needs for ``numel`` elements of ``elem_bytes``
+    (``_work.py``): x read and x · s written; a product an element."""
+    return {"bytes": 2 * elem_bytes * numel, "flops": float(numel)}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k12_stream_scale

@@ -57,6 +57,14 @@ def topk_exact(unit, queries, kb: int, valid: Optional[int] = None):
     return scores, rows
 
 
+def work(n_rows: int, d: int, batch: int, kb: int) -> dict:
+    """What K7's function needs for ``batch`` queries over ``n_rows`` unit
+    rows (``_work.py``): the table and queries read once, (score, id) of
+    the top ``kb`` written; a dot of D products a (query, row)."""
+    return {"bytes": 4 * (n_rows * d + batch * d) + 8 * batch * kb,
+            "flops": 2.0 * batch * n_rows * d}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k7_topk_exact

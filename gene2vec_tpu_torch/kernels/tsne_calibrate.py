@@ -163,6 +163,19 @@ def calibrate(d2: torch.Tensor, perplexity: float) -> torch.Tensor:
     return symmetrize_(conditional(d2, perplexity))
 
 
+def work(rows: int, cols: int, passes, symmetrize: bool = True) -> dict:
+    """What K10c's function needs on (rows, cols) squared distances whose
+    rows take ``passes`` passes in all (each row its bisection steps and
+    the pass that writes P_cond; ``_work.py``): d² read once and P written
+    once; an exponential an element a pass at the special-function unit
+    and the pass's float32 operations (−d·β, Σw, d·w, Σd·w: 4); the
+    symmetrization's (P_cond + P_condᵀ) / 2N and its clamp 3 more an
+    element."""
+    elems = float(passes) * cols
+    return {"bytes": 2.0 * rows * cols * 4, "sfu_ops": elems,
+            "flops": 4.0 * elems + 3.0 * rows * cols * symmetrize}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k10c_calibrate_rows

@@ -128,6 +128,16 @@ def step_(p: torch.Tensor, y: torch.Tensor, vel: torch.Tensor, gains: torch.Tens
     launches["tsne_step", ""] += 1
 
 
+def work(n: int) -> dict:
+    """What one K10 iteration needs at N = ``n`` (``_work.py``): P read once
+    and y, vel, gains read and written; a pair's operations — d² 5, the
+    clamp and 1 + 2, g 3, the three sums 6 (FMAs counted as 2), and the
+    IEEE reciprocal's 2 FMAs, 4 more — and its MUFU.RCP at the
+    special-function unit."""
+    pairs = float(n) * n
+    return {"bytes": pairs * 4 + n * 2 * 4 * 6, "sfu_ops": pairs, "flops": 20.0 * pairs}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k10_tsne_step

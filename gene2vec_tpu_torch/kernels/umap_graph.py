@@ -266,6 +266,23 @@ def graph(d2: torch.Tensor, k: int) -> Graph:
     return fuzzy_union(*knn_weights(d2, k))
 
 
+def work(n: int, k: int, nnz: int) -> dict:
+    """What K15's function needs at N = ``n``, ``k`` neighbours and a graph
+    of ``nnz`` entries (``_work.py``): d² read once (N² floats) and the CSR
+    written once (N + 1 offsets, a column and a value an entry); the
+    bisection's MUFU operations: a row's k exponentials at each of its 64
+    steps and the last, and one reciprocal of σ a step (the division by σ
+    is that reciprocal's product): N·(k + 1)·65."""
+    return {"bytes": float(n) * n * 4 + (n + 1) * 4 + nnz * 8,
+            "sfu_ops": float(n) * (k + 1) * 65, "flops": 0.0}
+
+
+def dense_work(n: int) -> dict:
+    """The first graph design's count, which wrote a dense (N, N) P: d²
+    read and P written (2·N² floats)."""
+    return {"bytes": 2.0 * n * n * 4, "flops": 0.0}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k15_knn_weights

@@ -156,6 +156,26 @@ def step(p: Graph, y: torch.Tensor, c: Constants, lr: float,
     return out
 
 
+def work(n: int, nnz: int, fast: bool = True) -> dict:
+    """What one K16 iteration needs on the sparse graph (``_work.py``): the
+    bytes of y, y′ and the CSR; coef is symmetric, so each of the
+    N(N − 1)/2 distinct pairs needs one coef: three rsqrts and one
+    reciprocal (pow: log2, exp2 and one reciprocal) at the
+    special-function unit, and 13 float32 operations (u 5, the clamp 1,
+    ub 1, q_inv 2, the denominator 2, 2bγ·r 1) plus 5 in each of its two
+    rows' sums (two FMAs and an add): 23; the stored entries' attraction
+    a few more for each of nnz entries."""
+    pairs = float(n) * (n - 1) / 2
+    return {"bytes": n * 2 * 4 * 2 + (n + 1) * 4 + nnz * 8,
+            "sfu_ops": pairs * (4 if fast else 3), "flops": 23.0 * pairs + 8.0 * nnz}
+
+
+def dense_work(n: int) -> dict:
+    """The first design's count, which read a dense (N, N) P: P read (N²
+    floats) and y, y′."""
+    return {"bytes": float(n) * n * 4 + n * 2 * 4 * 2, "flops": 0.0}
+
+
 def _lib():
     lib = build.load(_LIB)
     fn = lib.k16_umap_step

@@ -25,13 +25,15 @@ ROC-AUC from the positive-class column (``scores[:, 1]``).
 
 ``run_classification(run_dir=)`` records the observed step loop's phase
 timeline (``timeline.jsonl``) and stamps the goodput block into the run's
-manifest.  Not ported: the ``ggipnn_step`` profiler name (A16) and
-preemption (A6b).
+manifest.  :meth:`GGIPNNTrainer.profile_kernel` attributes one step as
+``ggipnn_step`` (``obs/profiler.py``; its count :func:`step_work`).  Not
+ported: preemption (A6b).
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
@@ -43,6 +45,7 @@ from gene2vec_tpu_torch.config import GGIPNNConfig
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.eval.metrics import roc_auc_score
 from gene2vec_tpu_torch.io.emb_io import load_embedding_for_vocab
+from gene2vec_tpu_torch.kernels import rescore
 from gene2vec_tpu_torch.models.ggipnn import GGIPNN, loss_fn
 from gene2vec_tpu_torch.models.ggipnn_data import (
     PairTextVocab,
@@ -53,6 +56,43 @@ from gene2vec_tpu_torch.models.ggipnn_data import (
 from gene2vec_tpu_torch.models.ggipnn_obs import GGIPNNRun, _flatten_params
 from gene2vec_tpu_torch.obs import goodput
 from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
+
+
+#: float32 operations of one Adam update of an element (both moments, the
+#: bias corrections folded into the step size, the square root, the
+#: division and the update)
+ADAM_OPS = 12
+
+
+def step_work(model: GGIPNN, batch_ids, embed_train: bool) -> dict:
+    """What one Adam step of ``model`` on the (B, 2) ids ``batch_ids`` needs
+    (``kernels/_work.py``): the row gather of the 2B lookups
+    (``rescore.gather_work``); each ``nn.Linear``'s GEMMs of 2·B·in·out
+    operations, the forward, the weight gradient and the input gradient
+    (none for the first layer over a frozen table), each reading its
+    operands and writing its result once; and Adam's pass over every
+    trained parameter (the parameter, its gradient and both moments read,
+    the parameter and the moments written; :data:`ADAM_OPS` an element),
+    with a trained table's dense gradient (zeroed, the lookups' rows
+    added).  The elementwise epilogues (bias, ReLU, dropout, the loss) are
+    left out."""
+    b = int(batch_ids.shape[0])
+    v, d = model.embedding.shape
+    total = dict(rescore.gather_work(batch_ids.reshape(-1), d * model.embedding.element_size()))
+    trained = 0
+    for i, layer in enumerate([*model.hidden_layers(), model.output]):
+        n_out, n_in = layer.weight.shape
+        gemms = 2 if i == 0 and not embed_train else 3
+        total["flops"] += gemms * 2 * b * n_in * n_out
+        total["bytes"] += gemms * 4 * (b * n_in + n_in * n_out + b * n_out)
+        trained += n_out * n_in + n_out
+    if embed_train:
+        total["flops"] += 2 * b * d
+        total["bytes"] += 4 * (v * d + 2 * 2 * b * d)
+        trained += v * d
+    total["flops"] += ADAM_OPS * trained
+    total["bytes"] += 4 * 7 * trained
+    return total
 
 
 class FitDraws(NamedTuple):
@@ -166,6 +206,34 @@ class GGIPNNTrainer:
             grads[f"{name}/kernel"] = layer.weight.grad.detach().T.clone()
         self.optimizer.step()
         return loss, acc, grads
+
+    def profile_kernel(self, profiler, params=None, opt_state=None, batch_x=None,
+                       batch_y=None, name: str = "ggipnn_step"):
+        """Attribution of one training step (``obs/profiler.py``) under
+        ``name``: :meth:`train_step` once on the (B, 2) ids ``batch_x`` and
+        one-hot labels ``batch_y``, run on copies of the model — its
+        parameters, or ``params`` in the reference's layout — and of the
+        optimizer's state (or ``opt_state``, a state dict), with dropout
+        masks from a fresh generator, so the trainer's own state is
+        untouched; counted by :func:`step_work`.  Returns the record."""
+        cfg = self.config
+        shadow = GGIPNNTrainer(cfg, self.vocab, device=self.device)
+        shadow.model.load_state_dict(self.model.state_dict())
+        if params is not None:
+            shadow.model.load_flat(_flatten_params(params))
+        shadow.model.embedding.requires_grad_(cfg.embed_train)
+        shadow.optimizer = torch.optim.Adam(
+            [p for p in shadow.model.parameters() if p.requires_grad], lr=cfg.learning_rate)
+        if opt_state is None and self.optimizer is not None:
+            opt_state = self.optimizer.state_dict()
+        if opt_state is not None:
+            shadow.optimizer.load_state_dict(copy.deepcopy(opt_state))
+        bx, by = ((batch_x, batch_y) if isinstance(batch_x, torch.Tensor)
+                  else self._tensors(batch_x, batch_y))
+        gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        masks = shadow.model.draw_masks(bx.shape[0], gen)
+        return profiler.attribute(name, shadow.train_step, (bx, by, masks),
+                                  work=step_work(shadow.model, bx, cfg.embed_train))
 
     # -- loops -------------------------------------------------------------
 

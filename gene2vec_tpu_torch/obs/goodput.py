@@ -25,8 +25,9 @@ Buckets:
 
 The summary is stamped into the run manifest (``manifest.json`` key
 ``goodput``) and exported as gauges into ``metrics.prom``
-(:func:`stamp`).  The port's trainers pass ``kernel_seconds=None``: no
-kernel profiler feeds the per-kernel breakdown yet.
+(:func:`stamp`).  With ``kernel_profile`` the trainers pass the kernel
+profiler's attributed seconds (``obs/profiler.py``) as ``kernel_seconds``,
+the compute bucket's per-kernel breakdown.
 """
 
 from __future__ import annotations

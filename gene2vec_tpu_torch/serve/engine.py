@@ -14,8 +14,9 @@ hand-written kernels (``kernels/``), one per stage:
 Tensors on the CPU take the kernels' plain versions; on the card the
 kernels run, or the call raises.  :meth:`BucketedTopKEngine.cache_sizes`
 counts the distinct (bucket, kb, rb) shapes launched per mode — what the
-reference's jit cache held.  The mesh (row-sharded tables) waits for the
-port of ``parallel/``.
+reference's jit cache held.  :meth:`BucketedTopKEngine.profile_buckets`
+counts each bucket's kernel work from shapes (``obs/profiler.py``).  The
+mesh (row-sharded tables) waits for the port of ``parallel/``.
 """
 
 from __future__ import annotations
@@ -74,6 +75,8 @@ class BucketedTopKEngine:
         self.rescore_mult = int(rescore_mult)
         #: distinct (bucket, kb, rb) shapes launched, per mode
         self._shapes: Dict[str, Set[Tuple]] = {"exact": set()}
+        #: records of :meth:`profile_buckets`, by kernel name
+        self._kernel_costs: Dict[str, Dict] = {}
 
     # -- shape accounting --------------------------------------------------
 
@@ -187,6 +190,78 @@ class BucketedTopKEngine:
             scores, idx = rescore.rescore(qn, unit, ri, rs, kb)
             scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         return scores[:n, :k], idx[:n, :k]
+
+    # -- kernel attribution -----------------------------------------------
+
+    def _nprobe(self, kb: int, index: AnnIndex) -> int:
+        """The lists a query probes at ``kb``, as :meth:`top_k_ann` sets it."""
+        nprobe = min(self.nprobe, index.n_clusters)
+        if index.list_len:
+            nprobe = min(max(nprobe, -(-kb // index.list_len)), index.n_clusters)
+        return nprobe
+
+    def bucket_work(self, b: int, kb: int, rb: int, rows: int, dim: int, valid: int,
+                    ann_index: Optional[AnnIndex] = None) -> dict:
+        """The work (``kernels/_work.py``) of one batch of bucket ``b`` in
+        this engine's mode, from shapes: K7 over ``rows`` unit rows; K8 or
+        K9, then K9r over ``b``·r candidates on at most ``valid`` distinct
+        rows.  K9's candidates are the probed lists' mean fill (the
+        index's filled slots over its lists) a probe."""
+        from gene2vec_tpu_torch.obs.profiler import add_work
+
+        mode = self.index_mode
+        if mode == "exact":
+            return topk_exact.work(rows, dim, b, kb)
+        kind = "int8" if ann_index.table_q.dtype == torch.int8 else "bfloat16"
+        if mode == "quant":
+            r = rb
+            total = quant_scan.work(rows, dim, b, rb, kind)
+        else:
+            nprobe = self._nprobe(kb, ann_index)
+            c, lst = ann_index.n_clusters, ann_index.list_len
+            r = min(rb, nprobe * lst)
+            n_cand = b * nprobe * int((ann_index.lists >= 0).sum()) / c
+            total = ivf_scan.work(b, dim, c, nprobe, lst, r, n_cand,
+                                  min(valid, int(n_cand)), kind)
+        return add_work(dict(total), rescore.work(b, dim, r, kb, b * r, min(valid, b * r)))
+
+    def profile_buckets(self, unit, valid: Optional[int] = None, k: int = 16,
+                        ann_index: Optional[AnnIndex] = None,
+                        buckets: Optional[Sequence[int]] = None) -> Dict[str, Dict]:
+        """Each batch bucket's kernel work in the active index mode, counted
+        from shapes (:meth:`bucket_work`) — it launches no kernel, so the
+        launch counters stay as they were — recorded under
+        ``serve_topk_<mode>/b<bucket>`` with ``bucket``, ``k_bucket`` and
+        ``mode`` (the reference's AOT compile per bucket; here ``flops``
+        and ``bytes_accessed``, ``lower_s`` and ``compile_s`` null: no
+        program is compiled).  Kept for :meth:`kernel_costs`; an
+        approximate mode needs its :class:`AnnIndex`."""
+        from gene2vec_tpu_torch.obs import profiler as prof
+
+        mode = self.index_mode
+        if mode != "exact" and ann_index is None:
+            raise ValueError(f"profile_buckets needs an AnnIndex for mode {mode!r}")
+        rows, dim = (int(s) for s in unit.shape)
+        vocab_size = int(valid if valid is not None else rows)
+        kb = self.k_bucket(max(1, min(int(k), vocab_size)), vocab_size)
+        rb = self.r_bucket(kb, vocab_size)
+        p = prof.KernelProfiler(backend={"platform": None, "device_kind": None})
+        out: Dict[str, Dict] = {}
+        for b in tuple(buckets) if buckets else self.buckets:
+            b = int(b)
+            name = f"serve_topk_{mode}/b{b}"
+            p.register_costs(name, prof.costs(self.bucket_work(b, kb, rb, vocab_size, dim,
+                                                               vocab_size, ann_index)))
+            rec = dict(p.records()[-1])
+            rec.update(bucket=b, k_bucket=kb, mode=mode)
+            out[name] = rec
+        self._kernel_costs.update(out)
+        return out
+
+    def kernel_costs(self) -> Dict[str, Dict]:
+        """Records of :meth:`profile_buckets` so far, by kernel name
+        (copies)."""
+        return {k: dict(v) for k, v in self._kernel_costs.items()}
 
     # -- model-level entry points ------------------------------------------
 

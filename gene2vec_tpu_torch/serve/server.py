@@ -14,7 +14,8 @@ Endpoints (all JSON except ``/metrics``):
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
 * ``GET  /metrics`` — the Prometheus text of the metrics registry,
-  kernel launch counts included.
+  kernel launch counts included, and with ``kernel_profile`` each engine
+  bucket's ``kernel_*`` cost gauges (:meth:`ServeApp.profile_kernels`).
 
 Status mapping: queue full → 429, request deadline → 504, unknown gene
 or malformed body → 400, no model loaded → 503.  The front end is the
@@ -41,6 +42,7 @@ from urllib.parse import parse_qs, unquote_plus, urlparse
 import numpy as np
 
 from gene2vec_tpu_torch import kernels
+from gene2vec_tpu_torch.obs.profiler import STATIC_FIELDS, stamp_records
 from gene2vec_tpu_torch.obs.registry import MetricsRegistry
 from gene2vec_tpu_torch.obs.trace import ambient_span
 from gene2vec_tpu_torch.serve.ann import index_stats
@@ -99,6 +101,10 @@ class ServeConfig:
     acceptors: int = 1
     # bounded worker pool for the full-dispatch path; saturation -> 429
     http_workers: int = 8
+    # per-bucket kernel attribution (ServeApp.profile_kernels): each batch
+    # bucket's kernel work counted from shapes and published as kernel_*
+    # gauges on /metrics (cli/serve.py --kernel-profile)
+    kernel_profile: bool = False
 
 
 #: routes with their own latency series; anything else is "other"
@@ -379,11 +385,34 @@ class ServeApp:
             raise ApiError(400, "limit/offset must be >= 0")
         return {"total": len(model), "genes": list(model.tokens[offset : offset + limit])}
 
+    def profile_kernels(self, k: int = 16) -> Dict[str, Dict]:
+        """Warm-time per-bucket kernel attribution: each batch bucket's
+        kernel work in the active index mode against the served model
+        (``engine.profile_buckets``, counted from shapes: no kernel runs),
+        published as ``kernel_*`` gauges (:meth:`publish_engine_metrics`).
+        An empty dict when no model is loaded or the mode needs an ANN
+        index the snapshot lacks: a replica must not fail over its own
+        telemetry."""
+        if not self.registry.loaded:
+            return {}
+        model = self.registry.model
+        ann_index = getattr(model, "ann", None)
+        if self.engine.index_mode != "exact" and ann_index is None:
+            return {}
+        try:
+            costs = self.engine.profile_buckets(model.unit, valid=len(model), k=k,
+                                                ann_index=ann_index)
+        except Exception:
+            return {}
+        self.publish_engine_metrics()
+        return costs
+
     def publish_engine_metrics(self) -> None:
         """Refresh, at each ``/metrics`` scrape: the engine's distinct
         launch shapes per index mode (``engine_jit_cache_entries{mode}``,
         the reference's name), the kernel launches since the last scrape
-        (``kernel_launches_total{kernel}``) and the served model's age."""
+        (``kernel_launches_total{kernel}``), the served model's age and the
+        buckets' ``kernel_*`` costs of :meth:`profile_kernels`."""
         for mode, size in self.engine.cache_sizes().items():
             self.metrics.gauge(
                 "engine_jit_cache_entries", labels={"mode": mode}
@@ -400,6 +429,7 @@ class ServeApp:
             self.metrics.gauge("model_age_seconds").set(
                 max(0.0, time.time() - self.registry.model.created_unix)
             )
+        stamp_records(self.metrics, list(self.engine.kernel_costs().values()), STATIC_FIELDS)
 
     def healthz(self) -> Tuple[int, dict]:
         """Readiness: 200 with model facts once a model is served; 503

@@ -25,9 +25,11 @@ node table (the reference's ``split(sr_key)``, cbow_hs.py:339-343).
 draw_epoch / train_epoch / run, explicit draws, CUDA unless
 ``device="cpu"``).  As in ``SGNSTrainer``: ``run`` writes the reference
 run's records (manifest with goodput, events, metrics, training log,
-timeline) and ``donate=False`` leaves the caller's tables untouched; left
-out are the kernel profiler, preemption handling and the multi-device
-paths.
+timeline) and ``donate=False`` leaves the caller's tables untouched;
+``kernel_profile`` attributes the epoch step as ``cbow_hs_step`` (the
+reference's name for every objective here; :meth:`CBOWHSTrainer.profile_kernel`,
+its count :meth:`CBOWHSTrainer.epoch_work`).  Left out are preemption
+handling and the multi-device paths.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ from gene2vec_tpu_torch.data.pipeline import (
     host_preshuffle,
 )
 from gene2vec_tpu_torch.device import resolve_device
+from gene2vec_tpu_torch.kernels import hs as hs_kernels
+from gene2vec_tpu_torch.kernels import row_update
 from gene2vec_tpu_torch.kernels.hs import hs
 from gene2vec_tpu_torch.kernels.row_update import Touched, finalize_rows, scatter_rows
+from gene2vec_tpu_torch.obs.profiler import add_work
 from gene2vec_tpu_torch.sgns.huffman import (
     ShallowPaths,
     build_huffman_tree,
@@ -55,7 +60,12 @@ from gene2vec_tpu_torch.sgns.huffman import (
     split_shallow,
 )
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
-from gene2vec_tpu_torch.sgns.step import _examples_from_pairs, sgns_step, sr_salts_for
+from gene2vec_tpu_torch.sgns.step import (
+    _examples_from_pairs,
+    sgns_step,
+    sgns_step_work,
+    sr_salts_for,
+)
 from gene2vec_tpu_torch.sgns.train import (
     EpochDraws,
     SGNSTrainer,
@@ -67,6 +77,8 @@ from gene2vec_tpu_torch.sgns.train import (
     noise_setup,
     observed_run,
     own_tables,
+    profile_epoch,
+    uses_salts,
 )
 from gene2vec_tpu_torch.utils.profiling import StepTimer
 
@@ -128,6 +140,25 @@ def hs_step(
                         paths=(tree_points, tree_lengths, targets))
     finalize_rows(node, acc_node, lr, combiner, salt_n, node_rows)
     return params, loss
+
+
+def hs_step_work(pairs, tree_points, tree_lengths, d: int, n_rows: int, n_nodes: int,
+                 table_bytes: int = 4, *, cbow: bool, both_directions: bool = True,
+                 shallow: Optional[ShallowPaths] = None, salts: bool = False) -> dict:
+    """The work (``kernels/_work.py``) of the kernels one :func:`hs_step`
+    launches on ``pairs``, summed: K6 over every path entry, K4's scatter
+    of the input rows and the finalizes of the input table (``n_rows``
+    rows) and the node table (``n_nodes``) over the rows the step names."""
+    centers, contexts = _examples_from_pairs(pairs, both_directions)
+    inputs, targets = (contexts, centers) if cbow else (centers, contexts)
+    total = dict(hs_kernels.work(inputs, targets, tree_points, tree_lengths, shallow, d,
+                                 table_bytes))
+    add_work(total, row_update.scatter_work(inputs, d))
+    add_work(total, row_update.finalize_work(Touched(ids=inputs), n_rows, d, table_bytes,
+                                             salts))
+    node_rows = Touched(prefix=shallow.n_shallow if shallow is not None else 0,
+                        paths=(tree_points, tree_lengths, targets))
+    return add_work(total, row_update.finalize_work(node_rows, n_nodes, d, table_bytes, salts))
 
 
 class CBOWHSTrainer:
@@ -252,18 +283,63 @@ class CBOWHSTrainer:
             losses[step] = loss
         return params, torch.mean(losses)
 
+    def epoch_work(self, draws: EpochDraws) -> dict:
+        """The work (``kernels/_work.py``) of the kernels one epoch under
+        ``draws`` launches: each step's :func:`hs_step_work` (sg_hs,
+        cbow_hs) or :func:`~gene2vec_tpu_torch.sgns.step.sgns_step_work` of
+        the swapped pairs (cbow) at that step's ids, summed; a host pass
+        of distinct-row counts a step that launches no kernel, as
+        ``train.epoch_work``."""
+        cfg = self.config
+        nb, bp = self.num_batches, cfg.batch_pairs
+        shuffled = epoch_shuffle(
+            self.pairs, self.corpus.num_pairs, nb, bp, cfg.shuffle_mode,
+            draw=draws.shuffles[0], enabled=cfg.shuffle_each_iter,
+        )
+        step_noise = None
+        if not self.hs:
+            step_noise = epoch_noise(self.noise, cfg, draws, nb, self.corpus.vocab_size,
+                                     self.device)
+        tb = 2 if cfg.table_dtype == "bfloat16" else 4
+        v = self.corpus.vocab_size
+        total: dict = {}
+        for step in range(nb):
+            batch = shuffled[step * bp : (step + 1) * bp]
+            if self.hs:
+                add_work(total, hs_step_work(
+                    batch, self._points, self._lengths, cfg.dim, v,
+                    max(self.tree.num_nodes, 1), tb, cbow=cfg.objective.startswith("cbow"),
+                    both_directions=cfg.both_directions, shallow=self._shallow,
+                    salts=uses_salts(cfg)))
+            else:
+                add_work(total, sgns_step_work(
+                    batch.flip(1), cfg.dim, v, tb, **step_noise(step),
+                    negatives=cfg.negatives, both_directions=cfg.both_directions,
+                    strat_group=cfg.strat_group, shared_groups=cfg.shared_groups,
+                    salts=uses_salts(cfg)))
+        return total
+
+    def profile_kernel(self, profiler, params: Optional[SGNSParams] = None,
+                       name: str = "cbow_hs_step"):
+        """Attribution of the epoch step under ``name``
+        (``train.profile_epoch``: one epoch on copies of ``params``, a fresh
+        init when None, counted by :meth:`epoch_work`)."""
+        return profile_epoch(self, profiler, params, name)
+
     def run(
         self,
         export_dir: str,
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
+        profile_dir: Optional[str] = None,
     ) -> SGNSParams:
         """The reference iteration loop with its records
         (``train.observed_run``): resume from the newest verified iteration
         (refusing a checkpoint of another ``hs_dense_depth``: node-table
         row ids depend on the split), else init fresh; each iteration
         trains one epoch, logs its row and exports with the ``objective``
-        and ``hs_dense_depth`` meta."""
+        and ``hs_dense_depth`` meta.  ``profile_dir`` traces the first
+        epoch trained."""
         cfg = self.config
 
         def check_resume(meta):
@@ -280,6 +356,7 @@ class CBOWHSTrainer:
         return observed_run(
             self, export_dir, start_iter, log, name=cfg.objective,
             label=f"[{cfg.objective}] ", check_resume=check_resume,
+            kernel="cbow_hs_step", profile_dir=profile_dir,
             manifest_extra={
                 "num_pairs": self.corpus.num_pairs,
                 "vocab_size": self.corpus.vocab_size,

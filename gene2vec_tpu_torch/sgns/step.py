@@ -366,3 +366,73 @@ def sgns_step(
     return _step_stratified(
         params, centers, contexts, stratified, blocks, negatives, lr, combiner, salts
     )
+
+
+def sgns_step_work(
+    pairs: torch.Tensor,
+    d: int,
+    n_rows: int,
+    table_bytes: int = 4,
+    *,
+    negative_mode: str = "stratified",
+    stratified: Optional[StratifiedSpec] = None,
+    noise: Optional[NoiseTable] = None,
+    blocks: Optional[torch.Tensor] = None,
+    negs: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    negatives: int = 5,
+    both_directions: bool = True,
+    strat_group: int = 32,
+    shared_pool: int = 1024,
+    shared_pool_auto: bool = True,
+    shared_groups: int = 0,
+    salts: bool = False,
+) -> dict:
+    """The work (``kernels/_work.py``) of the kernels one :func:`sgns_step`
+    launches on ``pairs`` with these noise keywords, summed: K1-K4
+    (stratified), K1, K5a and K4's generic scatter and finalizes
+    (per_example), K1, K5b and those (shared), at tables of ``n_rows`` ×
+    ``d`` with ``table_bytes`` an element (``salts``: stochastic
+    rounding).  Draws that ``negs`` does not give come from ``generator``
+    as the step draws them, so a fresh generator of the step's seed gives
+    the step's ids."""
+    from gene2vec_tpu_torch.kernels import (
+        noise_head,
+        noise_tail,
+        per_example,
+        pos_logit,
+        row_update,
+        shared_pool as shared_pool_kernels,
+    )
+    from gene2vec_tpu_torch.obs.profiler import add_work
+
+    centers, contexts = _examples_from_pairs(pairs, both_directions)
+    e = int(centers.shape[0])
+    total = dict(pos_logit.work(centers, contexts, d, table_bytes))
+    if negative_mode == "stratified":
+        if stratified is None or blocks is None:
+            raise ValueError("the stratified step's work needs its spec and blocks")
+        add_work(total, noise_head.work(e, stratified.head, d, table_bytes))
+        v_noise = stratified.tail_w.shape[0]
+        add_work(total, noise_tail.work(blocks, e, stratified.head, stratified.block,
+                                        v_noise, d, table_bytes))
+        ctx_rows = Touched(prefix=stratified.head, blocks=blocks, block=stratified.block,
+                           limit=v_noise)
+        return add_work(total, row_update.work(centers, contexts, d, n_rows, table_bytes,
+                                               (Touched(), ctx_rows), salts))
+    if negative_mode == "shared":
+        g, per_group = shared_pool_layout(e, negatives, shared_pool, shared_pool_auto,
+                                          shared_groups, both_directions)
+        negs = _draws(negs, noise, generator, (g * per_group,), pairs.device)
+        add_work(total, shared_pool_kernels.work(e, negs, g, d, table_bytes))
+        scattered = (centers, contexts)
+    else:
+        negs = _draws(negs, noise, generator, (e, negatives), pairs.device)
+        add_work(total, per_example.work(contexts, negs, d, table_bytes))
+        scattered = (centers,)
+    for ids in scattered:
+        add_work(total, row_update.scatter_work(ids, d))
+    add_work(total, row_update.finalize_work(Touched(ids=centers), n_rows, d, table_bytes,
+                                             salts))
+    return add_work(total, row_update.finalize_work(Touched(ids=(contexts, negs)), n_rows,
+                                                    d, table_bytes, salts))

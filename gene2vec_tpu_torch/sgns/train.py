@@ -26,6 +26,10 @@ the end, the goodput block (``obs/goodput.py``), ``events.jsonl`` (one
 ``training_log.csv`` through the registry's CSV sink, and the phase
 timeline (``timeline.jsonl``) unless ``SGNSConfig(timeline=False)``; each
 checkpoint's meta carries ``config_hash``.  With
+``SGNSConfig(kernel_profile=True)`` it also attributes the epoch step
+(``obs/profiler.py``, :func:`epoch_work`): ``kernels.jsonl``, the
+``kernel_*`` gauges and goodput's per-kernel breakdown; ``run(profile_dir=)``
+traces the first epoch it trains with ``torch.profiler``.  With
 ``SGNSConfig(donate=False)`` an epoch leaves the tables it is given
 untouched and returns updated copies (the reference's jit without buffer
 donation); the default updates them in place.
@@ -33,8 +37,8 @@ donation); the default updates them in place.
 :func:`train_epochs` is the quality tooling's loop (fresh init, one epoch
 an iteration), :func:`make_train_epoch` the epoch function a trainer runs.
 
-Left out (see ROADMAP.md): the kernel profiler, the background checkpoint
-writer, preemption handling and the multi-device paths.
+Left out (see ROADMAP.md): the background checkpoint writer, preemption
+handling and the multi-device paths.
 """
 
 from __future__ import annotations
@@ -68,11 +72,17 @@ from gene2vec_tpu_torch.data.pipeline import (
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.io import checkpoint as ckpt
 from gene2vec_tpu_torch.obs import goodput
+from gene2vec_tpu_torch.obs.profiler import add_work
 from gene2vec_tpu_torch.obs.run import Run
 from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
-from gene2vec_tpu_torch.sgns.step import num_tail_groups, sgns_step, shared_pool_layout
-from gene2vec_tpu_torch.utils.profiling import StepTimer
+from gene2vec_tpu_torch.sgns.step import (
+    num_tail_groups,
+    sgns_step,
+    sgns_step_work,
+    shared_pool_layout,
+)
+from gene2vec_tpu_torch.utils.profiling import StepTimer, trace_context
 
 
 class EpochDraws(NamedTuple):
@@ -371,17 +381,30 @@ class SGNSTrainer:
                                     else self.generator)
         return self._epoch_fn(params, draws)
 
+    def epoch_work(self, draws: EpochDraws) -> dict:
+        """:func:`epoch_work` of this trainer."""
+        return epoch_work(self, draws)
+
+    def profile_kernel(self, profiler, params: Optional[SGNSParams] = None,
+                       name: str = "sgns_train_step"):
+        """Attribution of the epoch step under ``name`` (:func:`profile_epoch`)."""
+        return profile_epoch(self, profiler, params, name)
+
     def run(
         self,
         export_dir: str,
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
+        profile_dir: Optional[str] = None,
     ) -> SGNSParams:
         """The reference iteration loop (:func:`observed_run`): resume from
         the newest verified iteration if present, else init fresh; each
-        iteration reshuffles, trains one epoch, logs its row and exports."""
+        iteration reshuffles, trains one epoch, logs its row and exports.
+        ``profile_dir`` traces the first epoch trained (``torch.profiler``,
+        a Chrome trace in that directory)."""
         return observed_run(
             self, export_dir, start_iter, log, name="sgns", log_start=True,
+            kernel="sgns_train_step", profile_dir=profile_dir,
             manifest_extra={
                 "num_pairs": self.global_num_pairs,
                 "vocab_size": self.corpus.vocab_size,
@@ -443,6 +466,62 @@ def make_train_epoch(trainer: SGNSTrainer) -> Callable:
     return train_epoch
 
 
+def epoch_work(trainer: SGNSTrainer, draws: EpochDraws) -> dict:
+    """The work (``kernels/_work.py``) of the kernels that one epoch of
+    ``trainer`` under ``draws`` launches: each step's
+    :func:`~gene2vec_tpu_torch.sgns.step.sgns_step_work` at that step's
+    batch and noise ids, summed — the count behind ``sgns_train_step``.  It
+    walks the epoch's ids as :func:`make_train_epoch` does (the shuffle,
+    each step's batch and draws, the alias draws from their own generator)
+    and launches no kernel: a host pass of distinct-row counts
+    (``torch.unique`` and a read of its size) a step, at warm time."""
+    cfg = trainer.config
+    nb, bp = trainer.num_batches, cfg.batch_pairs
+    step_noise = epoch_noise(trainer.noise, cfg, draws, nb, trainer.corpus.vocab_size,
+                             trainer.device)
+    quotas = trainer.pos_quotas
+    if quotas is not None:
+        pools = segmented_epoch_shuffle(
+            trainer.pairs, quotas, nb, cfg.shuffle_mode,
+            draws=draws.shuffles, enabled=cfg.shuffle_each_iter,
+        )
+    else:
+        shuffled = epoch_shuffle(
+            trainer.pairs, trainer.global_num_pairs, nb, bp, cfg.shuffle_mode,
+            draw=draws.shuffles[0], enabled=cfg.shuffle_each_iter,
+        )
+    tb = 2 if cfg.table_dtype == "bfloat16" else 4
+    total: dict = {}
+    for step in range(nb):
+        if quotas is not None:
+            batch = segmented_batch(pools, quotas, step)
+        else:
+            batch = shuffled[step * bp : (step + 1) * bp]
+        add_work(total, sgns_step_work(
+            batch, cfg.dim, trainer.corpus.vocab_size, tb, **step_noise(step),
+            negatives=cfg.negatives, both_directions=cfg.both_directions,
+            strat_group=cfg.strat_group, shared_groups=cfg.shared_groups,
+            salts=uses_salts(cfg),
+        ))
+    return total
+
+
+def profile_epoch(trainer, profiler, params: Optional[SGNSParams], name: str) -> dict:
+    """``profiler.attribute`` of one epoch of ``trainer`` (``SGNSTrainer`` or
+    ``CBOWHSTrainer``) under ``name``: the epoch runs once on copies of
+    ``params`` (a fresh init when None) under the draws of iteration 0,
+    which no training iteration uses, with ``trainer.epoch_work`` of those
+    draws as its count — so the kernels are built, and ``compile_s``
+    paid, before the first timed iteration, and the caller's tables and
+    generators are untouched.  Returns the attributed record."""
+    if params is None:
+        params = trainer.init()
+    draws = trainer.draw_epoch(epoch_generator(trainer.config.seed, 0))
+    tables = SGNSParams(params.emb.clone(), params.ctx.clone())
+    return profiler.attribute(name, trainer.train_epoch, (tables, draws),
+                              work=trainer.epoch_work(draws))
+
+
 def train_epochs(corpus: PairCorpus, config: SGNSConfig, epochs: int,
                  draws: Optional[Sequence[EpochDraws]] = None, device=None):
     """The quality tooling's loop (the reference's ``train_epochs``, shared
@@ -466,7 +545,9 @@ def train_epochs(corpus: PairCorpus, config: SGNSConfig, epochs: int,
 def observed_run(trainer, export_dir: str, start_iter: Optional[int],
                  log: Callable[[str], None], *, name: str, manifest_extra: dict,
                  log_start: bool = False, label: str = "", meta_extra=None,
-                 check_resume: Optional[Callable[[dict], None]] = None) -> SGNSParams:
+                 check_resume: Optional[Callable[[dict], None]] = None,
+                 kernel: str = "sgns_train_step",
+                 profile_dir: Optional[str] = None) -> SGNSParams:
     """The reference's ``run`` loop for either trainer, observed as the
     reference observes it (sgns/train.py:605-773, cbow_hs.py:442-580): a
     :class:`Run` in the export dir (``manifest.json``, ``events.jsonl``,
@@ -477,11 +558,25 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
     else inits fresh; each checkpoint's meta carries ``config_hash``, the
     device, the draws' lineage and ``meta_extra``.  Only the timeline
     flush and the goodput stamp are guarded, so that they never mask the
-    loop's own exception."""
+    loop's own exception.
+
+    With ``kernel_profile`` set (the reference's train.py:633-644, 669-675,
+    698-699, 762-771): a :class:`~gene2vec_tpu_torch.obs.profiler.KernelProfiler` in
+    the export dir, one ``kernel_attribution`` span that attributes the
+    epoch step under ``kernel`` (``trainer.profile_kernel``), each
+    iteration's wall observed under that name, ``kernels.jsonl`` and the
+    ``kernel_*`` gauges flushed at the end and the attributed seconds as
+    goodput's per-kernel breakdown.  ``profile_dir`` traces the first
+    iteration trained (``utils/profiling.py:trace_context``)."""
     cfg = trainer.config
     run = Run(export_dir, name=name, config=cfg, manifest_extra=manifest_extra)
     run.registry.attach_csv(os.path.join(export_dir, "training_log.csv"))
     tl = PhaseTimeline(enabled=cfg.timeline)
+    kp = None
+    if cfg.kernel_profile:
+        from gene2vec_tpu_torch.obs.profiler import KernelProfiler
+
+        kp = KernelProfiler(run_dir=export_dir, registry=run.registry, device=trainer.device)
     wall_t0 = time.perf_counter()
     pairs_done = 0.0
     best_rate = 0.0
@@ -503,17 +598,23 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
             with run.span("init_params"):
                 params = trainer.init()
             start_iter = 1
+        if kp is not None:
+            with run.span("kernel_attribution", kernel=kernel):
+                trainer.profile_kernel(kp, params=params, name=kernel)
         pairs_per_epoch = trainer.num_batches * cfg.batch_pairs
         pairs_counter = run.registry.counter("pairs_total")
         for it in range(start_iter, cfg.num_iters + 1):
             if log_start:
                 log(f"gene2vec {label}dimension {cfg.dim} iteration {it} start")
             t0 = time.perf_counter()
-            with run.step("iteration", iteration=it, pairs=pairs_per_epoch) as span_out:
-                params, loss = timed_epoch(trainer, tl, it, params)
-                span_out["loss"] = loss
+            with trace_context(profile_dir if it == start_iter else None):
+                with run.step("iteration", iteration=it, pairs=pairs_per_epoch) as span_out:
+                    params, loss = timed_epoch(trainer, tl, it, params)
+                    span_out["loss"] = loss
             dt = time.perf_counter() - t0
             rate = pairs_per_epoch / dt if dt > 0 else float("inf")
+            if kp is not None:
+                kp.observe(kernel, dt)
             trainer.timer.record(pairs_per_epoch, dt)
             pairs_counter.inc(pairs_per_epoch)
             pairs_done += pairs_per_epoch
@@ -547,9 +648,12 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
         with contextlib.suppress(Exception):
             wall_s = time.perf_counter() - wall_t0
             tl.flush(os.path.join(run.run_dir, TIMELINE_NAME))
+            if kp is not None:
+                kp.flush()
             goodput.stamp(run, goodput.summarize(
                 tl.records(), wall_s, pairs_total=pairs_done,
                 peak_pairs_per_sec=best_rate or None,
+                kernel_seconds=kp.attributed_seconds() if kp is not None else None,
             ))
         run.close()
     return params

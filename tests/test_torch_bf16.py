@@ -631,13 +631,13 @@ def test_bf16_table_gate_allows_only_the_float32_error_of_new():
 
 
 def test_k1_bound_reads_each_distinct_row_once():
-    from chip_smoke import k1_bytes
+    from gene2vec_tpu_torch.kernels import pos_logit
 
     c, x = np.array([3, 3, 3, 9]), np.array([1, 1, 2, 2])
     d = 8
     fixed = 4 * (2 * 4 + 2 * 4 * d + 2 * 4)  # ids; v, u; g_pos, loss
-    assert k1_bytes(c, x, d, 2) == fixed + 2 * (2 + 2) * d
-    assert k1_bytes(c, x, d, 4) == fixed + 4 * (2 + 2) * d
+    assert pos_logit.work(c, x, d, 2)["bytes"] == fixed + 2 * (2 + 2) * d
+    assert pos_logit.work(c, x, d, 4)["bytes"] == fixed + 4 * (2 + 2) * d
 
 
 def test_launch_counts_derive_totals_and_variants():

@@ -163,17 +163,17 @@ def test_k6_plain_matches_jax(depth):
 
 @pytest.mark.parametrize("depth", [3, 10])
 def test_k6_bound_counts_only_on_path_entries(depth):
-    """``chip_smoke.hs_work`` counts K6's work by the reference's paths:
-    each target's shallow entries are its path length less its deep
-    length, not every shallow column of its sign row."""
-    from chip_smoke import hs_work
-
+    """``kernels/hs.py:work`` (the bound ``chip_smoke.py`` gives K6) counts
+    K6's work by the reference's paths: each target's shallow entries are
+    its path length less its deep length, not every shallow column of its
+    sign row."""
     _, counts, pairs = _zipf_corpus()
     tree = jhuff.build_huffman_tree(counts)
     split = jhuff.split_shallow(tree, depth)
     inputs, targets = pairs[:B, 0], pairs[:B, 1]
-    work = hs_work(thuff.split_shallow(thuff.build_huffman_tree(counts), depth),
-                   inputs, targets, D)
+    ts = thuff.split_shallow(thuff.build_huffman_tree(counts), depth)
+    work = khs.work(inputs, targets, ts.points_deep, ts.lengths_deep, thuff.shallow_paths(ts),
+                    D)
     deep = int(split.lengths_deep[targets].sum())
     shallow = int((tree.lengths[targets] - split.lengths_deep[targets]).sum())
     assert (work["deep_entries"], work["shallow_entries"]) == (deep, shallow)

@@ -259,7 +259,7 @@ def test_package_turns_tf32_off():
 #: epochs that leave the caller's tables untouched)
 PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
                   "shared_pool_auto", "table_dtype", "bf16_stochastic_round",
-                  "timeline", "donate"}
+                  "timeline", "donate", "kernel_profile"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -268,13 +268,13 @@ PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
     ("async_checkpoint", True), ("pos_layout_shards", 2), ("timeline", False),
     ("bf16_stochastic_round", False), ("hs_dense_depth", 4), ("shared_pool", 64),
     ("shared_pool_auto", False), ("data_axis", "x"), ("model_axis", "y"),
-    ("donate", False), ("compute_dtype", "bfloat16"),
+    ("donate", False), ("compute_dtype", "bfloat16"), ("kernel_profile", True),
 ])
 def test_config_rejects_unported_options(field, value):
     """Options selecting code the port lacks raise (bf16 arithmetic inside
     the step among them); the objectives, noise modes, their knobs,
-    bfloat16 tables, ``timeline=False`` and ``donate=False``, ported
-    since, are accepted as given."""
+    bfloat16 tables, ``timeline=False``, ``donate=False`` and
+    ``kernel_profile``, ported since, are accepted as given."""
     from gene2vec_tpu_torch.config import SGNSConfig
 
     if field in PORTED_OPTIONS:
@@ -901,3 +901,20 @@ def test_quality_tooling_needs_cuda_unless_cpu_is_asked(monkeypatch):
     emb, losses = train_epochs(_tiny_corpus(), cfg, 1, device="cpu")
     assert emb.shape == (4, 4) and len(losses) == 1
     assert not torch.cuda.is_initialized()
+
+
+def test_chip_smoke_keeps_no_work_formula_of_its_own():
+    """Every bound ``chip_smoke.py`` gives a kernel comes from the kernel
+    modules' ``work`` functions through ``obs/profiler.py:bound``: the
+    script defines no ``*_bound`` or ``*_work`` function, no ``bound``, and
+    none of the card's peak rates."""
+    with open(os.path.join(ROOT, "chip_smoke.py"), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    defs = [n.name for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.Lambda))
+            and getattr(n, "name", "").endswith(("_bound", "_work", "_bytes"))]
+    defs += [n.name for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+             and n.name == "bound"]
+    assert defs == []
+    assigned = {t.id for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                for t in n.targets if isinstance(t, ast.Name)}
+    assert not {n for n in assigned if n.endswith(("_PER_S", "_OP_PER_S"))}
