@@ -116,6 +116,12 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    run of phases 3-3c is also held to the reference run's records
    (``check_run_records``: the manifest's config hash and goodput block,
    one step span an iteration, metrics.prom, each checkpoint's hash);
+   (4c) kernel cost attribution (``kernel_attribution``); (4d) the run
+   reports (``cli/obs.py``) over 4c's records: the report's pairs/s
+   against the iteration spans, the Chrome trace's phase events against
+   goodput's compute bucket, ``kernels``, ``list``, ``ledger --check``
+   over the repo root, and the process's library loads against the
+   libraries ``build`` holds (a ``{"run_reports": ...}`` line);
 5. serving at full width — phase 3's export, then a clustered export of
    the same width (V = 24,447, D = 200, 1,000 groups of ~24 genes),
    each served through ``cli/serve.py`` in a subprocess on the card once
@@ -128,7 +134,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    against ``exact_oracle`` must reach 0.99 on the clustered export; on
    phase 3's export it is reported only, since a structureless Zipf
    corpus trains near-parallel rows whose neighbor ranks differ by less
-   than the int8 scan's error.  QPS and p50/p99 latency per export and
+   than the int8 scan's error.  Each server's ``jit_compile_events_total``
+   is read after the bucket requests and again at the end: equal, and
+   above 0.  QPS and p50/p99 latency per export and
    mode go to ``{"serving": ...}`` lines.  It runs right after phase 3;
 6. GGIPNN over the clustered export — a predictionData/ directory
    (262,144 / 16,384 / 32,768 pairs, half within one group, half random)
@@ -2507,6 +2515,148 @@ def kernel_attribution(torch, work: str, smi: str) -> dict:
     return out
 
 
+# -- phase 4d: the run reports on the card's own records (cli/obs.py) -----------
+
+REPORT_RATE_TOL = 1e-9      # the report's pairs/s against the iteration spans (relative)
+REPORT_BUCKET_SHARE = 0.01  # the trace's phase events against goodput's compute bucket
+REPORT_PHASES = ("host_ingest", "dispatch", "compute", "ckpt_stage")  # the reference's
+
+
+def obs_cli(argv) -> tuple:
+    """(exit code, stdout, stderr) of one ``cli/obs.py`` call in process."""
+    import contextlib
+    import io
+
+    from gene2vec_tpu_torch.cli.obs import main as obs_main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = obs_main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def report_check(run_dir: str, name: str) -> dict:
+    """``report <run_dir> --json`` against the run's own files: pairs/s the
+    iteration spans' pairs over their seconds (REPORT_RATE_TOL), goodput the
+    manifest's block, ``name`` in the kernels block, the peak device bytes
+    and compile events above 0; the text report renders."""
+    rc, out, err = obs_cli(["report", run_dir, "--json"])
+    if rc != 0:
+        raise SystemExit(f"obs report {run_dir}: exit {rc}: {err}")
+    s = json.loads(out)
+    with open(os.path.join(run_dir, "events.jsonl")) as f:
+        iters = [e for e in map(json.loads, filter(str.strip, f))
+                 if e["type"] == "span_end" and e["name"] == "iteration"]
+    want = sum(e["attrs"]["pairs"] for e in iters) / sum(e["dur"] for e in iters)
+    rate_err = abs(s["pairs_per_sec"] - want) / want
+    with open(os.path.join(run_dir, "manifest.json")) as f:
+        goodput = json.load(f)["goodput"]
+    top = [t["name"] for t in (s["kernels"] or {}).get("top", [])]
+    peak = s["peak"]
+    if (rate_err > REPORT_RATE_TOL or s["goodput"] != goodput or name not in top
+            or not peak.get("hbm_bytes", 0) > 0 or not peak.get("jit_compiles", 0) > 0):
+        raise SystemExit(f"obs report {run_dir}: pairs/s {s['pairs_per_sec']} against the "
+                         f"spans' {want}; goodput equal {s['goodput'] == goodput}; kernels "
+                         f"{top}; peak {peak}")
+    rc, text, err = obs_cli(["report", run_dir])
+    if rc != 0 or "throughput:" not in text:
+        raise SystemExit(f"obs report {run_dir} (text): exit {rc}: {err}")
+    return {"pairs_per_sec": s["pairs_per_sec"], "iteration_spans_rate": want,
+            "rate_rel_err": rate_err, "kernels": top, "peak": peak,
+            "phases": {k: v["count"] for k, v in s["phases"].items()}}
+
+
+def timeline_check(run_dir: str, work: str) -> dict:
+    """``timeline <run_dir> --out``: the reference's phase tracks, no X
+    event of negative duration, one phase event a ``timeline.jsonl``
+    record at its start (ts over 1e6 plus t0 within 1 us of its wall), and
+    those events, back in seconds, give goodput's compute bucket within
+    REPORT_BUCKET_SHARE of the manifest's."""
+    from gene2vec_tpu_torch.obs import goodput
+    from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, read_timeline
+
+    path = os.path.join(work, "sgns_trace.json")
+    rc, _, err = obs_cli(["timeline", run_dir, "--out", path])
+    if rc != 0:
+        raise SystemExit(f"obs timeline {run_dir}: exit {rc}: {err}")
+    with open(path) as f:
+        doc = json.load(f)
+    tracks = doc["otherData"]["phase_tracks"]
+    xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    phases = [e for e in xs if e["cat"] == "phase"]
+    records = read_timeline(os.path.join(run_dir, TIMELINE_NAME))
+    t0 = doc["otherData"]["t0_unix"]
+    offset = max((abs(e["ts"] / 1e6 + t0 - r["wall"]) for e, r in zip(phases, records)),
+                 default=0.0)
+    with open(os.path.join(run_dir, "manifest.json")) as f:
+        g = json.load(f)["goodput"]
+    back = goodput.summarize([{"name": e["name"], "dur": e["dur"] / 1e6} for e in phases],
+                             g["wall_s"])["buckets_s"]["compute"]
+    share = abs(back - g["buckets_s"]["compute"]) / g["buckets_s"]["compute"]
+    if (not set(REPORT_PHASES) <= set(tracks) or any(e["dur"] < 0 for e in xs)
+            or len(phases) != len(records)
+            or [e["name"] for e in phases] != [r["name"] for r in records]
+            or offset > 1e-6 or share > REPORT_BUCKET_SHARE):
+        raise SystemExit(f"obs timeline {run_dir}: tracks {tracks}, {len(phases)} phase "
+                         f"events for {len(records)} records, offset {offset}, compute "
+                         f"{back} against the manifest's {g['buckets_s']['compute']}")
+    return {"phase_tracks": tracks, "x_events": len(xs), "phase_events": len(phases),
+            "max_offset_s": offset, "compute_s": back,
+            "manifest_compute_s": g["buckets_s"]["compute"], "compute_rel_err": share}
+
+
+def run_reports(attribution: dict, work: str, smi: str) -> dict:
+    """Phase 4d: ``cli/obs.py`` over phase 4c's records in ``work`` —
+    ``report`` of the SGNS and CBOW-HS runs (``report_check``),
+    ``timeline`` of the SGNS run (``timeline_check``), ``kernels`` and
+    ``list`` of ``work``, ``ledger --check`` over the repo root (every
+    matching artifact ingested, none in error); the process's library
+    loads equal to the libraries ``build`` holds.  A ``{"run_reports":
+    ...}`` stdout line with each reading, the servers' compile events
+    (phases 2g and 5) and the phase's seconds."""
+    from gene2vec_tpu_torch.kernels import build
+    from gene2vec_tpu_torch.obs import ledger
+    from gene2vec_tpu_torch.obs.probes import CompileWatcher
+
+    t_phase = time.perf_counter()
+    sgns = attribution["sgns_train_step"]["export"]
+    cbow = attribution["cbow_hs_step"]["export"]
+    out = {"report": {"sgns_train_step": report_check(sgns, "sgns_train_step"),
+                      "cbow_hs_step": report_check(cbow, "cbow_hs_step")},
+           "timeline": timeline_check(sgns, work)}
+    rc, text, err = obs_cli(["kernels", work, "--json"])
+    names = sorted({r["name"] for r in json.loads(text)}) if rc == 0 else []
+    if not set(ATTR_NAMES) <= set(names) or obs_cli(["kernels", work])[0] != 0:
+        raise SystemExit(f"obs kernels {work}: exit {rc}, names {names}: {err}")
+    out["kernels"] = names
+    rc, text, _ = obs_cli(["list", work])
+    listed = text.splitlines()
+    if rc != 0 or not {sgns, cbow} <= set(listed):
+        raise SystemExit(f"obs list {work}: exit {rc}: {listed}")
+    out["list"] = [os.path.relpath(d, work) for d in listed]
+    path = os.path.join(work, "ledger.jsonl")
+    rc, _, err = obs_cli(["ledger", ROOT, "--check", "--out", path])
+    with open(path) as f:
+        records = [json.loads(line) for line in f]
+    matched = [n for n in os.listdir(ROOT)
+               if os.path.isfile(os.path.join(ROOT, n)) and ledger.match_family(n)]
+    errors = [r["source"] for r in records if r.get("error")]
+    if rc != 0 or len(records) != len(matched) or errors:
+        raise SystemExit(f"obs ledger --check: exit {rc}, {len(records)} records of "
+                         f"{len(matched)} artifacts, errors {errors}: {err[-2000:]}")
+    out["ledger"] = {"exit": rc, "records": len(records),
+                     "families": len({r["family"] for r in records})}
+    events = CompileWatcher.install().events
+    if not events["library_load"] == len(build._libs) > 0:
+        raise SystemExit(f"compile events {events}, libraries loaded {len(build._libs)}")
+    out["compile_events"] = {**events, "libraries": len(build._libs)}
+    out["server_compile_events"] = SERVER_COMPILES
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"run_reports": out, "card": smi}), flush=True)
+    log(f"run reports phase: {out['phase_s']:.2f}s")
+    return out
+
+
 def parse_prometheus(text: str) -> dict:
     """{series: value} of a Prometheus text exposition (every line a
     comment or ``name{labels} value``); raises on a line that is neither."""
@@ -2751,6 +2901,22 @@ def scrape_launches(url: str):
         r'^kernel_launches_total\{kernel="([a-z_]+)"\} (\S+)$', text, re.M)}
 
 
+#: each server's compile events after its bucket requests and at its end,
+#: by export and mode (phases 2g and 5; read into phase 4d's line)
+SERVER_COMPILES: dict = {}
+
+
+def scrape_compiles(url: str) -> int:
+    """The server's ``jit_compile_events_total`` (0 before it has one)."""
+    import re
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    m = re.search(r"^jit_compile_events_total (\S+)$", text, re.M)
+    return int(float(m.group(1))) if m else 0
+
+
 def clustered_table(seed: int = 11, v: int = V, d: int = D, n_groups: int = 1000):
     """A (v, d) float32 table of ``n_groups`` groups of genes around seeded
     centres, and each gene's group."""
@@ -2782,8 +2948,11 @@ def write_clustered_export(path: str, seed: int = 11, v: int = V, d: int = D,
 def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
     """Serve one export through ``cli/serve.py`` once per index mode (the
     three servers started side by side, then driven one at a time, each
-    stopped when its answers are in) and check every answer; returns the
-    kernel launches summed over the three servers."""
+    stopped when its answers are in) and check every answer; each server's
+    compile events (``jit_compile_events_total``) after the bucket requests
+    equal those at its end, and are above 0 (once a mode has served each
+    bucket, more traffic loads no kernel library).  Returns the kernel
+    launches summed over the three servers."""
     from concurrent.futures import ThreadPoolExecutor
 
     from gene2vec_tpu_torch.serve.registry import discover_newest, l2_normalize
@@ -2819,10 +2988,18 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
                 if not contract["device"].startswith("cuda") or contract["iteration"] != it:
                     raise SystemExit(f"{mode} server contract {contract}")
                 buckets, mixed = request_plan(tokens, emb, np.random.RandomState(7))
-                answers, lat, wall = drive(contract["url"], buckets, mixed)
+                answers = drive(contract["url"], buckets, [])[0]
+                compiles = [scrape_compiles(contract["url"])]
+                more, lat, wall = drive(contract["url"], [], mixed)
+                answers += more
                 counts = scrape_launches(contract["url"])
+                compiles.append(scrape_compiles(contract["url"]))
             finally:
                 stop_server(proc)
+            SERVER_COMPILES[f"{os.path.basename(export)}/{mode}"] = compiles
+            if not compiles[0] == compiles[1] > 0:
+                raise SystemExit(f"{mode}: jit_compile_events_total {compiles} (after the "
+                                 "buckets, at the end): not equal and above 0")
             n, ties, recall, short = check_answers(mode, answers, unit, token_id, gate_recall)
             must, must_not = MODE_KERNELS[mode]
             if (any(counts.get(k, 0) <= 0 for k in must)
@@ -2837,7 +3014,8 @@ def serve_full_width(export: str, work: str, smi: str, gate_recall: bool):
                        "p50_ms": float(np.percentile(lat_ms, 50)),
                        "p99_ms": float(np.percentile(lat_ms, 99)), "recall_at_10": recall,
                        "near_ties": ties, "short_slots": short, "launches": counts,
-                       "startup_s": up, "table": geometry, "card": smi}
+                       "compile_events": compiles, "startup_s": up, "table": geometry,
+                       "card": smi}
             print(json.dumps({"serving": summary}), flush=True)
             log(f"serving {mode}: {summary}")
     finally:
@@ -5003,9 +5181,10 @@ def main() -> int:
         for name, n in quality_tooling(torch, work, smi).items():
             counts[name] += n
     log(f"quality tooling phase done in {time.perf_counter() - t0:.1f}s")
-    # phase 4c: kernel cost attribution (profiled runs, GGIPNN, the servers)
+    # phase 4c: kernel cost attribution (profiled runs, GGIPNN, the servers),
+    # then (4d) the run reports over its records
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
-        kernel_attribution(torch, work, smi)
+        run_reports(kernel_attribution(torch, work, smi), work, smi)
 
     # phase 7: the paper's pipeline — the corpus (K11), training and the
     # intrinsic evaluation, t-SNE (K10c, K10)

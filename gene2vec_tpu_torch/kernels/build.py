@@ -7,7 +7,10 @@ shared library with a plain C interface, loaded with ``ctypes``.  Builds
 happen at first use — never at import — into ``kernels/_build/`` (listed
 in ``.gitignore``), named by a hash of the sources and flags so an edited
 source rebuilds.  :func:`build_all` starts one ``nvcc`` per source, all
-at once, and waits for them together.
+at once, and waits for them together.  The process keeps a tally of its
+compile events from its start (:func:`compile_events`): each ``nvcc``
+run and each library opened, which ``obs/probes.py:CompileWatcher``
+reads.
 
     python -m gene2vec_tpu_torch.kernels.build    # build all, print paths
 """
@@ -60,6 +63,14 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 #: wall seconds this process has spent in :func:`build_all` compiling
 _built = [0.0]
+#: compile events since the process started: ``nvcc`` runs and libraries opened
+_events: Dict[str, int] = {"nvcc_build": 0, "library_load": 0}
+_events_lock = threading.Lock()
+
+
+def _count(kind: str) -> None:
+    with _events_lock:
+        _events[kind] += 1
 
 
 def nvcc_path() -> str:
@@ -106,6 +117,7 @@ def build_all(verbose: bool = False) -> Dict[str, str]:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
+        _count("nvcc_build")
         with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
             f.write(log)
         if verbose and log:
@@ -129,6 +141,14 @@ def build_seconds() -> float:
     return _built[0]
 
 
+def compile_events() -> Dict[str, int]:
+    """This process's compile events so far: ``nvcc_build`` (each ``nvcc``
+    that :func:`build_all` ran) and ``library_load`` (each library that
+    :func:`load` opened).  A warm launch adds to neither."""
+    with _events_lock:
+        return dict(_events)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, building all of them at first use."""
     with _lock:
@@ -138,6 +158,7 @@ def load(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build_all()
             lib = ctypes.CDLL(path)
+            _count("library_load")
             lib.g2v_error_string.restype = ctypes.c_char_p
             lib.g2v_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib

@@ -10,7 +10,8 @@ rolling-window p99 as a ``stall`` event.
 
 Device facts come from ``torch.cuda`` (the reference asks
 ``jax.devices()``); ``probe_devices=False`` leaves them out of the
-manifest until :meth:`Run.annotate_backend`.  :meth:`Run.probe` samples
+manifest until :meth:`Run.annotate_backend`; with them, the run installs
+the process-wide compile watcher.  :meth:`Run.probe` samples
 ``obs/probes.py`` into gauges and a ``probe`` event.  Construction never
 raises for missing optional context (no git, no GPU).
 """
@@ -139,6 +140,8 @@ class Run:
         self.watchdog = watchdog or StallWatchdog()
         self._snapshot_interval = snapshot_interval_s
         self._closed = False
+        if probe_devices:
+            probes.CompileWatcher.install()
         self.manifest = {
             "name": name,
             "run_dir": self.run_dir,

@@ -1,14 +1,16 @@
 """Structured span tracer: append-only JSON-lines events — the part of
-``gene2vec_tpu/obs/trace.py`` that :func:`ambient_span` needs, copied.
+``gene2vec_tpu/obs/trace.py`` that :func:`ambient_span` and the run
+reports need, copied.
 
 Every record is one JSON object on one line of ``events.jsonl``
 (``type``, ``name``, ``wall``, ``mono``, ``pid``, ``tid``, ``span``,
 ``parent``, ``dur`` on ``span_end``, free-form ``attrs``), written with
 one ``os.write`` on an ``O_APPEND`` fd.  :func:`ambient_span` writes to
 the installed tracer and otherwise buffers a bounded number of records
-in memory, which the next installed tracer flushes.  Trace-context
-stamping (the reference's cross-process request traces) waits for the
-port of the observability plane.
+in memory, which the next installed tracer flushes.
+:func:`read_events` parses the file back, merged by wall clock.
+Trace-context stamping (the reference's cross-process request traces)
+waits for the port of the observability plane.
 """
 
 from __future__ import annotations
@@ -146,3 +148,20 @@ def ambient_span(name: str, **attrs) -> Iterator[Dict]:
         with _pending_lock:
             if len(_pending) < _PENDING_MAX:
                 _pending.append(rec)
+
+
+def read_events(path: str) -> List[Dict]:
+    """Parse an ``events.jsonl`` (skipping torn/partial trailing lines),
+    ordered by wall clock — the merged multi-process timeline."""
+    events = []
+    with open(path, "r", encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                events.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    events.sort(key=lambda e: e.get("wall", 0.0))
+    return events

@@ -14,8 +14,9 @@ Endpoints (all JSON except ``/metrics``):
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
 * ``GET  /metrics`` — the Prometheus text of the metrics registry,
-  kernel launch counts included, and with ``kernel_profile`` each engine
-  bucket's ``kernel_*`` cost gauges (:meth:`ServeApp.profile_kernels`).
+  kernel launch counts and compile events included, and with
+  ``kernel_profile`` each engine bucket's ``kernel_*`` cost gauges
+  (:meth:`ServeApp.profile_kernels`).
 
 Status mapping: queue full → 429, request deadline → 504, unknown gene
 or malformed body → 400, no model loaded → 503.  The front end is the
@@ -42,6 +43,7 @@ from urllib.parse import parse_qs, unquote_plus, urlparse
 import numpy as np
 
 from gene2vec_tpu_torch import kernels
+from gene2vec_tpu_torch.obs import probes
 from gene2vec_tpu_torch.obs.profiler import STATIC_FIELDS, stamp_records
 from gene2vec_tpu_torch.obs.registry import MetricsRegistry
 from gene2vec_tpu_torch.obs.trace import ambient_span
@@ -161,6 +163,10 @@ class ServeApp:
         self._started = time.monotonic()
         #: kernel launches already published to /metrics, per kernel
         self._launches_published: Dict[str, int] = {}
+        # compile events (kernel builds and library loads, the process-wide
+        # CompileWatcher) feed a monotone counter on /metrics by delta
+        self._compile_watcher = probes.CompileWatcher.install()
+        self._compile_events_published = 0
         # pre-serialized response bodies keyed (model version, gene, k)
         self.response_cache = LRUCache(config.cache_size)
         # coalescing table for concurrent identical GETs: key -> list of
@@ -411,7 +417,10 @@ class ServeApp:
         """Refresh, at each ``/metrics`` scrape: the engine's distinct
         launch shapes per index mode (``engine_jit_cache_entries{mode}``,
         the reference's name), the kernel launches since the last scrape
-        (``kernel_launches_total{kernel}``), the served model's age and the
+        (``kernel_launches_total{kernel}``), the compile events since the
+        last scrape (``jit_compile_events_total``, the reference's name: a
+        kernel library built or loaded; once a mode has served each of its
+        buckets, more traffic adds none), the served model's age and the
         buckets' ``kernel_*`` costs of :meth:`profile_kernels`."""
         for mode, size in self.engine.cache_sizes().items():
             self.metrics.gauge(
@@ -425,6 +434,14 @@ class ServeApp:
                     labels={"kernel": name},
                 ).inc(delta)
                 self._launches_published[name] = count
+        # a counter, not the raw count as a gauge: deltas survive a reset
+        compiles = self._compile_watcher.count
+        if compiles > self._compile_events_published:
+            self.metrics.counter(
+                "jit_compile_events_total",
+                "kernel library builds and loads seen by this process",
+            ).inc(compiles - self._compile_events_published)
+            self._compile_events_published = compiles
         if self.registry.loaded:
             self.metrics.gauge("model_age_seconds").set(
                 max(0.0, time.time() - self.registry.model.created_unix)
