@@ -11,6 +11,8 @@
                                      # in turns
     python3 chip_smoke.py --compare --parts umap PARENT CHANGE CHANGE PARENT
                                      # K15, K16 and cli.plot alone
+    python3 chip_smoke.py --resilience
+                                     # the build, then phase 8 alone
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -191,6 +193,40 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    gene once with finite coordinates, the groups separate past UMAP_SEP,
    K15's five launches and one K16 launch an iteration
    (``{"pipeline_umap": ...}``).
+8. resilience (run right after phase 1's build, before phase 2) — the
+   port's CLIs as child processes through ``resilience/chaos.py``, on the
+   card: a Zipf corpus (phase 3's recipe,
+   1,000,000 pairs at V = 24,447) trained by ``cli.gene2vec`` at the
+   default config for 4 iterations without the text export, (a) twice
+   uninterrupted (the pair's gap is the card's run-to-run floor: K4 sums
+   with float atomics), (b) SIGKILLed at "iteration 2 done" with
+   ``--async-checkpoint`` (the newest verified iteration at most 2, its npz
+   unchanged by the rerun, temp files ignored) and rerun, (c) SIGTERMed at
+   "iteration 1 done" with ``--async-checkpoint`` (exit 113, the manifest
+   ``interrupted`` with ``completed_iteration``, goodput's ``preempted``
+   bucket above 0, the drained iterations verifying) and resumed — each
+   resumed run within RESUME_BAR of the first uninterrupted run's largest
+   |emb| and RESUME_LOSS_RTOL of its losses, every iteration verifying;
+   (d) ``--objective cbow_hs`` SIGTERMed after iteration 1 and resumed;
+   (e) ``cli.ggipnn --embed-train --run-dir`` over phase 6's clustered data
+   SIGTERMed at its first ``step N:`` line (exit 113, the run manifest
+   ``interrupted``, a checkpoint at the drained step, no test AUC); (f) the
+   second uninterrupted export truncated, then a manifest CRC corrupted:
+   discovery falls back each time; (g) ``SGNSTrainer.run`` in process sync
+   then async at the budget's geometry (``obs/budgets.json``
+   ``resilience.async_ckpt``: checkpoint spans under 0.02 of the iteration
+   spans, gated) and at full width (reported, with pairs/s), each beside
+   async with the disk half on the writer thread (the reference's design,
+   ``thread_checkpoint``, reported only), in a fresh child process as a
+   training run has one, before the drills write their exports; (h) an
+   exact
+   server with ``--faults FAULT_SPEC`` beside an unfaulted one: 64
+   sequential ``GET /v1/similar`` statuses equal a CPU ``FaultInjector``'s
+   prediction, ``serve_fault_error_total`` matches, ``/healthz`` stays
+   clean and every clean answer is the unfaulted server's.  The children's
+   launches come from their ``metrics.prom`` (``kernel_launches_total``)
+   and the server's ``/metrics``; each of K1-K4, K6, ``row_gather`` and K7
+   must have launched (``{"resilience": ...}`` line).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -200,7 +236,8 @@ rows, phase 4's nearest-even runs' for ``_bf16_rn``, the servers' for
 K7-K9r, phase 6's CLI runs and interaction server and phase 4b's
 ``fit_epoch`` for ``row_gather``,
 phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
-K10c and K10 and its ``cli.plot`` run for K15 and K16;
+K10c and K10 and its ``cli.plot`` run for K15 and K16, and beside those
+phase 8's for K1-K4, K6, K4's generic entry points, ``row_gather`` and K7;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -5031,6 +5068,493 @@ def compare_trees(trees, parts: str = "all") -> int:
     return 0
 
 
+# -- phase 8: resilience -----------------------------------------------------------
+
+RES_PAIRS, RES_ITERS = 1_000_000, 4   # the drills' Zipf corpus (V = 24,447) and iterations
+RES_KILL_AT, RES_TERM_AT = 2, 1       # SIGKILL / SIGTERM at "iteration N done"
+RES_CBOW_ITERS = 2
+RESUME_BAR = 1e-4          # a resumed card run: max |Δemb| over the uninterrupted run's max |emb|
+RESUME_LOSS_RTOL = 1e-5    # ... and each iteration's loss, relative
+FAULT_SPEC = '{"seed": 7, "error_p": 0.5}'
+FAULT_REQUESTS = 64
+RES_KERNELS = STEP_KERNELS + ("hs", "row_gather", "topk_exact")
+
+
+def res_env() -> dict:
+    """The children's environment additions: the checkout on the path."""
+    return {"PYTHONPATH": os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+
+
+def res_cli(argv, label: str, expect_rc: int, kill=None):
+    """One CLI child through ``resilience/chaos.py`` — to its end, or
+    ``kill = (pattern, signal)`` at the pattern's first line — which must
+    exit ``expect_rc``.  Returns (its ChildResult, wall seconds)."""
+    from gene2vec_tpu_torch.resilience import chaos
+
+    t0 = time.perf_counter()
+    if kill is None:
+        r = chaos.run_cli(argv, timeout=600, env=res_env())
+    else:
+        r = chaos.run_cli_kill_on(argv, kill[0], sig=kill[1], timeout=600, env=res_env())
+    wall = time.perf_counter() - t0
+    if r.returncode != expect_rc:
+        raise SystemExit(f"resilience {label}: exit {r.returncode}, expected {expect_rc}:\n"
+                         f"{r.output[-3000:]}")
+    log(f"resilience {label}: exit {r.returncode} in {wall:.1f}s"
+        + (f" (signal at {r.matched_line!r})" if kill else ""))
+    return r, wall
+
+
+def child_launches(run_dir: str) -> dict:
+    """{kernel: launches} that a child process left in its run's
+    ``metrics.prom`` (``kernel_launches_total``)."""
+    with open(os.path.join(run_dir, "metrics.prom")) as f:
+        series = parse_prometheus(f.read())
+    prefix = 'kernel_launches_total{kernel="'
+    return {s[len(prefix):].split('"')[0]: int(v) for s, v in series.items()
+            if s.startswith(prefix)}
+
+
+def add_launches(total: dict, more: dict) -> None:
+    for name, n in more.items():
+        total[name] = total.get(name, 0) + n
+
+
+def res_losses(export: str, iters: int):
+    out = []
+    for it in range(1, iters + 1):
+        with np.load(os.path.join(export, f"gene2vec_dim_{D}_iter_{it}.npz")) as z:
+            out.append(float(json.loads(str(z["meta"]))["loss"]))
+    return out
+
+
+def res_reasons(export: str, iters: int):
+    """Each iteration's manifest verdict (``ok`` or the failure's reason)."""
+    from gene2vec_tpu_torch.resilience import snapshot as snap
+
+    snap.clear_verify_cache()
+    return [snap.verify_manifest(os.path.join(export, f"gene2vec_dim_{D}_iter_{it}")).reason
+            for it in range(1, iters + 1)]
+
+
+def res_verified(export: str, iters: int):
+    return [r == "ok" for r in res_reasons(export, iters)]
+
+
+def res_gap(ref: str, export: str, iters: int, label: str, gate: bool = True) -> dict:
+    """The last iteration's table of ``export`` against ``ref``'s: max
+    |Δemb| over max |emb|, and each iteration's loss relative; with
+    ``gate``, fails past RESUME_BAR / RESUME_LOSS_RTOL."""
+    from gene2vec_tpu_torch.resilience import chaos
+
+    a, b = chaos.load_table(ref, D, iters), chaos.load_table(export, D, iters)
+    la, lb = res_losses(ref, iters), res_losses(export, iters)
+    gap = {"max_abs_diff": float(np.abs(a - b).max()), "max_abs": float(np.abs(a).max()),
+           "loss_rel": max(abs(x - y) / abs(x) for x, y in zip(la, lb)),
+           "bitwise": bool(np.array_equal(a, b))}
+    gap["rel"] = gap["max_abs_diff"] / gap["max_abs"]
+    if gate and (not np.isfinite(b).all() or gap["rel"] > RESUME_BAR
+                 or gap["loss_rel"] > RESUME_LOSS_RTOL):
+        raise SystemExit(f"resilience {label}: resumed run off the uninterrupted one {gap}")
+    return gap
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def res_argv(data: str, out: str, iters: int = RES_ITERS, **kw):
+    from gene2vec_tpu_torch.resilience import chaos
+
+    return chaos.gene2vec_argv(data, out, dim=D, iters=iters, no_txt_output=True,
+                               device=DEVICE, **kw)
+
+
+def res_sigkill(data: str, out: str, ref: str) -> tuple:
+    """(b) SIGKILL at "iteration 2 done" with the background writer, then
+    the rerun: (record, launches)."""
+    import signal
+
+    from gene2vec_tpu_torch.io import checkpoint as ckpt
+
+    argv = res_argv(data, out, async_checkpoint=True)
+    res_cli(argv, "SIGKILL", -signal.SIGKILL,
+            kill=(rf"iteration {RES_KILL_AT} done", signal.SIGKILL))
+    survivor = ckpt.latest_iteration(out, D)
+    temps = sorted(n for n in os.listdir(out) if ".tmp" in n)
+    if survivor > RES_KILL_AT:
+        raise SystemExit(f"resilience SIGKILL: newest verified iteration {survivor} "
+                         f"> {RES_KILL_AT}")
+    point = os.path.join(out, f"gene2vec_dim_{D}_iter_{survivor}.npz")
+    before = file_digest(point) if survivor else None
+    r, _ = res_cli(argv, "SIGKILL rerun", 0)
+    if survivor and f"resuming from iteration {survivor}" not in r.output:
+        raise SystemExit(f"resilience SIGKILL rerun did not resume from {survivor}")
+    kept = (file_digest(point) if survivor else None) == before
+    reasons = res_reasons(out, RES_ITERS)
+    # a kill between the first npz's rename and its manifest leaves an
+    # unmanifested iteration 1, which discovery takes as a legacy export
+    # (the reference's rule): the rerun resumes from its complete bytes
+    legacy = survivor == 1 and reasons[0] == "missing-manifest"
+    bad = [it for it, r in enumerate(reasons, 1) if r != "ok" and not (legacy and it == 1)]
+    if not kept or bad:
+        raise SystemExit(f"resilience SIGKILL rerun: resume point kept {kept}, "
+                         f"manifests {reasons}")
+    return {"at": RES_KILL_AT, "survivor": survivor, "survivor_unmanifested": legacy,
+            "temp_files_left": temps, "resume_point_bytes_kept": kept, "manifests": reasons,
+            "gap": res_gap(ref, out, RES_ITERS, "SIGKILL rerun")}, child_launches(out)
+
+
+def res_sigterm(data: str, out: str, ref: str) -> tuple:
+    """(c) SIGTERM at "iteration 1 done" with the background writer: exit
+    113, the manifest stamped, the drained iterations verifying; then the
+    resume: (record, launches)."""
+    import re
+    import signal
+
+    from gene2vec_tpu_torch.io import checkpoint as ckpt
+    from gene2vec_tpu_torch.resilience.preempt import EXIT_PREEMPTED
+
+    argv = res_argv(data, out, async_checkpoint=True)
+    r, _ = res_cli(argv, "SIGTERM", EXIT_PREEMPTED,
+                   kill=(rf"iteration {RES_TERM_AT} done", signal.SIGTERM))
+    with open(os.path.join(out, "manifest.json")) as f:
+        manifest = json.load(f)
+    drained = int(re.search(r"drained after iteration (\d+)", r.output).group(1))
+    preempted_s = manifest["goodput"]["buckets_s"]["preempted"]
+    verified = res_verified(out, drained)
+    if (manifest.get("interrupted") is not True or manifest.get("completed_iteration") != drained
+            or preempted_s <= 0 or not all(verified) or ckpt.latest_iteration(out, D) != drained):
+        raise SystemExit(f"resilience SIGTERM: drained {drained}, manifest "
+                         f"{ {k: manifest.get(k) for k in ('interrupted', 'completed_iteration')} }, "
+                         f"preempted {preempted_s}, verified {verified}")
+    launches = child_launches(out)
+    res_cli(argv, "SIGTERM resume", 0)
+    add_launches(launches, child_launches(out))
+    return {"at": RES_TERM_AT, "exit": EXIT_PREEMPTED, "drained_after": drained,
+            "preempted_s": preempted_s, "verified": res_verified(out, RES_ITERS),
+            "gap": res_gap(ref, out, RES_ITERS, "SIGTERM resume")}, launches
+
+
+def res_cbow(data: str, out: str) -> tuple:
+    """(d) a CBOW-HS drain after iteration 1 and its resume (K6's main path
+    here): (record, launches)."""
+    import re
+    import signal
+
+    from gene2vec_tpu_torch.io import checkpoint as ckpt
+    from gene2vec_tpu_torch.resilience.preempt import EXIT_PREEMPTED
+
+    argv = res_argv(data, out, iters=RES_CBOW_ITERS, objective="cbow_hs")
+    r, _ = res_cli(argv, "CBOW-HS SIGTERM", EXIT_PREEMPTED,
+                   kill=(r"iteration 1 done", signal.SIGTERM))
+    launches = child_launches(out)
+    drained = int(re.search(r"drained after iteration (\d+)", r.output).group(1))
+    res_cli(argv, "CBOW-HS resume", 0)
+    add_launches(launches, child_launches(out))
+    if ckpt.latest_iteration(out, D) != RES_CBOW_ITERS or not launches.get("hs"):
+        raise SystemExit(f"resilience CBOW-HS: latest {ckpt.latest_iteration(out, D)}, "
+                         f"launches {launches}")
+    return {"exit": EXIT_PREEMPTED, "drained_after": drained, "hs_launches": launches["hs"],
+            "losses": res_losses(out, RES_CBOW_ITERS)}, launches
+
+
+def res_training(data: str, work: str) -> tuple:
+    """(a) two uninterrupted runs side by side; then (b) SIGKILL, (c)
+    SIGTERM and (d) CBOW-HS, each with its rerun, side by side — every
+    child on the card; (f) corruption on the host.  Returns (record,
+    launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gene2vec_tpu_torch.io import checkpoint as ckpt
+    from gene2vec_tpu_torch.resilience import chaos
+    from gene2vec_tpu_torch.resilience import snapshot as snap
+
+    rec, launches = {}, {}
+    refs = [os.path.join(work, f"uninterrupted_{i}") for i in (1, 2)]
+    with ThreadPoolExecutor(2) as pool:
+        walls = [f.result()[1] for f in [
+            pool.submit(res_cli, res_argv(data, out), f"uninterrupted run {i + 1}", 0)
+            for i, out in enumerate(refs)]]
+    for i, out in enumerate(refs):
+        add_launches(launches, child_launches(out))
+        if not all(res_verified(out, RES_ITERS)):
+            raise SystemExit(f"resilience: uninterrupted run {i + 1} export does not verify")
+    with open(os.path.join(refs[0], "vocab.tsv")) as f:
+        rec["vocab_size"] = sum(1 for _ in f)
+    rec["uninterrupted"] = {"walls_s": walls, "losses": res_losses(refs[0], RES_ITERS),
+                            "pair": res_gap(refs[0], refs[1], RES_ITERS, "pair", gate=False)}
+    with ThreadPoolExecutor(3) as pool:
+        futures = {
+            "sigkill": pool.submit(res_sigkill, data, os.path.join(work, "sigkill"), refs[0]),
+            "sigterm": pool.submit(res_sigterm, data, os.path.join(work, "sigterm"), refs[0]),
+            "cbow_hs": pool.submit(res_cbow, data, os.path.join(work, "cbow_hs")),
+        }
+        for name, f in futures.items():
+            rec[name], more = f.result()
+            add_launches(launches, more)
+
+    # (f) corruption on the host, over the second uninterrupted export
+    out = refs[1]
+    chaos.truncate_file(os.path.join(out, f"gene2vec_dim_{D}_iter_{RES_ITERS}.npz"))
+    snap.clear_verify_cache()
+    after_truncate = ckpt.latest_iteration(out, D)
+    chaos.corrupt_manifest_crc(os.path.join(out, f"gene2vec_dim_{D}_iter_{RES_ITERS - 1}"))
+    snap.clear_verify_cache()
+    after_crc = ckpt.latest_iteration(out, D)
+    if (after_truncate, after_crc) != (RES_ITERS - 1, RES_ITERS - 2):
+        raise SystemExit(f"resilience corruption: fell back to {after_truncate}, {after_crc}")
+    rec["corruption"] = {"truncated_newest_falls_back_to": after_truncate,
+                         "corrupt_crc_falls_back_to": after_crc}
+    return rec, launches
+
+
+def res_ggipnn(work: str) -> tuple:
+    """(e) SIGTERM ``cli.ggipnn --embed-train --run-dir`` over phase 6's
+    clustered data at its first ``step N:`` line."""
+    import re
+    import signal
+
+    from gene2vec_tpu_torch.resilience.preempt import EXIT_PREEMPTED
+
+    emb, groups = clustered_table()
+    data = os.path.join(work, "predictionData")
+    write_prediction_data(data, groups)
+    w2v = os.path.join(work, "clustered_w2v.txt")
+    write_w2v(w2v, emb)
+    run_dir = os.path.join(work, "ggipnn_run")
+    argv = [sys.executable, "-m", "gene2vec_tpu_torch.cli.ggipnn", "--data-dir", data,
+            "--emb", w2v, "--embedding-dim", str(D), "--device", DEVICE, "--batch-size",
+            str(GG_B), "--num-epochs", "1", "--embed-train", "--run-dir", run_dir]
+    r, wall = res_cli(argv, "GGIPNN SIGTERM", EXIT_PREEMPTED,
+                      kill=(r"^step \d+:", signal.SIGTERM))
+    step = int(re.search(r"drained after step (\d+)", r.output).group(1))
+    with open(os.path.join(run_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    ckpts = sorted(os.listdir(os.path.join(run_dir, "checkpoints")))
+    if (manifest.get("interrupted") is not True or f"model-{step}.npz" not in ckpts
+            or "AUC" in r.output or "no resume path" not in r.output):
+        raise SystemExit(f"resilience GGIPNN: drained at {step}, checkpoints {ckpts}, "
+                         f"interrupted {manifest.get('interrupted')}:\n{r.output[-2000:]}")
+    launches = child_launches(run_dir)
+    return {"exit": EXIT_PREEMPTED, "signal_at": r.matched_line, "drained_after_step": step,
+            "checkpoints": ckpts, "row_gather_launches": launches.get("row_gather", 0),
+            "wall_s": wall}, launches
+
+
+def thread_checkpoint(writer, saver, export_dir, cfg, it, params, vocab, meta):
+    """The reference's disk half for comparison: ``save_iteration`` on the
+    writer thread itself, over a host copy staged here (``saver`` unused)."""
+    from gene2vec_tpu_torch.io import checkpoint as ckpt
+    from gene2vec_tpu_torch.resilience import snapshot as snap
+    from gene2vec_tpu_torch.sgns.model import SGNSParams
+
+    if writer is None:
+        ckpt.save_iteration(export_dir, cfg.dim, it, params, vocab,
+                            txt_output=cfg.txt_output, meta=meta)
+        return
+    host = SGNSParams(params.emb.detach().to("cpu", copy=True),
+                      params.ctx.detach().to("cpu", copy=True))
+
+    def write():
+        path = ckpt.save_iteration(export_dir, cfg.dim, it, host, vocab,
+                                   txt_output=cfg.txt_output, meta=meta)
+        return snap.manifest_bytes(snap.verify_manifest(path[: -len(".npz")]).manifest)
+
+    writer.submit(write, iteration=it)
+
+
+def res_overhead(torch, corpus, cfg_kw: dict, work: str, label: str) -> dict:
+    """(g) ``SGNSTrainer.run`` in process, sync, async and async with the
+    disk half on the writer thread (``thread_checkpoint``, the reference's
+    design, for comparison only): the checkpoint spans over the iteration
+    spans, and pairs/s (the median iteration's, and the run's pairs over
+    both spans)."""
+    from gene2vec_tpu_torch.config import SGNSConfig
+    from gene2vec_tpu_torch.obs.trace import read_events
+    from gene2vec_tpu_torch.sgns import train
+
+    out = {}
+    for mode in ("sync", "async", "async_thread"):
+        cfg = SGNSConfig(**cfg_kw, async_checkpoint=mode != "sync")
+        d = os.path.join(work, f"overhead_{label}_{mode}")
+        tr = train.SGNSTrainer(corpus, cfg, device=DEVICE)
+        inline = train.checkpoint_iteration
+        if mode == "async_thread":
+            train.checkpoint_iteration = thread_checkpoint
+        try:
+            tr.run(d, log=lambda s: None)
+        finally:
+            train.checkpoint_iteration = inline
+        torch.cuda.synchronize()
+        durs = {"iteration": [], "checkpoint": [], "ckpt_write": []}
+        for e in read_events(os.path.join(d, "events.jsonl")):
+            if e.get("type") == "span_end" and e.get("name") in durs:
+                durs[e["name"]].append(float(e.get("dur", 0.0)))
+        spans = {k: sum(v) for k, v in durs.items()}
+        with open(os.path.join(d, "training_log.csv")) as f:
+            rates = [float(r["pairs_per_sec"]) for r in csv.DictReader(f)]
+        pairs = tr.num_batches * cfg.batch_pairs * cfg.num_iters
+        out[mode] = {"overhead_fraction": spans["checkpoint"] / max(spans["iteration"], 1e-9),
+                     "iteration_s": spans["iteration"], "checkpoint_s": spans["checkpoint"],
+                     "pairs_per_sec_median": statistics.median(rates[1:]),
+                     "pairs_per_sec_with_checkpoints":
+                         pairs / (spans["iteration"] + spans["checkpoint"]),
+                     **{f"{k}_ms": [round(x * 1e3, 3) for x in v] for k, v in durs.items()}}
+    log(f"async overhead {label}: {json.dumps(out)}")
+    return out
+
+
+def overhead_records(data: str, work: str) -> dict:
+    """(g) in this process: ``res_overhead`` at the budget's geometry
+    (``obs/budgets.json`` ``resilience.async_ckpt``), then at full width
+    over the drills' corpus.  Returns {"records": ..., "launches": the
+    kernels' launches}."""
+    import torch
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.data.pipeline import PairCorpus
+    from gene2vec_tpu_torch.io.pair_reader import load_corpus
+    from gene2vec_tpu_torch.io.vocab import Vocab
+
+    with open(os.path.join(ROOT, "gene2vec_tpu_torch", "obs", "budgets.json")) as f:
+        budget = json.load(f)["resilience"]["async_ckpt"]
+    v = int(budget["vocab"])
+    rng = np.random.RandomState(0)
+    p = 1.0 / np.arange(1, v + 1)
+    p /= p.sum()
+    pairs = rng.choice(v, size=(int(budget["num_pairs"]), 2), p=p).astype(np.int32)
+    counts = np.bincount(pairs.reshape(-1), minlength=v).astype(np.int64)
+    small = PairCorpus(Vocab([f"G{i}" for i in range(v)], counts), pairs)
+    kernels.reset_launch_counts()
+    rec = {"budget": {k: budget[k] for k in ("dim", "vocab", "batch_pairs", "num_pairs",
+                                             "num_iters", "max_overhead_fraction")}}
+    rec["budget_geometry"] = res_overhead(torch, small, dict(
+        dim=int(budget["dim"]), batch_pairs=int(budget["batch_pairs"]),
+        num_iters=int(budget["num_iters"]), txt_output=bool(budget["txt_output"])),
+        work, "budget")
+    vocab, pairs = load_corpus(data, "txt")
+    rec["full_width"] = res_overhead(torch, PairCorpus(vocab, pairs), dict(
+        dim=D, num_iters=RES_ITERS, txt_output=False), work, "full width")
+    torch.cuda.synchronize()
+    return {"records": rec, "launches": kernels.launch_counts()}
+
+
+def res_overhead_phase(data: str, work: str) -> tuple:
+    """(g) ``overhead_records`` in a fresh child process, as a training run
+    has one — not in this script's, which by phase 8 holds seven phases'
+    state — gated at the budget's geometry.  Returns (records, K1-K4
+    launches)."""
+    code = ("import json\nimport chip_smoke\n"
+            f"print(json.dumps(chip_smoke.overhead_records({data!r}, {work!r})))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                         text=True, timeout=900, env=dict(os.environ, **res_env()))
+    if res.returncode != 0:
+        raise SystemExit(f"resilience: the overhead child exited {res.returncode}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    rec = out["records"]
+    frac = rec["budget_geometry"]["async"]["overhead_fraction"]
+    if not frac < float(rec["budget"]["max_overhead_fraction"]):
+        raise SystemExit(f"resilience: async checkpoint overhead {frac:.5f} at the budget's "
+                         f"geometry, budget {rec['budget']['max_overhead_fraction']}")
+    return rec, out["launches"]
+
+
+def res_faults(work: str, smi: str) -> tuple:
+    """(h) one exact-mode server over phase 5's clustered export with
+    ``--faults FAULT_SPEC`` beside an unfaulted one: FAULT_REQUESTS
+    sequential ``GET /v1/similar`` statuses against a CPU injector's
+    prediction, ``serve_fault_error_total``, a clean ``/healthz`` and every
+    clean answer equal to the unfaulted server's."""
+    import urllib.error
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from gene2vec_tpu_torch.resilience.faults import FaultInjector, FaultSpec
+
+    export = os.path.join(work, "clustered")
+    write_clustered_export(export)
+    with ThreadPoolExecutor(2) as pool:
+        futures = [pool.submit(start_server, export, "exact",
+                               os.path.join(work, f"serve_{name}.err"), extra)
+                   for name, extra in (("faulted", ("--faults", FAULT_SPEC)), ("clean", ()))]
+        started = [f.result() for f in futures]
+    (faulted, finfo), (clean, cinfo) = started
+
+    def get(url, path):
+        try:
+            with urllib.request.urlopen(url + path, timeout=60) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        oracle = FaultInjector(FaultSpec.from_json(FAULT_SPEC))
+        want = [503 if oracle.decide("/v1/similar") else 200 for _ in range(FAULT_REQUESTS)]
+        got, mismatched = [], 0
+        t0 = time.perf_counter()
+        for i in range(FAULT_REQUESTS):
+            path = f"/v1/similar?gene=G{(i * 379) % V}&k=10"
+            status, doc = get(finfo["url"], path)
+            got.append(status)
+            if status == 200 and doc["results"] != get(cinfo["url"], path)[1]["results"]:
+                mismatched += 1
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(finfo["url"] + "/metrics", timeout=60) as r:
+            series = parse_prometheus(r.read().decode())
+        health = get(finfo["url"], "/healthz")
+        launches = scrape_launches(finfo["url"])
+    finally:
+        stop_server(faulted)
+        stop_server(clean)
+    with open(os.path.join(work, "serve_faulted.err")) as f:
+        active = "FAULT INJECTION ACTIVE" in f.read()
+    errors = int(series.get("serve_fault_error_total", 0))
+    rec = {"spec": json.loads(FAULT_SPEC), "requests": FAULT_REQUESTS,
+           "statuses_match": got == want, "faulted": got.count(503),
+           "serve_fault_error_total": errors, "clean_answers_mismatched": mismatched,
+           "healthz": health[0], "stderr_announces": active,
+           "topk_exact_launches": launches.get("topk_exact", 0), "wall_s": wall}
+    if (got != want or errors != want.count(503) or mismatched or health[0] != 200
+            or health[1].get("status") != "ok" or not active):
+        raise SystemExit(f"resilience faults: {rec}, statuses {got}, predicted {want}")
+    return rec, {"topk_exact": launches.get("topk_exact", 0)}
+
+
+def resilience(torch, smi: str) -> tuple:
+    """Phase 8: the port's CLIs killed, drained and resumed on the card, the
+    async writer's overhead, corruption on the host and HTTP faults.
+    Returns (the ``{"resilience": ...}`` record, the phase's launches)."""
+    t0 = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        data = os.path.join(work, "corpus")
+        write_zipf_corpus(data, V, RES_PAIRS)
+        # (g) first, while the file system holds no other writes of this run
+        overhead, more = res_overhead_phase(data, work)
+        add_launches(launches, more)
+        rec, more = res_training(data, work)
+        rec["async_overhead"] = overhead
+        add_launches(launches, more)
+        rec["ggipnn"], more = res_ggipnn(work)
+        add_launches(launches, more)
+        rec["faults"], more = res_faults(work, smi)
+        add_launches(launches, more)
+    missing = [k for k in RES_KERNELS if not launches.get(k)]
+    if missing:
+        raise SystemExit(f"resilience: kernels not launched on the phase's path: {missing}")
+    rec["launches"] = {k: launches[k] for k in RES_KERNELS}
+    rec["bars"] = {"resume_rel": RESUME_BAR, "loss_rtol": RESUME_LOSS_RTOL}
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    log(f"resilience phase done in {rec['seconds']:.1f}s")
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -5056,6 +5580,14 @@ def main() -> int:
     for name in sorted(paths):
         with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
             log(f.read().strip())
+    # phase 8 first, on a file system that holds none of the other phases'
+    # files: its async-overhead gate times checkpoint writes against epochs
+    # of tens of ms.  The CLIs killed, drained and resumed (K1-K4, K6), the
+    # GGIPNN drain (row_gather) and a server injecting faults (K7)
+    res, res_counts = resilience(torch, smi)
+    if sys.argv[1:2] == ["--resilience"]:
+        print(json.dumps({"resilience": res}))
+        return 0
 
     t0 = time.perf_counter()
     rows = kernel_check(torch, TIMED_REPS)
@@ -5190,6 +5722,7 @@ def main() -> int:
     # intrinsic evaluation, t-SNE (K10c, K10)
     pipe_rows, pipe_counts = pipeline(torch, smi)
     counts.update(pipe_counts)
+    add_launches(counts, res_counts)
 
     rows += serve_rows
     rows.append(gather_row)
@@ -5213,6 +5746,7 @@ def main() -> int:
                                        "largest_share": K6_SHARES}, "card": smi}))
     print(json.dumps({"redesign": redesign}))
     print(json.dumps({"touched_rows": TOUCHED_SHARES}))
+    print(json.dumps({"resilience": res}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

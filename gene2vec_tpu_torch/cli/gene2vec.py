@@ -5,10 +5,14 @@
         [--device {cuda,cpu}] [--dim 200] [--iters 10] ...
 
 Same positionals and the same flags for what this port supports
-(``--objective``, ``--negative-mode``, ``--hs-dense-depth`` and
-``--table-dtype`` included);
+(``--objective``, ``--negative-mode``, ``--hs-dense-depth``,
+``--table-dtype`` and ``--async-checkpoint`` included);
 the default configuration is the reference's.  ``--device`` defaults to
 ``cuda`` and the CLI fails without a GPU unless ``--device cpu`` is given.
+
+SIGTERM/SIGINT drain the run: the iteration in flight finishes, its
+checkpoint commits, the run manifest is stamped ``interrupted`` and the
+CLI exits 113 (``EXIT_PREEMPTED``); rerunning the same command resumes.
 """
 
 from __future__ import annotations
@@ -64,6 +68,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the contiguous shallow-node prefix (0 = classic)")
     p.add_argument("--no-txt-output", action="store_true",
                    help="skip matrix-txt / word2vec-format exports per iteration")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="write per-iteration checkpoints on the background writer "
+                        "(disk I/O overlaps the next epoch); sgns objective only, "
+                        "the others save inline")
     return p
 
 
@@ -89,10 +97,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         positive_head=args.positive_head,
         positive_mid=args.positive_mid,
         txt_output=not args.no_txt_output,
+        async_checkpoint=args.async_checkpoint,
     )
     from gene2vec_tpu_torch.data.pipeline import PairCorpus
     from gene2vec_tpu_torch.device import resolve_device
     from gene2vec_tpu_torch.io.pair_reader import load_corpus
+    from gene2vec_tpu_torch.resilience.preempt import EXIT_PREEMPTED, PreemptionHandler
     from gene2vec_tpu_torch.sgns.cbow_hs import make_trainer
 
     device = resolve_device(args.device)  # fail before reading the corpus
@@ -101,7 +111,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                                min_count=config.min_count)
     corpus = PairCorpus(vocab, pairs)
     print(f"{corpus.num_pairs:,} pairs, vocab {corpus.vocab_size:,}, device {device}")
-    make_trainer(corpus, config, device=device).run(args.export_dir)
+    trainer = make_trainer(corpus, config, device=device)
+    # SIGTERM/SIGINT: finish the iteration, commit its checkpoint, exit
+    # EXIT_PREEMPTED so schedulers can tell "resume me" from failure
+    with PreemptionHandler() as handler:
+        trainer.run(args.export_dir, preempt=handler)
+    if handler.triggered:
+        print(
+            f"preempted (signal {handler.received}); checkpoints are "
+            "committed — rerun the same command to resume",
+            file=sys.stderr,
+        )
+        return EXIT_PREEMPTED
     return 0
 
 

@@ -9,6 +9,10 @@ cadence; the data layout is a ``predictionData/``-shaped directory with
 train/valid/test ``_text.txt`` + ``_label.txt`` files.  Prints the test
 accuracy and AUC.  ``--device`` defaults to ``cuda`` and the run refuses
 to start without a GPU unless ``--device cpu`` is given.
+
+SIGTERM/SIGINT drain the run (under ``--run-dir``, a checkpoint at the
+step in flight) and the CLI exits 113 with no test-set pass.  There is no
+resume path: a rerun retrains from scratch.
 """
 
 from __future__ import annotations
@@ -25,8 +29,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="ggipnn",
         description="Train the gene-gene-interaction MLP and print test AUC.",
-        epilog="There is no preemption handler: SIGTERM/SIGINT stop the run "
-               "without a drain checkpoint (the reference drains and exits 113).",
+        epilog="On preemption (SIGTERM/SIGINT) training drains and the CLI exits "
+               "113; a rerun restarts training.",
     )
     p.add_argument("--data-dir", required=True, help="predictionData/-shaped directory")
     p.add_argument("--emb", default=None,
@@ -68,9 +72,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         seed=args.seed,
     )
     from gene2vec_tpu_torch.models.ggipnn_train import run_classification
+    from gene2vec_tpu_torch.resilience.preempt import EXIT_PREEMPTED, PreemptionHandler
 
-    run_classification(args.data_dir, args.emb, config, run_dir=args.run_dir,
-                       device=args.device)
+    with PreemptionHandler() as handler:
+        run_classification(args.data_dir, args.emb, config, run_dir=args.run_dir,
+                           device=args.device, preempt=handler)
+    if handler.triggered:
+        # 113 here means "drained cleanly", not "resume me": a rerun
+        # retrains from scratch (--run-dir step checkpoints are artifacts
+        # for analysis, not resume points)
+        print(
+            f"preempted (signal {handler.received}); training drained "
+            "cleanly. NOTE: ggipnn has no resume path — rerunning "
+            "restarts training"
+            + (" (step checkpoints are under --run-dir)" if args.run_dir else ""),
+            file=sys.stderr,
+        )
+        return EXIT_PREEMPTED
     return 0
 
 

@@ -2,7 +2,7 @@
 
     python -m gene2vec_tpu_torch.cli.serve --export-dir out/ --port 8000 \\
         [--index exact|quant|ivf] [--ggipnn-checkpoint model-<step>.npz] \\
-        [--kernel-profile] [--device cuda|cpu]
+        [--kernel-profile] [--faults JSON] [--device cuda|cpu]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
@@ -17,6 +17,11 @@ Prints exactly ONE JSON line on stdout once the server is listening —
 ``{"url": ..., "dim": ..., "iteration": ..., "index": ..., "device":
 ...}`` — so a harness can parse the bound address; human-readable status
 goes to stderr.  SIGTERM or Ctrl-C shuts it down.
+
+``--faults`` (else ``$GENE2VEC_TPU_FAULTS``) takes a
+``resilience/faults.py`` ``FaultSpec`` as JSON and injects deterministic
+HTTP faults (latency, error, reset, blackhole) into the matching routes;
+the server then says ``FAULT INJECTION ACTIVE: ...`` on stderr.
 """
 
 from __future__ import annotations
@@ -79,6 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="count each engine batch bucket's kernel work at startup and "
                         "publish per-bucket kernel cost gauges (kernel_flops, "
                         "kernel_bytes_accessed) on /metrics; launches no kernel")
+    p.add_argument("--faults", default=None, metavar="JSON",
+                   help="resilience/faults.py FaultSpec as JSON — deterministic HTTP "
+                        "fault injection for drills (default: $GENE2VEC_TPU_FAULTS "
+                        "when set, else no injection)")
     p.add_argument("--poll-interval", type=float, default=5.0,
                    help="seconds between export-dir rescans (hot swap)")
     p.add_argument("--ggipnn-checkpoint", default=None,
@@ -92,10 +101,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     from gene2vec_tpu_torch.obs.registry import MetricsRegistry
+    from gene2vec_tpu_torch.resilience.faults import FaultInjector, FaultSpec
     from gene2vec_tpu_torch.serve.registry import ModelRegistry
     from gene2vec_tpu_torch.serve.server import ServeApp, ServeConfig, make_server
 
     metrics = MetricsRegistry()
+    if args.faults is not None:
+        fault_injector = FaultInjector(FaultSpec.from_json(args.faults))
+    else:
+        fault_injector = FaultInjector.from_env()
+    if fault_injector is not None:
+        print(f"FAULT INJECTION ACTIVE: {fault_injector.spec.to_json()}", file=sys.stderr)
     # raises without a GPU unless --device cpu
     registry = ModelRegistry(
         args.export_dir, dim=args.dim, metrics=metrics, index_mode=args.index,
@@ -131,7 +147,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         kernel_profile=args.kernel_profile,
     )
     app = ServeApp(registry, config=config, metrics=metrics,
-                   ggipnn_checkpoint=args.ggipnn_checkpoint).start()
+                   ggipnn_checkpoint=args.ggipnn_checkpoint,
+                   fault_injector=fault_injector).start()
     if args.kernel_profile:
         profiled = app.profile_kernels()
         print(f"kernel profile: {len(profiled)} engine buckets attributed ({args.index})",

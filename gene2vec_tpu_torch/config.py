@@ -94,9 +94,6 @@ _UNSUPPORTED = (
      "bf16 arithmetic inside the step is not ported"),
     ("vocab_sharded", lambda v: not v,
      "sharded tables need the multi-GPU path, which is not ported"),
-    ("async_checkpoint", lambda v: not v,
-     "the background checkpoint writer is not ported; exports are "
-     "written inline"),
     ("pos_layout_shards", lambda v: v == 0,
      "a per-device batch layout needs the multi-GPU path, which is not "
      "ported"),

@@ -17,14 +17,29 @@ stamps the tables' own width as ``table_dtype``, by its numpy name
 file lands atomically and the manifest, written last, commits the
 iteration; discovery with ``verified_only`` skips iterations whose
 manifest is missing or disagrees with the bytes on disk.
+
+:class:`SaveProcess` runs ``save_iteration`` in a forked helper process
+for the background checkpoint writer (``SGNSConfig(async_checkpoint=
+True)``): the training loop stages the tables into one of two shared
+host slots and the helper serializes, CRCs and fsyncs them under its own
+interpreter lock.  The port's step loop is host Python that holds the
+lock between its many small launches; a writer thread doing that work in
+process contends with it for the lock (on an H100 host the full-width
+step loop kept 38-46% of its pairs/s while such a thread wrote).
 """
 
 from __future__ import annotations
 
+import atexit
+import ctypes
 import json
+import mmap
+import multiprocessing
 import os
 import re
+import signal
 import warnings
+import zipfile  # noqa: F401 -- np.savez imports it; loaded before the helper forks
 from typing import Optional, Tuple
 
 import numpy as np
@@ -163,7 +178,12 @@ def save_iteration(
     vocab: Vocab,
     txt_output: bool = True,
     meta: Optional[dict] = None,
+    table_dtype: Optional[str] = None,
 ) -> str:
+    """Write iteration ``iteration`` and commit it with its manifest;
+    returns the npz path.  ``table_dtype`` stamps the tables' width when
+    ``params`` are float32 copies of narrower tables (default: their own
+    dtype's name)."""
     os.makedirs(export_dir, exist_ok=True)
     prefix = ckpt_prefix(export_dir, dim, iteration)
     vocab_path = os.path.join(export_dir, "vocab.tsv")
@@ -189,7 +209,7 @@ def save_iteration(
         dim=dim,
         iteration=iteration,
         vocab_size=len(vocab),
-        table_dtype=_dtype_name(params.emb),
+        table_dtype=table_dtype or _dtype_name(params.emb),
     )
     snap.atomic_savez(prefix + ".npz", emb=emb, ctx=ctx, meta=json.dumps(meta))
     files = [prefix + ".npz", vocab_path]
@@ -206,6 +226,159 @@ def save_iteration(
         files += optional
     snap.write_manifest(prefix, files, meta=meta, optional=optional)
     return prefix + ".npz"
+
+
+class SaveProcess:
+    """``save_iteration`` of (rows, dim) float32 tables in a helper process
+    forked at construction.  :meth:`stage` copies both tables into the
+    next of two shared slots (for tables on the card, ``device``: an
+    asynchronous copy into the slots, page-locked once the helper has
+    forked, ordered before the next epoch's kernels on the same stream),
+    so the caller's tables may change right after it; :meth:`save` waits for that copy, has the helper write,
+    commit and verify the slot's iteration, and returns the manifest's
+    payload bytes.  The slots alternate, so a slot is staged again only
+    two saves later: callers keep at most one save outstanding (the
+    background writer's double buffer, ``max_pending=1``).  At start the
+    helper writes the export dir's ``vocab.tsv`` when it is absent, so the
+    first save pays no more than the others.  It ignores SIGINT/SIGTERM
+    (its parent drains, then closes it), dies with its parent, and touches
+    numpy and files only, never torch or the card."""
+
+    def __init__(self, export_dir: str, dim: int, rows: int, vocab: Vocab,
+                 txt_output: bool = True, device=None):
+        self._shape = (rows, dim)
+        nbytes = max(rows * dim * 4, 1)
+        self._slots = [(mmap.mmap(-1, nbytes), mmap.mmap(-1, nbytes)) for _ in range(2)]
+        for pair in self._slots:
+            for buf in pair:  # fault the pages in now, not in the first stagings
+                buf.write(bytes(nbytes))
+        self._next = 0
+        ctx = multiprocessing.get_context("fork")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(
+            target=_save_loop, name="ckpt-save", daemon=True,
+            args=(child, self._conn, os.getpid(), self._slots, self._shape, export_dir,
+                  dim, vocab, txt_output),
+        )
+        self._proc.start()
+        child.close()
+        self._views = [tuple(torch.frombuffer(buf, dtype=torch.float32).view(self._shape)
+                             for buf in pair) for pair in self._slots]
+        self._events = [None, None]
+        self._pinned = []  # data pointers registered with the CUDA driver
+        self._closed = False
+        # before multiprocessing's own exit hook, which would wait on a
+        # helper that ignores SIGTERM
+        atexit.register(self.close)
+        if torch.device(device or "cpu").type == "cuda":
+            try:
+                self._pin()
+            except BaseException:
+                self.close()
+                raise
+
+    def stage(self, params: SGNSParams) -> int:
+        """Copy ``params`` (float32 or bfloat16, any device) into the next
+        slot as float32; returns the slot."""
+        slot, self._next = self._next, self._next ^ 1
+        cuda = params.emb.is_cuda
+        for dst, t in zip(self._views[slot], (params.emb, params.ctx)):
+            dst.copy_(t.detach(), non_blocking=cuda)
+        if cuda:
+            event = torch.cuda.Event()
+            event.record()
+            self._events[slot] = event
+        return slot
+
+    def _pin(self) -> None:
+        cudart = torch.cuda.cudart()
+        for pair in self._views:
+            for view in pair:
+                rc = int(cudart.cudaHostRegister(view.data_ptr(), view.numel() * 4, 0))
+                if rc != 0:
+                    raise RuntimeError(f"cudaHostRegister of a checkpoint slot failed ({rc})")
+                self._pinned.append(view.data_ptr())
+
+    def save(self, slot: int, iteration: int, meta: dict, table_dtype: str) -> int:
+        """Write and commit ``slot`` as ``iteration``; the manifest's payload
+        bytes.  Raises IOError if the helper failed or is gone."""
+        event, self._events[slot] = self._events[slot], None
+        if event is not None:
+            event.synchronize()  # the staging copy has landed in the slot
+        try:
+            self._conn.send((slot, iteration, meta, table_dtype))
+            ok, value = self._conn.recv()
+        except (EOFError, OSError) as e:
+            raise IOError(f"checkpoint helper process gone: {e!r}") from e
+        if not ok:
+            raise IOError(value)
+        return value
+
+    def close(self) -> None:
+        """Stop the helper (after the save in flight) and free the slots."""
+        if self._closed:
+            return
+        self._closed = True
+        atexit.unregister(self.close)
+        try:
+            self._conn.send(None)
+        except OSError:
+            pass
+        self._proc.join(timeout=60)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join()
+        self._conn.close()
+        for ptr in self._pinned:
+            torch.cuda.cudart().cudaHostUnregister(ptr)
+        self._pinned = []
+        self._views = None  # the slots' buffers are exported to these tensors
+        for pair in self._slots:
+            for buf in pair:
+                buf.close()
+
+
+def _save_loop(conn, parent_conn, parent_pid: int, slots, shape, export_dir: str, dim: int,
+               vocab: Vocab, txt_output: bool) -> None:
+    """The helper process: one ``save_iteration`` and its verification a job."""
+    parent_conn.close()  # so a dead parent reads as EOF here
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, signal.SIG_IGN)
+    try:  # PR_SET_PDEATHSIG: SIGKILL this helper when its parent dies
+        ctypes.CDLL(None).prctl(1, int(signal.SIGKILL))
+    except (OSError, AttributeError):
+        pass
+    if os.getppid() != parent_pid:
+        return
+    startup_error = None
+    try:
+        os.makedirs(export_dir, exist_ok=True)
+        vocab_path = os.path.join(export_dir, "vocab.tsv")
+        if not os.path.exists(vocab_path):
+            snap.atomic_write_via(vocab.save, vocab_path)
+    except OSError as e:  # reported with the first save
+        startup_error = f"{type(e).__name__}: {e}"
+    while True:
+        try:
+            job = conn.recv()
+        except EOFError:
+            return
+        if job is None:
+            return
+        slot, iteration, meta, table_dtype = job
+        try:
+            if startup_error is not None:
+                raise IOError(startup_error)
+            emb, ctx = (np.frombuffer(buf, dtype=np.float32).reshape(shape) for buf in slots[slot])
+            path = save_iteration(export_dir, dim, iteration, SGNSParams(emb, ctx), vocab,
+                                  txt_output=txt_output, meta=meta, table_dtype=table_dtype)
+            res = snap.verify_manifest(path[: -len(".npz")])
+            if not res:
+                raise IOError(f"checkpoint iteration {iteration} failed post-write "
+                              f"verification: {res.reason}")
+            conn.send((True, snap.manifest_bytes(res.manifest)))
+        except Exception as e:  # reported to the writer thread, which raises it
+            conn.send((False, f"{type(e).__name__}: {e}"))
 
 
 def load_iteration(

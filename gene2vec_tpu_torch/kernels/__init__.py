@@ -117,3 +117,14 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for mod in MODULES.values():
         mod.launches.update(dict.fromkeys(mod.launches, 0))
+
+
+def publish_launches(registry) -> None:
+    """This process's launches as ``kernel_launches_total{kernel=}``
+    counters of ``registry`` (a training run's ``metrics.prom``; the
+    server's ``/metrics`` uses the same name).  An entry point that
+    launched nothing — every one on the CPU — adds no line."""
+    for name, count in launch_counts().items():
+        if count:
+            registry.counter("kernel_launches_total", "CUDA kernel launches by this process",
+                             labels={"kernel": name}).inc(count)

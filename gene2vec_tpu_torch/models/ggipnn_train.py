@@ -26,8 +26,12 @@ ROC-AUC from the positive-class column (``scores[:, 1]``).
 ``run_classification(run_dir=)`` records the observed step loop's phase
 timeline (``timeline.jsonl``) and stamps the goodput block into the run's
 manifest.  :meth:`GGIPNNTrainer.profile_kernel` attributes one step as
-``ggipnn_step`` (``obs/profiler.py``; its count :func:`step_work`).  Not
-ported: preemption (A6b).
+``ggipnn_step`` (``obs/profiler.py``; its count :func:`step_work`).
+``preempt`` (a ``PreemptionHandler``) drains either fit: the step loop
+after the step in flight, forcing a checkpoint at that step when it is off
+the cadence; the scanned fit at the next epoch boundary.
+``run_classification`` then returns ``{"interrupted": True}`` with no
+test-set pass and stamps the run's manifest ``interrupted``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gene2vec_tpu_torch import kernels
 from gene2vec_tpu_torch.config import GGIPNNConfig
 from gene2vec_tpu_torch.device import resolve_device
 from gene2vec_tpu_torch.eval.metrics import roc_auc_score
@@ -241,20 +246,25 @@ class GGIPNNTrainer:
             x_valid: Optional[np.ndarray] = None, y_valid: Optional[np.ndarray] = None,
             log: Callable[[str], None] = print, run=None,
             draws: Optional[FitDraws] = None,
-            timeline: Optional[PhaseTimeline] = None) -> GGIPNN:
+            timeline: Optional[PhaseTimeline] = None, preempt=None) -> GGIPNN:
         """Train.  With ``run`` (a :class:`~gene2vec_tpu_torch.models.
         ggipnn_obs.GGIPNNRun`) the reference's observed step loop runs
         whatever ``scan_fit`` says: per-step train summaries with gradient
         sparsity, dev summaries every ``evaluate_every`` steps,
         checkpoints every ``checkpoint_every`` steps keeping 5.
         ``timeline`` records each step of the step loop in the phases
-        host_ingest / dispatch / compute; the caller flushes it."""
+        host_ingest / dispatch / compute; the caller flushes it.
+        ``preempt`` (a ``PreemptionHandler``) drains the loop: the step in
+        flight finishes, a checkpoint at that step is forced under ``run``
+        when the cadence's is behind it, and the partly trained model
+        returns."""
         tl = timeline if timeline is not None else PhaseTimeline(enabled=False)
         cfg = self.config
         if self.optimizer is None:
             self.init_state()
         if cfg.scan_fit and run is None:
-            return self._fit_scanned(x_train, y_train, x_valid, y_valid, log, draws)
+            return self._fit_scanned(x_train, y_train, x_valid, y_valid, log, draws,
+                                     preempt=preempt)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         stacked = np.concatenate([x_train, y_train], axis=1)
         nx = x_train.shape[1]
@@ -286,6 +296,13 @@ class GGIPNNTrainer:
                 log(msg)
             if run is not None and self._step % cfg.checkpoint_every == 0:
                 run.checkpoint(self._step, self.model)
+            if preempt is not None and preempt.triggered:
+                # drain: checkpoint this step (the cadence's may be hundreds
+                # of steps back) and stop
+                log(f"preemption requested; drained after step {self._step}")
+                if run is not None and self._step % cfg.checkpoint_every != 0:
+                    run.checkpoint(self._step, self.model)
+                break
         return self.model
 
     def fit_epoch(self, x, y, draws: Optional[FitDraws] = None,
@@ -334,10 +351,11 @@ class GGIPNNTrainer:
                 torch.stack(accs).mean())
 
     def _fit_scanned(self, x_train, y_train, x_valid, y_valid, log,
-                     draws: Optional[FitDraws]) -> GGIPNN:
+                     draws: Optional[FitDraws], preempt=None) -> GGIPNN:
         """The reference's scanned-epoch path, one :meth:`fit_epoch` an
         epoch: per-epoch dev evaluation instead of the
-        every-``evaluate_every`` cadence."""
+        every-``evaluate_every`` cadence; ``preempt`` is checked at each
+        epoch boundary."""
         cfg = self.config
         n = x_train.shape[0]
         bs = cfg.batch_size
@@ -350,6 +368,9 @@ class GGIPNNTrainer:
         order_gen = torch.Generator().manual_seed(cfg.seed + 1)
         mask_gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         for epoch in range(cfg.num_epochs):
+            if preempt is not None and preempt.triggered:
+                log(f"preemption requested; drained after epoch {epoch}")
+                break
             epoch_draws = None
             if draws is not None:
                 masks, orders = draws
@@ -405,12 +426,14 @@ class GGIPNNTrainer:
 def run_classification(data_dir: str, emb_path: Optional[str],
                        config: GGIPNNConfig = GGIPNNConfig(),
                        log: Callable[[str], None] = print, run_dir: Optional[str] = None,
-                       device=None) -> Dict[str, float]:
+                       device=None, preempt=None) -> Dict[str, float]:
     """End-to-end over a ``predictionData/``-shaped directory (train/valid/
     test ``_text.txt`` + ``_label.txt``): the reference's main flow.  With
     ``run_dir`` the run is observed at the reference cadence — the step
     loop, ``summaries/{train,dev}`` and ``checkpoints/model-<step>.npz``
-    keeping 5."""
+    keeping 5.  ``preempt`` (a ``PreemptionHandler``) drains the fit; the
+    result is then ``{"interrupted": True}`` with no test-set pass, and the
+    run's manifest is stamped ``interrupted``."""
     splits = {}
     for split in ("train", "valid", "test"):
         splits[split] = (read_lines(f"{data_dir}/{split}_text.txt"),
@@ -421,9 +444,15 @@ def run_classification(data_dir: str, emb_path: Optional[str],
            for s, (text, labels) in splits.items()}
     trainer = GGIPNNTrainer(config, vocab, device=device)
     trainer.init_state(pretrained_emb_path=emb_path)
+
+    def drained() -> bool:
+        return preempt is not None and preempt.triggered
+
     if run_dir is None:
-        trainer.fit(*enc["train"], *enc["valid"], log=log)
-        result = trainer.evaluate(*enc["test"])
+        trainer.fit(*enc["train"], *enc["valid"], log=log, preempt=preempt)
+        # the grace window is for draining, not for a test-set pass over a
+        # half-trained model
+        result = {"interrupted": True} if drained() else trainer.evaluate(*enc["test"])
     else:
         run = GGIPNNRun(run_dir, config=config)
         tl = PhaseTimeline()
@@ -431,21 +460,33 @@ def run_classification(data_dir: str, emb_path: Optional[str],
         wall_t0 = time.perf_counter()
         try:
             with run.obs.span("fit", train_examples=len(enc["train"][0])):
-                trainer.fit(*enc["train"], *enc["valid"], log=log, run=run, timeline=tl)
-            with run.obs.span("test_eval"):
-                result = trainer.evaluate(*enc["test"])
-            run.obs.event("test_result", **result)
-            run.obs.probe()
+                trainer.fit(*enc["train"], *enc["valid"], log=log, run=run, timeline=tl,
+                            preempt=preempt)
+            if drained():
+                result = {"interrupted": True}
+            else:
+                with run.obs.span("test_eval"):
+                    result = trainer.evaluate(*enc["test"])
+                run.obs.event("test_result", **result)
+                run.obs.probe()
         finally:
-            # the timeline and goodput are observability residue: they never
-            # mask the run's own exception
+            if drained():
+                run.obs.mark_interrupted("signal", signal=preempt.received)
+            # the timeline, goodput and launch counts are observability
+            # residue: they never mask the run's own exception
             with contextlib.suppress(Exception):
                 wall_s = time.perf_counter() - wall_t0
+                preempted_s = 0.0
+                if drained() and preempt.received_wall is not None:
+                    preempted_s = min(max(time.time() - preempt.received_wall, 0.0), wall_s)
                 tl.flush(os.path.join(run.out_dir, TIMELINE_NAME))
                 goodput.stamp(run.obs, goodput.summarize(
-                    tl.records(), wall_s, pairs_total=trainer._step * config.batch_size))
+                    tl.records(), wall_s, pairs_total=trainer._step * config.batch_size,
+                    preempted_s=preempted_s))
+                kernels.publish_launches(run.obs.registry)
             run.close()
-    log(f"test accuracy: {result['accuracy']:.4f}")
+    if "accuracy" in result:
+        log(f"test accuracy: {result['accuracy']:.4f}")
     if "auc" in result:
         log(f"The AUC score is {result['auc']:.6f}")
     return result

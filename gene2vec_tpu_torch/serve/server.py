@@ -26,9 +26,14 @@ pre-serialized bodies keyed by (model version, gene, k), and concurrent
 identical misses coalesce onto one batcher ticket.  Everything else runs
 :meth:`ServeApp.handle` on a bounded worker pool.
 
+Fault injection (``resilience/faults.py``) hooks the pool's dispatch
+behind an explicit opt-in (``ServeApp(fault_injector=)``, ``--faults`` /
+``GENE2VEC_TPU_FAULTS``): with an injector every request takes the pool,
+whose first act is the injector's decision — a delay, an error response,
+a TCP reset or a blackhole.  Without one no fault code runs.
+
 Not in this slice: the multi-model catalog, row shards (and cross-shard
-interaction scoring), batch jobs, fault injection, tenant quotas and the
-flight recorder.
+interaction scoring), batch jobs, tenant quotas and the flight recorder.
 """
 
 from __future__ import annotations
@@ -132,6 +137,7 @@ class ServeApp:
         config: ServeConfig = ServeConfig(),
         metrics: Optional[MetricsRegistry] = None,
         ggipnn_checkpoint: Optional[str] = None,
+        fault_injector=None,
     ):
         self.registry = registry
         self.config = config if config is not None else ServeConfig()
@@ -139,6 +145,11 @@ class ServeApp:
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if registry.metrics is None:
             registry.metrics = self.metrics
+        # a resilience/faults.py FaultInjector; None means no fault code
+        # runs at all (the production default)
+        self.faults = fault_injector
+        if self.faults is not None and self.faults.metrics is None:
+            self.faults.metrics = self.metrics
         if registry.loaded:
             # the registry publishes these on swap; backfill for a model
             # loaded before the metrics registry was attached
@@ -564,7 +575,10 @@ class ServeAdapter:
     # -- entry point (loop thread) ----------------------------------------
 
     def __call__(self, req: HTTPRequest, peer: ConnHandle) -> Optional[Response]:
-        if req.method == "GET" and req.target.startswith("/v1/similar?"):
+        # an injected fault is decided on the pool, so the fast path stands
+        # aside while an injector is set
+        if (req.method == "GET" and self.app.faults is None
+                and req.target.startswith("/v1/similar?")):
             out = self._similar_get_fast(req.target[len("/v1/similar?"):], peer)
             if out is not _SLOW_PATH:
                 return out
@@ -578,6 +592,8 @@ class ServeAdapter:
     def _run_full(self, req: HTTPRequest, peer: ConnHandle) -> None:
         app = self.app
         route = urlparse(req.target).path.rstrip("/") or "/"
+        if app.faults is not None and self._apply_fault(peer, route):
+            return
         if req.method == "GET" and route == "/metrics":
             app.publish_engine_metrics()
             peer.respond(Response(200, app.metrics.prometheus_text().encode("utf-8"),
@@ -596,6 +612,31 @@ class ServeAdapter:
                 return
         status, doc = app.handle(req.method, req.target, body)
         peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
+
+    def _apply_fault(self, peer: ConnHandle, route: str) -> bool:
+        """The reference's fault hook: True when the fault ended the
+        request.  Runs on a pool thread, so the delay and blackhole sleeps
+        never touch the event loop."""
+        decision = self.app.faults.decide(route)
+        if decision is None:
+            return False
+        if decision.delay_s:
+            time.sleep(decision.delay_s)
+        if decision.kind is None:
+            return False  # pure added latency; proceed normally
+        if decision.kind == "error":
+            peer.respond(Response(
+                int(decision.arg), b'{"error": "injected fault (resilience drill)"}',
+                close=True,
+            ))
+        elif decision.kind == "reset":
+            peer.reset()
+        elif decision.kind == "blackhole":
+            # hold the socket open and answer nothing; the client's read
+            # timeout is the only way out (bounded so pool threads drain)
+            time.sleep(decision.arg)
+            peer.close()
+        return True
 
     # -- the hot read path (loop thread; must never block) -----------------
 

@@ -28,8 +28,10 @@ run's records (manifest with goodput, events, metrics, training log,
 timeline) and ``donate=False`` leaves the caller's tables untouched;
 ``kernel_profile`` attributes the epoch step as ``cbow_hs_step`` (the
 reference's name for every objective here; :meth:`CBOWHSTrainer.profile_kernel`,
-its count :meth:`CBOWHSTrainer.epoch_work`).  Left out are preemption
-handling and the multi-device paths.
+its count :meth:`CBOWHSTrainer.epoch_work`).  ``run(preempt=)`` drains at
+the next iteration boundary and stamps the manifest ``interrupted`` as the
+SGNS trainer's does; its saves stay inline whatever ``async_checkpoint``
+says, as the reference's do.  Left out are the multi-device paths.
 """
 
 from __future__ import annotations
@@ -332,14 +334,16 @@ class CBOWHSTrainer:
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
         profile_dir: Optional[str] = None,
+        preempt=None,
     ) -> SGNSParams:
         """The reference iteration loop with its records
         (``train.observed_run``): resume from the newest verified iteration
         (refusing a checkpoint of another ``hs_dense_depth``: node-table
         row ids depend on the split), else init fresh; each iteration
-        trains one epoch, logs its row and exports with the ``objective``
-        and ``hs_dense_depth`` meta.  ``profile_dir`` traces the first
-        epoch trained."""
+        trains one epoch, logs its row and exports inline with the
+        ``objective`` and ``hs_dense_depth`` meta.  ``profile_dir`` traces
+        the first epoch trained; ``preempt`` (a ``PreemptionHandler``)
+        drains the loop at the next iteration boundary."""
         cfg = self.config
 
         def check_resume(meta):
@@ -356,7 +360,7 @@ class CBOWHSTrainer:
         return observed_run(
             self, export_dir, start_iter, log, name=cfg.objective,
             label=f"[{cfg.objective}] ", check_resume=check_resume,
-            kernel="cbow_hs_step", profile_dir=profile_dir,
+            kernel="cbow_hs_step", profile_dir=profile_dir, preempt=preempt,
             manifest_extra={
                 "num_pairs": self.corpus.num_pairs,
                 "vocab_size": self.corpus.vocab_size,

@@ -34,11 +34,25 @@ traces the first epoch it trains with ``torch.profiler``.  With
 untouched and returns updated copies (the reference's jit without buffer
 donation); the default updates them in place.
 
+Crash contract (the reference's ``train.py:513-771``): ``run(preempt=)``
+takes a :class:`~gene2vec_tpu_torch.resilience.preempt.PreemptionHandler`
+and drains at the next iteration boundary — the iteration in flight
+finishes, its checkpoint commits, the manifest is stamped
+``interrupted=true`` with ``completed_iteration`` and ``run`` returns.
+With ``SGNSConfig(async_checkpoint=True)`` each save stages a host copy
+of the tables on the training thread and hands the disk half (npz, text
+exports, manifest, its verification) to the background writer
+(``resilience/async_writer.py``), which runs it in a forked helper
+process (``io/checkpoint.py:SaveProcess``) so that it does not compete
+with the step loop for the interpreter lock.  Since an iteration's draws depend only
+on (seed, iteration) and the tables load back exactly, a drained or
+killed run, rerun, ends on the uninterrupted run's tables (bitwise on the
+CPU; on the card K4's float atomics order the sums differently each run).
+
 :func:`train_epochs` is the quality tooling's loop (fresh init, one epoch
 an iteration), :func:`make_train_epoch` the epoch function a trainer runs.
 
-Left out (see ROADMAP.md): the background checkpoint writer, preemption
-handling and the multi-device paths.
+Left out (see ROADMAP.md): the multi-device paths.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gene2vec_tpu_torch import kernels
 from gene2vec_tpu_torch.config import SGNSConfig
 from gene2vec_tpu_torch.data.negative_sampling import (
     build_alias_table,
@@ -75,6 +90,7 @@ from gene2vec_tpu_torch.obs import goodput
 from gene2vec_tpu_torch.obs.profiler import add_work
 from gene2vec_tpu_torch.obs.run import Run
 from gene2vec_tpu_torch.obs.timeline import TIMELINE_NAME, PhaseTimeline
+from gene2vec_tpu_torch.resilience.async_writer import AsyncCheckpointWriter
 from gene2vec_tpu_torch.sgns.model import SGNSParams, init_params
 from gene2vec_tpu_torch.sgns.step import (
     num_tail_groups,
@@ -396,15 +412,21 @@ class SGNSTrainer:
         start_iter: Optional[int] = None,
         log: Callable[[str], None] = print,
         profile_dir: Optional[str] = None,
+        preempt=None,
     ) -> SGNSParams:
         """The reference iteration loop (:func:`observed_run`): resume from
         the newest verified iteration if present, else init fresh; each
-        iteration reshuffles, trains one epoch, logs its row and exports.
+        iteration reshuffles, trains one epoch, logs its row and exports
+        (on the background writer with ``config.async_checkpoint``).
         ``profile_dir`` traces the first epoch trained (``torch.profiler``,
-        a Chrome trace in that directory)."""
+        a Chrome trace in that directory).  ``preempt`` (a
+        ``PreemptionHandler``) drains the loop at the next iteration
+        boundary; the caller maps ``preempt.triggered`` to
+        ``EXIT_PREEMPTED``."""
         return observed_run(
             self, export_dir, start_iter, log, name="sgns", log_start=True,
             kernel="sgns_train_step", profile_dir=profile_dir,
+            preempt=preempt, async_checkpoint=self.config.async_checkpoint,
             manifest_extra={
                 "num_pairs": self.global_num_pairs,
                 "vocab_size": self.corpus.vocab_size,
@@ -547,7 +569,8 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
                  log_start: bool = False, label: str = "", meta_extra=None,
                  check_resume: Optional[Callable[[dict], None]] = None,
                  kernel: str = "sgns_train_step",
-                 profile_dir: Optional[str] = None) -> SGNSParams:
+                 profile_dir: Optional[str] = None, preempt=None,
+                 async_checkpoint: bool = False) -> SGNSParams:
     """The reference's ``run`` loop for either trainer, observed as the
     reference observes it (sgns/train.py:605-773, cbow_hs.py:442-580): a
     :class:`Run` in the export dir (``manifest.json``, ``events.jsonl``,
@@ -556,9 +579,22 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
     phase timeline, and the goodput block stamped at the end.  Resumes
     from the newest verified iteration (``check_resume`` sees its meta),
     else inits fresh; each checkpoint's meta carries ``config_hash``, the
-    device, the draws' lineage and ``meta_extra``.  Only the timeline
-    flush and the goodput stamp are guarded, so that they never mask the
-    loop's own exception.
+    device, the draws' lineage and ``meta_extra``.  The timeline flush,
+    the goodput stamp and the launch counts are guarded, so that they
+    never mask the loop's own exception.
+
+    ``preempt`` (a ``PreemptionHandler``) drains the loop: a signal that
+    landed between iterations stops it before the next one; otherwise the
+    iteration in flight finishes and commits its checkpoint, then the
+    loop stops.  Either way the manifest is stamped ``interrupted`` with
+    ``completed_iteration`` and goodput's ``preempted`` bucket holds the
+    time since the signal.  ``async_checkpoint`` hands each save's disk
+    half to an :class:`~gene2vec_tpu_torch.resilience.async_writer.
+    AsyncCheckpointWriter` and its ``SaveProcess`` helper
+    (:func:`checkpoint_iteration`); both are closed before the run is,
+    and the writer's error surfaces unless the loop itself raised.  On the card, the kernels' launches by this process
+    land in ``metrics.prom`` as ``kernel_launches_total{kernel=}``, the
+    serving ``/metrics`` name.
 
     With ``kernel_profile`` set (the reference's train.py:633-644, 669-675,
     698-699, 762-771): a :class:`~gene2vec_tpu_torch.obs.profiler.KernelProfiler` in
@@ -571,6 +607,13 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
     cfg = trainer.config
     run = Run(export_dir, name=name, config=cfg, manifest_extra=manifest_extra)
     run.registry.attach_csv(os.path.join(export_dir, "training_log.csv"))
+    writer = saver = None
+    if async_checkpoint:
+        # the helper forks before the writer's thread starts
+        saver = ckpt.SaveProcess(export_dir, cfg.dim, trainer.corpus.vocab_size,
+                                 trainer.corpus.vocab, txt_output=cfg.txt_output,
+                                 device=trainer.device)
+        writer = AsyncCheckpointWriter(metrics=run.registry)
     tl = PhaseTimeline(enabled=cfg.timeline)
     kp = None
     if cfg.kernel_profile:
@@ -580,6 +623,7 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
     wall_t0 = time.perf_counter()
     pairs_done = 0.0
     best_rate = 0.0
+    completed = None
     # everything after the Run's construction runs under its finally, so a
     # failed resume still closes the run
     try:
@@ -594,6 +638,7 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
                 if check_resume is not None:
                     check_resume(saved)
             log(f"resuming from iteration {start_iter - 1}")
+            completed = start_iter - 1
         else:
             with run.span("init_params"):
                 params = trainer.init()
@@ -604,6 +649,8 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
         pairs_per_epoch = trainer.num_batches * cfg.batch_pairs
         pairs_counter = run.registry.counter("pairs_total")
         for it in range(start_iter, cfg.num_iters + 1):
+            if preempt is not None and preempt.triggered:
+                break  # the signal landed between iterations
             if log_start:
                 log(f"gene2vec {label}dimension {cfg.dim} iteration {it} start")
             t0 = time.perf_counter()
@@ -627,36 +674,85 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
             )
             run.log_row(it, {"loss": loss, "pairs_per_sec": rate, "seconds": dt})
             run.probe()
-            with run.span("checkpoint", iteration=it, mode="sync"):
+            with run.span("checkpoint", iteration=it,
+                          mode="async" if writer is not None else "sync"):
                 with tl.phase("ckpt_stage", step=it):
-                    ckpt.save_iteration(
-                        export_dir, cfg.dim, it, params, trainer.corpus.vocab,
-                        txt_output=cfg.txt_output,
-                        meta={
-                            "loss": loss,
-                            "pairs_per_sec": rate,
-                            "config_hash": run.manifest.get("config_hash"),
-                            **(meta_extra or {}),
-                            "device": str(trainer.device),
-                            "rng": {"seed": cfg.seed, "epoch_generator":
-                                    f"SeedSequence([{cfg.seed}, iteration])"},
-                        },
+                    checkpoint_iteration(
+                        writer, saver, export_dir, cfg, it, params, trainer.corpus.vocab,
+                        _ckpt_meta(run, trainer, loss, rate, meta_extra),
                     )
+            completed = it
+            if preempt is not None and preempt.triggered:
+                # the iteration and its checkpoint are committed (or
+                # staged on the writer, which close() drains): stop here
+                log(f"preemption requested (signal {preempt.received}); "
+                    f"drained after iteration {it}")
+                break
+        if writer is not None:
+            writer.close()  # surfaces a background write's error
     finally:
-        # the timeline and goodput are observability residue: they never
-        # mask the loop's own exception
+        if writer is not None:
+            # the error path still drains staged writes (the last committed
+            # checkpoint is the resume point) but never masks the exception
+            with contextlib.suppress(Exception):
+                writer.close()
+            saver.close()
+        if preempt is not None and preempt.triggered:
+            run.mark_interrupted("signal", signal=preempt.received,
+                                 completed_iteration=completed)
+        # the timeline, goodput and launch counts are observability
+        # residue: they never mask the loop's own exception
         with contextlib.suppress(Exception):
             wall_s = time.perf_counter() - wall_t0
+            preempted_s = 0.0
+            if (preempt is not None and preempt.triggered
+                    and preempt.received_wall is not None):
+                preempted_s = min(max(time.time() - preempt.received_wall, 0.0), wall_s)
             tl.flush(os.path.join(run.run_dir, TIMELINE_NAME))
             if kp is not None:
                 kp.flush()
             goodput.stamp(run, goodput.summarize(
                 tl.records(), wall_s, pairs_total=pairs_done,
-                peak_pairs_per_sec=best_rate or None,
+                peak_pairs_per_sec=best_rate or None, preempted_s=preempted_s,
                 kernel_seconds=kp.attributed_seconds() if kp is not None else None,
             ))
+            kernels.publish_launches(run.registry)
         run.close()
     return params
+
+
+def _ckpt_meta(run, trainer, loss: float, rate: float, meta_extra) -> dict:
+    cfg = trainer.config
+    return {
+        "loss": loss,
+        "pairs_per_sec": rate,
+        "config_hash": run.manifest.get("config_hash"),
+        **(meta_extra or {}),
+        "device": str(trainer.device),
+        # the draws' lineage and cursor: iteration N draws from
+        # epoch_generator(seed, N) over a corpus preshuffled by seed, so
+        # (seed, iteration) is the whole data/RNG cursor — a resumed run
+        # replays the stream an uninterrupted one would
+        "rng": {"seed": cfg.seed,
+                "epoch_generator": f"SeedSequence([{cfg.seed}, iteration])"},
+    }
+
+
+def checkpoint_iteration(writer, saver, export_dir: str, cfg: SGNSConfig, it: int,
+                         params: SGNSParams, vocab, meta: dict) -> None:
+    """Commit iteration ``it`` (the reference's ``_checkpoint``): inline
+    when ``writer`` is None; else stage host copies of the tables here, into
+    a slot of ``saver`` (an ``io.checkpoint.SaveProcess``), and hand the
+    disk half — ``save_iteration``, the manifest's verification and its
+    byte count, run by the saver's helper process — to the background
+    writer.  The staged slot is a copy: the next epoch updates the tables
+    in place."""
+    if writer is None:
+        ckpt.save_iteration(export_dir, cfg.dim, it, params, vocab,
+                            txt_output=cfg.txt_output, meta=meta)
+        return
+    slot = saver.stage(params)
+    writer.submit(lambda: saver.save(slot, it, meta, cfg.table_dtype), iteration=it)
 
 
 def own_tables(params: SGNSParams, config: SGNSConfig) -> SGNSParams:

@@ -256,10 +256,11 @@ def test_package_turns_tf32_off():
 
 #: options the port now trains (objectives, noise modes and their knobs;
 #: bfloat16 tables and their write-back rounding; the phase timeline off;
-#: epochs that leave the caller's tables untouched)
+#: epochs that leave the caller's tables untouched; the background
+#: checkpoint writer)
 PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
                   "shared_pool_auto", "table_dtype", "bf16_stochastic_round",
-                  "timeline", "donate", "kernel_profile"}
+                  "timeline", "donate", "kernel_profile", "async_checkpoint"}
 
 
 @pytest.mark.parametrize("field,value", [
@@ -273,8 +274,9 @@ PORTED_OPTIONS = {"objective", "negative_mode", "hs_dense_depth", "shared_pool",
 def test_config_rejects_unported_options(field, value):
     """Options selecting code the port lacks raise (bf16 arithmetic inside
     the step among them); the objectives, noise modes, their knobs,
-    bfloat16 tables, ``timeline=False``, ``donate=False`` and
-    ``kernel_profile``, ported since, are accepted as given."""
+    bfloat16 tables, ``timeline=False``, ``donate=False``,
+    ``kernel_profile`` and ``async_checkpoint``, ported since, are
+    accepted as given."""
     from gene2vec_tpu_torch.config import SGNSConfig
 
     if field in PORTED_OPTIONS:
