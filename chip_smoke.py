@@ -13,6 +13,7 @@
                                      # K15, K16 and cli.plot alone
     python3 chip_smoke.py --resilience
                                      # the build, then phase 8 alone
+    python3 chip_smoke.py --fleet    # the build, then phase 9 alone
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -227,6 +228,26 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    launches come from their ``metrics.prom`` (``kernel_launches_total``)
    and the server's ``/metrics``; each of K1-K4, K6, ``row_gather`` and K7
    must have launched (``{"resilience": ...}`` line).
+9. the serving fleet (run right after phase 8) — ``cli.fleet`` over a
+   clustered full-width export (``write_clustered_export``, 24,447 × 200)
+   with 3 replicas of ``cli.serve`` on the card, in two drills modelled on
+   ``scripts/chaos_drill.py``.  (a) The fleet drill: replica 1 injects
+   latency, 503s, resets and blackholes; FLEET_LOAD_S of closed-loop load
+   from 4 workers through the port's ``ResilientClient``, replica 0
+   SIGKILLed a third of the way in; gated at ``fleet.chaos``'s numbers
+   (availability >= 0.99, no wrong answer — ids the host oracle's except
+   near-ties, scores within SCORE_TOL — none mixing iterations, retry
+   amplification <= 1.5), the supervisor's restart, ``/metrics/fleet``'s
+   growth equal to the live replicas' own ``serve_requests_total`` and a
+   trace reassembled from ``proxy_request`` through two or more
+   ``client_attempt`` spans down to ``engine_topk``.  (b) The alerts drill:
+   the default rules at a 0.25 s scrape, a clean warmup firing nothing, a
+   byzantine replica (404s and latency) firing the availability burn-rate
+   rule within 20 s, and the incident bundle verifying through ``python -m
+   gene2vec_tpu_torch.cli.obs incident`` with a trace through the faulty
+   replica's pid.  K7's launches are read from each live replica's
+   ``kernel_launches_total`` before shutdown (a SIGKILLed replica's count
+   is lost with it); one ``{"fleet": ...}`` line.
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -237,7 +258,8 @@ K7-K9r, phase 6's CLI runs and interaction server and phase 4b's
 ``fit_epoch`` for ``row_gather``,
 phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
 K10c and K10 and its ``cli.plot`` run for K15 and K16, and beside those
-phase 8's for K1-K4, K6, K4's generic entry points, ``row_gather`` and K7;
+phase 8's for K1-K4, K6, K4's generic entry points, ``row_gather`` and K7,
+and phase 9's live replicas' for K7;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -5555,6 +5577,432 @@ def resilience(torch, smi: str) -> tuple:
     return rec, launches
 
 
+# -- phase 9: the serving fleet ------------------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_WORKERS = 4
+FLEET_LOAD_S = 8.0           # the fleet drill's closed-loop load
+FLEET_SEED = 9
+FLEET_GENES = 64             # the drills' query genes (the oracle's keyspace)
+FLEET_K = 10
+FLEET_SUM_REQUESTS = 40      # sent between the two readings of the sums check
+ALERTS_WARMUP_S = 6.0
+#: ``fleet.chaos`` and ``alerts.detection`` of gene2vec_tpu/analysis/budgets.json, copied
+FLEET_CHAOS = {"replicas": 3, "min_availability": 0.99, "max_retry_amplification": 1.5,
+               "max_mixed_iteration_answers": 0, "max_wrong_answers": 0}
+ALERTS_DETECTION = {"replicas": 3, "scrape_interval_s": 0.25, "proxy_attempts": 3,
+                    "max_detection_latency_s": 20.0, "max_false_positives": 0}
+ALERT_RULE = "availability-burn"
+TRACE_HOPS = {"proxy_request", "client_attempt", "serve_request", "batch_item", "engine_topk"}
+
+
+def start_fleet(export: str, err_path: str, extra=()):
+    """``cli/fleet.py`` with FLEET_REPLICAS replicas of ``cli/serve.py``, all
+    on the card (``extra``: more flags); returns (process, its stdout
+    contract line)."""
+    from gene2vec_tpu_torch.serve.fleet import read_contract_line
+
+    argv = [sys.executable, "-m", "gene2vec_tpu_torch.cli.fleet", "--export-dir", export,
+            "--replicas", str(FLEET_REPLICAS), "--port", "0", "--health-interval", "0.25",
+            "--backoff-base", "0.3", "--proxy-timeout-ms", "4000", "--seed", str(FLEET_SEED),
+            "--serve-arg=--cache-size", "--serve-arg=0", "--serve-arg=--poll-interval",
+            "--serve-arg=3600", *extra]
+    err = open(err_path, "w")
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT,
+                            env=dict(os.environ, **res_env()))
+    err.close()
+    try:
+        return proc, read_contract_line(proc, 300.0)
+    except Exception as e:
+        stop_server(proc)
+        with open(err_path) as f:
+            raise SystemExit(f"fleet did not start ({e!r}):\n{f.read()[-4000:]}")
+
+
+def http_json(url: str, body=None, timeout: float = 15.0):
+    """(status, document) of one GET, or POST of ``body``."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            raw = r.read()
+            status = r.status
+    except urllib.error.HTTPError as e:
+        raw, status = e.read(), e.code
+    return status, raw
+
+
+def fleet_oracle(emb) -> dict:
+    """{gene: (its exact cosines, self excluded; the top FLEET_K rows)} for
+    FLEET_GENES seeded genes of the clustered table, on the host."""
+    from gene2vec_tpu_torch.serve.registry import l2_normalize
+
+    unit = l2_normalize(emb)
+    out = {}
+    for row in np.random.RandomState(FLEET_SEED).choice(len(unit), FLEET_GENES, replace=False):
+        s = unit @ unit[row]
+        s[row] = -np.inf
+        out[f"G{row}"] = (s, np.argsort(-s, kind="stable")[:FLEET_K])
+    return out
+
+
+def fleet_verdict(oracle, gene, doc) -> tuple:
+    """("ok" | "wrong" | "mixed", near-ties) of one answer: the iteration
+    served must be the export's one; ids those of the exact oracle except
+    near-ties (cosines within SCORE_TOL), every score within SCORE_TOL."""
+    if doc["model"]["iteration"] != 1:
+        return "mixed", 0
+    s, top = oracle[gene]
+    nbrs = doc["results"][0]["neighbors"]
+    if len(nbrs) != FLEET_K:
+        return "wrong", 0
+    ties = 0
+    for p, n in enumerate(nbrs):
+        row = int(n["gene"][1:])
+        if abs(n["score"] - s[row]) > SCORE_TOL:
+            return "wrong", ties
+        if row != top[p]:
+            if abs(s[row] - s[top[p]]) > SCORE_TOL:
+                return "wrong", ties
+            ties += 1
+    return "ok", ties
+
+
+def fleet_load(client, oracle, seconds, route="/v1/similar", kill=None, pace=0.0,
+               halt=None) -> dict:
+    """FLEET_WORKERS closed-loop workers through ``client`` for ``seconds``
+    or until ``halt`` (an Event) is set (``kill``: a pid SIGKILLed a third
+    of the way in).  Returns the counts, the trace log [(monotonic, trace
+    id, ok)] and the kill's time."""
+    import signal
+    import threading
+
+    genes = sorted(oracle)
+    counts = {"ok": 0, "failed": 0, "wrong": 0, "mixed": 0, "attempts": 0, "retries": 0,
+              "ties": 0}
+    log_, lock = [], threading.Lock()
+    stop_at = time.monotonic() + seconds
+
+    def worker(w):
+        rng = np.random.RandomState(FLEET_SEED + w)
+        while time.monotonic() < stop_at and not (halt and halt.is_set()):
+            g = genes[rng.randint(len(genes))]
+            body = {"genes": [g], "k": FLEET_K} if route == "/v1/similar" else {"genes": [g]}
+            r = client.request(route, body, timeout_s=6.0)
+            verdict, ties = ("failed", 0) if not r.ok else (
+                fleet_verdict(oracle, g, r.doc) if route == "/v1/similar" else ("ok", 0))
+            with lock:
+                counts["attempts"] += r.attempts
+                counts["retries"] += r.retries
+                counts[verdict] += 1
+                counts["ties"] += ties
+                log_.append((time.monotonic(), r.trace_id, r.ok))
+            if pace:
+                time.sleep(pace)
+
+    threads = [threading.Thread(target=worker, args=(w,)) for w in range(FLEET_WORKERS)]
+    for t in threads:
+        t.start()
+    t_kill = None
+    if kill is not None:
+        time.sleep(seconds / 3.0)
+        os.kill(kill, signal.SIGKILL)
+        t_kill = time.monotonic()
+        log(f"fleet: SIGKILL replica 0 (pid {kill}) mid-load")
+    for t in threads:
+        t.join()
+    return {"counts": counts, "log": log_, "t_kill": t_kill}
+
+
+def trace_facts(doc) -> tuple:
+    """(hop names, client_attempt count, pids) of a reassembled trace."""
+    names, pids, attempts = set(), set(doc.get("processes") or []), [0]
+
+    def walk(node):
+        names.add(node.get("name"))
+        attempts[0] += node.get("name") == "client_attempt"
+        if node.get("pid"):
+            pids.add(node["pid"])
+        for sub in node.get("process_spans", []) + node.get("children", []):
+            walk(sub)
+
+    for root in doc.get("roots", []):
+        walk(root)
+    pids |= {r["pid"] for r in doc.get("flight", []) if r.get("pid")}
+    return names, attempts[0], pids
+
+
+def fleet_trace(export: str, run_dir: str, trace_log, t_kill) -> dict:
+    """One answered request's trace reassembled across the fleet's processes
+    down to the engine, with at least two client attempts (a retry or a
+    failover): the candidates are the traces whose ``client_attempt``
+    records in the front door's ``events.jsonl`` number two or more, the
+    requests after the SIGKILL first; ``cli.obs trace`` renders it."""
+    from gene2vec_tpu_torch.obs import flight
+    from gene2vec_tpu_torch.obs.trace import read_events
+
+    time.sleep(1.0)  # the last appends land
+    attempts = {}
+    for e in read_events(os.path.join(run_dir, "events.jsonl")):
+        if e.get("name") == "client_attempt" and e.get("trace"):
+            attempts[e["trace"]] = attempts.get(e["trace"], 0) + 1
+    ok = [(ts >= t_kill, tid) for ts, tid, good in trace_log if good and tid]
+    candidates = [tid for after, tid in sorted(ok, key=lambda x: not x[0])
+                  if attempts.get(tid, 0) >= 2][:20]
+    for tid in candidates:
+        names, n_attempts, pids = trace_facts(flight.collect_trace(export, tid))
+        if TRACE_HOPS <= names and n_attempts >= 2:
+            rc, text, _ = obs_cli(["trace", export, tid])
+            if rc != 0 or not all(h in text for h in TRACE_HOPS):
+                raise SystemExit(f"fleet: cli.obs trace {tid}: exit {rc}:\n{text[-2000:]}")
+            return {"trace_id": tid, "client_attempts": n_attempts, "processes": len(pids),
+                    "hops": sorted(n for n in names if n), "candidates": len(candidates)}
+    raise SystemExit(f"fleet: no answered request reassembled into {sorted(TRACE_HOPS)} with "
+                     f">= 2 client attempts ({len(candidates)} candidates)")
+
+
+def fleet_view(url: str) -> dict:
+    """``/metrics/fleet`` once it holds still: two readings a scrape tick
+    and more apart with the same ``fleet_requests``."""
+    last = None
+    for _ in range(40):
+        status, raw = http_json(url + "/metrics/fleet")
+        if status != 200:
+            raise SystemExit(f"fleet: /metrics/fleet answered {status}")
+        view = parse_prometheus(raw.decode())
+        if last is not None and view.get("fleet_requests") == last.get("fleet_requests"):
+            return view
+        last = view
+        time.sleep(1.0)
+    raise SystemExit("fleet: /metrics/fleet never held still")
+
+
+def replica_requests(urls) -> dict:
+    return {u: parse_prometheus(http_json(u + "/metrics")[1].decode()).get(
+        "serve_requests_total", 0.0) for u in urls}
+
+
+def fleet_sums(url: str, client, oracle) -> dict:
+    """``/metrics/fleet`` against the live replicas' own counters: the
+    growth of ``fleet_requests`` over FLEET_SUM_REQUESTS requests equals the
+    growth of the replicas' ``serve_requests_total`` summed (the
+    aggregator keeps a killed replica's history, so the check is on the
+    growth), and the answers are right."""
+    status, raw = http_json(url + "/healthz")
+    live = [r["url"] for r in json.loads(raw)["replicas"] if r["state"] == "up"]
+    v0, r0 = fleet_view(url), replica_requests(live)
+    genes = sorted(oracle)
+    for i in range(FLEET_SUM_REQUESTS):
+        g = genes[i % len(genes)]
+        r = client.request("/v1/similar", {"genes": [g], "k": FLEET_K}, timeout_s=6.0)
+        if not r.ok or fleet_verdict(oracle, g, r.doc)[0] != "ok":
+            raise SystemExit(f"fleet sums: {g} answered {r.status} {r.error_class}")
+    v1, r1 = fleet_view(url), replica_requests(live)
+    fleet_delta = v1["fleet_requests"] - v0["fleet_requests"]
+    replica_delta = sum(r1[u] - r0[u] for u in live)
+    rec = {"live_replicas": len(live), "fleet_requests_delta": fleet_delta,
+           "replica_requests_delta": replica_delta,
+           "fleet_requests": v1["fleet_requests"], "replica_requests": sum(r1.values())}
+    if len(live) != FLEET_REPLICAS or fleet_delta != replica_delta or fleet_delta < \
+            FLEET_SUM_REQUESTS:
+        raise SystemExit(f"fleet: /metrics/fleet sums against the replicas: {rec}")
+    return rec
+
+
+def live_k7(url: str) -> tuple:
+    """(K7 launches summed over the live replicas' ``kernel_launches_total``,
+    their count)."""
+    status, raw = http_json(url + "/healthz")
+    live = [r["url"] for r in json.loads(raw)["replicas"] if r["state"] == "up"]
+    return sum(scrape_launches(u).get("topk_exact", 0) for u in live), len(live)
+
+
+def fleet_drill(export: str, oracle, work: str) -> dict:
+    """Phase 9a (``scripts/chaos_drill.py:drill_fleet``): 3 replicas, replica
+    1 injecting latency, 503s, resets and blackholes; FLEET_LOAD_S of
+    closed-loop load through the port's ``ResilientClient`` with replica 0
+    SIGKILLed a third of the way in; the gates of ``fleet.chaos``, the
+    restart, the sums and the cross-process trace."""
+    from gene2vec_tpu_torch.resilience.faults import FaultSpec
+    from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
+
+    faults = FaultSpec(seed=FLEET_SEED, latency_p=0.25, latency_ms=80.0, error_p=0.15,
+                       error_status=503, reset_p=0.05, blackhole_p=0.03, blackhole_hold_s=1.5)
+    t0 = time.perf_counter()
+    proc, info = start_fleet(export, os.path.join(work, "fleet_drill.err"), (
+        "--scrape-interval", "0.5", "--replica-arg", "1:--faults",
+        "--replica-arg", f"1:{faults.to_json()}"))
+    rec = {"startup_s": time.perf_counter() - t0, "faults": json.loads(faults.to_json())}
+    url = info["url"]
+    try:
+        client = ResilientClient([url], RetryPolicy(max_attempts=3, default_timeout_s=6.0,
+                                                    read_timeout_s=6.0, trace_sample=1.0))
+        run = fleet_load(client, oracle, FLEET_LOAD_S, kill=info["replica_pids"][0])
+        c = run["counts"]
+        total = c["ok"] + c["failed"] + c["wrong"] + c["mixed"]
+        prom = parse_prometheus(http_json(url + "/metrics")[1].decode())
+        proxy_extra = prom.get("fleet_client_retries_total", 0) + prom.get(
+            "fleet_client_hedges_total", 0)
+        rec.update(requests=total, **c, availability=c["ok"] / max(total, 1),
+                   retry_amplification=(c["attempts"] + proxy_extra) / max(total, 1),
+                   proxy_retries=prom.get("fleet_client_retries_total", 0))
+        rec["trace"] = fleet_trace(export, info["run_dir"], run["log"], run["t_kill"])
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            health = json.loads(http_json(url + "/healthz")[1])
+            restarts = sum(r["restarts"] for r in health["replicas"])
+            if restarts and health["replicas_up"] == FLEET_REPLICAS:
+                break
+            time.sleep(0.5)
+        rec["replica_restarts"] = restarts
+        rec["restart_s"] = time.monotonic() - run["t_kill"]
+        if restarts:
+            rec["sums"] = fleet_sums(url, client, oracle)
+        rec["topk_exact_launches"], rec["replicas_read"] = live_k7(url)
+    finally:
+        stop_server(proc)
+    rec["seconds"] = time.perf_counter() - t0
+    gates = {"availability": rec["availability"] >= FLEET_CHAOS["min_availability"],
+             "wrong": rec["wrong"] <= FLEET_CHAOS["max_wrong_answers"],
+             "mixed": rec["mixed"] <= FLEET_CHAOS["max_mixed_iteration_answers"],
+             "amplification": rec["retry_amplification"]
+             <= FLEET_CHAOS["max_retry_amplification"],
+             "restart": rec["replica_restarts"] >= 1, "sums": "sums" in rec,
+             "requests": total >= FLEET_WORKERS * FLEET_LOAD_S}
+    rec["gates"] = gates
+    log(f"fleet drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"fleet drill: gates {gates}: {rec}")
+    return rec
+
+
+def alerts_drill(export: str, oracle, work: str) -> dict:
+    """Phase 9b (``scripts/chaos_drill.py:drill_alerts``): the default rules
+    at a 0.25 s scrape; a clean warmup on ``/v1/embedding`` fires nothing;
+    a byzantine replica 1 (404s and latency on ``/v1/similar``) fires the
+    availability burn-rate rule within the budget; the incident bundle
+    verifies through ``python -m gene2vec_tpu_torch.cli.obs incident`` and
+    holds a reassembled trace through the faulty replica's pid."""
+    import glob
+    import threading
+
+    from gene2vec_tpu_torch.obs.alerts import collect_transitions
+    from gene2vec_tpu_torch.resilience.faults import FaultSpec
+    from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
+
+    faults = FaultSpec(seed=FLEET_SEED, route_prefix="/v1/similar", latency_p=0.5,
+                       latency_ms=180.0, error_p=0.5, error_status=404)
+    t0 = time.perf_counter()
+    proc, info = start_fleet(export, os.path.join(work, "alerts_drill.err"), (
+        "--scrape-interval", str(ALERTS_DETECTION["scrape_interval_s"]),
+        "--alert-rules", "default", "--proxy-attempts", str(ALERTS_DETECTION["proxy_attempts"]),
+        "--replica-arg", "1:--faults", "--replica-arg", f"1:{faults.to_json()}"))
+    rec = {"startup_s": time.perf_counter() - t0, "faults": json.loads(faults.to_json())}
+    url, run_dir, faulty = info["url"], info["run_dir"], info["replica_pids"][1]
+
+    def firings():
+        return [r for r in collect_transitions(run_dir) if r.get("to") == "firing"]
+
+    try:
+        client = ResilientClient([url], RetryPolicy(max_attempts=1, default_timeout_s=6.0,
+                                                    read_timeout_s=6.0, trace_sample=1.0))
+        gene = sorted(oracle)[0]
+        for replica_url in info["replica_urls"]:  # each replica's first batch, off the books
+            for _ in range(12):
+                if http_json(replica_url + "/v1/similar", {"genes": [gene], "k": FLEET_K})[0] \
+                        == 200:
+                    break
+        warm = fleet_load(client, oracle, ALERTS_WARMUP_S, route="/v1/embedding", pace=0.02)
+        time.sleep(max(3 * ALERTS_DETECTION["scrape_interval_s"], 1.0))
+        rec["warmup_requests"] = sum(warm["counts"][k] for k in ("ok", "failed"))
+        rec["warmup_false_positives"] = len(firings())
+        t_fault = time.time()
+        holder, halt = {}, threading.Event()
+        load = threading.Thread(target=lambda: holder.update(fleet_load(
+            client, oracle, ALERTS_DETECTION["max_detection_latency_s"] + 5.0, halt=halt)))
+        load.start()
+        fired = None
+        deadline = time.monotonic() + ALERTS_DETECTION["max_detection_latency_s"] + 5.0
+        while fired is None and time.monotonic() < deadline:
+            fired = next((r for r in firings() if r["rule"] == ALERT_RULE
+                          and r.get("wall", 0.0) >= t_fault), None)
+            time.sleep(0.2)
+        time.sleep(2.0)  # more load, so the bundle's rings and trace window fill
+        halt.set()
+        load.join()
+        rec["fault_requests"] = sum(holder["counts"][k] for k in ("ok", "failed", "wrong",
+                                                                   "mixed"))
+        rec["detection_latency_s"] = fired["wall"] - t_fault if fired else None
+        rec["fired_rules"] = sorted({r["rule"] for r in firings()})
+        bundle = None
+        deadline = time.monotonic() + 45.0
+        while bundle is None and time.monotonic() < deadline:
+            found = sorted(os.path.dirname(m) for m in glob.glob(os.path.join(
+                run_dir, "incidents", f"*_{ALERT_RULE}", "incident.MANIFEST.json")))
+            bundle = found[0] if found else None
+            time.sleep(0.5)
+        rec["topk_exact_launches"], rec["replicas_read"] = live_k7(url)
+    finally:
+        stop_server(proc)
+    if bundle is None:
+        raise SystemExit(f"alerts drill: no {ALERT_RULE} incident bundle: {rec}")
+    cli = subprocess.run([sys.executable, "-m", "gene2vec_tpu_torch.cli.obs", "incident", bundle],
+                         capture_output=True, text=True, timeout=120, cwd=ROOT,
+                         env=dict(os.environ, **res_env()))
+    traces = {}
+    for path in sorted(glob.glob(os.path.join(bundle, "trace-*.json"))):
+        with open(path) as f:
+            traces[os.path.basename(path)] = trace_facts(json.load(f))[2]
+    dumps = glob.glob(os.path.join(bundle, "flightdump-*.json"))
+    rec.update(bundle=os.path.relpath(bundle, export), bundle_verified=cli.returncode == 0
+               and "VERIFIED" in cli.stdout, bundle_traces=len(traces),
+               traces_through_faulty=sum(faulty in p for p in traces.values()),
+               flight_dumps=len(dumps),
+               metrics_window=os.path.exists(os.path.join(bundle, "metrics_window.json")),
+               seconds=time.perf_counter() - t0)
+    latency = rec["detection_latency_s"]
+    gates = {"false_positives": rec["warmup_false_positives"]
+             <= ALERTS_DETECTION["max_false_positives"],
+             "detection": latency is not None
+             and latency <= ALERTS_DETECTION["max_detection_latency_s"],
+             "bundle_verified": rec["bundle_verified"],
+             "trace_through_faulty": rec["traces_through_faulty"] >= 1,
+             "flight_dumps": rec["flight_dumps"] >= FLEET_REPLICAS + 1,
+             "metrics_window": rec["metrics_window"]}
+    rec["gates"] = gates
+    log(f"alerts drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"alerts drill: gates {gates}: {rec}\n{cli.stdout[-2000:]}"
+                         f"{cli.stderr[-2000:]}")
+    return rec
+
+
+def fleet_phase(smi: str) -> tuple:
+    """Phase 9: ``cli/fleet.py`` over the clustered full-width export with
+    3 replicas on the card — the fleet drill, then the alerts drill.
+    Returns (the ``{"fleet": ...}`` record, K7's launches read from the
+    live replicas; a SIGKILLed replica's count is lost with it)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        rec = {}
+        for name, drill in (("drill", fleet_drill), ("alerts", alerts_drill)):
+            export = os.path.join(work, f"clustered_{name}")
+            emb, _ = write_clustered_export(export)
+            rec[name] = drill(export, fleet_oracle(emb), work)
+    rec["budgets"] = {"fleet.chaos": FLEET_CHAOS, "alerts.detection": ALERTS_DETECTION}
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    launches = {"topk_exact": rec["drill"]["topk_exact_launches"]
+                + rec["alerts"]["topk_exact_launches"]}
+    if not launches["topk_exact"]:
+        raise SystemExit("fleet: the replicas launched no K7")
+    log(f"fleet phase done in {rec['seconds']:.1f}s")
+    return rec, launches
+
+
 def main() -> int:
     import torch
 
@@ -5580,6 +6028,10 @@ def main() -> int:
     for name in sorted(paths):
         with open(os.path.join(build.BUILD_DIR, f"{name}.log")) as f:
             log(f.read().strip())
+    if sys.argv[1:2] == ["--fleet"]:
+        fleet, _ = fleet_phase(smi)
+        print(json.dumps({"fleet": fleet}))
+        return 0
     # phase 8 first, on a file system that holds none of the other phases'
     # files: its async-overhead gate times checkpoint writes against epochs
     # of tens of ms.  The CLIs killed, drained and resumed (K1-K4, K6), the
@@ -5588,6 +6040,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--resilience"]:
         print(json.dumps({"resilience": res}))
         return 0
+    # phase 9: the serving fleet, 3 replicas of cli/serve.py on the card (K7)
+    fleet, fleet_counts = fleet_phase(smi)
 
     t0 = time.perf_counter()
     rows = kernel_check(torch, TIMED_REPS)
@@ -5723,6 +6177,7 @@ def main() -> int:
     pipe_rows, pipe_counts = pipeline(torch, smi)
     counts.update(pipe_counts)
     add_launches(counts, res_counts)
+    add_launches(counts, fleet_counts)
 
     rows += serve_rows
     rows.append(gather_row)
@@ -5747,6 +6202,7 @@ def main() -> int:
     print(json.dumps({"redesign": redesign}))
     print(json.dumps({"touched_rows": TOUCHED_SHARES}))
     print(json.dumps({"resilience": res}))
+    print(json.dumps({"fleet": fleet}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

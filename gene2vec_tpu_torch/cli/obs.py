@@ -25,9 +25,16 @@ touches no device.
   trailing-window regression rules (this package's ``budgets.json``,
   ``perf.regression``) fire.
 
-``trace``, ``alerts`` and ``incident`` parse as in the reference and exit
-2: what they read (the fleet's trace context, flight recorder, alerts and
-incident bundles) is not ported yet.
+* ``python -m gene2vec_tpu_torch.cli.obs trace <run_dir> <trace_id>`` —
+  reassemble one distributed trace across every ``events.jsonl`` and
+  flight dump under a directory (a fleet's export dir covers the proxy
+  and every replica; exit 1 when the trace is absent);
+* ``python -m gene2vec_tpu_torch.cli.obs alerts <run_dir>`` — render the
+  SLO alert transitions of every ``alerts.jsonl`` under a directory
+  (exit 1 when there are none);
+* ``python -m gene2vec_tpu_torch.cli.obs incident <bundle>`` — verify
+  and render one incident bundle (``<run_dir>/incidents/<ts>_<rule>/``;
+  exit 1 when it fails verification).
 """
 
 from __future__ import annotations
@@ -37,13 +44,6 @@ import json
 import os
 import sys
 from typing import List, Optional
-
-#: subcommands whose records the port does not write yet → what they need
-_NOT_PORTED = {
-    "trace": "the fleet's trace plane (obs/tracecontext.py, obs/flight.py)",
-    "alerts": "the fleet's SLO alerting (obs/alerts.py)",
-    "incident": "the fleet's incident bundles (obs/incident.py)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,10 +63,13 @@ def build_parser() -> argparse.ArgumentParser:
     ls.add_argument("root", nargs="?", default=".")
     tr = sub.add_parser(
         "trace",
-        help="reassemble one distributed trace (not ported: exits 2)",
+        help="reassemble one distributed trace across every "
+             "events.jsonl / flight dump under a directory",
     )
-    tr.add_argument("run_dir", help="directory tree to scan")
-    tr.add_argument("trace_id", help="32-hex trace id")
+    tr.add_argument("run_dir", help="directory tree to scan (a fleet "
+                    "export dir covers the proxy and all replicas)")
+    tr.add_argument("trace_id", help="32-hex trace id (from a "
+                    "ClientResponse or a flight dump)")
     tr.add_argument("--json", action="store_true",
                     help="emit the reassembled tree as JSON")
     tml = sub.add_parser(
@@ -80,14 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
                      "'-' writes the document to stdout)")
     al = sub.add_parser(
         "alerts",
-        help="render the SLO alert transition timeline (not ported: exits 2)",
+        help="render the SLO alert transition timeline under a run dir",
     )
-    al.add_argument("run_dir", help="directory tree holding alerts.jsonl")
+    al.add_argument("run_dir", help="directory tree holding alerts.jsonl "
+                    "(a fleet run dir, or an export dir covering several)")
     al.add_argument("--json", action="store_true",
                     help="emit the transition records as JSON")
     inc = sub.add_parser(
         "incident",
-        help="verify + render one incident bundle (not ported: exits 2)",
+        help="verify + render one incident bundle "
+             "(<run_dir>/incidents/<ts>_<rule>/)",
     )
     inc.add_argument("bundle", help="incident bundle directory")
     inc.add_argument("--json", action="store_true",
@@ -185,6 +190,60 @@ def _ledger(args) -> int:
     return 0
 
 
+def _trace(args) -> int:
+    from gene2vec_tpu_torch.obs import flight
+
+    if not os.path.isdir(args.run_dir):
+        print(f"obs trace: {args.run_dir} is not a directory", file=sys.stderr)
+        return 2
+    doc = flight.collect_trace(args.run_dir, args.trace_id)
+    if args.json:
+        print(json.dumps(doc, indent=1, default=str))
+    else:
+        print(flight.format_trace(doc))
+    # exit 1 when the trace is entirely absent, so scripts can assert
+    # "reassembly found something" without parsing
+    return 0 if (doc["roots"] or doc["flight"]) else 1
+
+
+def _alerts(args) -> int:
+    from gene2vec_tpu_torch.obs import alerts as alerts_mod
+
+    if not os.path.isdir(args.run_dir):
+        print(f"obs alerts: {args.run_dir} is not a directory", file=sys.stderr)
+        return 2
+    records = alerts_mod.collect_transitions(args.run_dir)
+    if args.json:
+        print(json.dumps(records, indent=1, default=str))
+    else:
+        print(alerts_mod.format_timeline(records))
+    # exit 1 when no transitions exist (the trace contract)
+    return 0 if records else 1
+
+
+def _incident(args) -> int:
+    from gene2vec_tpu_torch.obs import incident as incident_mod
+
+    if not os.path.isdir(args.bundle):
+        print(f"obs incident: {args.bundle} is not a directory", file=sys.stderr)
+        return 2
+    verify = incident_mod.verify_bundle(args.bundle)
+    if args.json:
+        print(json.dumps({
+            "bundle": os.path.abspath(args.bundle),
+            "verified": bool(verify),
+            "reason": verify.reason,
+            "manifest": verify.manifest,
+        }, indent=1, default=str))
+    else:
+        print(incident_mod.format_bundle(args.bundle, verify))
+    if not verify:
+        print(f"obs incident: bundle failed verification ({verify.reason})",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def _timeline(args) -> int:
     from gene2vec_tpu_torch.obs import timeline as timeline_mod
 
@@ -277,13 +336,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         for d in report.find_runs(args.root):
             print(d)
         return 0
-    if args.command in _NOT_PORTED:
-        print(
-            f"obs {args.command}: needs {_NOT_PORTED[args.command]}, which "
-            "gene2vec_tpu_torch does not port yet (ROADMAP.md, A19 item 2)",
-            file=sys.stderr,
-        )
-        return 2
+    if args.command == "trace":
+        return _trace(args)
+    if args.command == "alerts":
+        return _alerts(args)
+    if args.command == "incident":
+        return _incident(args)
     if args.command == "timeline":
         return _timeline(args)
     if args.command == "kernels":

@@ -2,21 +2,30 @@
 
     python -m gene2vec_tpu_torch.cli.serve --export-dir out/ --port 8000 \\
         [--index exact|quant|ivf] [--ggipnn-checkpoint model-<step>.npz] \\
-        [--kernel-profile] [--faults JSON] [--device cuda|cpu]
+        [--kernel-profile] [--faults JSON] [--trace-sample P] \\
+        [--run-dir DIR] [--device cuda|cpu]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
 answers ``/v1/similar``, ``/v1/embedding``, ``/v1/interaction``,
-``/v1/genes``, ``/healthz`` and ``/metrics`` through the event loop and
+``/v1/genes``, ``/healthz``, ``/livez``, ``/debug/flight`` and
+``/metrics`` through the event loop and
 micro-batcher; the top-k work and the interaction scorer's table lookup
 run on the port's CUDA kernels.  ``--device`` defaults to
 ``cuda`` and the server refuses to start without a GPU unless
 ``--device cpu`` is given.
 
 Prints exactly ONE JSON line on stdout once the server is listening —
-``{"url": ..., "dim": ..., "iteration": ..., "index": ..., "device":
-...}`` — so a harness can parse the bound address; human-readable status
-goes to stderr.  SIGTERM or Ctrl-C shuts it down.
+``{"url": ..., "dim": ..., "iteration": ..., "run_dir": ..., "index":
+..., "device": ...}`` — so a harness can parse the bound address;
+human-readable status goes to stderr.  SIGTERM or Ctrl-C shuts it down.
+
+Every session stamps an obs run dir (``--run-dir``, default
+``<export-dir>/serve_runs/<unix-ts>``): its ``events.jsonl`` holds the
+request spans (trace-stamped under a sampled ``traceparent`` or
+``--trace-sample``), and it is the flight recorder's dump dir — a 5xx
+burst (``--burst-threshold`` within ``--burst-window``) dumps the ring
+there, and so does ``kill -QUIT <pid>``.
 
 ``--faults`` (else ``$GENE2VEC_TPU_FAULTS``) takes a
 ``resilience/faults.py`` ``FaultSpec`` as JSON and injects deterministic
@@ -28,9 +37,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
+import time
 from typing import List, Optional
 
 
@@ -62,12 +73,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "408 + close)")
     p.add_argument("--idle-timeout", type=float, default=30.0,
                    help="keep-alive connections idle longer than this are closed")
+    p.add_argument("--max-conn-requests", type=int, default=0,
+                   help="requests served per keep-alive connection before it is "
+                        "closed (0 = unbounded)")
     p.add_argument("--acceptors", type=int, default=1,
                    help="acceptor event loops; > 1 binds SO_REUSEPORT listening "
                         "sockets")
     p.add_argument("--http-workers", type=int, default=8,
                    help="bounded worker pool for the full-dispatch path (POSTs); "
                         "saturation answers 429")
+    p.add_argument("--burst-threshold", type=int, default=10,
+                   help="5xx responses within --burst-window that dump the "
+                        "flight-recorder ring to the run dir (rate-limited)")
+    p.add_argument("--burst-window", type=float, default=5.0,
+                   help="the 5xx-burst detection window in seconds")
+    p.add_argument("--trace-sample", type=float, default=0.0,
+                   help="root-trace sampling rate for requests without a "
+                        "traceparent header (0..1; propagated sampled contexts "
+                        "are always honored)")
     p.add_argument("--index", choices=("exact", "quant", "ivf"), default="exact",
                    help="retrieval index: exact = float32 brute force (K7); quant = "
                         "int8 full-table scan (K8) + exact rescore (K9r); ivf = "
@@ -90,6 +113,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "when set, else no injection)")
     p.add_argument("--poll-interval", type=float, default=5.0,
                    help="seconds between export-dir rescans (hot swap)")
+    p.add_argument("--run-dir", default=None,
+                   help="obs run dir: span log and flight dumps (default: "
+                        "<export-dir>/serve_runs/<unix-ts>)")
     p.add_argument("--ggipnn-checkpoint", default=None,
                    help="GGIPNN run checkpoint npz (checkpoints/model-<step>.npz) "
                         "backing /v1/interaction (without it the MLP head is "
@@ -100,12 +126,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
-    from gene2vec_tpu_torch.obs.registry import MetricsRegistry
+    from gene2vec_tpu_torch.obs.run import Run
     from gene2vec_tpu_torch.resilience.faults import FaultInjector, FaultSpec
     from gene2vec_tpu_torch.serve.registry import ModelRegistry
     from gene2vec_tpu_torch.serve.server import ServeApp, ServeConfig, make_server
 
-    metrics = MetricsRegistry()
     if args.faults is not None:
         fault_injector = FaultInjector(FaultSpec.from_json(args.faults))
     else:
@@ -114,15 +139,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"FAULT INJECTION ACTIVE: {fault_injector.spec.to_json()}", file=sys.stderr)
     # raises without a GPU unless --device cpu
     registry = ModelRegistry(
-        args.export_dir, dim=args.dim, metrics=metrics, index_mode=args.index,
+        args.export_dir, dim=args.dim, index_mode=args.index,
         ann_clusters=args.ann_clusters, device=args.device,
     )
+    run_dir = args.run_dir or os.path.join(
+        args.export_dir, "serve_runs", str(int(time.time())))
+    # the manifest names the card only when the server runs on one
+    run = Run(run_dir, name="serve", config=vars(args),
+              probe_devices=registry.device.type == "cuda")
+    metrics = registry.metrics = run.registry
     if not registry.refresh():
         print(
             f"error: no checkpoint found in {args.export_dir!r} "
             "(expected gene2vec_dim_<D>_iter_<N>.npz or *_w2v.txt)",
             file=sys.stderr,
         )
+        run.close()
         return 2
     if registry.device.type == "cuda":
         from gene2vec_tpu_torch.kernels import build
@@ -138,17 +170,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         cache_size=args.cache_size,
         timeout_ms=args.timeout_ms,
         read_timeout_s=args.read_timeout,
+        trace_sample=args.trace_sample,
         idle_timeout_s=args.idle_timeout,
+        max_conn_requests=args.max_conn_requests,
         acceptors=args.acceptors,
         http_workers=args.http_workers,
         index=args.index,
         nprobe=args.nprobe,
         rescore_mult=args.rescore_mult,
         kernel_profile=args.kernel_profile,
+        burst_threshold=args.burst_threshold,
+        burst_window_s=args.burst_window,
     )
     app = ServeApp(registry, config=config, metrics=metrics,
                    ggipnn_checkpoint=args.ggipnn_checkpoint,
                    fault_injector=fault_injector).start()
+    # 5xx bursts dump the flight ring into the run dir; SIGQUIT on demand
+    app.flight_dir = run.run_dir
     if args.kernel_profile:
         profiled = app.profile_kernels()
         print(f"kernel profile: {len(profiled)} engine buckets attributed ({args.index})",
@@ -163,17 +201,28 @@ def main(argv: Optional[List[str]] = None) -> int:
         # own (main) thread
         threading.Thread(target=server.shutdown, daemon=True).start()
 
+    def _on_sigquit(signum, frame):
+        try:
+            path = app.flight.dump(run.run_dir, "sigquit")
+            print(f"flight recorder dumped to {path}", file=sys.stderr)
+        except Exception as e:
+            print(f"flight dump failed: {e!r}", file=sys.stderr)
+
     try:
         signal.signal(signal.SIGTERM, _on_term)
+        signal.signal(signal.SIGQUIT, _on_sigquit)
     except (ValueError, OSError):
         pass  # not the main thread
+    run.annotate(serve_url=url)
+    run.event("serve_start", url=url, iteration=model.iteration)
     print(json.dumps({
         "url": url, "dim": model.dim, "iteration": model.iteration,
-        "index": args.index, "device": str(registry.device),
+        "run_dir": run.run_dir, "index": args.index, "device": str(registry.device),
     }), flush=True)
     print(
         f"serving {args.export_dir} (dim {model.dim}, iteration {model.iteration}, "
-        f"vocab {len(model)}, index {args.index}) on {url}, device {registry.device}",
+        f"vocab {len(model)}, index {args.index}) on {url}, device {registry.device}; "
+        f"run dir {run.run_dir}",
         file=sys.stderr,
     )
     try:
@@ -184,6 +233,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         server.shutdown()
         server.server_close()
         app.stop()
+        run.close()
     return 0
 
 

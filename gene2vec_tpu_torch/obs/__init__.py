@@ -30,6 +30,19 @@ the port of ``gene2vec_tpu/obs``.
 * :mod:`gene2vec_tpu_torch.obs.ledger` — the unified bench ledger: every
   root bench artifact adapted into one record schema, trailing-window
   regression detection (``cli.obs ledger``).
+* :mod:`gene2vec_tpu_torch.obs.tracecontext` — W3C-style ``traceparent``
+  contexts, a head sampler and the thread's current context, which the
+  tracer stamps onto every record (``trace``/``tsid``/``tpid``);
+* :mod:`gene2vec_tpu_torch.obs.flight` — the always-on ring of recent
+  requests with their hops, dumped on a 5xx burst or SIGQUIT, and the
+  cross-process trace reassembly behind ``cli.obs trace``;
+* :mod:`gene2vec_tpu_torch.obs.aggregate` — the fleet's scrape of every
+  replica's ``/metrics`` merged into ``/metrics/fleet``;
+* :mod:`gene2vec_tpu_torch.obs.alerts` — SLO rules (thresholds, burn
+  rates) evaluated on each scrape tick into ``alerts.jsonl``, and the
+  rate limiter every forensic write shares;
+* :mod:`gene2vec_tpu_torch.obs.incident` — CRC-manifested incident
+  bundles assembled when a rule fires (``cli.obs incident``).
 
 Every trainer's ``run(export_dir)`` writes ``manifest.json`` +
 ``events.jsonl`` into its export/run directory;

@@ -9,8 +9,13 @@ one ``os.write`` on an ``O_APPEND`` fd.  :func:`ambient_span` writes to
 the installed tracer and otherwise buffers a bounded number of records
 in memory, which the next installed tracer flushes.
 :func:`read_events` parses the file back, merged by wall clock.
-Trace-context stamping (the reference's cross-process request traces)
-waits for the port of the observability plane.
+
+Under a sampled request context (``obs/tracecontext.py``) every record
+also carries ``trace``/``tsid``/``tpid`` (trace id, this hop's span id,
+its parent hop), so the spans of one request across the front door, a
+replica's handler and its batcher join one tree that ``cli.obs trace``
+reassembles; :func:`hop_span` writes a hop with an explicit context for
+code that finishes a hop away from the request's thread.
 """
 
 from __future__ import annotations
@@ -23,7 +28,27 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
+from gene2vec_tpu_torch.obs import tracecontext
+
 _PENDING_MAX = 256
+
+
+def _stamp_trace(record: Dict) -> None:
+    """Stamp the thread's sampled trace context onto a record —
+    ``trace`` (trace_id), ``tsid`` (this hop's span id), ``tpid``
+    (parent hop) — so every span/event written while a request context
+    is installed joins the cross-process tree ``cli.obs trace``
+    reassembles.  Explicit fields win; an unsampled or absent context
+    stamps nothing (that IS the overhead contract)."""
+    if "trace" in record:
+        return
+    ctx = tracecontext.current()
+    if ctx is None or not ctx.sampled:
+        return
+    record["trace"] = ctx.trace_id
+    record["tsid"] = ctx.span_id
+    if ctx.parent_id is not None:
+        record["tpid"] = ctx.parent_id
 
 
 class Tracer:
@@ -56,6 +81,7 @@ class Tracer:
         record.setdefault("mono", time.monotonic())
         record.setdefault("pid", os.getpid())
         record.setdefault("tid", threading.get_ident())
+        _stamp_trace(record)
         line = json.dumps(record, separators=(",", ":"), default=str) + "\n"
         with self._lock:
             os.write(self._ensure_fd(), line.encode("utf-8"))
@@ -145,9 +171,53 @@ def ambient_span(name: str, **attrs) -> Iterator[Dict]:
             "tid": threading.get_ident(), "buffered": True,
             **({"attrs": merged} if merged else {}),
         }
+        # capture the context now: the buffered record is flushed later
+        # from whichever thread installs the next tracer
+        _stamp_trace(rec)
         with _pending_lock:
             if len(_pending) < _PENDING_MAX:
                 _pending.append(rec)
+
+
+def hop_span(
+    name: str,
+    ctx,
+    dur: Optional[float] = None,
+    wall: Optional[float] = None,
+    **attrs,
+) -> None:
+    """Emit one ``span_end`` hop record with an EXPLICIT trace context —
+    for code that finishes a hop on a thread where installing the
+    thread-local context is wrong (the batcher worker serves many traces
+    per batch; a hedged client attempt concludes on its own thread).
+
+    ``ctx`` is the hop's own :class:`~gene2vec_tpu_torch.obs.tracecontext.
+    TraceContext` (its ``parent_id`` links it into the tree).  The
+    record's process-local ``span`` field is the current thread's
+    enclosing span, which is what lets ``cli.obs trace`` attach the
+    surrounding ``serve_batch``/``serve_compute`` subtree to a
+    ``batch_item`` hop.  No tracer installed, or an unsampled context →
+    no record, no cost."""
+    tracer = _current
+    if tracer is None or ctx is None or not ctx.sampled:
+        return
+    stack = tracer._stack()
+    record: Dict = {
+        "type": "span_end",
+        "name": name,
+        # the ENCLOSING span's id, not an id of this record's own —
+        # the "hop" marker below tells reassembly readers apart
+        "span": stack[-1] if stack else None,
+        "hop": True,
+        "parent": None,
+        "trace": ctx.trace_id,
+        "tsid": ctx.span_id,
+        **({"tpid": ctx.parent_id} if ctx.parent_id is not None else {}),
+        **({"dur": float(dur)} if dur is not None else {}),
+        **({"wall": float(wall)} if wall is not None else {}),
+        **({"attrs": attrs} if attrs else {}),
+    }
+    tracer.write(record)
 
 
 def read_events(path: str) -> List[Dict]:

@@ -12,7 +12,12 @@
 * :mod:`~gene2vec_tpu_torch.serve.eventloop` — the non-blocking
   HTTP/1.1 front end;
 * :mod:`~gene2vec_tpu_torch.serve.server` — the JSON routes and the
-  event-loop adapter.
+  event-loop adapter;
+* :mod:`~gene2vec_tpu_torch.serve.client` — the resilient HTTP client
+  (retry-safe failover, circuit breakers, a retry budget, hedging);
+* :mod:`~gene2vec_tpu_torch.serve.fleet` — the replica supervisor and the
+  front-door proxy.
 
-``python -m gene2vec_tpu_torch.cli.serve`` runs one server.
+``python -m gene2vec_tpu_torch.cli.serve`` runs one server,
+``python -m gene2vec_tpu_torch.cli.fleet`` a supervised fleet of them.
 """

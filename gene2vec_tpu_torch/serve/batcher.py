@@ -18,8 +18,10 @@ The queue is a :class:`~gene2vec_tpu_torch.serve.tenancy.FairQueue` of
 per-tenant lanes (one lane, FIFO, until tenant admission is ported).
 Every batch runs under an obs span (``serve_batch`` wrapping
 ``serve_compute``); counters and histograms land in the registry
-``/metrics`` exports.  The reference's flight-recorder hops and
-trace-context hooks wait for the port of the observability plane.
+``/metrics`` exports.  Each ticket captures the submitting thread's trace
+context: a sampled request gets a ``batch_item`` hop inside the batch's
+span (or a ``cache_hit`` hop when the LRU answers), and its queue wait,
+compute time and batch size flow into its flight-recorder record.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ import threading
 import time
 from typing import Any, Callable, Hashable, List, Optional, Tuple
 
-from gene2vec_tpu_torch.obs.trace import ambient_span
+from gene2vec_tpu_torch.obs import flight, tracecontext
+from gene2vec_tpu_torch.obs.trace import ambient_span, hop_span
 from gene2vec_tpu_torch.serve.tenancy import DEFAULT_TENANT, FairQueue
 
 
@@ -43,7 +46,7 @@ class DeadlineExceeded(RuntimeError):
 
 class _Pending:
     __slots__ = ("item", "k", "deadline", "event", "result", "error",
-                 "t0", "wait_s", "compute_s", "batch_n",
+                 "ctx", "t0", "wait_s", "compute_s", "batch_n",
                  "on_done", "cache_key", "tenant")
 
     def __init__(self, item: Any, k: int, deadline: float,
@@ -56,6 +59,9 @@ class _Pending:
         self.event = threading.Event()
         self.result: Any = None
         self.error: Optional[BaseException] = None
+        # the submitting request's trace context, captured on the handler
+        # thread: the worker emits this ticket's hop under it
+        self.ctx = tracecontext.current()
         # queue-wait / compute timings the worker fills in
         self.t0 = t0
         self.wait_s: Optional[float] = None
@@ -128,6 +134,14 @@ class Ticket:
             )
         if self._pending.error is not None:
             raise self._pending.error
+        # ticket timings flow into the request's flight-recorder hop sink
+        # (get() runs on the submitting handler thread)
+        if self._pending.wait_s is not None:
+            flight.add_hop("queue_wait_s", self._pending.wait_s)
+        if self._pending.compute_s is not None:
+            flight.add_hop("compute_s", self._pending.compute_s)
+        if self._pending.batch_n is not None:
+            flight.add_hop("batch", self._pending.batch_n)
         b._observe("serve_request_seconds", time.monotonic() - self._t0)
         # the worker already cached successful results (_settle)
         return self._pending.result
@@ -232,6 +246,11 @@ class MicroBatcher:
             hit = self.cache.get(cache_key)
             if hit is not None:
                 self._count("serve_cache_hits_total")
+                ctx = tracecontext.current()
+                if ctx is not None and ctx.sampled:
+                    # a cached answer skips batcher and engine: record the
+                    # hop so the trace does not dead-end
+                    hop_span("cache_hit", ctx.child(), dur=0.0)
                 if on_done is not None:
                     on_done(hit, None)
                 return Ticket(self, None, None, 0.0, cached=hit)
@@ -335,6 +354,7 @@ class MicroBatcher:
             for p in live:
                 p.wait_s = now - p.t0
                 p.batch_n = len(live)
+            traced = [p for p in live if p.ctx is not None and p.ctx.sampled]
             try:
                 with ambient_span(
                     "serve_batch", size=len(live), k=k_max
@@ -346,6 +366,18 @@ class MicroBatcher:
                     span["ok"] = True
                     for p in live:
                         p.compute_s = compute_s
+                    if traced:
+                        # one batch serves many traces: name a bounded few,
+                        # and give each sampled item its own hop, emitted
+                        # inside serve_batch so the hop's enclosing span
+                        # links the compute subtree to its trace
+                        span["traces"] = sorted({p.ctx.trace_id for p in traced})[:8]
+                        for p in traced:
+                            hop_span(
+                                "batch_item", p.ctx.child(), dur=compute_s,
+                                queue_wait_s=round(p.wait_s, 6),
+                                batch=len(live), k=k_max,
+                            )
                 if len(results) != len(live):
                     raise RuntimeError(
                         f"compute returned {len(results)} results for "

@@ -13,6 +13,10 @@ Endpoints (all JSON except ``/metrics``):
 * ``GET  /v1/genes`` — a slice of the served vocab;
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
+* ``GET  /livez`` — liveness: 200 whenever the process answers HTTP,
+  model or no model;
+* ``GET  /debug/flight`` — the flight recorder's ring of recent requests
+  (``obs/flight.py``), the same document a SIGQUIT dumps;
 * ``GET  /metrics`` — the Prometheus text of the metrics registry,
   kernel launch counts and compile events included, and with
   ``kernel_profile`` each engine bucket's ``kernel_*`` cost gauges
@@ -23,8 +27,17 @@ or malformed body → 400, no model loaded → 503.  The front end is the
 event loop (``serve/eventloop.py``); the hot read path — ``GET
 /v1/similar`` — is answered from the loop itself out of a bounded LRU of
 pre-serialized bodies keyed by (model version, gene, k), and concurrent
-identical misses coalesce onto one batcher ticket.  Everything else runs
-:meth:`ServeApp.handle` on a bounded worker pool.
+identical misses coalesce onto one batcher ticket.  Everything else —
+POSTs, requests with a ``traceparent`` header, a server that samples
+root traces, fault injection — runs :meth:`ServeApp.handle` on a bounded
+worker pool.
+
+Tracing: a sampled ``traceparent`` makes the request, its batcher hop and
+its engine spans children of the caller's span (``obs/tracecontext.py``);
+``ServeConfig.trace_sample`` starts root traces for headerless requests.
+Every request lands in the flight recorder's ring with its hops (queue
+wait, compute, batch size); a 5xx burst dumps the ring to ``flight_dir``
+through a rate limiter.
 
 Fault injection (``resilience/faults.py``) hooks the pool's dispatch
 behind an explicit opt-in (``ServeApp(fault_injector=)``, ``--faults`` /
@@ -33,7 +46,7 @@ whose first act is the injector's decision — a delay, an error response,
 a TCP reset or a blackhole.  Without one no fault code runs.
 
 Not in this slice: the multi-model catalog, row shards (and cross-shard
-interaction scoring), batch jobs, tenant quotas and the flight recorder.
+interaction scoring), batch jobs and tenant quotas.
 """
 
 from __future__ import annotations
@@ -48,10 +61,14 @@ from urllib.parse import parse_qs, unquote_plus, urlparse
 import numpy as np
 
 from gene2vec_tpu_torch import kernels
-from gene2vec_tpu_torch.obs import probes
+from gene2vec_tpu_torch.obs import flight as flight_mod
+from gene2vec_tpu_torch.obs import probes, tracecontext
+from gene2vec_tpu_torch.obs.alerts import RateLimiter
+from gene2vec_tpu_torch.obs.flight import FlightRecorder
 from gene2vec_tpu_torch.obs.profiler import STATIC_FIELDS, stamp_records
 from gene2vec_tpu_torch.obs.registry import MetricsRegistry
 from gene2vec_tpu_torch.obs.trace import ambient_span
+from gene2vec_tpu_torch.obs.tracecontext import Sampler, TraceContext
 from gene2vec_tpu_torch.serve.ann import index_stats
 from gene2vec_tpu_torch.serve.batcher import (
     DeadlineExceeded,
@@ -102,8 +119,14 @@ class ServeConfig:
     # once a request's first byte has arrived the whole request must
     # arrive within this window (expiry -> 408 + close)
     read_timeout_s: float = 10.0
+    # root-trace sampling rate for requests without a traceparent header
+    # (0 = trace only when the caller propagates a sampled context)
+    trace_sample: float = 0.0
     # keep-alive connections idle longer than this are closed
     idle_timeout_s: float = 30.0
+    # requests served per connection before the front end closes it
+    # (0 = unbounded)
+    max_conn_requests: int = 0
     # acceptor event loops; > 1 enables SO_REUSEPORT multi-acceptor
     acceptors: int = 1
     # bounded worker pool for the full-dispatch path; saturation -> 429
@@ -112,10 +135,14 @@ class ServeConfig:
     # bucket's kernel work counted from shapes and published as kernel_*
     # gauges on /metrics (cli/serve.py --kernel-profile)
     kernel_profile: bool = False
+    # a 5xx burst of >= burst_threshold within burst_window_s dumps the
+    # flight ring to flight_dir; dumps share one RateLimiter
+    burst_threshold: int = 10
+    burst_window_s: float = 5.0
 
 
 #: routes with their own latency series; anything else is "other"
-_KNOWN_ROUTES = V1_ROUTES | frozenset(("/", "/healthz", "/metrics"))
+_KNOWN_ROUTES = V1_ROUTES | frozenset(("/", "/livez", "/healthz", "/metrics"))
 
 #: requests the worker pool holds before the front end answers 429
 _HTTP_QUEUE = 512
@@ -178,6 +205,18 @@ class ServeApp:
         # CompileWatcher) feed a monotone counter on /metrics by delta
         self._compile_watcher = probes.CompileWatcher.install()
         self._compile_events_published = 0
+        # head sampler for headerless traffic; a propagated sampled
+        # context bypasses it (the root already decided)
+        self.sampler = Sampler(config.trace_sample) if config.trace_sample > 0 else None
+        # always-on bounded ring of recent requests; cli/serve.py sets
+        # flight_dir (the run dir) and installs the SIGQUIT dump
+        self.flight_limiter = RateLimiter(min_interval_s=config.burst_window_s)
+        self.flight = FlightRecorder(
+            burst_threshold=config.burst_threshold,
+            burst_window_s=config.burst_window_s,
+            limiter=self.flight_limiter,
+        )
+        self.flight_dir: Optional[str] = None
         # pre-serialized response bodies keyed (model version, gene, k)
         self.response_cache = LRUCache(config.cache_size)
         # coalescing table for concurrent identical GETs: key -> list of
@@ -459,6 +498,11 @@ class ServeApp:
             )
         stamp_records(self.metrics, list(self.engine.kernel_costs().values()), STATIC_FIELDS)
 
+    def livez(self) -> dict:
+        """Liveness: the process answers HTTP.  Never inspects the
+        registry: a replica mid-load is alive but not ready."""
+        return {"status": "alive", "uptime_s": round(time.monotonic() - self._started, 3)}
+
     def healthz(self) -> Tuple[int, dict]:
         """Readiness: 200 with model facts once a model is served; 503
         ``not_ready`` until then."""
@@ -489,6 +533,8 @@ class ServeApp:
 
     def _dispatch(self, method: str, route: str, query: Dict[str, List[str]],
                   body: Optional[dict]) -> Tuple[int, dict]:
+        if method == "GET" and route == "/livez":
+            return 200, self.livez()
         if method == "GET" and route == "/healthz":
             return self.healthz()
         if method == "GET" and route == "/v1/genes":
@@ -507,23 +553,36 @@ class ServeApp:
             return 200, self.interaction(body or {})
         return 404, {"error": f"no route {method} {route}"}
 
-    def handle(self, method: str, path: str, body: Optional[dict]) -> Tuple[int, dict]:
+    def handle(self, method: str, path: str, body: Optional[dict],
+               traceparent: Optional[str] = None) -> Tuple[int, dict]:
         """(status, payload) for one request (``/metrics`` is served by the
-        adapter directly)."""
+        adapter directly).  ``traceparent`` is the caller's propagated
+        context: a sampled one makes this request and its batcher and
+        engine hops children of the caller's span; without one the
+        server's own sampler may start a root."""
         url = urlparse(path)
         route = url.path.rstrip("/") or "/"
         query = parse_qs(url.query)
+        incoming = TraceContext.from_header(traceparent)
+        ctx = incoming.child() if incoming is not None else (
+            self.sampler.maybe_new_trace() if self.sampler is not None else None
+        )
         t0 = time.monotonic()
+        status = 500
+        hops: Dict[str, float] = {}
         try:
-            with ambient_span("serve_request", route=route) as span:
-                status, doc = self._dispatch(method, route, query, body)
-                span["status"] = status
+            with tracecontext.use(ctx), flight_mod.collect_hops() as hops:
+                with ambient_span("serve_request", route=route) as span:
+                    status, doc = self._dispatch(method, route, query, body)
+                    span["status"] = status
             return status, doc
         except ApiError as e:
             self.metrics.counter(f"serve_http_{e.status}_total").inc()
+            status = e.status
             return e.status, {"error": str(e)}
         except Exception as e:  # route crash -> 500, server stays up
             self.metrics.counter("serve_http_500_total").inc()
+            status = 500
             return 500, {"error": f"internal error: {e!r}"}
         finally:
             dur = time.monotonic() - t0
@@ -532,6 +591,15 @@ class ServeApp:
                 "serve_route_seconds", buckets=_ROUTE_BUCKETS,
                 labels={"route": _route_label(route)},
             ).observe(dur)
+            burst = self.flight.record(
+                route, status, dur,
+                trace_id=ctx.trace_id if ctx is not None else None, hops=hops,
+            )
+            if burst and self.flight_dir:
+                try:
+                    self.flight.dump(self.flight_dir, "5xx-burst")
+                except OSError:
+                    pass  # a full disk must not take the handler down
 
 
 #: pre-encoded front-end bodies (the event loop never runs json.dumps)
@@ -567,6 +635,19 @@ class ServeAdapter:
         ).observe(dur)
         if status >= 400:
             app.metrics.counter(f"serve_http_{status}_total").inc()
+        if app.flight.record(route, status, dur) and app.flight_dir:
+            # dump on a pool worker: this runs on the loop thread for the
+            # fast path, and a 5xx burst is the worst moment to stall the
+            # loop behind file I/O.  Dropped when the pool is saturated;
+            # the burst window re-arms and the next 5xx dumps
+            self.pool.submit(self._dump_flight)
+
+    def _dump_flight(self) -> None:
+        app = self.app
+        try:
+            app.flight.dump(app.flight_dir, "5xx-burst")
+        except OSError:
+            pass
 
     def account_protocol_error(self, status: int) -> None:
         """Loop-generated 400/408 responses keep their counters."""
@@ -575,15 +656,17 @@ class ServeAdapter:
     # -- entry point (loop thread) ----------------------------------------
 
     def __call__(self, req: HTTPRequest, peer: ConnHandle) -> Optional[Response]:
-        # an injected fault is decided on the pool, so the fast path stands
-        # aside while an injector is set
-        if (req.method == "GET" and self.app.faults is None
+        # an injected fault is decided on the pool and a traced request
+        # needs the full pipeline's spans, so the fast path stands aside
+        app = self.app
+        if (req.method == "GET" and app.faults is None and app.sampler is None
+                and "traceparent" not in req.headers
                 and req.target.startswith("/v1/similar?")):
             out = self._similar_get_fast(req.target[len("/v1/similar?"):], peer)
             if out is not _SLOW_PATH:
                 return out
         if not self.pool.submit(lambda: self._run_full(req, peer)):
-            self.app.metrics.counter("serve_http_429_total").inc()
+            app.metrics.counter("serve_http_429_total").inc()
             return Response(429, _POOL_FULL_BODY)
         return None
 
@@ -599,6 +682,14 @@ class ServeAdapter:
             peer.respond(Response(200, app.metrics.prometheus_text().encode("utf-8"),
                                   b"text/plain; version=0.0.4"))
             return
+        if req.method == "GET" and route == "/debug/flight":
+            # the SIGQUIT dump over the wire: the incident manager asks
+            # every live replica for its ring when a rule fires; needs no
+            # model, so a replica that is not ready still testifies
+            peer.respond(Response(
+                200, json.dumps(app.flight.snapshot_doc("debug")).encode("utf-8"),
+            ))
+            return
         if req.method not in ("GET", "POST"):
             peer.respond(Response(
                 404, json.dumps({"error": f"no route {req.method} {route}"}).encode("utf-8"),
@@ -610,7 +701,8 @@ class ServeAdapter:
             if err is not None:
                 peer.respond(err)
                 return
-        status, doc = app.handle(req.method, req.target, body)
+        status, doc = app.handle(req.method, req.target, body,
+                                 traceparent=req.headers.get("traceparent"))
         peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
 
     def _apply_fault(self, peer: ConnHandle, route: str) -> bool:
@@ -772,6 +864,7 @@ def make_server(app: ServeApp, host: str = "127.0.0.1", port: int = 0) -> EventL
         config=EventLoopConfig(
             read_timeout_s=cfg.read_timeout_s,
             idle_timeout_s=cfg.idle_timeout_s,
+            max_conn_requests=cfg.max_conn_requests,
             acceptors=cfg.acceptors,
         ),
         on_protocol_error=adapter.account_protocol_error,

@@ -920,3 +920,43 @@ def test_chip_smoke_keeps_no_work_formula_of_its_own():
     assigned = {t.id for n in ast.walk(tree) if isinstance(n, ast.Assign)
                 for t in n.targets if isinstance(t, ast.Name)}
     assert not {n for n in assigned if n.endswith(("_PER_S", "_OP_PER_S"))}
+
+
+#: the serving fleet and its observability planes' modules
+FLEET_MODULES = {
+    "gene2vec_tpu_torch.obs.tracecontext", "gene2vec_tpu_torch.obs.trace",
+    "gene2vec_tpu_torch.obs.alerts", "gene2vec_tpu_torch.obs.flight",
+    "gene2vec_tpu_torch.obs.aggregate", "gene2vec_tpu_torch.obs.incident",
+    "gene2vec_tpu_torch.serve.client", "gene2vec_tpu_torch.serve.fleet",
+    "gene2vec_tpu_torch.cli.fleet", "gene2vec_tpu_torch.cli.obs",
+}
+
+
+def test_sources_scan_covers_the_fleet_slice():
+    """The fleet slice's modules import in the no-JAX subprocess above and
+    are scanned by the AST scan; every port module the slice's tests drive
+    is one the scans cover."""
+    mods = set(_port_modules())
+    assert FLEET_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in FLEET_MODULES:
+        assert mod.replace(".", "/") + ".py" in scanned
+    for test in ("test_torch_fleet.py", "test_torch_tracing.py", "test_torch_alerts.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def test_fleet_replicas_are_the_ports_servers():
+    """The supervisor spawns the port's ``cli.serve``, never the reference's,
+    and ``cli.fleet`` refuses the flags of unported features (and a missing
+    checkpoint, no replica) with exit 2 before it spawns anything."""
+    from gene2vec_tpu_torch.cli import fleet as fleet_cli
+    from gene2vec_tpu_torch.serve.fleet import FleetConfig, FleetSupervisor
+
+    argv = FleetSupervisor("exp", FleetConfig(replicas=1), serve_args=["--device", "cpu"])._argv(0)
+    assert argv[1:3] == ["-m", "gene2vec_tpu_torch.cli.serve"] and argv[-2:] == ["--device", "cpu"]
+    for flags in (["--max-replicas", "2"], ["--shard-by-rows", "2"], ["--catalog", "c.json"],
+                  ["--enable-shadow"], ["--jobs-dir", "j"], ["--swap-interval", "1"],
+                  ["--ggipnn-checkpoint", "absent.npz"], ["--replicas", "0"]):
+        assert fleet_cli.main(["--export-dir", "exp", *flags]) == 2
