@@ -14,6 +14,7 @@
     python3 chip_smoke.py --resilience
                                      # the build, then phase 8 alone
     python3 chip_smoke.py --fleet    # the build, then phase 9 alone
+    python3 chip_smoke.py --shards   # the build, then phase 10 alone
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -248,6 +249,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    replica's pid.  K7's launches are read from each live replica's
    ``kernel_launches_total`` before shutdown (a SIGKILLed replica's count
    is lost with it); one ``{"fleet": ...}`` line.
+10. the elastic fleet, tenant quotas and row shards (run after phase 6,
+   whose GGIPNN head it serves; ``--shards`` makes a head with a short
+   ``cli.ggipnn`` run) — six children over clustered full-width exports
+   start side by side while the merge bench runs in process.  (10a)
+   ``scripts/chaos_drill.py:drill_autoscale``: a 1-2 replica fleet at a
+   0.25 s scrape whose replicas batch 4 queries a 100 ms window; a
+   RAMP_WORKERS closed-loop ramp must draw a scale-up decision within
+   ``autoscale.elasticity``'s 40 ticks, light verified load rides the
+   zero-drop scale-down (no dropped, wrong or mixed answer), a steady
+   window takes no action; a one-replica fleet with 50 rps tenant quotas
+   keeps a paced victim (``alice:50:100:4``) at availability >= 0.99
+   while ``mallory`` floods and is shed with tenant-labelled 429s.
+   (10b) ``drill_shard``: the merge bench at ``shard.scatter.recipe``
+   (10M x 64, 4 shards each loaded by its own ``ModelRegistry(shard=)``
+   with 1,024 IVF lists, nprobe 32, K9 then K9r, ``merge_shard_topk``;
+   recall@10 against the exact oracle on the card, the drop with a shard
+   dead against its row fraction, the merged p99; a shard's load within
+   its slice's and index's bytes on the card; K9/K9r held against their
+   plain versions at that geometry and timed); ``cli.fleet --shard-by-rows
+   2`` with a shard SIGKILLed under load (degraded answers against the
+   live shards' oracle, never a 5xx), iteration 2 staged and flipped
+   under load (no wrong, no mixed answer), a scatter trace; a slow shard
+   whose leg deadline fires; ``--replicas-per-shard 2`` with one sibling
+   killed (no degraded answer) then both, and one cross-shard
+   ``/v1/interaction`` batch within 1e-5 of a single-replica server's.
+   Gated at ``shard.scatter`` and its ``failover`` block; K7 from the
+   live replicas, K9/K9r from the bench, ``row_gather`` from the front
+   door and the server (``{"shards": ...}`` line).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -259,7 +288,8 @@ K7-K9r, phase 6's CLI runs and interaction server and phase 4b's
 phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
 K10c and K10 and its ``cli.plot`` run for K15 and K16, and beside those
 phase 8's for K1-K4, K6, K4's generic entry points, ``row_gather`` and K7,
-and phase 9's live replicas' for K7;
+phase 9's live replicas' for K7 and phase 10's for K7, K9, K9r and
+``row_gather``;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -2447,10 +2477,43 @@ def profiled_training(torch, work: str, objective: str, name: str, pairs, vocab)
 
 def serve_attribution(torch, export: str, work: str) -> dict:
     """Each index mode's server (``cli/serve.py --kernel-profile``, a
-    subprocess on the card): one POST filling each batch bucket, /metrics
-    scraped before and after; every bucket's ``kernel_flops`` present and
-    the requests' ``kernel_launches_total`` equal to what the same requests
-    launch through an in-process ``ServeApp`` without the flag."""
+    subprocess on the card; the three started side by side, then checked
+    one at a time by ``serve_attribution_mode``).  Returns {mode: its
+    record}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.RandomState(22)
+    requests = [{"genes": [f"G{i}" for i in rng.choice(V, n, replace=False)], "k": 10}
+                for n in SERVE_BUCKETS]
+    with ThreadPoolExecutor(len(SERVE_MODES)) as pool:
+        futures = {mode: pool.submit(start_server, export, mode,
+                                     os.path.join(work, f"attr_{mode}.err"),
+                                     ("--kernel-profile",))
+                   for mode in SERVE_MODES}
+    servers = {mode: f.result() for mode, f in futures.items() if f.exception() is None}
+    out = {}
+    try:
+        for f in futures.values():
+            if f.exception() is not None:
+                raise f.exception()
+        for mode in SERVE_MODES:
+            out[mode] = serve_attribution_mode(torch, export, work, mode, requests,
+                                               *servers[mode])
+    finally:
+        for proc, _ in servers.values():
+            if proc.poll() is None:
+                stop_server(proc)
+    return out
+
+
+def serve_attribution_mode(torch, export: str, work: str, mode: str, requests, proc,
+                           info: dict) -> dict:
+    """One index mode of ``serve_attribution``: one POST filling each batch
+    bucket to the running ``--kernel-profile`` server (``proc``, ``info``
+    its contract line), /metrics scraped before and after, then the server
+    stopped; every bucket's ``kernel_flops`` present and the requests'
+    ``kernel_launches_total`` equal to what the same requests launch
+    through an in-process ``ServeApp`` without the flag."""
     import http.client
     from urllib.parse import urlparse
 
@@ -2459,71 +2522,64 @@ def serve_attribution(torch, export: str, work: str) -> dict:
     from gene2vec_tpu_torch.serve.registry import ModelRegistry
     from gene2vec_tpu_torch.serve.server import ServeApp, ServeConfig
 
-    rng = np.random.RandomState(22)
-    requests = [{"genes": [f"G{i}" for i in rng.choice(V, n, replace=False)], "k": 10}
-                for n in SERVE_BUCKETS]
-    out = {}
-    for mode in SERVE_MODES:
-        registry = ModelRegistry(export, index_mode=mode, device=DEVICE)
-        if not registry.refresh():
-            raise SystemExit(f"{export}: no export to serve")
-        app = ServeApp(registry, ServeConfig(index=mode, cache_size=0,
-                                             nprobe=SERVE_NPROBE)).start()
-        try:
-            torch.cuda.synchronize()
-            before = kernels.launch_counts()
-            for body in requests:
-                status, _ = app.handle("POST", "/v1/similar", body)
-                if status != 200:
-                    raise SystemExit(f"{mode} in process: POST /v1/similar {status}")
-            torch.cuda.synchronize()
-            after = kernels.launch_counts()
-            plain = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
-            model = registry.model
-            kb = app.engine.k_bucket(16, len(model))
-            bounds = {b: bound(app.engine.bucket_work(
-                b, kb, app.engine.r_bucket(kb, len(model)), len(model), model.dim, len(model),
-                getattr(model, "ann", None)))[0] for b in SERVE_BUCKETS}
-        finally:
-            app.stop()
-        proc, info = start_server(export, mode, os.path.join(work, f"attr_{mode}.err"),
-                                  ("--kernel-profile",))
-        try:
-            u = urlparse(info["url"])
-            conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
+    registry = ModelRegistry(export, index_mode=mode, device=DEVICE)
+    if not registry.refresh():
+        raise SystemExit(f"{export}: no export to serve")
+    app = ServeApp(registry, ServeConfig(index=mode, cache_size=0,
+                                         nprobe=SERVE_NPROBE)).start()
+    try:
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()
+        for body in requests:
+            status, _ = app.handle("POST", "/v1/similar", body)
+            if status != 200:
+                raise SystemExit(f"{mode} in process: POST /v1/similar {status}")
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        plain = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+        model = registry.model
+        kb = app.engine.k_bucket(16, len(model))
+        bounds = {b: bound(app.engine.bucket_work(
+            b, kb, app.engine.r_bucket(kb, len(model)), len(model), model.dim, len(model),
+            getattr(model, "ann", None)))[0] for b in SERVE_BUCKETS}
+    finally:
+        app.stop()
+    try:
+        u = urlparse(info["url"])
+        conn = http.client.HTTPConnection(u.hostname, u.port, timeout=120)
 
-            def scrape():
-                status, raw, _ = _send(conn, "GET", "/metrics", None)
-                if status != 200:
-                    raise SystemExit(f"{mode} /metrics: {status}")
-                return parse_prometheus(raw.decode())
+        def scrape():
+            status, raw, _ = _send(conn, "GET", "/metrics", None)
+            if status != 200:
+                raise SystemExit(f"{mode} /metrics: {status}")
+            return parse_prometheus(raw.decode())
 
-            first = scrape()
-            for body in requests:
-                status, _, _ = _send(conn, "POST", "/v1/similar", body)
-                if status != 200:
-                    raise SystemExit(f"{mode} server: POST /v1/similar {status}")
-            last = scrape()
-            conn.close()
-        finally:
-            stop_server(proc)
-        with open(os.path.join(work, f"attr_{mode}.err")) as f:
-            said = [ln for ln in f if ln.startswith("kernel profile:")]
-        key = 'kernel_launches_total{kernel="%s"}'
-        served = {k: last.get(key % k, 0) - first.get(key % k, 0) for k in kernels.launch_counts()
-                  if last.get(key % k, 0) != first.get(key % k, 0)}
-        if served != plain:
-            raise SystemExit(f"{mode}: launches with --kernel-profile {served}, without {plain}")
-        flops = {b: last.get(f'kernel_flops{{kernel="serve_topk_{mode}/b{b}"}}')
-                 for b in SERVE_BUCKETS}
-        if not said or not all(flops.values()):
-            raise SystemExit(f"{mode}: kernel_flops by bucket {flops}; stderr {said}")
-        out[mode] = {"launches": served, "kernel_flops": flops, "bound_ms": bounds,
-                     "kernel_bytes_accessed": {
-                         b: last.get(f'kernel_bytes_accessed{{kernel="serve_topk_{mode}/b{b}"}}')
-                         for b in SERVE_BUCKETS}}
-        log(f"serve_topk_{mode}: {json.dumps(out[mode])}")
-    return out
+        first = scrape()
+        for body in requests:
+            status, _, _ = _send(conn, "POST", "/v1/similar", body)
+            if status != 200:
+                raise SystemExit(f"{mode} server: POST /v1/similar {status}")
+        last = scrape()
+        conn.close()
+    finally:
+        stop_server(proc)
+    with open(os.path.join(work, f"attr_{mode}.err")) as f:
+        said = [ln for ln in f if ln.startswith("kernel profile:")]
+    key = 'kernel_launches_total{kernel="%s"}'
+    served = {k: last.get(key % k, 0) - first.get(key % k, 0) for k in kernels.launch_counts()
+              if last.get(key % k, 0) != first.get(key % k, 0)}
+    if served != plain:
+        raise SystemExit(f"{mode}: launches with --kernel-profile {served}, without {plain}")
+    flops = {b: last.get(f'kernel_flops{{kernel="serve_topk_{mode}/b{b}"}}')
+             for b in SERVE_BUCKETS}
+    if not said or not all(flops.values()):
+        raise SystemExit(f"{mode}: kernel_flops by bucket {flops}; stderr {said}")
+    rec = {"launches": served, "kernel_flops": flops, "bound_ms": bounds,
+           "kernel_bytes_accessed": {
+               b: last.get(f'kernel_bytes_accessed{{kernel="serve_topk_{mode}/b{b}"}}')
+               for b in SERVE_BUCKETS}}
+    log(f"serve_topk_{mode}: {json.dumps(rec)}")
+    return rec
 
 
 def kernel_attribution(torch, work: str, smi: str) -> dict:
@@ -3346,7 +3402,9 @@ def staged_probes(torch, reps):
 # -- phase 6: GGIPNN (extrinsic evaluation) and /v1/interaction -----------------
 
 GG_B, GG_B_LARGE = 128, 1024      # the default batch; bench.py's _ggipnn_rate batch
-GG_TRAIN, GG_VALID, GG_TEST = 262_144, 16_384, 32_768
+# training pairs of the CLI runs: half bench.py's 262,144 since phase 10
+# (the default run's AUC stays gated)
+GG_TRAIN, GG_VALID, GG_TEST = 131_072, 16_384, 32_768
 GG_EPOCHS = 2                     # the frozen runs' epochs (the loss must fall)
 GG_LOSS_RTOL = 1e-5               # one step card vs CPU: the loss
 GG_PARAM_RTOL = 1e-4              # ... each tensor, x its max |CPU value|
@@ -3355,7 +3413,7 @@ GG_PARAM_RTOL = 1e-4              # ... each tensor, x its max |CPU value|
 #: 0.990); the B = 1024 and fine-tuning runs take 8x and 2x fewer steps and
 #: learned nothing at that size (AUC 0.50), so theirs is reported
 GG_AUC_FLOOR = 0.95
-GG_RATE_PAIRS = 262_144           # bench.py's _ggipnn_rate data size
+GG_RATE_PAIRS = 131_072           # half bench.py's _ggipnn_rate data size (since phase 10)
 GG_PROFILED_STEPS = 256           # steps of the profiled window (the profiler
                                   # slows a whole 2,048-step epoch ~10x)
 INTERACTION_REQUESTS = 400
@@ -5551,6 +5609,8 @@ def resilience(torch, smi: str) -> tuple:
     """Phase 8: the port's CLIs killed, drained and resumed on the card, the
     async writer's overhead, corruption on the host and HTTP faults.
     Returns (the ``{"resilience": ...}`` record, the phase's launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
@@ -5559,13 +5619,17 @@ def resilience(torch, smi: str) -> tuple:
         # (g) first, while the file system holds no other writes of this run
         overhead, more = res_overhead_phase(data, work)
         add_launches(launches, more)
-        rec, more = res_training(data, work)
-        rec["async_overhead"] = overhead
-        add_launches(launches, more)
-        rec["ggipnn"], more = res_ggipnn(work)
-        add_launches(launches, more)
-        rec["faults"], more = res_faults(work, smi)
-        add_launches(launches, more)
+        # (e) and (h) beside the training CLIs: each has its own files
+        with ThreadPoolExecutor(2) as pool:
+            ggipnn = pool.submit(res_ggipnn, work)
+            faults = pool.submit(res_faults, work, smi)
+            rec, more = res_training(data, work)
+            rec["async_overhead"] = overhead
+            add_launches(launches, more)
+            rec["ggipnn"], more = ggipnn.result()
+            add_launches(launches, more)
+            rec["faults"], more = faults.result()
+            add_launches(launches, more)
     missing = [k for k in RES_KERNELS if not launches.get(k)]
     if missing:
         raise SystemExit(f"resilience: kernels not launched on the phase's path: {missing}")
@@ -5596,27 +5660,17 @@ ALERT_RULE = "availability-burn"
 TRACE_HOPS = {"proxy_request", "client_attempt", "serve_request", "batch_item", "engine_topk"}
 
 
-def start_fleet(export: str, err_path: str, extra=()):
+def spawn_fleet(export: str, err_path: str, extra=()):
     """``cli/fleet.py`` with FLEET_REPLICAS replicas of ``cli/serve.py``, all
-    on the card (``extra``: more flags); returns (process, its stdout
-    contract line)."""
-    from gene2vec_tpu_torch.serve.fleet import read_contract_line
+    on the card (``extra``: more flags), launched; :func:`contract` reads
+    its stdout contract line."""
+    return launch(fleet_argv(export, "--replicas", str(FLEET_REPLICAS), *extra), err_path)
 
-    argv = [sys.executable, "-m", "gene2vec_tpu_torch.cli.fleet", "--export-dir", export,
-            "--replicas", str(FLEET_REPLICAS), "--port", "0", "--health-interval", "0.25",
-            "--backoff-base", "0.3", "--proxy-timeout-ms", "4000", "--seed", str(FLEET_SEED),
-            "--serve-arg=--cache-size", "--serve-arg=0", "--serve-arg=--poll-interval",
-            "--serve-arg=3600", *extra]
-    err = open(err_path, "w")
-    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT,
-                            env=dict(os.environ, **res_env()))
-    err.close()
-    try:
-        return proc, read_contract_line(proc, 300.0)
-    except Exception as e:
-        stop_server(proc)
-        with open(err_path) as f:
-            raise SystemExit(f"fleet did not start ({e!r}):\n{f.read()[-4000:]}")
+
+def start_fleet(export: str, err_path: str, extra=()):
+    """:func:`spawn_fleet`, then (process, its contract line)."""
+    child = spawn_fleet(export, err_path, extra)
+    return child[0], contract(child)
 
 
 def http_json(url: str, body=None, timeout: float = 15.0):
@@ -5879,27 +5933,39 @@ def fleet_drill(export: str, oracle, work: str) -> dict:
     return rec
 
 
-def alerts_drill(export: str, oracle, work: str) -> dict:
+def alerts_flags():
+    """The alerts drill's fault spec and fleet flags."""
+    from gene2vec_tpu_torch.resilience.faults import FaultSpec
+
+    faults = FaultSpec(seed=FLEET_SEED, route_prefix="/v1/similar", latency_p=0.5,
+                       latency_ms=180.0, error_p=0.5, error_status=404)
+    return faults, ("--scrape-interval", str(ALERTS_DETECTION["scrape_interval_s"]),
+                    "--alert-rules", "default", "--proxy-attempts",
+                    str(ALERTS_DETECTION["proxy_attempts"]), "--replica-arg", "1:--faults",
+                    "--replica-arg", f"1:{faults.to_json()}")
+
+
+def alerts_drill(export: str, oracle, work: str, child=None) -> dict:
     """Phase 9b (``scripts/chaos_drill.py:drill_alerts``): the default rules
     at a 0.25 s scrape; a clean warmup on ``/v1/embedding`` fires nothing;
     a byzantine replica 1 (404s and latency on ``/v1/similar``) fires the
     availability burn-rate rule within the budget; the incident bundle
     verifies through ``python -m gene2vec_tpu_torch.cli.obs incident`` and
-    holds a reassembled trace through the faulty replica's pid."""
+    holds a reassembled trace through the faulty replica's pid.  ``child``
+    = (a fleet :func:`spawn_fleet` launched with :func:`alerts_flags`, its
+    launch time) when it booted while the fleet drill ran."""
     import glob
     import threading
 
     from gene2vec_tpu_torch.obs.alerts import collect_transitions
-    from gene2vec_tpu_torch.resilience.faults import FaultSpec
     from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
 
-    faults = FaultSpec(seed=FLEET_SEED, route_prefix="/v1/similar", latency_p=0.5,
-                       latency_ms=180.0, error_p=0.5, error_status=404)
-    t0 = time.perf_counter()
-    proc, info = start_fleet(export, os.path.join(work, "alerts_drill.err"), (
-        "--scrape-interval", str(ALERTS_DETECTION["scrape_interval_s"]),
-        "--alert-rules", "default", "--proxy-attempts", str(ALERTS_DETECTION["proxy_attempts"]),
-        "--replica-arg", "1:--faults", "--replica-arg", f"1:{faults.to_json()}"))
+    faults, flags = alerts_flags()
+    if child is None:
+        child = (spawn_fleet(export, os.path.join(work, "alerts_drill.err"), flags),
+                 time.perf_counter())
+    (proc, _), t0 = child
+    info = contract(child[0])
     rec = {"startup_s": time.perf_counter() - t0, "faults": json.loads(faults.to_json())}
     url, run_dir, faulty = info["url"], info["run_dir"], info["replica_pids"][1]
 
@@ -5987,11 +6053,20 @@ def fleet_phase(smi: str) -> tuple:
     live replicas; a SIGKILLed replica's count is lost with it)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
-        rec = {}
-        for name, drill in (("drill", fleet_drill), ("alerts", alerts_drill)):
-            export = os.path.join(work, f"clustered_{name}")
+        exports = {name: os.path.join(work, f"clustered_{name}") for name in ("drill", "alerts")}
+        for export in exports.values():
             emb, _ = write_clustered_export(export)
-            rec[name] = drill(export, fleet_oracle(emb), work)
+        oracle = fleet_oracle(emb)
+        # the alerts drill's fleet boots while the fleet drill runs
+        child = (spawn_fleet(exports["alerts"], os.path.join(work, "alerts_drill.err"),
+                             alerts_flags()[1]), time.perf_counter())
+        rec = {}
+        try:
+            rec["drill"] = fleet_drill(exports["drill"], oracle, work)
+        except BaseException:
+            stop_server(child[0][0])
+            raise
+        rec["alerts"] = alerts_drill(exports["alerts"], oracle, work, child=child)
     rec["budgets"] = {"fleet.chaos": FLEET_CHAOS, "alerts.detection": ALERTS_DETECTION}
     rec["seconds"] = time.perf_counter() - t0
     rec["card"] = smi
@@ -6000,6 +6075,991 @@ def fleet_phase(smi: str) -> tuple:
     if not launches["topk_exact"]:
         raise SystemExit("fleet: the replicas launched no K7")
     log(f"fleet phase done in {rec['seconds']:.1f}s")
+    return rec, launches
+
+
+# -- phase 10: the elastic fleet, tenant quotas and row shards -----------------
+
+#: ``autoscale.elasticity`` and ``shard.scatter`` (with its ``failover``
+#: block) of gene2vec_tpu/analysis/budgets.json, copied
+AUTOSCALE_ELASTICITY = {"min_replicas": 1, "max_replicas": 2, "scrape_interval_s": 0.25,
+                        "max_scale_up_detection_ticks": 40, "max_dropped_answers": 0,
+                        "max_wrong_answers": 0, "max_mixed_iteration_answers": 0,
+                        "max_steady_state_scale_actions": 0, "min_victim_availability": 0.99}
+SHARD_SCATTER = {
+    "recipe": {"rows": 10_000_000, "dim": 64, "shards": 4, "k": 10, "queries": 512,
+               "index": "ivf", "nprobe": 32, "rescore_mult": 4, "clusters": 4096},
+    "http_shards": 2, "min_recall_at_10": 0.99, "max_p99_ms": 250.0,
+    "recall_degradation_tolerance": 0.15, "min_availability": 0.99, "max_server_5xx": 0,
+    "max_wrong_answers": 0, "max_mixed_iteration_answers": 0, "max_retry_amplification": 1.5,
+    "failover": {"replicas_per_shard": 2, "min_availability": 1.0,
+                 "max_degraded_with_live_replica": 0, "max_failover_p99_ms": 2000.0,
+                 "min_both_dead_degraded": 1},
+}
+SCALE_FLAGS = ("--scale-up-queue", "4", "--scale-up-rejection", "0.02", "--scale-up-after", "2",
+               "--scale-down-queue", "3", "--scale-down-after", "12", "--scale-cooldown", "1.0",
+               "--drain-timeout", "15")
+#: a replica one closed-loop ramp saturates: batches of 4 per 100 ms window
+SATURABLE = ("--serve-arg=--max-delay-ms", "--serve-arg=100", "--serve-arg=--max-batch",
+             "--serve-arg=4", "--serve-arg=--max-queue", "--serve-arg=8",
+             "--serve-arg=--http-workers", "--serve-arg=32")
+RAMP_WORKERS = 48
+STEADY_TICKS = 24
+TENANT_S = 12.0
+SHARD_K = 10
+SHARD_LOAD_S = 8.0          # the kill window's load (the reference drill's 10 s, cut)
+SWAP_S = 6.0
+LORIS_REQUESTS = 25
+LORIS_DEADLINE_MS = 600.0
+BENCH_CUT_S = 90.0          # the bench half's budget before its rows are cut
+BENCH_LATENCY_REPS = 100
+BENCH_CHECK_QUERIES = 16    # K9/K9r held against their plain versions on this sample
+MIN_FREE_BYTES = 12 << 30   # the 10M-row export and its temp file
+
+
+def fleet_argv(export: str, *extra) -> list:
+    """``cli.fleet`` on the card with the drills' supervision knobs."""
+    return [sys.executable, "-m", "gene2vec_tpu_torch.cli.fleet", "--export-dir", export,
+            "--port", "0", "--health-interval", "0.25", "--backoff-base", "0.3",
+            "--proxy-timeout-ms", "4000", "--seed", str(FLEET_SEED),
+            "--serve-arg=--cache-size", "--serve-arg=0", "--serve-arg=--poll-interval",
+            "--serve-arg=3600", *extra]
+
+
+def launch(argv, err_path: str):
+    """A child with its stderr in ``err_path``; its contract line is read by
+    :func:`contract`."""
+    err = open(err_path, "w")
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=err, text=True, cwd=ROOT,
+                            env=dict(os.environ, **res_env()))
+    err.close()
+    return proc, err_path
+
+
+def contract(child, timeout: float = 300.0) -> dict:
+    from gene2vec_tpu_torch.serve.fleet import read_contract_line
+
+    proc, err_path = child
+    try:
+        return read_contract_line(proc, timeout)
+    except Exception as e:
+        stop_server(proc)
+        with open(err_path) as f:
+            raise SystemExit(f"{err_path}: did not start ({e!r}):\n{f.read()[-4000:]}")
+
+
+def post_tenant(url: str, gene: str, tenant=None, k: int = FLEET_K, timeout: float = 10.0):
+    """(status, document or None) of one ``POST /v1/similar``."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant:
+        headers["X-Tenant"] = tenant
+    req = urllib.request.Request(url + "/v1/similar", headers=headers,
+                                 data=json.dumps({"genes": [gene], "k": k}).encode())
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code, None
+    except Exception:
+        return 0, None
+
+
+def prom(url: str) -> dict:
+    return parse_prometheus(http_json(url + "/metrics")[1].decode())
+
+
+def wait_for(fn, timeout: float, what: str, interval: float = 0.25):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(interval)
+    raise SystemExit(f"phase 10: {what} not reached in {timeout:g}s")
+
+
+def live_launches(url: str, names=("topk_exact",)) -> dict:
+    """Kernel launches summed over a fleet's live replicas'
+    ``kernel_launches_total`` (a replica drained or SIGKILLed takes its
+    count with it)."""
+    health = json.loads(http_json(url + "/healthz")[1])
+    out = dict.fromkeys(names, 0)
+    for r in health["replicas"]:
+        if r["state"] == "up" and r["url"]:
+            got = scrape_launches(r["url"])
+            for n in names:
+                out[n] += got.get(n, 0)
+    return out
+
+
+def autoscale_drill(info: dict, oracle) -> dict:
+    """Phase 10a (``scripts/chaos_drill.py:drill_autoscale``) over the
+    clustered full-width export: a RAMP_WORKERS closed-loop ramp must draw a
+    scale-up decision within the budget's ticks; light verified load then
+    rides the zero-drop scale-down (no dropped, wrong or mixed answer); a
+    steady window of STEADY_TICKS ticks takes no action."""
+    import threading
+
+    budget = AUTOSCALE_ELASTICITY
+    scrape = budget["scrape_interval_s"]
+    url = info["url"]
+    if info.get("autoscale") != {"min": budget["min_replicas"], "max": budget["max_replicas"]}:
+        raise SystemExit(f"autoscale: contract line {info}")
+    genes = sorted(oracle)
+    for g in genes[:8]:  # the replica's first batches, off the books
+        if post_tenant(url, g, timeout=30.0)[0] != 200:
+            raise SystemExit(f"autoscale: warm-up query for {g} failed")
+    if prom(url).get("fleet_scale_up_total") != 0.0:
+        raise SystemExit("autoscale: the scaler acted before the ramp")
+    stop, lock = threading.Event(), threading.Lock()
+    ramp = {"n": 0, "rejected": 0}
+
+    def ramp_worker(w):
+        rng = np.random.RandomState(FLEET_SEED + w)
+        while not stop.is_set():
+            status, _ = post_tenant(url, genes[rng.randint(len(genes))])
+            with lock:
+                ramp["n"] += 1
+                ramp["rejected"] += status == 429
+
+    t_ramp = time.monotonic()
+    threads = [threading.Thread(target=ramp_worker, args=(w,), daemon=True)
+               for w in range(RAMP_WORKERS)]
+    for t in threads:
+        t.start()
+    wait_for(lambda: prom(url).get("fleet_scale_up_total", 0.0) >= 1.0,
+             budget["max_scale_up_detection_ticks"] * scrape + 10.0, "a scale-up decision", 0.1)
+    detection_s = time.monotonic() - t_ramp
+    ups = lambda: [r for r in json.loads(http_json(url + "/healthz")[1])["replicas"]  # noqa: E731
+                   if r["state"] == "up"]
+    wait_for(lambda: len(ups()) >= budget["max_replicas"], 240.0, "the new replica in rotation",
+             0.5)
+    completed_s = time.monotonic() - t_ramp
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    launches = live_launches(url)  # the added replica's launches, before it drains
+    light = {"n": 0, "dropped": 0, "wrong": 0, "mixed": 0, "ties": 0}
+    stop = threading.Event()
+
+    def light_worker(w):
+        rng = np.random.RandomState(FLEET_SEED + 500 + w)
+        while not stop.is_set():
+            g = genes[rng.randint(len(genes))]
+            status, doc = post_tenant(url, g)
+            with lock:
+                light["n"] += 1
+                if status != 200 or doc is None:
+                    light["dropped"] += 1
+                else:
+                    verdict, ties = fleet_verdict(oracle, g, doc)
+                    light["ties"] += ties
+                    if verdict != "ok":
+                        light[verdict] += 1
+            time.sleep(0.1)
+
+    t_down = time.monotonic()
+    threads = [threading.Thread(target=light_worker, args=(w,), daemon=True) for w in range(2)]
+    for t in threads:
+        t.start()
+
+    def scaled_down():
+        if prom(url).get("fleet_scale_down_total", 0.0) < 1.0:
+            return False
+        states = json.loads(http_json(url + "/healthz")[1])["replicas"]
+        return len(states) == budget["min_replicas"] and all(r["state"] == "up" for r in states)
+
+    wait_for(scaled_down, 12 * scrape + 90.0, "the zero-drop scale-down", 0.5)
+    down_s = time.monotonic() - t_down
+    base = prom(url)
+    time.sleep(STEADY_TICKS * scrape)
+    now = prom(url)
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    steady = int(sum(now.get(n, 0.0) - base.get(n, 0.0)
+                     for n in ("fleet_scale_up_total", "fleet_scale_down_total")))
+    final = live_launches(url)
+    rec = {"scrape_interval_s": scrape, "scale_up_detection_s": detection_s,
+           "scale_up_detection_ticks": max(1, int(np.ceil(detection_s / scrape))),
+           "scale_up_completed_s": completed_s, "scale_down_s": down_s,
+           "ramp_workers": RAMP_WORKERS, "ramp_requests": ramp["n"],
+           "ramp_rejected_429": ramp["rejected"], "lightload_requests": light["n"],
+           "dropped_answers": light["dropped"], "wrong_answers": light["wrong"],
+           "mixed_iteration_answers": light["mixed"], "near_ties": light["ties"],
+           "steady_state_ticks": STEADY_TICKS, "steady_state_scale_actions": steady,
+           "drain_timeouts": int(now.get("fleet_drain_timeouts_total", 0.0)),
+           "topk_exact_launches": max(launches["topk_exact"], final["topk_exact"])}
+    gates = {"detection": rec["scale_up_detection_ticks"]
+             <= budget["max_scale_up_detection_ticks"],
+             "dropped": light["dropped"] <= budget["max_dropped_answers"],
+             "wrong": light["wrong"] <= budget["max_wrong_answers"],
+             "mixed": light["mixed"] <= budget["max_mixed_iteration_answers"],
+             "steady": steady <= budget["max_steady_state_scale_actions"],
+             "light_load": light["n"] >= 10}
+    rec["gates"] = gates
+    log(f"autoscale drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"autoscale drill: gates {gates}: {rec}")
+    return rec
+
+
+def tenant_drill(info: dict, oracle) -> dict:
+    """Phase 10a's tenants: one replica with a 50 rps quota a tenant; the
+    victim (``alice:50:100:4``) paced at ~20 rps, the abuser (``mallory``)
+    flooding from 8 workers for TENANT_S; the victim's availability gated,
+    the abuser's 429s in ``serve_rejected_total{tenant="mallory"}``."""
+    import re
+    import threading
+
+    url, replica = info["url"], info["replica_urls"][0]
+    health = json.loads(http_json(replica + "/healthz")[1])
+    if health.get("tenancy", {}).get("default_rate") != 50.0:
+        raise SystemExit(f"tenants: the replica shows no tenancy: {health}")
+    genes = sorted(oracle)
+    counts = {t: {"n": 0, "ok": 0, "rejected": 0, "wrong": 0, "lat": []}
+              for t in ("alice", "mallory")}
+    lock = threading.Lock()
+    stop_at = time.monotonic() + TENANT_S
+
+    def worker(tenant, pace, w):
+        rng = np.random.RandomState(FLEET_SEED + 900 + w)
+        while time.monotonic() < stop_at:
+            g = genes[rng.randint(len(genes))]
+            t0 = time.monotonic()
+            status, doc = post_tenant(url, g, tenant)
+            with lock:
+                c = counts[tenant]
+                c["n"] += 1
+                if status == 200:
+                    c["ok"] += 1
+                    c["lat"].append((time.monotonic() - t0) * 1e3)
+                    c["wrong"] += fleet_verdict(oracle, g, doc)[0] != "ok"
+                elif status == 429:
+                    c["rejected"] += 1
+            if pace:
+                time.sleep(pace)
+
+    threads = [threading.Thread(target=worker, args=("alice", 0.05, 0), daemon=True)]
+    threads += [threading.Thread(target=worker, args=("mallory", 0.0, 1 + w), daemon=True)
+                for w in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=TENANT_S + 60)
+    text = http_json(replica + "/metrics")[1].decode()
+    m = re.search(r'^serve_rejected_total\{tenant="mallory"\} (\S+)$', text, re.M)
+    labelled = float(m.group(1)) if m else 0.0
+    v, a = counts["alice"], counts["mallory"]
+    rec = {"victim_requests": v["n"], "victim_ok": v["ok"],
+           "victim_tenant_availability": v["ok"] / max(v["n"], 1),
+           "victim_p99_ms": float(np.percentile(v["lat"], 99)) if v["lat"] else None,
+           "abuser_requests": a["n"], "abuser_rejected_429": a["rejected"],
+           "labelled_rejections": labelled, "wrong_answers": v["wrong"] + a["wrong"],
+           "topk_exact_launches": scrape_launches(replica).get("topk_exact", 0)}
+    gates = {"victim": rec["victim_tenant_availability"]
+             >= AUTOSCALE_ELASTICITY["min_victim_availability"],
+             "victim_load": v["n"] >= TENANT_S * 5, "abuser_shed": a["rejected"] > 0,
+             "labelled": labelled > 0, "wrong": rec["wrong_answers"] == 0}
+    rec["gates"] = gates
+    log(f"tenant drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"tenant drill: gates {gates}: {rec}")
+    return rec
+
+
+def bench_table(torch, rows: int, dim: int, clusters: int, seed: int):
+    """``bench.py:_ann_clustered_table``'s geometry, made on the card from a
+    seed: unit rows around ``clusters`` Gaussian centres (spread 0.35)."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    cent = torch.randn(clusters, dim, generator=g, device=DEVICE)
+    assign = torch.randint(0, clusters, (rows,), generator=g, device=DEVICE)
+    out = torch.empty(rows, dim, device=DEVICE)
+    for s in range(0, rows, 1 << 21):
+        blk = cent[assign[s:s + (1 << 21)]]
+        blk += 0.35 * torch.randn(blk.shape, generator=g, device=DEVICE)
+        out[s:s + blk.shape[0]] = blk / blk.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    return out
+
+
+def write_bench_export(path: str, table_np) -> None:
+    """The bench table as an export the registry reads: the npz (``emb``
+    only; no shard replica reads ``ctx``), vocab.tsv and the manifest,
+    through the port's own writers."""
+    from gene2vec_tpu_torch.io.checkpoint import ckpt_prefix
+    from gene2vec_tpu_torch.resilience import snapshot as snap
+
+    os.makedirs(path, exist_ok=True)
+    rows, dim = table_np.shape
+    prefix = ckpt_prefix(path, dim, 1)
+    meta = {"dim": dim, "iteration": 1, "vocab_size": rows, "table_dtype": "float32"}
+    snap.atomic_savez(prefix + ".npz", emb=table_np, meta=json.dumps(meta))
+    vocab = os.path.join(path, "vocab.tsv")
+    with open(vocab, "w") as f:
+        f.write("".join(f"G{i}\t1\n" for i in range(rows)))
+    snap.write_manifest(prefix, [prefix + ".npz", vocab], meta=meta)
+
+
+def shard_bench(torch, work: str, smi: str) -> tuple:
+    """Phase 10b's merge bench (``scripts/chaos_drill.py:_shard_merge_bench``)
+    on the card at ``shard.scatter.recipe``: a 10M x 64 clustered table
+    written as an export, each of 4 shards loaded through its own
+    ``ModelRegistry(shard=(i, 4))`` (1,024 IVF lists a shard) and served
+    by its own engine (K9 then K9r), the shards' top-k merged with
+    ``merge_shard_topk``; recall@10 all up and with shard 0 dead against
+    the exact oracle computed on the card, the merged single-query p99.
+    Then K9 and K9r at this geometry against their plain versions on
+    BENCH_CHECK_QUERIES queries, timed.  Returns (record, launches, rows
+    for PERF.md)."""
+    import shutil
+
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.kernels import ivf_scan, rescore
+    from gene2vec_tpu_torch.obs.profiler import bound
+    from gene2vec_tpu_torch.parallel.sharding import merge_shard_topk, shard_ranges
+    from gene2vec_tpu_torch.serve.engine import SimilarityEngine, normalize_queries
+    from gene2vec_tpu_torch.serve.registry import ModelRegistry
+
+    budget, recipe = SHARD_SCATTER, SHARD_SCATTER["recipe"]
+    rows, dim, n_shards = recipe["rows"], recipe["dim"], recipe["shards"]
+    k, n_q, nprobe = recipe["k"], recipe["queries"], recipe["nprobe"]
+    reduced = []
+    free = shutil.disk_usage(work).free
+    if free < MIN_FREE_BYTES:
+        rows = int(rows * free / MIN_FREE_BYTES) // 1000 * 1000
+        reduced.append({"rows": rows, "reason": f"{free / 2**30:.1f} GiB free on disk"})
+    t0 = time.perf_counter()
+    table = bench_table(torch, rows, dim, recipe["clusters"], FLEET_SEED)
+    q_idx = torch.randint(0, rows, (n_q,), generator=torch.Generator().manual_seed(FLEET_SEED + 1))
+    queries = table[q_idx.to(DEVICE)].contiguous()
+    # the exact oracle on the card: chunked scores, merged chunk top-ks
+    parts = []
+    for s in range(0, rows, 1 << 20):
+        sc, ix = torch.topk(queries @ table[s:s + (1 << 20)].T, k)
+        parts.append((sc.cpu().numpy(), ix.cpu().numpy().astype(np.int64) + s))
+    oracle = merge_shard_topk(parts, k)[1]
+    export = os.path.join(work, "bench_export")
+    table_np = table.cpu().numpy()
+    del table
+    torch.cuda.empty_cache()
+    write_bench_export(export, table_np)
+    written_s = time.perf_counter() - t0
+    log(f"shard bench: {rows:,} x {dim} table, oracle and export in {written_s:.1f}s")
+    ranges = shard_ranges(rows, n_shards)
+    per_shard = recipe["clusters"] // n_shards
+
+    def load(i):
+        reg = ModelRegistry(export, shard=(i, n_shards), index_mode="ivf",
+                            ann_clusters=per_shard, device=DEVICE)
+        if not reg.refresh():
+            raise SystemExit(f"shard bench: shard {i} did not load")
+        return reg
+
+    # shard 0 alone, with the card's allocated bytes read around it; then
+    # the others side by side, as a fleet's shard replicas load
+    before = torch.cuda.memory_allocated()
+    regs = [load(0)]
+    torch.cuda.synchronize()
+    m, ann = regs[0].model, regs[0].model.ann
+    # the caching allocator hands out blocks in multiples of 512 bytes
+    blocks = lambda t: -(-t.numel() * t.element_size() // 512) * 512  # noqa: E731
+    index_bytes = sum(blocks(t) for t in (ann.table_q, ann.scale, ann.centroids, ann.lists))
+    mem = {"allocated": torch.cuda.memory_allocated() - before, "slice_bytes": blocks(m.unit),
+           "index_bytes": index_bytes, "whole_table_bytes": rows * dim * 4,
+           "list_len": ann.list_len, "lists": ann.n_clusters}
+    log(f"shard bench: shard 0 on the card: {mem}")
+    if mem["allocated"] > mem["slice_bytes"] + index_bytes:
+        raise SystemExit(f"shard bench: a shard's load took {mem} on the card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(n_shards - 1) as pool:
+        regs += list(pool.map(load, range(1, n_shards)))
+    shards = [(reg, SimilarityEngine(max_batch=n_q, index="ivf", nprobe=nprobe,
+                                     rescore_mult=recipe["rescore_mult"])) for reg in regs]
+    build_s = time.perf_counter() - t0 - written_s
+    log(f"shard bench: {n_shards} shard registries loaded and indexed in {build_s:.1f}s")
+    q_np = queries.cpu().numpy()
+
+    def scatter(qs, kk, exclude=None):
+        return merge_shard_topk([eng.topk_rows(reg.model, qs, kk)
+                                 for j, (reg, eng) in enumerate(shards) if j != exclude], kk)[1]
+
+    def recall(got, want):
+        return sum(len(set(g) & set(w)) for g, w in zip(got.tolist(), want.tolist())) \
+            / float(want.size)
+
+    kernels.reset_launch_counts()
+    recall_all = recall(scatter(q_np, k), oracle)
+    recall_dead = recall(scatter(q_np, k, exclude=0), oracle)
+    scatter(q_np[:1], k)
+    lat = []
+    for i in range(BENCH_LATENCY_REPS):
+        t1 = time.perf_counter()
+        scatter(q_np[i % n_q:i % n_q + 1], k)
+        lat.append((time.perf_counter() - t1) * 1e3)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    launches = {"ivf_scan": counts["ivf_scan"], "rescore": counts["rescore"]}
+    dead_frac = (ranges[0][1] - ranges[0][0]) / rows
+    rec = {"rows": rows, "dim": dim, "shards": n_shards, "k": k, "queries": n_q,
+           "index": "ivf", "nprobe": nprobe, "rescore_mult": recipe["rescore_mult"],
+           "clusters": recipe["clusters"], "per_shard_clusters": per_shard,
+           "recall_at_10": recall_all, "degraded_recall_at_10": recall_dead,
+           "dead_shard_row_fraction": dead_frac,
+           "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+           "latency_reps": BENCH_LATENCY_REPS, "latency_model": "sequential-shard-sum",
+           "table_and_export_s": written_s, "load_and_index_s": build_s,
+           "device_memory": mem, "launches": launches, "reduced": reduced}
+    # K9 and K9r at a shard's geometry against their plain versions (these
+    # launches are not the main path's)
+    reg, eng = shards[0]
+    m = reg.model
+    ann = m.ann
+    qn = torch.from_numpy(normalize_queries(q_np[:BENCH_CHECK_QUERIES])).to(DEVICE)
+    kb = eng.k_bucket(k, len(m))
+    rb = eng.r_bucket(kb, len(m))
+    npb = min(max(nprobe, -(-kb // ann.list_len)), ann.n_clusters)
+    args9 = (qn, ann.centroids, ann.lists, ann.table_q, ann.scale, npb, rb)
+    g9, w9 = ivf_scan.ivf_scan(*args9), ivf_scan.ivf_scan_plain(*args9)
+    torch.cuda.synchronize()
+    tied = probe_near_ties(torch, qn, ann.centroids, npb)
+    keep = ~tied
+    if not (torch.equal(g9[0][keep].view(torch.int32), w9[0][keep].view(torch.int32))
+            and torch.equal(g9[1][keep], w9[1][keep])):
+        raise SystemExit("shard bench: K9 not bitwise its plain version at the shard geometry")
+    rs, ri = w9
+    got = rescore.rescore(qn, m.unit, ri, rs, kb)
+    want = rescore.rescore_plain(qn, m.unit, ri, rs, kb)
+    torch.cuda.synchronize()
+    err, ties = check_topk("K9r (shard)", got, want,
+                           lambda ids: (qn[:, None, :] * m.unit[ids]).sum(-1), SERVE_TOL)
+    library_check("K9 (shard)", lib_ivf_scan(torch, *args9)[:1], w9[:1], rtol=1e-6)
+    library_check("K9r (shard)", lib_rescore(torch, qn, m.unit, ri, rs, kb)[:1], want[:1],
+                  rtol=SERVE_TOL)
+    timer = Timer(torch, TIMED_REPS)
+    cand = ivf_scan.probed(qn, ann.centroids, ann.lists, npb)
+    w_k9 = ivf_scan.work(qn.shape[0], dim, ann.n_clusters, npb, ann.list_len, rb,
+                         int(cand.numel()), int(torch.unique(cand).numel()))
+    w_k9r = rescore.work(qn.shape[0], dim, rb, kb, *rescore.candidates(rs, ri))
+    perf = []
+    for name, src, replaces, fn, plain, lib, wk, e, route in (
+            ("ivf_scan", "k9_ivf_scan.cu", "gene2vec_tpu/serve/ann.py:429",
+             lambda: ivf_scan.ivf_scan(*args9), lambda: ivf_scan.ivf_scan_plain(*args9),
+             lambda: lib_ivf_scan(torch, *args9), w_k9, 0.0,
+             ivf_route(ivf_scan, qn, ann.centroids, ann.table_q, npb, rb, ann.list_len)),
+            ("rescore", "k9r_rescore.cu", "gene2vec_tpu/serve/ann.py:452",
+             lambda: rescore.rescore(qn, m.unit, ri, rs, kb),
+             lambda: rescore.rescore_plain(qn, m.unit, ri, rs, kb),
+             lambda: lib_rescore(torch, qn, m.unit, ri, rs, kb), w_k9r, err,
+             rescore.plan(qn, m.unit, ri.shape[1], min(kb, ri.shape[1])).describe())):
+        b_ms, b_by = bound(wk)
+        perf.append({"name": name, "route": "cuda",
+                     "source": f"gene2vec_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
+                     "launches": launches[name], "max_abs_err": e, "ms": timer(fn),
+                     "plain_ms": timer(plain), "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": timer(lib), "plan": route,
+                     "shape": {"rows": len(m), "dim": dim, "batch": int(qn.shape[0]),
+                               "lists": ann.n_clusters, "list_len": ann.list_len,
+                               "nprobe": npb, "kb": kb, "rb": rb,
+                               "candidates_a_query": int(cand.numel()) // int(qn.shape[0])},
+                     "near_ties": int(tied.sum()) if name == "ivf_scan" else ties,
+                     "card": smi})
+    rec["kernel_rows"] = perf
+    rec["seconds"] = time.perf_counter() - t0
+    if rec["seconds"] > BENCH_CUT_S:
+        log(f"shard bench: {rec['seconds']:.1f}s, past the {BENCH_CUT_S:g}s budget")
+    gates = {"recall": recall_all >= budget["min_recall_at_10"],
+             "degradation": abs((recall_all - recall_dead) - dead_frac)
+             <= budget["recall_degradation_tolerance"],
+             "p99": rec["p99_ms"] <= budget["max_p99_ms"],
+             "launches": launches["ivf_scan"] > 0 and launches["rescore"] > 0}
+    rec["gates"] = gates
+    del shards, regs, reg, eng, m, ann
+    torch.cuda.empty_cache()
+    log(f"shard bench: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"shard bench: gates {gates}: {rec}")
+    return rec, launches, perf
+
+
+def shard_verdict(units, doc, row, gene, ranges, k=SHARD_K) -> tuple:
+    """("ok" | "unresolved" | "wrong" | "mixed", degraded, recall against
+    the full answer) of one scatter answer: ids those of the exact oracle
+    over the answered shards' rows (the full table when not degraded)
+    except near-ties, every score within SCORE_TOL; an answer that fits the
+    other iteration's oracle and not its own is mixed."""
+    it = doc["model"]["iteration"]
+    res = doc["results"][0]
+    degraded = bool(doc.get("degraded"))
+    if it not in units:
+        return "mixed", degraded, None
+    if degraded and res.get("degraded") and not res["neighbors"]:
+        return "unresolved", True, None
+    live = doc["shards"]["indexes"] if degraded else range(len(ranges))
+
+    def check(unit):
+        # a gene query is that gene's row in the answering iteration; a
+        # vector query is iteration 1's raw row
+        q = unit[row] if gene else units[1][row]
+        s = unit @ q
+        mask = np.full(len(unit), -np.inf, np.float32)
+        for i in live:
+            mask[ranges[i][0]:ranges[i][1]] = 0.0
+        s = s + mask
+        if gene:
+            s[row] = -np.inf
+        top = np.argsort(-s, kind="stable")[:k]
+        nbrs = res["neighbors"]
+        if len(nbrs) != len(top):
+            return False, None
+        for p, n in enumerate(nbrs):
+            r = int(n["gene"][1:])
+            if abs(n["score"] - s[r]) > SCORE_TOL or (
+                    r != top[p] and abs(s[r] - s[top[p]]) > SCORE_TOL):
+                return False, None
+        full = unit @ q
+        if gene:
+            full[row] = -np.inf
+        want = set(np.argsort(-full, kind="stable")[:k].tolist())
+        return True, len(want & {int(n["gene"][1:]) for n in nbrs}) / k
+
+    ok, rec = check(units[it])
+    if ok:
+        return "ok", degraded, rec
+    if any(check(u)[0] for i, u in units.items() if i != it):
+        return "mixed", degraded, None
+    return "wrong", degraded, None
+
+
+def shard_load(client, units, rows_of, ranges, seconds, gene_share=0.5, kill=None,
+               workers=3) -> dict:
+    """Closed-loop scatter load (gene and vector queries) for ``seconds``
+    through ``client``, every answer refereed by :func:`shard_verdict`;
+    ``kill`` = (pids, at seconds) SIGKILLs those pids mid-load."""
+    import signal
+    import threading
+
+    counts = {"total": 0, "ok": 0, "degraded": 0, "failed": 0, "wrong": 0, "mixed": 0,
+              "unresolved": 0, "server_5xx": 0, "attempts": 0, "retries": 0}
+    recalls, lat, traces, lock = [], [], [], threading.Lock()
+    stop_at = time.monotonic() + seconds
+    raw1 = units["raw"]
+
+    def worker(w):
+        rng = np.random.RandomState(FLEET_SEED + 30 + w)
+        while time.monotonic() < stop_at:
+            row = int(rows_of[rng.randint(len(rows_of))])
+            gene = rng.rand() < gene_share
+            body = ({"genes": [f"G{row}"], "k": SHARD_K} if gene else
+                    {"vectors": [[float(x) for x in raw1[row]]], "k": SHARD_K})
+            r = client.request("/v1/similar", body, timeout_s=6.0)
+            with lock:
+                counts["total"] += 1
+                counts["attempts"] += r.attempts
+                counts["retries"] += r.retries
+                lat.append(r.latency_s * 1e3)
+                if r.trace_id:
+                    traces.append((time.monotonic(), r.trace_id))
+                if r.status >= 500 and r.target is not None:
+                    counts["server_5xx"] += 1
+                if not r.ok or r.doc is None:
+                    counts["failed"] += 1
+                    continue
+            verdict, degraded, rc = shard_verdict(
+                {i: u for i, u in units.items() if i != "raw"}, r.doc, row, gene, ranges)
+            with lock:
+                counts["degraded"] += degraded
+                if verdict in ("ok", "unresolved"):
+                    counts["ok"] += 1
+                    counts["unresolved"] += verdict == "unresolved"
+                    if degraded and rc is not None:
+                        recalls.append(rc)
+                else:
+                    counts[verdict] += 1
+
+    threads = [threading.Thread(target=worker, args=(w,), daemon=True) for w in range(workers)]
+    for t in threads:
+        t.start()
+    t_kill = None
+    if kill is not None:
+        pids, at = kill
+        time.sleep(at)
+        for pid in pids:
+            os.kill(pid, signal.SIGKILL)
+        t_kill = time.monotonic()
+        log(f"shards: SIGKILL {pids} mid-load")
+    for t in threads:
+        t.join(timeout=seconds + 60)
+    counts["p99_ms"] = float(np.percentile(lat, 99)) if lat else None
+    counts["degraded_mean_recall"] = float(np.mean(recalls)) if recalls else None
+    return {"counts": counts, "traces": traces, "t_kill": t_kill}
+
+
+def scatter_trace(export: str, traces) -> dict:
+    """One answered request's trace reassembled down the scatter:
+    ``proxy_scatter`` with its legs' ``client_attempt`` spans and a
+    replica's ``serve_request``; ``cli.obs trace`` renders it."""
+    from gene2vec_tpu_torch.obs import flight
+
+    time.sleep(1.0)
+    for _, tid in traces[-40:]:
+        names, attempts, pids = trace_facts(flight.collect_trace(export, tid))
+        if {"proxy_scatter", "client_attempt", "serve_request"} <= names:
+            rc, text, _ = obs_cli(["trace", export, tid])
+            if rc != 0 or "proxy_scatter" not in text:
+                raise SystemExit(f"shards: cli.obs trace {tid}: exit {rc}:\n{text[-2000:]}")
+            return {"trace_id": tid, "client_attempts": attempts, "processes": len(pids)}
+    raise SystemExit("shards: no trace reassembled through proxy_scatter")
+
+
+def shard_drill(info: dict, export: str, emb1) -> dict:
+    """Phase 10b's HTTP drill (``drill_shard``) on ``cli.fleet
+    --shard-by-rows 2`` over the clustered full-width export: every query
+    gene's answer the oracle's; one shard SIGKILLed under load (degraded
+    answers against the live shards' oracle, never a 5xx), its restart and
+    full answers back; iteration 2 written under load, staged and flipped
+    on every shard (no wrong, no mixed answer); a trace through the
+    scatter.  Returns the record and K7's launches on the live replicas."""
+    from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
+
+    from gene2vec_tpu_torch.serve.registry import l2_normalize
+
+    budget = SHARD_SCATTER
+    url = info["url"]
+    ranges = [tuple(r) for r in info["shards"]["ranges"]]
+    units = {1: l2_normalize(emb1), "raw": emb1}
+    client = ResilientClient([url], RetryPolicy(max_attempts=3, default_timeout_s=6.0,
+                                                read_timeout_s=6.0, trace_sample=1.0))
+    rows_of = np.random.RandomState(FLEET_SEED).choice(V, FLEET_GENES, replace=False)
+    for row in rows_of[:16]:
+        r = client.request("/v1/similar", {"genes": [f"G{row}"], "k": SHARD_K}, timeout_s=30.0)
+        v = shard_verdict({1: units[1]}, r.doc, int(row), True, ranges) if r.ok else None
+        if v is None or v[0] != "ok" or v[1]:
+            raise SystemExit(f"shards: warm-up answer for G{row}: {r.status} {v}")
+    victim = 1
+    kill = shard_load(client, units, rows_of, ranges, SHARD_LOAD_S,
+                      kill=([info["replica_pids"][victim]], SHARD_LOAD_S / 3))
+    c = kill["counts"]
+    pm = prom(url)
+    amplification = (c["attempts"] + pm.get("fleet_client_retries_total", 0)
+                     + pm.get("fleet_client_hedges_total", 0)) / max(c["total"], 1)
+    dead_frac = (ranges[victim][1] - ranges[victim][0]) / V
+
+    def recovered():
+        health = json.loads(http_json(url + "/healthz")[1])
+        if not all(s["up"] for s in health.get("shards", [])):
+            return False
+        r = client.request("/v1/similar", {"genes": [f"G{rows_of[0]}"], "k": SHARD_K},
+                           timeout_s=6.0)
+        return bool(r.ok and not r.doc["degraded"])
+
+    t0 = time.monotonic()
+    wait_for(recovered, 180.0, "the killed shard's restart and full answers", 0.5)
+    restart_s = time.monotonic() - t0
+    # the swap under load: iteration 2 written a second in
+    import threading
+
+    emb2, _ = clustered_table(seed=12)
+    units2 = {1: units[1], 2: l2_normalize(emb2), "raw": emb1}
+    holder = {}
+    swap = threading.Thread(target=lambda: holder.update(shard_load(
+        client, units2, rows_of, ranges, SWAP_S, gene_share=1.0)))
+    swap.start()
+    time.sleep(1.0)
+    from gene2vec_tpu_torch.io.checkpoint import save_iteration
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.sgns.model import SGNSParams
+    import torch
+
+    t2 = torch.from_numpy(emb2)
+    save_iteration(export, D, 2, SGNSParams(t2, t2),
+                   Vocab([f"G{i}" for i in range(V)], np.ones(V, np.int64)), txt_output=False)
+    swap.join()
+    s = holder["counts"]
+
+    def swapped():
+        r = client.request("/v1/similar", {"genes": [f"G{rows_of[0]}"], "k": SHARD_K},
+                           timeout_s=6.0)
+        return bool(r.ok and r.doc["model"]["iteration"] == 2 and not r.doc["degraded"])
+
+    wait_for(swapped, 120.0, "the shard-atomic swap to iteration 2", 0.5)
+    pm = prom(url)
+    rec = {"requests": c["total"], "ok": c["ok"], "failed": c["failed"],
+           "availability": c["ok"] / max(c["total"], 1), "degraded_responses": c["degraded"],
+           "unresolved_responses": c["unresolved"],
+           "degraded_mean_recall": c["degraded_mean_recall"],
+           "dead_shard_row_fraction": dead_frac, "server_5xx": c["server_5xx"] + s["server_5xx"],
+           "wrong_answers": c["wrong"] + s["wrong"], "mixed_iteration_answers":
+           c["mixed"] + s["mixed"], "retry_amplification": amplification,
+           "restart_s": restart_s, "p99_ms": c["p99_ms"],
+           "swap": {"requests": s["total"], "failed": s["failed"], "degraded": s["degraded"],
+                    "wrong": s["wrong"], "mixed": s["mixed"],
+                    "flips": pm.get("fleet_swap_flips_total", 0),
+                    "stage_failures": pm.get("fleet_swap_stage_failures_total", 0)},
+           "trace": scatter_trace(export, kill["traces"] + holder["traces"])}
+    gates = {"availability": rec["availability"] >= budget["min_availability"],
+             "server_5xx": rec["server_5xx"] <= budget["max_server_5xx"],
+             "wrong": rec["wrong_answers"] <= budget["max_wrong_answers"],
+             "mixed": rec["mixed_iteration_answers"] <= budget["max_mixed_iteration_answers"],
+             "amplification": amplification <= budget["max_retry_amplification"],
+             "degraded_seen": c["degraded"] > 0, "flipped": rec["swap"]["flips"] >= 1,
+             "load": c["total"] >= 3 * SHARD_LOAD_S / 2}
+    rec["gates"] = gates
+    log(f"shard drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"shard drill: gates {gates}: {rec}")
+    return rec, live_launches(url)
+
+
+def shard_slow_loris(info: dict, emb) -> dict:
+    """A slow shard (``_shard_slow_loris``): shard 0 delays
+    ``/v1/shard/topk`` 3 s, the leg deadline is LORIS_DEADLINE_MS; the
+    deadline fires, answers degrade to the live shard (never a 5xx), p99
+    stays under the fault."""
+    from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
+
+    url = info["url"]
+    client = ResilientClient([url], RetryPolicy(max_attempts=2, default_timeout_s=6.0,
+                                                read_timeout_s=6.0))
+    rng = np.random.RandomState(FLEET_SEED)
+    lat, degraded, server_5xx, failed = [], 0, 0, 0
+    for _ in range(LORIS_REQUESTS):
+        row = int(rng.randint(V))
+        r = client.request("/v1/similar", {"vectors": [[float(x) for x in emb[row]]],
+                                           "k": SHARD_K}, timeout_s=6.0)
+        lat.append(r.latency_s * 1e3)
+        server_5xx += r.status >= 500 and r.target is not None
+        if not r.ok or r.doc is None:
+            failed += 1
+        elif r.doc.get("degraded"):
+            degraded += 1
+    deadlines = prom(url).get("fleet_shard_leg_deadline_total", 0.0)
+    rec = {"requests": LORIS_REQUESTS, "degraded": degraded, "server_5xx": server_5xx,
+           "availability": (LORIS_REQUESTS - failed) / LORIS_REQUESTS,
+           "p99_ms": float(np.percentile(lat, 99)), "shard_leg_deadlines": deadlines,
+           "injected_latency_ms": 3000.0, "shard_deadline_ms": LORIS_DEADLINE_MS,
+           "topk_exact_launches": live_launches(url)["topk_exact"]}
+    gates = {"server_5xx": server_5xx == 0, "degraded": degraded >= 0.8 * LORIS_REQUESTS,
+             "deadline_fired": deadlines >= 1,
+             "availability": rec["availability"] >= SHARD_SCATTER["min_availability"],
+             "p99": rec["p99_ms"] <= 2900.0}
+    rec["gates"] = gates
+    log(f"slow loris: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"slow loris: gates {gates}: {rec}")
+    return rec
+
+
+def interaction_check(fleet_url: str, server_url: str) -> dict:
+    """One batch of INTERACTION_MAX_PAIRS pairs spanning the shards through
+    the front door's ``CrossShardScorer`` (the head of
+    ``--ggipnn-checkpoint``) against a single-replica server's
+    ``/v1/interaction`` on the same export, head and pairs: every score
+    within SCORE_TOL, ``trained_head`` true on both; the front door's own
+    ``row_gather`` launches from its ``/metrics``."""
+    rng = np.random.RandomState(FLEET_SEED + 7)
+    half = V // 2
+    pairs = [[f"G{rng.randint(half)}", f"G{half + rng.randint(V - half)}"]
+             for _ in range(INTERACTION_MAX_PAIRS)]
+    docs = {}
+    for name, url in (("fleet", fleet_url), ("server", server_url)):
+        status, raw = http_json(url + "/v1/interaction", {"pairs": pairs, "timeout_ms": 60000},
+                                timeout=120.0)
+        if status != 200:
+            raise SystemExit(f"shards: {name} /v1/interaction answered {status}: {raw[:300]!r}")
+        docs[name] = json.loads(raw)
+    f, s = docs["fleet"], docs["server"]
+    got = np.asarray([p["score"] for p in f["scores"]], np.float64)
+    want = np.asarray([p["score"] for p in s["scores"]], np.float64)
+    err = float(np.abs(got - want).max())
+    launches = {"fleet": scrape_launches(fleet_url).get("row_gather", 0),
+                "server": scrape_launches(server_url).get("row_gather", 0)}
+    rec = {"pairs": len(pairs), "max_score_err": err, "trained_head": f["trained_head"],
+           "degraded": f["degraded"], "row_gather_launches": launches}
+    if not (f["trained_head"] and s["trained_head"]) or f["degraded"] or err > SCORE_TOL \
+            or not launches["fleet"]:
+        raise SystemExit(f"shards: cross-shard /v1/interaction: {rec}")
+    return rec
+
+
+def shard_failover(info: dict, export: str, emb, server_url: str) -> tuple:
+    """Replicated shards (``_shard_failover_drill``): ``--replicas-per-shard
+    2``; the cross-shard ``/v1/interaction`` check; one sibling of shard 1
+    SIGKILLed under verified load (no degraded answer, availability 1.0,
+    p99 gated, ``shard-redundancy-lost`` firing); the grid back; then both
+    siblings killed (at least one degraded answer, never a 5xx)."""
+    budget = SHARD_SCATTER["failover"]
+    url, run_dir = info["url"], info["run_dir"]
+    ranges = [tuple(r) for r in info["shards"]["ranges"]]
+    groups = {int(s): slots for s, slots in info["shards"]["groups"].items()}
+    from gene2vec_tpu_torch.serve.client import ResilientClient, RetryPolicy
+    from gene2vec_tpu_torch.serve.registry import l2_normalize
+
+    client = ResilientClient([url], RetryPolicy(max_attempts=3, default_timeout_s=6.0,
+                                                read_timeout_s=6.0))
+    units = {1: l2_normalize(emb), "raw": emb}
+    rows_of = np.random.RandomState(FLEET_SEED + 3).choice(V, FLEET_GENES, replace=False)
+    for _ in range(2):  # both siblings of each shard answer once before the window
+        for row in rows_of[:8]:
+            r = client.request("/v1/similar", {"genes": [f"G{row}"], "k": SHARD_K},
+                               timeout_s=30.0)
+            if not r.ok or r.doc["degraded"]:
+                raise SystemExit(f"failover: warm-up answered {r.status}")
+    interaction = interaction_check(url, server_url)
+    launches = live_launches(url, ("topk_exact",))
+    victim = groups[1][0]
+    one = shard_load(client, units, rows_of, ranges, SHARD_LOAD_S,
+                     kill=([info["replica_pids"][victim]], SHARD_LOAD_S / 3))["counts"]
+
+    def alert(state):
+        path = os.path.join(run_dir, "alerts.jsonl")
+        return os.path.exists(path) and any(
+            '"shard-redundancy-lost"' in line and f'"{state}"' in line for line in open(path))
+
+    wait_for(lambda: alert("firing"), 30.0, "shard-redundancy-lost firing", 0.5)
+
+    def grid_up():
+        health = json.loads(http_json(url + "/healthz")[1])
+        return all(r["up"] for s in health.get("shards", []) for r in s.get("replicas", []))
+
+    wait_for(grid_up, 180.0, "the killed sibling's restart", 0.5)
+    health = json.loads(http_json(url + "/healthz")[1])
+    pids = [r["pid"] for s in health["shards"] if s["index"] == 1 for r in s["replicas"]]
+    both = shard_load(client, units, rows_of, ranges, SHARD_LOAD_S / 2, gene_share=0.0,
+                      kill=(pids, 0.0))["counts"]
+    rec = {"requests": one["total"], "availability": one["ok"] / max(one["total"], 1),
+           "degraded_responses": one["degraded"], "p99_ms": one["p99_ms"],
+           "server_5xx": one["server_5xx"], "wrong_answers": one["wrong"],
+           "mixed_iteration_answers": one["mixed"], "redundancy_alert_fired": True,
+           "both_dead": {"requests": both["total"], "degraded_responses": both["degraded"],
+                         "server_5xx": both["server_5xx"], "wrong_answers": both["wrong"],
+                         "mixed_iteration_answers": both["mixed"]},
+           "interaction": interaction}
+    gates = {"availability": rec["availability"] >= budget["min_availability"],
+             "no_degraded": one["degraded"] <= budget["max_degraded_with_live_replica"],
+             "p99": one["p99_ms"] <= budget["max_failover_p99_ms"],
+             "both_dead_degraded": both["degraded"] >= budget["min_both_dead_degraded"],
+             "server_5xx": one["server_5xx"] + both["server_5xx"] == 0,
+             "wrong": one["wrong"] + both["wrong"] == 0,
+             "mixed": one["mixed"] + both["mixed"] == 0}
+    rec["gates"] = gates
+    log(f"failover drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"failover drill: gates {gates}: {rec}")
+    final = live_launches(url, ("topk_exact",))
+    return rec, {"topk_exact": max(launches["topk_exact"], final["topk_exact"]),
+                 "row_gather": interaction["row_gather_launches"]["fleet"]
+                 + interaction["row_gather_launches"]["server"]}
+
+
+def shards_phase(torch, smi: str, checkpoint=None) -> tuple:
+    """Phase 10: the elastic fleet and tenant quotas (10a), then the row
+    shards (10b), every fleet on the card over the clustered full-width
+    export.  The drills' fleets start side by side while the merge bench
+    runs in this process.  ``checkpoint`` is phase 6's GGIPNN head; without
+    one (``--shards``) a short ``cli.ggipnn`` run makes it.  Returns (the
+    ``{"shards": ...}`` record, the phase's launches)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the card's memory to the phase's eleven replicas
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+        exports = {}
+        for name in ("autoscale", "tenants", "drill", "loris", "failover"):
+            exports[name] = os.path.join(work, f"clustered_{name}")
+            emb, groups = write_clustered_export(exports[name])
+        if checkpoint is None:
+            _, checkpoint, _ = ggipnn_cli(torch, work, smi, emb, groups,
+                                          sizes=(65_536, 4_096, 4_096), checkpoint_every=256)
+        oracle = fleet_oracle(emb)
+        scrape = str(AUTOSCALE_ELASTICITY["scrape_interval_s"])
+        loris = json.dumps({"seed": FLEET_SEED, "latency_p": 1.0, "latency_ms": 3000.0,
+                            "route_prefix": "/v1/shard/topk"})
+        children = {
+            "autoscale": launch(fleet_argv(
+                exports["autoscale"], "--replicas", "1", "--min-replicas", "1",
+                "--max-replicas", "2", "--proxy-workers", "64", "--scrape-interval", scrape,
+                "--alert-rules", "none", *SCALE_FLAGS, *SATURABLE),
+                os.path.join(work, "autoscale.err")),
+            "tenants": launch(fleet_argv(
+                exports["tenants"], "--replicas", "1", "--proxy-workers", "64",
+                "--scrape-interval", "0.5", "--alert-rules", "none",
+                "--serve-arg=--tenant-quota", "--serve-arg=50", "--serve-arg=--tenant-override",
+                "--serve-arg=alice:50:100:4"), os.path.join(work, "tenants.err")),
+            "drill": launch(fleet_argv(
+                exports["drill"], "--shard-by-rows", "2", "--unhealthy-after", "2",
+                "--swap-interval", "0.4", "--scrape-interval", "0.5", "--alert-rules", "none",
+                "--shard-deadline-ms", "1500"), os.path.join(work, "drill.err")),
+            "loris": launch(fleet_argv(
+                exports["loris"], "--shard-by-rows", "2", "--swap-interval", "0.5",
+                "--scrape-interval", "0", "--alert-rules", "none", "--shard-deadline-ms",
+                str(LORIS_DEADLINE_MS), "--replica-arg", "0:--faults", "--replica-arg",
+                f"0:{loris}"), os.path.join(work, "loris.err")),
+            "failover": launch(fleet_argv(
+                exports["failover"], "--shard-by-rows", "2", "--replicas-per-shard", "2",
+                "--unhealthy-after", "2", "--swap-interval", "0.5", "--scrape-interval", "0.25",
+                "--alert-rules", "default", "--shard-deadline-ms", "1500",
+                "--ggipnn-checkpoint", checkpoint, "--device", "cuda"),
+                os.path.join(work, "failover.err")),
+            "server": launch([sys.executable, "-m", "gene2vec_tpu_torch.cli.serve",
+                              "--export-dir", exports["failover"], "--port", "0",
+                              "--cache-size", "0", "--poll-interval", "3600",
+                              "--ggipnn-checkpoint", checkpoint],
+                             os.path.join(work, "server.err")),
+        }
+        rec, launches = {}, {}
+        try:
+            bench, bench_launches, perf = shard_bench(torch, work, smi)
+            add_launches(launches, bench_launches)
+            infos = {}
+            for name, child in children.items():
+                infos[name] = contract(child)
+                log(f"phase 10: {name} up {time.perf_counter() - t0:.1f}s into the phase")
+            rec["autoscale"] = autoscale_drill(infos["autoscale"], oracle)
+            stop_server(children.pop("autoscale")[0])
+            rec["drill"], got = shard_drill(infos["drill"], exports["drill"], emb)
+            add_launches(launches, got)
+            stop_server(children.pop("drill")[0])
+            # the tenant drill and the slow shard's, side by side (two fleets)
+            import threading
+
+            held = {}
+
+            def tenants():
+                try:
+                    held["rec"] = tenant_drill(infos["tenants"], oracle)
+                except BaseException as e:  # re-raised below, on this thread
+                    held["error"] = e
+
+            side = threading.Thread(target=tenants)
+            side.start()
+            rec["slow_loris"] = shard_slow_loris(infos["loris"], emb)
+            side.join()
+            if "error" in held:
+                raise held["error"]
+            rec["tenants"] = held["rec"]
+            for name in ("autoscale", "tenants", "slow_loris"):
+                add_launches(launches, {"topk_exact": rec[name]["topk_exact_launches"]})
+            for name in ("tenants", "loris"):
+                stop_server(children.pop(name)[0])
+            rec["failover"], got = shard_failover(infos["failover"], exports["failover"], emb,
+                                                  infos["server"]["url"])
+            add_launches(launches, got)
+        finally:
+            for proc, _ in children.values():
+                stop_server(proc)
+        rec["bench"] = bench
+    rec["budgets"] = {"autoscale.elasticity": AUTOSCALE_ELASTICITY,
+                      "shard.scatter": SHARD_SCATTER}
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    rec["card"] = smi
+    for name in ("topk_exact", "ivf_scan", "rescore", "row_gather"):
+        if not launches.get(name):
+            raise SystemExit(f"phase 10: {name} launched no time ({launches})")
+    log(f"shards phase done in {rec['seconds']:.1f}s")
     return rec, launches
 
 
@@ -6031,6 +7091,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--fleet"]:
         fleet, _ = fleet_phase(smi)
         print(json.dumps({"fleet": fleet}))
+        return 0
+    if sys.argv[1:2] == ["--shards"]:
+        shards, _ = shards_phase(torch, smi)
+        print(json.dumps({"shards": shards}))
         return 0
     # phase 8 first, on a file system that holds none of the other phases'
     # files: its async-overhead gate times checkpoint writes against epochs
@@ -6126,6 +7190,10 @@ def main() -> int:
         gathers += serve_interaction(torch, clustered, checkpoint, work, smi)
         counts["row_gather"] = gathers
         log(f"GGIPNN phase done in {time.perf_counter() - t0:.1f}s")
+        # phase 10: the elastic fleet, tenant quotas and row shards (K7 on
+        # the replicas, K9/K9r in the merge bench, row_gather at the front
+        # door), with phase 6's head behind the cross-shard scorer
+        shards, shard_counts = shards_phase(torch, smi, checkpoint=checkpoint)
         t0 = time.perf_counter()
         # each new kernel's launches: the runs of phase 3b that drive it
         for label, run in train_objectives(torch, work, smi).items():
@@ -6178,6 +7246,7 @@ def main() -> int:
     counts.update(pipe_counts)
     add_launches(counts, res_counts)
     add_launches(counts, fleet_counts)
+    add_launches(counts, shard_counts)
 
     rows += serve_rows
     rows.append(gather_row)
@@ -6203,6 +7272,7 @@ def main() -> int:
     print(json.dumps({"touched_rows": TOUCHED_SHARES}))
     print(json.dumps({"resilience": res}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"shards": shards}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

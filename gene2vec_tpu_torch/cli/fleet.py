@@ -4,30 +4,43 @@ the port of ``gene2vec_tpu/cli/fleet.py``.
 ::
 
     python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ --replicas 3
+    python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ --replicas 1 \\
+        --min-replicas 1 --max-replicas 2
+    python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ \\
+        --shard-by-rows 2 --replicas-per-shard 2 [--ggipnn-checkpoint CKPT]
 
-Spawns ``--replicas`` ``gene2vec_tpu_torch.cli.serve`` children over the
-same export dir (each on the card; the tests pass
-``--serve-arg=--device --serve-arg=cpu``), health-checks and restarts
-them (``serve/fleet.py``), and serves the round-robin ``/v1/*`` proxy on
-``--port``.  Emits exactly ONE JSON line on stdout once the front door is
-listening::
+Spawns ``gene2vec_tpu_torch.cli.serve`` children over the same export dir
+(each on the card; the tests pass ``--serve-arg=--device
+--serve-arg=cpu``), health-checks and restarts them (``serve/fleet.py``),
+and serves the front door on ``--port``.  Emits exactly ONE JSON line on
+stdout once the front door is listening::
 
     {"url": ..., "replicas": 3, "replica_urls": [...],
-     "replica_pids": [...], "run_dir": ...}
+     "replica_pids": [...], "run_dir": ..., "autoscale": ..., "shards": ...}
 
 Human chatter goes to stderr; every fleet session stamps an obs ``Run``
 manifest (default run dir ``<export_dir>/fleet_runs/<unix-ts>``) whose
 registry backs the front door's ``/metrics``, and which holds
 ``alerts.jsonl``, the proxy's flight dumps and ``incidents/``.
 
-A replica that cannot start (no GPU and no ``--device cpu``) exits at
-once; the restart-storm cap then gives up on its slot and the fleet
-exits non-zero: it never serves on the CPU unless asked to.
+``--max-replicas`` turns the SLO-driven autoscaler on
+(``serve/autoscale.py``: scale-up on a queue, rejection or availability
+breach, slow scale-down through a zero-drop drain).  ``--shard-by-rows N``
+runs N row shards of ``--replicas-per-shard`` replicas behind a
+scatter-gather front door with the shard-atomic swap coordinator
+(``serve/shardgroup.py``); the scaler then sizes each shard's pool, and
+``--ggipnn-checkpoint`` backs the front door's cross-shard
+``/v1/interaction`` scorer, which runs on ``--device`` (``cuda`` unless
+``cpu``).  An unsharded fleet only checks that the checkpoint exists:
+its replicas take a head through ``--serve-arg``.
 
-The reference's autoscaling (ROADMAP A19 item 3), row shards (item 4),
-multi-model catalog (item 5), shadow canary and shard swap (A12) and
-batch jobs (A20) are not ported: their flags parse and are refused with
-exit 2.
+A replica that cannot start (no GPU and no ``--device cpu`` serve arg)
+exits at once; the restart-storm cap then gives up on its slot and the
+fleet exits non-zero: it never serves on the CPU unless asked to.
+
+The reference's multi-model catalog (ROADMAP A19 item 5), shadow canary
+(A12) and batch jobs (A20) are not ported: their flags parse and are
+refused with exit 2.
 """
 
 from __future__ import annotations
@@ -42,14 +55,8 @@ from typing import List, Optional
 #: flags whose feature the port lacks -> the ROADMAP item that brings it;
 #: given a value other than its default, a flag is refused with exit 2
 REFUSED = {
-    **{name: "A19 item 3 (autoscaling)" for name in (
-        "min_replicas", "max_replicas", "scale_up_queue", "scale_up_rejection",
-        "scale_up_after", "scale_down_queue", "scale_down_after", "scale_cooldown")},
-    **{name: "A12 (the shadow canary and the shard swap coordinator)"
-       for name in ("enable_shadow", "swap_interval")},
-    **{name: "A19 item 4 (row shards)" for name in (
-        "shard_by_rows", "replicas_per_shard", "shard_deadline_ms")},
     "catalog": "A19 item 5 (the multi-model catalog)",
+    "enable_shadow": "A12 (the shadow canary)",
     "jobs_dir": "A20 (batch jobs)",
 }
 
@@ -65,16 +72,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--replicas", type=int, default=3,
                    help="initial replica count")
     p.add_argument("--min-replicas", type=int, default=0,
-                   help="autoscaling floor (0 = --replicas); not ported: "
-                        "refused (ROADMAP A19 item 3)")
+                   help="autoscaling floor (0 = --replicas, or "
+                        "--replicas-per-shard per shard pool)")
     p.add_argument("--max-replicas", type=int, default=0,
                    help="autoscaling ceiling; > 0 turns the SLO-driven "
                         "scaler ON (serve/autoscale.py: scale-up on "
                         "queue/rejection/availability breach, slow "
-                        "hysteresis scale-down with a zero-drop drain; "
-                        "docs/SERVING.md#elastic-fleet); not ported: "
-                        "refused (ROADMAP A19 item 3), as are the "
-                        "--scale-* flags below")
+                        "hysteresis scale-down with a zero-drop drain); "
+                        "with --shard-by-rows the bounds apply to each "
+                        "shard's pool")
     p.add_argument("--scale-up-queue", type=float, default=8.0,
                    help="scale-up breach threshold: fleet queue depth "
                         "PER replica")
@@ -96,9 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds after an action completes before the "
                         "next may fire (anti-flap)")
     p.add_argument("--drain-timeout", type=float, default=30.0,
-                   help="max seconds the shutdown waits for the front "
-                        "door's in-flight forwards to settle before the "
-                        "replicas are terminated anyway")
+                   help="max seconds a scale-down (and the shutdown) "
+                        "waits for the front door's in-flight forwards "
+                        "to a replica to settle before terminating it "
+                        "anyway")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8100,
                    help="front-door port; 0 picks an ephemeral one "
@@ -161,88 +168,55 @@ def build_parser() -> argparse.ArgumentParser:
                         "(repeatable; the drill injects faults into a "
                         "single replica this way)")
     p.add_argument("--enable-shadow", action="store_true",
-                   help="enable the continuous-learning shadow canary "
-                        "(loop/shadow.py): the front door exposes "
-                        "/v1/shadow/start|stop|report and, while a "
-                        "canary is active, duplicates a sampled "
-                        "fraction of live /v1/similar traffic to the "
-                        "candidate replica off the caller's latency "
-                        "path; not ported: refused (ROADMAP A12)")
+                   help="the continuous-learning shadow canary; not "
+                        "ported: refused (ROADMAP A12)")
     p.add_argument("--shard-by-rows", type=int, default=0, metavar="N",
                    help="fleet-sharded index serving: run N row shards "
                         "each owning a CONTIGUOUS row range of the "
                         "table (+ its inverted lists), with the front "
                         "door scatter-gathering /v1/similar across all "
-                        "shards and merging shard-local top-k "
-                        "(serve/shardgroup.py; docs/SERVING.md"
-                        "#sharded-index-serving).  Overrides "
-                        "--replicas (total = N x --replicas-per-shard)."
-                        "  With --max-replicas the bounds apply PER "
-                        "SHARD POOL (shard-aware autoscaling).  Hot "
-                        "swap becomes shard-ATOMIC: every (shard, "
-                        "replica) cell stages the new iteration, then "
-                        "all flip under one epoch token; not ported: "
-                        "refused (ROADMAP A19 item 4)")
+                        "shards and merging shard-local top-k.  "
+                        "Overrides --replicas (total = N x "
+                        "--replicas-per-shard).  With --max-replicas the "
+                        "bounds apply PER SHARD POOL.  Hot swap becomes "
+                        "shard-ATOMIC: every (shard, replica) cell stages "
+                        "the new iteration, then all flip under one "
+                        "epoch token")
     p.add_argument("--replicas-per-shard", type=int, default=1,
                    metavar="R",
                    help="replica GROUP size per row shard (sharded "
                         "mode only): the front door scatters each "
                         "shard leg to any live sibling and fails over "
                         "within the leg's deadline, so a single "
-                        "replica death costs zero degraded answers "
-                        "(sharded mode only; refused with it)")
+                        "replica death costs zero degraded answers")
     p.add_argument("--ggipnn-checkpoint", default=None,
                    help="GGIPNN checkpoint npz (checkpoints/model-<step>.npz) "
-                        "backing every replica's /v1/interaction (passed "
-                        "to each replica's cli.serve; without it the MLP "
-                        "head is untrained and responses say so)")
+                        "backing the sharded front door's cross-shard "
+                        "/v1/interaction (without it the MLP head is "
+                        "untrained and responses say so); an unsharded "
+                        "fleet only checks that it exists: its replicas "
+                        "take a head through --serve-arg")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the sharded front door's interaction "
+                        "scorer runs (built at the first "
+                        "/v1/interaction); replicas take theirs through "
+                        "--serve-arg")
     p.add_argument("--shard-deadline-ms", type=float, default=2000.0,
                    help="per-shard scatter-leg deadline; a dead or "
                         "slow shard costs at most this before the "
                         "merge proceeds without it (the answer is "
-                        "flagged degraded, never a 5xx; sharded mode "
-                        "only, refused with it)")
+                        "flagged degraded, never a 5xx)")
     p.add_argument("--swap-interval", type=float, default=2.0,
                    help="seconds between the shard swap coordinator's "
-                        "export-dir polls (sharded mode only); not "
-                        "ported: refused (ROADMAP A12)")
+                        "export-dir polls (sharded mode only)")
     p.add_argument("--catalog", default=None, metavar="SPEC.json",
-                   help="serve a multi-model catalog (serve/catalog.py "
-                        "spec): replicas partition into one pool PER "
-                        "MODEL (each pool sized by the entry's "
-                        "'replicas'), the front door routes "
-                        "/v1/<model>/* to the owning pool and "
-                        "unprefixed /v1/* to the spec's default, "
-                        "per-model token buckets 429 a hot model "
-                        "before it starves a cold one, and with "
-                        "--max-replicas the autoscaler runs one "
-                        "policy per (model) pool — hottest signal "
-                        "wins, one action per tick.  Overrides "
-                        "--replicas; excludes --shard-by-rows "
-                        "(docs/SERVING.md#multi-model-catalog); not "
-                        "ported: refused (ROADMAP A19 item 5)")
+                   help="serve a multi-model catalog; not ported: "
+                        "refused (ROADMAP A19 item 5); never combines "
+                        "with --shard-by-rows")
     p.add_argument("--jobs-dir", default=None, metavar="DIR",
-                   help="batch-job store root: mounts the /v1/jobs "
-                        "lifecycle surface on the front door "
-                        "(docs/BATCH.md); jobs query the fleet at "
-                        "background priority — scatter-gather when "
-                        "sharded, the resilient client otherwise — "
-                        "and resume from their committed cursor "
-                        "across fleet restarts; not ported: refused "
+                   help="batch-job store root; not ported: refused "
                         "(ROADMAP A20)")
     return p
-
-
-def parse_replica_args(pairs: List[str]) -> dict:
-    out: dict = {}
-    for pair in pairs:
-        idx, sep, flag = pair.partition(":")
-        if not sep:
-            raise ValueError(
-                f"--replica-arg must be <index>:<flag>, got {pair!r}"
-            )
-        out.setdefault(int(idx), []).append(flag)
-    return out
 
 
 def parse_replica_args(pairs: List[str]) -> dict:
@@ -267,12 +241,41 @@ def refused_flags(parser: argparse.ArgumentParser, args) -> List[str]:
     ]
 
 
+def check_flags(parser: argparse.ArgumentParser, args) -> Optional[str]:
+    """The first reason the flags cannot run, before any replica spawns
+    (None when they can).  Fills ``args.replicas`` in sharded mode."""
+    if args.shard_by_rows < 0:
+        return "error: --shard-by-rows must be >= 0"
+    if args.replicas_per_shard < 1:
+        return "error: --replicas-per-shard must be >= 1"
+    if args.replicas_per_shard > 1 and not args.shard_by_rows:
+        return ("error: --replicas-per-shard needs --shard-by-rows (an "
+                "unsharded fleet's replicas are already one "
+                "interchangeable pool; use --replicas)")
+    if args.ggipnn_checkpoint and not os.path.isfile(args.ggipnn_checkpoint):
+        return f"error: --ggipnn-checkpoint {args.ggipnn_checkpoint!r} does not exist"
+    if args.catalog and args.shard_by_rows:
+        # a catalog partitions replicas by model, row sharding by row
+        # range of one model's table
+        return ("error: --catalog cannot combine with --shard-by-rows "
+                "(model pools and row shards are different fleet "
+                "partitions)")
+    refused = refused_flags(parser, args)
+    if refused:
+        return "\n".join(refused)
+    if args.shard_by_rows:
+        args.replicas = args.shard_by_rows * args.replicas_per_shard
+    if args.replicas < 1:
+        return "error: --replicas must be >= 1"
+    return None
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    refused = refused_flags(parser, args)
-    if refused:
-        print("\n".join(refused), file=sys.stderr)
+    problem = check_flags(parser, args)
+    if problem:
+        print(problem, file=sys.stderr)
         return 2
 
     import random
@@ -286,19 +289,47 @@ def main(argv: Optional[List[str]] = None) -> int:
         FleetSupervisor,
     )
 
-    if args.replicas < 1:
-        print("error: --replicas must be >= 1", file=sys.stderr)
-        return 2
-    serve_args = list(args.serve_arg)
-    if args.ggipnn_checkpoint:
-        if not os.path.isfile(args.ggipnn_checkpoint):
-            print(
-                f"error: --ggipnn-checkpoint {args.ggipnn_checkpoint!r} "
-                "does not exist",
-                file=sys.stderr,
-            )
+    if args.shard_by_rows:
+        from gene2vec_tpu_torch.device import resolve_device
+
+        # the front door's scorer runs on the card unless asked otherwise:
+        # without a GPU it fails here, before any replica spawns
+        try:
+            resolve_device(args.device)
+        except RuntimeError as e:
+            print(f"error: --device {args.device}: {e}", file=sys.stderr)
             return 2
-        serve_args += ["--ggipnn-checkpoint", args.ggipnn_checkpoint]
+    # the autoscale bounds, checked before paying N spawns; in sharded mode
+    # they apply to each shard's pool (the shard count is fixed)
+    autoscale_cfg = None
+    pool_base = args.replicas_per_shard if args.shard_by_rows else args.replicas
+    if args.max_replicas > 0:
+        from gene2vec_tpu_torch.serve.autoscale import AutoscaleConfig
+
+        if args.scrape_interval <= 0:
+            print("error: --max-replicas needs --scrape-interval > 0 — the "
+                  "scaler reads the fleet aggregator's snapshot each scrape "
+                  "tick", file=sys.stderr)
+            return 2
+        try:
+            autoscale_cfg = AutoscaleConfig(
+                min_replicas=args.min_replicas or pool_base,
+                max_replicas=args.max_replicas,
+                up_queue_per_replica=args.scale_up_queue,
+                up_rejection_rate=args.scale_up_rejection,
+                up_after_ticks=args.scale_up_after,
+                down_queue_per_replica=args.scale_down_queue,
+                down_after_ticks=args.scale_down_after,
+                cooldown_s=args.scale_cooldown,
+            )
+        except ValueError as e:
+            print(f"error: bad autoscale flags: {e}", file=sys.stderr)
+            return 2
+        if not autoscale_cfg.min_replicas <= pool_base <= autoscale_cfg.max_replicas:
+            what = "--replicas-per-shard" if args.shard_by_rows else "--replicas"
+            print(f"error: {what} {pool_base} outside [{autoscale_cfg.min_replicas}, "
+                  f"{autoscale_cfg.max_replicas}]", file=sys.stderr)
+            return 2
     # validate the alert rules BEFORE paying N replica spawns — a typo'd
     # alerts.json must fail in milliseconds
     alert_rules = None
@@ -324,7 +355,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_dir = args.run_dir or os.path.join(
         args.export_dir, "fleet_runs", str(int(time.time()))
     )
-    # the front door touches no device: no device facts in its manifest
+    # the front door touches no device until a sharded fleet scores a pair
     run = Run(run_dir, name="fleet", config=vars(args), probe_devices=False)
 
     # installed BEFORE any replica exists: a SIGTERM during the (long)
@@ -334,6 +365,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise KeyboardInterrupt
 
     signal.signal(signal.SIGTERM, _on_term)
+    shard_of = shard_args = None
+    if args.shard_by_rows:
+        # the (shard, replica) grid: slot i serves shard i // R, and the
+        # shard flags are keyed by shard, so restarts and added siblings
+        # load exactly their shard's rows
+        shard_of = {i: i // args.replicas_per_shard for i in range(args.replicas)}
+        shard_args = {
+            s: ["--shard-index", str(s), "--num-shards", str(args.shard_by_rows)]
+            for s in range(args.shard_by_rows)
+        }
     supervisor = FleetSupervisor(
         args.export_dir,
         config=FleetConfig(
@@ -345,10 +386,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             storm_max_restarts=args.storm_max_restarts,
             storm_window_s=args.storm_window,
         ),
-        serve_args=serve_args,
+        serve_args=args.serve_arg,
         replica_args=parse_replica_args(args.replica_arg),
         metrics=run.registry,
         rng=random.Random(args.seed),
+        shard_of=shard_of,
+        shard_args=shard_args,
     )
     try:
         supervisor.start()
@@ -375,12 +418,78 @@ def main(argv: Optional[List[str]] = None) -> int:
         acceptors=args.proxy_acceptors,
         alert_rules=alert_rules,
     )
+    coordinator = None
+    if args.shard_by_rows:
+        from gene2vec_tpu_torch.serve.shardgroup import (
+            RoutingTable,
+            ShardGroup,
+            ShardGroupConfig,
+            SwapCoordinator,
+        )
+
+        routing = RoutingTable(args.export_dir, args.shard_by_rows, dim=None)
+        if not routing.reload():
+            print("error: no verified checkpoint to derive the gene->shard "
+                  "routing table from", file=sys.stderr)
+            supervisor.stop()
+            run.close()
+            return 2
+        proxy.shard_group = ShardGroup(
+            ShardGroupConfig(
+                num_shards=args.shard_by_rows,
+                shard_deadline_s=args.shard_deadline_ms / 1000.0,
+                default_timeout_s=args.proxy_timeout_ms / 1000.0,
+            ),
+            # the whole replica GROUP of a shard: its client round-robins
+            # the siblings and fails over within the leg deadline
+            supervisor.shard_urls,
+            metrics=run.registry,
+            policy=RetryPolicy(
+                max_attempts=args.proxy_attempts,
+                default_timeout_s=args.shard_deadline_ms / 1000.0,
+                hedge=args.hedge,
+            ),
+            inflight=proxy.inflight,
+            routing=routing,
+            ggipnn_checkpoint=args.ggipnn_checkpoint,
+            scorer_device=args.device,
+        )
+        if proxy.aggregator is not None:
+            # per-shard telemetry and the redundancy view; desired follows
+            # the current promise, so a deliberate scale-down pages nothing
+            proxy.aggregator.shard_of = supervisor.shard_of_url
+            proxy.aggregator.shard_facts = supervisor.shard_redundancy_facts
+        coordinator = SwapCoordinator(
+            args.export_dir, proxy.shard_group, interval_s=args.swap_interval,
+            metrics=run.registry,
+        ).start()
+    controller = None
+    if autoscale_cfg is not None:
+        from gene2vec_tpu_torch.serve.autoscale import (
+            ElasticController,
+            ShardElasticController,
+        )
+
+        if args.shard_by_rows:
+            controller = ShardElasticController(
+                supervisor, proxy, autoscale_cfg, num_shards=args.shard_by_rows,
+                metrics=run.registry, drain_timeout_s=args.drain_timeout,
+            )
+        else:
+            controller = ElasticController(
+                supervisor, proxy, autoscale_cfg, metrics=run.registry,
+                drain_timeout_s=args.drain_timeout,
+            )
+        # the scaler rides the aggregator's scrape tick, after the alert
+        # evaluator: the same snapshot, nothing on the serve path
+        proxy.aggregator.observers.append(controller.observe)
     url = proxy.serve(args.host, args.port)
     run.annotate(fleet_url=url)
     run.event(
         "fleet_start", url=url, replicas=args.replicas,
         replica_urls=[r.url for r in supervisor.replicas],
     )
+    group = proxy.shard_group
     print(
         json.dumps({
             "url": url,
@@ -388,12 +497,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             "replica_urls": [r.url for r in supervisor.replicas],
             "replica_pids": [r.pid for r in supervisor.replicas],
             "run_dir": run.run_dir,
+            "autoscale": (
+                {"min": autoscale_cfg.min_replicas, "max": autoscale_cfg.max_replicas}
+                if autoscale_cfg is not None else None
+            ),
+            "shards": (
+                {
+                    "num_shards": args.shard_by_rows,
+                    "replicas_per_shard": args.replicas_per_shard,
+                    "total_rows": group.routing.total_rows,
+                    "ranges": [list(r) for r in group.routing.ranges],
+                    # slot indices per shard: a drill kills one sibling by these
+                    "groups": {
+                        str(s): [r.index for r in supervisor.replicas if r.shard == s]
+                        for s in range(args.shard_by_rows)
+                    },
+                }
+                if group is not None else None
+            ),
         }),
         flush=True,
     )
     print(
         f"fleet of {args.replicas} replicas over {args.export_dir} "
-        f"fronted at {url}; run dir {run.run_dir}",
+        f"fronted at {url}; run dir {run.run_dir}"
+        + (f"; autoscaling [{autoscale_cfg.min_replicas}, {autoscale_cfg.max_replicas}]"
+           if autoscale_cfg is not None else ""),
         file=sys.stderr,
     )
     try:
@@ -402,9 +531,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     except KeyboardInterrupt:
         print("shutting down fleet", file=sys.stderr)
     finally:
-        # graceful, zero-drop shutdown ordering: stop accepting (front
-        # door down), DRAIN the forwards the proxy already dispatched,
-        # and only then SIGTERM the replicas
+        # graceful, zero-drop shutdown ordering: stop scaling and swapping,
+        # stop accepting (front door down), DRAIN the forwards the proxy
+        # already dispatched, and only then SIGTERM the replicas
+        if controller is not None:
+            controller.stop()
+        if coordinator is not None:
+            coordinator.stop()
         proxy.stop()
         proxy.drain(timeout_s=args.drain_timeout)
         supervisor.stop()

@@ -3,7 +3,9 @@
     python -m gene2vec_tpu_torch.cli.serve --export-dir out/ --port 8000 \\
         [--index exact|quant|ivf] [--ggipnn-checkpoint model-<step>.npz] \\
         [--kernel-profile] [--faults JSON] [--trace-sample P] \\
-        [--run-dir DIR] [--device cuda|cpu]
+        [--run-dir DIR] [--device cuda|cpu] \\
+        [--shard-index I --num-shards N] \\
+        [--tenant-quota RATE [--tenant-burst B] [--tenant-override ID:R[:B[:W]]]]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
@@ -26,6 +28,13 @@ request spans (trace-stamped under a sampled ``traceparent`` or
 ``--trace-sample``), and it is the flight recorder's dump dir — a 5xx
 burst (``--burst-threshold`` within ``--burst-window``) dumps the ring
 there, and so does ``kill -QUIT <pid>``.
+
+``--shard-index I --num-shards N`` serves one contiguous row shard of the
+table (only its rows and index reach the card) with the ``/v1/shard/*``
+plane and no self-swap watcher: the fleet's coordinator stages and flips
+every shard together (``cli.fleet --shard-by-rows`` sets them).
+``--tenant-quota`` turns per-tenant admission on (``X-Tenant``; 429s
+labelled by tenant; ``serve/tenancy.py``).
 
 ``--faults`` (else ``$GENE2VEC_TPU_FAULTS``) takes a
 ``resilience/faults.py`` ``FaultSpec`` as JSON and injects deterministic
@@ -120,6 +129,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GGIPNN run checkpoint npz (checkpoints/model-<step>.npz) "
                         "backing /v1/interaction (without it the MLP head is "
                         "untrained and responses say so)")
+    p.add_argument("--shard-rows", action="store_true",
+                   help="row-shard the table over every visible device; on one "
+                        "card the whole table stays on it (more cards need ROADMAP "
+                        "A13, multi-GPU)")
+    p.add_argument("--shard-index", type=int, default=None,
+                   help="serve ONE contiguous row shard of the table: this replica's "
+                        "shard index in [0, --num-shards).  Loads only the shard's "
+                        "rows and index, exposes /v1/shard/*, and disables the "
+                        "self-swap watcher (the fleet's coordinator stages and flips; "
+                        "normally set by cli.fleet --shard-by-rows)")
+    p.add_argument("--num-shards", type=int, default=None,
+                   help="total shard count for --shard-index")
+    p.add_argument("--tenant-quota", type=float, default=0.0, metavar="RATE",
+                   help="per-tenant token-bucket quota in requests/s (X-Tenant "
+                        "header; untagged traffic is the 'default' tenant); 0 "
+                        "disables tenant admission.  Quotas are per replica")
+    p.add_argument("--tenant-burst", type=float, default=0.0,
+                   help="tenant bucket burst headroom (0 = 2 x --tenant-quota)")
+    p.add_argument("--tenant-override", action="append", default=[],
+                   metavar="ID:RATE[:BURST[:WEIGHT]]",
+                   help="explicit quota for one tenant (repeatable); WEIGHT is its "
+                        "weighted-fair share of a contended batch (default 1)")
     return p
 
 
@@ -130,7 +161,33 @@ def main(argv: Optional[List[str]] = None) -> int:
     from gene2vec_tpu_torch.resilience.faults import FaultInjector, FaultSpec
     from gene2vec_tpu_torch.serve.registry import ModelRegistry
     from gene2vec_tpu_torch.serve.server import ServeApp, ServeConfig, make_server
+    from gene2vec_tpu_torch.serve.tenancy import TenantPolicy
 
+    # a typo'd quota or shard flag fails in milliseconds, before the load
+    try:
+        TenantPolicy.from_args(args.tenant_quota, args.tenant_burst or None,
+                               args.tenant_override)
+    except ValueError as e:
+        print(f"error: bad tenant quota flags: {e}", file=sys.stderr)
+        return 2
+    shard = None
+    if (args.shard_index is None) != (args.num_shards is None):
+        print("error: --shard-index and --num-shards go together", file=sys.stderr)
+        return 2
+    if args.shard_index is not None:
+        if not 0 <= args.shard_index < args.num_shards:
+            print(f"error: --shard-index {args.shard_index} outside "
+                  f"[0, {args.num_shards})", file=sys.stderr)
+            return 2
+        shard = (args.shard_index, args.num_shards)
+    if args.shard_rows and args.device == "cuda":
+        import torch
+
+        if torch.cuda.device_count() > 1:
+            print("error: --shard-rows over more than one card needs ROADMAP A13 "
+                  "(multi-GPU), which gene2vec_tpu_torch does not port yet",
+                  file=sys.stderr)
+            return 2
     if args.faults is not None:
         fault_injector = FaultInjector(FaultSpec.from_json(args.faults))
     else:
@@ -140,7 +197,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # raises without a GPU unless --device cpu
     registry = ModelRegistry(
         args.export_dir, dim=args.dim, index_mode=args.index,
-        ann_clusters=args.ann_clusters, device=args.device,
+        ann_clusters=args.ann_clusters, device=args.device, shard=shard,
     )
     run_dir = args.run_dir or os.path.join(
         args.export_dir, "serve_runs", str(int(time.time())))
@@ -162,7 +219,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         # build (or find) the kernel libraries now, not inside the first
         # request's deadline
         build.build_all()
-    registry.start_watcher(args.poll_interval)
+    if shard is None:
+        registry.start_watcher(args.poll_interval)
+    else:
+        # a shard swapping on its own poll would be the mixed-iteration
+        # merge the coordinator's epoch protocol exists to prevent
+        print(f"shard {shard[0]}/{shard[1]}: self-swap watcher disabled "
+              "(coordinator-driven stage/flip)", file=sys.stderr)
     config = ServeConfig(
         max_batch=args.max_batch,
         max_delay_ms=args.max_delay_ms,
@@ -181,6 +244,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         kernel_profile=args.kernel_profile,
         burst_threshold=args.burst_threshold,
         burst_window_s=args.burst_window,
+        tenant_rate=args.tenant_quota,
+        tenant_burst=args.tenant_burst,
+        tenant_overrides=tuple(args.tenant_override),
     )
     app = ServeApp(registry, config=config, metrics=metrics,
                    ggipnn_checkpoint=args.ggipnn_checkpoint,
@@ -215,10 +281,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         pass  # not the main thread
     run.annotate(serve_url=url)
     run.event("serve_start", url=url, iteration=model.iteration)
-    print(json.dumps({
+    contract = {
         "url": url, "dim": model.dim, "iteration": model.iteration,
         "run_dir": run.run_dir, "index": args.index, "device": str(registry.device),
-    }), flush=True)
+    }
+    if shard is not None:
+        contract["shard"] = {
+            "index": shard[0], "num_shards": shard[1],
+            "rows": [model.row_base, model.row_base + len(model)],
+            "total_rows": model.total_rows, "epoch": model.epoch,
+        }
+    print(json.dumps(contract), flush=True)
     print(
         f"serving {args.export_dir} (dim {model.dim}, iteration {model.iteration}, "
         f"vocab {len(model)}, index {args.index}) on {url}, device {registry.device}; "

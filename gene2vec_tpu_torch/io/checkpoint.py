@@ -39,7 +39,7 @@ import os
 import re
 import signal
 import warnings
-import zipfile  # noqa: F401 -- np.savez imports it; loaded before the helper forks
+import zipfile  # read_npz_rows; np.savez imports it too, loaded before the helper forks
 from typing import Optional, Tuple
 
 import numpy as np
@@ -416,3 +416,80 @@ def latest_iteration(export_dir: str, dim: int, verified_only: bool = True) -> i
     ):
         return it
     return 0
+
+
+def read_npz_rows(path: str, name: str, start: int,
+                  end: int) -> Tuple[np.ndarray, int]:
+    """Read rows ``[start, end)`` of array ``name`` from an
+    **uncompressed** npz (``np.savez``, which ``atomic_savez`` uses)
+    WITHOUT materializing the whole array: the zip member is STORED,
+    so after parsing the npy header the row range is one seek + one
+    read.  Returns ``(rows, total_rows)``.
+
+    This is what lets a shard replica sized for ``rows/num_shards``
+    actually load (and hot-stage) its slice of a table that does not
+    fit the host — ``serve/registry.py`` routes sharded npz loads
+    through here (a copy of the reference's
+    ``io/checkpoint.py:read_npz_rows``).  Any structural surprise (compressed member, Fortran
+    order, >2-D quirks) raises ``ValueError`` so the caller can fall
+    back to the full load."""
+    import struct
+
+    member = name if name.endswith(".npy") else name + ".npy"
+    # called from the registry's load path, which holds its refresh lock
+    # (loads serialize; serve reads never take that lock)
+    with open(path, "rb") as f:
+        with zipfile.ZipFile(f) as zf:
+            try:
+                info = zf.getinfo(member)
+            except KeyError:
+                raise ValueError(
+                    f"{path}: no member {member!r}"
+                ) from None
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(
+                    f"{path}:{member}: compressed member — cannot "
+                    "seek a row range"
+                )
+        # the member's data offset: local file header (30 fixed bytes
+        # + name + extra — the extra field can differ from the central
+        # directory's, so it must be read from the LOCAL header)
+        f.seek(info.header_offset)
+        local = f.read(30)
+        if len(local) != 30 or local[:4] != b"PK\x03\x04":
+            raise ValueError(f"{path}:{member}: bad local zip header")
+        name_len, extra_len = struct.unpack("<HH", local[26:30])
+        f.seek(info.header_offset + 30 + name_len + extra_len)
+        version = np.lib.format.read_magic(f)
+        if version == (1, 0):
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_1_0(f)
+            )
+        elif version == (2, 0):
+            shape, fortran, dtype = (
+                np.lib.format.read_array_header_2_0(f)
+            )
+        else:
+            raise ValueError(
+                f"{path}:{member}: unsupported npy version {version}"
+            )
+        if fortran or len(shape) < 1:
+            raise ValueError(
+                f"{path}:{member}: need a C-ordered array"
+            )
+        total = int(shape[0])
+        start = max(0, int(start))
+        end = min(total, int(end))
+        n = max(0, end - start)
+        row_bytes = int(dtype.itemsize * int(np.prod(shape[1:], dtype=np.int64)))
+        f.seek(start * row_bytes, 1)
+        buf = f.read(n * row_bytes)
+        if len(buf) != n * row_bytes:
+            raise ValueError(
+                f"{path}:{member}: short read ({len(buf)} of "
+                f"{n * row_bytes} bytes)"
+            )
+        rows = np.frombuffer(buf, dtype=dtype).reshape(
+            (n,) + tuple(int(s) for s in shape[1:])
+        )
+        return rows.copy(), total

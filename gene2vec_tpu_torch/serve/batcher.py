@@ -15,7 +15,8 @@ without spending compute on them.  A bounded LRU keyed by (model
 version, query, k) serves repeat lookups without touching the queue.
 
 The queue is a :class:`~gene2vec_tpu_torch.serve.tenancy.FairQueue` of
-per-tenant lanes (one lane, FIFO, until tenant admission is ported).
+per-tenant lanes drained by the tenants' weights (one lane, FIFO, with
+tenancy off).
 Every batch runs under an obs span (``serve_batch`` wrapping
 ``serve_compute``); counters and histograms land in the registry
 ``/metrics`` exports.  Each ticket captures the submitting thread's trace

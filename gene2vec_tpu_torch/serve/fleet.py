@@ -36,10 +36,16 @@ death, wedging and overload as routine.  Stdlib only, like the rest of
   that fires assembles an incident bundle (``obs/alerts.py``,
   ``obs/incident.py``).
 
+The supervisor also keeps the (shard, replica) grid of a row-sharded
+fleet (``shard_urls``, ``shard_up_counts``, ``shard_redundancy_facts``;
+the proxy then scatter-gathers through ``serve/shardgroup.py``) and the
+elastic controller's slots (``active_count``, ``scale_up``,
+``pick_drain_victim``, ``begin_drain`` / ``finish_drain``;
+``serve/autoscale.py``).
+
 ``python -m gene2vec_tpu_torch.cli.fleet`` runs both and prints the same
 one-line stdout contract as ``cli.serve`` plus replica facts.  Not in
-this slice: row shards and their scatter, the multi-model catalog, the
-shadow canary, batch jobs and autoscaling.
+this slice: the multi-model catalog, the shadow canary and batch jobs.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ import time
 import urllib.request
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 from gene2vec_tpu_torch.obs import tracecontext
 from gene2vec_tpu_torch.obs.aggregate import FleetAggregator
@@ -91,6 +97,9 @@ class ReplicaState:
     EJECTED = "ejected"      # alive but failing readiness; out of rotation
     BACKOFF = "backoff"      # dead, waiting out restart backoff
     FAILED = "failed"        # restart storm cap hit; given up
+    DRAINING = "draining"    # leaving the fleet: out of rotation, alive
+    #                          until its in-flight requests settle
+    #                          (serve/autoscale.py scale-down)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,10 +120,16 @@ class FleetConfig:
 
 
 class Replica:
-    """One supervised ``cli.serve`` child and its rotation state."""
+    """One supervised ``cli.serve`` child and its rotation state.
 
-    def __init__(self, index: int):
+    ``shard`` is the row shard this slot serves (None in an unsharded
+    fleet).  With ``--replicas-per-shard`` several slots share one shard,
+    and the front door's scatter treats them as interchangeable
+    siblings."""
+
+    def __init__(self, index: int, shard: Optional[int] = None):
         self.index = index
+        self.shard = shard
         self.proc: Optional[subprocess.Popen] = None
         self.url: Optional[str] = None
         self.state = ReplicaState.STARTING
@@ -167,7 +182,10 @@ class FleetSupervisor:
     ``serve_args`` go to every child verbatim; ``replica_args`` maps a
     replica index to extra per-replica flags (a drill turns fault
     injection on for exactly one replica this way).  ``rng`` seeds the
-    restart jitter for reproducible drills.
+    restart jitter for reproducible drills.  ``shard_of`` maps a slot to
+    its row shard and ``shard_args`` a shard to the flags every slot of
+    it spawns with (``--shard-index/--num-shards``): keyed by shard, so a
+    restarted or elastically added sibling loads exactly its shard's rows.
     """
 
     def __init__(
@@ -179,6 +197,8 @@ class FleetSupervisor:
         metrics=None,
         env: Optional[Dict[str, str]] = None,
         rng: Optional[random.Random] = None,
+        shard_of: Optional[Dict[int, int]] = None,
+        shard_args: Optional[Dict[int, Sequence[str]]] = None,
     ):
         self.export_dir = export_dir
         self.config = config
@@ -189,7 +209,18 @@ class FleetSupervisor:
         self.metrics = metrics
         self.env = env
         self._rng = rng if rng is not None else random.Random()
-        self.replicas = [Replica(i) for i in range(config.replicas)]
+        self._shard_of: Dict[int, int] = {
+            int(k): int(v) for k, v in (shard_of or {}).items()
+        }
+        self._shard_args: Dict[int, List[str]] = {
+            int(k): list(v) for k, v in (shard_args or {}).items()
+        }
+        self.replicas = [
+            Replica(i, shard=self._shard_of.get(i)) for i in range(config.replicas)
+        ]
+        #: next index for an elastically added replica: indices are never
+        #: reused, so per-replica metrics and log lines stay unambiguous
+        self._next_index = config.replicas
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._monitor: Optional[threading.Thread] = None
@@ -216,10 +247,12 @@ class FleetSupervisor:
     # -- spawning ----------------------------------------------------------
 
     def _argv(self, index: int) -> List[str]:
+        shard = self._shard_of.get(index)
+        shard_flags = self._shard_args.get(shard, []) if shard is not None else []
         return [
             sys.executable, "-m", "gene2vec_tpu_torch.cli.serve",
             "--export-dir", self.export_dir, "--port", "0",
-            *self.serve_args, *self.replica_args.get(index, []),
+            *self.serve_args, *shard_flags, *self.replica_args.get(index, []),
         ]
 
     def _spawn(self, replica: Replica) -> None:
@@ -372,11 +405,166 @@ class FleetSupervisor:
                     "state": r.state,
                     "url": r.url,
                     "pid": r.pid,
+                    "shard": r.shard,
                     "restarts": r.restarts,
                     "last_error": r.last_error,
                 }
                 for r in self.replicas
             ]
+
+    # -- the (shard, replica) grid -----------------------------------------
+
+    def shard_urls(self, shard: int) -> List[str]:
+        """Every UP replica of one shard: the target list the front
+        door's per-shard client fails over across."""
+        with self._lock:
+            return [
+                r.url for r in self.replicas
+                if r.shard == shard and r.state == ReplicaState.UP and r.url
+            ]
+
+    def shard_up_counts(self) -> Dict[int, int]:
+        """UP replicas per shard."""
+        with self._lock:
+            out: Dict[int, int] = {}
+            for r in self.replicas:
+                if r.shard is None:
+                    continue
+                out.setdefault(r.shard, 0)
+                if r.state == ReplicaState.UP:
+                    out[r.shard] += 1
+            return out
+
+    def shard_redundancy_facts(self) -> Dict[int, Dict[str, int]]:
+        """Per-shard ``{"up", "desired"}`` for the aggregator's
+        ``shard_facts`` hook.  ``desired`` is the shard's current
+        redundancy promise: a slot the elastic controller is draining has
+        left it (a scale-down is policy, not an incident), and a slot in
+        its first start (STARTING with no restart yet) has not joined it;
+        a dead slot in backoff, an ejected replica and a FAILED slot still
+        count, so the ``shard-redundancy-lost`` rule fires on them."""
+        with self._lock:
+            out: Dict[int, Dict[str, int]] = {}
+            for r in self.replicas:
+                if r.shard is None:
+                    continue
+                f = out.setdefault(r.shard, {"up": 0, "desired": 0})
+                if r.state == ReplicaState.UP:
+                    f["up"] += 1
+                if r.state == ReplicaState.DRAINING or (
+                    r.state == ReplicaState.STARTING and r.restarts == 0
+                ):
+                    continue
+                f["desired"] += 1
+            return out
+
+    def shard_of_url(self, url: str) -> Optional[int]:
+        """The shard a replica URL serves (None when unknown or
+        unsharded): the aggregator's ``shard_of`` hook."""
+        u = url.rstrip("/")
+        with self._lock:
+            for r in self.replicas:
+                if r.url == u:
+                    return r.shard
+        return None
+
+    # -- elasticity (serve/autoscale.py ElasticController) -----------------
+
+    def active_count(self, shard: Optional[int] = None) -> int:
+        """Slots that count toward capacity: all but abandoned (FAILED)
+        and departing (DRAINING) ones; a dead slot in backoff counts, since
+        its restart is coming.  ``shard`` restricts the count to one
+        shard's pool."""
+        with self._lock:
+            return sum(
+                1 for r in self.replicas
+                if r.state not in (ReplicaState.FAILED, ReplicaState.DRAINING)
+                and (shard is None or r.shard == shard)
+            )
+
+    def scale_up(self, shard: Optional[int] = None) -> Replica:
+        """Spawn one NEW slot (never reusing an index) and read its
+        contract line; the monitor loop admits it once its readiness
+        probes pass.  A spawn failure removes the slot again and raises.
+        ``shard`` spawns it into that shard's pool with the shard's
+        flags."""
+        with self._lock:
+            replica = Replica(self._next_index, shard=shard)
+            if shard is not None:
+                self._shard_of[replica.index] = shard
+            self._next_index += 1
+            replica.spawning = True
+            self.replicas.append(replica)
+        try:
+            self._spawn(replica)
+        except Exception:
+            with self._lock:
+                if replica in self.replicas:
+                    self.replicas.remove(replica)
+            raise
+        finally:
+            replica.spawning = False
+        if self._stop.is_set():
+            # raced a fleet stop: this child slipped past stop()'s
+            # terminate sweep, so reap it here
+            if replica.proc is not None:
+                replica.proc.kill()
+                replica.proc.wait(timeout=10.0)
+            with self._lock:
+                if replica in self.replicas:
+                    self.replicas.remove(replica)
+            return replica
+        self._publish()
+        return replica
+
+    def pick_drain_victim(self, shard: Optional[int] = None) -> Optional[Replica]:
+        """The slot a scale-down removes: a dead or not-ready one first
+        (trivially zero-drop), else the NEWEST serving replica, and never
+        the last one in rotation (of ``shard``'s pool, when given: draining
+        it would un-serve the shard's rows).  A slot with a spawn in flight
+        is never picked: draining it would orphan the new child."""
+        with self._lock:
+            candidates = [
+                r for r in self.replicas
+                if r.state not in (ReplicaState.FAILED, ReplicaState.DRAINING)
+                and not r.spawning and (shard is None or r.shard == shard)
+            ]
+            not_up = [r for r in candidates if r.state != ReplicaState.UP]
+            if not_up:
+                return max(not_up, key=lambda r: r.index)
+            ups = [r for r in candidates if r.state == ReplicaState.UP]
+            if len(ups) > 1:
+                return max(ups, key=lambda r: r.index)
+            return None
+
+    def begin_drain(self, replica: Replica) -> None:
+        """Take the victim out of rotation: ``healthy_urls`` (the proxy's
+        target callable) stops offering it on the next pick, while
+        ``live_urls`` keeps scraping it."""
+        with self._lock:
+            replica.state = ReplicaState.DRAINING
+        self._publish()
+
+    def finish_drain(self, replica: Replica) -> None:
+        """SIGTERM the drained victim (SIGKILL if it lingers) and retire
+        its slot.  Call only once the front door's in-flight count on its
+        URL has settled; the controller owns that wait."""
+        proc = replica.proc
+        if proc is not None and proc.poll() is None:
+            proc.terminate()
+        if proc is not None:
+            try:
+                proc.wait(timeout=15.0)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10.0)
+        with self._lock:
+            if replica in self.replicas:
+                self.replicas.remove(replica)
+        if self.metrics is not None:
+            # retire the per-replica gauge with the slot
+            self.metrics.remove(f"replica_{replica.index}_up")
+        self._publish()
 
     # -- the monitor loop --------------------------------------------------
 
@@ -417,10 +605,14 @@ class FleetSupervisor:
             if self._stop.is_set():
                 return
             self._spawn(replica)
-            if self._stop.is_set():
-                # the fleet stopped while we were spawning: this child
-                # raced past the terminate sweep, reap it here (an orphaned
-                # serving process on a bound port is the alternative)
+            with self._lock:
+                retired = (replica not in self.replicas
+                           or replica.state == ReplicaState.DRAINING)
+            if self._stop.is_set() or retired:
+                # the fleet stopped, or a scale-down retired this slot,
+                # while we were spawning: this child raced past the
+                # terminate sweep, reap it here (an orphaned serving
+                # process on a bound port is the alternative)
                 if replica.proc is not None:
                     replica.proc.kill()
                     replica.proc.wait(timeout=10.0)
@@ -439,7 +631,9 @@ class FleetSupervisor:
         with self._lock:
             replicas = list(self.replicas)
         for r in replicas:
-            if r.state == ReplicaState.FAILED or r.spawning:
+            if r.state in (ReplicaState.FAILED, ReplicaState.DRAINING) or r.spawning:
+                # a DRAINING replica leaves on purpose: no probes and no
+                # restart if it exits (the controller owns its death)
                 continue
             if not r.alive:
                 if r.state == ReplicaState.BACKOFF:
@@ -568,6 +762,7 @@ class _ProxyAdapter:
             ))
             return
         if req.method == "GET" and route == "/metrics":
+            proxy.publish_kernel_launches()
             peer.respond(Response(
                 200, proxy.metrics.prometheus_text().encode("utf-8"),
                 _PROM_CT,
@@ -612,7 +807,67 @@ class _ProxyAdapter:
             if err is not None:
                 peer.respond(err)
                 return
+        if proxy.shard_group is not None:
+            self._scatter_dispatch(req, peer, route, body)
+            return
         self._forward(req, peer, route, body)
+
+    # -- sharded mode: scatter-gather instead of round-robin ---------------
+
+    def _scatter_dispatch(self, req: HTTPRequest, peer: ConnHandle,
+                          route: str, body: Optional[dict]) -> None:
+        """Route the /v1 surface through the shard group
+        (``serve/shardgroup.py``): ``/v1/similar`` scatter-gathers every
+        shard, ``/v1/embedding`` goes to the owning shards, ``/v1/genes``
+        answers from the routing table and ``/v1/interaction`` scores at
+        the front door.  The same trace ingress as the round-robin path:
+        the legs' attempts become sibling spans under ``proxy_scatter``."""
+        proxy = self.proxy
+        group = proxy.shard_group
+        incoming = TraceContext.from_header(req.headers.get("traceparent"))
+        ctx = incoming.child() if incoming is not None else (
+            proxy.sampler.maybe_new_trace() if proxy.sampler is not None else None
+        )
+        t0 = time.monotonic()
+        with tracecontext.use(ctx):
+            with ambient_span("proxy_request", route=route) as span:
+                if route == "/v1/similar":
+                    if req.method == "GET":
+                        q = parse_qs(urlparse(req.target).query)
+                        gene = q.get("gene", [None])[0]
+                        if gene is None:
+                            status, doc = 400, {"error": "missing ?gene= parameter"}
+                        else:
+                            try:
+                                k = int(q.get("k", ["10"])[0])
+                            except ValueError:
+                                k = -1  # rejected by validation below
+                            status, doc = group.similar({"genes": [gene], "k": k})
+                    else:
+                        status, doc = group.similar(body or {})
+                elif route == "/v1/embedding" and req.method == "POST":
+                    status, doc = group.embedding(body or {})
+                elif route == "/v1/genes" and req.method == "GET":
+                    q = parse_qs(urlparse(req.target).query)
+                    try:
+                        limit = int(q.get("limit", ["100"])[0])
+                        offset = int(q.get("offset", ["0"])[0])
+                    except ValueError:
+                        limit, offset = -1, -1
+                    if limit < 0 or offset < 0:
+                        status, doc = 400, {"error": "limit/offset must be >= 0"}
+                    else:
+                        status, doc = 200, group.routing.genes_doc(limit, offset)
+                elif route == "/v1/interaction" and req.method == "POST":
+                    # each gene's vector from its owner group, the GGIPNN
+                    # head at the front door
+                    status, doc = group.interaction(body or {})
+                else:
+                    status, doc = 404, {"error": f"no route {req.method} {route}"}
+                span["status"] = status
+        dur = time.monotonic() - t0
+        proxy.account(route, status, dur, ctx.trace_id if ctx is not None else None)
+        peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
 
     def _forward(self, req: HTTPRequest, peer: ConnHandle, route: str,
                  body: Optional[dict]) -> None:
@@ -691,16 +946,22 @@ class FleetProxy:
         idle_timeout_s: float = 30.0,
         acceptors: int = 1,
         alert_rules=None,
+        shard_group=None,
     ):
         self.supervisor = supervisor
         self.metrics = metrics
+        #: serve/shardgroup.py ShardGroup: set when the fleet serves row
+        #: shards of one table; the /v1 surface then scatter-gathers
+        #: instead of forwarding round-robin (cli.fleet --shard-by-rows)
+        self.shard_group = shard_group
         self.read_timeout_s = read_timeout_s
         self.proxy_workers = proxy_workers
         self.idle_timeout_s = idle_timeout_s
         self.acceptors = acceptors
-        # per-replica in-flight accounting: the zero-drop contract for a
-        # graceful shutdown — the replicas are terminated only once the
-        # count here settles to zero (FleetProxy.drain)
+        # per-replica in-flight accounting: the zero-drop contract for an
+        # elastic scale-down and a graceful shutdown — a replica is
+        # terminated only once its count here settles to zero
+        # (serve/autoscale.py, FleetProxy.drain)
         self.inflight = InFlightTracker()
         self.client = ResilientClient(
             supervisor.healthy_urls,
@@ -755,6 +1016,27 @@ class FleetProxy:
             self.aggregator.evaluator = self.evaluator
         self._server: Optional[EventLoopHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        #: kernel launches already published to /metrics, per kernel
+        self._launches_published: Dict[str, int] = {}
+
+    def publish_kernel_launches(self) -> None:
+        """The front door's own kernel launches (the cross-shard scorer's
+        row gather) as ``kernel_launches_total{kernel=}`` on ``/metrics``,
+        by delta, once the scorer exists: a front door that scored no pair
+        has loaded no kernel module."""
+        group = self.shard_group
+        if group is None or group._interaction_scorer is None:
+            return
+        from gene2vec_tpu_torch import kernels
+
+        for name, count in kernels.launch_counts().items():
+            delta = count - self._launches_published.get(name, 0)
+            if delta > 0:
+                self.metrics.counter(
+                    "kernel_launches_total", "CUDA kernel launches by this process",
+                    labels={"kernel": name},
+                ).inc(delta)
+                self._launches_published[name] = count
 
     def account(self, route: str, status: int, dur_s: float,
                 trace_id: Optional[str]) -> None:
@@ -787,6 +1069,25 @@ class FleetProxy:
             "replicas_up": len(up),
             "replicas": states,
         }
+        if self.shard_group is not None:
+            # per shard: row range, replica group, the epoch each cell was
+            # last seen serving; a shard is up while any sibling is
+            group = self.shard_group
+            by_shard: Dict[int, List[Dict]] = {}
+            for s in states:
+                if s.get("shard") is None:
+                    continue
+                by_shard.setdefault(s["shard"], []).append({
+                    "index": s["index"],
+                    "up": s["state"] == ReplicaState.UP,
+                    "pid": s["pid"],
+                    "epoch": group.replica_epoch(s["url"]),
+                })
+            doc["shards"] = group.shard_states(
+                up_for=lambda i: any(r["up"] for r in by_shard.get(i, [])),
+                replicas_for=lambda i: by_shard.get(i, []),
+            )
+            doc["epoch"] = group.current_epoch
         return (200 if up else 503), doc
 
     def serve(self, host: str = "127.0.0.1", port: int = 0) -> str:

@@ -1,23 +1,27 @@
-"""GGIPNN interaction scoring over the registry's served embedding — the
-port of ``gene2vec_tpu/serve/interaction.py:33-115``.
+"""GGIPNN interaction scoring over served embeddings — the port of
+``gene2vec_tpu/serve/interaction.py``.
 
 ``/v1/interaction`` scores gene pairs with the
 :class:`~gene2vec_tpu_torch.models.ggipnn_train.GGIPNNTrainer` predict
-path, whose table lookup is the row-gather kernel.  The scorer binds to
-one :class:`~gene2vec_tpu_torch.serve.registry.LoadedModel` snapshot
-(the server checks the version and rebuilds it on hot swap):
+path, whose table lookup is the row-gather kernel.
 
-* the table is the served model's raw table, row-aligned to the served
-  vocab and placed on the registry's device — never the checkpoint's
-  own table, which is row-ordered by its training vocab;
-* the MLP head loads from a GGIPNN run checkpoint
-  (``checkpoints/model-<step>.npz``, either package's) when one is
-  given; without one the head keeps the port's own random init and
-  ``trained`` is false, which the server echoes in every response so
-  untrained scores cannot pass for predictions.
+* :class:`InteractionScorer` binds to one
+  :class:`~gene2vec_tpu_torch.serve.registry.LoadedModel` snapshot (the
+  server checks the version and rebuilds it on hot swap); its table is
+  the served model's raw table, row-aligned to the served vocab and
+  placed on the registry's device — never the checkpoint's own table,
+  which is row-ordered by its training vocab.
+* :class:`CrossShardScorer` is the front-door scorer of a row-sharded
+  fleet (``serve/shardgroup.py:ShardGroup.interaction``): no process
+  holds the whole table, so the front door resolves each gene's vector
+  from its owner shard and scores the pairs over a fixed-shape scratch
+  table of ``2 * max_pairs`` rows.
 
-The sharded fleet's ``CrossShardScorer`` waits for the multi-GPU port
-(A13).
+Either scorer's MLP head loads from a GGIPNN run checkpoint
+(``checkpoints/model-<step>.npz``, either package's) when one is given;
+without one the head keeps the port's own random init and ``trained`` is
+false, which the server echoes in every response so untrained scores
+cannot pass for predictions.
 """
 
 from __future__ import annotations
@@ -98,5 +102,61 @@ class InteractionScorer:
             return []
         ids = self.encode(pairs)
         with self._lock:
+            scores, _, _ = self.trainer.predict(ids)
+        return [float(s) for s in scores[:, 1]]
+
+
+class CrossShardScorer:
+    """GGIPNN pair scores from raw VECTORS: the sharded fleet's
+    front-door scorer.
+
+    The math is :class:`InteractionScorer`'s: the same predict path runs
+    over a fixed-shape scratch table (``2 * max_pairs`` rows) whose rows
+    are filled with the resolved vectors on each call, pair *i* looking up
+    rows ``(2i, 2i + 1)`` through the row-gather kernel.  The table lives
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for); one call
+    scores at a time.  ``checkpoint_path`` loads the head (a checkpoint
+    trained at another dim raises ``ValueError``); without it ``trained``
+    is false."""
+
+    def __init__(self, dim: int, checkpoint_path: Optional[str] = None,
+                 max_pairs: int = 64, batch_size: int = 64, device=None):
+        self.dim = int(dim)
+        self.max_pairs = int(max_pairs)
+        rows = 2 * self.max_pairs
+        vocab = PairTextVocab()
+        vocab.token_to_id = {f"_slot{i}": i for i in range(rows)}
+        vocab.id_to_token = [f"_slot{i}" for i in range(rows)]
+        config = GGIPNNConfig(embedding_dim=self.dim, batch_size=batch_size)
+        self.trainer = GGIPNNTrainer(config, vocab, device=device)
+        self.net = self.trainer.init_state()
+        self.trained = False
+        if checkpoint_path is not None:
+            flat = load_checkpoint(checkpoint_path)
+            emb = flat.get("embedding")
+            if emb is not None and emb.shape[1] != self.dim:
+                raise ValueError(
+                    f"{checkpoint_path}: head trained at dim {emb.shape[1]}, the served "
+                    f"table is dim {self.dim}")
+            # head weights only: the scratch rows are filled per call (the
+            # checkpoint's own table is ordered by its training vocab)
+            self.net.load_flat(flat, head_only=True)
+            self.trained = True
+        self._lock = threading.Lock()
+
+    def score_vectors(self, vec_pairs: Sequence[Tuple[np.ndarray, np.ndarray]]) -> List[float]:
+        """Positive-class softmax score per (vector, vector) pair."""
+        if not vec_pairs:
+            return []
+        if len(vec_pairs) > self.max_pairs:
+            raise ValueError(f"at most {self.max_pairs} pairs per call")
+        table = np.zeros(tuple(self.net.embedding.shape), np.float32)
+        for i, (a, b) in enumerate(vec_pairs):
+            table[2 * i] = np.asarray(a, np.float32)
+            table[2 * i + 1] = np.asarray(b, np.float32)
+        ids = np.arange(2 * len(vec_pairs), dtype=np.int32).reshape(-1, 2)
+        with self._lock:
+            with torch.no_grad():
+                self.net.embedding.copy_(torch.from_numpy(table))
             scores, _, _ = self.trainer.predict(ids)
         return [float(s) for s in scores[:, 1]]

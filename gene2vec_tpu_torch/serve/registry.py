@@ -12,6 +12,14 @@ kernels — and swaps it in atomically: readers take one reference
 same iteration.  Export dirs with only the text exports load through the
 word2vec-format twin (``*_w2v.txt``).
 
+Row shards: ``ModelRegistry(shard=(i, n))`` loads only the contiguous
+row range ``shard_ranges(V, n)[i]`` of the table (one seek and one read
+of the uncompressed npz, ``io/checkpoint.py:read_npz_rows``) and builds
+its ANN index over that slice alone, so only the shard's rows reach the
+card.  A sharded registry never swaps on its own: the fleet's swap
+coordinator stages an iteration on every shard and then flips them all
+under one epoch token (:meth:`ModelRegistry.stage`, :meth:`flip`).
+
 Crash safety: discovery is manifest-verified, so a torn newest export is
 never read; a checkpoint that verifies but fails to load is retried with
 exponential backoff and quarantined after ``quarantine_after``
@@ -31,9 +39,14 @@ import numpy as np
 import torch
 
 from gene2vec_tpu_torch.device import resolve_device
-from gene2vec_tpu_torch.io.checkpoint import iter_checkpoints_newest_first, vocab_path_for
+from gene2vec_tpu_torch.io.checkpoint import (
+    iter_checkpoints_newest_first,
+    read_npz_rows,
+    vocab_path_for,
+)
 from gene2vec_tpu_torch.io.emb_io import read_word2vec_format
 from gene2vec_tpu_torch.obs.trace import ambient_span, get_tracer
+from gene2vec_tpu_torch.parallel.sharding import shard_ranges
 from gene2vec_tpu_torch.resilience.snapshot import stat_sig
 from gene2vec_tpu_torch.serve.ann import INDEX_MODES, AnnIndex, build_index
 
@@ -69,8 +82,12 @@ class LoadedModel:
     source: str
     meta: Dict
     ann: Optional[AnnIndex] = None
-    #: global row offset of this table's first row (0 unsharded)
+    #: global row offset of this table's first row (0 unsharded): the
+    #: engine's local indices + row_base are the global ids a shard
+    #: replica answers with
     row_base: int = 0
+    #: the whole table's row count (a shard holds a slice of it)
+    total_rows: Optional[int] = None
     #: the swap token stamped by :meth:`ModelRegistry.flip`
     epoch: Optional[int] = None
     #: checkpoint mtime at load (the model-age gauge)
@@ -100,16 +117,18 @@ def discover_newest(export_dir: str, dim: Optional[int] = None,
     return next(discover_candidates(export_dir, dim, verified_only), None)
 
 
-def _read_vocab_tokens(ckpt_path: str) -> List[str]:
-    """The vocab token list for a checkpoint (id order is row order),
-    from the per-iteration sidecar when the vocab was tail-extended."""
-    tokens: List[str] = []
+def _read_vocab_lines(ckpt_path: str) -> List[str]:
+    """The vocab's non-empty lines for a checkpoint (id order is row
+    order), from the per-iteration sidecar when the vocab was
+    tail-extended; split in one call, not line by line (a shard of a
+    10M-row table reads the whole vocab to find its own rows)."""
     with open(vocab_path_for(ckpt_path), "r", encoding="utf-8") as f:
-        for line in f:
-            line = line.rstrip("\n")
-            if line:
-                tokens.append(line.split("\t")[0])
-    return tokens
+        return [line for line in f.read().split("\n") if line]
+
+
+def _read_vocab_tokens(ckpt_path: str) -> List[str]:
+    """The vocab token list for a checkpoint."""
+    return [line.split("\t", 1)[0] for line in _read_vocab_lines(ckpt_path)]
 
 
 def _load_npz(path: str) -> Tuple[List[str], np.ndarray, Dict]:
@@ -160,9 +179,18 @@ class ModelRegistry:
         index_mode: str = "exact",
         ann_clusters: Optional[int] = None,
         device=None,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         if index_mode not in INDEX_MODES:
             raise ValueError(f"index_mode must be one of {INDEX_MODES}, got {index_mode!r}")
+        if shard is not None:
+            idx, n = int(shard[0]), int(shard[1])
+            if n < 1 or not 0 <= idx < n:
+                raise ValueError(
+                    f"shard must be (index, num_shards) with 0 <= index < num_shards, "
+                    f"got {shard!r}"
+                )
+            shard = (idx, n)
         self.device = resolve_device(device)
         self.export_dir = export_dir
         self.dim = dim
@@ -171,6 +199,9 @@ class ModelRegistry:
         self.quarantine_after = quarantine_after
         self.index_mode = index_mode
         self.ann_clusters = ann_clusters
+        #: (shard_index, num_shards): load only that contiguous row range
+        #: of the table and index it alone; swaps are stage/flip only
+        self.shard = shard
         self._model: Optional[LoadedModel] = None
         self._staged: Optional[LoadedModel] = None
         self._refresh_lock = threading.Lock()
@@ -202,13 +233,46 @@ class ModelRegistry:
 
     # -- loading / swapping ------------------------------------------------
 
+    def _load_shard_npz(self, path: str):
+        """(tokens, emb, meta, row_base, total_rows) of this shard's row
+        range, read without materializing the whole table; None for an
+        npz it cannot seek (the caller then loads it whole and slices)."""
+        idx, n = self.shard
+        try:
+            _, total_rows = read_npz_rows(path, "emb", 0, 0)
+            row_base, end = shard_ranges(total_rows, n)[idx]
+            emb, _ = read_npz_rows(path, "emb", row_base, end)
+        except ValueError:
+            return None
+        with np.load(path) as z:
+            # members load lazily: this reads the small meta entry only
+            meta = json.loads(str(z["meta"])) if "meta" in z.files else {}
+        lines = _read_vocab_lines(path)
+        if len(lines) != total_rows:
+            raise ValueError(
+                f"{path}: {total_rows} embedding rows vs {len(lines)} vocab tokens"
+            )
+        tokens = [line.split("\t", 1)[0] for line in lines[row_base:end]]
+        return tokens, np.asarray(emb, dtype=np.float32), meta, row_base, total_rows
+
     def _load(self, dim: int, iteration: int, path: str) -> LoadedModel:
         with ambient_span("model_load", dim=dim, iteration=iteration, path=path):
-            if path.endswith(".npz"):
-                tokens, emb, meta = _load_npz(path)
+            loaded = None
+            if self.shard is not None and path.endswith(".npz"):
+                loaded = self._load_shard_npz(path)
+            if loaded is not None:
+                tokens, emb, meta, row_base, total_rows = loaded
             else:
-                tokens, emb = read_word2vec_format(path)
-                meta = {"dim": dim, "iteration": iteration, "format": "w2v"}
+                if path.endswith(".npz"):
+                    tokens, emb, meta = _load_npz(path)
+                else:
+                    tokens, emb = read_word2vec_format(path)
+                    meta = {"dim": dim, "iteration": iteration, "format": "w2v"}
+                total_rows, row_base = emb.shape[0], 0
+                if self.shard is not None:
+                    row_base, end = shard_ranges(total_rows, self.shard[1])[self.shard[0]]
+                    tokens = tokens[row_base:end]
+                    emb = np.ascontiguousarray(emb[row_base:end])
             unit_np = l2_normalize(emb)
             ann = None
             if self.index_mode in ("quant", "ivf"):
@@ -219,7 +283,9 @@ class ModelRegistry:
                         self.index_mode,
                         clusters=self.ann_clusters,
                         cache_dir=os.path.join(self.export_dir, "ann_cache"),
-                        tag=f"dim{dim}_iter{iteration}",
+                        tag=f"dim{dim}_iter{iteration}" + (
+                            f"_shard{self.shard[0]}of{self.shard[1]}"
+                            if self.shard is not None else ""),
                         version=(dim, iteration),
                         device=self.device,
                     )
@@ -239,6 +305,11 @@ class ModelRegistry:
             source=path,
             meta=meta,
             ann=ann,
+            row_base=row_base,
+            total_rows=total_rows,
+            # a shard's swap token is the iteration (the coordinator flips
+            # every shard to it together)
+            epoch=iteration if self.shard is not None else None,
             created_unix=_file_age_base(path),
         )
 

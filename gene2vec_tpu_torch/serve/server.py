@@ -11,6 +11,11 @@ Endpoints (all JSON except ``/metrics``):
   softmax scores per pair (head from ``--ggipnn-checkpoint``;
   ``trained_head`` says whether one was loaded);
 * ``GET  /v1/genes`` — a slice of the served vocab;
+* ``POST /v1/shard/topk|vectors|stage|flip`` — a row-shard replica's
+  plane (``ModelRegistry(shard=)``, ``cli.serve --shard-index
+  --num-shards``): shard-local top-k with global row ids, owned genes'
+  vectors, and the coordinator's stage and flip; 404 on an unsharded
+  replica;
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
 * ``GET  /livez`` — liveness: 200 whenever the process answers HTTP,
@@ -22,8 +27,16 @@ Endpoints (all JSON except ``/metrics``):
   ``kernel_profile`` each engine bucket's ``kernel_*`` cost gauges
   (:meth:`ServeApp.profile_kernels`).
 
-Status mapping: queue full → 429, request deadline → 504, unknown gene
-or malformed body → 400, no model loaded → 503.  The front end is the
+Status mapping: queue full or a tenant over its quota → 429, request
+deadline → 504, unknown gene or malformed body → 400, no model loaded →
+503, a shard asked for another epoch than it serves → 409.
+
+Tenants (``ServeConfig.tenant_rate``, ``cli.serve --tenant-quota``): the
+``X-Tenant`` header names the caller; the front end takes a token from
+its bucket before anything else runs (``serve/tenancy.py``), answers 429
+and counts ``serve_rejected_total{tenant=}`` when it is empty, and the
+batcher drains tenants' lanes by their weights.  Tenancy is off by
+default, and then the header is ignored.  The front end is the
 event loop (``serve/eventloop.py``); the hot read path — ``GET
 /v1/similar`` — is answered from the loop itself out of a bounded LRU of
 pre-serialized bodies keyed by (model version, gene, k), and concurrent
@@ -45,8 +58,7 @@ behind an explicit opt-in (``ServeApp(fault_injector=)``, ``--faults`` /
 whose first act is the injector's decision — a delay, an error response,
 a TCP reset or a blackhole.  Without one no fault code runs.
 
-Not in this slice: the multi-model catalog, row shards (and cross-shard
-interaction scoring), batch jobs and tenant quotas.
+Not in this slice: the multi-model catalog and batch jobs.
 """
 
 from __future__ import annotations
@@ -89,6 +101,12 @@ from gene2vec_tpu_torch.serve.eventloop import (
 )
 from gene2vec_tpu_torch.serve.registry import ModelRegistry
 from gene2vec_tpu_torch.serve.routes import V1_ROUTES
+from gene2vec_tpu_torch.serve.tenancy import (
+    DEFAULT_TENANT,
+    TenantAdmission,
+    TenantPolicy,
+    sanitize_tenant,
+)
 
 
 class ApiError(Exception):
@@ -139,6 +157,14 @@ class ServeConfig:
     # flight ring to flight_dir; dumps share one RateLimiter
     burst_threshold: int = 10
     burst_window_s: float = 5.0
+    # per-tenant token-bucket quota in requests/s (the X-Tenant header;
+    # untagged traffic is the "default" tenant); 0 turns tenancy off
+    tenant_rate: float = 0.0
+    # bucket burst headroom (0 = 2 x tenant_rate)
+    tenant_burst: float = 0.0
+    # per-tenant overrides, "id:rate[:burst[:weight]]"; the weight is the
+    # tenant's share of a contended batch
+    tenant_overrides: Tuple[str, ...] = ()
 
 
 #: routes with their own latency series; anything else is "other"
@@ -186,6 +212,15 @@ class ServeApp:
             max_batch=config.max_batch, index=config.index, nprobe=config.nprobe,
             rescore_mult=config.rescore_mult,
         )
+        # None (the default) turns tenancy off: every request is the
+        # default tenant and no bucket is ever touched
+        tenant_policy = TenantPolicy.from_args(
+            config.tenant_rate, config.tenant_burst or None, config.tenant_overrides,
+        )
+        self.tenants: Optional[TenantAdmission] = (
+            TenantAdmission(tenant_policy, metrics=self.metrics)
+            if tenant_policy is not None else None
+        )
         self.batcher = MicroBatcher(
             self._compute_batch,
             max_batch=config.max_batch,
@@ -194,6 +229,7 @@ class ServeApp:
             cache_size=config.cache_size,
             default_timeout_s=config.timeout_ms / 1000.0,
             metrics=self.metrics,
+            tenant_weights=self._tenant_weight,
         )
         self.ggipnn_checkpoint = ggipnn_checkpoint
         self._scorer: Optional[InteractionScorer] = None
@@ -227,6 +263,13 @@ class ServeApp:
     @staticmethod
     def _model_doc(model) -> dict:
         return {"dim": model.dim, "iteration": model.iteration}
+
+    def _tenant_weight(self, tenant: str) -> float:
+        """A tenant's share of a contended batch: its quota's weight (1.0
+        with tenancy off)."""
+        if self.tenants is not None:
+            return self.tenants.weight(tenant)
+        return 1.0
 
     def start(self) -> "ServeApp":
         self.batcher.start()
@@ -308,7 +351,7 @@ class ServeApp:
             raise ApiError(400, "timeout_ms must be a positive number")
         return float(t) / 1000.0
 
-    def similar(self, body: dict) -> dict:
+    def similar(self, body: dict, tenant: str = DEFAULT_TENANT) -> dict:
         model = self._model_or_503()
         k = self._validate_k(body)
         timeout_s = self._timeout_s(body)
@@ -343,7 +386,7 @@ class ServeApp:
             for q in queries:
                 cache_key = (model.version, "similar", q["gene"], k) if "gene" in q else None
                 tickets.append((q, self.batcher.submit_async(
-                    q, k, cache_key=cache_key, timeout_s=timeout_s,
+                    q, k, cache_key=cache_key, timeout_s=timeout_s, tenant=tenant,
                 )))
         except RejectedError as e:
             raise ApiError(429, str(e)) from e
@@ -424,6 +467,142 @@ class ServeApp:
             "trained_head": scorer.trained,
             "scores": [{"pair": p, "score": round(s, 6)} for p, s in zip(pairs, scores)],
         }
+
+    # -- the shard plane (serve/shardgroup.py scatter-gather) --------------
+
+    def _shard_facts(self, model) -> dict:
+        base = int(model.row_base or 0)
+        return {
+            "index": self.registry.shard[0],
+            "num_shards": self.registry.shard[1],
+            "rows": [base, base + len(model)],
+            "total_rows": model.total_rows,
+            "epoch": model.epoch,
+            "iteration": model.iteration,
+        }
+
+    def _require_shard(self) -> None:
+        if self.registry.shard is None:
+            raise ApiError(
+                404,
+                "this replica is not sharded (/v1/shard/* needs "
+                "cli.serve --shard-index/--num-shards)",
+            )
+
+    def shard_topk(self, body: dict) -> dict:
+        """Shard-local top-k over this replica's rows with GLOBAL row ids:
+        one leg of the front door's scatter.  ``vectors`` are scored as
+        given; ``genes`` must be owned by this shard.  An ``epoch`` in the
+        body is the caller's merge target: answering from another epoch is
+        refused with 409, so a shard mid-swap never leaks another
+        iteration's rows into a merge."""
+        self._require_shard()
+        model = self._model_or_503()
+        # max_k + 1: a front-door gene query fetches k + 1 so dropping the
+        # self-hit still leaves k
+        k = body.get("k", 10)
+        if not isinstance(k, int) or not 1 <= k <= self.config.max_k + 1:
+            raise ApiError(400, f"k must be an int in [1, {self.config.max_k + 1}]")
+        want_epoch = body.get("epoch")
+        if want_epoch is not None and want_epoch != model.epoch:
+            raise ApiError(
+                409, f"epoch mismatch: serving {model.epoch}, caller wants {want_epoch}"
+            )
+        vectors = body.get("vectors")
+        genes = body.get("genes")
+        if (genes is None) == (vectors is None):
+            raise ApiError(400, "provide exactly one of 'genes' or 'vectors'")
+        queries: List[np.ndarray] = []
+        if vectors is not None:
+            if not isinstance(vectors, list) or not vectors:
+                raise ApiError(400, "'vectors' must be a non-empty list")
+            for v in vectors:
+                if not isinstance(v, list) or len(v) != model.dim:
+                    raise ApiError(400, f"each vector must have dim {model.dim}")
+                queries.append(np.asarray(v, dtype=np.float32))
+        else:
+            if not isinstance(genes, list) or not genes:
+                raise ApiError(400, "'genes' must be a non-empty list")
+            for g in genes:
+                row = model.index.get(g)
+                if row is None:
+                    raise ApiError(
+                        400, f"gene {g!r} is not owned by shard {self.registry.shard[0]}"
+                    )
+                queries.append(model.emb[row])
+        if len(queries) > self.config.max_queries_per_request:
+            raise ApiError(
+                400, f"at most {self.config.max_queries_per_request} queries per request"
+            )
+        with ambient_span("shard_topk", n=len(queries), k=k, shard=self.registry.shard[0]):
+            scores, rows = self.engine.topk_rows(model, np.stack(queries), k)
+        tokens = model.tokens
+        base = int(model.row_base or 0)
+        return {
+            "shard": self._shard_facts(model),
+            "results": [
+                {
+                    "rows": [int(r) for r in row_ids],
+                    "scores": [round(float(s), 6) for s in row_scores],
+                    "tokens": [tokens[int(r) - base] for r in row_ids],
+                }
+                for row_scores, row_ids in zip(scores, rows)
+            ],
+        }
+
+    def shard_vectors(self, body: dict) -> dict:
+        """Owned genes' raw vectors: the front door's gene-to-vector step
+        before a vector scatter; a gene outside this shard is a routing
+        bug (400)."""
+        self._require_shard()
+        model = self._model_or_503()
+        genes = body.get("genes")
+        if not isinstance(genes, list) or not genes:
+            raise ApiError(400, "'genes' must be a non-empty list")
+        vectors = []
+        for g in genes:
+            row = model.index.get(g)
+            if row is None:
+                raise ApiError(
+                    400, f"gene {g!r} is not owned by shard {self.registry.shard[0]}"
+                )
+            vectors.append([float(v) for v in model.emb[row]])
+        return {"shard": self._shard_facts(model), "vectors": vectors}
+
+    def shard_stage(self, body: dict) -> dict:
+        """Load and verify one iteration without serving it; the
+        coordinator stages every shard before any flips.  A failure is a
+        503, so the coordinator abandons the swap."""
+        self._require_shard()
+        dim = body.get("dim")
+        iteration = body.get("iteration")
+        if not isinstance(dim, int) or not isinstance(iteration, int):
+            raise ApiError(400, "'dim' and 'iteration' must be ints")
+        try:
+            staged = self.registry.stage(dim, iteration)
+        except Exception as e:
+            raise ApiError(503, f"stage of dim={dim} iter={iteration} failed: {e!r}") from e
+        return {
+            "staged": {
+                "dim": staged.dim,
+                "iteration": staged.iteration,
+                "rows": len(staged),
+                "total_rows": staged.total_rows,
+            },
+        }
+
+    def shard_flip(self, body: dict) -> dict:
+        """Swap the staged iteration in under the fleet's epoch token;
+        409 when nothing matching is staged (the coordinator re-stages)."""
+        self._require_shard()
+        epoch = body.get("epoch")
+        if not isinstance(epoch, int):
+            raise ApiError(400, "'epoch' must be an int")
+        try:
+            model = self.registry.flip(epoch)
+        except RuntimeError as e:
+            raise ApiError(409, str(e)) from e
+        return {"shard": self._shard_facts(model)}
 
     @staticmethod
     def _int_param(query: Dict[str, List[str]], name: str, default: int) -> int:
@@ -525,6 +704,14 @@ class ServeApp:
             "dim": m.dim, "iteration": m.iteration, "vocab_size": len(m), "source": m.source,
         }
         out["index"] = self.engine.index_mode
+        if self.registry.shard is not None:
+            out["shard"] = self._shard_facts(m)
+        if self.tenants is not None:
+            out["tenancy"] = {
+                "default_rate": self.tenants.policy.default.rate,
+                "default_burst": self.tenants.policy.default.burst,
+                "overrides": sorted(self.tenants.policy.overrides),
+            }
         if m.ann is not None:
             out["ann"] = index_stats(m.ann)
         return 200, out
@@ -532,7 +719,7 @@ class ServeApp:
     # -- dispatch ----------------------------------------------------------
 
     def _dispatch(self, method: str, route: str, query: Dict[str, List[str]],
-                  body: Optional[dict]) -> Tuple[int, dict]:
+                  body: Optional[dict], tenant: str = DEFAULT_TENANT) -> Tuple[int, dict]:
         if method == "GET" and route == "/livez":
             return 200, self.livez()
         if method == "GET" and route == "/healthz":
@@ -544,22 +731,34 @@ class ServeApp:
             if gene is None:
                 raise ApiError(400, "missing ?gene= parameter")
             k = self._int_param(query, "k", 10)
-            return 200, self.similar({"genes": [gene], "k": k})
+            return 200, self.similar({"genes": [gene], "k": k}, tenant=tenant)
         if method == "POST" and route == "/v1/similar":
-            return 200, self.similar(body or {})
+            return 200, self.similar(body or {}, tenant=tenant)
         if method == "POST" and route == "/v1/embedding":
             return 200, self.embedding(body or {})
         if method == "POST" and route == "/v1/interaction":
             return 200, self.interaction(body or {})
+        if method == "POST" and route == "/v1/shard/topk":
+            return 200, self.shard_topk(body or {})
+        if method == "POST" and route == "/v1/shard/vectors":
+            return 200, self.shard_vectors(body or {})
+        if method == "POST" and route == "/v1/shard/stage":
+            return 200, self.shard_stage(body or {})
+        if method == "POST" and route == "/v1/shard/flip":
+            return 200, self.shard_flip(body or {})
         return 404, {"error": f"no route {method} {route}"}
 
     def handle(self, method: str, path: str, body: Optional[dict],
-               traceparent: Optional[str] = None) -> Tuple[int, dict]:
+               traceparent: Optional[str] = None,
+               tenant: Optional[str] = None) -> Tuple[int, dict]:
         """(status, payload) for one request (``/metrics`` is served by the
         adapter directly).  ``traceparent`` is the caller's propagated
         context: a sampled one makes this request and its batcher and
         engine hops children of the caller's span; without one the
-        server's own sampler may start a root."""
+        server's own sampler may start a root.  ``tenant`` is the
+        request's admitted tenant id (the adapter takes its token first);
+        here it picks the batcher lane."""
+        tenant = tenant if tenant else DEFAULT_TENANT
         url = urlparse(path)
         route = url.path.rstrip("/") or "/"
         query = parse_qs(url.query)
@@ -573,7 +772,7 @@ class ServeApp:
         try:
             with tracecontext.use(ctx), flight_mod.collect_hops() as hops:
                 with ambient_span("serve_request", route=route) as span:
-                    status, doc = self._dispatch(method, route, query, body)
+                    status, doc = self._dispatch(method, route, query, body, tenant=tenant)
                     span["status"] = status
             return status, doc
         except ApiError as e:
@@ -605,6 +804,7 @@ class ServeApp:
 #: pre-encoded front-end bodies (the event loop never runs json.dumps)
 _POOL_FULL_BODY = b'{"error": "handler pool saturated; shed load"}'
 _DEADLINE_BODY = b'{"error": "request deadline exceeded"}'
+_TENANT_QUOTA_BODY = b'{"error": "tenant quota exhausted; retry after backoff"}'
 
 #: sentinel: the fast path punts this request to the full pipeline
 _SLOW_PATH = object()
@@ -656,23 +856,34 @@ class ServeAdapter:
     # -- entry point (loop thread) ----------------------------------------
 
     def __call__(self, req: HTTPRequest, peer: ConnHandle) -> Optional[Response]:
+        app = self.app
+        tenant = DEFAULT_TENANT
+        if app.tenants is not None and req.target.startswith("/v1/"):
+            # the tenant's quota, decided here on the loop: an over-quota
+            # request costs one bucket take and a pre-encoded 429, never a
+            # pool slot or a queue place.  The resolved label (bounded:
+            # minted ids collapse into "other") keys the batcher lanes
+            ok, tenant = app.tenants.admit(sanitize_tenant(req.headers.get("x-tenant")))
+            if not ok:
+                app.metrics.counter("serve_http_429_total").inc()
+                return Response(429, _TENANT_QUOTA_BODY)
         # an injected fault is decided on the pool and a traced request
         # needs the full pipeline's spans, so the fast path stands aside
-        app = self.app
         if (req.method == "GET" and app.faults is None and app.sampler is None
                 and "traceparent" not in req.headers
                 and req.target.startswith("/v1/similar?")):
-            out = self._similar_get_fast(req.target[len("/v1/similar?"):], peer)
+            out = self._similar_get_fast(req.target[len("/v1/similar?"):], peer, tenant)
             if out is not _SLOW_PATH:
                 return out
-        if not self.pool.submit(lambda: self._run_full(req, peer)):
+        if not self.pool.submit(lambda: self._run_full(req, peer, tenant)):
             app.metrics.counter("serve_http_429_total").inc()
             return Response(429, _POOL_FULL_BODY)
         return None
 
     # -- the full pipeline (worker pool thread) ----------------------------
 
-    def _run_full(self, req: HTTPRequest, peer: ConnHandle) -> None:
+    def _run_full(self, req: HTTPRequest, peer: ConnHandle,
+                  tenant: str = DEFAULT_TENANT) -> None:
         app = self.app
         route = urlparse(req.target).path.rstrip("/") or "/"
         if app.faults is not None and self._apply_fault(peer, route):
@@ -702,7 +913,7 @@ class ServeAdapter:
                 peer.respond(err)
                 return
         status, doc = app.handle(req.method, req.target, body,
-                                 traceparent=req.headers.get("traceparent"))
+                                 traceparent=req.headers.get("traceparent"), tenant=tenant)
         peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
 
     def _apply_fault(self, peer: ConnHandle, route: str) -> bool:
@@ -732,7 +943,8 @@ class ServeAdapter:
 
     # -- the hot read path (loop thread; must never block) -----------------
 
-    def _similar_get_fast(self, query_str: str, peer: ConnHandle):
+    def _similar_get_fast(self, query_str: str, peer: ConnHandle,
+                          tenant: str = DEFAULT_TENANT):
         """``GET /v1/similar?gene=...&k=...`` without the full pipeline:
         response-bytes cache hit -> reused bytes; miss -> coalesce onto
         one batcher ticket.  Returns ``_SLOW_PATH`` for anything it cannot
@@ -797,7 +1009,7 @@ class ServeAdapter:
                 {"gene": gene, "k": k}, k,
                 cache_key=(model.version, "similar", gene, k),
                 timeout_s=app.config.timeout_ms / 1000.0,
-                on_done=done,
+                on_done=done, tenant=tenant,
             )
         except (RejectedError, RuntimeError):
             self._fail_coalesced(key, 429, self._queue_full_body)

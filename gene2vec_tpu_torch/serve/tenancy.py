@@ -1,17 +1,236 @@
-"""Tenant lanes for the micro-batcher — the part of
-``gene2vec_tpu/serve/tenancy.py`` the batcher needs, copied:
-:data:`DEFAULT_TENANT` and :class:`FairQueue`.  Per-tenant token-bucket
-admission (``TenantAdmission``) waits for a later slice; every request
-of this port is the default tenant, so the queue drains as plain FIFO.
+"""Multi-tenant admission: per-tenant token buckets and weighted-fair
+queuing — the port of ``gene2vec_tpu/serve/tenancy.py`` (the batch
+jobs' reserved lane waits for ROADMAP A20).
+
+One abusive caller must never starve the other tenants.  The server
+tags every request with a tenant id (the ``X-Tenant`` header; untagged
+traffic is the ``default`` tenant) and admits it in two layers:
+
+* :class:`TenantAdmission` — a time-refilled :class:`RateBucket` per
+  tenant.  A request whose tenant bucket is empty is rejected at the
+  front end (HTTP 429) before it reaches the batcher, and the rejection
+  is counted with a tenant label (``serve_rejected_total{tenant=...}``).
+  The tenant table is bounded: beyond ``max_tenants`` distinct ids,
+  unknown tenants share one ``other`` bucket, so a client minting header
+  values cannot grow per-tenant state or metric cardinality.
+* :class:`FairQueue` — per-tenant FIFO lanes drained by smooth weighted
+  round-robin.  The micro-batcher dequeues through it, so admitted
+  traffic is interleaved by tenant weight when the queue is contended.
+
+Quotas are per replica (a fleet of N admits N x the rate per tenant in
+aggregate).  Everything here is stdlib and clock-injectable; with no
+:class:`TenantPolicy` (the default, ``--tenant-quota 0``) the server
+never touches a bucket and ignores the header.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Callable, Dict, List, Optional
+import dataclasses
+import threading
+import time
+from typing import Callable, Dict, List, Optional, Sequence
 
 #: the tenant every untagged request belongs to
 DEFAULT_TENANT = "default"
+
+#: the shared lane/bucket unknown tenants collapse into once the
+#: bounded tenant table is full
+OVERFLOW_TENANT = "other"
+
+_MAX_TENANT_CHARS = 64
+
+
+def sanitize_tenant(raw: Optional[str]) -> str:
+    """Header value -> tenant id: default for missing/empty, truncated
+    to a bounded length (a tenant id is a label value — unbounded
+    attacker-chosen strings must not reach the metrics registry)."""
+    if not raw:
+        return DEFAULT_TENANT
+    raw = raw.strip()
+    if not raw:
+        return DEFAULT_TENANT
+    return raw[:_MAX_TENANT_CHARS]
+
+
+class RateBucket:
+    """Time-refilled token bucket: ``rate`` tokens/second up to a
+    ``burst`` cap.  Unlike the client's traffic-coupled retry budget
+    (``serve/client.py:TokenBucket``), this one meters *offered load
+    against wall time* — the right shape for a tenant quota.  ``clock``
+    is injectable so tests walk refills without sleeping."""
+
+    def __init__(self, rate: float, burst: float,
+                 clock: Callable[[], float] = time.monotonic):
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self._clock = clock
+        self._tokens = self.burst  # start full: a fresh tenant may burst
+        self._last = clock()
+        self._lock = threading.Lock()
+
+    def take(self, n: float = 1.0) -> bool:
+        with self._lock:
+            now = self._clock()
+            self._tokens = min(
+                self.burst, self._tokens + (now - self._last) * self.rate
+            )
+            self._last = now
+            if self._tokens >= n:
+                self._tokens -= n
+                return True
+            return False
+
+    @property
+    def tokens(self) -> float:
+        with self._lock:
+            return self._tokens
+
+
+@dataclasses.dataclass(frozen=True)
+class TenantQuota:
+    """One tenant's admission terms: sustained ``rate`` (requests/s),
+    ``burst`` headroom, and the ``weight`` the fair queue drains its
+    lane at."""
+
+    rate: float
+    burst: float
+    weight: float = 1.0
+
+
+class TenantPolicy:
+    """The quota table: a default quota for every tenant plus explicit
+    per-tenant overrides.  Parsed from CLI flags via
+    :meth:`from_args` (``--tenant-override id:rate:burst[:weight]``)."""
+
+    def __init__(self, default: TenantQuota,
+                 overrides: Optional[Dict[str, TenantQuota]] = None):
+        self.default = default
+        self.overrides = dict(overrides or {})
+
+    def quota(self, tenant: str) -> TenantQuota:
+        return self.overrides.get(tenant, self.default)
+
+    @classmethod
+    def from_args(
+        cls,
+        default_rate: float,
+        default_burst: Optional[float] = None,
+        overrides: Sequence[str] = (),
+    ) -> Optional["TenantPolicy"]:
+        """CLI wiring: rate exactly 0 disables tenancy entirely
+        (returns None); burst defaults to 2x the rate.  Override
+        strings are ``id:rate[:burst[:weight]]``; a malformed one —
+        including a NEGATIVE rate or burst, which is a typo, never a
+        disable request — raises ``ValueError`` (a typo'd quota must
+        fail at startup, not admit everything silently)."""
+        if default_rate < 0:
+            raise ValueError(
+                f"tenant rate must be >= 0 (got {default_rate!r}; "
+                "0 is the explicit tenancy-off sentinel)"
+            )
+        if default_burst is not None and default_burst < 0:
+            raise ValueError(
+                f"tenant burst must be >= 0 (got {default_burst!r})"
+            )
+        if default_rate == 0 and not overrides:
+            return None
+        parsed: Dict[str, TenantQuota] = {}
+        for spec in overrides:
+            parts = spec.split(":")
+            if len(parts) < 2 or len(parts) > 4 or not parts[0]:
+                raise ValueError(
+                    f"--tenant-override must be id:rate[:burst[:weight]],"
+                    f" got {spec!r}"
+                )
+            rate = float(parts[1])
+            burst = float(parts[2]) if len(parts) > 2 else 2 * rate
+            weight = float(parts[3]) if len(parts) > 3 else 1.0
+            if rate <= 0 or burst <= 0 or weight <= 0:
+                raise ValueError(
+                    f"tenant override {spec!r}: rate/burst/weight must "
+                    "be positive"
+                )
+            parsed[parts[0]] = TenantQuota(rate, burst, weight)
+        if default_rate == 0:
+            raise ValueError(
+                "--tenant-override given but the default --tenant-quota "
+                "is 0 (untagged traffic would be unmetered while named "
+                "tenants are capped — set a default rate)"
+            )
+        default_burst = (
+            2 * default_rate if default_burst is None or default_burst == 0
+            else default_burst
+        )
+        return cls(TenantQuota(default_rate, default_burst), parsed)
+
+
+class TenantAdmission:
+    """Per-tenant token buckets with a bounded tenant table.
+
+    :meth:`admit` is the front door's one call per request: it lazily
+    creates the tenant's bucket (up to ``max_tenants`` distinct ids,
+    then the shared overflow bucket), takes a token, and on rejection
+    counts ``serve_rejected_total{tenant=...}``.  O(1), non-blocking,
+    safe to run on the event-loop thread."""
+
+    def __init__(
+        self,
+        policy: TenantPolicy,
+        metrics=None,
+        clock: Callable[[], float] = time.monotonic,
+        max_tenants: int = 64,
+    ):
+        self.policy = policy
+        self.metrics = metrics
+        self._clock = clock
+        self.max_tenants = int(max_tenants)
+        self._buckets: Dict[str, RateBucket] = {}
+        self._lock = threading.Lock()
+
+    def resolve(self, tenant: str) -> str:
+        """The id this tenant is accounted under: itself while the
+        table has room (or an override names it), the shared overflow
+        id after."""
+        if tenant in self.policy.overrides or tenant == DEFAULT_TENANT:
+            return tenant
+        with self._lock:
+            if tenant in self._buckets or (
+                len(self._buckets) < self.max_tenants
+            ):
+                return tenant
+        return OVERFLOW_TENANT
+
+    def _bucket(self, tenant: str) -> RateBucket:
+        with self._lock:
+            b = self._buckets.get(tenant)
+            if b is None:
+                q = self.policy.quota(tenant)
+                b = RateBucket(q.rate, q.burst, clock=self._clock)
+                self._buckets[tenant] = b
+            return b
+
+    def admit(self, tenant: str) -> "tuple[bool, str]":
+        """(admitted, resolved label).  The label — not the raw header
+        value — is what callers key batcher lanes and metrics on, so
+        minted tenant ids stay bounded everywhere downstream."""
+        label = self.resolve(tenant)
+        ok = self._bucket(label).take()
+        if self.metrics is not None:
+            self.metrics.counter(
+                "serve_tenant_requests_total", labels={"tenant": label}
+            ).inc()
+            if not ok:
+                # the tenant-labeled rejection series the drill and the
+                # fleet view read; sums by NAME still merge with the
+                # queue-full rejections into fleet_rejection_rate
+                self.metrics.counter(
+                    "serve_rejected_total", labels={"tenant": label}
+                ).inc()
+        return ok, label
+
+    def weight(self, tenant: str) -> float:
+        return self.policy.quota(tenant).weight
 
 
 class FairQueue:
@@ -102,3 +321,6 @@ class FairQueue:
         while len(out) < n and self._len:
             out.append(self.pop())
         return out
+
+    def drain(self) -> List:
+        return self.pop_upto(self._len)

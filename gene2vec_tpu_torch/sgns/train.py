@@ -600,7 +600,7 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
     698-699, 762-771): a :class:`~gene2vec_tpu_torch.obs.profiler.KernelProfiler` in
     the export dir, one ``kernel_attribution`` span that attributes the
     epoch step under ``kernel`` (``trainer.profile_kernel``), each
-    iteration's wall observed under that name, ``kernels.jsonl`` and the
+    iteration's epoch (inside its span) observed under that name, ``kernels.jsonl`` and the
     ``kernel_*`` gauges flushed at the end and the attributed seconds as
     goodput's per-kernel breakdown.  ``profile_dir`` traces the first
     iteration trained (``utils/profiling.py:trace_context``)."""
@@ -656,12 +656,16 @@ def observed_run(trainer, export_dir: str, start_iter: Optional[int],
             t0 = time.perf_counter()
             with trace_context(profile_dir if it == start_iter else None):
                 with run.step("iteration", iteration=it, pairs=pairs_per_epoch) as span_out:
+                    t_epoch = time.perf_counter()
                     params, loss = timed_epoch(trainer, tl, it, params)
+                    epoch_s = time.perf_counter() - t_epoch
                     span_out["loss"] = loss
             dt = time.perf_counter() - t0
             rate = pairs_per_epoch / dt if dt > 0 else float("inf")
             if kp is not None:
-                kp.observe(kernel, dt)
+                # the epoch alone: the span's records and the watchdog
+                # written after it are host time, not the kernel's
+                kp.observe(kernel, epoch_s)
             trainer.timer.record(pairs_per_epoch, dt)
             pairs_counter.inc(pairs_per_epoch)
             pairs_done += pairs_per_epoch

@@ -956,7 +956,67 @@ def test_fleet_replicas_are_the_ports_servers():
 
     argv = FleetSupervisor("exp", FleetConfig(replicas=1), serve_args=["--device", "cpu"])._argv(0)
     assert argv[1:3] == ["-m", "gene2vec_tpu_torch.cli.serve"] and argv[-2:] == ["--device", "cpu"]
-    for flags in (["--max-replicas", "2"], ["--shard-by-rows", "2"], ["--catalog", "c.json"],
-                  ["--enable-shadow"], ["--jobs-dir", "j"], ["--swap-interval", "1"],
-                  ["--ggipnn-checkpoint", "absent.npz"], ["--replicas", "0"]):
+    assert fleet_cli.REFUSED == {
+        "catalog": "A19 item 5 (the multi-model catalog)",
+        "enable_shadow": "A12 (the shadow canary)",
+        "jobs_dir": "A20 (batch jobs)",
+    }
+    for flags in (["--catalog", "c.json"], ["--catalog", "c.json", "--shard-by-rows", "2"],
+                  ["--enable-shadow"], ["--jobs-dir", "j"],
+                  ["--ggipnn-checkpoint", "absent.npz"], ["--replicas", "0"],
+                  ["--replicas-per-shard", "2"], ["--shard-by-rows", "-1"],
+                  ["--max-replicas", "2", "--scrape-interval", "0"],
+                  ["--max-replicas", "2", "--replicas", "3"],
+                  ["--max-replicas", "2", "--min-replicas", "3"]):
         assert fleet_cli.main(["--export-dir", "exp", *flags]) == 2
+
+
+#: the elastic fleet, tenant admission and row shards' modules
+ELASTIC_SHARD_MODULES = {
+    "gene2vec_tpu_torch.serve.autoscale", "gene2vec_tpu_torch.serve.tenancy",
+    "gene2vec_tpu_torch.serve.shardgroup", "gene2vec_tpu_torch.serve.interaction",
+    "gene2vec_tpu_torch.parallel", "gene2vec_tpu_torch.parallel.sharding",
+    "gene2vec_tpu_torch.io.checkpoint", "gene2vec_tpu_torch.serve.registry",
+    "gene2vec_tpu_torch.serve.server", "gene2vec_tpu_torch.serve.fleet",
+    "gene2vec_tpu_torch.cli.fleet", "gene2vec_tpu_torch.cli.serve",
+}
+
+
+def test_sources_scan_covers_the_elastic_and_shard_slice():
+    """The autoscaler's, the tenants' and the row shards' modules, the new
+    ``parallel/`` package included, import in the no-JAX subprocess above
+    and are scanned; every port module their tests drive is one the scans
+    cover."""
+    mods = set(_port_modules())
+    assert ELASTIC_SHARD_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in ELASTIC_SHARD_MODULES - {"gene2vec_tpu_torch.parallel"}:
+        assert mod.replace(".", "/") + ".py" in scanned
+    assert "gene2vec_tpu_torch/parallel/__init__.py" in scanned
+    for test in ("test_torch_autoscale.py", "test_torch_shard.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+
+
+def test_shards_and_front_door_scorer_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """A shard replica and the sharded front door's scorer run on the card:
+    without one, and without the CPU asked for, they raise or exit 2."""
+    from gene2vec_tpu_torch.cli import fleet as fleet_cli
+    from gene2vec_tpu_torch.cli import serve
+    from gene2vec_tpu_torch.serve.interaction import CrossShardScorer
+    from gene2vec_tpu_torch.serve.registry import ModelRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--export-dir", str(tmp_path), "--port", "0", "--shard-index", "0",
+                    "--num-shards", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelRegistry(str(tmp_path), shard=(0, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CrossShardScorer(8)
+    assert fleet_cli.main(["--export-dir", str(tmp_path), "--shard-by-rows", "2"]) == 2
+    for flags in (["--shard-index", "0"], ["--shard-index", "2", "--num-shards", "2"],
+                  ["--tenant-quota", "-1"], ["--tenant-override", "vip"]):
+        assert serve.main(["--export-dir", str(tmp_path), "--device", "cpu", *flags]) == 2
+    assert not torch.cuda.is_initialized()
