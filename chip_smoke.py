@@ -15,6 +15,8 @@
                                      # the build, then phase 8 alone
     python3 chip_smoke.py --fleet    # the build, then phase 9 alone
     python3 chip_smoke.py --shards   # the build, then phase 10 alone
+    python3 chip_smoke.py --catalog-batch
+                                     # the build, then phase 11 alone
 
 Phases, each of which exits non-zero on failure (nothing is caught):
 
@@ -277,6 +279,41 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    Gated at ``shard.scatter`` and its ``failover`` block; K7 from the
    live replicas, K9/K9r from the bench, ``row_gather`` from the front
    door and the server (``{"shards": ...}`` line).
+11. the catalog and the batch plane (its batch drill beside phase 10's
+   drills, the rest right after phase 10, over phase
+   5's clustered export and phase 3's Zipf export, both V x D, copied into
+   the phase's temp dir; ``--catalog-batch`` runs it alone, with a second
+   clustered export in the Zipf export's place and a short ``cli.ggipnn``
+   run for the head) — its four children boot during phase 10's merge
+   bench; the batch drill then runs on a side thread; after phase 10 the
+   1M-row graph runs in process, the batch drill is joined, and the
+   catalog drill runs with nothing else beside it (its gates are timed).  (11a) ``drill_catalog``: ``cli.fleet --catalog``
+   with the two exports as two models (the reference's 48 x 8 and 48 x 16
+   toy tables widened), one replica a pool, autoscale bounds 1-2, a 0.25 s
+   scrape; the default model hot-swapped from iteration 1 to 2 under
+   verified load on both, then a RAMP_WORKERS ramp on the second model
+   alone; every answer carries its model's name and ids in that model's
+   own oracle neighbour sets on the card; gated at ``catalog.isolation``
+   (a scale-up decision within 40 ticks, the hot pool at 2 and the cold at
+   1, no wrong, mixed or cross-model answer, availability >= 0.99).
+   (11b) ``drill_batch`` at ``batch.graph``: a full-vocab ``knn_graph``
+   job (k 10, chunk_rows 512) through the ``/v1/jobs`` of ``cli.fleet
+   --shard-by-rows 2 --jobs-dir``, the front door and its replicas
+   SIGKILLed mid-build, the fleet restarted on the same jobs dir; the
+   resumed ``DATA.bin`` and ``TOKENS.txt`` byte-equal to an uninterrupted
+   control through the same scatter path (a second jobs fleet over the
+   same export, building side by side), recall@10 >= 0.99 against the
+   exact oracle on the card over 256 rows, the manifest in the reference's
+   format (a copy kept in GRAPH_COPY for the reference's ``load_graph`` on
+   the host); a 64-pair ``pair_scores`` job (phase 6's head at the front
+   door: ``row_gather``) within 1e-5 of a single replica's
+   ``/v1/interaction``; the 1M x 64 graph half in process
+   (``EngineBackend`` over 1,024 IVF lists, nprobe 32, rescore 4, 512
+   rows: K9 then K9r, recall@10 >= 0.95); the mixed window (interactive
+   p99 alone, then beside a running graph job, 5 s each; reported).  K7
+   from the live replicas, K9/K9r from the 1M half, ``row_gather`` from
+   the front door and the server (``{"catalog": ...}`` and ``{"batch":
+   ...}`` lines).
 
 The last lines are the card's ``nvidia-smi`` name and power limit, one
 JSON object ``{"kernels": [...]}`` (launches: phase 3's training run's
@@ -288,8 +325,8 @@ K7-K9r, phase 6's CLI runs and interaction server and phase 4b's
 phase 7's ``generate_pairs`` runs for K11, its ``cli.tsne`` run for
 K10c and K10 and its ``cli.plot`` run for K15 and K16, and beside those
 phase 8's for K1-K4, K6, K4's generic entry points, ``row_gather`` and K7,
-phase 9's live replicas' for K7 and phase 10's for K7, K9, K9r and
-``row_gather``;
+phase 9's live replicas' for K7 and phase 10's and phase 11's for K7,
+K9, K9r and ``row_gather``;
 the probes' counterparts in PROBE_ROWS phase 3's, 0: they are on no
 path; the script fails if any other kernel launched no time on its path)
 and the result line
@@ -310,6 +347,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -6172,14 +6210,14 @@ def prom(url: str) -> dict:
     return parse_prometheus(http_json(url + "/metrics")[1].decode())
 
 
-def wait_for(fn, timeout: float, what: str, interval: float = 0.25):
+def wait_for(fn, timeout: float, what: str, interval: float = 0.25, phase: str = "phase 10"):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         got = fn()
         if got:
             return got
         time.sleep(interval)
-    raise SystemExit(f"phase 10: {what} not reached in {timeout:g}s")
+    raise SystemExit(f"{phase}: {what} not reached in {timeout:g}s")
 
 
 def live_launches(url: str, names=("topk_exact",)) -> dict:
@@ -6956,13 +6994,15 @@ def shard_failover(info: dict, export: str, emb, server_url: str) -> tuple:
                  + interaction["row_gather_launches"]["server"]}
 
 
-def shards_phase(torch, smi: str, checkpoint=None) -> tuple:
+def shards_phase(torch, smi: str, checkpoint=None, after_bench=None) -> tuple:
     """Phase 10: the elastic fleet and tenant quotas (10a), then the row
     shards (10b), every fleet on the card over the clustered full-width
     export.  The drills' fleets start side by side while the merge bench
     runs in this process.  ``checkpoint`` is phase 6's GGIPNN head; without
-    one (``--shards``) a short ``cli.ggipnn`` run makes it.  Returns (the
-    ``{"shards": ...}`` record, the phase's launches)."""
+    one (``--shards``) a short ``cli.ggipnn`` run makes it.
+    ``after_bench`` runs once the merge bench (the phase's only in-process
+    kernel work) is done: the full run starts phase 11's batch drill there.
+    Returns (the ``{"shards": ...}`` record, the phase's launches)."""
     t0 = time.perf_counter()
     torch.cuda.empty_cache()  # the card's memory to the phase's eleven replicas
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
@@ -7013,6 +7053,8 @@ def shards_phase(torch, smi: str, checkpoint=None) -> tuple:
         try:
             bench, bench_launches, perf = shard_bench(torch, work, smi)
             add_launches(launches, bench_launches)
+            if after_bench is not None:
+                after_bench()
             infos = {}
             for name, child in children.items():
                 infos[name] = contract(child)
@@ -7063,6 +7105,646 @@ def shards_phase(torch, smi: str, checkpoint=None) -> tuple:
     return rec, launches
 
 
+# -- phase 11: the catalog and the batch plane -----------------------------------
+
+#: ``catalog.isolation`` and ``batch.graph`` of gene2vec_tpu/analysis/budgets.json,
+#: copied; the catalog's toy tables (48 x 8 and 48 x 16) are widened to the two
+#: full-width exports, and its k to FLEET_K
+CATALOG_ISOLATION = {"models": 2, "replicas_per_model": 1, "max_replicas": 2,
+                     "scrape_interval_s": 0.25, "max_scale_up_detection_ticks": 40,
+                     "min_availability": 0.99, "max_wrong_answers": 0, "max_mixed_answers": 0,
+                     "max_cross_model_answers": 0}
+BATCH_GRAPH = {"rows_24k": V, "dim_24k": D, "k": 10, "shards": 2, "chunk_rows": 512,
+               "rows_1m": 1_000_000, "dim_1m": 64, "queries_1m": 512, "clusters_1m": 1024,
+               "nprobe_1m": 32, "rescore_mult_1m": 4, "batch_weight": 0.05,
+               "min_recall_at_10": 0.99, "min_recall_at_10_1m": 0.95}
+CATALOG_SWAP_S = 6.0         # the swap window (the reference drill's smoke window)
+#: the catalog replicas' queue bound: a pool scales on its replicas'
+#: queue depth alone, which a saturated replica reads at the bound less one
+#: batch (4) just after it takes one; at SATURABLE's 8 that sat at the
+#: scale-up bar (4) and detection took 3 to 40+ ticks, so the bound is 16
+CATALOG_MAX_QUEUE = 16
+BATCH_ORACLE_Q = 256         # sampled graph rows held against the exact oracle
+BATCH_PAIRS = 64             # the pair_scores job (phase 6's head: row_gather)
+MIXED_S = 5.0                # each half of the mixed window
+MIXED_WORKERS = 4
+#: where the resumed graph artifact is kept for the reference's own loader
+#: on the host (``gene2vec_tpu.batch.artifact.load_graph``)
+GRAPH_COPY = os.path.join(os.getcwd(), "chip_smoke_graph")
+
+
+def card_oracle(torch, emb, rows, k=FLEET_K) -> dict:
+    """{gene: (its exact cosines on the card, self excluded; the top k
+    rows)} for ``rows`` of ``emb``."""
+    unit = torch.from_numpy(emb).to(DEVICE)
+    unit = unit / unit.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    sims = unit[torch.as_tensor(np.asarray(rows), device=DEVICE)] @ unit.T
+    sims[torch.arange(len(rows), device=DEVICE), torch.as_tensor(np.asarray(rows),
+                                                                 device=DEVICE)] = -float("inf")
+    top = torch.topk(sims, k, dim=1).indices.cpu().numpy()
+    s = sims.cpu().numpy()
+    return {f"G{r}": (s[i], top[i]) for i, r in enumerate(rows)}
+
+
+def catalog_verdict(oracles, model, gene, doc, dim) -> tuple:
+    """("ok" | "wrong" | "mixed" | "cross_model", near-ties) of one catalog
+    answer: the name and width its route's; the ids those of the oracle of
+    the iteration it reports (near-ties aside), every score within
+    SCORE_TOL; an answer that fits another iteration's oracle is mixed."""
+    m = doc["model"]
+    if m.get("name") != model or m.get("dim") != dim:
+        return "cross_model", 0
+    it = m["iteration"]
+    if (model, it) not in oracles:
+        return "mixed", 0
+    verdict, ties = fleet_verdict({gene: oracles[(model, it)][gene]}, gene,
+                                  dict(doc, model=dict(m, iteration=1)))
+    if verdict == "wrong":
+        for (other, oit), oracle in oracles.items():
+            if other == model and oit != it and fleet_verdict(
+                    {gene: oracle[gene]}, gene, dict(doc, model=dict(m, iteration=1)))[0] == "ok":
+                return "mixed", ties
+    return verdict, ties
+
+
+def catalog_drill(torch, info: dict, exports: dict, oracles: dict, genes: dict,
+                  zipf_iteration: int) -> tuple:
+    """Phase 11a (``scripts/chaos_drill.py:drill_catalog``): the default
+    model hot-swapped from iteration 1 to 2 under verified load on both
+    models, then a RAMP_WORKERS ramp on the second model alone; every
+    verified answer classified against its own model's oracle on the card.
+    Returns (record, K7 launches of the live replicas)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    budget = CATALOG_ISOLATION
+    scrape = budget["scrape_interval_s"]
+    url = info["url"]
+    default, second = "clustered", "zipf"
+    if info["catalog"]["default"] != default:
+        raise SystemExit(f"catalog: contract line {info['catalog']}")
+
+    def post(model, gene, timeout=10.0):
+        path = "/v1/similar" if model == default else f"/v1/{model}/similar"
+        req = urllib.request.Request(url + path, data=json.dumps(
+            {"genes": [gene], "k": FLEET_K}).encode(), headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            e.read()
+            return e.code, None
+        except Exception:
+            return 0, None
+
+    counts = {"requests": 0, "ok": 0, "dropped": 0, "wrong": 0, "mixed": 0, "cross_model": 0,
+              "near_ties": 0}
+    seen_iterations = {default: set(), second: set()}
+    lock = threading.Lock()
+
+    def record(model, gene, status, doc):
+        with lock:
+            counts["requests"] += 1
+            if status != 200 or doc is None:
+                counts["dropped"] += 1
+                return
+            verdict, ties = catalog_verdict(oracles, model, gene, doc, D)
+            counts[verdict] += 1
+            counts["near_ties"] += ties
+            if verdict == "ok":
+                seen_iterations[model].add(doc["model"]["iteration"])
+
+    for model in (default, second):  # each pool's first batches, off the books
+        for g in genes[model][:4]:
+            if post(model, g, timeout=60.0)[0] != 200:
+                raise SystemExit(f"catalog: warm-up query {model}/{g} failed")
+    stop = threading.Event()
+
+    def verified(model, w, pause):
+        rng = np.random.RandomState(FLEET_SEED + 300 + w)
+        while not stop.is_set():
+            g = genes[model][rng.randint(len(genes[model]))]
+            record(model, g, *post(model, g))
+            time.sleep(pause)
+
+    workers = [threading.Thread(target=verified, args=(m, i, 0.05), daemon=True)
+               for i, m in enumerate((default, default, second, second))]
+    for t in workers:
+        t.start()
+    time.sleep(CATALOG_SWAP_S / 3.0)
+    from gene2vec_tpu_torch.io.checkpoint import save_iteration
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.sgns.model import SGNSParams
+
+    emb2 = exports["swap_table"]
+    t2 = torch.from_numpy(emb2)
+    t_swap = time.monotonic()
+    save_iteration(exports[default], D, 2, SGNSParams(t2, t2),
+                   Vocab([f"G{i}" for i in range(V)], np.ones(V, np.int64)), txt_output=False)
+
+    def swapped():
+        status, doc = post(default, genes[default][0])
+        return status == 200 and doc["model"]["iteration"] == 2
+
+    wait_for(swapped, 120.0, "the default model's iteration 2 through the front door", 0.25,
+             phase="phase 11")
+    swap_s = time.monotonic() - t_swap
+    time.sleep(CATALOG_SWAP_S / 3.0)
+    stop.set()
+    for t in workers:
+        t.join(timeout=30)
+    # the ramp on the second model; two paced workers keep the cold default
+    # verified
+    stop = threading.Event()
+    ramp = {"n": 0, "rejected": 0}
+
+    def ramp_worker(w):
+        rng = np.random.RandomState(FLEET_SEED + 600 + w)
+        while not stop.is_set():
+            status, _ = post(second, genes[second][rng.randint(len(genes[second]))])
+            with lock:
+                ramp["n"] += 1
+                ramp["rejected"] += status == 429
+
+    if prom(url).get("fleet_scale_up_total", 0.0) != 0.0:
+        raise SystemExit("catalog: the scaler acted before the ramp")
+    t_ramp = time.monotonic()
+    threads = [threading.Thread(target=ramp_worker, args=(w,), daemon=True)
+               for w in range(RAMP_WORKERS)]
+    threads += [threading.Thread(target=verified, args=(default, 10 + w, 0.1), daemon=True)
+                for w in range(2)]
+    for t in threads:
+        t.start()
+    wait_for(lambda: prom(url).get("fleet_scale_up_total", 0.0) >= 1.0,
+             budget["max_scale_up_detection_ticks"] * scrape + 10.0,
+             "the per-model scale-up decision", 0.1, phase="phase 11")
+    detection_s = time.monotonic() - t_ramp
+    models_up = lambda: json.loads(http_json(url + "/healthz")[1])["models"]  # noqa: E731
+    wait_for(lambda: models_up()[second]["up"] >= budget["max_replicas"], 240.0,
+             f"the {second} pool at {budget['max_replicas']} replicas", 0.5, phase="phase 11")
+    completed_s = time.monotonic() - t_ramp
+    stop.set()
+    for t in threads:
+        t.join(timeout=30)
+    health = models_up()
+    launches = live_launches(url)
+    availability = counts["ok"] / max(counts["requests"], 1)
+    rec = {"models": {default: {"export": "phase 5's clustered export", "dim": D, "rows": V},
+                      second: {"export": "phase 3's Zipf export", "dim": D, "rows": V}},
+           "default": default, "widened_from": {"vocab": 48, "dims": [8, 16], "k": 4},
+           "k": FLEET_K, "swap": {"model": default, "from_iteration": 1, "to_iteration": 2,
+                                  "visible_s": swap_s},
+           "scale_up": {"model": second, "detection_s": detection_s,
+                        "detection_ticks": max(1, int(np.ceil(detection_s / scrape))),
+                        "completed_s": completed_s, "hot_pool_final": health[second]["up"],
+                        "cold_pool_final": health[default]["up"]},
+           "ramp_workers": RAMP_WORKERS, "ramp_requests": ramp["n"],
+           "ramp_rejected_429": ramp["rejected"], "verified": counts,
+           "availability": availability,
+           "iterations_seen": {m: sorted(s) for m, s in seen_iterations.items()},
+           "topk_exact_launches": launches["topk_exact"]}
+    gates = {"detection": rec["scale_up"]["detection_ticks"]
+             <= budget["max_scale_up_detection_ticks"],
+             "hot_pool": health[second]["up"] == budget["max_replicas"],
+             "cold_pool": health[default]["up"] == 1,
+             "wrong": counts["wrong"] <= budget["max_wrong_answers"],
+             "mixed": counts["mixed"] <= budget["max_mixed_answers"],
+             "cross_model": counts["cross_model"] <= budget["max_cross_model_answers"],
+             "availability": availability >= budget["min_availability"],
+             "swap": seen_iterations[default] == {1, 2}
+             and seen_iterations[second] == {zipf_iteration}}
+    rec["gates"] = gates
+    log(f"catalog drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"catalog drill: gates {gates}: {rec}")
+    return rec, launches
+
+
+def graph_1m(torch, smi: str) -> tuple:
+    """Phase 11b's scaling half (``drill_batch``'s ``graph_1m``): an
+    in-process ``EngineBackend`` over an IVF index of a clustered 1M x 64
+    table (1,024 lists, nprobe 32, rescore 4) answers QUERIES_1M sampled
+    rows' kNN rows (K9 then K9r); recall@10 against the exact oracle on the
+    card.  Returns (record, launches)."""
+    from gene2vec_tpu_torch import kernels
+    from gene2vec_tpu_torch.batch.runner import EngineBackend
+    from gene2vec_tpu_torch.serve.ann import build_index
+    from gene2vec_tpu_torch.serve.engine import SimilarityEngine
+    from gene2vec_tpu_torch.serve.registry import LoadedModel
+
+    b = BATCH_GRAPH
+    rows, dim, n_q, k = b["rows_1m"], b["dim_1m"], b["queries_1m"], b["k"]
+    t0 = time.perf_counter()
+    unit_dev = bench_table(torch, rows, dim, b["clusters_1m"], FLEET_SEED + 11)
+    unit = unit_dev.cpu().numpy()
+    ivf = build_index(unit, "ivf", clusters=b["clusters_1m"], seed=FLEET_SEED, device=DEVICE)
+    model = LoadedModel(dim=dim, iteration=1, tokens=tuple(map(str, range(rows))), index={},
+                        emb=unit, unit=unit_dev, source="synthetic", meta={}, ann=ivf)
+    sub = 128
+    backend = EngineBackend(model, SimilarityEngine(
+        max_batch=sub, index="ivf", nprobe=b["nprobe_1m"], rescore_mult=b["rescore_mult_1m"]))
+    start0 = int(np.random.RandomState(FLEET_SEED + 11).randint(0, rows - n_q - sub))
+    backend.knn_rows(start0 + n_q, sub, k)  # the buckets' first launches
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ids = np.concatenate([backend.knn_rows(start0 + s, min(sub, n_q - s), k)[0]
+                          for s in range(0, n_q, sub)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = kernels.launch_counts()
+    launches = {"ivf_scan": counts["ivf_scan"], "rescore": counts["rescore"]}
+    q = unit_dev[start0:start0 + n_q]
+    sims = q @ unit_dev.T
+    sims[torch.arange(n_q, device=DEVICE), torch.arange(start0, start0 + n_q,
+                                                        device=DEVICE)] = -float("inf")
+    want = torch.topk(sims, k, dim=1).indices.cpu().numpy()
+    recall = sum(len(set(a) & set(w)) for a, w in zip(ids.tolist(), want.tolist())) / (n_q * k)
+    rec = {"rows": rows, "dim": dim, "k": k, "queries": n_q, "index": "ivf",
+           "clusters": int(ivf.n_clusters), "nprobe": b["nprobe_1m"],
+           "rescore_mult": b["rescore_mult_1m"], "build_seconds": ivf.build_seconds,
+           "rows_per_sec": n_q / wall, "recall_at_10": recall, "launches": launches,
+           "seconds": time.perf_counter() - t0, "card": smi}
+    del backend, model, ivf, unit_dev, sims, q
+    torch.cuda.empty_cache()
+    log(f"graph 1M: {json.dumps(rec)}")
+    if recall < b["min_recall_at_10_1m"] or not (launches["ivf_scan"] and launches["rescore"]):
+        raise SystemExit(f"graph 1M: {rec}")
+    return rec, launches
+
+
+def job_post(url: str, body: dict) -> dict:
+    status, raw = http_json(url + "/v1/jobs", body, timeout=60.0)
+    if status != 200:
+        raise SystemExit(f"batch: POST /v1/jobs {body.get('job_id')} -> {status}: {raw[:300]!r}")
+    return json.loads(raw)
+
+
+def job_state(url: str, job_id: str) -> dict:
+    status, raw = http_json(f"{url}/v1/jobs/{job_id}", timeout=30.0)
+    if status != 200:
+        raise SystemExit(f"batch: GET /v1/jobs/{job_id} -> {status}")
+    return json.loads(raw)
+
+
+def job_done(url: str, job_id: str, timeout: float) -> dict:
+    def done():
+        d = job_state(url, job_id)
+        if d["state"] in ("failed", "cancelled"):
+            raise SystemExit(f"batch: {job_id} {d['state']}: {d.get('error')}")
+        return d if d["state"] == "done" else None
+
+    return wait_for(done, timeout, f"job {job_id} done", 0.2, phase="phase 11")
+
+
+def mixed_window(url: str, genes) -> dict:
+    """Interactive p99 through the front door for MIXED_S seconds alone,
+    then MIXED_S beside a running graph job (reported, not gated)."""
+    import threading
+
+    def window():
+        lat, lock, stop = [], threading.Lock(), threading.Event()
+
+        def worker(w):
+            rng = np.random.RandomState(FLEET_SEED + 800 + w)
+            while not stop.is_set():
+                t1 = time.perf_counter()
+                status, _ = http_json(url + "/v1/similar", {
+                    "genes": [genes[rng.randint(len(genes))]], "k": FLEET_K})
+                with lock:
+                    lat.append(((time.perf_counter() - t1) * 1e3, status))
+                time.sleep(0.1)
+
+        threads = [threading.Thread(target=worker, args=(w,)) for w in range(MIXED_WORKERS)]
+        for t in threads:
+            t.start()
+        time.sleep(MIXED_S)
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        ms = [m for m, s in lat if s == 200]
+        return {"requests": len(lat), "ok": len(ms),
+                "p50_ms": float(np.percentile(ms, 50)) if ms else None,
+                "p99_ms": float(np.percentile(ms, 99)) if ms else None}
+
+    base = window()
+    job_post(url, {"type": "knn_graph", "k": BATCH_GRAPH["k"],
+                   "chunk_rows": BATCH_GRAPH["chunk_rows"], "job_id": "mixed"})
+    before = job_state(url, "mixed").get("records_done") or 0
+    under = window()
+    after = job_state(url, "mixed")
+    http_json(url + "/v1/jobs/mixed/cancel", {}, timeout=30.0)
+    return {"workers": MIXED_WORKERS, "seconds": MIXED_S, "alone": base, "beside_graph": under,
+            "p99_delta_ms": (under["p99_ms"] - base["p99_ms"])
+            if base["p99_ms"] is not None and under["p99_ms"] is not None else None,
+            "batch_rows_in_window": (after.get("records_done") or 0) - before,
+            "batch_state_after_window": after["state"]}
+
+
+def batch_drill(torch, work: str, ctx: dict, emb, server_url: str) -> tuple:
+    """Phase 11b (``drill_batch``): a full-vocab ``knn_graph`` job through
+    the ``/v1/jobs`` of a ``cli.fleet --shard-by-rows 2 --jobs-dir`` front
+    door, SIGKILLed with its replicas mid-build, the fleet restarted on the
+    same jobs dir; the resumed artifact byte-equal to an uninterrupted
+    control through the same scatter path (a second jobs fleet over the
+    same export, building side by side), recall@10 against the exact
+    oracle on the card, the reference-format artifact read back; a
+    BATCH_PAIRS ``pair_scores`` job against a single replica's
+    ``/v1/interaction``.  Leaves the fleet's URL in ``ctx["batch_url"]``
+    for the mixed window.  Returns (record, launches)."""
+    import signal
+
+    from gene2vec_tpu_torch.batch.artifact import load_graph
+    from gene2vec_tpu_torch.cli.batch import _fetch
+
+    b = BATCH_GRAPH
+    k, chunk = b["k"], b["chunk_rows"]
+    children = ctx["children"]
+    child = children.pop("batch")
+    info = contract(child)
+    url = info["url"]
+    if info.get("jobs_dir") != ctx["jobs_dir"] or info["shards"]["num_shards"] != 2:
+        raise SystemExit(f"batch: contract line {info}")
+    job_post(url, {"type": "knn_graph", "k": k, "chunk_rows": chunk, "job_id": "graph"})
+    control_info = contract(children["control"])
+    control_url = control_info["url"]
+    job_post(control_url, {"type": "knn_graph", "k": k, "chunk_rows": chunk,
+                           "job_id": "control"})
+    kill_floor = max(2 * chunk, V // 4)
+    t0 = time.perf_counter()
+
+    def mid_build():
+        d = job_state(url, "graph")
+        if d["state"] != "running" and d["state"] != "pending":
+            raise SystemExit(f"batch: the job reached {d['state']} before the kill")
+        return (d.get("records_done") or 0) >= kill_floor
+
+    wait_for(mid_build, 600.0, "the mid-build kill point", 0.05, phase="phase 11")
+    proc = child[0]
+    proc.kill()
+    proc.wait(timeout=30)
+    for pid in info["replica_pids"]:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    killed_at = json.load(open(os.path.join(ctx["jobs_dir"], "graph", "JOB.json")))[
+        "records_done"]
+    log(f"batch: SIGKILL at {killed_at}/{V} committed rows, "
+        f"{time.perf_counter() - t0:.1f}s after submit")
+    if not 0 < killed_at < V:
+        raise SystemExit(f"batch: killed at {killed_at} of {V}")
+    restarted = launch(ctx["argv"], os.path.join(work, "batch_restart.err"))
+    children["batch"] = restarted
+    info = contract(restarted)
+    url = info["url"]
+    a = job_done(url, "graph", 900.0)
+    resumed = a["result"]["resumed_records"]
+    control = job_done(control_url, "control", 900.0)
+    dirs = {}
+    for job, job_url in (("graph", url), ("control", control_url)):
+        dirs[job] = os.path.join(work, f"fetched_{job}")
+        _fetch(job_url, job, dirs[job])
+    control_launches = live_launches(control_url)
+    stop_server(children.pop("control")[0])
+    same = all(open(os.path.join(dirs["graph"], n), "rb").read()
+               == open(os.path.join(dirs["control"], n), "rb").read()
+               for n in ("DATA.bin", "TOKENS.txt"))
+    tokens, ids, _, meta = load_graph(dirs["graph"])
+    rows = np.sort(np.random.RandomState(FLEET_SEED + 7).choice(V, BATCH_ORACLE_Q, replace=False))
+    oracle = card_oracle(torch, emb, rows, k)
+    recall = sum(len(set(ids[r].tolist()) & set(oracle[f"G{r}"][1].tolist()))
+                 for r in rows) / float(BATCH_ORACLE_Q * k)
+    # the reference's on-disk format: k int32 ids then k float32 scores a
+    # row, the manifest's schema and CRC (the reference's own load_graph
+    # reads a copy on the host: GRAPH_COPY)
+    manifest = json.load(open(os.path.join(dirs["graph"], "ARTIFACT.json")))
+    data = open(os.path.join(dirs["graph"], "DATA.bin"), "rb").read()
+    reference_format = (manifest["schema"] == "gene2vec-tpu/batch-artifact/v1"
+                        and manifest["data_bytes"] == len(data) == V * 2 * k * 4
+                        and manifest["data_crc32"] == zlib.crc32(data) & 0xFFFFFFFF
+                        and manifest["meta"]["type"] == "knn_graph")
+    import shutil
+
+    shutil.rmtree(GRAPH_COPY, ignore_errors=True)
+    shutil.copytree(dirs["graph"], GRAPH_COPY)
+    # pair_scores through the scatter plane's front-door scorer (row_gather)
+    rng = np.random.RandomState(FLEET_SEED + 9)
+    pairs = [[f"G{rng.randint(V)}", f"G{rng.randint(V)}"] for _ in range(BATCH_PAIRS)]
+    job_post(url, {"type": "pair_scores", "pairs": pairs, "chunk_rows": 16, "job_id": "pairs"})
+    job_done(url, "pairs", 300.0)
+    _fetch(url, "pairs", os.path.join(work, "fetched_pairs"))
+    got = [float(line.split("\t")[2]) for line in open(
+        os.path.join(work, "fetched_pairs", "DATA.bin")).read().splitlines()]
+    status, raw = http_json(server_url + "/v1/interaction",
+                            {"pairs": pairs, "timeout_ms": 60000}, timeout=120.0)
+    if status != 200:
+        raise SystemExit(f"batch: the single replica's /v1/interaction -> {status}")
+    want = [s["score"] for s in json.loads(raw)["scores"]]
+    pair_err = float(np.abs(np.asarray(got) - np.asarray(want)).max())
+    ctx["batch_url"] = url
+    launches = live_launches(url)
+    add_launches(launches, control_launches)
+    launches["row_gather"] = scrape_launches(url).get("row_gather", 0) + scrape_launches(
+        server_url).get("row_gather", 0)
+    rec = {"rows": V, "dim": D, "k": k, "shards": 2, "chunk_rows": chunk,
+           "export": "phase 5's clustered export", "killed_at_records": killed_at,
+           "resumed_records": resumed, "resume_bit_exact": same,
+           "rows_per_sec": control["result"]["rows_per_sec"],
+           "wall_s": control["result"]["wall_s"], "chunks": control["result"]["chunks"],
+           "yielded_s": control["result"]["yielded_s"], "recall_at_10": recall,
+           "oracle_queries": BATCH_ORACLE_Q, "iteration": meta["iteration"],
+           "reference_format": reference_format, "graph_copy": GRAPH_COPY, "pair_scores": {
+               "pairs": BATCH_PAIRS, "max_score_err": pair_err},
+           "launches": launches}
+    gates = {"bit_exact": same, "recall": recall >= b["min_recall_at_10"],
+             "resumed": 0 < resumed < V, "tokens": tokens == [f"G{i}" for i in range(V)],
+             "reference_format": reference_format, "pair_scores": pair_err <= SCORE_TOL,
+             "launches": launches["topk_exact"] > 0 and launches["row_gather"] > 0}
+    rec["gates"] = gates
+    log(f"batch drill: {json.dumps(rec)}")
+    if not all(gates.values()):
+        raise SystemExit(f"batch drill: gates {gates}: {rec}")
+    return rec, launches
+
+
+def catalog_batch_setup(torch, smi: str, clustered: str, zipf: str, checkpoint=None) -> dict:
+    """Phase 11's set-up: phase 5's clustered export and phase 3's Zipf
+    export (both V x D) copied into the phase's own temp dir (the swap
+    touches neither), the catalog spec, the swap's table, and the four
+    children launched: the catalog fleet, the sharded jobs fleet, the
+    control's jobs fleet and a single server.  The full run calls it before phase 10, so they boot
+    while phase 10 runs.  ``checkpoint`` is phase 6's GGIPNN head; without
+    one (``--catalog-batch``) a short ``cli.ggipnn`` run makes it."""
+    from gene2vec_tpu_torch.io.checkpoint import save_iteration
+    from gene2vec_tpu_torch.io.vocab import Vocab
+    from gene2vec_tpu_torch.serve.registry import ModelRegistry
+    from gene2vec_tpu_torch.sgns.model import SGNSParams
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.getcwd())
+    tables, exports = {}, {}
+    for name, src in (("clustered", clustered), ("zipf", zipf)):
+        reg = ModelRegistry(src, device="cpu")
+        if not reg.refresh():
+            raise SystemExit(f"phase 11: no verified export in {src}")
+        m = reg.model
+        tables[name] = (m.emb, m.iteration)
+        exports[name] = os.path.join(work, f"catalog_{name}")
+        t = torch.from_numpy(m.emb)
+        # the copy names row i "G{i}" (the Zipf export's vocab is in count
+        # order), so an answer's genes are the oracle's rows
+        save_iteration(exports[name], D, m.iteration, SGNSParams(t, t),
+                       Vocab([f"G{i}" for i in range(len(m.tokens))],
+                             np.ones(len(m.tokens), np.int64)), txt_output=False)
+    if tables["clustered"][1] != 1:
+        raise SystemExit("phase 11: the clustered export is not at iteration 1")
+    exports["batch"] = os.path.join(work, "batch_export")
+    emb = tables["clustered"][0]
+    t = torch.from_numpy(emb)
+    save_iteration(exports["batch"], D, 1, SGNSParams(t, t),
+                   Vocab([f"G{i}" for i in range(V)], np.ones(V, np.int64)), txt_output=False)
+    exports["swap_table"] = clustered_table(seed=12, v=V, d=D)[0]
+    if checkpoint is None:
+        groups = clustered_table(v=V, d=D)[1]
+        _, checkpoint, _ = ggipnn_cli(torch, work, smi, emb, groups,
+                                      sizes=(65_536, 4_096, 4_096), checkpoint_every=256)
+    spec = os.path.join(work, "catalog.json")
+    with open(spec, "w") as f:
+        json.dump({"schema": "gene2vec-tpu/catalog/v1", "default": "clustered", "models": {
+            name: {"export_dir": exports[name], "dim": D, "replicas": 1}
+            for name in ("clustered", "zipf")}}, f)
+    jobs_dir = os.path.join(work, "jobs")
+
+    def batch_argv(jobs):
+        return fleet_argv(exports["batch"], "--shard-by-rows", "2", "--jobs-dir", jobs,
+                          "--swap-interval", "3600", "--scrape-interval", "0.5",
+                          "--alert-rules", "none", "--shard-deadline-ms", "6000",
+                          "--proxy-timeout-ms", "8000", "--ggipnn-checkpoint", checkpoint,
+                          "--device", "cuda")
+
+    children = {
+        "catalog": launch(fleet_argv(
+            exports["clustered"], "--catalog", spec, "--min-replicas", "1",
+            "--max-replicas", str(CATALOG_ISOLATION["max_replicas"]), "--proxy-workers",
+            "64", "--scrape-interval", str(CATALOG_ISOLATION["scrape_interval_s"]),
+            "--alert-rules", "none", *SCALE_FLAGS, *SATURABLE,
+            "--serve-arg=--max-queue", f"--serve-arg={CATALOG_MAX_QUEUE}",
+            "--serve-arg=--poll-interval", "--serve-arg=0.3"),
+            os.path.join(work, "catalog.err")),
+        "batch": launch(batch_argv(jobs_dir), os.path.join(work, "batch.err")),
+        # the control's own fleet: the same export and scatter path, its own
+        # jobs dir, so the control builds while the killed job resumes
+        "control": launch(batch_argv(os.path.join(work, "control_jobs")),
+                          os.path.join(work, "control.err")),
+        "server": launch([sys.executable, "-m", "gene2vec_tpu_torch.cli.serve",
+                          "--export-dir", exports["batch"], "--port", "0", "--cache-size",
+                          "0", "--poll-interval", "3600", "--ggipnn-checkpoint", checkpoint],
+                         os.path.join(work, "server.err")),
+    }
+    log(f"phase 11: set up, four children launched in {time.perf_counter() - t0:.1f}s")
+    return {"work": work, "tables": tables, "exports": exports, "emb": emb,
+            "checkpoint": checkpoint, "children": children, "jobs_dir": jobs_dir,
+            "argv": batch_argv(jobs_dir), "setup_s": time.perf_counter() - t0}
+
+
+def catalog_batch_close(ctx: dict) -> None:
+    """Stop phase 11's children and drop its temp dir (also on a failure
+    before phase 11 ran)."""
+    import shutil
+
+    for name in ("catalog", "batch", "control", "server"):
+        if name in ctx["children"]:
+            stop_server(ctx["children"].pop(name)[0])
+    shutil.rmtree(ctx["work"], ignore_errors=True)
+
+
+def catalog_batch_begin(torch, ctx: dict) -> None:
+    """Phase 11's batch drill (11b) on a side thread: the full run calls it
+    right after phase 10's merge bench, so the drill (its gates untimed)
+    runs beside phase 10's drills.  :func:`catalog_batch_run` joins it."""
+    import threading
+
+    # imported before the thread starts: concurrent first imports of one
+    # package can race
+    import gene2vec_tpu_torch.batch.runner  # noqa: F401
+    import gene2vec_tpu_torch.cli.batch  # noqa: F401
+    import gene2vec_tpu_torch.serve.ann  # noqa: F401
+
+    ctx["t0"] = time.perf_counter()
+    held = ctx["held"] = {}
+    try:
+        ctx["server_url"] = contract(ctx["children"]["server"])["url"]
+
+        def run():
+            try:
+                held["batch"] = batch_drill(torch, ctx["work"], ctx, ctx["emb"],
+                                            ctx["server_url"])
+            except BaseException as e:  # re-raised by catalog_batch_run
+                held["batch_error"] = e
+            held["batch_s"] = time.perf_counter() - ctx["t0"]
+
+        ctx["side"] = threading.Thread(target=run, daemon=True)
+        ctx["side"].start()
+    except BaseException:
+        catalog_batch_close(ctx)
+        raise
+
+
+def catalog_batch_run(torch, smi: str, ctx: dict) -> tuple:
+    """Phase 11's rest, after phase 10: the 1M-row graph half in process
+    (it alone counts kernel launches in process), the batch drill joined,
+    the mixed window on its fleet, then the catalog drill (11a) with
+    nothing else running: its gates are timed (detection ticks count
+    scrape wall time).  Returns (the ``{"catalog": ...}`` and ``{"batch":
+    ...}`` records, the phase's launches)."""
+    held, launches = ctx["held"], {}
+    tables, exports = ctx["tables"], ctx["exports"]
+    t1 = time.perf_counter()
+    try:
+        scale, got = graph_1m(torch, smi)
+        add_launches(launches, got)
+        ctx["side"].join()
+        if "batch_error" in held:
+            raise held["batch_error"]
+        batch, got = held["batch"]
+        add_launches(launches, got)
+        batch["graph_1m"] = scale
+        batch["mixed"] = mixed_window(ctx["batch_url"], [f"G{r}" for r in range(64)])
+        stop_server(ctx["children"].pop("batch")[0])
+        rows = {m: np.random.RandomState(FLEET_SEED).choice(len(tables[m][0]), FLEET_GENES,
+                                                             replace=False)
+                for m in ("clustered", "zipf")}
+        oracles = {("clustered", 1): card_oracle(torch, ctx["emb"], rows["clustered"]),
+                   ("clustered", 2): card_oracle(torch, exports["swap_table"],
+                                                 rows["clustered"]),
+                   ("zipf", tables["zipf"][1]): card_oracle(torch, tables["zipf"][0],
+                                                            rows["zipf"])}
+        genes = {m: [f"G{r}" for r in rows[m]] for m in rows}
+        info = contract(ctx["children"]["catalog"])
+        t_catalog = time.perf_counter()
+        catalog, got = catalog_drill(torch, info, exports, oracles, genes, tables["zipf"][1])
+        add_launches(launches, got)
+        catalog_s = time.perf_counter() - t_catalog
+    finally:
+        catalog_batch_close(ctx)
+    seconds = time.perf_counter() - ctx["t0"]
+    after = time.perf_counter() - t1
+    for rec in (catalog, batch):
+        rec.update(card=smi, phase_seconds=seconds, after_phase10_seconds=after,
+                   setup_seconds=ctx["setup_s"],
+                   drills_seconds={"batch": held["batch_s"], "catalog": catalog_s})
+    batch["budget"] = BATCH_GRAPH
+    catalog["budget"] = CATALOG_ISOLATION
+    for name in ("topk_exact", "ivf_scan", "rescore", "row_gather"):
+        if not launches.get(name):
+            raise SystemExit(f"phase 11: {name} launched no time ({launches})")
+    log(f"catalog and batch phase done in {seconds:.1f}s ({after:.1f}s after phase 10; "
+        f"batch drill {held['batch_s']:.1f}s, catalog drill {catalog_s:.1f}s)")
+    return catalog, batch, launches
+
+
 def main() -> int:
     import torch
 
@@ -7095,6 +7777,19 @@ def main() -> int:
     if sys.argv[1:2] == ["--shards"]:
         shards, _ = shards_phase(torch, smi)
         print(json.dumps({"shards": shards}))
+        return 0
+    if sys.argv[1:2] == ["--catalog-batch"]:
+        # phase 3's Zipf export is not trained here: a second clustered
+        # export of the same width (seed 13) takes its place
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=os.getcwd()) as work:
+            clustered, second = os.path.join(work, "clustered"), os.path.join(work, "second")
+            write_clustered_export(clustered)
+            write_clustered_export(second, seed=13)
+            ctx = catalog_batch_setup(torch, smi, clustered, second)
+            catalog_batch_begin(torch, ctx)
+            catalog, batch, _ = catalog_batch_run(torch, smi, ctx)
+        print(json.dumps({"catalog": catalog}))
+        print(json.dumps({"batch": batch}))
         return 0
     # phase 8 first, on a file system that holds none of the other phases'
     # files: its async-overhead gate times checkpoint writes against epochs
@@ -7193,7 +7888,20 @@ def main() -> int:
         # phase 10: the elastic fleet, tenant quotas and row shards (K7 on
         # the replicas, K9/K9r in the merge bench, row_gather at the front
         # door), with phase 6's head behind the cross-shard scorer
-        shards, shard_counts = shards_phase(torch, smi, checkpoint=checkpoint)
+        # phase 11: the catalog over phase 5's and phase 3's exports (K7 on
+        # its replicas) and the batch plane (K7 on the shard replicas,
+        # K9/K9r in the 1M-row graph, row_gather at the front door).  Its
+        # children boot during phase 10's merge bench, its batch drill (no
+        # timed gate) runs beside phase 10's drills, and the rest after them
+        ctx = catalog_batch_setup(torch, smi, clustered, os.path.join(work, "export"),
+                                  checkpoint=checkpoint)
+        try:
+            shards, shard_counts = shards_phase(torch, smi, checkpoint=checkpoint,
+                                                after_bench=lambda: catalog_batch_begin(torch, ctx))
+        except BaseException:
+            catalog_batch_close(ctx)
+            raise
+        catalog, batch, catalog_batch_counts = catalog_batch_run(torch, smi, ctx)
         t0 = time.perf_counter()
         # each new kernel's launches: the runs of phase 3b that drive it
         for label, run in train_objectives(torch, work, smi).items():
@@ -7247,6 +7955,7 @@ def main() -> int:
     add_launches(counts, res_counts)
     add_launches(counts, fleet_counts)
     add_launches(counts, shard_counts)
+    add_launches(counts, catalog_batch_counts)
 
     rows += serve_rows
     rows.append(gather_row)
@@ -7273,6 +7982,8 @@ def main() -> int:
     print(json.dumps({"resilience": res}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"shards": shards}))
+    print(json.dumps({"catalog": catalog}))
+    print(json.dumps({"batch": batch}))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

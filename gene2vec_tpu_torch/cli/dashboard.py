@@ -2,12 +2,12 @@
 (``src/gene2vec_dash_app.py:17-27`` parity, ``--figure-json``, with the
 annotation-source flags the reference hardcodes as absolute paths,
 ``:37,84``).  The dashboard runs on the host (dash, gated); it needs no
-device.  ``--graph-dir`` (a kNN-graph batch artifact) is refused until the
-batch plane is ported.
+device.  ``--graph-dir`` (a ``knn_graph`` batch artifact, ``cli.batch``)
+answers the Neighbors box from the precomputed graph.
 
     python -m gene2vec_tpu_torch.cli.dashboard --figure-json fig.json
         [--go-obo go-basic.obo --gene2go gene2go] [--reactome FILE]
-        [--serve-url http://127.0.0.1:PORT]
+        [--serve-url http://127.0.0.1:PORT] [--graph-dir DIR]
 """
 
 from __future__ import annotations
@@ -46,18 +46,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-k", type=int, default=10,
                    help="neighbors fetched per --serve-url lookup")
     p.add_argument("--graph-dir", default=None, metavar="DIR",
-                   help="a finalized knn_graph batch artifact: not ported "
-                        "(refused)")
+                   help="a finalized knn_graph batch artifact (batch/): "
+                        "the Neighbors box answers from the precomputed "
+                        "graph without a live server, and falls back to it "
+                        "when --serve-url is unreachable")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.graph_dir:
-        raise SystemExit(
-            "error: --graph-dir needs the batch plane's kNN-graph artifacts, "
-            "which gene2vec_tpu_torch does not port yet (ROADMAP.md, Queue A, A20)"
-        )
     from gene2vec_tpu_torch.viz.dash_app import serve
 
     serve(
@@ -74,6 +71,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         debug=args.debug,
         serve_url=args.serve_url,
         serve_k=args.serve_k,
+        graph_dir=args.graph_dir,
     )
     return 0
 

@@ -6,9 +6,11 @@ reference's ``gene2vec_tpu/cli/evaluate.py``.
 prints the score ``src/evaluation_target_function.py`` computes (pathways
 over 50 genes skipped, fixed seed 35 for the random-pair denominator).
 ``--json`` (optionally with ``--out PATH``) emits the provenance-stamped
-JSON document instead.  The evaluation is numpy on the host: it has no
-device work.  ``--graph-dir`` (a kNN-graph batch artifact) is refused:
-the batch plane is not ported.
+JSON document instead.  ``--graph-dir DIR`` evaluates a finalized
+``knn_graph`` batch artifact (``cli.batch``) instead of an embedding file:
+the pathway hit rate of each gene's neighbours against degree-matched
+random ones, as the fleet that built the graph served them.  The
+evaluation is numpy on the host: it has no device work.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from gene2vec_tpu_torch.eval.target_function import (
     MAX_PATHWAY_GENES,
     RANDOM_PAIR_GENES,
     RANDOM_SEED,
+    graph_neighborhood_ratio,
     target_function,
 )
 
@@ -33,12 +36,14 @@ def build_parser() -> argparse.ArgumentParser:
                     "embedding file.",
     )
     p.add_argument("emb_file", nargs="?", default=None,
-                   help="matrix-txt or word2vec-format embedding")
+                   help="matrix-txt or word2vec-format embedding (optional "
+                        "when --graph-dir evaluates a precomputed kNN graph)")
     p.add_argument("gmt_file", help="MSigDB .gmt pathway file")
     p.add_argument("--graph-dir", default=None, metavar="DIR",
-                   help="a finalized knn_graph batch artifact: not ported "
-                        "(the batch plane is not part of gene2vec_tpu_torch); "
-                        "the command exits with an error")
+                   help="evaluate a finalized knn_graph batch artifact "
+                        "(batch/) instead of an embedding file: pathway "
+                        "neighbourhood hit rate vs degree-matched random, as "
+                        "served by the fleet that built the graph")
     p.add_argument("--max-pathway-genes", type=int, default=MAX_PATHWAY_GENES)
     p.add_argument("--num-random-genes", type=int, default=RANDOM_PAIR_GENES)
     p.add_argument("--seed", type=int, default=RANDOM_SEED)
@@ -55,28 +60,38 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     if args.graph_dir:
-        raise SystemExit(
-            "error: --graph-dir needs the batch plane's kNN-graph artifacts, "
-            "which gene2vec_tpu_torch does not port yet"
+        facts = graph_neighborhood_ratio(
+            args.graph_dir,
+            args.gmt_file,
+            max_pathway_genes=args.max_pathway_genes,
+            seed=args.seed,
         )
-    if not args.emb_file:
-        raise SystemExit("error: need an emb_file")
-    score = target_function(
-        args.emb_file,
-        args.gmt_file,
-        max_pathway_genes=args.max_pathway_genes,
-        num_random_genes=args.num_random_genes,
-        seed=args.seed,
-    )
-    body = {
-        "schema": "gene2vec-tpu/intrinsic-eval/v1",
-        "trained_target_func_ratio": score,
-        "emb_file": args.emb_file,
-        "gmt_file": args.gmt_file,
-        "max_pathway_genes": args.max_pathway_genes,
-        "num_random_genes": args.num_random_genes,
-        "seed": args.seed,
-    }
+        body = {
+            "schema": "gene2vec-tpu/graph-eval/v1",
+            "graph_dir": args.graph_dir,
+            "gmt_file": args.gmt_file,
+            **facts,
+        }
+        score = facts["ratio"]
+    else:
+        if not args.emb_file:
+            raise SystemExit("error: need an emb_file (or --graph-dir)")
+        score = target_function(
+            args.emb_file,
+            args.gmt_file,
+            max_pathway_genes=args.max_pathway_genes,
+            num_random_genes=args.num_random_genes,
+            seed=args.seed,
+        )
+        body = {
+            "schema": "gene2vec-tpu/intrinsic-eval/v1",
+            "trained_target_func_ratio": score,
+            "emb_file": args.emb_file,
+            "gmt_file": args.gmt_file,
+            "max_pathway_genes": args.max_pathway_genes,
+            "num_random_genes": args.num_random_genes,
+            "seed": args.seed,
+        }
     if args.json or args.out:
         from gene2vec_tpu_torch.obs.ledger import provenance_stamp
 

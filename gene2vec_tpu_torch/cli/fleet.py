@@ -7,7 +7,10 @@ the port of ``gene2vec_tpu/cli/fleet.py``.
     python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ --replicas 1 \\
         --min-replicas 1 --max-replicas 2
     python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ \\
-        --shard-by-rows 2 --replicas-per-shard 2 [--ggipnn-checkpoint CKPT]
+        --shard-by-rows 2 --replicas-per-shard 2 [--ggipnn-checkpoint CKPT] \\
+        [--jobs-dir DIR]
+    python -m gene2vec_tpu_torch.cli.fleet --export-dir exports/ \\
+        --catalog catalog.json [--max-replicas 2]
 
 Spawns ``gene2vec_tpu_torch.cli.serve`` children over the same export dir
 (each on the card; the tests pass ``--serve-arg=--device
@@ -16,7 +19,8 @@ and serves the front door on ``--port``.  Emits exactly ONE JSON line on
 stdout once the front door is listening::
 
     {"url": ..., "replicas": 3, "replica_urls": [...],
-     "replica_pids": [...], "run_dir": ..., "autoscale": ..., "shards": ...}
+     "replica_pids": [...], "run_dir": ..., "jobs_dir": ..., "autoscale": ...,
+     "catalog": ..., "shards": ...}
 
 Human chatter goes to stderr; every fleet session stamps an obs ``Run``
 manifest (default run dir ``<export_dir>/fleet_runs/<unix-ts>``) whose
@@ -34,13 +38,29 @@ scatter-gather front door with the shard-atomic swap coordinator
 ``cpu``).  An unsharded fleet only checks that the checkpoint exists:
 its replicas take a head through ``--serve-arg``.
 
+``--catalog SPEC.json`` (``serve/catalog.py``) runs one replica pool per
+named model, each replica a single-model server under its model's
+``--export-dir``, ``--model-name``, ``--index`` and ``--dim``; the front
+door routes ``/v1/<model>/*`` to the named pool and unprefixed ``/v1/*``
+to the default model's, takes a token from the model's bucket first
+(``ModelAdmission``), and with ``--max-replicas`` scales each pool on its
+own (``PoolElasticController``).  ``--jobs-dir`` mounts ``/v1/jobs`` at
+the front door (``batch/jobs.py``): jobs scatter through the shard group
+on a sharded fleet and go through the resilient client otherwise, on the
+``batch`` tenant lane, pausing between chunks while the replicas' queues
+are deep.
+
 A replica that cannot start (no GPU and no ``--device cpu`` serve arg)
 exits at once; the restart-storm cap then gives up on its slot and the
 fleet exits non-zero: it never serves on the CPU unless asked to.
 
-The reference's multi-model catalog (ROADMAP A19 item 5), shadow canary
-(A12) and batch jobs (A20) are not ported: their flags parse and are
-refused with exit 2.
+The reference's shadow canary (ROADMAP A12) is not ported: its flag
+parses and is refused with exit 2.
+
+SIGTERM and SIGINT shut the fleet down in order (scaler, swap
+coordinator, front door, drain, replicas) whichever of the process's
+threads the kernel hands the signal to: the main thread waits in short
+slices, so Python runs the handler within a quarter second.
 """
 
 from __future__ import annotations
@@ -55,10 +75,13 @@ from typing import List, Optional
 #: flags whose feature the port lacks -> the ROADMAP item that brings it;
 #: given a value other than its default, a flag is refused with exit 2
 REFUSED = {
-    "catalog": "A19 item 5 (the multi-model catalog)",
     "enable_shadow": "A12 (the shadow canary)",
-    "jobs_dir": "A20 (batch jobs)",
 }
+
+#: the main thread's wait slice: a signal taken by a helper thread runs
+#: its Python handler only when the main thread next returns to the
+#: interpreter, so the main thread never blocks longer than this
+_WAIT_SLICE_S = 0.25
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -210,12 +233,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between the shard swap coordinator's "
                         "export-dir polls (sharded mode only)")
     p.add_argument("--catalog", default=None, metavar="SPEC.json",
-                   help="serve a multi-model catalog; not ported: "
-                        "refused (ROADMAP A19 item 5); never combines "
-                        "with --shard-by-rows")
+                   help="serve a multi-model catalog (serve/catalog.py): one "
+                        "replica pool per named model (its 'replicas'), "
+                        "/v1/<model>/* routed to the named pool, unprefixed "
+                        "/v1/* to the default model's, per-model token "
+                        "buckets at the door; overrides --replicas; with "
+                        "--max-replicas the bounds apply to each model's "
+                        "pool.  Never combines with --shard-by-rows")
     p.add_argument("--jobs-dir", default=None, metavar="DIR",
-                   help="batch-job store root; not ported: refused "
-                        "(ROADMAP A20)")
+                   help="batch-job store root: mounts /v1/jobs at the front "
+                        "door (batch/jobs.py); jobs scatter through the shard "
+                        "group when sharded, else go through the replicas on "
+                        "the 'batch' tenant lane, and resume from their "
+                        "committed cursor after a restart")
     return p
 
 
@@ -289,6 +319,34 @@ def main(argv: Optional[List[str]] = None) -> int:
         FleetSupervisor,
     )
 
+    # parse and check the catalog spec before paying N spawns; slots
+    # partition into contiguous per-model pools in spec order, and each
+    # pool's flags override the supervisor's defaults (argparse last-wins)
+    catalog_spec = model_admission = model_of = model_args = None
+    if args.catalog:
+        from gene2vec_tpu_torch.serve.catalog import ModelAdmission, load_catalog_spec
+
+        try:
+            catalog_spec = load_catalog_spec(args.catalog)
+        except (ValueError, OSError) as e:
+            print(f"error: bad catalog spec {args.catalog!r}: {e}", file=sys.stderr)
+            return 2
+        model_of, model_args = {}, {}
+        slot = 0
+        for entry in catalog_spec.entries:
+            for _ in range(entry.replicas):
+                model_of[slot] = entry.name
+                slot += 1
+            flags = ["--export-dir", entry.export_dir, "--model-name", entry.name,
+                     "--index", entry.index_mode]
+            if entry.dim is not None:
+                flags += ["--dim", str(entry.dim)]
+            if entry.ggipnn_checkpoint:
+                flags += ["--ggipnn-checkpoint", entry.ggipnn_checkpoint]
+            model_args[entry.name] = flags + list(entry.extra_args)
+        args.replicas = slot
+        model_admission = ModelAdmission(catalog_spec)
+
     if args.shard_by_rows:
         from gene2vec_tpu_torch.device import resolve_device
 
@@ -302,7 +360,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the autoscale bounds, checked before paying N spawns; in sharded mode
     # they apply to each shard's pool (the shard count is fixed)
     autoscale_cfg = None
-    pool_base = args.replicas_per_shard if args.shard_by_rows else args.replicas
+    if args.shard_by_rows:
+        pool_base = args.replicas_per_shard
+    elif catalog_spec is not None:
+        # every model pool's default floor: the smallest boot-time pool
+        pool_base = min(e.replicas for e in catalog_spec.entries)
+    else:
+        pool_base = args.replicas
     if args.max_replicas > 0:
         from gene2vec_tpu_torch.serve.autoscale import AutoscaleConfig
 
@@ -325,7 +389,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         except ValueError as e:
             print(f"error: bad autoscale flags: {e}", file=sys.stderr)
             return 2
-        if not autoscale_cfg.min_replicas <= pool_base <= autoscale_cfg.max_replicas:
+        if catalog_spec is not None:
+            # the bounds apply to each model's pool: every entry's boot
+            # size must lie inside them, or the first tick fights the spec
+            for entry in catalog_spec.entries:
+                if not (autoscale_cfg.min_replicas <= entry.replicas
+                        <= autoscale_cfg.max_replicas):
+                    print(f"error: catalog model {entry.name!r} replicas "
+                          f"{entry.replicas} outside [{autoscale_cfg.min_replicas}, "
+                          f"{autoscale_cfg.max_replicas}]", file=sys.stderr)
+                    return 2
+        elif not autoscale_cfg.min_replicas <= pool_base <= autoscale_cfg.max_replicas:
             what = "--replicas-per-shard" if args.shard_by_rows else "--replicas"
             print(f"error: {what} {pool_base} outside [{autoscale_cfg.min_replicas}, "
                   f"{autoscale_cfg.max_replicas}]", file=sys.stderr)
@@ -360,11 +434,14 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # installed BEFORE any replica exists: a SIGTERM during the (long)
     # start window must still tear the replicas down — dying silently
-    # would orphan N serving processes
+    # would orphan N serving processes.  Python runs the handler on the
+    # main thread once that thread is back in the interpreter, whichever
+    # thread took the signal: every wait below is a short slice
     def _on_term(signum, frame):
         raise KeyboardInterrupt
 
     signal.signal(signal.SIGTERM, _on_term)
+    signal.signal(signal.SIGINT, _on_term)
     shard_of = shard_args = None
     if args.shard_by_rows:
         # the (shard, replica) grid: slot i serves shard i // R, and the
@@ -392,6 +469,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         rng=random.Random(args.seed),
         shard_of=shard_of,
         shard_args=shard_args,
+        model_of=model_of,
+        model_args=model_args,
     )
     try:
         supervisor.start()
@@ -417,7 +496,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         proxy_workers=args.proxy_workers,
         acceptors=args.proxy_acceptors,
         alert_rules=alert_rules,
+        catalog=catalog_spec,
+        model_admission=model_admission,
     )
+    if catalog_spec is not None and proxy.aggregator is not None:
+        # per-model telemetry: queue depth, staleness and replicas up
+        # keyed by the supervisor's slot -> model map
+        proxy.aggregator.model_of = supervisor.model_of_url
+        proxy.aggregator.model_pool_facts = supervisor.model_up_counts
     coordinator = None
     if args.shard_by_rows:
         from gene2vec_tpu_torch.serve.shardgroup import (
@@ -467,12 +553,21 @@ def main(argv: Optional[List[str]] = None) -> int:
     if autoscale_cfg is not None:
         from gene2vec_tpu_torch.serve.autoscale import (
             ElasticController,
+            PoolElasticController,
             ShardElasticController,
         )
 
         if args.shard_by_rows:
             controller = ShardElasticController(
                 supervisor, proxy, autoscale_cfg, num_shards=args.shard_by_rows,
+                metrics=run.registry, drain_timeout_s=args.drain_timeout,
+            )
+        elif catalog_spec is not None:
+            # one policy per model pool; the hottest pool's signal wins the
+            # tick, and a scale-down never drains a model's last UP replica
+            controller = PoolElasticController(
+                supervisor, proxy, autoscale_cfg,
+                pools=[(name, None) for name in catalog_spec.names],
                 metrics=run.registry, drain_timeout_s=args.drain_timeout,
             )
         else:
@@ -483,6 +578,31 @@ def main(argv: Optional[List[str]] = None) -> int:
         # the scaler rides the aggregator's scrape tick, after the alert
         # evaluator: the same snapshot, nothing on the serve path
         proxy.aggregator.observers.append(controller.observe)
+    if args.jobs_dir:
+        from gene2vec_tpu_torch.batch.jobs import JobManager
+        from gene2vec_tpu_torch.batch.runner import ClientBackend, ShardGroupBackend
+
+        # the sharded backend's Pacer guard: the replicas' summed queue
+        # depth from each scrape tick, normalized so ~2 queued requests a
+        # replica reads as 1.0; batch pauses between chunks above it
+        batch_pressure = {"value": 0.0}
+        if proxy.aggregator is not None:
+            def _note_batch_pressure(snapshot, wall=None) -> None:
+                depth = float(snapshot.get("fleet_queue_depth", 0.0) or 0.0)
+                batch_pressure["value"] = depth / (2.0 * max(1, len(supervisor.replicas)))
+
+            proxy.aggregator.observers.append(_note_batch_pressure)
+
+        def _job_backend():
+            # built per job run, so each pins the iteration the fleet
+            # serves at that moment (batch/runner.py's determinism contract)
+            if proxy.shard_group is not None:
+                return ShardGroupBackend(
+                    proxy.shard_group, pressure_fn=lambda: batch_pressure["value"],
+                )
+            return ClientBackend(proxy.client)
+
+        proxy.jobs = JobManager(args.jobs_dir, _job_backend, metrics=run.registry)
     url = proxy.serve(args.host, args.port)
     run.annotate(fleet_url=url)
     run.event(
@@ -497,9 +617,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             "replica_urls": [r.url for r in supervisor.replicas],
             "replica_pids": [r.pid for r in supervisor.replicas],
             "run_dir": run.run_dir,
+            "jobs_dir": args.jobs_dir,
             "autoscale": (
                 {"min": autoscale_cfg.min_replicas, "max": autoscale_cfg.max_replicas}
                 if autoscale_cfg is not None else None
+            ),
+            "catalog": (
+                {
+                    "default": catalog_spec.default,
+                    # slot indices per model: a drill targets one pool by these
+                    "models": {
+                        e.name: {
+                            "replicas": e.replicas,
+                            "slots": [r.index for r in supervisor.replicas
+                                      if r.model == e.name],
+                        }
+                        for e in catalog_spec.entries
+                    },
+                }
+                if catalog_spec is not None else None
             ),
             "shards": (
                 {
@@ -527,7 +663,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     try:
         while True:
-            time.sleep(3600.0)
+            time.sleep(_WAIT_SLICE_S)
     except KeyboardInterrupt:
         print("shutting down fleet", file=sys.stderr)
     finally:

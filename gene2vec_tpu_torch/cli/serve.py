@@ -5,7 +5,9 @@
         [--kernel-profile] [--faults JSON] [--trace-sample P] \\
         [--run-dir DIR] [--device cuda|cpu] \\
         [--shard-index I --num-shards N] \\
-        [--tenant-quota RATE [--tenant-burst B] [--tenant-override ID:R[:B[:W]]]]
+        [--tenant-quota RATE [--tenant-burst B] [--tenant-override ID:R[:B[:W]]]] \
+        [--model-name NAME | --catalog SPEC.json] \
+        [--jobs-dir DIR [--batch-weight W] [--batch-duty D] [--batch-guard-max G]]
 
 Loads the newest verified iteration of an export that either package
 wrote, places the unit matrix (and the quant/IVF index) on the card, and
@@ -36,6 +38,15 @@ every shard together (``cli.fleet --shard-by-rows`` sets them).
 ``--tenant-quota`` turns per-tenant admission on (``X-Tenant``; 429s
 labelled by tenant; ``serve/tenancy.py``).
 
+``--catalog SPEC.json`` serves a multi-model catalog
+(``serve/catalog.py``): one registry, engine and watcher per named model
+at ``/v1/<model>/*``, unprefixed ``/v1/*`` serving the spec's default;
+``--export-dir`` then only anchors the run dir.  ``--model-name`` serves
+one export under a catalog name (what ``cli.fleet --catalog`` gives each
+pool's replicas).  ``--jobs-dir`` mounts ``/v1/jobs`` (``batch/jobs.py``):
+jobs query this server's own batcher on the low-weight ``batch`` tenant
+lane and resume from their committed cursor after a restart.
+
 ``--faults`` (else ``$GENE2VEC_TPU_FAULTS``) takes a
 ``resilience/faults.py`` ``FaultSpec`` as JSON and injects deterministic
 HTTP faults (latency, error, reset, blackhole) into the matching routes;
@@ -64,6 +75,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "exports work as a fallback)")
     p.add_argument("--dim", type=int, default=None,
                    help="serve only this table width (default: newest of any dim)")
+    p.add_argument("--model-name", default="default",
+                   help="catalog name this replica serves under (serve/catalog.py): "
+                        "/v1/<name>/* aliases the unprefixed routes, metrics gain a "
+                        "model= label and /healthz names it; 'default' keeps every "
+                        "label set and response as a single-model server's")
+    p.add_argument("--catalog", default=None, metavar="SPEC.json",
+                   help="serve a multi-model catalog spec instead of one export "
+                        "dir: one registry + engine + watcher per named model at "
+                        "/v1/<model>/* (unprefixed /v1/* serves the spec's "
+                        "default).  --export-dir still anchors the run dir.  "
+                        "Never combines with row sharding")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000,
@@ -151,6 +173,20 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="ID:RATE[:BURST[:WEIGHT]]",
                    help="explicit quota for one tenant (repeatable); WEIGHT is its "
                         "weighted-fair share of a contended batch (default 1)")
+    p.add_argument("--jobs-dir", default=None, metavar="DIR",
+                   help="batch-job store root: mounts /v1/jobs (batch/jobs.py); "
+                        "jobs query this server's batcher on the low-weight "
+                        "'batch' tenant lane and resume from their committed "
+                        "cursor across restarts")
+    p.add_argument("--batch-weight", type=float, default=0.05,
+                   help="the batch lane's weighted-fair share against "
+                        "interactive lanes when the queue is contended")
+    p.add_argument("--batch-duty", type=float, default=1.0,
+                   help="share of wall time a batch job may take (1.0 = no "
+                        "idle gap between chunks)")
+    p.add_argument("--batch-guard-max", type=float, default=0.5,
+                   help="queue fullness above which batch chunks yield until "
+                        "the pressure drops")
     return p
 
 
@@ -174,6 +210,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     if (args.shard_index is None) != (args.num_shards is None):
         print("error: --shard-index and --num-shards go together", file=sys.stderr)
         return 2
+    if args.catalog and (args.shard_rows or args.shard_index is not None):
+        # a catalog partitions replicas by model, row sharding by row
+        # range; one replica cannot sit in both grids
+        print("error: --catalog cannot combine with --shard-rows/--shard-index "
+              "(model pools and row shards are different fleet partitions)",
+              file=sys.stderr)
+        return 2
     if args.shard_index is not None:
         if not 0 <= args.shard_index < args.num_shards:
             print(f"error: --shard-index {args.shard_index} outside "
@@ -194,33 +237,50 @@ def main(argv: Optional[List[str]] = None) -> int:
         fault_injector = FaultInjector.from_env()
     if fault_injector is not None:
         print(f"FAULT INJECTION ACTIVE: {fault_injector.spec.to_json()}", file=sys.stderr)
+    spec = None
+    if args.catalog:
+        from gene2vec_tpu_torch.serve.catalog import ModelCatalog, load_catalog_spec
+
+        try:
+            spec = load_catalog_spec(args.catalog)
+        except (ValueError, OSError) as e:
+            print(f"error: bad catalog spec {args.catalog!r}: {e}", file=sys.stderr)
+            return 2
+    from gene2vec_tpu_torch.device import resolve_device
+
     # raises without a GPU unless --device cpu
-    registry = ModelRegistry(
-        args.export_dir, dim=args.dim, index_mode=args.index,
-        ann_clusters=args.ann_clusters, device=args.device, shard=shard,
-    )
+    device = resolve_device(args.device)
     run_dir = args.run_dir or os.path.join(
         args.export_dir, "serve_runs", str(int(time.time())))
     # the manifest names the card only when the server runs on one
     run = Run(run_dir, name="serve", config=vars(args),
-              probe_devices=registry.device.type == "cuda")
-    metrics = registry.metrics = run.registry
-    if not registry.refresh():
-        print(
-            f"error: no checkpoint found in {args.export_dir!r} "
-            "(expected gene2vec_dim_<D>_iter_<N>.npz or *_w2v.txt)",
-            file=sys.stderr,
+              probe_devices=device.type == "cuda")
+    metrics = run.registry
+    registry = None
+    if spec is None:
+        registry = ModelRegistry(
+            args.export_dir, dim=args.dim, index_mode=args.index,
+            ann_clusters=args.ann_clusters, device=args.device, shard=shard,
+            name=args.model_name,
         )
-        run.close()
-        return 2
-    if registry.device.type == "cuda":
+        registry.metrics = metrics
+        if not registry.refresh():
+            print(
+                f"error: no checkpoint found in {args.export_dir!r} "
+                "(expected gene2vec_dim_<D>_iter_<N>.npz or *_w2v.txt)",
+                file=sys.stderr,
+            )
+            run.close()
+            return 2
+    if device.type == "cuda":
         from gene2vec_tpu_torch.kernels import build
 
         # build (or find) the kernel libraries now, not inside the first
         # request's deadline
         build.build_all()
     if shard is None:
-        registry.start_watcher(args.poll_interval)
+        if registry is not None:  # a catalog starts one watcher per model below
+            registry.start_watcher(args.poll_interval)
     else:
         # a shard swapping on its own poll would be the mixed-iteration
         # merge the coordinator's epoch protocol exists to prevent
@@ -247,10 +307,30 @@ def main(argv: Optional[List[str]] = None) -> int:
         tenant_rate=args.tenant_quota,
         tenant_burst=args.tenant_burst,
         tenant_overrides=tuple(args.tenant_override),
+        jobs_dir=args.jobs_dir,
+        batch_weight=args.batch_weight,
+        batch_duty=args.batch_duty,
+        batch_guard_max=args.batch_guard_max,
     )
-    app = ServeApp(registry, config=config, metrics=metrics,
-                   ggipnn_checkpoint=args.ggipnn_checkpoint,
-                   fault_injector=fault_injector).start()
+    catalog = None
+    if spec is not None:
+        try:
+            catalog = ModelCatalog(spec, config=config, metrics=metrics, device=device,
+                                   fault_injector=fault_injector).build()
+        except RuntimeError as e:
+            print(f"error: {e}", file=sys.stderr)
+            run.close()
+            return 2
+        catalog.start(watch_interval_s=args.poll_interval)
+        app = catalog.default_app
+        registry = app.registry
+        print(f"catalog {args.catalog}: serving {', '.join(catalog.names)} "
+              f"(default {spec.default})", file=sys.stderr)
+    else:
+        app = ServeApp(registry, config=config, metrics=metrics,
+                       ggipnn_checkpoint=args.ggipnn_checkpoint,
+                       fault_injector=fault_injector,
+                       model_name=args.model_name).start()
     # 5xx bursts dump the flight ring into the run dir; SIGQUIT on demand
     app.flight_dir = run.run_dir
     if args.kernel_profile:
@@ -291,6 +371,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             "rows": [model.row_base, model.row_base + len(model)],
             "total_rows": model.total_rows, "epoch": model.epoch,
         }
+    if args.model_name != "default":
+        contract["model_name"] = args.model_name
+    if catalog is not None:
+        contract["catalog"] = {"default": spec.default, "models": list(catalog.names)}
     print(json.dumps(contract), flush=True)
     print(
         f"serving {args.export_dir} (dim {model.dim}, iteration {model.iteration}, "
@@ -305,7 +389,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     finally:
         server.shutdown()
         server.server_close()
-        app.stop()
+        if catalog is not None:
+            catalog.stop()  # every model's app and watcher
+        else:
+            app.stop()
         run.close()
     return 0
 

@@ -17,8 +17,8 @@ Each pathway's mean pairwise cosine is one norm: with unit rows u_i,
     mean_{i<j} u_i·u_j = (‖Σ_i u_i‖² − n) / (n (n − 1)),
 
 so the evaluation is a row normalization and a segment sum on the host;
-there is no kernel.  ``graph_neighborhood_ratio`` (the kNN-graph variant)
-waits for the batch plane's artifacts.
+there is no kernel.  :func:`graph_neighborhood_ratio` is the variant over
+a precomputed kNN graph (a ``knn_graph`` batch artifact).
 """
 
 from __future__ import annotations
@@ -77,6 +77,74 @@ def target_function(
     return target_function_arrays(
         tokens, matrix, pathways, num_random_genes=num_random_genes, seed=seed,
     )
+
+
+
+def graph_neighborhood_ratio(
+    graph_dir: str,
+    gmt_path: str,
+    *,
+    max_pathway_genes: int = MAX_PATHWAY_GENES,
+    seed: int = RANDOM_SEED,
+) -> Dict[str, float]:
+    """Intrinsic eval over a PRECOMPUTED kNN graph (a finalized
+    ``knn_graph`` batch artifact, :func:`gene2vec_tpu_torch.batch.artifact
+    .load_graph`): the fraction of each gene's k nearest neighbors
+    that share a pathway with it, against the same fraction for
+    degree-matched random neighbor sets.
+
+    The cosine-ratio :func:`target_function` needs the raw matrix;
+    this one needs only the graph — the shape the serve fleet's batch
+    plane exports — so the fleet's retrieval quality (including any
+    ANN approximation) is measured exactly as served, not recomputed
+    from the checkpoint.
+
+    Returns ``{"neighbor_hit_rate", "random_hit_rate", "ratio",
+    "genes_scored", "k"}``; raises ``ValueError`` when no graph gene
+    appears in any pathway (wrong .gmt for this vocab)."""
+    from gene2vec_tpu_torch.batch.artifact import load_graph
+
+    tokens, ids, _scores, meta = load_graph(graph_dir)
+    pathways = load_gmt(gmt_path, max_pathway_genes)
+    member: Dict[str, set] = {}
+    for name, genes in pathways.items():
+        for g in genes:
+            member.setdefault(g, set()).add(name)
+    token_member = [member.get(t) for t in tokens]
+    k = ids.shape[1]
+    rng = random.Random(seed)
+    v = len(tokens)
+    hits = rand_hits = 0
+    scored = 0
+    for row, m in enumerate(token_member):
+        if not m:
+            continue
+        scored += 1
+        for j in range(k):
+            other = token_member[int(ids[row, j])]
+            if other and not m.isdisjoint(other):
+                hits += 1
+        for _ in range(k):
+            other = token_member[rng.randrange(v)]
+            if other and not m.isdisjoint(other):
+                rand_hits += 1
+    if scored == 0:
+        raise ValueError(
+            "no graph gene appears in any pathway (vocab/.gmt mismatch)"
+        )
+    neighbor_rate = hits / (scored * k)
+    random_rate = rand_hits / (scored * k)
+    return {
+        "neighbor_hit_rate": neighbor_rate,
+        "random_hit_rate": random_rate,
+        "ratio": (
+            neighbor_rate / random_rate if random_rate > 0
+            else float("inf")
+        ),
+        "genes_scored": scored,
+        "k": k,
+        "iteration": int(meta.get("iteration", -1)),
+    }
 
 
 def target_function_arrays(

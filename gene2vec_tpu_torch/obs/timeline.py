@@ -32,6 +32,16 @@ from typing import Dict, Iterable, Iterator, List, Optional
 
 TIMELINE_NAME = "timeline.jsonl"
 
+#: canonical step-phase vocabulary (free-form names are also accepted)
+PHASES = (
+    "host_ingest",
+    "h2d_stage",
+    "dispatch",
+    "compute",
+    "collective_wait",
+    "ckpt_stage",
+)
+
 
 class PhaseTimeline:
     """Bounded ring of per-step phase timings.

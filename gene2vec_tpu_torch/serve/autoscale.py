@@ -1,6 +1,5 @@
 """SLO-driven fleet autoscaling: the hysteresis policy and the elastic
-controller — the port of ``gene2vec_tpu/serve/autoscale.py:55-750`` (the
-catalog's ``PoolElasticController`` comes with ROADMAP A19 item 5).
+controller — the port of ``gene2vec_tpu/serve/autoscale.py``.
 
 The fleet aggregator (``obs/aggregate.py``) computes the signals on
 every scrape tick (``fleet_queue_depth``, the ``fleet_requests`` /
@@ -29,6 +28,9 @@ replica count between ``min_replicas`` and ``max_replicas``.
 * :class:`ShardAutoscalePolicy` and :class:`ShardElasticController` — one
   policy per row-shard pool (``cli.fleet --shard-by-rows``), the hottest
   pool winning the tick.
+* :class:`PoolElasticController` — the same over a catalog fleet's
+  (model, shard) pools (``cli.fleet --catalog``): scale-up spawns into the
+  hot model's pool, scale-down never drains a model's last UP replica.
 
 ``python -m gene2vec_tpu_torch.cli.fleet --max-replicas N`` turns the loop
 on.
@@ -47,6 +49,7 @@ __all__ = [
     "AutoscalePolicy",
     "ElasticController",
     "PoolAutoscalePolicy",
+    "PoolElasticController",
     "ScaleDecision",
     "ShardAutoscalePolicy",
     "ShardElasticController",
@@ -726,4 +729,76 @@ class ShardElasticController(ElasticController):
         return (
             f"{decision.action} shard {decision.shard} -> "
             f"{decision.target} replicas ({decision.reason})"
+        )
+
+
+class PoolElasticController(ElasticController):
+    """The elastic controller for a multi-model catalog fleet: the
+    same one-action-at-a-time shell, drain path, and metrics, driving
+    a :class:`PoolAutoscalePolicy` over (model, shard) pool keys —
+    scale-up spawns a new member into the hot model's pool
+    (``FleetSupervisor.scale_up(model=)``), scale-down drains the
+    newest member of an idle pool and never a model's last UP replica
+    (``pick_drain_victim(model=)``)."""
+
+    def __init__(self, supervisor, proxy, config: AutoscaleConfig,
+                 pools, metrics=None, **kw):
+        super().__init__(
+            supervisor, proxy, config, metrics=metrics,
+            policy=PoolAutoscalePolicy(config, pools),
+            **kw,
+        )
+        self.pool_policy = self.policy
+        self.pools = list(self.pool_policy.pools)
+        # the deciding pool's size at _decide time, consumed by
+        # _publish in the same tick (observe is single-threaded per
+        # aggregator tick) to translate the pool target fleet-wide
+        self._decision_pool = 0
+
+    def _decide(
+        self, snapshot: Dict[str, float], now: float
+    ) -> Tuple[ScaleDecision, int]:
+        current_of = {
+            (m, s): self.supervisor.active_count(shard=s, model=m)
+            for m, s in self.pools
+        }
+        decision = self.pool_policy.observe(
+            snapshot, now=now, current_of=current_of,
+        )
+        self._decision_pool = current_of.get(
+            (decision.model, decision.shard), 0
+        )
+        if self.metrics is not None:
+            # every pool, every tick — publishing only the deciding
+            # pool would freeze the other pools' gauges at whatever
+            # size they had the last time they happened to decide
+            for (m, s), n in current_of.items():
+                if m is not None:
+                    self.metrics.gauge(
+                        "fleet_model_replicas_active",
+                        labels={"model": m},
+                    ).set(n)
+                if s is not None:
+                    self.metrics.gauge(
+                        "fleet_shard_replicas_active",
+                        labels={"shard": str(s)},
+                    ).set(n)
+        return decision, sum(current_of.values())
+
+    def _publish(self, decision: ScaleDecision, current: int) -> None:
+        # decision.target is the chosen POOL's target; the
+        # fleet_replicas_active/fleet_replicas_target gauge pair is
+        # documented as comparable (docs/SERVING.md), so export the
+        # post-action FLEET-wide total instead of one pool's target
+        if decision.model is not None or decision.shard is not None:
+            decision = dataclasses.replace(
+                decision,
+                target=current + (decision.target - self._decision_pool),
+            )
+        super()._publish(decision, current)
+
+    def _describe(self, decision: ScaleDecision) -> str:
+        return (
+            f"{decision.action} {_pool_desc(decision.model, decision.shard)} "
+            f"-> {decision.target} replicas ({decision.reason})"
         )

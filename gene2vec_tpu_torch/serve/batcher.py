@@ -168,6 +168,7 @@ class MicroBatcher:
         default_timeout_s: float = 2.0,
         metrics=None,
         tenant_weights: Optional[Callable[[str], float]] = None,
+        labels: Optional[dict] = None,
     ):
         self.compute = compute
         self.max_batch = max_batch
@@ -176,6 +177,11 @@ class MicroBatcher:
         self.default_timeout_s = default_timeout_s
         self.cache = LRUCache(cache_size)
         self.metrics = metrics
+        # the extra label set of every series this batcher touches: a
+        # catalog runs one batcher per model on one shared registry, and
+        # {model=} keeps sibling queues apart; None keeps the unlabeled
+        # single-model series
+        self.labels = dict(labels) if labels else None
         # per-tenant lanes, weighted-fair drained; accessed only under
         # self._cv (FairQueue itself is lock-free by contract)
         self._q = FairQueue(weight_of=tenant_weights)
@@ -207,15 +213,15 @@ class MicroBatcher:
 
     def _count(self, name: str, amount: int = 1) -> None:
         if self.metrics is not None:
-            self.metrics.counter(name).inc(amount)
+            self.metrics.counter(name, labels=self.labels).inc(amount)
 
     def _observe(self, name: str, value: float) -> None:
         if self.metrics is not None:
-            self.metrics.histogram(name).observe(value)
+            self.metrics.histogram(name, labels=self.labels).observe(value)
 
     def _gauge_depth(self) -> None:
         if self.metrics is not None:
-            self.metrics.gauge("serve_queue_depth").set(len(self._q))
+            self.metrics.gauge("serve_queue_depth", labels=self.labels).set(len(self._q))
 
     # -- submission --------------------------------------------------------
 

@@ -1,5 +1,5 @@
 """Replica fleet: supervision, health-based rotation, front-door proxy —
-the port of ``gene2vec_tpu/serve/fleet.py`` for one model.
+the port of ``gene2vec_tpu/serve/fleet.py``.
 
 One ``cli.serve`` process is a single point of failure; a fleet is N
 replicas over the same export dir behind a router that treats replica
@@ -45,7 +45,9 @@ elastic controller's slots (``active_count``, ``scale_up``,
 
 ``python -m gene2vec_tpu_torch.cli.fleet`` runs both and prints the same
 one-line stdout contract as ``cli.serve`` plus replica facts.  Not in
-this slice: the multi-model catalog, the shadow canary and batch jobs.
+this slice: the shadow canary.  A catalog fleet (``catalog``) runs one
+pool per model behind ``/v1/<model>/*``; a front door with a job store
+(``jobs``) answers ``/v1/jobs`` itself (``batch/jobs.py``).
 """
 
 from __future__ import annotations
@@ -88,7 +90,17 @@ from gene2vec_tpu_torch.serve.eventloop import (
 # the proxy labels per-route latency over the same /v1 surface the
 # replicas label; everything else is "other" (no label cardinality from
 # garbage paths)
-from gene2vec_tpu_torch.serve.routes import V1_ROUTES
+from gene2vec_tpu_torch.serve.routes import (
+    JOBS_ROUTE,
+    V1_ROUTES,
+    collapse_jobs_route,
+    model_label,
+    split_model_route,
+)
+
+#: routes the proxy labels latency under; job sub-routes collapse to the
+#: table entry first (collapse_jobs_route)
+_PROXY_ROUTES = V1_ROUTES | frozenset((JOBS_ROUTE,))
 
 
 class ReplicaState:
@@ -125,11 +137,17 @@ class Replica:
     ``shard`` is the row shard this slot serves (None in an unsharded
     fleet).  With ``--replicas-per-shard`` several slots share one shard,
     and the front door's scatter treats them as interchangeable
-    siblings."""
+    siblings.  ``model`` is the catalog model this slot serves (None in a
+    single-model fleet): a catalog fleet partitions its slots into
+    per-model pools as a sharded fleet does into per-shard pools, and the
+    two never combine (cli.fleet refuses ``--catalog`` with
+    ``--shard-by-rows``)."""
 
-    def __init__(self, index: int, shard: Optional[int] = None):
+    def __init__(self, index: int, shard: Optional[int] = None,
+                 model: Optional[str] = None):
         self.index = index
         self.shard = shard
+        self.model = model
         self.proc: Optional[subprocess.Popen] = None
         self.url: Optional[str] = None
         self.state = ReplicaState.STARTING
@@ -186,6 +204,10 @@ class FleetSupervisor:
     its row shard and ``shard_args`` a shard to the flags every slot of
     it spawns with (``--shard-index/--num-shards``): keyed by shard, so a
     restarted or elastically added sibling loads exactly its shard's rows.
+    ``model_of`` and ``model_args`` are the same grid on the catalog's
+    model axis (``--export-dir``, ``--model-name`` and the entry's flags,
+    keyed by model name; argparse's last-wins lets them override the
+    defaults).
     """
 
     def __init__(
@@ -199,6 +221,8 @@ class FleetSupervisor:
         rng: Optional[random.Random] = None,
         shard_of: Optional[Dict[int, int]] = None,
         shard_args: Optional[Dict[int, Sequence[str]]] = None,
+        model_of: Optional[Dict[int, str]] = None,
+        model_args: Optional[Dict[str, Sequence[str]]] = None,
     ):
         self.export_dir = export_dir
         self.config = config
@@ -215,8 +239,15 @@ class FleetSupervisor:
         self._shard_args: Dict[int, List[str]] = {
             int(k): list(v) for k, v in (shard_args or {}).items()
         }
+        self._model_of: Dict[int, str] = {
+            int(k): str(v) for k, v in (model_of or {}).items()
+        }
+        self._model_args: Dict[str, List[str]] = {
+            str(k): list(v) for k, v in (model_args or {}).items()
+        }
         self.replicas = [
-            Replica(i, shard=self._shard_of.get(i)) for i in range(config.replicas)
+            Replica(i, shard=self._shard_of.get(i), model=self._model_of.get(i))
+            for i in range(config.replicas)
         ]
         #: next index for an elastically added replica: indices are never
         #: reused, so per-replica metrics and log lines stay unambiguous
@@ -249,10 +280,13 @@ class FleetSupervisor:
     def _argv(self, index: int) -> List[str]:
         shard = self._shard_of.get(index)
         shard_flags = self._shard_args.get(shard, []) if shard is not None else []
+        model = self._model_of.get(index)
+        model_flags = self._model_args.get(model, []) if model is not None else []
         return [
             sys.executable, "-m", "gene2vec_tpu_torch.cli.serve",
             "--export-dir", self.export_dir, "--port", "0",
-            *self.serve_args, *shard_flags, *self.replica_args.get(index, []),
+            *self.serve_args, *shard_flags, *model_flags,
+            *self.replica_args.get(index, []),
         ]
 
     def _spawn(self, replica: Replica) -> None:
@@ -406,6 +440,7 @@ class FleetSupervisor:
                     "url": r.url,
                     "pid": r.pid,
                     "shard": r.shard,
+                    "model": r.model,
                     "restarts": r.restarts,
                     "last_error": r.last_error,
                 }
@@ -468,30 +503,72 @@ class FleetSupervisor:
                     return r.shard
         return None
 
+    # -- the (model, replica) grid -----------------------------------------
+
+    def model_urls(self, model: str) -> List[str]:
+        """Every UP replica of one catalog model: the target list the
+        front door's per-model client routes over."""
+        with self._lock:
+            return [
+                r.url for r in self.replicas
+                if r.model == model and r.state == ReplicaState.UP and r.url
+            ]
+
+    def model_up_counts(self) -> Dict[str, int]:
+        """UP replicas per catalog model, behind
+        ``fleet_model_replicas_up{model=}``."""
+        with self._lock:
+            out: Dict[str, int] = {}
+            for r in self.replicas:
+                if r.model is None:
+                    continue
+                out.setdefault(r.model, 0)
+                if r.state == ReplicaState.UP:
+                    out[r.model] += 1
+            return out
+
+    def model_of_url(self, url: str) -> Optional[str]:
+        """The catalog model a replica URL serves (None when unknown or
+        single-model): the aggregator's ``model_of`` hook."""
+        if not url:
+            return None
+        u = url.rstrip("/")
+        with self._lock:
+            for r in self.replicas:
+                if r.url == u:
+                    return r.model
+        return None
+
     # -- elasticity (serve/autoscale.py ElasticController) -----------------
 
-    def active_count(self, shard: Optional[int] = None) -> int:
+    def active_count(self, shard: Optional[int] = None,
+                     model: Optional[str] = None) -> int:
         """Slots that count toward capacity: all but abandoned (FAILED)
         and departing (DRAINING) ones; a dead slot in backoff counts, since
         its restart is coming.  ``shard`` restricts the count to one
-        shard's pool."""
+        shard's pool, ``model`` to one catalog model's."""
         with self._lock:
             return sum(
                 1 for r in self.replicas
                 if r.state not in (ReplicaState.FAILED, ReplicaState.DRAINING)
                 and (shard is None or r.shard == shard)
+                and (model is None or r.model == model)
             )
 
-    def scale_up(self, shard: Optional[int] = None) -> Replica:
+    def scale_up(self, shard: Optional[int] = None,
+                 model: Optional[str] = None) -> Replica:
         """Spawn one NEW slot (never reusing an index) and read its
         contract line; the monitor loop admits it once its readiness
         probes pass.  A spawn failure removes the slot again and raises.
         ``shard`` spawns it into that shard's pool with the shard's
-        flags."""
+        flags, ``model`` into that catalog model's pool with its export
+        dir and name."""
         with self._lock:
-            replica = Replica(self._next_index, shard=shard)
+            replica = Replica(self._next_index, shard=shard, model=model)
             if shard is not None:
                 self._shard_of[replica.index] = shard
+            if model is not None:
+                self._model_of[replica.index] = model
             self._next_index += 1
             replica.spawning = True
             self.replicas.append(replica)
@@ -517,17 +594,20 @@ class FleetSupervisor:
         self._publish()
         return replica
 
-    def pick_drain_victim(self, shard: Optional[int] = None) -> Optional[Replica]:
+    def pick_drain_victim(self, shard: Optional[int] = None,
+                          model: Optional[str] = None) -> Optional[Replica]:
         """The slot a scale-down removes: a dead or not-ready one first
         (trivially zero-drop), else the NEWEST serving replica, and never
-        the last one in rotation (of ``shard``'s pool, when given: draining
-        it would un-serve the shard's rows).  A slot with a spawn in flight
-        is never picked: draining it would orphan the new child."""
+        the last one in rotation (of ``shard``'s or ``model``'s pool, when
+        given: draining it would un-serve the shard's rows or the whole
+        model).  A slot with a spawn in flight is never picked: draining
+        it would orphan the new child."""
         with self._lock:
             candidates = [
                 r for r in self.replicas
                 if r.state not in (ReplicaState.FAILED, ReplicaState.DRAINING)
                 and not r.spawning and (shard is None or r.shard == shard)
+                and (model is None or r.model == model)
             ]
             not_up = [r for r in candidates if r.state != ReplicaState.UP]
             if not_up:
@@ -793,6 +873,27 @@ class _ProxyAdapter:
                 _PROM_CT,
             ))
             return
+        if proxy.jobs is not None and (
+            route == "/v1/jobs" or route.startswith("/v1/jobs/")
+        ):
+            # the batch-job surface (batch/jobs.py) is handled here and
+            # never forwarded: the front door owns the job store and the
+            # fleet-wide query backend
+            from gene2vec_tpu_torch.batch.jobs import dispatch_jobs
+
+            jbody: Optional[dict] = None
+            if req.method == "POST":
+                jbody, err = parse_json_body(req)
+                if err is not None:
+                    peer.respond(err)
+                    return
+            status, doc = dispatch_jobs(
+                proxy.jobs, req.method, route,
+                parse_qs(urlparse(req.target).query), jbody,
+            )
+            proxy.metrics.counter("fleet_proxy_responses_total").inc()
+            peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
+            return
         if not route.startswith("/v1/"):
             peer.respond(Response(
                 404,
@@ -801,6 +902,36 @@ class _ProxyAdapter:
                 ).encode("utf-8"),
             ))
             return
+        # catalog routing: /v1/<model>/* goes to the named model's pool
+        # (the prefixed target forwards verbatim: a replica takes its own
+        # name as an alias), unprefixed /v1/* to the default pool.  An
+        # unknown name 404s and an over-budget model 429s here, before a
+        # replica round trip and before any label is minted from the name
+        model: Optional[str] = None
+        canonical = route
+        if proxy.catalog is not None:
+            name, canonical = split_model_route(route)
+            if name is not None and name not in proxy.model_clients:
+                proxy.metrics.counter("fleet_http_404_total").inc()
+                peer.respond(Response(404, json.dumps(
+                    {"error": f"unknown model {name!r}"}
+                ).encode("utf-8")))
+                return
+            model = name if name is not None else proxy.catalog.default
+            if (
+                proxy.model_admission is not None
+                and not proxy.model_admission.admit(model)
+            ):
+                proxy.metrics.counter(
+                    "fleet_model_rejected_total",
+                    labels={"model": model_label(model, proxy.model_clients)},
+                ).inc()
+                proxy.metrics.counter("fleet_http_429_total").inc()
+                peer.respond(Response(429, json.dumps({
+                    "error": f"model {model!r} over its request budget; "
+                             "retry later"
+                }).encode("utf-8")))
+                return
         body: Optional[dict] = None
         if req.method == "POST":
             body, err = parse_json_body(req)
@@ -810,7 +941,11 @@ class _ProxyAdapter:
         if proxy.shard_group is not None:
             self._scatter_dispatch(req, peer, route, body)
             return
-        self._forward(req, peer, route, body)
+        self._forward(
+            req, peer, canonical, body,
+            client=proxy.model_clients.get(model) if model else None,
+            model=model,
+        )
 
     # -- sharded mode: scatter-gather instead of round-robin ---------------
 
@@ -870,8 +1005,12 @@ class _ProxyAdapter:
         peer.respond(Response(status, json.dumps(doc).encode("utf-8")))
 
     def _forward(self, req: HTTPRequest, peer: ConnHandle, route: str,
-                 body: Optional[dict]) -> None:
+                 body: Optional[dict],
+                 client: Optional[ResilientClient] = None,
+                 model: Optional[str] = None) -> None:
         proxy = self.proxy
+        if client is None:
+            client = proxy.client
         # the proxy is the fleet's trace ingress: honor a propagated
         # context (child it), else maybe start a root; the resilient
         # client below picks the installed context up as its base, so
@@ -890,7 +1029,7 @@ class _ProxyAdapter:
         t0 = time.monotonic()
         with tracecontext.use(ctx):
             with ambient_span("proxy_request", route=route) as span:
-                resp = proxy.client.request(
+                resp = client.request(
                     req.target, body=body, method=req.method,
                     timeout_s=(
                         float(body["timeout_ms"]) / 1000.0
@@ -923,7 +1062,7 @@ class _ProxyAdapter:
         # the availability view and the flight ring
         dur = time.monotonic() - t0
         proxy.account(route, status, dur,
-                      ctx.trace_id if ctx is not None else None)
+                      ctx.trace_id if ctx is not None else None, model=model)
         peer.respond(Response(status, payload))
 
 
@@ -947,9 +1086,23 @@ class FleetProxy:
         acceptors: int = 1,
         alert_rules=None,
         shard_group=None,
+        jobs=None,
+        catalog=None,
+        model_admission=None,
     ):
         self.supervisor = supervisor
         self.metrics = metrics
+        #: serve/catalog.py CatalogSpec: set when the fleet serves a
+        #: multi-model catalog (cli.fleet --catalog); slots partition into
+        #: per-model pools, ``/v1/<model>/*`` routes to the named pool and
+        #: unprefixed ``/v1/*`` to the default model's
+        self.catalog = catalog
+        #: serve/catalog.py ModelAdmission: the front door's per-model
+        #: token buckets, crossed with the replicas' tenant buckets
+        self.model_admission = model_admission
+        #: batch/jobs.py JobManager: set under cli.fleet --jobs-dir; owns
+        #: the /v1/jobs surface, answered here and never forwarded
+        self.jobs = jobs
         #: serve/shardgroup.py ShardGroup: set when the fleet serves row
         #: shards of one table; the /v1 surface then scatter-gathers
         #: instead of forwarding round-robin (cli.fleet --shard-by-rows)
@@ -963,16 +1116,33 @@ class FleetProxy:
         # terminated only once its count here settles to zero
         # (serve/autoscale.py, FleetProxy.drain)
         self.inflight = InFlightTracker()
-        self.client = ResilientClient(
-            supervisor.healthy_urls,
-            policy=policy if policy is not None else RetryPolicy(
-                max_attempts=3,
-                connect_timeout_s=1.0,
-                default_timeout_s=5.0,
-            ),
-            metrics=metrics,
-            inflight=self.inflight,
+        _policy = policy if policy is not None else RetryPolicy(
+            max_attempts=3,
+            connect_timeout_s=1.0,
+            default_timeout_s=5.0,
         )
+        if catalog is not None:
+            # one resilient client per model pool, all on ONE in-flight
+            # tracker (the drain contract is per URL); unprefixed /v1/*
+            # goes over the default model's pool only
+            self.model_clients: Dict[str, ResilientClient] = {
+                name: ResilientClient(
+                    (lambda n=name: supervisor.model_urls(n)),
+                    policy=_policy,
+                    metrics=metrics,
+                    inflight=self.inflight,
+                )
+                for name in catalog.names
+            }
+            self.client = self.model_clients[catalog.default]
+        else:
+            self.model_clients = {}
+            self.client = ResilientClient(
+                supervisor.healthy_urls,
+                policy=_policy,
+                metrics=metrics,
+                inflight=self.inflight,
+            )
         self.sampler = Sampler(trace_sample) if trace_sample > 0 else None
         # the telemetry plane: scrape every LIVE replica (not just the
         # rotation) + this registry's own availability counters
@@ -1039,10 +1209,14 @@ class FleetProxy:
                 self._launches_published[name] = count
 
     def account(self, route: str, status: int, dur_s: float,
-                trace_id: Optional[str]) -> None:
+                trace_id: Optional[str],
+                model: Optional[str] = None) -> None:
         """Per-forwarded-response bookkeeping: the availability
         counters the aggregator reads, the per-route latency series,
-        and the proxy's flight-recorder ring."""
+        and the proxy's flight-recorder ring.  ``route`` is the canonical
+        route; in catalog mode the model rides along as a bounded
+        ``model=`` label, so a single-model fleet's label sets stay as
+        they were."""
         self.metrics.counter("fleet_proxy_responses_total").inc()
         if 200 <= status < 300:
             self.metrics.counter("fleet_proxy_ok_total").inc()
@@ -1050,10 +1224,14 @@ class FleetProxy:
             # explicit backpressure is deliberate shedding, not an
             # availability failure: the aggregator exports it apart
             self.metrics.counter("fleet_proxy_429_total").inc()
-        self.metrics.histogram(
-            "fleet_proxy_seconds",
-            labels={"route": route if route in V1_ROUTES else "other"},
-        ).observe(dur_s)
+        label = collapse_jobs_route(route)
+        labels = {"route": label if label in _PROXY_ROUTES else "other"}
+        if self.catalog is not None:
+            labels["model"] = model_label(
+                model if model is not None else self.catalog.default,
+                self.model_clients,
+            )
+        self.metrics.histogram("fleet_proxy_seconds", labels=labels).observe(dur_s)
         burst = self.flight.record(route, status, dur_s, trace_id=trace_id)
         if burst and self.flight_dir:
             try:
@@ -1069,6 +1247,27 @@ class FleetProxy:
             "replicas_up": len(up),
             "replicas": states,
         }
+        if self.catalog is not None:
+            # the per-model grid: pool membership and UP count per model;
+            # a fleet with some empty pool is "degraded", not down
+            counts = self.supervisor.model_up_counts()
+            doc["default_model"] = self.catalog.default
+            doc["models"] = {
+                name: {
+                    "up": counts.get(name, 0),
+                    "replicas": [
+                        {
+                            "index": s["index"],
+                            "up": s["state"] == ReplicaState.UP,
+                            "pid": s["pid"],
+                        }
+                        for s in states if s.get("model") == name
+                    ],
+                }
+                for name in self.catalog.names
+            }
+            if up and any(counts.get(n, 0) == 0 for n in self.catalog.names):
+                doc["status"] = "degraded"
         if self.shard_group is not None:
             # per shard: row range, replica group, the epoch each cell was
             # last seen serving; a shard is up while any sibling is
@@ -1112,6 +1311,10 @@ class FleetProxy:
         self._thread.start()
         if self.aggregator is not None:
             self.aggregator.start()
+        if self.jobs is not None:
+            # recover and start the batch worker once the front door can
+            # answer the queries jobs send
+            self.jobs.start()
         bound_host, bound_port = server.server_address[:2]
         return f"http://{bound_host}:{bound_port}"
 
@@ -1136,6 +1339,10 @@ class FleetProxy:
         return remaining == 0
 
     def stop(self) -> None:
+        if self.jobs is not None:
+            # first: a running job stops querying before its replicas go
+            # (it stays journal-"running" and resumes from its cursor)
+            self.jobs.stop()
         if self.aggregator is not None:
             self.aggregator.stop()
         if self._server is not None:

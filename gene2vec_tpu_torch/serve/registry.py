@@ -167,6 +167,12 @@ class ModelRegistry:
     (``retry_backoff_s`` doubling per failure, capped at 5 min) and
     quarantined after ``quarantine_after`` failures; ``refresh`` then
     falls back to the next-newest verified candidate.
+
+    ``name`` is the catalog model name this registry serves
+    (``serve/catalog.py``).  Under a name other than ``"default"`` the
+    failure and quarantine series gain a ``{model=}`` twin and the trace
+    events a ``model`` attribute; the default name keeps the unlabeled
+    series as the only ones, so a single-model scrape is unchanged.
     """
 
     def __init__(
@@ -180,6 +186,7 @@ class ModelRegistry:
         ann_clusters: Optional[int] = None,
         device=None,
         shard: Optional[Tuple[int, int]] = None,
+        name: str = "default",
     ):
         if index_mode not in INDEX_MODES:
             raise ValueError(f"index_mode must be one of {INDEX_MODES}, got {index_mode!r}")
@@ -194,6 +201,10 @@ class ModelRegistry:
         self.device = resolve_device(device)
         self.export_dir = export_dir
         self.dim = dim
+        self.name = str(name)
+        #: the extra label set of the failure/quarantine series: None under
+        #: the default name, so a single-model deployment's are unchanged
+        self._mlabels = {"model": self.name} if self.name != "default" else None
         self.metrics = metrics
         self.retry_backoff_s = retry_backoff_s
         self.quarantine_after = quarantine_after
@@ -320,21 +331,38 @@ class ModelRegistry:
             self.retry_backoff_s * (2 ** (n - 1)), 300.0
         )
         if self.metrics is not None:
-            self.metrics.counter("model_load_failures_total").inc()
-        _trace_event("model_load_error", path=path, attempt=n, error=repr(err)[:200])
+            self._count_labeled("model_load_failures_total")
+        _trace_event("model_load_error", **self._model_attr(), path=path,
+                     attempt=n, error=repr(err)[:200])
         if n >= self.quarantine_after and path not in self._quarantined:
             self._quarantined[path] = (repr(err)[:200], stat_sig(path))
-            _trace_event("model_quarantined", path=path, error=repr(err)[:200])
+            _trace_event("model_quarantined", **self._model_attr(), path=path,
+                         error=repr(err)[:200])
             if self.metrics is not None:
-                self.metrics.gauge("model_quarantined").set(len(self._quarantined))
+                self._gauge_labeled("model_quarantined", len(self._quarantined))
+
+    def _model_attr(self) -> Dict[str, str]:
+        return dict(self._mlabels) if self._mlabels is not None else {}
+
+    def _count_labeled(self, metric: str) -> None:
+        """The unlabeled series and, under a catalog name, its
+        ``{model=}`` twin."""
+        self.metrics.counter(metric).inc()
+        if self._mlabels is not None:
+            self.metrics.counter(metric, labels=self._mlabels).inc()
+
+    def _gauge_labeled(self, metric: str, value: float) -> None:
+        self.metrics.gauge(metric).set(value)
+        if self._mlabels is not None:
+            self.metrics.gauge(metric, labels=self._mlabels).set(value)
 
     def _clear_failure_state(self, path: str) -> None:
         self._failures.pop(path, None)
         self._next_retry.pop(path, None)
         if self._quarantined.pop(path, None) is not None:
-            _trace_event("model_quarantine_cleared", path=path)
+            _trace_event("model_quarantine_cleared", **self._model_attr(), path=path)
             if self.metrics is not None:
-                self.metrics.gauge("model_quarantined").set(len(self._quarantined))
+                self._gauge_labeled("model_quarantined", len(self._quarantined))
 
     def _skip_for_failures(self, path: str, now: float) -> bool:
         """Whether refresh passes over this candidate: quarantine or an

@@ -1,5 +1,5 @@
 """JSON HTTP API over the registry + engine + batcher stack — the port of
-``gene2vec_tpu/serve/server.py`` for one model.
+``gene2vec_tpu/serve/server.py``.
 
 Endpoints (all JSON except ``/metrics``):
 
@@ -16,6 +16,11 @@ Endpoints (all JSON except ``/metrics``):
   --num-shards``): shard-local top-k with global row ids, owned genes'
   vectors, and the coordinator's stage and flip; 404 on an unsharded
   replica;
+* ``GET|POST /v1/jobs[/<id>[/cancel|/artifact]]`` — the batch-job
+  surface (``batch/jobs.py``) when the server has a job store
+  (``ServeConfig.jobs_dir``, ``cli.serve --jobs-dir``);
+* ``/v1/<model>/...`` — in a catalog (``serve/catalog.py``), any of the
+  routes above against the named model's own app;
 * ``GET  /healthz`` — readiness: model and index facts once a model is
   served, 503 ``not_ready`` until then;
 * ``GET  /livez`` — liveness: 200 whenever the process answers HTTP,
@@ -58,7 +63,12 @@ behind an explicit opt-in (``ServeApp(fault_injector=)``, ``--faults`` /
 whose first act is the injector's decision — a delay, an error response,
 a TCP reset or a blackhole.  Without one no fault code runs.
 
-Not in this slice: the multi-model catalog and batch jobs.
+Catalog: a :class:`ServeApp` under a name other than ``"default"``
+labels its route and batcher series ``{model=}`` and stamps the name into
+every response's ``model`` object; its siblings' table
+(``catalog_apps``) routes ``/v1/<name>/*`` to them, and an unknown name
+answers 404 before any label is minted.  A single-model server never
+takes a model prefix and keeps its responses and series as they were.
 """
 
 from __future__ import annotations
@@ -100,8 +110,15 @@ from gene2vec_tpu_torch.serve.eventloop import (
     parse_json_body,
 )
 from gene2vec_tpu_torch.serve.registry import ModelRegistry
-from gene2vec_tpu_torch.serve.routes import V1_ROUTES
+from gene2vec_tpu_torch.serve.routes import (
+    JOBS_ROUTE,
+    V1_ROUTES,
+    collapse_jobs_route,
+    split_model_route,
+)
 from gene2vec_tpu_torch.serve.tenancy import (
+    BATCH_TENANT,
+    DEFAULT_BATCH_WEIGHT,
     DEFAULT_TENANT,
     TenantAdmission,
     TenantPolicy,
@@ -165,6 +182,17 @@ class ServeConfig:
     # per-tenant overrides, "id:rate[:burst[:weight]]"; the weight is the
     # tenant's share of a contended batch
     tenant_overrides: Tuple[str, ...] = ()
+    # batch-job store root (batch/jobs.py); None keeps the /v1/jobs
+    # surface absent: no manager, no worker thread
+    jobs_dir: Optional[str] = None
+    # the batch lane's weighted-fair share against interactive lanes;
+    # always wired, so batch work stays background priority with tenancy off
+    batch_weight: float = DEFAULT_BATCH_WEIGHT
+    # batch pacing (batch/runner.py Pacer): the share of wall time a job
+    # may take (1.0 = no idle gap) and the queue fullness above which a
+    # chunk yields
+    batch_duty: float = 1.0
+    batch_guard_max: float = 0.5
 
 
 #: routes with their own latency series; anything else is "other"
@@ -191,10 +219,20 @@ class ServeApp:
         metrics: Optional[MetricsRegistry] = None,
         ggipnn_checkpoint: Optional[str] = None,
         fault_injector=None,
+        model_name: str = "default",
     ):
         self.registry = registry
         self.config = config if config is not None else ServeConfig()
         config = self.config
+        #: this app's catalog name; "default" keeps every series label-free
+        #: and every response as a single-model server's
+        self.model_name = str(model_name)
+        self._mlabels = (
+            {"model": self.model_name} if self.model_name != "default" else None
+        )
+        #: name -> sibling ServeApp, set by ModelCatalog so /v1/<name>/*
+        #: reaches the named model; None outside a catalog
+        self.catalog_apps: Optional[Dict[str, "ServeApp"]] = None
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         if registry.metrics is None:
             registry.metrics = self.metrics
@@ -205,9 +243,10 @@ class ServeApp:
             self.faults.metrics = self.metrics
         if registry.loaded:
             # the registry publishes these on swap; backfill for a model
-            # loaded before the metrics registry was attached
-            self.metrics.gauge("model_iteration").set(registry.model.iteration)
-            self.metrics.gauge("model_vocab_size").set(len(registry.model))
+            # loaded before the metrics registry was attached (with its
+            # {model=} twin under a catalog name)
+            registry._gauge_labeled("model_iteration", registry.model.iteration)
+            registry._gauge_labeled("model_vocab_size", len(registry.model))
         self.engine = SimilarityEngine(
             max_batch=config.max_batch, index=config.index, nprobe=config.nprobe,
             rescore_mult=config.rescore_mult,
@@ -230,6 +269,7 @@ class ServeApp:
             default_timeout_s=config.timeout_ms / 1000.0,
             metrics=self.metrics,
             tenant_weights=self._tenant_weight,
+            labels=self._mlabels,
         )
         self.ggipnn_checkpoint = ggipnn_checkpoint
         self._scorer: Optional[InteractionScorer] = None
@@ -259,23 +299,65 @@ class ServeApp:
         # (peer, deadline, t0) waiting on ONE batcher ticket
         self._coalesce: Dict[tuple, list] = {}
         self._coalesce_lock = threading.Lock()
+        # the /v1/jobs manager: jobs query THIS app's batcher on the batch
+        # tenant lane.  Imported lazily (batch/ imports serve.tenancy)
+        self.jobs = None
+        if config.jobs_dir:
+            from gene2vec_tpu_torch.batch.jobs import JobManager
+            from gene2vec_tpu_torch.batch.runner import BatcherBackend, Pacer
 
-    @staticmethod
-    def _model_doc(model) -> dict:
-        return {"dim": model.dim, "iteration": model.iteration}
+            self.jobs = JobManager(
+                config.jobs_dir,
+                backend_factory=lambda: BatcherBackend(self),
+                metrics=self.metrics,
+                pacer_factory=lambda backend: Pacer(
+                    guard=backend.pressure,
+                    guard_max=config.batch_guard_max,
+                    duty=config.batch_duty,
+                ),
+            )
+
+    def _route_labels(self, route: str) -> Dict[str, str]:
+        """The per-route latency labels: the canonical route (job
+        sub-routes collapse to ``/v1/jobs`` when the job surface is on)
+        and, under a catalog name only, ``model=``."""
+        if self.jobs is not None:
+            route = collapse_jobs_route(route)
+            label = route if route in _KNOWN_ROUTES or route == JOBS_ROUTE else "other"
+        else:
+            label = _route_label(route)
+        labels = {"route": label}
+        if self._mlabels is not None:
+            labels["model"] = self.model_name
+        return labels
+
+    def _model_doc(self, model) -> dict:
+        """The response's ``model`` object; it carries the catalog name,
+        so a client can check which model answered."""
+        doc = {"dim": model.dim, "iteration": model.iteration}
+        if self.model_name != "default":
+            doc["name"] = self.model_name
+        return doc
 
     def _tenant_weight(self, tenant: str) -> float:
-        """A tenant's share of a contended batch: its quota's weight (1.0
-        with tenancy off)."""
+        """A tenant's share of a contended batch: ``batch_weight`` for the
+        batch lane (tenancy on or off), else its quota's weight (1.0 with
+        tenancy off)."""
+        if tenant == BATCH_TENANT:
+            return self.config.batch_weight
         if self.tenants is not None:
             return self.tenants.weight(tenant)
         return 1.0
 
     def start(self) -> "ServeApp":
         self.batcher.start()
+        if self.jobs is not None:
+            self.jobs.start()
         return self
 
     def stop(self) -> None:
+        if self.jobs is not None:
+            self.jobs.stop()
         self.batcher.stop()
         self.registry.stop_watcher()
 
@@ -703,6 +785,10 @@ class ServeApp:
         out["model"] = {
             "dim": m.dim, "iteration": m.iteration, "vocab_size": len(m), "source": m.source,
         }
+        if self.model_name != "default":
+            out["model"]["name"] = self.model_name
+        if self.catalog_apps is not None:
+            out["catalog"] = sorted(self.catalog_apps)
         out["index"] = self.engine.index_mode
         if self.registry.shard is not None:
             out["shard"] = self._shard_facts(m)
@@ -746,6 +832,12 @@ class ServeApp:
             return 200, self.shard_stage(body or {})
         if method == "POST" and route == "/v1/shard/flip":
             return 200, self.shard_flip(body or {})
+        if self.jobs is not None and (
+            route == JOBS_ROUTE or route.startswith(JOBS_ROUTE + "/")
+        ):
+            from gene2vec_tpu_torch.batch.jobs import dispatch_jobs
+
+            return dispatch_jobs(self.jobs, method, route, query, body)
         return 404, {"error": f"no route {method} {route}"}
 
     def handle(self, method: str, path: str, body: Optional[dict],
@@ -761,6 +853,24 @@ class ServeApp:
         tenant = tenant if tenant else DEFAULT_TENANT
         url = urlparse(path)
         route = url.path.rstrip("/") or "/"
+        if self.catalog_apps is not None or self.model_name != "default":
+            # catalog dispatch: a sibling serves /v1/<name>/* with its own
+            # registry, engine, cache and labels; this app's own name is an
+            # alias of its unprefixed routes; an unknown name 404s before
+            # any label is minted
+            name, canonical = split_model_route(route)
+            if name is not None:
+                target = self if name == self.model_name else (
+                    self.catalog_apps.get(name) if self.catalog_apps is not None else None
+                )
+                if target is None:
+                    self.metrics.counter("serve_http_404_total").inc()
+                    return 404, {"error": f"unknown model {name!r}"}
+                if target is not self:
+                    suffix = f"?{url.query}" if url.query else ""
+                    return target.handle(method, canonical + suffix, body,
+                                         traceparent=traceparent, tenant=tenant)
+                route = canonical
         query = parse_qs(url.query)
         incoming = TraceContext.from_header(traceparent)
         ctx = incoming.child() if incoming is not None else (
@@ -788,7 +898,7 @@ class ServeApp:
             self.metrics.histogram("serve_handle_seconds").observe(dur)
             self.metrics.histogram(
                 "serve_route_seconds", buckets=_ROUTE_BUCKETS,
-                labels={"route": _route_label(route)},
+                labels=self._route_labels(route),
             ).observe(dur)
             burst = self.flight.record(
                 route, status, dur,
@@ -826,12 +936,13 @@ class ServeAdapter:
     def close(self) -> None:
         self.pool.stop()
 
-    def _account(self, route: str, status: int, dur: float) -> None:
-        app = self.app
+    def _account(self, route: str, status: int, dur: float,
+                 app: Optional[ServeApp] = None) -> None:
+        app = self.app if app is None else app
         app.metrics.histogram("serve_handle_seconds").observe(dur)
         app.metrics.histogram(
             "serve_route_seconds", buckets=_ROUTE_BUCKETS,
-            labels={"route": _route_label(route)},
+            labels=app._route_labels(route),
         ).observe(dur)
         if status >= 400:
             app.metrics.counter(f"serve_http_{status}_total").inc()
@@ -840,10 +951,9 @@ class ServeAdapter:
             # fast path, and a 5xx burst is the worst moment to stall the
             # loop behind file I/O.  Dropped when the pool is saturated;
             # the burst window re-arms and the next 5xx dumps
-            self.pool.submit(self._dump_flight)
+            self.pool.submit(lambda: self._dump_flight(app))
 
-    def _dump_flight(self) -> None:
-        app = self.app
+    def _dump_flight(self, app: ServeApp) -> None:
         try:
             app.flight.dump(app.flight_dir, "5xx-burst")
         except OSError:
@@ -870,11 +980,26 @@ class ServeAdapter:
         # an injected fault is decided on the pool and a traced request
         # needs the full pipeline's spans, so the fast path stands aside
         if (req.method == "GET" and app.faults is None and app.sampler is None
-                and "traceparent" not in req.headers
-                and req.target.startswith("/v1/similar?")):
-            out = self._similar_get_fast(req.target[len("/v1/similar?"):], peer, tenant)
-            if out is not _SLOW_PATH:
-                return out
+                and "traceparent" not in req.headers):
+            # the app whose hot path this GET is: unprefixed -> this one,
+            # /v1/<name>/similar? -> the named catalog sibling (or this app
+            # under its own name), each with its own response cache and
+            # coalescing table
+            fast = None
+            query_str = ""
+            if req.target.startswith("/v1/similar?"):
+                fast, query_str = app, req.target[len("/v1/similar?"):]
+            elif (app.catalog_apps is not None or app.model_name != "default") \
+                    and req.target.startswith("/v1/"):
+                name, sep, tail = req.target[len("/v1/"):].partition("/")
+                if sep and tail.startswith("similar?"):
+                    fast = (app.catalog_apps.get(name) if app.catalog_apps is not None
+                            else (app if name == app.model_name else None))
+                    query_str = tail[len("similar?"):]
+            if fast is not None:
+                out = self._similar_get_fast(fast, query_str, peer, tenant)
+                if out is not _SLOW_PATH:
+                    return out
         if not self.pool.submit(lambda: self._run_full(req, peer, tenant)):
             app.metrics.counter("serve_http_429_total").inc()
             return Response(429, _POOL_FULL_BODY)
@@ -890,6 +1015,11 @@ class ServeAdapter:
             return
         if req.method == "GET" and route == "/metrics":
             app.publish_engine_metrics()
+            if app.catalog_apps is not None:
+                # one scrape refreshes every model's gauges (one registry)
+                for sibling in app.catalog_apps.values():
+                    if sibling is not app:
+                        sibling.publish_engine_metrics()
             peer.respond(Response(200, app.metrics.prometheus_text().encode("utf-8"),
                                   b"text/plain; version=0.0.4"))
             return
@@ -943,14 +1073,14 @@ class ServeAdapter:
 
     # -- the hot read path (loop thread; must never block) -----------------
 
-    def _similar_get_fast(self, query_str: str, peer: ConnHandle,
+    def _similar_get_fast(self, app: ServeApp, query_str: str, peer: ConnHandle,
                           tenant: str = DEFAULT_TENANT):
         """``GET /v1/similar?gene=...&k=...`` without the full pipeline:
         response-bytes cache hit -> reused bytes; miss -> coalesce onto
-        one batcher ticket.  Returns ``_SLOW_PATH`` for anything it cannot
+        one batcher ticket.  ``app`` is the resolved target (this app or a
+        catalog sibling).  Returns ``_SLOW_PATH`` for anything it cannot
         answer with identical semantics (unknown params, bad k, unknown
         gene, no model) so the full pipeline produces its error shapes."""
-        app = self.app
         gene: Optional[str] = None
         k = 10
         try:
@@ -977,7 +1107,7 @@ class ServeAdapter:
         body = app.response_cache.get(key)
         if body is not None:
             app.metrics.counter("serve_response_cache_hits_total").inc()
-            self._account("/v1/similar", 200, time.monotonic() - t0)
+            self._account("/v1/similar", 200, time.monotonic() - t0, app=app)
             return Response(200, body)
         if gene not in model.index:
             return _SLOW_PATH
@@ -998,11 +1128,11 @@ class ServeAdapter:
         def done(result, error):
             if in_submit[0]:
                 if not self.pool.submit(
-                    lambda: self._finish_similar_get(key, model, gene, result, error)
+                    lambda: self._finish_similar_get(app, key, model, gene, result, error)
                 ):
-                    self._fail_coalesced(key, 429, _POOL_FULL_BODY)
+                    self._fail_coalesced(app, key, 429, _POOL_FULL_BODY)
                 return
-            self._finish_similar_get(key, model, gene, result, error)
+            self._finish_similar_get(app, key, model, gene, result, error)
 
         try:
             app.batcher.submit_async(
@@ -1012,23 +1142,22 @@ class ServeAdapter:
                 on_done=done, tenant=tenant,
             )
         except (RejectedError, RuntimeError):
-            self._fail_coalesced(key, 429, self._queue_full_body)
+            self._fail_coalesced(app, key, 429, self._queue_full_body)
         in_submit[0] = False
         return None
 
-    def _fail_coalesced(self, key, status: int, body: bytes) -> None:
-        app = self.app
+    def _fail_coalesced(self, app: ServeApp, key, status: int, body: bytes) -> None:
         with app._coalesce_lock:
             waiters = app._coalesce.pop(key, [])
         now = time.monotonic()
         for w_peer, _dl, w_t0 in waiters:
             w_peer.respond(Response(status, body))
-            self._account("/v1/similar", status, now - w_t0)
+            self._account("/v1/similar", status, now - w_t0, app=app)
 
-    def _finish_similar_get(self, key, model, gene: str, result, error) -> None:
+    def _finish_similar_get(self, app: ServeApp, key, model, gene: str,
+                            result, error) -> None:
         """Batcher completion: build and cache the response bytes once,
         then answer every coalesced waiter."""
-        app = self.app
         with app._coalesce_lock:
             waiters = app._coalesce.pop(key, [])
         now = time.monotonic()
@@ -1056,10 +1185,10 @@ class ServeAdapter:
             if status == 200 and now > w_deadline:
                 app.metrics.counter("serve_deadline_expired_total").inc()
                 peer.respond(Response(504, _DEADLINE_BODY))
-                self._account("/v1/similar", 504, now - w_t0)
+                self._account("/v1/similar", 504, now - w_t0, app=app)
             else:
                 peer.respond(Response(status, body))
-                self._account("/v1/similar", status, now - w_t0)
+                self._account("/v1/similar", status, now - w_t0, app=app)
 
 
 def make_server(app: ServeApp, host: str = "127.0.0.1", port: int = 0) -> EventLoopHTTPServer:

@@ -1,6 +1,5 @@
 """Multi-tenant admission: per-tenant token buckets and weighted-fair
-queuing — the port of ``gene2vec_tpu/serve/tenancy.py`` (the batch
-jobs' reserved lane waits for ROADMAP A20).
+queuing — the port of ``gene2vec_tpu/serve/tenancy.py``.
 
 One abusive caller must never starve the other tenants.  The server
 tags every request with a tenant id (the ``X-Tenant`` header; untagged
@@ -16,11 +15,19 @@ traffic is the ``default`` tenant) and admits it in two layers:
 * :class:`FairQueue` — per-tenant FIFO lanes drained by smooth weighted
   round-robin.  The micro-batcher dequeues through it, so admitted
   traffic is interleaved by tenant weight when the queue is contended.
+  Batch jobs (``batch/``) submit on the reserved :data:`BATCH_TENANT`
+  lane, whose weight is :data:`DEFAULT_BATCH_WEIGHT` unless the server
+  sets another: a full-vocab job drains at a few percent of a contended
+  batch while interactive lanes keep their shares.
 
 Quotas are per replica (a fleet of N admits N x the rate per tenant in
 aggregate).  Everything here is stdlib and clock-injectable; with no
 :class:`TenantPolicy` (the default, ``--tenant-quota 0``) the server
-never touches a bucket and ignores the header.
+never touches a bucket and ignores the header.  On a catalog fleet the
+front door's per-model buckets (``serve/catalog.py:ModelAdmission``)
+cross with these: a request clears its tenant's budget on the replica
+and its model's at the door, and a catalog replica shares one
+:class:`TenantAdmission` across its per-model apps.
 """
 
 from __future__ import annotations
@@ -33,6 +40,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 #: the tenant every untagged request belongs to
 DEFAULT_TENANT = "default"
+
+#: the background-priority lane batch jobs submit on: a reserved id,
+#: never assigned to external traffic
+BATCH_TENANT = "batch"
+
+#: the batch lane's weighted-fair share when lanes are contended
+#: (ServeConfig.batch_weight overrides it per deployment)
+DEFAULT_BATCH_WEIGHT = 0.05
 
 #: the shared lane/bucket unknown tenants collapse into once the
 #: bounded tenant table is full

@@ -14,8 +14,8 @@ description text — is dependency-free and unit-tested (the formats are
 plain text; goatools/ete3 are optional conveniences, not requirements).
 Only ``serve()`` needs dash (gated); the dark styling ships as our own
 ``assets/geneview.css``.  A precomputed kNN-graph directory (``graph_dir``,
-a batch-plane artifact) is refused until the batch plane is ported
-(ROADMAP.md, Queue A, A20).
+a ``knn_graph`` batch artifact) answers the Neighbors box without a live
+server (:func:`load_graph_neighbors`).
 """
 
 from __future__ import annotations
@@ -261,13 +261,43 @@ def fetch_neighbors(
 
 
 def load_graph_neighbors(graph_dir: str):
-    """The reference's neighbor lookup over a finalized ``knn_graph`` batch
-    artifact.  The batch plane that writes and reads those artifacts is
-    not ported, so this raises (ROADMAP.md, Queue A, A20)."""
-    raise NotImplementedError(
-        f"graph dir {graph_dir!r}: the kNN-graph batch artifacts are not ported "
-        "to gene2vec_tpu_torch yet (ROADMAP.md, Queue A, A20)"
-    )
+    """Neighbor lookup over a PRECOMPUTED kNN graph — a finalized
+    ``knn_graph`` batch artifact (``batch/``)
+    — as a ``(gene, k) -> [(gene, score), ...] | None`` callable with
+    the same contract as :func:`fetch_neighbors`.  The offline
+    fallback for dashboards with no live ``--serve-url``: the graph
+    was built through the serving stack, so the neighbors shown are
+    exactly what the fleet would have answered.  Loads lazily on the
+    first lookup and returns ``None`` per-gene on any failure
+    (missing/corrupt artifact, unknown gene) so the dashboard
+    degrades instead of crashing."""
+    state = {}
+
+    def lookup(gene, k=10):
+        if "graph" not in state:
+            try:
+                from gene2vec_tpu_torch.batch.artifact import load_graph
+
+                tokens, ids, scores, _meta = load_graph(graph_dir)
+                state["graph"] = (
+                    {t: i for i, t in enumerate(tokens)},
+                    tokens, ids, scores,
+                )
+            except Exception:
+                state["graph"] = None
+        if state["graph"] is None:
+            return None
+        index, tokens, ids, scores = state["graph"]
+        row = index.get(gene)
+        if row is None:
+            return None
+        n = min(int(k), ids.shape[1])
+        return [
+            (tokens[int(ids[row, j])], float(scores[row, j]))
+            for j in range(n)
+        ]
+
+    return lookup
 
 
 def go_description(
@@ -391,10 +421,11 @@ def serve(
     base coloring; the figure-json annotation dropdowns keep working
     either way.
 
-    ``graph_dir`` (a finalized ``knn_graph`` batch artifact) is refused:
-    :func:`load_graph_neighbors`."""
-    if graph_dir:
-        load_graph_neighbors(graph_dir)
+    ``graph_dir`` (a finalized ``knn_graph`` batch artifact,
+    ``batch/``) gives the same Neighbors box WITHOUT a live server
+    — and serves as the fallback when ``serve_url`` is also set but
+    unreachable: the precomputed graph answers what the fleet that
+    built it would have."""
     try:
         import dash
         from dash import dcc, html
@@ -433,7 +464,10 @@ def serve(
                 className="geneview-dropdown",
             )
         ]
-    if serve_url:
+    neighbor_lookup = (
+        load_graph_neighbors(graph_dir) if graph_dir else None
+    )
+    if serve_url or graph_dir:
         sidebar_children += [
             html.Div(
                 [
@@ -472,7 +506,7 @@ def serve(
 
     inputs = [Input(f"dd-{k.lower()}", "value") for k in sources]
     kinds = list(sources)
-    if serve_url:
+    if serve_url or graph_dir:
         inputs.append(Input("gene-search", "value"))
 
     def _selected(values):
@@ -482,7 +516,7 @@ def serve(
         near-invisible highlight state sticks forever."""
         ctx = dash.callback_context
         trigger = ctx.triggered[0]["prop_id"].split(".")[0]
-        if serve_url and trigger == "gene-search":
+        if (serve_url or graph_dir) and trigger == "gene-search":
             gene = values[-1]
             return ("__serve__", gene.strip()) if gene and gene.strip() \
                 else (None, None)
@@ -506,7 +540,14 @@ def serve(
         if cached is not None and now - cached[0] < 5.0:
             hits = cached[1]
         else:
-            hits = fetch_neighbors(serve_url, gene, serve_k)
+            hits = (
+                fetch_neighbors(serve_url, gene, serve_k)
+                if serve_url else None
+            )
+            if hits is None and neighbor_lookup is not None:
+                # no live server (or it failed): the precomputed
+                # batch-built graph answers instead
+                hits = neighbor_lookup(gene, serve_k)
             _neighbor_memo[gene] = (now, hits)
             while len(_neighbor_memo) > 64:
                 _neighbor_memo.pop(next(iter(_neighbor_memo)))
@@ -514,7 +555,7 @@ def serve(
             return None, None
         return [gene] + [g for g, _ in hits], hits
 
-    if sources or serve_url:
+    if sources or serve_url or graph_dir:
         # figure-only dashboards have no callbacks
         @app.callback(
             Output("scatter", "figure"), inputs, State("scatter", "figure")
@@ -538,9 +579,10 @@ def serve(
             if kind == "__serve__":
                 genes, hits = _neighbor_genes(term)
                 if hits is None:
+                    source = serve_url or f"graph {graph_dir}"
                     return (
                         f"{term}: neighbor lookup failed "
-                        f"({serve_url} unreachable or unknown gene)"
+                        f"({source} unreachable or unknown gene)"
                     )
                 return f"Nearest to {term}:\n" + "\n".join(
                     f"{g}\t{s:.4f}" for g, s in hits

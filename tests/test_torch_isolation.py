@@ -950,19 +950,20 @@ def test_sources_scan_covers_the_fleet_slice():
 def test_fleet_replicas_are_the_ports_servers():
     """The supervisor spawns the port's ``cli.serve``, never the reference's,
     and ``cli.fleet`` refuses the flags of unported features (and a missing
-    checkpoint, no replica) with exit 2 before it spawns anything."""
+    checkpoint or catalog spec, no replica) with exit 2 before it spawns
+    anything; ``--catalog`` and ``--jobs-dir`` are ported and no longer
+    refused as such."""
     from gene2vec_tpu_torch.cli import fleet as fleet_cli
     from gene2vec_tpu_torch.serve.fleet import FleetConfig, FleetSupervisor
 
     argv = FleetSupervisor("exp", FleetConfig(replicas=1), serve_args=["--device", "cpu"])._argv(0)
     assert argv[1:3] == ["-m", "gene2vec_tpu_torch.cli.serve"] and argv[-2:] == ["--device", "cpu"]
-    assert fleet_cli.REFUSED == {
-        "catalog": "A19 item 5 (the multi-model catalog)",
-        "enable_shadow": "A12 (the shadow canary)",
-        "jobs_dir": "A20 (batch jobs)",
-    }
+    assert fleet_cli.REFUSED == {"enable_shadow": "A12 (the shadow canary)"}
+    parser = fleet_cli.build_parser()
+    assert fleet_cli.refused_flags(parser, parser.parse_args(
+        ["--export-dir", "exp", "--catalog", "c.json", "--jobs-dir", "j"])) == []
     for flags in (["--catalog", "c.json"], ["--catalog", "c.json", "--shard-by-rows", "2"],
-                  ["--enable-shadow"], ["--jobs-dir", "j"],
+                  ["--enable-shadow"],
                   ["--ggipnn-checkpoint", "absent.npz"], ["--replicas", "0"],
                   ["--replicas-per-shard", "2"], ["--shard-by-rows", "-1"],
                   ["--max-replicas", "2", "--scrape-interval", "0"],
@@ -1020,3 +1021,78 @@ def test_shards_and_front_door_scorer_need_cuda_unless_cpu_is_asked(monkeypatch,
                   ["--tenant-quota", "-1"], ["--tenant-override", "vip"]):
         assert serve.main(["--export-dir", str(tmp_path), "--device", "cpu", *flags]) == 2
     assert not torch.cuda.is_initialized()
+
+
+#: the catalog's and the batch plane's modules
+CATALOG_BATCH_MODULES = {
+    "gene2vec_tpu_torch.serve.catalog", "gene2vec_tpu_torch.parallel.partition_rules",
+    "gene2vec_tpu_torch.batch", "gene2vec_tpu_torch.batch.artifact",
+    "gene2vec_tpu_torch.batch.runner", "gene2vec_tpu_torch.batch.jobs",
+    "gene2vec_tpu_torch.cli.batch", "gene2vec_tpu_torch.eval.target_function",
+    "gene2vec_tpu_torch.viz.dash_app", "gene2vec_tpu_torch.obs.timeline",
+}
+
+
+def test_sources_scan_covers_the_catalog_and_batch_slice():
+    """The catalog's, the partition rules' and the batch plane's modules
+    import in the no-JAX subprocess above and are scanned; every port
+    module their tests drive is one the scans cover; the catalog parser
+    and the partition rules import neither torch nor numpy at module
+    level (a front door reads the spec without the serving stack)."""
+    mods = set(_port_modules())
+    assert CATALOG_BATCH_MODULES <= mods
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for mod in CATALOG_BATCH_MODULES - {"gene2vec_tpu_torch.batch"}:
+        assert mod.replace(".", "/") + ".py" in scanned
+    assert "gene2vec_tpu_torch/batch/__init__.py" in scanned
+    for test in ("test_torch_catalog.py", "test_torch_batch.py",
+                 "test_torch_partition_rules.py", "test_torch_catalog_fleet.py",
+                 "test_torch_batch_fleet.py"):
+        used = _imported_port_modules(os.path.join(ROOT, "tests", test))
+        assert used and {m for m in used if m != "gene2vec_tpu_torch"} <= mods | {
+            m.rsplit(".", 1)[0] for m in mods}
+    for rel in ("serve/catalog.py", "parallel/partition_rules.py", "serve/routes.py",
+                "serve/tenancy.py"):
+        tree = ast.parse(open(os.path.join(PKG, rel), encoding="utf-8").read())
+        top = set()
+        for node in tree.body:
+            if isinstance(node, ast.Import):
+                top |= {a.name.split(".")[0] for a in node.names}
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                top.add(node.module.split(".")[0])
+        assert not top & {"torch", "numpy"}, (rel, top)
+
+
+def test_catalog_and_batch_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """A catalog server, a local batch job and a catalog built in process
+    run on the card: without one, and without the CPU asked for, they
+    raise."""
+    import json
+
+    from gene2vec_tpu_torch.cli import batch as batch_cli
+    from gene2vec_tpu_torch.cli import serve
+    from gene2vec_tpu_torch.serve.catalog import ModelCatalog, parse_catalog_spec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec_path = tmp_path / "catalog.json"
+    spec_path.write_text(json.dumps({"models": {"alpha": {"export_dir": str(tmp_path)}}}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--export-dir", str(tmp_path), "--port", "0", "--catalog",
+                    str(spec_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        batch_cli.main(["submit", "--export-dir", str(tmp_path), "--out",
+                        str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ModelCatalog(parse_catalog_spec({"models": {"alpha": {"export_dir": "x"}}})).build()
+    assert serve.main(["--export-dir", str(tmp_path), "--device", "cpu", "--catalog",
+                       str(spec_path), "--shard-index", "0", "--num-shards", "2"]) == 2
+    assert not torch.cuda.is_initialized()
+
+
+def test_timeline_phases_equal_the_reference():
+    """``obs/timeline.py:PHASES``, the canonical step-phase names, is the
+    reference's tuple."""
+    from gene2vec_tpu.obs import timeline as ref_timeline
+    from gene2vec_tpu_torch.obs import timeline
+
+    assert timeline.PHASES == ref_timeline.PHASES

@@ -403,18 +403,21 @@ def test_fetch_neighbors_equals_the_references():
 
 
 def test_serve_gated_and_graph_dir_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="A20"):
-        dash_app.load_graph_neighbors(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A20"):
-        dash_app.serve(str(tmp_path / "fig.json"), graph_dir=str(tmp_path))
-    with pytest.raises(SystemExit, match="graph-dir.*A20"):
-        dash_cli.main(["--figure-json", "f.json", "--graph-dir", str(tmp_path)])
+    """A graph dir that holds no finalized artifact answers no neighbour
+    (the dashboard degrades, as the reference's does); the graph lookup
+    itself is held against the reference in ``tests/test_torch_batch.py``.
+    Serving stays gated on dash."""
+    assert dash_app.load_graph_neighbors(str(tmp_path))("G1", 3) is None
     if _have("dash"):
         pytest.skip("dash installed; gating not exercised")
     with pytest.raises(ImportError, match="dash"):
         dash_app.serve("/nonexistent.json")
     with pytest.raises(ImportError, match="dash"):
         dash_cli.main(["--figure-json", "/nonexistent.json"])
+    with pytest.raises(ImportError, match="dash"):
+        dash_app.serve(str(tmp_path / "fig.json"), graph_dir=str(tmp_path))
+    with pytest.raises(ImportError, match="dash"):
+        dash_cli.main(["--figure-json", "f.json", "--graph-dir", str(tmp_path)])
 
 
 def test_dashboard_flags_are_the_references():

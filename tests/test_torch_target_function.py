@@ -122,11 +122,15 @@ def test_cli_output_equals_the_reference(tmp_path, capsys):
 
 
 def test_cli_refuses_graph_dir(tmp_path, capsys):
+    """``--graph-dir`` refuses a directory that holds no finalized kNN-graph
+    artifact, as the reference does (the artifact path is ported: the
+    graph variant's parity is in ``tests/test_torch_batch.py``), and the
+    command refuses to run without an embedding or a graph."""
     tokens, matrix, pathways = _embedding(seed=3)
     gmt = _write_gmt(tmp_path / "p.gmt", pathways)
-    with pytest.raises(SystemExit) as err:
-        port_cli.main(["--graph-dir", str(tmp_path), gmt])
-    assert err.value.code not in (0, None) and "batch plane" in str(err.value.code)
+    for cli in (port_cli, ref_cli):
+        with pytest.raises(IOError, match="ARTIFACT.json"):
+            cli.main(["--graph-dir", str(tmp_path), gmt])
     with pytest.raises(SystemExit) as err:
         port_cli.main([gmt])
     assert err.value.code not in (0, None)
